@@ -31,7 +31,8 @@ def _version() -> str:
 setup(
     name="jubatus_tpu",
     version=_version(),
-    packages=find_packages(include=["jubatus_tpu", "jubatus_tpu.*"]),
+    packages=find_packages(include=["jubatus_tpu", "jubatus_tpu.*",
+                                    "jubatus_tpu_torch", "jubatus_tpu_torch.*"]),
     package_data={
         # C sources ship with the package: plugins compile on demand
         # (like the reference's plugin/ tree), and the extension can
@@ -42,6 +43,8 @@ setup(
         # the jubalint baseline ships with the linter so CI runs see
         # the same accepted-violation set as the checkout
         "jubatus_tpu.analysis": ["baseline.txt"],
+        # the PyTorch port's CUDA kernels build with nvcc at first use
+        "jubatus_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "msgpack", "numpy"],

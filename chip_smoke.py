@@ -23,7 +23,10 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
   5. mix      — one blockwise-int8 (v3) MIX round between two drivers on the
                 card: replicas bitwise equal afterwards, drift from an f32
                 round within the accumulated quantization bound, both
-                quantizer kernels launched; then the quantizer pair's time
+                quantizer kernels launched; a `mix_round` line with the
+                round's stage times (f32 wire; v3 with the codec on the
+                card; v3 with the codec on the host); then the quantizer
+                pair's time
                 at that round's diff shape beside its plain version's and
                 a library yardstick's (torch.quantize_per_channel /
                 torch.dequantize, which the port never calls)
@@ -472,45 +475,72 @@ def phase_server(torch, np, card):
     return counts
 
 
-def phase_mix(torch, np):
-    """Phase 5: one v3 MIX round between two drivers on the card."""
+def phase_mix(torch, np, card):
+    """Phase 5: one v3 MIX round between two drivers on the card, then
+    the round's time with the codec on the card beside the same round
+    with the codec on the host."""
     from jubatus_tpu_torch.framework.server_base import (kernel_launches,
                                                          reset_kernel_launches)
     from jubatus_tpu_torch.fv import Datum
     from jubatus_tpu_torch.mix import codec
     from jubatus_tpu_torch.mix.linear_mixer import encode_wire_diff
     from jubatus_tpu_torch.models.classifier import ClassifierDriver
+    from jubatus_tpu_torch.parallel.quantized import (dequantize_blockwise_np,
+                                                      quantize_blockwise_np)
 
     rng = np.random.default_rng(2)
     halves = [[(lbl, Datum.from_msgpack(d)) for lbl, d in
                bench_batch(rng, REQ_B, label_offset=h)] for h in range(2)]
 
-    def round_trip(quantize, stats=None):
+    def trained():
         drivers = [ClassifierDriver(SERVER_CONFIG, device="cuda")
                    for _ in range(2)]
         for d, half in zip(drivers, halves):
             d.train(half)
-        wire = [codec.unpackb(codec.packb(encode_wire_diff(
-            d.encode_diff(d.get_diff()), quantize, "cuda", stats)))
-            for d in drivers]
-        diffs = [codec.decode(w, "cuda") for w in wire]
-        merged = ClassifierDriver.mix(diffs[0], diffs[1])
-        scatter = codec.unpackb(codec.packb(
-            encode_wire_diff(merged, quantize, "cuda", stats)))
-        for d in drivers:
-            d.put_diff(codec.decode(scatter, "cuda"))
         torch.cuda.synchronize()
-        return drivers, diffs[0]["w"].shape
+        return drivers
+
+    def mix_round(drivers, quantize, codec_dev, stats=None):
+        """One round on trained drivers: get_diff, encode, the wire's
+        msgpack, decode, mix, encode and decode of the merged diff, and
+        put_diff on both.  Returns the round's stages in ms on the host
+        clock (every stage ends on the host or at a synchronize)."""
+        ms = {}
+        t0 = time.perf_counter()
+        diffs = [d.encode_diff(d.get_diff()) for d in drivers]
+        t1 = time.perf_counter()
+        wire = [codec.unpackb(codec.packb(encode_wire_diff(
+            x, quantize, codec_dev, stats))) for x in diffs]
+        t2 = time.perf_counter()
+        got = [codec.decode(w, codec_dev) for w in wire]
+        t3 = time.perf_counter()
+        merged = ClassifierDriver.mix(got[0], got[1])
+        t4 = time.perf_counter()
+        scatter = codec.unpackb(codec.packb(
+            encode_wire_diff(merged, quantize, codec_dev, stats)))
+        back = [codec.decode(scatter, codec_dev) for _ in drivers]
+        t5 = time.perf_counter()
+        for d, x in zip(drivers, back):
+            d.put_diff(x)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        ms.update(get_diff=(t1 - t0) * 1e3, encode=(t2 - t1) * 1e3,
+                  decode=(t3 - t2) * 1e3, mix=(t4 - t3) * 1e3,
+                  scatter_codec=(t5 - t4) * 1e3, put_diff=(t6 - t5) * 1e3,
+                  round=(t6 - t0) * 1e3)
+        return ms, got[0]["w"].shape, [got[0], got[1], merged]
 
     def by_label(d, name):
         t = getattr(d, name)
         rows = sorted(d.labels.items())
         return t[[r for _, r in rows]]
 
-    exact, _ = round_trip(False)
+    exact = trained()
+    f32_ms, _, _ = mix_round(exact, False, "cuda")
+    quant = trained()
     reset_kernel_launches()
     stats = {}
-    quant, shape = round_trip(True, stats)
+    card_ms, shape, tensors = mix_round(quant, True, "cuda", stats)
     counts = kernel_launches()
     for name in ("w", "cov"):
         a, b = by_label(quant[0], name), by_label(quant[1], name)
@@ -530,6 +560,42 @@ def phase_mix(torch, np):
         f"{stats['raw']} f32 bytes, quantize_int8 launches "
         f"{counts['quantize_int8']}, dequantize_int8 launches "
         f"{counts['dequantize_int8']}")
+
+    # the same v3 round with the codec on the host (the quantizer's plain
+    # version on the CPU, the JAX package's numpy math), from freshly
+    # trained drivers; order host, host, card so neither side runs only
+    # first.  Each round must leave its replicas bitwise equal.
+    host_runs, card_runs = [], [card_ms]
+    for codec_dev in ("cpu", "cpu", "cuda"):
+        drivers = trained()
+        ms, _, _ = mix_round(drivers, True, codec_dev)
+        (host_runs if codec_dev == "cpu" else card_runs).append(ms)
+        for name in ("w", "cov"):
+            if not torch.equal(by_label(drivers[0], name),
+                               by_label(drivers[1], name)):
+                raise AssertionError(f"v3 round, codec on {codec_dev}: "
+                                     f"replicas differ in {name}")
+        del drivers
+    # the JAX package's host codec work for this round, in numpy: the
+    # blockwise quantizer on each f32 tensor the round encodes (w and cov
+    # of both replicas' diffs and of the merged diff), and its inverse on
+    # each tensor the round decodes (two replicas' diffs, the merged diff
+    # once per replica)
+    arrays = [x[n] for x in tensors for n in ("w", "cov")]
+    t0 = time.perf_counter()
+    enc = [(quantize_blockwise_np(a), a.shape) for a in arrays]
+    t1 = time.perf_counter()
+    for (q, s), shp in enc[:4] + enc[4:] + enc[4:]:
+        dequantize_blockwise_np(q, s, shp)
+    t2 = time.perf_counter()
+    mix_line = {
+        "f32_round_ms": f32_ms,
+        "v3_round_codec_on_card_ms": card_runs,
+        "v3_round_codec_on_host_ms": host_runs,
+        "numpy_codec_ms": {"quantize": (t1 - t0) * 1e3,
+                           "dequantize": (t2 - t1) * 1e3},
+        "diff_shape": list(shape), "card": card}
+    log("mix_round " + json.dumps(mix_line))
     return counts, shape
 
 
@@ -572,7 +638,7 @@ def main() -> int:
     # 3-5
     rows = phase_kernels(torch, np)
     server_counts = phase_server(torch, np, card)
-    mix_counts, diff_shape = phase_mix(torch, np)
+    mix_counts, diff_shape = phase_mix(torch, np, card)
     rows.update(time_quantizer(torch, np, diff_shape))
 
     # 6. report

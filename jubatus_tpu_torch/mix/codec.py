@@ -9,8 +9,9 @@ pin those options in one place.
 The v3 quantized MIX wire ({"__ndq3__": [shape, scales, int8]}) is the
 one place a kernel runs: quantize_tree quantizes every float32 tensor of a
 diff with the blockwise int8 kernel on `device`, and decode dequantizes
-with the inverse kernel on `device`.  The int8 and scale bytes equal the
-JAX codec's host computation bit for bit.
+with the inverse kernel on `device`.  `device` is cuda unless the caller
+names the CPU, and cuda without a card raises.  The int8 and scale bytes
+equal the JAX codec's host computation bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import msgpack as _msgpack
 import numpy as np
 import torch
 
+from jubatus_tpu_torch.device import DeviceLike, resolve_device
 from jubatus_tpu_torch.parallel.quantized import (dequantize_blockwise,
                                                   quantize_blockwise)
 
@@ -62,10 +64,11 @@ class QuantizedBlockwise:
         self.q, self.s, self.shape = q, s, tuple(shape)
 
 
-def quantize_tree(obj: Any, device="cpu"):
+def quantize_tree(obj: Any, device: DeviceLike = None):
     """Pre-encode pass for the v3 wire: every non-empty float32 ndarray
     in the diff pytree becomes a QuantizedBlockwise, quantized by the
-    kernel on `device`; ints, bools, bytes and scalars stay exact.
+    kernel on `device` (None: cuda); ints, bools, bytes and scalars stay
+    exact.
     Returns (wrapped_obj, stats):
 
       raw  — f32 bytes the wrapped tensors would have cost on the wire
@@ -74,7 +77,7 @@ def quantize_tree(obj: Any, device="cpu"):
       max_abs_err — sum over tensors of max |x - dq(q(x))|: a per-element
              bound on what this quantization can move any downstream fold
     """
-    dev = torch.device(device)
+    dev = resolve_device(device)
     stats = {"raw": 0, "wire": 0, "errs": [], "max_abs_err": 0.0}
 
     def walk(o):
@@ -188,9 +191,10 @@ def _as_bytes(raw) -> bytes:
         else raw
 
 
-def decode(obj: Any, device="cpu") -> Any:
+def decode(obj: Any, device: DeviceLike = None) -> Any:
     """Inverse of encode; v3 tensors are dequantized by the kernel on
-    `device` and returned as host float32 arrays."""
+    `device` (None: cuda) and returned as host float32 arrays.  A body
+    without v3 tensors touches no device."""
     if isinstance(obj, dict):
         if "__nd__" in obj and len(obj) == 1:
             dtype, shape, raw = obj["__nd__"]
@@ -207,7 +211,7 @@ def decode(obj: Any, device="cpu") -> Any:
             return (rows.astype(np.float32) * scale[:, None]).reshape(shape)
         if "__ndq3__" in obj and len(obj) == 1:
             shape, scales, q = obj["__ndq3__"]
-            dev = torch.device(device)
+            dev = resolve_device(device)
             qt = torch.from_numpy(np.frombuffer(_as_bytes(q), np.int8).copy())
             st = torch.from_numpy(
                 np.frombuffer(_as_bytes(scales), np.float32).copy())

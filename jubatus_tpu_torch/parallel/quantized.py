@@ -14,7 +14,7 @@ tiles, so the wire path is one kernel launch over the zero-padded view,
 then a truncation to the array's true size (the padding never crosses the
 wire and cannot move a block's absmax).  quantize_blockwise_np /
 dequantize_blockwise_np are numpy copies of the JAX package's host codec,
-kept for the tests.
+kept for the tests and for chip_smoke.py's timing of the host codec.
 
 The in-mesh int8 ring all-reduce (ring_all_reduce_int8) is later work; it
 will reuse these kernels.

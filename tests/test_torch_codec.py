@@ -133,3 +133,30 @@ def test_wire_size_matches_jax(name):
     enc = tencode(DIFFS[name], True, "cpu")
     assert tcodec.wire_size(enc) == jcodec.wire_size(jencode(DIFFS[name],
                                                              True))
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """A machine without CUDA, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_quantized_encode_without_a_device_asks_for_cuda(no_card):
+    """The quantizer runs on cuda unless the caller names the CPU: with no
+    card, leaving the device out raises instead of quantizing on the host."""
+    with pytest.raises(RuntimeError, match="cuda"):
+        tencode(DIFFS["small"], True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcodec.quantize_tree(DIFFS["small"])
+
+
+def test_v3_decode_without_a_device_asks_for_cuda(no_card):
+    wire = tcodec.unpackb(tcodec.packb(tencode(DIFFS["small"], True, "cpu")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcodec.decode(wire)
+
+
+def test_f32_wire_needs_no_device(no_card):
+    """The v2 body runs no kernel, so it encodes and decodes anywhere."""
+    wire = tcodec.unpackb(tcodec.packb(tencode(DIFFS["small"], False)))
+    assert_tree_equal(tcodec.decode(wire), jcodec.decode(wire))

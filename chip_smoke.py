@@ -12,8 +12,11 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes the main path gives it: quantize_int8 /
                 dequantize_int8 bitwise, train_scan within rtol 1e-5 /
-                atol 1e-6 (AROW, PA1, CW); then the scan kernel's time at
-                one 8192-datum microbatch beside its plain version's
+                atol 1e-6 (AROW, PA1, CW at B=256; AROW at B=8192; AROW on
+                an 8192-datum stream where every datum shares one column,
+                the prefetch ring's read-after-write hazard); then the scan
+                kernel's time at one 8192-datum microbatch beside its plain
+                version's, with its µs per datum and ring depth
   4. server   — the classifier server (jubatus_tpu_torch.cli.server, device
                 cuda, the bench AROW configuration at hash_max_size 2^20,
                 sequential microbatch) answers a wire session: 8192-datum
@@ -98,6 +101,62 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def fresh_scan(torch, dev, n_labels, d, batch):
+    """A fresh scan state [w, cov, counts, active] and `batch` (numpy
+    [indices, values, labels, mask]) on `dev`."""
+    state = [torch.zeros((n_labels, d), dtype=torch.float32, device=dev),
+             torch.ones((n_labels, d), dtype=torch.float32, device=dev),
+             torch.zeros(n_labels, dtype=torch.int32, device=dev),
+             torch.zeros(n_labels, dtype=torch.bool, device=dev)]
+    return state, [torch.from_numpy(a).to(dev) for a in batch]
+
+
+def scan_inputs(torch, np, dev, b, seed, n_labels=N_LABELS, k=16,
+                d=1 << 20):
+    """A fresh scan state and a b-datum microbatch with 9 random live
+    columns per datum (real column-0 features in the first sixteenth,
+    three padding datums at the end), on `dev`."""
+    r = np.random.default_rng(seed)
+    idx = np.zeros((b, k), np.int32)
+    val = np.zeros((b, k), np.float32)
+    idx[:, :9] = r.integers(1, d, (b, 9))
+    val[:, :9] = r.standard_normal((b, 9)).astype(np.float32)
+    idx[: b // 16, 0] = 0       # real features at column 0
+    lab = r.integers(0, n_labels, b).astype(np.int32)
+    mask = np.ones(b, np.float32)
+    mask[-3:] = 0.0
+    return fresh_scan(torch, dev, n_labels, d, (idx, val, lab, mask))
+
+
+SHARED_COL = 12345      # the column every datum of the hazard stream shares
+
+
+def shared_column_inputs(torch, np, dev, b, n_labels, k, d, seed=5):
+    """A bench-shaped microbatch that stresses the scan kernel's
+    read-after-write hazard: 8 string columns of value 1 (bin weights),
+    one numeric feature at SHARED_COL in every datum, padding (column 0,
+    value 0) after; a real column-0 feature in every 16th datum and a
+    repeated column in every 8th; the first quarter labelled 0 or 1 only
+    (so a datum's label is often the previous datum's rival), then
+    labels in turn; a run of padding datums and a run of not-ok datums
+    (all values 0).  Returns fresh_scan's state and batch."""
+    r = np.random.default_rng(seed)
+    idx = np.zeros((b, k), np.int32)
+    val = np.zeros((b, k), np.float32)
+    idx[:, :8] = r.integers(1, d, (b, 8))
+    val[:, :8] = 1.0
+    idx[:, 8] = SHARED_COL
+    val[:, 8] = r.random(b).astype(np.float32)
+    idx[::16, 0] = 0
+    idx[::8, 5] = idx[::8, 4]
+    lab = (np.arange(b) % n_labels).astype(np.int32)
+    lab[: b // 4] = r.integers(0, 2, b // 4)
+    mask = np.ones(b, np.float32)
+    mask[100:103] = 0.0
+    val[200:203] = 0.0
+    return fresh_scan(torch, dev, n_labels, d, (idx, val, lab, mask))
+
+
 class WireClient:
     """msgpack-RPC over one TCP connection (new-spec requests, like
     bench.py's client)."""
@@ -140,7 +199,9 @@ class WireClient:
 
 def phase_kernels(torch, np):
     """Phase 3: every kernel against its plain version, then timings."""
-    from jubatus_tpu_torch.models.classifier import train_scan, train_scan_ref
+    from jubatus_tpu_torch.models.classifier import (scan_smem_bytes,
+                                                     train_scan,
+                                                     train_scan_ref)
     from jubatus_tpu_torch.parallel.quantized import (
         _dequantize_ref, _quantize_ref, dequantize_int8, quantize_int8)
     dev = torch.device("cuda")
@@ -198,26 +259,9 @@ def phase_kernels(torch, np):
     # -- train_scan: B=256, K=16, L=32, D=2^20 for AROW, PA1, CW
     L, D, K = N_LABELS, 1 << 20, 16
 
-    def scan_inputs(b, seed):
-        r = np.random.default_rng(seed)
-        idx = np.zeros((b, K), np.int32)
-        val = np.zeros((b, K), np.float32)
-        idx[:, :9] = r.integers(1, D, (b, 9))
-        val[:, :9] = r.standard_normal((b, 9)).astype(np.float32)
-        idx[: b // 16, 0] = 0       # real features at column 0
-        lab = r.integers(0, L, b).astype(np.int32)
-        mask = np.ones(b, np.float32)
-        mask[-3:] = 0.0
-        w = torch.zeros((L, D), dtype=torch.float32, device=dev)
-        cov = torch.ones((L, D), dtype=torch.float32, device=dev)
-        counts = torch.zeros(L, dtype=torch.int32, device=dev)
-        active = torch.zeros(L, dtype=torch.bool, device=dev)
-        batch = [torch.from_numpy(a).to(dev) for a in (idx, val, lab, mask)]
-        return [w, cov, counts, active], batch
-
     scan_err = 0.0
     for method in ("AROW", "PA1", "CW"):
-        state, batch = scan_inputs(256, 1)
+        state, batch = scan_inputs(torch, np, dev, 256, 1)
         ref_state = [t.clone() for t in state]
         train_scan(*state, *batch, method, 1.0)
         train_scan_ref(*ref_state, *batch, method, 1.0)
@@ -238,7 +282,7 @@ def phase_kernels(torch, np):
         f"B=256 K=16 L=32 D=2^20 (AROW, PA1, CW), max |diff| {scan_err:.3g}")
 
     # -- timing at the main path's shape: one 8192-datum AROW microbatch
-    state, batch = scan_inputs(REQ_B, 2)
+    state, batch = scan_inputs(torch, np, dev, REQ_B, 2)
     before = [t.clone() for t in state[:2]]
     t_ms = time_cuda(torch, lambda: train_scan(*state, *batch, "AROW", 1.0), 5)
     ref_state = [t.clone() for t in before] + [
@@ -272,6 +316,40 @@ def phase_kernels(torch, np):
         scan_err = max(scan_err, err)
     log(f"kernels: train_scan within rtol 1e-5 atol 1e-6 of plain at "
         f"B=8192 (AROW), max |diff| {scan_err:.3g}")
+    plan = train_scan.last_plan
+    log(f"kernels: train_scan plan at B=8192 K=16 L=32: mode {plan[0]}, "
+        f"ring depth {plan[1]}, producer warps {plan[2]}, dynamic shared "
+        f"memory {scan_smem_bytes(plan[0], True, plan[1], L, K)} bytes")
+
+    # -- the read-after-write hazard of the prefetch ring at B=8192: every
+    # datum carries one shared column (the numeric feature of bench
+    # requests) and the padding column 0
+    sh_state, sh_batch = shared_column_inputs(torch, np, dev, REQ_B, L, K, D)
+    sh_ms = time_cuda(torch, lambda: train_scan(*sh_state, *sh_batch, "AROW",
+                                                1.0), 3)
+    sh_state, sh_batch = shared_column_inputs(torch, np, dev, REQ_B, L, K, D)
+    sh_ref = [t.clone() for t in sh_state]
+    train_scan(*sh_state, *sh_batch, "AROW", 1.0)
+    train_scan_ref(*sh_ref, *sh_batch, "AROW", 1.0)
+    torch.cuda.synchronize()
+    if not (torch.equal(sh_state[2], sh_ref[2])
+            and torch.equal(sh_state[3], sh_ref[3])):
+        raise AssertionError("train_scan shared-column stream: counts/active "
+                             "differ")
+    for name, a, b in (("w", sh_state[0], sh_ref[0]),
+                       ("cov", sh_state[1], sh_ref[1])):
+        err = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"train_scan shared-column stream: {name} "
+                                 f"max |diff| {err} beyond rtol 1e-5 "
+                                 f"atol 1e-6")
+        scan_err = max(scan_err, err)
+    if float(sh_state[0][:, SHARED_COL].abs().max()) == 0.0:
+        raise AssertionError("train_scan shared-column stream: the shared "
+                             "column never moved")
+    log(f"kernels: train_scan within rtol 1e-5 atol 1e-6 of plain on the "
+        f"shared-column stream at B=8192 (AROW), max |diff| {scan_err:.3g}; "
+        f"{sh_ms:.4f} ms a launch there")
     live = batch[3] > 0
     ucols = int(torch.unique(batch[0][live]).numel())
     w_written = int((one[0] != before[0]).sum())
@@ -281,7 +359,8 @@ def phase_kernels(torch, np):
     rows["train_scan"] = dict(
         ms=t_ms, plain_ms=t_plain, library_ms=None, max_abs_err=scan_err,
         bound_ms=scan_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        shape=[REQ_B, K, L, D])
+        shape=[REQ_B, K, L, D], us_per_datum=t_ms * 1e3 / REQ_B,
+        ring=plan[1], shared_column_ms=sh_ms)
     for name, r in rows.items():
         log(f"kernels: {name} {r['shape']}: {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
@@ -632,7 +711,8 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     for name in build.KERNELS:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"build: {name}: {line.strip()}")
 
     # 3-5
@@ -662,7 +742,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            **{key: r[key] for key in ("us_per_datum", "ring",
+                                       "shared_column_ms") if key in r}})
     log(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -144,20 +144,75 @@ def train_scan_ref(w, cov, counts, active, indices, values, labels, mask,
         w[r].index_add_(0, idx, dr)
 
 
+# Launch plan of csrc/train_scan.cu (enum Mode, struct Plan there): where
+# the kernel reads the tables of each datum from, and the depth W of its
+# prefetch ring.  RING_ALL prefetches w (and cov) of all L rows per slot;
+# RING_W prefetches w and reads cov of rows y and r on demand; DIRECT
+# prefetches only the batch entries.
+SCAN_RING_ALL, SCAN_RING_W, SCAN_DIRECT = 0, 1, 2
+SCAN_RING = 3             # ring depth: the fastest measured (PERF.md)
+SCAN_PRODUCERS = 2        # producer warps: the fastest measured
+SCAN_MAX_RING = 8         # deepest ring the kernel takes (MAX_RING)
+SCAN_SMEM_LIMIT = 232448  # shared memory one block can opt into on sm_90
+
+
+def scan_smem_bytes(mode: int, has_cov: bool, ring: int, n_labels: int,
+                    k: int) -> int:
+    """Shared-memory bytes of the scan kernel's layout (make_plan in
+    csrc/train_scan.cu): barriers, counts/active, per-datum scratch, W
+    ring slots (with a column hash of at least 8K entries where tables
+    are prefetched) and W log entries."""
+    ntab = (2 if has_cov else 1) if mode == SCAN_RING_ALL else \
+        (1 if mode == SCAN_RING_W else 0)
+    log_cov = mode == SCAN_RING_ALL and has_cov
+    hash_size = max(32, 1 << (8 * k - 1).bit_length()) if ntab else 0
+    slot = 16 + 16 * k + 4 * hash_size + 4 * ntab * n_labels * (k + 1)
+    log = 16 + 4 * k * (5 if log_cov else 3) if ntab else 0
+    return 24 * ring + 8 * n_labels + 16 * k + ring * (slot + log)
+
+
+def scan_plan(n_labels: int, k: int, has_cov: bool, ring: int = SCAN_RING,
+              limit: int = SCAN_SMEM_LIMIT) -> Tuple[int, int]:
+    """(mode, W) for a launch at L labels and K entries per datum: the
+    first mode, in the order RING_ALL, RING_W, DIRECT, whose ring holds at
+    least one slot within `limit` bytes, at the deepest W <= ring (and <=
+    SCAN_MAX_RING) that fits.  Raises ValueError where not even one DIRECT
+    slot fits."""
+    modes = (SCAN_RING_ALL, SCAN_RING_W, SCAN_DIRECT) if has_cov \
+        else (SCAN_RING_ALL, SCAN_DIRECT)
+    for mode in modes:
+        depth = min(ring, SCAN_MAX_RING)
+        while depth >= 1 and scan_smem_bytes(mode, has_cov, depth, n_labels,
+                                             k) > limit:
+            depth -= 1
+        if depth >= 1:
+            return mode, depth
+    raise ValueError(
+        f"train_scan: L={n_labels} labels and K={k} entries per datum need "
+        f"{scan_smem_bytes(SCAN_DIRECT, has_cov, 1, n_labels, k)} bytes of "
+        f"shared memory even without table prefetch; one block has "
+        f"{limit}")
+
+
 def _scan_lib() -> ctypes.CDLL:
     lib = build.load("train_scan")
     lib.train_scan_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.train_scan_launch.restype = ctypes.c_int
+    lib.train_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.train_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def train_scan(w, cov, counts, active, indices, values, labels, mask,
                method: str, c: float) -> None:
     """Sequential online updates over one microbatch, in place.  CUDA
-    tensors: one launch of csrc/train_scan.cu.  CPU tensors: the plain
-    version.  Shapes as train_scan_ref; indices/labels int32."""
+    tensors: one launch of csrc/train_scan.cu, planned by scan_plan at ring
+    depth SCAN_RING with SCAN_PRODUCERS producer warps (at most the
+    depth).  CPU tensors: the plain version.  Shapes as train_scan_ref;
+    indices/labels int32."""
     if w.device.type == "cpu":
         train_scan_ref(w, cov, counts, active, indices, values, labels,
                        mask, method, c)
@@ -181,16 +236,21 @@ def train_scan(w, cov, counts, active, indices, values, labels, mask,
             or mask.shape[0] != b or counts.shape[0] != l \
             or active.shape[0] != l:
         raise ValueError("train_scan: inconsistent batch/state shapes")
+    mode, depth = scan_plan(l, k, _has_cov(method), SCAN_RING)
+    nprod = min(depth, SCAN_PRODUCERS)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     err = _scan_lib().train_scan_launch(
         w.data_ptr(), cov.data_ptr(), counts.data_ptr(), active.data_ptr(),
         indices.data_ptr(), values.data_ptr(), labels.data_ptr(),
-        mask.data_ptr(), b, k, l, d, _METHOD_ID[method], float(c), stream)
+        mask.data_ptr(), b, k, l, d, _METHOD_ID[method], float(c), mode,
+        depth, nprod, stream)
     train_scan.launches += 1
+    train_scan.last_plan = (mode, depth, nprod)
     build.check(err, "train_scan launch")
 
 
 train_scan.launches = 0
+train_scan.last_plan = None
 
 
 # ---------------------------------------------------------------------------

@@ -214,6 +214,70 @@ def test_no_active_rival_is_a_counted_noop():
     assert out_t[2].tolist() == [0, 2, 0, 0]
 
 
+def hazard_inputs(seed, L=8, D=128, B=96, K=16):
+    """The read-after-write hazard of the scan kernel's prefetch ring:
+    every datum carries one shared column (as the numeric feature `x@num`
+    hashes to one column) and the padding column 0; the first half uses
+    two labels only, so consecutive datums repeat a label or take the
+    previous datum's rival as their own label; some datums repeat a column
+    or carry a real column-0 feature; runs of padding datums and of
+    not-ok datums (all values 0) sit inside any lookahead window."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((L, D)) * 0.1).astype(np.float32)
+    cov = (1 + rng.random((L, D))).astype(np.float32)
+    counts = np.zeros(L, np.int32)
+    counts[:2] = 1
+    idx = rng.integers(1, D, (B, K)).astype(np.int32)
+    val = rng.standard_normal((B, K)).astype(np.float32)
+    idx[:, 9:] = 0
+    val[:, 9:] = 0.0
+    idx[:, 8] = 5                       # the shared column
+    idx[::7, 0] = 0                     # real column-0 features
+    idx[::5, 3] = idx[::5, 1]           # duplicate columns in a datum
+    lab = np.where(np.arange(B) < B // 2, rng.integers(0, 2, B),
+                   rng.integers(0, L, B)).astype(np.int32)
+    mask = np.ones(B, np.float32)
+    mask[10:13] = 0.0                   # padding datums
+    val[20:23] = 0.0                    # not ok: |x|^2 = 0
+    return (w, cov, counts, counts > 0), (idx, val, lab, mask)
+
+
+@pytest.mark.parametrize("fn", ("train_scan_ref", "train_scan"))
+@pytest.mark.parametrize("method", MARGIN)
+def test_shared_column_stream_matches_train_scan_impl(method, fn):
+    state, batch = hazard_inputs(11)
+    out_j, out_t = run_both(jc.train_scan_impl, getattr(tc, fn), state,
+                            batch, method)
+    assert_step_matches(out_j, out_t)
+    assert out_t[0][:, 5].any()         # the shared column was trained
+
+
+@pytest.mark.parametrize("n_labels,k,has_cov,plan", [
+    (32, 16, True, (tc.SCAN_RING_ALL, tc.SCAN_RING)),   # the main path
+    (8, 16, False, (tc.SCAN_RING_ALL, tc.SCAN_RING)),
+    (256, 64, True, (tc.SCAN_RING_ALL, 1)),
+    (512, 64, True, (tc.SCAN_RING_W, 1)),               # cov on demand
+    (512, 64, False, (tc.SCAN_RING_ALL, 1)),
+    (1024, 64, True, (tc.SCAN_DIRECT, tc.SCAN_RING)),
+    (32, 4096, True, (tc.SCAN_DIRECT, 2)),
+])
+def test_scan_plan_takes_the_deepest_ring_that_fits(n_labels, k, has_cov,
+                                                    plan):
+    mode, depth = tc.scan_plan(n_labels, k, has_cov)
+    assert (mode, depth) == plan
+    assert tc.scan_smem_bytes(mode, has_cov, depth, n_labels, k) <= \
+        tc.SCAN_SMEM_LIMIT
+    if depth < tc.SCAN_RING:
+        assert tc.scan_smem_bytes(mode, has_cov, depth + 1, n_labels, k) > \
+            tc.SCAN_SMEM_LIMIT
+
+
+def test_scan_plan_refuses_what_no_block_holds():
+    with pytest.raises(ValueError, match="shared memory"):
+        tc.scan_plan(32, 8192, True)
+    assert tc.scan_plan(32, 16, True, ring=1) == (tc.SCAN_RING_ALL, 1)
+
+
 def test_train_scan_wrapper_refuses_other_devices():
     state, batch = scan_inputs(5)
     meta = [torch.from_numpy(a).to("meta") for a in state + batch]

@@ -9,7 +9,11 @@ card, from the root of a checkout:
 not have; this file imports nothing of it.)  Tolerances: the quantizer
 pair is bitwise; the scan kernel sums in another order than the plain
 version, so its tables agree within rtol 1e-5 / atol 1e-6 and its integer
-state bitwise.
+state bitwise, for all seven margin methods: on random batches, on
+streams built to hit the prefetch ring's read-after-write hazard (8 to
+256 labels, 16 and 64 entries per datum, ring depths 1 to 8, and the
+shapes that read cov or w on demand), and two launches of it agree
+bitwise.
 """
 
 import numpy as np
@@ -104,6 +108,109 @@ def test_scan_kernel_matches_the_plain_version(dev, method):
     torch.testing.assert_close(gpu[0], ref[0], rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(gpu[1], ref[1], rtol=RTOL, atol=ATOL)
     assert not torch.equal(gpu[0].cpu(), torch.from_numpy(state[0]))
+
+
+def _hazard_inputs(seed, L=8, K=16, B=160, D=2048):
+    """The prefetch ring's read-after-write hazard (as in
+    tests/test_torch_classifier.py hazard_inputs, at any L and K): every
+    datum carries one shared column and the padding column 0; the first
+    half of the batch uses labels 0 and 1 only, so consecutive datums
+    repeat a label or take the previous datum's rival as their label;
+    duplicate columns inside a datum; real column-0 features; runs of
+    padding datums and of not-ok datums (all values 0)."""
+    rng = np.random.default_rng(seed)
+    live = K * 9 // 16
+    w = (rng.standard_normal((L, D)) * 0.1).astype(np.float32)
+    cov = (1 + rng.random((L, D))).astype(np.float32)
+    counts = np.zeros(L, np.int32)
+    counts[:2] = 1
+    idx = rng.integers(1, D, (B, K)).astype(np.int32)
+    val = rng.standard_normal((B, K)).astype(np.float32)
+    idx[:, live:] = 0
+    val[:, live:] = 0.0
+    idx[:, live - 1] = 5                  # the shared column
+    idx[::7, 0] = 0                       # real column-0 features
+    idx[::5, 3] = idx[::5, 1]             # duplicate columns in a datum
+    idx[::11, 2] = idx[::11, 1]
+    lab = np.where(np.arange(B) < B // 2, rng.integers(0, 2, B),
+                   rng.integers(0, L, B)).astype(np.int32)
+    mask = np.ones(B, np.float32)
+    mask[10:13] = 0.0                     # padding datums
+    mask[40:42] = 0.0
+    val[20:23] = 0.0                      # not ok: |x|^2 = 0
+    return [w, cov, counts, counts > 0], [idx, val, lab, mask]
+
+
+def _kernel_vs_plain(dev, state, batch, method):
+    gpu = [torch.from_numpy(a.copy()).to(dev) for a in state]
+    ref = [t.clone() for t in gpu]
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    tc.train_scan(*gpu, *bt, method, 0.5)
+    torch.cuda.synchronize()
+    tc.train_scan_ref(*ref, *bt, method, 0.5)
+    assert torch.equal(gpu[2], ref[2]) and torch.equal(gpu[3], ref[3])
+    torch.testing.assert_close(gpu[0], ref[0], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(gpu[1], ref[1], rtol=RTOL, atol=ATOL)
+    assert bool((gpu[0][:, 5] != torch.from_numpy(state[0][:, 5]).to(dev))
+                .any())                   # the shared column moved
+    return tc.train_scan.last_plan
+
+
+@pytest.mark.parametrize("n_labels,k", [(8, 16), (8, 64), (32, 16), (32, 64),
+                                        (64, 16), (64, 64), (256, 16),
+                                        (256, 64)])
+@pytest.mark.parametrize("method", MARGIN)
+def test_scan_kernel_on_hazard_streams(dev, method, n_labels, k):
+    _kernel_vs_plain(dev, *_hazard_inputs(n_labels + k, n_labels, k), method)
+
+
+@pytest.mark.parametrize("ring,producers", [(1, 1), (2, 2), (3, 1), (8, 4)])
+@pytest.mark.parametrize("method", MARGIN)
+def test_scan_kernel_at_every_ring_depth(dev, monkeypatch, method, ring,
+                                        producers):
+    monkeypatch.setattr(tc, "SCAN_RING", ring)
+    monkeypatch.setattr(tc, "SCAN_PRODUCERS", producers)
+    plan = _kernel_vs_plain(dev, *_hazard_inputs(ring, 8, 16, B=96), method)
+    assert plan == (tc.SCAN_RING_ALL, ring, producers)
+
+
+@pytest.mark.parametrize("n_labels,method,mode", [
+    (512, "CW", tc.SCAN_RING_W), (512, "AROW", tc.SCAN_RING_W),
+    (512, "NHERD", tc.SCAN_RING_W)] + [
+    (1024, m, tc.SCAN_DIRECT) for m in MARGIN])
+def test_scan_kernel_without_table_prefetch(dev, n_labels, method, mode):
+    """Shapes whose slot cannot hold cov (RING_W: cov read on demand after
+    the argmax) or even w (DIRECT) for all L rows."""
+    plan = _kernel_vs_plain(
+        dev, *_hazard_inputs(n_labels, n_labels, 64, B=64, D=1024), method)
+    assert plan[0] == mode
+
+
+def test_scan_smem_layout_agrees_with_the_kernel(dev):
+    lib = tc._scan_lib()
+    for mode in (tc.SCAN_RING_ALL, tc.SCAN_RING_W, tc.SCAN_DIRECT):
+        for n_labels, k, ring in ((8, 16, 1), (32, 16, 4), (256, 64, 2),
+                                  (1024, 4096, 3)):
+            for has_cov in (False, True):
+                assert lib.train_scan_smem_bytes(
+                    mode, int(has_cov), ring, n_labels, k) == \
+                    tc.scan_smem_bytes(mode, has_cov, ring, n_labels, k)
+
+
+@pytest.mark.parametrize("method", MARGIN)
+def test_scan_kernel_is_deterministic(dev, method):
+    """No atomics: two launches from the same state over the same batch
+    give bitwise-equal tables."""
+    state, batch = _hazard_inputs(3, 32, 16, B=2048, D=1 << 16)
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    outs = []
+    for _ in range(2):
+        st = [torch.from_numpy(a.copy()).to(dev) for a in state]
+        tc.train_scan(*st, *bt, method, 0.5)
+        outs.append(st)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _config(method):

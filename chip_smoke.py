@@ -11,7 +11,10 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
   2. build    — nvcc builds every kernel of the port from csrc/, in parallel
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes the main path gives it: quantize_int8 /
-                dequantize_int8 bitwise, train_scan within rtol 1e-5 /
+                dequantize_int8 bitwise (tiled views up to a whole
+                [32, 2^20] table, strided tiles, flat runs ending anywhere
+                in a block, a block holding a NaN, whose scale must be NaN
+                as in the host codec), train_scan within rtol 1e-5 /
                 atol 1e-6 (AROW, PA1, CW at B=256; AROW at B=8192; AROW on
                 an 8192-datum stream where every datum shares one column,
                 the prefetch ring's read-after-write hazard); then the scan
@@ -29,10 +32,14 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 quantizer kernels launched; a `mix_round` line with the
                 round's stage times (f32 wire; v3 with the codec on the
                 card; v3 with the codec on the host); then the quantizer
-                pair's time
-                at that round's diff shape beside its plain version's and
-                a library yardstick's (torch.quantize_per_channel /
-                torch.dequantize, which the port never calls)
+                pair's time at that round's tile grid ([nblk*32, 512]) and
+                at a whole [32, 2^20] table ([65536, 512]), beside its
+                plain version's and a library yardstick's
+                (torch.quantize_per_channel / torch.dequantize, which the
+                port never calls): device_ms from wrapper calls captured in
+                a CUDA graph (the card's time alone), call_ms from CUDA
+                events around eager wrapper calls (the host's pace when it
+                is the slower)
   6. report   — one JSON line {"kernels": [...]} (launch counts from phases
                 4 and 5; counters are zeroed just before each), then the
                 result line {"ok": true, "device": {...}} last.
@@ -69,6 +76,13 @@ N_LABELS = 32
 REQ_B = 8192            # datums per train request
 N_TRAIN_REQS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# keys a kernel row carries beyond the contract's: the scan's per-datum
+# time, ring depth and shared-column stream; the quantizer pair's device
+# and call times, the library's by both methods, and the whole-table shape
+EXTRA_KEYS = ("us_per_datum", "ring", "shared_column_ms", "device_ms",
+              "device_method", "call_ms", "plain_call_ms",
+              "library_device_ms", "library_device_method", "library_call_ms",
+              "whole_table")
 
 
 def log(*a):
@@ -99,6 +113,58 @@ def time_cuda(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_device(torch, fn, calls, replays=3):
+    """Device ms per call of `fn`, without the host's work per call:
+    `calls` calls (each picks its own inputs) captured into one CUDA graph
+    after a warm-up outside it, the graph replayed `replays` times between
+    CUDA events.  Where capture fails, torch.profiler's sum of kernel
+    times over `calls` eager calls.  Returns (ms, method); (None, reason)
+    when neither works."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / (replays * calls), "cuda_graph"
+    except Exception as e:  # noqa: BLE001 - the yardstick may not capture
+        reason = f"capture failed: {type(e).__name__}: {e}"[:200]
+        log(f"time_device: {reason}; timing by torch.profiler")
+    torch.cuda.synchronize()
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            us += float(getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0)))
+        if us > 0.0:
+            return us / 1e3 / calls, "profiler"
+        reason += "; the profiler saw no device time"
+    except Exception as e:  # noqa: BLE001
+        reason += f"; profiler failed: {type(e).__name__}: {e}"[:200]
+    return None, reason
 
 
 def fresh_scan(torch, dev, n_labels, d, batch):
@@ -234,8 +300,39 @@ def phase_kernels(torch, np):
     mid = mixed((4096, 512))
     mid[32:64] = 0.0                            # an all-zero tile
     quant_case(mid)
-    from jubatus_tpu_torch.parallel.quantized import (dequantize_blockwise,
-                                                      quantize_blockwise)
+    quant_case(mixed((96, 1536)))               # strided tiles (C != 512)
+    quant_case(mixed((2560, 512)))              # the MIX round's 80 tiles
+    quant_case(mixed((65536, 512)))             # a whole [32, 2^20] table
+    from jubatus_tpu_torch.parallel.quantized import (
+        dequantize_blockwise, dequantize_blockwise_np, quantize_blockwise,
+        quantize_blockwise_np)
+    # flat runs that end anywhere in a block, against the host codec
+    for n in (1, 15, 16383, 16384, 16385):
+        flat = mixed((n,))
+        qb, sb = quantize_blockwise(torch.from_numpy(flat).to(dev))
+        qn, sn = quantize_blockwise_np(flat)
+        back = dequantize_blockwise(qb, sb, (n,))
+        if not (np.array_equal(qb.cpu().numpy(), qn)
+                and np.array_equal(sb.cpu().numpy(), sn)
+                and np.array_equal(back.cpu().numpy(),
+                                   dequantize_blockwise_np(qn, sn, (n,)))):
+            raise AssertionError(f"blockwise pair != host codec at n={n}")
+    # a block holding a NaN gets a NaN scale, as in the host codec; the
+    # other blocks stay bitwise (a NaN block's int8 values are undefined
+    # in numpy's cast and are not compared)
+    nan_run = mixed((3 * 16384 + 100,))
+    nan_run[16384 + 77] = np.nan
+    qb, sb = quantize_blockwise(torch.from_numpy(nan_run).to(dev))
+    qn, sn = quantize_blockwise_np(nan_run)
+    sb = sb.cpu().numpy()
+    keep = np.ones(nan_run.size, bool)
+    keep[16384:2 * 16384] = False
+    if not (np.array_equal(np.isnan(sb), np.isnan(sn))
+            and np.isnan(sb).tolist() == [False, True, False, False]
+            and np.array_equal(sb[~np.isnan(sb)], sn[~np.isnan(sn)])
+            and np.array_equal(qb.cpu().numpy()[keep], qn[keep])):
+        raise AssertionError("a NaN block: the card's scales or the other "
+                             "blocks differ from the host codec")
     # a diff block as the MIX round ships it: 32 labels x ~41k touched
     # columns, so the last 16384-element block is partial
     diff_block = (rng.standard_normal((N_LABELS, 41017)) * 1e-2
@@ -254,7 +351,9 @@ def phase_kernels(torch, np):
                        .reshape(xb.shape)):
         raise AssertionError("dequantize_blockwise != plain at 32x41017")
     log("kernels: quantize_int8/dequantize_int8 bitwise equal to plain at "
-        "[32,512], [4096,512], blockwise 32x41017 (partial last block)")
+        "[32,512], [4096,512], [96,1536], [2560,512], [65536,512], "
+        "blockwise 32x41017 and n in 1, 15, 16383, 16384, 16385; a NaN "
+        "block's scale is NaN as in the host codec")
 
     # -- train_scan: B=256, K=16, L=32, D=2^20 for AROW, PA1, CW
     L, D, K = N_LABELS, 1 << 20, 16
@@ -368,19 +467,23 @@ def phase_kernels(torch, np):
     return rows
 
 
-def time_quantizer(torch, np, diff_shape):
-    """Times of the quantizer pair at the main path's shape: the padded
-    [nblk*32, 512] view quantize_blockwise gives a [labels, columns] diff
-    tensor of the MIX round.  Inputs rotate through enough distinct
+WHOLE_TABLE = (65536, 512)     # one [32, 2^20] f32 table as 32x512 tiles
+
+
+def time_quantizer_at(torch, np, shape, seed):
+    """The quantizer pair at one [rows, 512] tile grid: each kernel's
+    wrapper, its plain version and its library yardstick (per-channel
+    affine int8 with the block scales: amax + torch.quantize_per_channel
+    over [tiles, 16384], and torch.dequantize of its result; the port
+    never calls them), each timed by time_device (device_ms) and by CUDA
+    events around eager calls (call_ms).  Inputs rotate through enough
     tensors to exceed the 50 MB L2, so each launch reads device memory."""
     from jubatus_tpu_torch.parallel.quantized import (
         _BLOCK, _dequantize_ref, _quantize_ref, dequantize_int8,
         quantize_int8)
     dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
-    n = int(np.prod(diff_shape))
-    nblk = -(-n // _BLOCK)
-    shape = (nblk * 32, 512)
+    rng = np.random.default_rng(seed)
+    nblk = shape[0] * shape[1] // _BLOCK
     reps = max(2, -(-(64 << 20) // (nblk * _BLOCK * 4)))
     xs = [torch.from_numpy((rng.standard_normal(shape) * 1e-2
                             ).astype(np.float32)).to(dev)
@@ -395,21 +498,7 @@ def time_quantizer(torch, np, diff_shape):
     if q_err != 0.0 or d_err != 0.0:
         raise AssertionError(f"quantizer pair != plain at {shape}: max |diff| "
                              f"{q_err} (quantize), {d_err} (dequantize)")
-    it = [0]
-
-    def rot(fn):
-        def call():
-            i = it[0] = (it[0] + 1) % len(xs)
-            return fn(i)
-        return call
-
-    q_ms = time_cuda(torch, rot(lambda i: quantize_int8(xs[i])), 200)
-    q_plain = time_cuda(torch, rot(lambda i: _quantize_ref(xs[i])), 50)
-    d_ms = time_cuda(torch, rot(lambda i: dequantize_int8(*qs[i])), 200)
-    d_plain = time_cuda(torch, rot(lambda i: _dequantize_ref(*qs[i])), 50)
-    # library yardsticks: per-channel affine int8 quantization with the
-    # block scales (amax + torch.quantize_per_channel over [nblk, 16384]),
-    # and torch.dequantize of that quantized tensor
+    del qr, sr
     zps = torch.zeros(nblk, dtype=torch.int64, device=dev)
 
     def lib_quant(i):
@@ -419,23 +508,67 @@ def time_quantizer(torch, np, diff_shape):
                                           torch.qint8)
 
     qts = [lib_quant(i) for i in range(len(xs))]
-    q_lib = time_cuda(torch, rot(lib_quant), 50)
-    d_lib = time_cuda(torch, rot(lambda i: torch.dequantize(qts[i])), 50)
-    elems = nblk * _BLOCK
-    rows = {
-        "quantize_int8": dict(
-            ms=q_ms, plain_ms=q_plain, library_ms=q_lib, max_abs_err=q_err,
-            bound_ms=(elems * 4 + elems + nblk * 4) / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", shape=list(shape)),
-        "dequantize_int8": dict(
-            ms=d_ms, plain_ms=d_plain, library_ms=d_lib, max_abs_err=d_err,
-            bound_ms=(elems + nblk * 4 + elems * 4) / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", shape=list(shape)),
+    it = [0]
+
+    def rot(fn):
+        def call():
+            i = it[0] = (it[0] + 1) % len(xs)
+            return fn(i)
+        return call
+
+    big = nblk * _BLOCK * 4 > (64 << 20)
+    calls, plain_calls = (20, 5) if big else (200, 50)
+    fns = {
+        "quantize_int8": (lambda i: quantize_int8(xs[i]),
+                          lambda i: _quantize_ref(xs[i]), lib_quant),
+        "dequantize_int8": (lambda i: dequantize_int8(*qs[i]),
+                            lambda i: _dequantize_ref(*qs[i]),
+                            lambda i: torch.dequantize(qts[i])),
     }
-    for name, r in rows.items():
-        log(f"kernels: {name} {r['shape']}: {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by bytes)")
+    elems = nblk * _BLOCK
+    bound_ms = (elems * 4 + elems + nblk * 4) / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for name, (kernel, plain, lib) in fns.items():
+        r = dict(shape=list(shape), bound_ms=bound_ms, bound_by="bytes",
+                 max_abs_err=q_err if name == "quantize_int8" else d_err)
+        r["device_ms"], r["device_method"] = time_device(torch, rot(kernel),
+                                                         calls)
+        r["call_ms"] = time_cuda(torch, rot(kernel), calls)
+        r["plain_device_ms"], _ = time_device(torch, rot(plain), plain_calls)
+        r["plain_call_ms"] = time_cuda(torch, rot(plain), plain_calls)
+        r["library_device_ms"], r["library_device_method"] = time_device(
+            torch, rot(lib), plain_calls)
+        r["library_call_ms"] = time_cuda(torch, rot(lib), plain_calls)
+        if r["device_ms"] is None or r["plain_device_ms"] is None:
+            raise AssertionError(f"{name} at {shape}: no device time "
+                                 f"(CUDA graph and profiler both failed)")
+        out[name] = r
+        log(f"kernels: {name} {list(shape)}: device {r['device_ms']:.5f} ms, "
+            f"call {r['call_ms']:.5f} ms (plain device "
+            f"{r['plain_device_ms']:.5f}, library device "
+            f"{r['library_device_ms']} by {r['library_device_method']}, "
+            f"library call {r['library_call_ms']:.5f}; bound "
+            f"{bound_ms:.5f} ms by bytes)")
+    return out
+
+
+def time_quantizer(torch, np, diff_shape):
+    """The quantizer pair's rows of the kernels line: at the main path's
+    shape, the [nblk*32, 512] tile grid of the MIX round's [labels,
+    columns] diff tensor (ms is the device time there, plain_ms and
+    library_ms too, the library's call time where its device time could
+    not be taken), and under `whole_table` the same at [65536, 512]."""
+    from jubatus_tpu_torch.parallel.quantized import _BLOCK
+    nblk = -(-int(np.prod(diff_shape)) // _BLOCK)
+    main = time_quantizer_at(torch, np, (nblk * 32, 512), 3)
+    whole = time_quantizer_at(torch, np, WHOLE_TABLE, 4)
+    rows = {}
+    for name, r in main.items():
+        lib = r["library_device_ms"]
+        rows[name] = dict(
+            r, ms=r["device_ms"], plain_ms=r["plain_device_ms"],
+            library_ms=lib if lib is not None else r["library_call_ms"],
+            whole_table=whole[name])
     return rows
 
 
@@ -743,8 +876,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{key: r[key] for key in ("us_per_datum", "ring",
-                                       "shared_column_ms") if key in r}})
+            **{key: r[key] for key in EXTRA_KEYS if key in r}})
     log(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,111 +7,309 @@
 //   dequantize_int8 -> _dequant_kernel  (x = float(q) * scale[tile])
 //
 // Layout: x is a row-major [rows, cols] f32 array, rows % 32 == 0,
-// cols % 512 == 0; scales are row-major [rows/32, cols/512].
+// cols % 512 == 0; scales are row-major [rows/32, cols/512].  Both kernels
+// also take n, the number of elements that exist: an element at flat index
+// >= n reads as 0 and is never written.  With cols == 512 that is the v3
+// wire's flat run (contiguous 16384-element blocks, the last one partial)
+// without a zero-padded copy, which is what the JAX codec's padding does.
 //
 // Bound on this card: memory.  The quantizer reads 4 bytes and writes 1
 // byte per element (plus 4 bytes per 16384-element tile), the inverse
-// reads 1 and writes 4; neither does enough arithmetic to matter.
+// reads 1 and writes 4.  At a whole [32, 2^20] table (167.8 MB moved) the
+// bound is 50 µs; at the MIX round's 80 tiles (6.5 MB) it is 2 µs, and
+// what decides the time there is a launch, one round trip to device memory
+// and the per-element arithmetic of the SMs that hold a tile.
 //
-// Design: the TPU kernel walks its grid in order with a whole tile in
-// VMEM.  Here one CTA owns one tile (64 KiB of f32): 512 threads, thread t
-// owns column t of the tile, so each of the 32 row loads is one coalesced
-// 2 KiB transaction, and the tile's 32 values per thread stay in
-// registers between the absmax pass and the store pass (one read of x).
-// The absmax is reduced with warp shuffles, then across the 16 warps in
-// shared memory.  Bitwise parity with numpy and the Pallas kernel needs
-// IEEE division (not a multiply by the reciprocal), rintf's
-// round-half-even, and no --use_fast_math; max is exact in any order.
-// The inverse is an elementwise grid-stride pass.
+// quant_kernel.  A cluster of CS CTAs (CS in {1, 2, 4}) owns one tile;
+// the CTA of cluster rank r holds rows [r*32/CS, (r+1)*32/CS) of the tile
+// in registers, read once with 16-byte loads, neighbouring threads on
+// neighbouring 16 bytes.  The absmax reduces with max.NaN (a NaN anywhere
+// in the tile makes the scale NaN, like numpy's max; fmaxf would drop it)
+// by warp shuffles, then across warps through shared memory, where every
+// warp reduces the warps' partials itself: one block barrier, no serial
+// walk.  With CS > 1 each CTA writes its partial into every CTA of the
+// cluster (distributed shared memory), passes a cluster barrier (whose
+// first phase, that every CTA of the cluster runs, overlaps the loads),
+// then reads the CS partials from its own shared memory; every CTA forms the
+// same scale and rank 0 stores it.  A cluster barrier costs about a
+// microsecond on this card, so the wrapper's planner splits a tile only
+// when the split grid still gives every CTA an SM of its own (few tiles).
+// Each thread quantizes from registers and stores 4 int8 at once, so a
+// warp's store is one whole 128-byte line.  A CTA whose share lies wholly
+// below n takes a path without per-element checks.
+//
+// The quotient x / scale must be IEEE's, rounded half to even, for bitwise
+// parity with numpy and the Pallas kernel, and a division is the costliest
+// step per element.  So each element first takes p = x * (1 / scale):
+// |p - x / scale| <= 3 * 2^-24 * |x / scale| < 2^-16, since |x / scale|
+// <= 127 * (1 + 2^-23).  When p lies farther than 2^-14 from every
+// half-integer, rint(p) is rint(x / scale); otherwise (ties, near-ties,
+// NaN) the element takes the IEEE division.  No --use_fast_math.
+//
+// dequant_kernel.  A warp owns 512 consecutive elements (one tile row
+// segment, so one scale); each lane loads 16 int8 with one 16-byte load,
+// the lanes swap words by shuffles so that each of the warp's four float4
+// stores writes 512 contiguous bytes (stores with a 64-byte stride between
+// lanes ran at half the write rate), and the stores stream (st.global.cs).
+// The scale index comes from 32-bit arithmetic once per thread.  The grid
+// covers the array in one pass; the tail is written element by element.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int BLK_R = 32;
 constexpr int BLK_C = 512;
-constexpr int WARPS = BLK_C / 32;
+constexpr int TILE4 = BLK_R * BLK_C / 4;   // float4 per tile
+constexpr int ROW4 = BLK_C / 4;            // float4 per tile row
+constexpr int DQ_THREADS = 256;
 
-__global__ void __launch_bounds__(BLK_C)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float absmax4(float4 v) {
+  return max_nan(max_nan(fabsf(v.x), fabsf(v.y)),
+                 max_nan(fabsf(v.z), fabsf(v.w)));
+}
+
+// v / scale rounded half to even, clipped to [-127, 127], as a byte;
+// rcp = 1 / scale (see the note above)
+__device__ __forceinline__ uint32_t q8(float v, float scale, float rcp) {
+  const float p = v * rcp;
+  float y = rintf(p);
+  if (!(fabsf(p - y) <= 0.5f - 0x1p-14f)) y = rintf(v / scale);
+  y = fminf(fmaxf(y, -127.0f), 127.0f);
+  return (uint32_t)(uint8_t)(int8_t)y;
+}
+
+__device__ __forceinline__ uint32_t q8x4(float4 v, float scale, float rcp) {
+  return q8(v.x, scale, rcp) | (q8(v.y, scale, rcp) << 8) |
+         (q8(v.z, scale, rcp) << 16) | (q8(v.w, scale, rcp) << 24);
+}
+
+// CONTIG: cols == 512, so a CTA's share of its tile is one contiguous run
+template <int CS, int T, bool CONTIG>
+__global__ void __launch_bounds__(T)
 quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-             float* __restrict__ s, long long cols) {
-  const long long nbc = cols / BLK_C;           // tiles per tile-row
-  const long long tile = blockIdx.x;
-  const long long bi = tile / nbc, bj = tile % nbc;
+             float* __restrict__ s, unsigned nbc, long long cols,
+             long long n) {
+  constexpr int V = TILE4 / (CS * T);    // float4 per thread
+  constexpr int W = T / 32;
+  static_assert(V * CS * T == TILE4 && V >= 1, "CS * T must divide a tile");
+  static_assert((W & (W - 1)) == 0, "warps per CTA: a power of two");
   const int t = threadIdx.x;
-  const long long base = bi * BLK_R * cols + bj * BLK_C + t;
+  const unsigned tile = blockIdx.x / CS;
+  const unsigned rank = blockIdx.x % CS;
+  // flat index of the CTA's first element, and of its float4 j
+  long long base;
+  if (CONTIG) {
+    base = (long long)tile * (BLK_R * BLK_C) + rank * (BLK_R * BLK_C / CS);
+  } else {
+    const unsigned bi = tile / nbc, bj = tile - bi * nbc;
+    base = ((long long)bi * BLK_R + rank * (BLK_R / CS)) * cols +
+           (long long)bj * BLK_C;
+  }
+  auto at = [&](int j) -> long long {
+    return CONTIG ? base + 4 * j : base + (j / ROW4) * cols + (j % ROW4) * 4;
+  };
+  const bool full = at(TILE4 / CS - 1) + 4 <= n;
+  // the cluster's first barrier phase overlaps the loads: a CTA may write
+  // into another's shared memory only once every CTA of the cluster runs
+  if constexpr (CS > 1)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 
-  float v[BLK_R];
+  float4 v[V];
+  if (full) {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      v[k] = *reinterpret_cast<const float4*>(x + at(t + k * T));
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const long long f = at(t + k * T);
+      if (f + 4 <= n) {
+        v[k] = *reinterpret_cast<const float4*>(x + f);
+      } else {
+        v[k].x = f < n ? x[f] : 0.0f;
+        v[k].y = f + 1 < n ? x[f + 1] : 0.0f;
+        v[k].z = f + 2 < n ? x[f + 2] : 0.0f;
+        v[k].w = 0.0f;                   // f + 3 >= n here
+      }
+    }
+  }
   float m = 0.0f;
 #pragma unroll
-  for (int r = 0; r < BLK_R; ++r) {
-    v[r] = x[base + r * cols];
-    m = fmaxf(m, fabsf(v[r]));
-  }
+  for (int k = 0; k < V; ++k) m = max_nan(m, absmax4(v[k]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
 
-  __shared__ float warp_max[WARPS];
-  __shared__ float s_scale;
+  __shared__ float warp_max[W];
   if ((t & 31) == 0) warp_max[t >> 5] = m;
   __syncthreads();
-  if (t == 0) {
-    float a = warp_max[0];
-    for (int i = 1; i < WARPS; ++i) a = fmaxf(a, warp_max[i]);
-    const float scale = fmaxf(a, 1e-30f) / 127.0f;
-    s_scale = scale;
-    s[tile] = scale;
-  }
-  __syncthreads();
-  const float scale = s_scale;
+  m = warp_max[t & (W - 1)];
 #pragma unroll
-  for (int r = 0; r < BLK_R; ++r) {
-    float y = rintf(v[r] / scale);
-    y = fminf(fmaxf(y, -127.0f), 127.0f);
-    q[base + r * cols] = (int8_t)y;
+  for (int off = W / 2; off > 0; off >>= 1)
+    m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
+
+  if constexpr (CS > 1) {
+    // every CTA writes its partial into slot `rank` of every CTA; after
+    // the second barrier phase no CTA touches another's shared memory, so
+    // none can exit while another still needs it
+    __shared__ float parts[CS];
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    if (t < CS) *cg::this_cluster().map_shared_rank(&parts[rank], t) = m;
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < CS; ++r) m = max_nan(m, parts[r]);
+  }
+  const float scale = max_nan(m, 1e-30f) / 127.0f;
+  const float rcp = 1.0f / scale;
+  if (rank == 0 && t == 0) s[tile] = scale;
+
+  if (full) {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      *reinterpret_cast<uint32_t*>(q + at(t + k * T)) =
+          q8x4(v[k], scale, rcp);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const long long f = at(t + k * T);
+      const uint32_t w = q8x4(v[k], scale, rcp);
+      if (f + 4 <= n) {
+        *reinterpret_cast<uint32_t*>(q + f) = w;
+      } else {
+        for (int e = 0; e < 3; ++e)
+          if (f + e < n) q[f + e] = (int8_t)(w >> (8 * e));
+      }
+    }
   }
 }
 
-__global__ void dequant_kernel(const int8_t* __restrict__ q,
-                               const float* __restrict__ s,
-                               float* __restrict__ out, long long rows,
-                               long long cols) {
-  const long long n = rows * cols;
-  const long long nbc = cols / BLK_C;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / cols, c = i % cols;
-    out[i] = (float)q[i] * s[(r / BLK_R) * nbc + c / BLK_C];
+__device__ __forceinline__ float4 dq4(int w, float scale) {
+  return make_float4((float)(int8_t)w * scale, (float)(int8_t)(w >> 8) * scale,
+                     (float)(int8_t)(w >> 16) * scale,
+                     (float)(int8_t)(w >> 24) * scale);
+}
+
+// A warp owns elements [512 g, 512 g + 512); lane l loads bytes 16 l ..
+// 16 l + 15 of them.  Store k of lane l writes elements 128 k + 4 l .. + 3,
+// which are word l & 3 of lane 8 k + (l >> 2).  g is 32-bit: n < 2^41.
+__global__ void __launch_bounds__(DQ_THREADS)
+dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+               float* __restrict__ out, unsigned nbc, long long n) {
+  const unsigned gw = (blockIdx.x * DQ_THREADS + threadIdx.x) >> 5;
+  const long long wbase = (long long)gw * 512;
+  if (wbase >= n) return;                // the whole warp
+  const int l = threadIdx.x & 31;
+  const unsigned row = gw / nbc;         // one row segment of 512
+  const float scale = s[(row >> 5) * nbc + (gw - row * nbc)];
+  const long long i = wbase + 16 * l;
+  int4 w = make_int4(0, 0, 0, 0);
+  if (i + 16 <= n) {
+    w = *reinterpret_cast<const int4*>(q + i);
+  } else if (i < n) {
+    uint32_t b[4] = {0, 0, 0, 0};
+    for (int e = 0; e < 16 && i + e < n; ++e)
+      b[e >> 2] |= (uint32_t)(uint8_t)q[i + e] << (8 * (e & 3));
+    w = make_int4((int)b[0], (int)b[1], (int)b[2], (int)b[3]);
+  }
+  const int sel = l & 3;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int src = 8 * k + (l >> 2);
+    const int x0 = __shfl_sync(0xffffffffu, w.x, src);
+    const int x1 = __shfl_sync(0xffffffffu, w.y, src);
+    const int x2 = __shfl_sync(0xffffffffu, w.z, src);
+    const int x3 = __shfl_sync(0xffffffffu, w.w, src);
+    const float4 o = dq4(sel == 0 ? x0 : sel == 1 ? x1 : sel == 2 ? x2 : x3,
+                         scale);
+    const long long f = wbase + 128 * k + 4 * l;
+    if (f + 4 <= n) {
+      __stcs(reinterpret_cast<float4*>(out + f), o);
+    } else {
+      if (f < n) out[f] = o.x;
+      if (f + 1 < n) out[f + 1] = o.y;
+      if (f + 2 < n) out[f + 2] = o.z;
+    }
+  }
+}
+
+template <int CS, int T, bool CONTIG>
+cudaError_t launch_quant(unsigned tiles, cudaStream_t stream, const float* x,
+                         int8_t* q, float* s, unsigned nbc, long long cols,
+                         long long n) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * CS);
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, quant_kernel<CS, T, CONTIG>, x, q, s, nbc,
+                            cols, n);
+}
+
+template <bool CONTIG>
+cudaError_t launch_quant_cs(int cs, unsigned tiles, cudaStream_t st,
+                            const float* x, int8_t* q, float* s, unsigned nbc,
+                            long long cols, long long n) {
+  // 8 float4 (32 values) a thread at every cluster width
+  switch (cs) {
+    case 1: return launch_quant<1, 512, CONTIG>(tiles, st, x, q, s, nbc, cols, n);
+    case 2: return launch_quant<2, 256, CONTIG>(tiles, st, x, q, s, nbc, cols, n);
+    case 4: return launch_quant<4, 128, CONTIG>(tiles, st, x, q, s, nbc, cols, n);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // Entry points: plain C, every pointer and the stream as void*, returning
-// cudaGetLastError() after the launch.
+// the launch's CUDA error (0 when nothing was launched).  x, q and out must
+// be 16-byte aligned; n <= rows * cols; for cols != 512, n == rows * cols.
+
 extern "C" int quantize_int8_launch(const void* x, void* q, void* s,
                                     long long rows, long long cols,
-                                    void* stream) {
+                                    long long n, int cs, void* stream) {
   const long long tiles = (rows / BLK_R) * (cols / BLK_C);
-  if (tiles > 0) {
-    quant_kernel<<<(unsigned)tiles, BLK_C, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (int8_t*)q, (float*)s, cols);
-  }
-  return (int)cudaGetLastError();
+  if (tiles == 0 || n == 0) return 0;
+  const unsigned nbc = (unsigned)(cols / BLK_C);
+  const cudaError_t err =
+      cols == BLK_C
+          ? launch_quant_cs<true>(cs, (unsigned)tiles, (cudaStream_t)stream,
+                                  (const float*)x, (int8_t*)q, (float*)s, nbc,
+                                  cols, n)
+          : launch_quant_cs<false>(cs, (unsigned)tiles, (cudaStream_t)stream,
+                                   (const float*)x, (int8_t*)q, (float*)s,
+                                   nbc, cols, n);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 extern "C" int dequantize_int8_launch(const void* q, const void* s, void* out,
                                       long long rows, long long cols,
-                                      void* stream) {
-  const long long n = rows * cols;
-  if (n > 0) {
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 132LL * 32) blocks = 132LL * 32;   // grid-stride beyond this
-    dequant_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)q, (const float*)s, (float*)out, rows, cols);
-  }
+                                      long long n, void* stream) {
+  (void)rows;
+  if (n == 0) return 0;
+  const long long threads = (n + 511) / 512 * 32;
+  const unsigned blocks = (unsigned)((threads + DQ_THREADS - 1) / DQ_THREADS);
+  dequant_kernel<<<blocks, DQ_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)q, (const float*)s, (float*)out,
+      (unsigned)(cols / BLK_C), n);
   return (int)cudaGetLastError();
 }

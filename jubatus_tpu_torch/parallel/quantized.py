@@ -10,11 +10,17 @@ repeats the kernel's arithmetic and is the reference it is tested against.
 quantize_blockwise / dequantize_blockwise apply the same math to a
 flattened array in contiguous 16384-element blocks — the v3 MIX wire
 encoding.  For a row-major [R, 512] view those blocks ARE the 32x512
-tiles, so the wire path is one kernel launch over the zero-padded view,
-then a truncation to the array's true size (the padding never crosses the
-wire and cannot move a block's absmax).  quantize_blockwise_np /
-dequantize_blockwise_np are numpy copies of the JAX package's host codec,
-kept for the tests and for chip_smoke.py's timing of the host codec.
+tiles.  On the card each is one launch over the flat run and one output
+allocation: the kernels take the true element count n, read what lies
+past it as the zero padding of the JAX codec, and never write it.  On the
+CPU they run the plain versions over a zero-padded view, then truncate.
+quantize_blockwise_np / dequantize_blockwise_np are numpy copies of the
+JAX package's host codec, kept for the tests and for chip_smoke.py's
+timing of the host codec.
+
+The quantizer's launch shape comes from quant_plan: a cluster of CS CTAs
+shares a tile, CS > 1 only when so few tiles are quantized that the split
+grid still gives each CTA an SM of its own.
 
 The in-mesh int8 ring all-reduce (ring_all_reduce_int8) is later work; it
 will reuse these kernels.
@@ -23,6 +29,7 @@ will reuse these kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,14 +40,52 @@ BLK_R = 32
 BLK_C = 512
 _BLOCK = BLK_R * BLK_C
 
+# cluster width of the quantizer: None lets quant_plan choose
+QUANT_CS = None
+# threads per CTA for each cluster width: 8 float4 (32 values) a thread
+QUANT_THREADS = {1: 512, 2: 256, 4: 128}
+H100_SMS = 132
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("quantize")
-    for fn in (lib.quantize_int8_launch, lib.dequantize_int8_launch):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+
+class _Lib:
+    """The quantizer library's two entry points, bound once."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        self.quantize = lib.quantize_int8_launch
+        self.quantize.argtypes = [p, p, p, ll, ll, ll, ctypes.c_int, p]
+        self.quantize.restype = ctypes.c_int
+        self.dequantize = lib.dequantize_int8_launch
+        self.dequantize.argtypes = [p, p, p, ll, ll, ll, p]
+        self.dequantize.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> _Lib:
+    return _Lib(build.load("quantize"))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def quant_plan(rows: int, cols: int, sms: int = H100_SMS, cs=None):
+    """Launch shape of the quantizer over a [rows, cols] tile grid ->
+    (cluster width cs, threads per CTA, CTAs in the grid).  One cluster
+    per tile; CTA r of a cluster holds rows [r*32/cs, (r+1)*32/cs) of its
+    tile.  Unless cs is given, the widest cs in {1, 2, 4} whose grid still
+    fits `sms` SMs one CTA each: a split only pays when every part gets an
+    SM of its own, since a cluster barrier costs about a microsecond."""
+    tiles = (rows // BLK_R) * (cols // BLK_C)
+    if cs is None:
+        cs = 1
+        while cs < 4 and tiles * cs * 2 <= sms:
+            cs *= 2
+    if cs not in QUANT_THREADS:
+        raise ValueError(f"quantizer cluster width {cs} not in "
+                         f"{sorted(QUANT_THREADS)}")
+    return cs, QUANT_THREADS[cs], tiles * cs
 
 
 def _check_tiled(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -51,6 +96,14 @@ def _check_tiled(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
     if r % BLK_R or c % BLK_C:
         raise ValueError(f"{what}: shape {tuple(t.shape)} is not a whole "
                          f"number of {BLK_R}x{BLK_C} tiles")
+
+
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    """The kernels move 16 bytes at a time: a view that starts elsewhere
+    than on a 16-byte boundary must be copied by the caller."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: data at {t.data_ptr():#x} is not 16-byte "
+                         f"aligned; pass a fresh tensor (.clone())")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -66,7 +119,8 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def _quantize_ref(x: torch.Tensor):
     """[R, C] f32 -> (int8 [R, C], f32 scales [R/32, C/512]).  Divisions
     are tensor by tensor: PyTorch's CUDA division by a Python scalar
-    multiplies by the reciprocal, which is not the kernel's IEEE quotient."""
+    multiplies by the reciprocal, which is not the kernel's IEEE quotient.
+    A tile holding a NaN gets a NaN scale (amax and clamp_min keep it)."""
     r, c = x.shape
     blocks = x.reshape(r // BLK_R, BLK_R, c // BLK_C, BLK_C)
     absmax = blocks.abs().amax(dim=(1, 3))
@@ -81,6 +135,31 @@ def _dequantize_ref(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return (blocks * s[:, None, :, None]).reshape(r, c)
 
 
+# -- kernel launches ------------------------------------------------------------
+
+def _launch_quantize(x, q, s, rows: int, cols: int, n: int) -> None:
+    """quant_kernel over the [rows, cols] tile grid of x's first n
+    elements, into q (n int8) and s (one scale a tile)."""
+    dev = x.device
+    cs, _, _ = quant_plan(rows, cols, _sm_count(dev.index), QUANT_CS)
+    with torch.cuda.device(dev):
+        err = _lib().quantize(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                              rows, cols, n, cs,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    quantize_int8.launches += 1
+    build.check(err, "quantize_int8 launch")
+
+
+def _launch_dequantize(q, s, out, rows: int, cols: int, n: int) -> None:
+    dev = q.device
+    with torch.cuda.device(dev):
+        err = _lib().dequantize(q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                rows, cols, n,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    dequantize_int8.launches += 1
+    build.check(err, "dequantize_int8 launch")
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 def quantize_int8(x: torch.Tensor):
@@ -89,15 +168,12 @@ def quantize_int8(x: torch.Tensor):
     _check_tiled(x, torch.float32, "quantize_int8")
     if not _on_cuda(x):
         return _quantize_ref(x)
+    _check_aligned(x, "quantize_int8")
     r, c = x.shape
     q = torch.empty((r, c), dtype=torch.int8, device=x.device)
     s = torch.empty((r // BLK_R, c // BLK_C), dtype=torch.float32,
                     device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().quantize_int8_launch(x.data_ptr(), q.data_ptr(),
-                                      s.data_ptr(), r, c, stream)
-    quantize_int8.launches += 1
-    build.check(err, "quantize_int8 launch")
+    _launch_quantize(x, q, s, r, c, r * c)
     return q, s
 
 
@@ -115,12 +191,9 @@ def dequantize_int8(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
                          f"{tuple(q.shape)} on {q.device}")
     if not _on_cuda(q):
         return _dequantize_ref(q, s)
+    _check_aligned(q, "dequantize_int8")
     out = torch.empty((r, c), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().dequantize_int8_launch(q.data_ptr(), s.data_ptr(),
-                                        out.data_ptr(), r, c, stream)
-    dequantize_int8.launches += 1
-    build.check(err, "dequantize_int8 launch")
+    _launch_dequantize(q, s, out, r, c, r * c)
     return out
 
 
@@ -138,11 +211,16 @@ def quantize_blockwise(x: torch.Tensor):
         return (torch.zeros((0,), dtype=torch.int8, device=x.device),
                 torch.zeros((0,), dtype=torch.float32, device=x.device))
     nblk = (n + _BLOCK - 1) // _BLOCK
-    padded = torch.zeros((nblk * _BLOCK,), dtype=torch.float32,
-                         device=x.device)
-    padded[:n] = flat
-    q, s = quantize_int8(padded.view(nblk * BLK_R, BLK_C))
-    return q.reshape(-1)[:n], s.reshape(-1)
+    if not _on_cuda(flat):
+        padded = torch.zeros((nblk * _BLOCK,), dtype=torch.float32)
+        padded[:n] = flat
+        q, s = quantize_int8(padded.view(nblk * BLK_R, BLK_C))
+        return q.reshape(-1)[:n], s.reshape(-1)
+    _check_aligned(flat, "quantize_blockwise")
+    q = torch.empty((n,), dtype=torch.int8, device=x.device)
+    s = torch.empty((nblk,), dtype=torch.float32, device=x.device)
+    _launch_quantize(flat, q, s, nblk * BLK_R, BLK_C, n)
+    return q, s
 
 
 def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor,
@@ -152,11 +230,28 @@ def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor,
     if n == 0:
         return torch.zeros(tuple(shape), dtype=torch.float32, device=q.device)
     nblk = s.numel()
-    padded = torch.zeros((nblk * _BLOCK,), dtype=torch.int8, device=q.device)
-    padded[:n] = q.reshape(-1)
-    out = dequantize_int8(padded.view(nblk * BLK_R, BLK_C),
-                          s.reshape(nblk, 1).contiguous())
-    return out.reshape(-1)[:n].reshape(tuple(shape))
+    if nblk * _BLOCK < n:
+        raise ValueError(f"dequantize_blockwise: {nblk} scales cover "
+                         f"{nblk * _BLOCK} values, not {n}")
+    if not _on_cuda(q):
+        padded = torch.zeros((nblk * _BLOCK,), dtype=torch.int8)
+        padded[:n] = q.reshape(-1)
+        out = dequantize_int8(padded.view(nblk * BLK_R, BLK_C),
+                              s.reshape(nblk, 1).contiguous())
+        return out.reshape(-1)[:n].reshape(tuple(shape))
+    flat, sf = q.reshape(-1), s.reshape(-1)
+    if flat.dtype != torch.int8 or sf.dtype != torch.float32 \
+            or sf.device != q.device:
+        raise ValueError(f"dequantize_blockwise: want int8 values and f32 "
+                         f"scales on one device, got {q.dtype} on "
+                         f"{q.device} and {s.dtype} on {s.device}")
+    _check_aligned(flat, "dequantize_blockwise")
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=q.device)
+    if out.numel() != n:
+        raise ValueError(f"dequantize_blockwise: shape {tuple(shape)} does "
+                         f"not hold {n} values")
+    _launch_dequantize(flat, sf, out, nblk * BLK_R, BLK_C, n)
+    return out
 
 
 # -- numpy copies of the JAX package's host codec (test reference) ---------

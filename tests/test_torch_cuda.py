@@ -7,7 +7,9 @@ card, from the root of a checkout:
 
 (--noconftest: the suite's conftest sets up JAX, which that machine need
 not have; this file imports nothing of it.)  Tolerances: the quantizer
-pair is bitwise; the scan kernel sums in another order than the plain
+pair is bitwise (at every cluster width, on tiled views and on flat runs
+that end anywhere in a block; a block holding a NaN gets a NaN scale, as
+in the host codec); the scan kernel sums in another order than the plain
 version, so its tables agree within rtol 1e-5 / atol 1e-6 and its integer
 state bitwise, for all seven margin methods: on random batches, on
 streams built to hit the prefetch ring's read-after-write hazard (8 to
@@ -51,7 +53,8 @@ def _tiles(seed, shape):
     return x
 
 
-@pytest.mark.parametrize("shape", [(32, 512), (96, 1536), (4096, 512)])
+@pytest.mark.parametrize("shape", [(32, 512), (96, 1536), (4096, 512),
+                                   (2560, 512), (65536, 512)])
 def test_quantizer_pair_is_bitwise_the_plain_version(dev, shape):
     x = torch.from_numpy(_tiles(sum(shape), shape)).to(dev)
     before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
@@ -75,6 +78,117 @@ def test_blockwise_kernel_is_bitwise_the_host_codec(dev, shape):
     np.testing.assert_array_equal(
         tq.dequantize_blockwise(q, s, shape).cpu().numpy(),
         tq.dequantize_blockwise_np(qn, sn, shape))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16383, 16384, 16385, 32 * 40883])
+def test_blockwise_tails_are_bitwise_the_host_codec(dev, n):
+    x = _tiles(n, (1, n)).reshape(-1)
+    before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+    q, s = tq.quantize_blockwise(torch.from_numpy(x).to(dev))
+    back = tq.dequantize_blockwise(q, s, (n,))
+    torch.cuda.synchronize()
+    assert (tq.quantize_int8.launches, tq.dequantize_int8.launches) == \
+        (before[0] + 1, before[1] + 1)
+    qn, sn = tq.quantize_blockwise_np(x)
+    np.testing.assert_array_equal(q.cpu().numpy(), qn)
+    np.testing.assert_array_equal(s.cpu().numpy(), sn)
+    np.testing.assert_array_equal(back.cpu().numpy(),
+                                  tq.dequantize_blockwise_np(qn, sn, (n,)))
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4])
+def test_quantizer_at_every_cluster_width(dev, monkeypatch, cs):
+    monkeypatch.setattr(tq, "QUANT_CS", cs)
+    for shape in ((32, 512), (96, 1536), (2560, 512)):
+        x = torch.from_numpy(_tiles(cs, shape)).to(dev)
+        q, s = tq.quantize_int8(x)
+        qr, sr = tq._quantize_ref(x)
+        assert torch.equal(q, qr) and torch.equal(s, sr), shape
+    for n in (16385, 32 * 40883):
+        x = _tiles(n + cs, (1, n)).reshape(-1)
+        q, s = tq.quantize_blockwise(torch.from_numpy(x).to(dev))
+        qn, sn = tq.quantize_blockwise_np(x)
+        np.testing.assert_array_equal(q.cpu().numpy(), qn)
+        np.testing.assert_array_equal(s.cpu().numpy(), sn)
+
+
+def _assert_nan_scales_match(s, sr):
+    s, sr = s.reshape(-1), sr.reshape(-1)
+    nan = torch.isnan(sr)
+    assert bool(nan.any()) and torch.equal(torch.isnan(s), nan)
+    assert torch.equal(s[~nan], sr[~nan])
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4])
+def test_nan_block_gets_a_nan_scale_on_the_card(dev, monkeypatch, cs):
+    """The kernel's scales against the plain version's: NaN at the same
+    blocks, the rest bitwise; the int8 values of the blocks without a NaN
+    bitwise too (a NaN block's int8 values are not compared: casting NaN
+    to int8 is undefined in numpy and torch)."""
+    monkeypatch.setattr(tq, "QUANT_CS", cs)
+    x = _tiles(5, (96, 1536))
+    x[40, 700] = np.nan                 # tile (1, 1)
+    x[95, 1535] = np.inf                # tile (2, 2): inf keeps its arithmetic
+    xt = torch.from_numpy(x).to(dev)
+    q, s = tq.quantize_int8(xt)
+    qr, sr = tq._quantize_ref(xt)
+    _assert_nan_scales_match(s, sr)
+    assert bool(torch.isinf(s[2, 2]))
+    finite = torch.ones((3, 3), dtype=torch.bool, device=dev)
+    finite[1, 1] = finite[2, 2] = False
+    keep = finite.repeat_interleave(32, 0).repeat_interleave(512, 1)
+    assert torch.equal(q[keep], qr[keep])
+    n = 3 * 16384 + 100
+    flat = _tiles(6, (1, n)).reshape(-1)
+    flat[2 * 16384 + 9] = np.nan
+    qb, sb = tq.quantize_blockwise(torch.from_numpy(flat).to(dev))
+    qn, sn = tq.quantize_blockwise_np(flat)
+    _assert_nan_scales_match(sb.cpu(), torch.from_numpy(sn))
+    np.testing.assert_array_equal(qb.cpu().numpy()[:2 * 16384],
+                                  qn[:2 * 16384])
+    np.testing.assert_array_equal(qb.cpu().numpy()[3 * 16384:],
+                                  qn[3 * 16384:])
+
+
+def test_unaligned_pointers_are_refused(dev):
+    before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+    x = torch.zeros(16384 + 1, device=dev)[1:]
+    q = torch.zeros(16384 + 1, dtype=torch.int8, device=dev)[1:]
+    s = torch.ones(1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        tq.quantize_int8(x.view(32, 512))
+    with pytest.raises(ValueError, match="16-byte"):
+        tq.quantize_blockwise(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        tq.dequantize_int8(q.view(32, 512), s.view(1, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        tq.dequantize_blockwise(q, s, (16384,))
+    assert (tq.quantize_int8.launches, tq.dequantize_int8.launches) == before
+
+
+def _rounded(nbytes):
+    return -(-nbytes // 512) * 512      # the caching allocator's block size
+
+
+def test_blockwise_calls_allocate_only_their_outputs(dev):
+    """One launch each and no staging buffer: the peak allocation of a
+    blockwise call on the card is its outputs."""
+    n = 32 * 40883
+    nblk = -(-n // 16384)
+    x = torch.from_numpy(_tiles(8, (32, 40883))).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    q, s = tq.quantize_blockwise(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= \
+        _rounded(n) + _rounded(4 * nblk)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    back = tq.dequantize_blockwise(q, s, (32, 40883))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= _rounded(4 * n)
+    assert tuple(back.shape) == (32, 40883)
 
 
 def _scan_inputs(seed, L=8, D=4096, B=128, K=16):

@@ -294,8 +294,10 @@ def phase_kernels(torch, np):
         x *= rng.choice(np.array([1e-4, 1.0, 1e3], np.float32), size=shape)
         return x
 
-    small = mixed((32, 512))
-    small[0, :4] = [63.5, -63.5, 0.5, 127.0]   # ties at the largest tile value
+    small = np.clip(mixed((32, 512)), -100.0, 100.0)
+    small[0, :4] = [63.5, -63.5, 0.5, 127.0]   # scale 1: exact ties
+    small[1, :4] = np.nextafter(np.float32([63.5, -63.5, 0.5, 2.5]),
+                                np.float32(0.0))   # an ulp inside a tie
     quant_case(small)
     mid = mixed((4096, 512))
     mid[32:64] = 0.0                            # an all-zero tile

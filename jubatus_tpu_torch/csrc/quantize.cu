@@ -20,23 +20,18 @@
 // what decides the time there is a launch, one round trip to device memory
 // and the per-element arithmetic of the SMs that hold a tile.
 //
-// quant_kernel.  A cluster of CS CTAs (CS in {1, 2, 4}) owns one tile;
-// the CTA of cluster rank r holds rows [r*32/CS, (r+1)*32/CS) of the tile
-// in registers, read once with 16-byte loads, neighbouring threads on
+// quant_kernel.  One CTA of 512 threads owns one tile and holds it in
+// registers, read once with 16-byte loads, neighbouring threads on
 // neighbouring 16 bytes.  The absmax reduces with max.NaN (a NaN anywhere
 // in the tile makes the scale NaN, like numpy's max; fmaxf would drop it)
 // by warp shuffles, then across warps through shared memory, where every
 // warp reduces the warps' partials itself: one block barrier, no serial
-// walk.  With CS > 1 each CTA writes its partial into every CTA of the
-// cluster (distributed shared memory), passes a cluster barrier (whose
-// first phase, that every CTA of the cluster runs, overlaps the loads),
-// then reads the CS partials from its own shared memory; every CTA forms the
-// same scale and rank 0 stores it.  A cluster barrier costs about a
-// microsecond on this card, so the wrapper's planner splits a tile only
-// when the split grid still gives every CTA an SM of its own (few tiles).
-// Each thread quantizes from registers and stores 4 int8 at once, so a
-// warp's store is one whole 128-byte line.  A CTA whose share lies wholly
-// below n takes a path without per-element checks.
+// walk.  Each thread quantizes from registers and stores 4 int8 at once,
+// so a warp's store is one whole 128-byte line.  A CTA whose tile lies
+// wholly below n takes a path without per-element checks.  Splitting a
+// tile over a cluster of 2 or 4 CTAs (partials exchanged through
+// distributed shared memory) was slower at every tile count from 8 to
+// 2048: the cluster barrier costs more than the split saves (PERF.md).
 //
 // The quotient x / scale must be IEEE's, rounded half to even, for bitwise
 // parity with numpy and the Pallas kernel, and a division is the costliest
@@ -49,16 +44,15 @@
 // dequant_kernel.  A warp owns 512 consecutive elements (one tile row
 // segment, so one scale); each lane loads 16 int8 with one 16-byte load,
 // the lanes swap words by shuffles so that each of the warp's four float4
-// stores writes 512 contiguous bytes (stores with a 64-byte stride between
-// lanes ran at half the write rate), and the stores stream (st.global.cs).
+// stores writes 512 contiguous bytes (with each lane storing its own 64
+// bytes, every store instruction would leave its lines three quarters
+// unwritten, and device memory took them far slower), and the stores
+// stream (st.global.cs).
 // The scale index comes from 32-bit arithmetic once per thread.  The grid
 // covers the array in one pass; the tail is written element by element.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -66,6 +60,9 @@ constexpr int BLK_R = 32;
 constexpr int BLK_C = 512;
 constexpr int TILE4 = BLK_R * BLK_C / 4;   // float4 per tile
 constexpr int ROW4 = BLK_C / 4;            // float4 per tile row
+constexpr int Q_THREADS = 512;
+constexpr int V = TILE4 / Q_THREADS;       // float4 per thread
+constexpr int Q_WARPS = Q_THREADS / 32;
 constexpr int DQ_THREADS = 256;
 
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -94,46 +91,36 @@ __device__ __forceinline__ uint32_t q8x4(float4 v, float scale, float rcp) {
          (q8(v.z, scale, rcp) << 16) | (q8(v.w, scale, rcp) << 24);
 }
 
-// CONTIG: cols == 512, so a CTA's share of its tile is one contiguous run
-template <int CS, int T, bool CONTIG>
-__global__ void __launch_bounds__(T)
+// CONTIG: cols == 512, so a tile is one contiguous run
+template <bool CONTIG>
+__global__ void __launch_bounds__(Q_THREADS)
 quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
              float* __restrict__ s, unsigned nbc, long long cols,
              long long n) {
-  constexpr int V = TILE4 / (CS * T);    // float4 per thread
-  constexpr int W = T / 32;
-  static_assert(V * CS * T == TILE4 && V >= 1, "CS * T must divide a tile");
-  static_assert((W & (W - 1)) == 0, "warps per CTA: a power of two");
   const int t = threadIdx.x;
-  const unsigned tile = blockIdx.x / CS;
-  const unsigned rank = blockIdx.x % CS;
-  // flat index of the CTA's first element, and of its float4 j
+  const unsigned tile = blockIdx.x;
+  // flat index of the tile's first element, and of its float4 j
   long long base;
   if (CONTIG) {
-    base = (long long)tile * (BLK_R * BLK_C) + rank * (BLK_R * BLK_C / CS);
+    base = (long long)tile * (BLK_R * BLK_C);
   } else {
     const unsigned bi = tile / nbc, bj = tile - bi * nbc;
-    base = ((long long)bi * BLK_R + rank * (BLK_R / CS)) * cols +
-           (long long)bj * BLK_C;
+    base = (long long)bi * BLK_R * cols + (long long)bj * BLK_C;
   }
   auto at = [&](int j) -> long long {
     return CONTIG ? base + 4 * j : base + (j / ROW4) * cols + (j % ROW4) * 4;
   };
-  const bool full = at(TILE4 / CS - 1) + 4 <= n;
-  // the cluster's first barrier phase overlaps the loads: a CTA may write
-  // into another's shared memory only once every CTA of the cluster runs
-  if constexpr (CS > 1)
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const bool full = at(TILE4 - 1) + 4 <= n;
 
   float4 v[V];
   if (full) {
 #pragma unroll
     for (int k = 0; k < V; ++k)
-      v[k] = *reinterpret_cast<const float4*>(x + at(t + k * T));
+      v[k] = *reinterpret_cast<const float4*>(x + at(t + k * Q_THREADS));
   } else {
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const long long f = at(t + k * T);
+      const long long f = at(t + k * Q_THREADS);
       if (f + 4 <= n) {
         v[k] = *reinterpret_cast<const float4*>(x + f);
       } else {
@@ -151,39 +138,26 @@ quant_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   for (int off = 16; off > 0; off >>= 1)
     m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
 
-  __shared__ float warp_max[W];
+  __shared__ float warp_max[Q_WARPS];
   if ((t & 31) == 0) warp_max[t >> 5] = m;
   __syncthreads();
-  m = warp_max[t & (W - 1)];
+  m = warp_max[t & (Q_WARPS - 1)];
 #pragma unroll
-  for (int off = W / 2; off > 0; off >>= 1)
+  for (int off = Q_WARPS / 2; off > 0; off >>= 1)
     m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
-
-  if constexpr (CS > 1) {
-    // every CTA writes its partial into slot `rank` of every CTA; after
-    // the second barrier phase no CTA touches another's shared memory, so
-    // none can exit while another still needs it
-    __shared__ float parts[CS];
-    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-    if (t < CS) *cg::this_cluster().map_shared_rank(&parts[rank], t) = m;
-    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-#pragma unroll
-    for (int r = 0; r < CS; ++r) m = max_nan(m, parts[r]);
-  }
   const float scale = max_nan(m, 1e-30f) / 127.0f;
   const float rcp = 1.0f / scale;
-  if (rank == 0 && t == 0) s[tile] = scale;
+  if (t == 0) s[tile] = scale;
 
   if (full) {
 #pragma unroll
     for (int k = 0; k < V; ++k)
-      *reinterpret_cast<uint32_t*>(q + at(t + k * T)) =
+      *reinterpret_cast<uint32_t*>(q + at(t + k * Q_THREADS)) =
           q8x4(v[k], scale, rcp);
   } else {
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const long long f = at(t + k * T);
+      const long long f = at(t + k * Q_THREADS);
       const uint32_t w = q8x4(v[k], scale, rcp);
       if (f + 4 <= n) {
         *reinterpret_cast<uint32_t*>(q + f) = w;
@@ -244,39 +218,6 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
   }
 }
 
-template <int CS, int T, bool CONTIG>
-cudaError_t launch_quant(unsigned tiles, cudaStream_t stream, const float* x,
-                         int8_t* q, float* s, unsigned nbc, long long cols,
-                         long long n) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * CS);
-  cfg.blockDim = dim3(T);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = CS > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, quant_kernel<CS, T, CONTIG>, x, q, s, nbc,
-                            cols, n);
-}
-
-template <bool CONTIG>
-cudaError_t launch_quant_cs(int cs, unsigned tiles, cudaStream_t st,
-                            const float* x, int8_t* q, float* s, unsigned nbc,
-                            long long cols, long long n) {
-  // 8 float4 (32 values) a thread at every cluster width
-  switch (cs) {
-    case 1: return launch_quant<1, 512, CONTIG>(tiles, st, x, q, s, nbc, cols, n);
-    case 2: return launch_quant<2, 256, CONTIG>(tiles, st, x, q, s, nbc, cols, n);
-    case 4: return launch_quant<4, 128, CONTIG>(tiles, st, x, q, s, nbc, cols, n);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Entry points: plain C, every pointer and the stream as void*, returning
@@ -285,20 +226,19 @@ cudaError_t launch_quant_cs(int cs, unsigned tiles, cudaStream_t st,
 
 extern "C" int quantize_int8_launch(const void* x, void* q, void* s,
                                     long long rows, long long cols,
-                                    long long n, int cs, void* stream) {
+                                    long long n, void* stream) {
   const long long tiles = (rows / BLK_R) * (cols / BLK_C);
   if (tiles == 0 || n == 0) return 0;
   const unsigned nbc = (unsigned)(cols / BLK_C);
-  const cudaError_t err =
-      cols == BLK_C
-          ? launch_quant_cs<true>(cs, (unsigned)tiles, (cudaStream_t)stream,
-                                  (const float*)x, (int8_t*)q, (float*)s, nbc,
-                                  cols, n)
-          : launch_quant_cs<false>(cs, (unsigned)tiles, (cudaStream_t)stream,
-                                   (const float*)x, (int8_t*)q, (float*)s,
-                                   nbc, cols, n);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : last);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cols == BLK_C) {
+    quant_kernel<true><<<(unsigned)tiles, Q_THREADS, 0, st>>>(
+        (const float*)x, (int8_t*)q, (float*)s, nbc, cols, n);
+  } else {
+    quant_kernel<false><<<(unsigned)tiles, Q_THREADS, 0, st>>>(
+        (const float*)x, (int8_t*)q, (float*)s, nbc, cols, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int dequantize_int8_launch(const void* q, const void* s, void* out,

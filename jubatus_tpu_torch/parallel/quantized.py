@@ -18,10 +18,6 @@ quantize_blockwise_np / dequantize_blockwise_np are numpy copies of the
 JAX package's host codec, kept for the tests and for chip_smoke.py's
 timing of the host codec.
 
-The quantizer's launch shape comes from quant_plan: a cluster of CS CTAs
-shares a tile, CS > 1 only when so few tiles are quantized that the split
-grid still gives each CTA an SM of its own.
-
 The in-mesh int8 ring all-reduce (ring_all_reduce_int8) is later work; it
 will reuse these kernels.
 """
@@ -40,52 +36,16 @@ BLK_R = 32
 BLK_C = 512
 _BLOCK = BLK_R * BLK_C
 
-# cluster width of the quantizer: None lets quant_plan choose
-QUANT_CS = None
-# threads per CTA for each cluster width: 8 float4 (32 values) a thread
-QUANT_THREADS = {1: 512, 2: 256, 4: 128}
-H100_SMS = 132
-
-
-class _Lib:
-    """The quantizer library's two entry points, bound once."""
-
-    def __init__(self, lib: ctypes.CDLL):
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        self.quantize = lib.quantize_int8_launch
-        self.quantize.argtypes = [p, p, p, ll, ll, ll, ctypes.c_int, p]
-        self.quantize.restype = ctypes.c_int
-        self.dequantize = lib.dequantize_int8_launch
-        self.dequantize.argtypes = [p, p, p, ll, ll, ll, p]
-        self.dequantize.restype = ctypes.c_int
-
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> _Lib:
-    return _Lib(build.load("quantize"))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def quant_plan(rows: int, cols: int, sms: int = H100_SMS, cs=None):
-    """Launch shape of the quantizer over a [rows, cols] tile grid ->
-    (cluster width cs, threads per CTA, CTAs in the grid).  One cluster
-    per tile; CTA r of a cluster holds rows [r*32/cs, (r+1)*32/cs) of its
-    tile.  Unless cs is given, the widest cs in {1, 2, 4} whose grid still
-    fits `sms` SMs one CTA each: a split only pays when every part gets an
-    SM of its own, since a cluster barrier costs about a microsecond."""
-    tiles = (rows // BLK_R) * (cols // BLK_C)
-    if cs is None:
-        cs = 1
-        while cs < 4 and tiles * cs * 2 <= sms:
-            cs *= 2
-    if cs not in QUANT_THREADS:
-        raise ValueError(f"quantizer cluster width {cs} not in "
-                         f"{sorted(QUANT_THREADS)}")
-    return cs, QUANT_THREADS[cs], tiles * cs
+def _lib() -> ctypes.CDLL:
+    """The quantizer library, its two entry points bound once."""
+    lib = build.load("quantize")
+    for fn in (lib.quantize_int8_launch, lib.dequantize_int8_launch):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check_tiled(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -141,11 +101,10 @@ def _launch_quantize(x, q, s, rows: int, cols: int, n: int) -> None:
     """quant_kernel over the [rows, cols] tile grid of x's first n
     elements, into q (n int8) and s (one scale a tile)."""
     dev = x.device
-    cs, _, _ = quant_plan(rows, cols, _sm_count(dev.index), QUANT_CS)
     with torch.cuda.device(dev):
-        err = _lib().quantize(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                              rows, cols, n, cs,
-                              torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib().quantize_int8_launch(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, cols, n,
+            torch.cuda.current_stream(dev).cuda_stream)
     quantize_int8.launches += 1
     build.check(err, "quantize_int8 launch")
 
@@ -153,9 +112,9 @@ def _launch_quantize(x, q, s, rows: int, cols: int, n: int) -> None:
 def _launch_dequantize(q, s, out, rows: int, cols: int, n: int) -> None:
     dev = q.device
     with torch.cuda.device(dev):
-        err = _lib().dequantize(q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                                rows, cols, n,
-                                torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib().dequantize_int8_launch(
+            q.data_ptr(), s.data_ptr(), out.data_ptr(), rows, cols, n,
+            torch.cuda.current_stream(dev).cuda_stream)
     dequantize_int8.launches += 1
     build.check(err, "dequantize_int8 launch")
 
@@ -246,10 +205,10 @@ def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor,
                          f"scales on one device, got {q.dtype} on "
                          f"{q.device} and {s.dtype} on {s.device}")
     _check_aligned(flat, "dequantize_blockwise")
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=q.device)
-    if out.numel() != n:
+    if int(np.prod(tuple(shape), dtype=np.int64)) != n:
         raise ValueError(f"dequantize_blockwise: shape {tuple(shape)} does "
                          f"not hold {n} values")
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=q.device)
     _launch_dequantize(flat, sf, out, nblk * BLK_R, BLK_C, n)
     return out
 

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Time the port's int8 block quantizer pair (jubatus_tpu_torch/csrc/
-quantize.cu) against an earlier version of it on one CUDA card, and sweep
-the quantizer's cluster width.
+quantize.cu) against an earlier version of it on one CUDA card.
 
     python3 scripts/torch_quant_ab.py --earlier DIR [--out FILE]
 
@@ -9,8 +8,8 @@ DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists); its
 jubatus_tpu_torch/csrc/quantize.cu must have the slice-1 C entry points
 (quantize_int8_launch / dequantize_int8_launch over a whole [rows, cols]
-tile grid, without n, cluster width or threads).  Both sources are built
-with the flags of jubatus_tpu_torch/kernels/build.py.
+tile grid, without n).  Both sources are built with the flags of
+jubatus_tpu_torch/kernels/build.py.
 
 Every time is the card's alone: launches into preallocated outputs,
 captured into a CUDA graph and replayed between CUDA events (chip_smoke's
@@ -20,13 +19,11 @@ whole [32, 2^20] table ([65536, 512], 2048 tiles).  At each, the earlier
 and current kernels run in turns (earlier, current, current, earlier),
 after a check that both give the same bytes, beside PyTorch's own cast
 kernel moving the same bytes (`copy_` of f32 into int8, and of int8 into
-f32: what an elementwise pass of this traffic reaches on the card).  Then
-the sweep of the quantizer's cluster width CS in {1, 2, 4} at 8, 33, 66,
-80 and 2048 tiles (quant_plan's choice marked; CS 1 first and last, for
-the spread).  Last, the blockwise wire form at the round's [32, 40883]
-diff tensor: the earlier wrapper's zeroed staging buffer, copy and launch
-against the current single launch, in turns, by the same method.  Prints
-one `quant_ab {...}` JSON line (with the card's name and power limit) and
+f32: what an elementwise pass of this traffic reaches on the card).
+Last, the blockwise wire form at the round's [32, 40883] diff tensor:
+the earlier wrapper's zeroed staging buffer, copy and launch against the
+current single launch, in turns, by the same method.  Prints one
+`quant_ab {...}` JSON line (with the card's name and power limit) and
 writes it to FILE when given.
 """
 
@@ -43,7 +40,6 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 SHAPES = {"mix_round": (2560, 512), "whole_table": (65536, 512)}
-SWEEP_TILES = (8, 33, 66, 80, 2048)
 DIFF_SHAPE = (32, 40883)        # the MIX round's w / cov diff tensor
 EARLIER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
     ctypes.c_void_p]
@@ -96,7 +92,7 @@ def main() -> int:
         return (5 * elems + 4 * (elems // tq._BLOCK)) \
             / smoke.HBM_BYTES_PER_S * 1e3
 
-    result = {"card": card, "sweep": []}
+    result = {"card": card}
     rng = np.random.default_rng(0)
 
     def tile_grid(rows, cols):
@@ -111,33 +107,9 @@ def main() -> int:
                  for _ in xs],
                 [torch.empty((rows, cols), device=dev) for _ in xs])
 
-    # the cluster-width sweep: every CS at tile counts on both sides of
-    # quant_plan's rule
-    for tiles in SWEEP_TILES:
-        xs, qs, ss, _ = tile_grid(tiles * 32, 512)
-        it = [0]
-
-        def launch(cs):
-            def call():
-                i = it[0] = (it[0] + 1) % len(xs)
-                build.check(lib.quantize(
-                    xs[i].data_ptr(), qs[i].data_ptr(), ss[i].data_ptr(),
-                    tiles * 32, 512, tiles * 16384, cs, stream()),
-                    "quantize")
-            return call
-
-        calls = 20 if tiles >= 1024 else 200
-        row = {"tiles": tiles, "planned_cs": tq.quant_plan(tiles * 32, 512)[0],
-               "cs_ms": [[cs, smoke.time_device(torch, launch(cs), calls)[0]]
-                         for cs in (1, 2, 4, 1)]}
-        result["sweep"].append(row)
-        print(f"quant_ab: sweep {row}", flush=True)
-        del xs, qs, ss
-
     for key, (rows, cols) in SHAPES.items():
         n = rows * cols
         xs, qs, ss, outs = tile_grid(rows, cols)
-        cs0 = tq.quant_plan(rows, cols)[0]
         it = [0]
 
         def rot(fn):
@@ -157,12 +129,12 @@ def main() -> int:
                 cols, stream()), "earlier dequantize")
 
         def q_current(i):
-            build.check(lib.quantize(
+            build.check(lib.quantize_int8_launch(
                 xs[i].data_ptr(), qs[i].data_ptr(), ss[i].data_ptr(), rows,
-                cols, n, cs0, stream()), "quantize")
+                cols, n, stream()), "quantize")
 
         def d_current(i):
-            build.check(lib.dequantize(
+            build.check(lib.dequantize_int8_launch(
                 qs[i].data_ptr(), ss[i].data_ptr(), outs[i].data_ptr(), rows,
                 cols, n, stream()), "dequantize")
 
@@ -198,7 +170,7 @@ def main() -> int:
         cast = {"f32_to_int8": timed(lambda i: qs[i].copy_(xs[i])),
                 "int8_to_f32": timed(lambda i: outs[i].copy_(qs[i]))}
         result[key] = {"shape": [rows, cols], "bound_ms": bound_ms(n),
-                       "cs": cs0, "turns_ms": turns, "cast_ms": cast,
+                       "turns_ms": turns, "cast_ms": cast,
                        "bytes_equal": same}
         print(f"quant_ab: {key}: turns {turns} cast {cast}", flush=True)
         del xs, qs, ss, outs

@@ -225,61 +225,6 @@ def test_nan_block_of_a_run_gets_a_nan_scale_like_the_host_codec():
     np.testing.assert_array_equal(qt.numpy()[keep], qn[keep])
 
 
-# -- the quantizer's launch plan ------------------------------------------------
-
-def _kernel_elements(rows, cols, cs, threads, grid):
-    """Flat index of every element each CTA's threads read, by
-    csrc/quantize.cu quant_kernel's index math: CTA b serves tile b // cs
-    from its row b % cs * 32/cs on; thread t reads float4 j = t + k*threads,
-    row j // 128 and column 4 * (j % 128) of its share.  Returns (CTA of
-    each element, flat index of each element)."""
-    v = 16384 // 4 // (cs * threads)
-    assert v * cs * threads == 4096
-    b = np.arange(grid)[:, None, None]
-    tile, rank = b // cs, b % cs
-    nbc = cols // 512
-    base = ((tile // nbc) * 32 + rank * (32 // cs)) * cols + \
-        (tile % nbc) * 512
-    j = np.arange(threads)[None, :, None] + \
-        np.arange(v)[None, None, :] * threads
-    f = base + (j // 128) * cols + (j % 128) * 4
-    f = (f[..., None] + np.arange(4)).reshape(grid, -1)
-    return np.broadcast_to(np.arange(grid)[:, None], f.shape), f
-
-
-@pytest.mark.parametrize("rows,cols", [(32, 512), (96, 1536), (2560, 512),
-                                       (64, 2048)])
-@pytest.mark.parametrize("cs", [None, 1, 2, 4])
-def test_quant_plan_covers_every_tile_once(rows, cols, cs):
-    got_cs, threads, grid = tq.quant_plan(rows, cols, cs=cs)
-    tiles = rows // 32 * cols // 512
-    assert 32 % got_cs == 0 and grid == tiles * got_cs
-    if cs is not None:
-        assert got_cs == cs
-    cta, f = _kernel_elements(rows, cols, got_cs, threads, grid)
-    assert np.array_equal(np.bincount(f.reshape(-1),
-                                      minlength=rows * cols),
-                          np.ones(rows * cols, np.int64))
-    row, col = f // cols, f % cols
-    assert np.array_equal((row // 32) * (cols // 512) + col // 512,
-                          cta // got_cs)
-
-
-@pytest.mark.parametrize("tiles,sms,cs", [(80, 132, 1), (2048, 132, 1),
-                                          (1, 132, 4), (33, 132, 4),
-                                          (34, 132, 2), (66, 132, 2),
-                                          (67, 132, 1), (132, 132, 1)])
-def test_quant_plan_splits_tiles_only_while_each_cta_has_an_sm(tiles, sms,
-                                                               cs):
-    assert tq.quant_plan(tiles * 32, 512, sms) == \
-        (cs, tq.QUANT_THREADS[cs], tiles * cs)
-
-
-def test_quant_plan_refuses_widths_the_kernel_lacks():
-    with pytest.raises(ValueError):
-        tq.quant_plan(32, 512, cs=3)
-
-
 def test_unaligned_views_are_refused_before_a_launch():
     tq._check_aligned(torch.zeros(16), "x")
     with pytest.raises(ValueError, match="16-byte"):

@@ -774,6 +774,14 @@ def phase_mix(torch, np, card):
         f"{stats['raw']} f32 bytes, quantize_int8 launches "
         f"{counts['quantize_int8']}, dequantize_int8 launches "
         f"{counts['dequantize_int8']}")
+    # the round's merged diff on the v3 wire: the same bytes whether the
+    # kernels or the host codec quantize it
+    wire_card = codec.packb(encode_wire_diff(tensors[2], True, "cuda"))
+    if wire_card != codec.packb(encode_wire_diff(tensors[2], True, "cpu")):
+        raise AssertionError("v3 wire bytes of the merged diff differ "
+                             "between the card's codec and the host's")
+    log(f"mix: the merged diff's {len(wire_card)} wire bytes are the same "
+        f"from the card's codec and the host's")
 
     # the same v3 round with the codec on the host (the quantizer's plain
     # version on the CPU, the JAX package's numpy math), from freshly

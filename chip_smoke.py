@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card, nvcc
 of JAX or of the JAX package.  Phases, each of which fails the run:
 
   1. card     — nvidia-smi name/power limit, torch device name
-  2. build    — nvcc builds every kernel of the port from csrc/, in parallel
+  2. build    — nvcc builds every kernel of the port from csrc/, in parallel,
+                and cc the native converter (native/)
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the shapes the main path gives it: quantize_int8 /
                 dequantize_int8 bitwise (tiled views up to a whole
@@ -22,10 +23,24 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 version's, with its µs per datum and ring depth
   4. server   — the classifier server (jubatus_tpu_torch.cli.server, device
                 cuda, the bench AROW configuration at hash_max_size 2^20,
-                sequential microbatch) answers a wire session: 8192-datum
-                train requests over 32 labels, classify, get_labels, save,
-                load; the scan kernel must have launched; scores of a small
-                stream must agree with the CPU reference driver
+                sequential microbatch, default routing: its train frames
+                take the native ingest pipeline — C conversion into pinned
+                pooled arenas, one copy to the card, the scan kernel on the
+                dispatch thread) answers a wire session: 8192-datum train
+                requests over 32 labels (timed, then again under
+                torch.profiler for the card's busy share), classify,
+                get_labels, save, load; get_status must report fast_path
+                True, ingest_pipeline 1, dispatch_mode threaded; the scan
+                kernel must have launched; the port must log no warning;
+                scores of a small stream must agree with the CPU reference
+                driver.  The reuse check: the request frames three times
+                over through an IngestPipeline (pool arenas reused after
+                the sync fences) and through train_raw with a synchronize
+                after each leave w, cov and counts bitwise equal, and every
+                copied arena is pinned.  The main_path line splits one
+                request: the decoded route's stages, the C converter alone
+                (native_convert) and the raw step with its copy and scan up
+                to a synchronize (raw_dispatch)
   5. mix      — one blockwise-int8 (v3) MIX round between two drivers on the
                 card: replicas bitwise equal afterwards, drift from an f32
                 round within the accumulated quantization bound, both
@@ -51,6 +66,7 @@ when the port's package is not beside this script.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import socket
 import subprocess
@@ -574,8 +590,115 @@ def time_quantizer(torch, np, diff_shape):
     return rows
 
 
+class PortWarnings(logging.Handler):
+    """Collects the WARNING (and worse) records of the port's loggers."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def check(self, where):
+        bad = [f"[{r.threadName}] {r.name}: {r.getMessage()}"
+               for r in self.records]
+        if bad:
+            raise AssertionError(f"{where}: the port logged warnings: {bad}")
+
+
+def time_device_busy(torch, run):
+    """Device time (kernels and copies, by torch.profiler) inside `run()`,
+    beside its wall time on the host clock.  Returns (device_ms, wall_ms),
+    device_ms None when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is not None \
+                and str(ev.device_type).endswith("CUDA"):
+            us += float(getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0)))
+    return (us / 1e3 if us > 0 else None), wall_ms
+
+
+def reuse_check(torch, frames, rounds=3):
+    """The same 8192-datum frames, `rounds` times over, through an
+    IngestPipeline on a fresh cuda driver (one frame a window, the arena
+    pool at its default size, so arenas are reused once the sync fences
+    release them) and through train_raw with a synchronize after each on
+    another: w, cov and counts must be bitwise equal.  Every arena the
+    pipeline copied must be pinned."""
+    from jubatus_tpu_torch.batching.arenas import PINNED_POOL, pinned_tensor
+    from jubatus_tpu_torch.framework.dispatch import IngestPipeline
+    from jubatus_tpu_torch.models.classifier import ClassifierDriver
+    from jubatus_tpu_torch.utils.rwlock import RWLock
+
+    class Slot:
+        def __init__(self, driver):
+            self.driver = driver
+            self.model_lock = RWLock()
+            self.update_count = 0
+
+        def event_model_updated(self):
+            self.update_count += 1
+
+    pooled = ClassifierDriver(SERVER_CONFIG, device="cuda")
+    pinned = []
+    step = pooled.train_converted_batch
+
+    def checked_step(rb):
+        host = pinned_tensor(rb.arena)
+        pinned.append(host is not None and host.is_pinned())
+        return step(rb)
+
+    pooled.train_converted_batch = checked_step
+    hits0, misses0 = PINNED_POOL.hits, PINNED_POOL.misses
+    pipe = IngestPipeline(Slot(pooled), max_batch=1, max_wait_s=0.0)
+    try:
+        futs = [pipe.submit(m, o) for _ in range(rounds) for m, o in frames]
+        if [f.result(timeout=600) for f in futs] != [REQ_B] * len(futs):
+            raise AssertionError("reuse check: a window trained a wrong count")
+        pipe.flush()
+    finally:
+        pipe.stop()
+    pooled.device_sync()
+    hits, misses = PINNED_POOL.hits - hits0, PINNED_POOL.misses - misses0
+    ref = ClassifierDriver(SERVER_CONFIG, device="cuda")
+    for _ in range(rounds):
+        for m, o in frames:
+            ref.train_raw(m, o)
+            torch.cuda.synchronize()
+    if pooled.labels != ref.labels:
+        raise AssertionError("reuse check: label rows differ")
+    for name in ("w", "cov", "counts"):
+        if not torch.equal(getattr(pooled, name), getattr(ref, name)):
+            raise AssertionError(f"reuse check: {name} differs from "
+                                 f"train_raw + synchronize: an arena was "
+                                 f"rewritten before its copy finished?")
+    if len(pinned) != rounds * len(frames) or not all(pinned):
+        raise AssertionError(f"reuse check: {pinned.count(False)} of "
+                             f"{len(pinned)} copied arenas not pinned")
+    warm = IngestPipeline.SYNC_EVERY + pipe.depth + 1
+    if hits <= 0 or misses > warm:
+        raise AssertionError(f"reuse check: arena pool {hits} hits, {misses} "
+                             f"misses (warm-up bound {warm})")
+    log(f"server: reuse check: {rounds * len(frames)} windows through pinned "
+        f"pool arenas ({hits} hits, {misses} misses, warm-up bound {warm}) "
+        f"leave w, cov, counts bitwise equal to train_raw + synchronize")
+    return {"windows": rounds * len(frames), "pool_hits": hits,
+            "pool_misses": misses}
+
+
 def phase_server(torch, np, card):
-    """Phase 4: the wire session against the port server on cuda."""
+    """Phase 4: the wire session against the port server on cuda, whose
+    train frames take the native raw path (IngestPipeline)."""
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.batching.arenas import PINNED_POOL
     from jubatus_tpu_torch.cli.server import serve
     from jubatus_tpu_torch.framework.server_base import (kernel_launches,
                                                          reset_kernel_launches)
@@ -585,6 +708,8 @@ def phase_server(torch, np, card):
     rng = np.random.default_rng(1)
     reqs = [bench_batch(rng, REQ_B) for _ in range(N_TRAIN_REQS)]
     query = [d for _, d in reqs[0][:N_LABELS]]
+    warnings = PortWarnings()
+    logging.getLogger("jubatus_tpu_torch").addHandler(warnings)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg_path = os.path.join(tmp, "classifier.json")
         with open(cfg_path, "w") as f:
@@ -596,6 +721,7 @@ def phase_server(torch, np, card):
             cli = WireClient(server.args.rpc_port)
             # pre-encode outside the timed window, as bench.py's client does
             frames = [cli.frame("train", r) for r in reqs]
+            pool0 = (PINNED_POOL.hits, PINNED_POOL.misses)
             reset_kernel_launches()
             t0 = time.perf_counter()
             for frame in frames:
@@ -604,12 +730,23 @@ def phase_server(torch, np, card):
                     raise AssertionError(f"train acknowledged {n!r} datums")
             res = cli.call("classify", query)   # reads scores back: a fence
             train_s = time.perf_counter() - t0
+            pool = (PINNED_POOL.hits - pool0[0], PINNED_POOL.misses - pool0[1])
+
+            # the card's busy share of a request: the same frames again,
+            # under torch.profiler
+            def again():
+                for frame in frames:
+                    cli.send(frame, "train")
+                cli.call("get_labels")          # a read: waits for the steps
+
+            busy_ms, busy_wall_ms = time_device_busy(torch, again)
             lat = []
             for i in range(20):
                 t1 = time.perf_counter()
                 cli.call("classify", [query[i % len(query)]])
                 lat.append((time.perf_counter() - t1) * 1e3)
             labels = cli.call("get_labels")
+            before = cli.call("classify", query)
             saved = cli.call("save", "smoke")
             loaded = cli.call("load", "smoke")
             after = cli.call("classify", query)
@@ -618,8 +755,11 @@ def phase_server(torch, np, card):
             counts = kernel_launches()
         finally:
             rpc.stop()
+            server.stop()
+    logging.getLogger("jubatus_tpu_torch").removeHandler(warnings)
+    warnings.check("phase 4 server session")
 
-    sent = REQ_B * N_TRAIN_REQS
+    sent = 2 * REQ_B * N_TRAIN_REQS
     if sum(labels.values()) != sent or len(labels) != N_LABELS:
         raise AssertionError(f"get_labels sums to {sum(labels.values())} "
                              f"over {len(labels)} labels, sent {sent}")
@@ -628,7 +768,7 @@ def phase_server(torch, np, card):
     scores = np.array([[sc for _, sc in r] for r in res])
     if not np.isfinite(scores).all() or not np.abs(scores).max() > 0:
         raise AssertionError("classify scores not finite and non-zero")
-    if after != res:
+    if after != before:
         raise AssertionError("classify changed across save/load")
     if not (len(saved) == 1 and loaded is True):
         raise AssertionError(f"save/load failed: {saved!r} {loaded!r}")
@@ -637,6 +777,18 @@ def phase_server(torch, np, card):
         raise AssertionError("the scan kernel never launched on the main path")
     if st["device"].split(":")[0] != "cuda":
         raise AssertionError(f"server ran on {st['device']}")
+    if (st["fast_path"], st["ingest_pipeline"], st["dispatch_mode"]) != \
+            ("True", "1", "threaded"):
+        raise AssertionError(
+            f"the server's train path is not the native ingest pipeline: "
+            f"fast_path {st['fast_path']}, ingest_pipeline "
+            f"{st['ingest_pipeline']}, dispatch_mode {st['dispatch_mode']}")
+
+    # the pinned-arena reuse check, on the request frames as sent
+    splitter = native.load()
+    wire = [(f, splitter.parse_envelope(f, 0)[4]) for f in frames]
+    reuse = reuse_check(torch, wire)
+    warnings.check("reuse check")
 
     # small-input reference: the same 512-datum stream through a driver on
     # the card and the CPU reference driver (plain versions); scores agree
@@ -673,18 +825,44 @@ def phase_server(torch, np, card):
     fresh.train(data)
     torch.cuda.synchronize()
     train_call_ms = (time.perf_counter() - t0) * 1e3
-    main = {"samples_per_s": sent / train_s,
-            "train_request_ms": train_s / N_TRAIN_REQS * 1e3,
+    # the raw path's stages for one request, on a fresh driver whose
+    # labels are interned and whose pool holds a warm arena: one
+    # convert_raw_batch of one frame alone, then train_converted_batch
+    # (the copy of the pinned arena to the card and the scan kernel) up to
+    # a synchronize
+    raw = ClassifierDriver(SERVER_CONFIG, device="cuda")
+    warm = raw.convert_raw_batch([wire[0]])
+    raw.train_converted_batch(warm)
+    torch.cuda.synchronize()
+    PINNED_POOL.release(warm.arena)
+    t0 = time.perf_counter()
+    rb = raw.convert_raw_batch([wire[1]])
+    native_convert_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    raw.train_converted_batch(rb)
+    torch.cuda.synchronize()
+    raw_dispatch_ms = (time.perf_counter() - t0) * 1e3
+    train_request_ms = train_s / N_TRAIN_REQS * 1e3
+    main = {"samples_per_s": REQ_B * N_TRAIN_REQS / train_s,
+            "train_request_ms": train_request_ms,
             "classify_ms_p50": float(np.median(lat)),
             "train_requests": N_TRAIN_REQS, "datums_per_request": REQ_B,
             "split_ms": {"wire_to_datum": parse_ms,
                          "convert_alone": convert_ms,
-                         "driver_train": train_call_ms},
+                         "driver_train": train_call_ms,
+                         "native_convert": native_convert_ms,
+                         "raw_dispatch": raw_dispatch_ms},
+            "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
+            "device_busy_share": (busy_ms / busy_wall_ms
+                                  if busy_ms is not None else None),
+            "arena_pool": {"hits": pool[0], "misses": pool[1],
+                           "reuse_check": reuse},
             "card": card}
-    log(f"server: {sent} datums in {N_TRAIN_REQS} train requests, "
-        f"get_labels sum {sum(labels.values())}, train_scan launches "
-        f"{counts['train_scan']}, cuda-vs-cpu scores max |diff| "
-        f"{np.abs(got - ref).max():.3g}")
+    log(f"server: {sent} datums in {2 * N_TRAIN_REQS} train requests through "
+        f"the ingest pipeline, get_labels sum {sum(labels.values())}, "
+        f"train_scan launches {counts['train_scan']}, arena pool {pool[0]} "
+        f"hits / {pool[1]} misses over the timed requests, cuda-vs-cpu "
+        f"scores max |diff| {np.abs(got - ref).max():.3g}")
     log("main_path " + json.dumps(main))
     return counts
 
@@ -852,6 +1030,10 @@ def main() -> int:
     times = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    from jubatus_tpu_torch import native
+    t0 = time.perf_counter()
+    log(f"build: native converter {native.load().__file__} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in build.KERNELS:
         for line in build.build_log(name).splitlines():
             if ("registers" in line or "spill" in line

@@ -35,21 +35,46 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--eth", default="", help="advertised address override")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where model state and kernels run")
+    p.add_argument("--batch_max", type=int, default=16,
+                   help="max train requests fused into one device step")
+    p.add_argument("--batch_window_us", type=float, default=2000.0,
+                   help="adaptive batching-window ceiling in microseconds: "
+                        "the dispatcher may linger up to this long for more "
+                        "requests under load (it stays at 0 at low load); "
+                        "0 disables lingering")
+    p.add_argument("--ingest_depth", type=int, default=2,
+                   help="native ingest pipeline: depth of the bounded "
+                        "convert->dispatch hand-off queue (window W+1 "
+                        "converts in one C call while window W's step "
+                        "runs).  0 disables the pipeline: train requests "
+                        "are converted one by one on the RPC workers")
+    p.add_argument("--arena_pool", type=int, default=4,
+                   help="native ingest pipeline: recycled host arenas "
+                        "(pinned for --device cuda) kept per size class, "
+                        "released back at device-sync fences.  0 disables "
+                        "pooling: every window allocates")
     return p
 
 
 def serve(argv: Optional[Sequence[str]] = None
           ) -> Tuple[JubatusServer, RpcServer]:
     """Build the server and start answering RPCs on a background thread;
-    returns (server, rpc).  rpc.stop() ends it."""
+    returns (server, rpc).  rpc.stop() and then server.stop() end it."""
     ns = _parser().parse_args(argv)
     args = ServerArgs(type=ns.type, name=ns.name, rpc_port=ns.rpc_port,
                       bind_address=ns.listen_addr, datadir=ns.datadir,
-                      configpath=ns.configpath, eth=ns.eth, device=ns.device)
+                      configpath=ns.configpath, eth=ns.eth, device=ns.device,
+                      batch_max=ns.batch_max,
+                      batch_window_us=ns.batch_window_us,
+                      ingest_depth=ns.ingest_depth, arena_pool=ns.arena_pool)
     server = JubatusServer(args)
     rpc = RpcServer()
     bind_service(server, rpc)
-    port = rpc.start(args.rpc_port, host=args.bind_address)
+    try:
+        port = rpc.start(args.rpc_port, host=args.bind_address)
+    except BaseException:
+        server.stop()
+        raise
     args.rpc_port = port  # with --rpc-port 0, server_id uses the bound port
     logging.info("jubatus_tpu_torch %s server listening on %s:%d (device %s)",
                  args.type, args.bind_address, port, server.driver.device)
@@ -67,6 +92,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"state=ready", flush=True)
     stop.wait()
     rpc.stop()
+    server.stop()
     return 0
 
 

@@ -8,11 +8,21 @@ reports device numbers really ran on the device.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import contextlib
+from typing import ContextManager, Dict, Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+
+def device_context(device: torch.device) -> ContextManager:
+    """A `with` context that makes `device` the calling thread's current
+    CUDA device (kernels launch on the current device); nothing on the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

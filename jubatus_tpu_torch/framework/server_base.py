@@ -1,11 +1,12 @@
 """The port's per-process model host (counterpart of
 jubatus_tpu/framework/server_base.py, one model per process).
 
-It builds the engine's driver on its device, counts updates, and answers
-the common RPCs: get_config, save, load, clear and get_status.  Model
-files use the reference format (framework/save_load.py) with the JAX
-package's naming and user-data version, so a file saved by either package
-loads in the other.
+It builds the engine's driver on its device, holds the model lock and the
+raw-train dispatcher (the JAX server's default model slot), counts
+updates, and answers the common RPCs: get_config, save, load, clear and
+get_status.  Model files use the reference format (framework/save_load.py)
+with the JAX package's naming and user-data version, so a file saved by
+either package loads in the other.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import jubatus_tpu_torch
+from jubatus_tpu_torch.batching.arenas import pool_for
 from jubatus_tpu_torch.device import device_telemetry
 from jubatus_tpu_torch.framework.save_load import load_model, save_model
 from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
+from jubatus_tpu_torch.utils.rwlock import RWLock
 
 USER_DATA_VERSION = 1
 
@@ -55,6 +58,11 @@ class ServerArgs:
     configpath: str = ""
     eth: str = ""                # advertised address override
     device: str = "cuda"
+    # micro-batching and native ingest knobs (the JAX server's defaults)
+    batch_max: int = 16
+    batch_window_us: float = 2000.0
+    ingest_depth: int = 2
+    arena_pool: int = 4
 
 
 class JubatusServer:
@@ -66,6 +74,12 @@ class JubatusServer:
         self.config_str = config
         self.driver = create_driver(args.type, json.loads(config),
                                     device=args.device)
+        # readers (classify, get_labels, save) share; updates and the
+        # dispatch thread's fused steps are exclusive
+        self.model_lock = RWLock()
+        # raw-train dispatcher (framework/service.setup_slot_pipelines)
+        self.dispatcher = None
+        self.dispatch_mode = "threaded"
         self.update_count = 0
         self.start_time = time.time()
         # the advertised address: --eth, else the bind address (a
@@ -94,7 +108,8 @@ class JubatusServer:
         if not model_id or "/" in model_id:
             raise ValueError(f"invalid model id: {model_id!r}")
         path = self._model_path(model_id)
-        data = self.driver.pack()
+        with self.model_lock.read():
+            data = self.driver.pack()
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "wb") as fp:
             save_model(fp, server_type=self.args.type, model_id=model_id,
@@ -112,16 +127,25 @@ class JubatusServer:
             data = load_model(fp, server_type=self.args.type,
                               expected_config=self.config_str,
                               user_data_version=USER_DATA_VERSION)
-        self.driver.unpack(data)
-        self.event_model_updated()
+        with self.model_lock.write():
+            self.driver.unpack(data)
+            self.event_model_updated()
         return True
 
     def clear(self) -> bool:
-        self.driver.clear()
-        self.event_model_updated()
+        with self.model_lock.write():
+            self.driver.clear()
+            self.event_model_updated()
         return True
 
+    def stop(self) -> None:
+        """Stop the raw-train dispatcher's threads; queued requests fail
+        with "server stopping"."""
+        if self.dispatcher is not None:
+            self.dispatcher.stop()
+
     def get_status(self) -> Dict[str, Dict[str, str]]:
+        pool = pool_for(self.driver.device)
         st: Dict[str, str] = {
             "type": self.args.type,
             "name": self.args.name,
@@ -132,6 +156,20 @@ class JubatusServer:
             "version": jubatus_tpu_torch.__version__,
             "is_standalone": "1",
             "device": str(self.driver.device),
+            # whether the native wire converter covers this config
+            "fast_path": str(getattr(self.driver, "_fast", None) is not None),
+            "dispatch_mode": self.dispatch_mode,
+            "batch_max": str(self.args.batch_max),
+            "batch_window_us": str(self.args.batch_window_us),
+            # whether raw train frames go through the IngestPipeline
+            "ingest_pipeline": str(int(getattr(
+                self.dispatcher, "accepts_raw_frames", False))),
+            "ingest_depth": str(self.args.ingest_depth),
+            "arena_pool": str(self.args.arena_pool),
+            "arena_pool_hit_total": str(pool.hits),
+            "arena_pool_miss_total": str(pool.misses),
+            "ingest_pipeline_stall_total": str(getattr(self.dispatcher,
+                                                       "stalls", 0)),
         }
         for name, n in kernel_launches().items():
             st[f"kernel_launches.{name}"] = str(n)

@@ -3,9 +3,16 @@ jubatus_tpu/framework/service.py, classifier table + common RPCs).
 
 Each service is a table of Method specs bound to driver callables.  Every
 method takes the cluster `name` as wire argument 0 (dropped server-side),
-and datum/result shapes follow the reference IDL.  Update methods bump the
-server's update counter; all handlers run on the RPC event-loop thread.
-do_mix, the journal, tenancy and the observability planes are later work.
+and datum/result shapes follow the reference IDL.
+
+Locking follows the reference's JRLOCK_/JWLOCK_: read handlers hold the
+model read lock, update handlers first flush() the raw-train dispatcher
+(so every acked train lands before them) and then hold the write lock.
+Decoded handlers run on the RPC event loop.  Wire `train` frames take the
+raw route (raw_train): with an eligible converter config they go to the
+IngestPipeline (framework/dispatch.py) without being decoded in Python;
+otherwise they are decoded and trained like any update.  do_mix, the
+journal, tenancy, quotas and the observability planes are later work.
 """
 
 from __future__ import annotations
@@ -13,6 +20,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List
 
+import msgpack
+
+from jubatus_tpu_torch.batching.arenas import configure_pools
 from jubatus_tpu_torch.fv import Datum
 
 
@@ -20,7 +30,7 @@ from jubatus_tpu_torch.fv import Datum
 class Method:
     name: str
     fn: Callable[..., Any]        # fn(server, *wire_args) -> wire result
-    update: bool = False          # counts as a model update
+    update: bool = False          # write-locks + counts as a model update
 
 
 class ServiceDef:
@@ -46,29 +56,117 @@ def _datum(obj) -> Datum:
     return Datum.from_msgpack(obj)
 
 
+def _build_train_dispatcher(server):
+    """The raw-train dispatcher: the IngestPipeline when the native
+    batched converter is live for the config and --ingest_depth > 0,
+    else the per-request-convert TrainDispatcher."""
+    from jubatus_tpu_torch.framework.dispatch import (IngestPipeline,
+                                                      TrainDispatcher)
+    args = server.args
+    max_wait = args.batch_window_us / 1e6
+    drv = server.driver
+    if args.ingest_depth > 0 and hasattr(drv, "convert_raw_batch") \
+            and getattr(drv, "_fast", None) is not None:
+        return IngestPipeline(server, max_batch=args.batch_max,
+                              max_wait_s=max_wait, depth=args.ingest_depth)
+    return TrainDispatcher(server, max_batch=args.batch_max,
+                           max_wait_s=max_wait)
+
+
+def setup_slot_pipelines(server) -> None:
+    """The raw-train dispatcher of the server's one model slot (threaded
+    dispatch; the read-coalescing lane is later work)."""
+    sd = SERVICES.get(server.args.type)
+    if (sd is not None and "train" in sd.methods
+            and server.dispatcher is None
+            and hasattr(server.driver, "train_raw")
+            and hasattr(server.driver, "convert_raw_request")):
+        server.dispatcher = _build_train_dispatcher(server)
+
+
 def bind_service(server, rpc_server) -> None:
-    """Attach the server's service methods and the common RPCs."""
+    """Attach the server's service methods, its raw train route and the
+    common RPCs."""
     sd = SERVICES[server.args.type]
+    configure_pools(server.args.arena_pool)
+    server.dispatch_mode = "threaded"
+    setup_slot_pipelines(server)
+
+    def _flush():
+        # order acked raw trains before any other model change; never
+        # under the model lock (framework/dispatch.py)
+        if server.dispatcher is not None:
+            server.dispatcher.flush()
 
     def wrap(m: Method):
         if m.update:
             def handler(_name, *args, _m=m):
-                result = _m.fn(server, *args)
-                server.event_model_updated()
+                # the tenant quota and journal write checks go here
+                _flush()
+                with server.model_lock.write():
+                    result = _m.fn(server, *args)
+                    server.event_model_updated()
+                    # the journal record of the update goes here
                 return result
         else:
             def handler(_name, *args, _m=m):
-                return _m.fn(server, *args)
+                with server.model_lock.read():
+                    return _m.fn(server, *args)
         return handler
 
     for m in sd.methods.values():
         rpc_server.add(m.name, wrap(m))
 
+    if "train" in sd.methods and hasattr(server.driver, "train_raw"):
+        _plain_train = wrap(sd.methods["train"])
+
+        def raw_train(msg: bytes, params_off: int):
+            """Runs on an RPC worker thread.  Returns the result, or a
+            Future the RPC layer awaits before the ack."""
+            drv = server.driver
+            if drv._fast is None:
+                # the config needs the Python converter: decode and train
+                # like any update (the reference's routing)
+                params = msgpack.unpackb(msg, raw=False,
+                                         strict_map_key=False,
+                                         unicode_errors="surrogateescape")[3]
+                return _plain_train(*params)
+            dispatcher = server.dispatcher
+            if getattr(dispatcher, "accepts_raw_frames", False):
+                # the frame goes straight to the pipeline's convert stage;
+                # frames arrive in wire order and its queues are FIFO
+                return dispatcher.submit(msg, params_off)
+            if dispatcher is not None:
+                # per-request route: convert here WITHOUT the model lock
+                # (overlapping earlier steps), submit under convert_lock so
+                # conversion order is queue order
+                with drv.convert_lock:
+                    conv = drv.convert_raw_request(msg, params_off)
+                    return dispatcher.submit((conv, msg, params_off))
+            with server.model_lock.write():
+                result = drv.train_raw(msg, params_off)
+                server.event_model_updated()
+            return result
+
+        rpc_server.add_raw("train", raw_train)
+
+    def _save(_n, mid):
+        _flush()
+        return server.save(_to_str(mid))
+
+    def _load(_n, mid):
+        _flush()
+        return server.load(_to_str(mid))
+
+    def _clear(_n):
+        _flush()
+        return server.clear()
+
     rpc_server.add("get_config", lambda _n: server.get_config())
-    rpc_server.add("save", lambda _n, mid: server.save(_to_str(mid)))
-    rpc_server.add("load", lambda _n, mid: server.load(_to_str(mid)))
+    rpc_server.add("save", _save)
+    rpc_server.add("load", _load)
     rpc_server.add("get_status", lambda _n: server.get_status())
-    rpc_server.add("clear", lambda _n: server.clear())
+    rpc_server.add("clear", _clear)
 
 
 # ---------------------------------------------------------------------------

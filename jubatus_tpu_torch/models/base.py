@@ -10,21 +10,22 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 import numpy as np
+import torch
 
 DRIVERS: Dict[str, Callable[..., "Driver"]] = {}
 
 
 class RawBatch:
-    """N raw train frames fused into one packed [idx | val | aux | mask]
-    arena (the JAX package's native batched-convert result).  The port's
-    native ingest path is later work; the type is kept so the driver
-    surface matches.
+    """One native batched-convert result: N raw train frames fused into a
+    single packed [idx | val | aux | mask] arena by _fastconv.c's
+    convert_raw_batch (see models/classifier.convert_raw_batch).
 
-    gen    — the driver's conversion generation (stale-table guard)
+    gen    — the driver's _fast_gen at conversion time (stale-table guard)
     frames — the [(msg_bytes, params_off), ...] list
     ns     — per-frame datum counts (the per-request RPC results)
-    b, k   — the fused padded shape
-    arena  — the packed blob
+    b, k   — the fused padded shape (0 rows when every frame was empty)
+    arena  — the packed blob (np.uint8 from an ArenaPool, pinned for a
+             cuda driver), None when b is 0
     need   — rows interned past capacity (deferred _grow)
     """
 
@@ -102,6 +103,20 @@ class Driver:
 
     def get_status(self) -> Dict[str, str]:
         return {}
+
+    def device_sync(self) -> None:
+        """Block until the work queued on this driver's device stream has
+        executed (the JAX driver blocks on one model leaf).  The ingest
+        pipeline calls it every few fused steps: it bounds the queued
+        backlog and fences the host arenas those steps copied from."""
+        dev = self.device
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
+    def train_converted_many(self, convs) -> list:
+        """Coalesced stage-2 dispatch; drivers that can merge conversions
+        into one device step override this."""
+        return [self.train_converted(c) for c in convs]
 
     # -- column-sparse DCN diff bookkeeping ---------------------------------
     # Requires: self._touched_cols (bool[dim]), self._unconfirmed_cols

@@ -5,7 +5,12 @@ Methods: perceptron, PA, PA1, PA2, CW, AROW, NHERD (margin methods, dense
 [L, D] weight and diagonal-covariance tables over the hashed feature
 space) and cosine, euclidean (per-label centroid sums).
 
-Train is one device step per microbatch.  The default "sequential" mode
+Train is one device step per microbatch.  Wire train frames take the
+native raw path when the converter config is eligible (fv/fast.py): the C
+FastConverter converts a window of frames into one packed arena, the
+arena reaches the device in one copy, and the same step runs on it
+(convert_raw_batch / train_converted_batch, driven by
+framework/dispatch.IngestPipeline).  The default "sequential" mode
 keeps the reference's strict per-datum order: on CUDA it is ONE launch of
 the hand-written scan kernel (csrc/train_scan.cu) over the whole packed
 batch; train_scan_ref is its plain PyTorch version, step for step the JAX
@@ -22,24 +27,33 @@ delta and resnapshots the base — the same host algebra as the JAX driver.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from jubatus_tpu_torch.batching.bucketing import (round_b as _round_b,
+from jubatus_tpu_torch.batching.arenas import pinned_tensor, pool_for
+from jubatus_tpu_torch.batching.bucketing import (B_BUCKETS as _B_BUCKETS,
+                                                  fuse_sparse_batches,
+                                                  round_b as _round_b,
                                                   split_groups)
-from jubatus_tpu_torch.device import resolve_device
+from jubatus_tpu_torch.device import device_context, resolve_device
 from jubatus_tpu_torch.fv import ConverterConfig, Datum, DatumToFVConverter
+from jubatus_tpu_torch.fv.converter import _K_BUCKETS
+from jubatus_tpu_torch.fv.fast import make_fast_converter
 from jubatus_tpu_torch.fv.weight_manager import WeightManager
 from jubatus_tpu_torch.kernels import build
-from jubatus_tpu_torch.models.base import Driver, register_driver
+from jubatus_tpu_torch.models.base import Driver, RawBatch, register_driver
 from jubatus_tpu_torch.ops.sparse import batch_scores, sample_scores
 
 MARGIN_METHODS = ("perceptron", "PA", "PA1", "PA2", "CW", "AROW", "NHERD")
 CENTROID_METHODS = ("cosine", "euclidean")
 # method ids of csrc/train_scan.cu (enum Method)
 _METHOD_ID = {m: i for i, m in enumerate(MARGIN_METHODS)}
+
+# the JAX package's historical import path of the fused-batch builder
+coalesce_sparse_batches = fuse_sparse_batches
 
 
 def _has_cov(method: str) -> bool:
@@ -435,8 +449,21 @@ class ClassifierDriver(Driver):
         self.converter = DatumToFVConverter(
             ConverterConfig.from_json(config.get("converter")))
         self.dim = self.converter.dim
+        # native wire converter (None when the config needs the Python
+        # converter; fv/fast.py decides)
+        self._fast = make_fast_converter(self.converter.config, _K_BUCKETS,
+                                         _B_BUCKETS)
         self.labels: Dict[str, int] = {}          # label -> row
         self._free_rows: List[int] = []           # rows orphaned by delete_label
+        # two-stage raw train (framework/dispatch.py): convert_lock
+        # serializes stage 1 (native parse + label interning, WITHOUT the
+        # model lock, so it overlaps device steps); _label_mutex makes
+        # label interning atomic against the decoded train path;
+        # _fast_gen detects an admin op (clear/delete_label/load) that
+        # replaced the native label table between the stages
+        self.convert_lock = threading.Lock()
+        self._label_mutex = threading.Lock()
+        self._fast_gen = 0
         self.capacity = self.INITIAL_CAPACITY
         self._alloc()
         # mix bookkeeping (host numpy, as in the JAX driver)
@@ -491,17 +518,21 @@ class ClassifierDriver(Driver):
                                         constant_values=1.0)
         self.capacity = new_cap
 
-    def _label_row(self, label: str) -> int:
-        row = self.labels.get(label)
-        if row is None:
-            if self._free_rows:
-                row = self._free_rows.pop()  # deleted rows already zeroed
-            else:
-                row = max(self.labels.values(), default=-1) + 1
-                if row >= self.capacity:
-                    self._grow(row + 1)
-            self.labels[label] = row
-        return row
+    def _label_row(self, label: str, grow: bool = True) -> int:
+        """Intern a label -> model row.  grow=False (stage-1 conversion,
+        model lock NOT held) defers the device-table resize to stage 2,
+        which runs under the model write lock."""
+        with self._label_mutex:
+            row = self.labels.get(label)
+            if row is None:
+                if self._free_rows:
+                    row = self._free_rows.pop()  # deleted rows already zeroed
+                else:
+                    row = max(self.labels.values(), default=-1) + 1
+                    if grow and row >= self.capacity:
+                        self._grow(row + 1)
+                self.labels[label] = row
+            return row
 
     # -- RPC surface (classifier.idl) --------------------------------------
 
@@ -516,33 +547,184 @@ class ClassifierDriver(Driver):
         labels[: len(rows)] = rows
         mask = np.zeros((b,), np.float32)
         mask[: len(rows)] = 1.0
+        # the same stage 2 as the raw path
         self._dispatch_converted(batch.indices, batch.values, labels, mask,
                                  len(data))
         return len(data)
+
+    def _convert_raw(self, msg: bytes, params_off: int, grow: bool = True):
+        """Raw request bytes -> (n, indices, values, labels, mask,
+        rows_needed) through the native converter, new labels interned on
+        both sides.  grow=False defers device-table growth to stage 2."""
+        n, b, k, labels_ba, idx_b, val_b, unknowns = self._fast.convert(
+            msg, params_off, 0)
+        if n == 0:
+            return 0, None, None, None, None, 0
+        labels = np.frombuffer(labels_ba, np.int32)
+        need = 0
+        for pos, lb in unknowns:
+            row = self._label_row(lb.decode(), grow=grow)
+            self._fast.set_label_row(lb, row)
+            labels[pos] = row
+            need = max(need, row + 1)
+        indices = np.frombuffer(idx_b, np.int32).reshape(b, k)
+        values = np.frombuffer(val_b, np.float32).reshape(b, k)
+        mask = np.zeros((b,), np.float32)
+        mask[:n] = 1.0
+        return n, indices, values, labels, mask, need
 
     def _mark_touched(self, indices) -> None:
         """Record the hashed feature columns a batch touches (col-sparse
         diffs).  Padding zeros mark column 0 — one extra diff column."""
         self._touched_cols[np.asarray(indices).reshape(-1)] = True
 
-    def _dispatch_converted(self, indices, values, labels, mask,
-                            n: int) -> None:
-        """One device step over a converted batch: one host->device copy
-        of the packed blob, then the train kernel over its views."""
+    def _dispatch_converted(self, indices, values, labels, mask, n: int,
+                            packed=None) -> None:
+        """Stage 2 (caller holds the model write lock): one host->device
+        copy of the packed blob, then the train kernel over its views.
+        `packed` (the native batched-convert arena, already in
+        _pack_batch layout) skips the host re-pack.  An arena of the
+        pinned pool is copied asynchronously from its pinned tensor; on
+        the CPU the arena is viewed zero-copy."""
         self._mark_touched(indices)
         b, k = np.asarray(indices).shape
-        buf = torch.from_numpy(_pack_batch(indices, values, labels, mask)
-                               ).to(self.device)
-        idx, val, lbl, msk = _unpack_batch(buf, b, k)
-        if self._is_centroid:
-            _centroid_train(self.w, self.counts, self.active, idx, val, lbl,
-                            msk)
-        else:
-            step = train_parallel if self.batch_mode == "parallel" \
-                else train_scan
-            step(self.w, self.cov, self.counts, self.active, idx, val, lbl,
-                 msk, self.method, self.c)
+        nbytes = 2 * b * k * 4 + 8 * b
+        if packed is None:
+            packed = _pack_batch(indices, values, labels, mask)
+        with device_context(self.device):
+            host = pinned_tensor(packed)
+            if host is not None:
+                buf = host[:nbytes].to(self.device, non_blocking=True)
+            else:
+                arr = packed[:nbytes] if isinstance(packed, np.ndarray) \
+                    else np.frombuffer(packed, np.uint8, count=nbytes)
+                buf = torch.from_numpy(arr).to(self.device)
+            idx, val, lbl, msk = _unpack_batch(buf, b, k)
+            if self._is_centroid:
+                _centroid_train(self.w, self.counts, self.active, idx, val,
+                                lbl, msk)
+            else:
+                step = train_parallel if self.batch_mode == "parallel" \
+                    else train_scan
+                step(self.w, self.cov, self.counts, self.active, idx, val,
+                     lbl, msk, self.method, self.c)
         self._updates_since_mix += n
+
+    def train_raw(self, msg: bytes, params_off: int) -> int:
+        """Wire fast path: raw msgpack request bytes -> one device step.
+        The C converter parses the params subtree [name, [[label, datum],
+        ...]] into padded [B, K] buffers with no per-datum Python.  Caller
+        holds the model write lock."""
+        n, indices, values, labels, mask, _ = self._convert_raw(msg,
+                                                                params_off)
+        if n == 0:
+            return 0
+        self._dispatch_converted(indices, values, labels, mask, n)
+        return n
+
+    def convert_raw_request(self, msg: bytes, params_off: int):
+        """Stage 1 of the per-request raw train (caller holds convert_lock
+        but NOT the model lock): native parse + label interning.  Table
+        growth and the device step wait for train_converted."""
+        gen = self._fast_gen
+        n, indices, values, labels, mask, need = self._convert_raw(
+            msg, params_off, grow=False)
+        return (gen, msg, params_off, n, indices, values, labels, mask, need)
+
+    def train_converted(self, conv) -> int:
+        """Stage 2 (caller holds the model write lock): grow if stage 1
+        interned rows past capacity, then dispatch.  A conversion made
+        against a native label table that an admin op (clear,
+        delete_label, load) has since replaced is redone here."""
+        gen, msg, params_off, n, indices, values, labels, mask, need = conv
+        if gen != self._fast_gen:
+            return self.train_raw(msg, params_off)
+        if n == 0:
+            return 0
+        if need > self.capacity:
+            self._grow(need)
+        self._dispatch_converted(indices, values, labels, mask, n)
+        return n
+
+    def train_converted_many(self, convs) -> List[int]:
+        """Several stage-1 conversions as ONE device step (caller holds
+        the model write lock).  Exact for the "sequential" mode: scanning
+        r1||r2 is scanning r1 then r2; the "parallel" mode gets a wider
+        minibatch."""
+        fresh = [c for c in convs if c[0] == self._fast_gen and c[3] > 0]
+        out_map = {}
+        for c in convs:
+            if c[0] != self._fast_gen:                # stale: redo inline
+                out_map[id(c)] = self.train_raw(c[1], c[2])
+            elif c[3] == 0:
+                out_map[id(c)] = 0
+        if fresh:
+            need = max(c[8] for c in fresh)
+            if need > self.capacity:
+                self._grow(need)
+            if len(fresh) == 1:
+                _, _, _, n, indices, values, labels, mask, _ = fresh[0]
+                self._dispatch_converted(indices, values, labels, mask, n)
+            else:
+                indices, values, labels, mask = coalesce_sparse_batches(
+                    [(c[4], c[5], c[6], c[7]) for c in fresh])
+                self._dispatch_converted(indices, values, labels, mask,
+                                         sum(c[3] for c in fresh))
+            for c in fresh:
+                out_map[id(c)] = c[3]
+        return [out_map[id(c)] for c in convs]
+
+    def convert_raw_batch(self, frames) -> RawBatch:
+        """Stage 1, fused: N raw train frames -> ONE packed arena from the
+        device's arena pool, in a single native call that releases the GIL.
+        Caller holds convert_lock but NOT the model lock.  The layout and
+        bucketing equal converting each frame with convert_raw_request and
+        fusing with fuse_sparse_batches + _pack_batch, byte for byte."""
+        gen = self._fast_gen
+        frames = list(frames)
+        ns, b, k, arena, unknowns = self._fast.convert_raw_batch(
+            frames, 0, pool_for(self.device).acquire)
+        need = 0
+        if unknowns:
+            # label rows live in the arena's aux slot: patch them in
+            # place after interning, in the order the per-request path
+            # interns them, so rows are assigned identically
+            lab = np.frombuffer(arena, np.int32, count=b,
+                                offset=2 * b * k * 4)
+            for row, lb in unknowns:
+                r = self._label_row(lb.decode(), grow=False)
+                self._fast.set_label_row(lb, r)
+                lab[row] = r
+                need = max(need, r + 1)
+        return RawBatch(gen, frames, list(ns), b, k, arena, need)
+
+    def train_converted_batch(self, rb: RawBatch) -> List[int]:
+        """Stage 2, fused (caller holds the model write lock): grow if
+        stage 1 interned rows past capacity, then ONE device step for the
+        whole window.  A stale generation redoes every frame."""
+        if rb.gen != self._fast_gen:
+            return [self.train_raw(bytes(m), int(o)) for m, o in rb.frames]
+        if rb.b == 0:
+            return list(rb.ns)
+        if rb.need > self.capacity:
+            self._grow(rb.need)
+        b, k = rb.b, rb.k
+        indices = np.frombuffer(rb.arena, np.int32, count=b * k).reshape(b, k)
+        self._dispatch_converted(indices, None, None, None, rb.total,
+                                 packed=rb.arena)
+        return list(rb.ns)
+
+    def _fast_rebuild(self) -> None:
+        """Recreate the native label table after clear/delete/unpack so no
+        stale label->row mapping survives.  Bumps _fast_gen so a stage-1
+        conversion against the old table is redone in stage 2."""
+        self._fast_gen += 1
+        if self._fast is None:
+            return
+        self._fast = make_fast_converter(self.converter.config, _K_BUCKETS,
+                                         _B_BUCKETS)
+        for lbl, row in list(self.labels.items()):
+            self._fast.set_label_row(lbl.encode(), row)
 
     def classify(self, data: Sequence[Datum]) -> List[List[Tuple[str, float]]]:
         if not data:
@@ -587,9 +769,16 @@ class ClassifierDriver(Driver):
         return True
 
     def delete_label(self, label: str) -> bool:
-        row = self.labels.pop(label, None)
+        with self._label_mutex:
+            row = self.labels.pop(label, None)
         if row is None:
             return False
+        if row >= self.capacity:
+            # interned by a stage-1 conversion not yet dispatched: no
+            # device state exists for it; the pending conversion is redone
+            # against the rebuilt table
+            self._fast_rebuild()
+            return True
         self.w[row] = 0.0
         if _has_cov(self.method):
             self.cov[row] = 1.0
@@ -602,14 +791,17 @@ class ClassifierDriver(Driver):
             self._counts_base[row] = 0
             if self._cov_base is not None:
                 self._cov_base[row] = 1.0
-        self._free_rows.append(row)
+        with self._label_mutex:
+            self._free_rows.append(row)
+        self._fast_rebuild()
         return True
 
     def clear(self) -> None:
         self._touched_cols[:] = False
         self._unconfirmed_cols = None
-        self.labels.clear()
-        self._free_rows = []
+        with self._label_mutex:
+            self.labels.clear()
+            self._free_rows = []
         self.capacity = self.INITIAL_CAPACITY
         self._alloc()
         self.converter.weights.clear()
@@ -617,6 +809,7 @@ class ClassifierDriver(Driver):
         self._w_base = None
         self._cov_base = None
         self._counts_base = None
+        self._fast_rebuild()
 
     # -- MIX (linear mixable) ----------------------------------------------
 
@@ -842,6 +1035,7 @@ class ClassifierDriver(Driver):
         self._w_base = None
         self._cov_base = None
         self._counts_base = None
+        self._fast_rebuild()
 
     def get_status(self) -> Dict[str, str]:
         return {

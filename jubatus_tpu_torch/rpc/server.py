@@ -9,10 +9,19 @@ type), which the reference's msgpack-c 0.5.9 clients require; requests
 are decoded with raw=False + surrogateescape so binary that traveled as
 raw round-trips to exact bytes.
 
-Every handler runs on the event-loop thread, one request at a time: all
-device work of a server stays on one thread, and nothing here needs a
-lock.  The native framer, coalescer and tracer of the JAX server are
-later work.
+Threads: decoded handlers (add) run on the event-loop thread, one request
+at a time.  Raw handlers (add_raw) run on a pool of worker threads: once
+a server registers one, every connection is framed by the native
+FrameSplitter (native/_fastconv.c), which scans each stream byte once,
+and a request whose method has a raw handler is handed over as its
+undecoded bytes.  A raw train handler returns a concurrent Future, and
+its ack waits for it: the ack proves the request's device step was
+dispatched (the dispatch thread of framework/dispatch.py issues it, not
+this loop).  Acks keep wire order per connection, and a decoded request
+first waits for the acks of the raw requests before it, so a classify
+pipelined after trains sees all of them.  Handlers that share model state
+across these threads take the server's model lock (framework/service.py).
+The inline dispatch mode and the tracer of the JAX server are later work.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import asyncio
 import inspect
 import logging
 import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import msgpack
@@ -36,9 +46,13 @@ ARGUMENT_ERROR = 2
 
 
 class RpcServer:
-    def __init__(self):
+    def __init__(self, threads: int = 2):
         self._methods: Dict[str, Tuple[Callable[..., Any],
                                        Optional[inspect.Signature]]] = {}
+        self._raw_methods: Dict[str, Callable[[bytes, int], Any]] = {}
+        self._splitter = None             # native FrameSplitter type
+        self._pool = ThreadPoolExecutor(max_workers=max(threads, 1),
+                                        thread_name_prefix="rpc-worker")
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.base_events.Server] = None
         self._thread: Optional[threading.Thread] = None
@@ -53,8 +67,20 @@ class RpcServer:
             sig = None
         self._methods[name] = (fn, sig)
 
+    def add_raw(self, name: str, fn: Callable[[bytes, int], Any]) -> None:
+        """Register a raw handler fn(message_bytes, params_offset): it gets
+        the COMPLETE msgpack-rpc request bytes and the byte offset of the
+        params array, so it can parse the payload natively.  Builds the
+        native extension if needed (raising where it cannot)."""
+        from jubatus_tpu_torch import native
+        self._splitter = native.load().FrameSplitter
+        self._raw_methods[name] = fn
+
     async def _handle_conn(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter) -> None:
+        if self._raw_methods:
+            await self._handle_conn_raw(reader, writer)
+            return
         unpacker = msgpack.Unpacker(raw=False, strict_map_key=False,
                                     unicode_errors="surrogateescape",
                                     max_buffer_size=1 << 30)
@@ -71,6 +97,92 @@ class RpcServer:
         except (msgpack.UnpackException, ValueError) as e:
             log.warning("malformed msgpack-rpc frame (%s); closing", e)
         finally:
+            writer.close()
+
+    async def _handle_conn_raw(self, reader: asyncio.StreamReader,
+                               writer: asyncio.StreamWriter) -> None:
+        """Framing by the native FrameSplitter.  The reader awaits each
+        raw request's handler (a worker thread), so requests reach the
+        dispatcher in wire order; the ack of a request whose handler
+        returned a Future waits in a task, at most 8 per connection, so
+        the next frames are read meanwhile.  A decoded request, or a raw
+        one answered at once, first waits for the acks before it."""
+        splitter = self._splitter()
+        pending: set = set()
+        sem = asyncio.Semaphore(8)
+        loop = asyncio.get_running_loop()
+
+        async def drain_acks():
+            if pending:
+                await asyncio.gather(*pending, return_exceptions=True)
+
+        async def await_ack(name, fut, msgid):
+            try:
+                result = await asyncio.wrap_future(fut)
+                await self._reply(writer, msgid, None, result)
+            except Exception as e:  # noqa: BLE001 - relayed to the client
+                log.warning("error in %s (dispatch): %s", name, e,
+                            exc_info=True)
+                try:
+                    await self._reply(writer, msgid, str(e), None)
+                except ConnectionError:
+                    pass
+            finally:
+                sem.release()
+
+        try:
+            while True:
+                data = await reader.read(1 << 20)
+                if not data:
+                    break
+                splitter.feed(data)
+                while True:
+                    try:
+                        env = splitter.next()
+                    except ValueError:
+                        log.warning("malformed msgpack-rpc frame; closing")
+                        return
+                    if env is None:
+                        break
+                    msg, msgtype, msgid, method, params_off = env
+                    if msgtype != REQUEST:
+                        continue
+                    name = method.decode() if method else ""
+                    raw_fn = self._raw_methods.get(name)
+                    if raw_fn is None:
+                        await drain_acks()
+                        await self._handle_msg(
+                            msgpack.unpackb(msg, raw=False,
+                                            strict_map_key=False,
+                                            unicode_errors="surrogateescape"),
+                            writer)
+                        continue
+                    await sem.acquire()
+                    try:
+                        result = await loop.run_in_executor(
+                            self._pool, raw_fn, msg, params_off)
+                    except Exception as e:  # noqa: BLE001 - to the client
+                        sem.release()
+                        log.warning("error in %s (raw): %s", name, e,
+                                    exc_info=True)
+                        await drain_acks()
+                        await self._reply(writer, msgid, str(e), None)
+                        continue
+                    if isinstance(result, Future):
+                        task = asyncio.ensure_future(
+                            await_ack(name, result, msgid))
+                        pending.add(task)
+                        task.add_done_callback(pending.discard)
+                    else:
+                        sem.release()
+                        await drain_acks()
+                        await self._reply(writer, msgid, None, result)
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        except (msgpack.UnpackException, ValueError) as e:
+            log.warning("malformed msgpack-rpc frame (%s); closing", e)
+        finally:
+            await drain_acks()
             writer.close()
 
     async def _handle_msg(self, msg: Any,
@@ -97,6 +209,8 @@ class RpcServer:
                 return
         try:
             result = fn(*params)
+            if isinstance(result, Future):
+                result = await asyncio.wrap_future(result)
         except Exception as e:  # noqa: BLE001 - relayed to the client
             log.warning("error in %s: %s", method, e, exc_info=True)
             await self._reply(writer, msgid, str(e), None)
@@ -157,3 +271,4 @@ class RpcServer:
                 pass
         if self._thread is not None:
             self._thread.join(timeout=10)
+        self._pool.shutdown(wait=False)

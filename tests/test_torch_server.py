@@ -34,12 +34,19 @@ def _spawn_port(cfg, tmp_path):
     return srv, rpc, srv.args.rpc_port
 
 
-@pytest.fixture()
-def pair(tmp_path):
+# a regex key matcher: the native converter does not cover it, so train
+# requests take the decoded route on both servers
+REGEX_CFG = dict(CLASSIFIER_CFG, converter=dict(
+    CLASSIFIER_CFG["converter"],
+    string_rules=[{"key": "/^w[0-2]$/", "type": "str",
+                   "sample_weight": "bin", "global_weight": "bin"}]))
+
+
+def _pair(tmp_path, cfg):
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
-    jsrv, jrpc, jport = _spawn("classifier", CLASSIFIER_CFG, tmp_path / "jax")
-    tsrv, trpc, tport = _spawn_port(CLASSIFIER_CFG, tmp_path / "port")
+    jsrv, jrpc, jport = _spawn("classifier", cfg, tmp_path / "jax")
+    tsrv, trpc, tport = _spawn_port(cfg, tmp_path / "port")
     conns = (GoldenConn(jport), GoldenConn(tport))
     yield conns, (jsrv, tsrv), (jport, tport)
     for c in conns:
@@ -48,6 +55,17 @@ def pair(tmp_path):
         jsrv.dispatcher.stop()
     jrpc.stop()
     trpc.stop()
+    tsrv.stop()
+
+
+@pytest.fixture()
+def pair(tmp_path):
+    yield from _pair(tmp_path, CLASSIFIER_CFG)
+
+
+@pytest.fixture()
+def regex_pair(tmp_path):
+    yield from _pair(tmp_path, REGEX_CFG)
 
 
 def both(conns, method, *args):
@@ -107,8 +125,59 @@ def test_same_session_same_answers(pair):
         assert tst[key] == jst[key], key
     assert tst["device"] == "cpu"
     assert int(tst["update_count"]) == int(jst["update_count"]) > 0
+    # both servers trained through their native ingest pipelines
+    for st in (jst, tst):
+        assert (st["fast_path"], st["ingest_pipeline"],
+                st["dispatch_mode"]) == ("True", "1", "threaded")
+    for key in ("batch_max", "ingest_depth", "arena_pool"):
+        assert tst[key] == jst[key], key
+    assert int(tst["arena_pool_miss_total"]) > 0
     assert both(conns, "clear") == [True, True]
     assert both(conns, "get_labels") == [{}, {}]
+
+
+def test_ineligible_config_takes_the_decoded_route_on_both(regex_pair):
+    conns, (jsrv, tsrv), _ = regex_pair
+    for batch in session_batches(seed=4):
+        assert both(conns, "train", batch) == [len(batch)] * 2
+    query = [b[1] for b in session_batches(seed=9, n_batches=1, n=6)[0]]
+    j, t = both(conns, "classify", query)
+    assert_same_scores(j, t)
+    j, t = both(conns, "get_labels")
+    assert j == t and sum(t.values()) == 72
+    j, t = both(conns, "get_status")
+    for st in (*j.values(), *t.values()):
+        assert (st["fast_path"], st["ingest_pipeline"]) == ("False", "0")
+    assert tsrv.driver._fast is None and jsrv.driver._fast is None
+
+
+def test_pipelined_trains_then_classify_on_one_connection(pair):
+    """Train frames sent back to back without waiting for their acks,
+    then a classify: acks come back in wire order, and the classify sees
+    every train before it."""
+    conns = pair[0]
+    batches = session_batches(seed=12, n_batches=6, n=16)
+    frames = [old_pack([0, 100 + i, "train", ["wiretest", b]])
+              for i, b in enumerate(batches)]
+    query = [b[1] for b in batches[0][:4]]
+    frames.append(old_pack([0, 200, "classify", ["wiretest", query]]))
+    frames.append(old_pack([0, 201, "get_labels", ["wiretest"]]))
+    answers = []
+    for c in conns:
+        c.sock.sendall(b"".join(frames))
+        unp = msgpack.Unpacker(raw=False, strict_map_key=False)
+        got = []
+        while len(got) < len(frames):
+            data = c.sock.recv(1 << 16)
+            assert data, "connection closed"
+            unp.feed(data)
+            got.extend(unp)
+        answers.append(got)
+    for got in answers:
+        assert [m[1] for m in got] == [100 + i for i in range(6)] + [200, 201]
+        assert [m[3] for m in got[:6]] == [16] * 6
+        assert sum(got[-1][3].values()) == 96
+    assert_same_scores(answers[0][6][3], answers[1][6][3])
 
 
 def test_binary_and_non_utf8_values(pair):

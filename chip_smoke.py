@@ -633,7 +633,7 @@ def reuse_check(torch, frames, rounds=3):
     release them) and through train_raw with a synchronize after each on
     another: w, cov and counts must be bitwise equal.  Every arena the
     pipeline copied must be pinned."""
-    from jubatus_tpu_torch.batching.arenas import PINNED_POOL, pinned_tensor
+    from jubatus_tpu_torch.batching.arenas import pinned_tensor
     from jubatus_tpu_torch.framework.dispatch import IngestPipeline
     from jubatus_tpu_torch.models.classifier import ClassifierDriver
     from jubatus_tpu_torch.utils.rwlock import RWLock
@@ -657,7 +657,6 @@ def reuse_check(torch, frames, rounds=3):
         return step(rb)
 
     pooled.train_converted_batch = checked_step
-    hits0, misses0 = PINNED_POOL.hits, PINNED_POOL.misses
     pipe = IngestPipeline(Slot(pooled), max_batch=1, max_wait_s=0.0)
     try:
         futs = [pipe.submit(m, o) for _ in range(rounds) for m, o in frames]
@@ -667,7 +666,7 @@ def reuse_check(torch, frames, rounds=3):
     finally:
         pipe.stop()
     pooled.device_sync()
-    hits, misses = PINNED_POOL.hits - hits0, PINNED_POOL.misses - misses0
+    hits, misses = pooled.arena_pool.hits, pooled.arena_pool.misses
     ref = ClassifierDriver(SERVER_CONFIG, device="cuda")
     for _ in range(rounds):
         for m, o in frames:
@@ -698,7 +697,6 @@ def phase_server(torch, np, card):
     """Phase 4: the wire session against the port server on cuda, whose
     train frames take the native raw path (IngestPipeline)."""
     from jubatus_tpu_torch import native
-    from jubatus_tpu_torch.batching.arenas import PINNED_POOL
     from jubatus_tpu_torch.cli.server import serve
     from jubatus_tpu_torch.framework.server_base import (kernel_launches,
                                                          reset_kernel_launches)
@@ -721,7 +719,7 @@ def phase_server(torch, np, card):
             cli = WireClient(server.args.rpc_port)
             # pre-encode outside the timed window, as bench.py's client does
             frames = [cli.frame("train", r) for r in reqs]
-            pool0 = (PINNED_POOL.hits, PINNED_POOL.misses)
+            arenas = server.driver.arena_pool
             reset_kernel_launches()
             t0 = time.perf_counter()
             for frame in frames:
@@ -730,7 +728,7 @@ def phase_server(torch, np, card):
                     raise AssertionError(f"train acknowledged {n!r} datums")
             res = cli.call("classify", query)   # reads scores back: a fence
             train_s = time.perf_counter() - t0
-            pool = (PINNED_POOL.hits - pool0[0], PINNED_POOL.misses - pool0[1])
+            pool = (arenas.hits, arenas.misses)
 
             # the card's busy share of a request: the same frames again,
             # under torch.profiler
@@ -834,7 +832,7 @@ def phase_server(torch, np, card):
     warm = raw.convert_raw_batch([wire[0]])
     raw.train_converted_batch(warm)
     torch.cuda.synchronize()
-    PINNED_POOL.release(warm.arena)
+    raw.arena_pool.release(warm.arena)
     t0 = time.perf_counter()
     rb = raw.convert_raw_batch([wire[1]])
     native_convert_ms = (time.perf_counter() - t0) * 1e3

@@ -14,7 +14,8 @@ pinning costs far more than a malloc, which is why the pool exists.  For
 the CPU they are plain 64-byte-aligned numpy buffers (pinning needs CUDA).
 acquire() hands the C side a writable numpy view; for a pinned arena the
 view's base is the pinned tensor, which pinned_tensor() returns for the
-copy.
+copy.  Each driver owns one pool (models/classifier.py), sized by
+--arena_pool at server start.
 
 Recycling rule: the copy of a pinned arena runs asynchronously, and on the
 CPU the device step aliases the arena zero-copy, so an arena must not be
@@ -107,19 +108,3 @@ def pinned_tensor(arena) -> Optional[torch.Tensor]:
             and base.data_ptr() == arena.ctypes.data:
         return base
     return None
-
-
-# process-wide pools, one per kind of driver device; sized by
-# --arena_pool at server start (configure_pools)
-HOST_POOL = ArenaPool()
-PINNED_POOL = ArenaPool(pinned=True)
-
-
-def pool_for(device: torch.device) -> ArenaPool:
-    """The pool whose arenas a driver on `device` converts into."""
-    return PINNED_POOL if device.type == "cuda" else HOST_POOL
-
-
-def configure_pools(max_per_size: int) -> None:
-    for pool in (HOST_POOL, PINNED_POOL):
-        pool.configure(max_per_size)

@@ -39,7 +39,6 @@ from concurrent.futures import Future
 
 from jubatus_tpu_torch.batching import (FixedWindow, RequestCoalescer,
                                         WindowController)
-from jubatus_tpu_torch.batching.arenas import pool_for
 from jubatus_tpu_torch.utils.rwlock import LockDisciplineError
 
 log = logging.getLogger("jubatus_tpu_torch.dispatch")
@@ -124,7 +123,7 @@ class IngestPipeline:
     The RPC reader frames messages with the native FrameSplitter and
     submits raw train frames here; the CONVERT thread gathers a window
     (the same adaptive linger as the coalescer) and converts it in ONE C
-    call into an arena from the driver device's pool; the DISPATCH thread
+    call into an arena from the driver's pool; the DISPATCH thread
     runs one fused step per window under the model write lock.  The
     bounded convert->dispatch queue (`depth`) is what pipelines: window
     W+1 converts while window W's step runs.  When it fills, the convert
@@ -145,7 +144,6 @@ class IngestPipeline:
     def __init__(self, server, maxsize: int = 128, max_batch: int = None,
                  max_wait_s: float = None, depth: int = 2):
         self._server = server
-        self._pool = pool_for(server.driver.device)
         self.max_batch = max(1, int(max_batch if max_batch is not None
                                     else self.MAX_COALESCE))
         wait = self.MAX_WAIT_S if max_wait_s is None else max_wait_s
@@ -355,8 +353,9 @@ class IngestPipeline:
             self._server.driver.device_sync()
             self._ops_since_sync = 0
             spent, self._spent_arenas = self._spent_arenas, []
+            pool = self._server.driver.arena_pool
             for arena in spent:
-                self._pool.release(arena)
+                pool.release(arena)
 
     def _dispatch_loop(self) -> None:
         while True:

@@ -18,7 +18,6 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import jubatus_tpu_torch
-from jubatus_tpu_torch.batching.arenas import pool_for
 from jubatus_tpu_torch.device import device_telemetry
 from jubatus_tpu_torch.framework.save_load import load_model, save_model
 from jubatus_tpu_torch.models import create_driver
@@ -145,7 +144,6 @@ class JubatusServer:
             self.dispatcher.stop()
 
     def get_status(self) -> Dict[str, Dict[str, str]]:
-        pool = pool_for(self.driver.device)
         st: Dict[str, str] = {
             "type": self.args.type,
             "name": self.args.name,
@@ -166,8 +164,6 @@ class JubatusServer:
                 self.dispatcher, "accepts_raw_frames", False))),
             "ingest_depth": str(self.args.ingest_depth),
             "arena_pool": str(self.args.arena_pool),
-            "arena_pool_hit_total": str(pool.hits),
-            "arena_pool_miss_total": str(pool.misses),
             "ingest_pipeline_stall_total": str(getattr(self.dispatcher,
                                                        "stalls", 0)),
         }
@@ -175,5 +171,9 @@ class JubatusServer:
             st[f"kernel_launches.{name}"] = str(n)
         for k, v in device_telemetry(self.driver.device).items():
             st[k] = str(v)
+        pool = getattr(self.driver, "arena_pool", None)
+        if pool is not None:
+            st["arena_pool_hit_total"] = str(pool.hits)
+            st["arena_pool_miss_total"] = str(pool.misses)
         st.update(self.driver.get_status())
         return {self.server_id: st}

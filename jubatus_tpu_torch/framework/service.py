@@ -22,7 +22,6 @@ from typing import Any, Callable, Dict, List
 
 import msgpack
 
-from jubatus_tpu_torch.batching.arenas import configure_pools
 from jubatus_tpu_torch.fv import Datum
 
 
@@ -88,7 +87,9 @@ def bind_service(server, rpc_server) -> None:
     """Attach the server's service methods, its raw train route and the
     common RPCs."""
     sd = SERVICES[server.args.type]
-    configure_pools(server.args.arena_pool)
+    pool = getattr(server.driver, "arena_pool", None)
+    if pool is not None:
+        pool.configure(server.args.arena_pool)
     server.dispatch_mode = "threaded"
     setup_slot_pipelines(server)
 

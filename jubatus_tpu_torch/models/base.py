@@ -113,11 +113,6 @@ class Driver:
         if dev is not None and dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
 
-    def train_converted_many(self, convs) -> list:
-        """Coalesced stage-2 dispatch; drivers that can merge conversions
-        into one device step override this."""
-        return [self.train_converted(c) for c in convs]
-
     # -- column-sparse DCN diff bookkeeping ---------------------------------
     # Requires: self._touched_cols (bool[dim]), self._unconfirmed_cols
     # (int32[] | None), self.dcn_payload.

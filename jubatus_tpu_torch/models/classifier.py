@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from jubatus_tpu_torch.batching.arenas import pinned_tensor, pool_for
+from jubatus_tpu_torch.batching.arenas import ArenaPool, pinned_tensor
 from jubatus_tpu_torch.batching.bucketing import (B_BUCKETS as _B_BUCKETS,
                                                   fuse_sparse_batches,
                                                   round_b as _round_b,
@@ -453,6 +453,8 @@ class ClassifierDriver(Driver):
         # converter; fv/fast.py decides)
         self._fast = make_fast_converter(self.converter.config, _K_BUCKETS,
                                          _B_BUCKETS)
+        # recycled host arenas of the batched convert, pinned for cuda
+        self.arena_pool = ArenaPool(pinned=self.device.type == "cuda")
         self.labels: Dict[str, int] = {}          # label -> row
         self._free_rows: List[int] = []           # rows orphaned by delete_label
         # two-stage raw train (framework/dispatch.py): convert_lock
@@ -676,14 +678,14 @@ class ClassifierDriver(Driver):
 
     def convert_raw_batch(self, frames) -> RawBatch:
         """Stage 1, fused: N raw train frames -> ONE packed arena from the
-        device's arena pool, in a single native call that releases the GIL.
+        driver's arena pool, in a single native call that releases the GIL.
         Caller holds convert_lock but NOT the model lock.  The layout and
         bucketing equal converting each frame with convert_raw_request and
         fusing with fuse_sparse_batches + _pack_batch, byte for byte."""
         gen = self._fast_gen
         frames = list(frames)
         ns, b, k, arena, unknowns = self._fast.convert_raw_batch(
-            frames, 0, pool_for(self.device).acquire)
+            frames, 0, self.arena_pool.acquire)
         need = 0
         if unknowns:
             # label rows live in the arena's aux slot: patch them in

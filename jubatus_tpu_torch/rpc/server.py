@@ -209,8 +209,6 @@ class RpcServer:
                 return
         try:
             result = fn(*params)
-            if isinstance(result, Future):
-                result = await asyncio.wrap_future(result)
         except Exception as e:  # noqa: BLE001 - relayed to the client
             log.warning("error in %s: %s", method, e, exc_info=True)
             await self._reply(writer, msgid, str(e), None)

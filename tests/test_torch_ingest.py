@@ -28,7 +28,6 @@ import pytest
 import torch
 
 from jubatus_tpu_torch import native
-from jubatus_tpu_torch.batching import arenas
 from jubatus_tpu_torch.batching.arenas import ArenaPool, pinned_tensor
 from jubatus_tpu_torch.batching.bucketing import fuse_sparse_batches, round_b
 from jubatus_tpu_torch.batching.controller import WindowController
@@ -369,10 +368,13 @@ def test_pool_bound_and_disable():
     assert pool.free_arenas() == 0
 
 
-def test_pool_for_device():
-    assert arenas.pool_for(torch.device("cpu")) is arenas.HOST_POOL
-    assert arenas.pool_for(torch.device("cuda", 0)) is arenas.PINNED_POOL
-    assert arenas.PINNED_POOL.pinned and not arenas.HOST_POOL.pinned
+def test_each_driver_owns_its_pool():
+    a = ClassifierDriver(AROW, device="cpu")
+    b = ClassifierDriver(AROW, device="cpu")
+    assert a.arena_pool is not b.arena_pool and not a.arena_pool.pinned
+    rb = a.convert_raw_batch(rand_frames(2, 2, empties=False))
+    assert (a.arena_pool.misses, b.arena_pool.misses) == (1, 0)
+    assert isinstance(rb.arena, np.ndarray) and rb.arena.ctypes.data % 64 == 0
 
 
 class _Server:
@@ -390,7 +392,7 @@ class _Server:
 def test_pipeline_releases_arenas_only_after_the_sync_fence(monkeypatch):
     drv = ClassifierDriver(cfg("PA1"), device="cpu")
     events = []
-    pool = arenas.HOST_POOL
+    pool = drv.arena_pool
     real_release, real_step = pool.release, drv.train_converted_batch
 
     def release(arena):
@@ -560,3 +562,60 @@ def test_rwlock_ownership_and_window_controller():
     for _ in range(60):
         ctl.observe(1)
     assert ctl.wait_s < 1e-4
+
+
+def test_concurrent_trains_reads_and_admin_ops_lose_no_update():
+    """Stress, with a shortened switch interval: 12 client threads push raw
+    frames through the pipeline while a reader classifies under the read
+    lock and an admin thread flushes and sets labels under the write lock.
+    Every acked datum is counted exactly once."""
+    import sys
+    drv = ClassifierDriver(cfg("PA1"), device="cpu")
+    srv = _Server(drv)
+    pipe = IngestPipeline(srv, max_batch=8)
+    acked, errors, done = [], [], threading.Event()
+
+    def client(t):
+        try:
+            for m, o in rand_frames(100 + t, 5, empties=False, max_rows=4):
+                acked.append(pipe.submit(m, o).result(timeout=60))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    def reader():
+        q = [Datum().add_string("w0", "tok1")]
+        while not done.is_set():
+            with srv.model_lock.read():
+                drv.classify(q)
+                drv.get_labels()
+
+    def admin():
+        for i in range(5):
+            pipe.flush()
+            with srv.model_lock.write():
+                drv.set_label(f"extra{i}")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        clients = [threading.Thread(target=client, args=(t,))
+                   for t in range(12)]
+        others = [threading.Thread(target=reader),
+                  threading.Thread(target=admin)]
+        for th in clients + others:
+            th.start()
+        for th in clients + others[1:]:
+            th.join(timeout=120)
+        done.set()
+        others[0].join(timeout=30)
+        assert not any(th.is_alive() for th in clients + others)
+        pipe.flush()
+    finally:
+        sys.setswitchinterval(old)
+        pipe.stop()
+    assert not errors
+    assert len(acked) == 60
+    labels = drv.get_labels()
+    assert sum(labels.values()) == sum(acked) > 0
+    assert all(labels[f"extra{i}"] == 0 for i in range(5))
+    assert srv.update_count == 60

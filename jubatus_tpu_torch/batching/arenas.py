@@ -86,8 +86,6 @@ class ArenaPool:
     def release(self, arena) -> None:
         """Return an arena once the device step that read it has been
         fenced by a device_sync (see the module docstring)."""
-        if not isinstance(arena, np.ndarray):
-            return                        # bytearray result: not pooled
         with self._lock:
             if self.max_per_size == 0:
                 return

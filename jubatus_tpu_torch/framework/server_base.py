@@ -164,8 +164,6 @@ class JubatusServer:
                 self.dispatcher, "accepts_raw_frames", False))),
             "ingest_depth": str(self.args.ingest_depth),
             "arena_pool": str(self.args.arena_pool),
-            "ingest_pipeline_stall_total": str(getattr(self.dispatcher,
-                                                       "stalls", 0)),
         }
         for name, n in kernel_launches().items():
             st[f"kernel_launches.{name}"] = str(n)

@@ -598,9 +598,7 @@ class ClassifierDriver(Driver):
             if host is not None:
                 buf = host[:nbytes].to(self.device, non_blocking=True)
             else:
-                arr = packed[:nbytes] if isinstance(packed, np.ndarray) \
-                    else np.frombuffer(packed, np.uint8, count=nbytes)
-                buf = torch.from_numpy(arr).to(self.device)
+                buf = torch.from_numpy(packed[:nbytes]).to(self.device)
             idx, val, lbl, msk = _unpack_batch(buf, b, k)
             if self._is_centroid:
                 _centroid_train(self.w, self.counts, self.active, idx, val,

@@ -43,20 +43,21 @@ class RequestCoalescer:
     per item.
     """
 
+    QUEUE_SIZE = 32              # requests waiting for the dispatch thread
+
     def __init__(self, execute: Callable[[list], list], *,
-                 name: str = "train", maxsize: int = 32,
-                 max_batch: int = 16, max_wait_s: float = 0.002,
-                 adaptive: bool = True):
+                 name: str = "train", max_batch: int = 16,
+                 max_wait_s: float = 0.002):
         self._execute = execute
         self.name = name
         self.max_batch = max(1, int(max_batch))
-        if adaptive and max_wait_s > 0:
+        if max_wait_s > 0:
             self.controller = WindowController(
                 max_wait_s=max_wait_s,
                 target_batch=max(2, self.max_batch // 2))
         else:
-            self.controller = FixedWindow(max_wait_s if not adaptive else 0.0)
-        self._q: "queue.Queue" = queue.Queue(maxsize)
+            self.controller = FixedWindow(0.0)
+        self._q: "queue.Queue" = queue.Queue(self.QUEUE_SIZE)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"coalesce-{name}")
         self._thread.start()

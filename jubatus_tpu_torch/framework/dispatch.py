@@ -73,12 +73,12 @@ class TrainDispatcher(RequestCoalescer):
     # adaptive linger ceiling: 0 at low load, up to this under pressure
     MAX_WAIT_S = 0.002
 
-    def __init__(self, server, maxsize: int = 32,
-                 max_batch: int = None, max_wait_s: float = None):
+    def __init__(self, server, max_batch: int = None,
+                 max_wait_s: float = None):
         self._server = server
         self._ops_since_sync = 0
         super().__init__(
-            self._execute_batch, name="train", maxsize=maxsize,
+            self._execute_batch, name="train",
             max_batch=self.MAX_COALESCE if max_batch is None else max_batch,
             max_wait_s=self.MAX_WAIT_S if max_wait_s is None else max_wait_s)
 
@@ -141,7 +141,9 @@ class IngestPipeline:
     MAX_WAIT_S = TrainDispatcher.MAX_WAIT_S
     accepts_raw_frames = True
 
-    def __init__(self, server, maxsize: int = 128, max_batch: int = None,
+    QUEUE_SIZE = 128             # frames waiting for the convert stage
+
+    def __init__(self, server, max_batch: int = None,
                  max_wait_s: float = None, depth: int = 2):
         self._server = server
         self.max_batch = max(1, int(max_batch if max_batch is not None
@@ -153,7 +155,7 @@ class IngestPipeline:
         else:
             self.controller = FixedWindow(0.0)
         self.depth = max(1, int(depth))
-        self._q: "queue.Queue" = queue.Queue(maxsize)       # frames
+        self._q: "queue.Queue" = queue.Queue(self.QUEUE_SIZE)
         self._dq: "queue.Queue" = queue.Queue(self.depth)  # converted
         self._ops_since_sync = 0
         self._spent_arenas = []      # consumed, awaiting the sync fence

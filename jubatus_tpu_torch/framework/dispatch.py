@@ -89,12 +89,11 @@ class TrainDispatcher(RequestCoalescer):
         super().flush()
 
     def _execute_batch(self, items) -> list:
-        """One write-lock hold, one fused device step.  Items of the raw
-        train path are (conv, msg_bytes, params_off) triples; plain
-        conversions work too."""
+        """One write-lock hold, one fused device step.  Items are
+        (conv, msg_bytes, params_off) triples: the raw frames ride along
+        for the journal record."""
         slot = self._server
-        convs = [it[0] if type(it) is tuple and len(it) == 3 else it
-                 for it in items]
+        convs = [conv for conv, _, _ in items]
         # the journal's write check and the train.step span go here
         with slot.model_lock.write():
             results = slot.driver.train_converted_many(convs)

@@ -5,11 +5,11 @@
 # card, main_path and result lines are echoed.
 #
 #   git archive <commit> | tar -x -C build/a     (and the other into build/b)
-#   bash scripts/torch_smoke_ab.sh build/a build/b chiprun_out
+#   bash scripts/torch_smoke_ab.sh build/a build/b build/smoke_ab
 set -u
 a=$1
 b=$2
-out=${3:-chiprun_out}
+out=${3:-build/smoke_ab}
 mkdir -p "$out"
 out=$(cd "$out" && pwd)
 i=0

@@ -4,8 +4,8 @@ against the JAX package's (jubatus_tpu/native/), on the CPU.
 The same seeded wire frames go through both packages' FastConverter and
 FrameSplitter: every result must be bitwise equal — padded buffers, label
 rows, unknown-label lists, packed arenas, frame boundaries — and errors
-must be raised alike.  The port's builder must raise, not fall back, when
-the compiler fails.
+must be raised alike.  The port's native build must raise, not fall
+back, when the compiler fails.
 """
 
 import msgpack

@@ -26,21 +26,27 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 sequential microbatch, default routing: its train frames
                 take the native ingest pipeline — C conversion into pinned
                 pooled arenas, one copy to the card, the scan kernel on the
-                dispatch thread) answers a wire session: 8192-datum train
-                requests over 32 labels (timed, then again under
-                torch.profiler for the card's busy share), classify,
+                dispatch thread) answers a wire session: one warm train
+                request, then 8192-datum train requests over 32 labels
+                (each timed, then again under torch.profiler for the
+                card's busy share), classify,
                 get_labels, save, load; get_status must report fast_path
                 True, ingest_pipeline 1, dispatch_mode threaded; the scan
                 kernel must have launched; the port must log no warning;
                 scores of a small stream must agree with the CPU reference
-                driver.  The reuse check: the request frames three times
-                over through an IngestPipeline (pool arenas reused after
-                the sync fences) and through train_raw with a synchronize
-                after each leave w, cov and counts bitwise equal, and every
-                copied arena is pinned.  The main_path line splits one
-                request: the decoded route's stages, the C converter alone
-                (native_convert) and the raw step with its copy and scan up
-                to a synchronize (raw_dispatch)
+                driver.  The reuse check, twice: the request frames three
+                times over through an IngestPipeline (pool arenas reused
+                after the sync fences), one frame a window; then twelve
+                times over at the default window, where queued frames fuse
+                into windows of up to 16 frames.  Each leaves w, cov and
+                counts bitwise equal to train_raw with a synchronize after
+                each frame, and every copied arena is pinned.  The
+                main_path line splits the warm and each timed request by
+                the server's raw-path calls (request_split_ms), and one
+                request by stages timed alone: the decoded route's, the C
+                converter (native_convert) and the raw step with its copy
+                and scan up to a synchronize (raw_dispatch), each also on a
+                fresh driver's first window (first_*)
   5. mix      — one blockwise-int8 (v3) MIX round between two drivers on the
                 card: replicas bitwise equal afterwards, drift from an f32
                 round within the accumulated quantization bound, both
@@ -633,13 +639,67 @@ def time_device_busy(torch, run):
     return (us / 1e3 if us > 0 else None), wall_ms
 
 
-def reuse_check(torch, frames, rounds=3):
+class StageClock:
+    """Host-clock times of a server driver's raw-path calls: the arena
+    acquire (inside the convert), convert_raw_batch, train_converted_batch
+    (copy and launch) and device_sync, each call as (start, end); and of
+    the process's garbage collections by generation (gc0..gc2: the
+    smoke's client shares the server's process and its objects)."""
+
+    STAGES = ("acquire", "convert", "step", "sync", "gc0", "gc1", "gc2")
+
+    def __init__(self, drv):
+        import gc
+        self.calls = {k: [] for k in self.STAGES}
+        self._gc_start = 0.0
+        gc.callbacks.append(self._on_gc)
+        drv.arena_pool.acquire = self._wrap(drv.arena_pool.acquire,
+                                            "acquire")
+        drv.convert_raw_batch = self._wrap(drv.convert_raw_batch, "convert")
+        drv.train_converted_batch = self._wrap(drv.train_converted_batch,
+                                               "step")
+        drv.device_sync = self._wrap(drv.device_sync, "sync")
+
+    def _on_gc(self, phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            self._gc_start = now
+        else:
+            self.calls[f"gc{info['generation']}"].append(
+                (self._gc_start, now))
+
+    def close(self):
+        import gc
+        gc.callbacks.remove(self._on_gc)
+
+    def _wrap(self, fn, stage):
+        def timed(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self.calls[stage].append((t0, time.perf_counter()))
+        return timed
+
+    def split(self, t0, t1):
+        """ms of each stage's calls that started in [t0, t1), beside the
+        interval's own ms ("request")."""
+        out = {"request": (t1 - t0) * 1e3}
+        for stage, calls in self.calls.items():
+            out[stage] = sum((b - a) * 1e3 for a, b in calls if t0 <= a < t1)
+        return out
+
+
+def reuse_check(torch, frames, rounds=3, fuse=False):
     """The same 8192-datum frames, `rounds` times over, through an
-    IngestPipeline on a fresh cuda driver (one frame a window, the arena
-    pool at its default size, so arenas are reused once the sync fences
-    release them) and through train_raw with a synchronize after each on
-    another: w, cov and counts must be bitwise equal.  Every arena the
-    pipeline copied must be pinned."""
+    IngestPipeline on a fresh cuda driver (the arena pool at its default
+    size, so arenas are reused once the sync fences release them) and
+    through train_raw with a synchronize after each on another: w, cov
+    and counts must be bitwise equal.  Every arena the pipeline copied
+    must be pinned.  Without `fuse` each window holds one frame; with it
+    the frames are queued behind the held model lock, so they fuse into
+    windows of many frames (a sequential scan over r1 || r2 is r1's and
+    then r2's)."""
     from jubatus_tpu_torch.batching.arenas import pinned_tensor
     from jubatus_tpu_torch.framework.dispatch import IngestPipeline
     from jubatus_tpu_torch.models.classifier import ClassifierDriver
@@ -664,10 +724,18 @@ def reuse_check(torch, frames, rounds=3):
         return step(rb)
 
     pooled.train_converted_batch = checked_step
-    pipe = IngestPipeline(Slot(pooled), max_batch=1, max_wait_s=0.0)
+    slot = Slot(pooled)
+    pipe = IngestPipeline(slot)
     try:
-        futs = [pipe.submit(m, o) for _ in range(rounds) for m, o in frames]
-        if [f.result(timeout=600) for f in futs] != [REQ_B] * len(futs):
+        if fuse:
+            with slot.model_lock.write():       # the dispatch stage waits
+                futs = [pipe.submit(m, o) for _ in range(rounds)
+                        for m, o in frames]
+            ns = [f.result(timeout=600) for f in futs]
+        else:                                   # closed loop, as a client
+            ns = [pipe.submit(m, o).result(timeout=600)
+                  for _ in range(rounds) for m, o in frames]
+        if ns != [REQ_B] * len(ns):
             raise AssertionError("reuse check: a window trained a wrong count")
         pipe.flush()
     finally:
@@ -686,17 +754,29 @@ def reuse_check(torch, frames, rounds=3):
             raise AssertionError(f"reuse check: {name} differs from "
                                  f"train_raw + synchronize: an arena was "
                                  f"rewritten before its copy finished?")
-    if len(pinned) != rounds * len(frames) or not all(pinned):
+    n = rounds * len(frames)
+    if pipe.frames != n or len(pinned) != pipe.windows or not all(pinned):
         raise AssertionError(f"reuse check: {pinned.count(False)} of "
                              f"{len(pinned)} copied arenas not pinned")
-    warm = IngestPipeline.SYNC_EVERY + pipe.depth + 1
-    if hits <= 0 or misses > warm:
-        raise AssertionError(f"reuse check: arena pool {hits} hits, {misses} "
-                             f"misses (warm-up bound {warm})")
-    log(f"server: reuse check: {rounds * len(frames)} windows through pinned "
-        f"pool arenas ({hits} hits, {misses} misses, warm-up bound {warm}) "
-        f"leave w, cov, counts bitwise equal to train_raw + synchronize")
-    return {"windows": rounds * len(frames), "pool_hits": hits,
+    if hits + misses != pipe.windows:
+        raise AssertionError(f"reuse check: {hits} hits + {misses} misses "
+                             f"for {pipe.windows} windows")
+    if fuse:
+        # windows of different widths take arenas of different size
+        # classes, so only the fusion itself is bounded here
+        warm = None
+        if pipe.windows >= n:
+            raise AssertionError("reuse check: no window fused two frames")
+    else:
+        warm = IngestPipeline.SYNC_EVERY + IngestPipeline.DEPTH + 1
+        if hits <= 0 or misses > warm:
+            raise AssertionError(f"reuse check: arena pool {hits} hits, "
+                                 f"{misses} misses (warm-up bound {warm})")
+    log(f"server: reuse check: {n} frames in {pipe.windows} windows through "
+        f"pinned pool arenas ({hits} hits, {misses} misses, warm-up bound "
+        f"{warm}) leave w, cov, counts bitwise equal to train_raw + "
+        f"synchronize")
+    return {"frames": n, "windows": pipe.windows, "pool_hits": hits,
             "pool_misses": misses}
 
 
@@ -712,6 +792,7 @@ def phase_server(torch, np, card):
 
     rng = np.random.default_rng(1)
     reqs = [bench_batch(rng, REQ_B) for _ in range(N_TRAIN_REQS)]
+    warm_req = bench_batch(rng, REQ_B)
     query = [d for _, d in reqs[0][:N_LABELS]]
     warnings = PortWarnings()
     logging.getLogger("jubatus_tpu_torch").addHandler(warnings)
@@ -727,15 +808,31 @@ def phase_server(torch, np, card):
             # pre-encode outside the timed window, as bench.py's client does
             frames = [cli.frame("train", r) for r in reqs]
             arenas = server.driver.arena_pool
-            cli.call("classify", query)     # warm: classify's first launches
+            clock = StageClock(server.driver)
+            # warm, outside the timed window: classify's first launches;
+            # then one train request (the dispatch thread's first step,
+            # label rows interned, the model grown to 32 rows, the first
+            # pinned arena) timed alone up to a read that waits for it
+            cli.call("classify", query)
+            warm_frame = cli.frame("train", warm_req)
+            t0 = time.perf_counter()
+            cli.send(warm_frame, "train")
+            cli.call("get_labels")
+            warm_split = clock.split(t0, time.perf_counter())
             reset_kernel_launches()
+            marks = []
             t0 = time.perf_counter()
             for frame in frames:
+                marks.append(time.perf_counter())
                 n = cli.send(frame, "train")
                 if n != REQ_B:
                     raise AssertionError(f"train acknowledged {n!r} datums")
+            marks.append(time.perf_counter())
             res = cli.call("classify", query)   # reads scores back: a fence
             train_s = time.perf_counter() - t0
+            timed_split = [clock.split(a, b)
+                           for a, b in zip(marks, marks[1:])]
+            clock.close()
             pool = (arenas.hits, arenas.misses)
 
             # the card's busy share of a request: the same frames again,
@@ -765,7 +862,7 @@ def phase_server(torch, np, card):
     logging.getLogger("jubatus_tpu_torch").removeHandler(warnings)
     warnings.check("phase 4 server session")
 
-    sent = 2 * REQ_B * N_TRAIN_REQS
+    sent = 2 * REQ_B * N_TRAIN_REQS + REQ_B
     if sum(labels.values()) != sent or len(labels) != N_LABELS:
         raise AssertionError(f"get_labels sums to {sum(labels.values())} "
                              f"over {len(labels)} labels, sent {sent}")
@@ -793,7 +890,9 @@ def phase_server(torch, np, card):
     # the pinned-arena reuse check, on the request frames as sent
     splitter = native.load()
     wire = [(f, splitter.parse_envelope(f, 0)[4]) for f in frames]
-    reuse = reuse_check(torch, wire)
+    reuse = {"one_frame_windows": reuse_check(torch, wire),
+             "fused_windows": reuse_check(torch, wire, rounds=12,
+                                          fuse=True)}
     warnings.check("reuse check")
 
     # small-input reference: the same 512-datum stream through a driver on
@@ -844,9 +943,13 @@ def phase_server(torch, np, card):
         raise AssertionError("FrameSplitter: wrong params offset")
     frame_split_ms = (time.perf_counter() - t0) * 1e3
     raw = ClassifierDriver(SERVER_CONFIG, device="cuda")
+    t0 = time.perf_counter()
     warm = raw.convert_raw_batch([wire[0]])
+    first_convert_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
     raw.train_converted_batch(warm)
     torch.cuda.synchronize()
+    first_dispatch_ms = (time.perf_counter() - t0) * 1e3
     raw.arena_pool.release(warm.arena)
     t0 = time.perf_counter()
     rb = raw.convert_raw_batch([wire[1]])
@@ -860,20 +963,26 @@ def phase_server(torch, np, card):
             "train_request_ms": train_request_ms,
             "classify_ms_p50": float(np.median(lat)),
             "train_requests": N_TRAIN_REQS, "datums_per_request": REQ_B,
+            # each request's time and the server's raw-path calls that
+            # started in it; the warm request's up to its get_labels reply
+            "request_split_ms": {"warm": warm_split, "timed": timed_split},
             "split_ms": {"wire_to_datum": parse_ms,
                          "convert_alone": convert_ms,
                          "driver_train": train_call_ms,
                          "frame_split": frame_split_ms,
                          "native_convert": native_convert_ms,
-                         "raw_dispatch": raw_dispatch_ms},
+                         "raw_dispatch": raw_dispatch_ms,
+                         "first_native_convert": first_convert_ms,
+                         "first_raw_dispatch": first_dispatch_ms},
             "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
             "device_busy_share": (busy_ms / busy_wall_ms
                                   if busy_ms is not None else None),
             "arena_pool": {"hits": pool[0], "misses": pool[1],
                            "reuse_check": reuse},
             "card": card}
-    log(f"server: {sent} datums in {2 * N_TRAIN_REQS} train requests through "
-        f"the ingest pipeline, get_labels sum {sum(labels.values())}, "
+    log(f"server: {sent} datums in {2 * N_TRAIN_REQS + 1} train requests "
+        f"through the ingest pipeline, get_labels sum "
+        f"{sum(labels.values())}, "
         f"train_scan launches {counts['train_scan']}, arena pool {pool[0]} "
         f"hits / {pool[1]} misses over the timed requests, cuda-vs-cpu "
         f"scores max |diff| {np.abs(got - ref).max():.3g}")

@@ -3,8 +3,6 @@ jubatus_tpu/batching):
 
   bucketing.py  — power-of-two shape buckets and the fused-batch builder
   controller.py — the queue-depth-driven batching-window controller
-  coalescer.py  — RequestCoalescer, the threaded engine TrainDispatcher
-                  rides on
   arenas.py     — recycled host arenas (pinned for cuda drivers) for the
                   native batched ingest path
 """
@@ -12,8 +10,7 @@ jubatus_tpu/batching):
 from jubatus_tpu_torch.batching.bucketing import (B_BUCKETS,
                                                   fuse_sparse_batches,
                                                   round_b, split_groups)
-from jubatus_tpu_torch.batching.coalescer import RequestCoalescer
-from jubatus_tpu_torch.batching.controller import FixedWindow, WindowController
+from jubatus_tpu_torch.batching.controller import WindowController
 
 __all__ = ["B_BUCKETS", "fuse_sparse_batches", "round_b", "split_groups",
-           "FixedWindow", "RequestCoalescer", "WindowController"]
+           "WindowController"]

@@ -14,8 +14,8 @@ pinning costs far more than a malloc, which is why the pool exists.  For
 the CPU they are plain 64-byte-aligned numpy buffers (pinning needs CUDA).
 acquire() hands the C side a writable numpy view; for a pinned arena the
 view's base is the pinned tensor, which pinned_tensor() returns for the
-copy.  Each driver owns one pool (models/classifier.py), sized by
---arena_pool at server start.
+copy.  Each driver owns one pool (models/classifier.py) of
+MAX_PER_SIZE arenas a size class, the JAX server's --arena_pool default.
 
 Recycling rule: the copy of a pinned arena runs asynchronously, and on the
 CPU the device step aliases the arena zero-copy, so an arena must not be
@@ -48,12 +48,15 @@ class ArenaPool:
 
     acquire(nbytes) returns a writable contiguous uint8 array of at least
     nbytes (the C side fills only the first nbytes); release() returns it
-    for reuse.  max_per_size == 0 disables pooling (acquire still hands
-    out fresh arenas; release drops them).  `hits` and `misses` count
-    acquires served from a free list and fresh allocations.
+    for reuse, up to max_per_size arenas a class (0 keeps none).  `hits`
+    and `misses` count acquires served from a free list and fresh
+    allocations.
     """
 
-    def __init__(self, max_per_size: int = 4, pinned: bool = False):
+    MAX_PER_SIZE = 4
+
+    def __init__(self, max_per_size: int = MAX_PER_SIZE,
+                 pinned: bool = False):
         self.max_per_size = max(0, int(max_per_size))
         self.pinned = pinned
         self.hits = 0
@@ -61,17 +64,10 @@ class ArenaPool:
         self._free: Dict[int, List[np.ndarray]] = {}
         self._lock = threading.Lock()
 
-    def configure(self, max_per_size: int) -> None:
-        """Resize the per-class bound (0 turns pooling off)."""
-        with self._lock:
-            self.max_per_size = max(0, int(max_per_size))
-            if self.max_per_size == 0:
-                self._free.clear()
-
     def acquire(self, nbytes: int) -> np.ndarray:
         size = _size_class(nbytes)
         with self._lock:
-            lst = self._free.get(size) if self.max_per_size else None
+            lst = self._free.get(size)
             if lst:
                 self.hits += 1
                 return lst.pop()
@@ -87,8 +83,6 @@ class ArenaPool:
         """Return an arena once the device step that read it has been
         fenced by a device_sync (see the module docstring)."""
         with self._lock:
-            if self.max_per_size == 0:
-                return
             lst = self._free.setdefault(arena.nbytes, [])
             if len(lst) < self.max_per_size:
                 lst.append(arena)

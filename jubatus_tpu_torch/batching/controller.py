@@ -13,8 +13,8 @@ from __future__ import annotations
 class WindowController:
     """EWMA-of-load -> linger window in [0, max_wait_s].
 
-    observe() is called once per fused step from the single coalescer
-    thread with (drained, backlog): how many requests the step carried
+    observe() is called once per window from the ingest pipeline's
+    convert thread with (drained, backlog): how many requests the step carried
     and how many were still queued behind it.  No locking — one writer,
     and readers of `wait_s` tolerate a stale float.
     """
@@ -42,13 +42,3 @@ class WindowController:
         # ewma == 1 (steady singles) -> 0 wait; >= target -> full window
         frac = (self._ewma - 1.0) / (self.target_batch - 1.0)
         self._wait = self.max_wait_s * min(max(frac, 0.0), 1.0)
-
-
-class FixedWindow:
-    """Degenerate controller: a constant window (0 disables lingering)."""
-
-    def __init__(self, wait_s: float = 0.0):
-        self.wait_s = wait_s
-
-    def observe(self, drained: int, backlog: int = 0) -> None:
-        pass

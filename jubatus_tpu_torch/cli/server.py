@@ -35,24 +35,6 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--eth", default="", help="advertised address override")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where model state and kernels run")
-    p.add_argument("--batch_max", type=int, default=16,
-                   help="max train requests fused into one device step")
-    p.add_argument("--batch_window_us", type=float, default=2000.0,
-                   help="adaptive batching-window ceiling in microseconds: "
-                        "the dispatcher may linger up to this long for more "
-                        "requests under load (it stays at 0 at low load); "
-                        "0 disables lingering")
-    p.add_argument("--ingest_depth", type=int, default=2,
-                   help="native ingest pipeline: depth of the bounded "
-                        "convert->dispatch hand-off queue (window W+1 "
-                        "converts in one C call while window W's step "
-                        "runs).  0 disables the pipeline: train requests "
-                        "are converted one by one on the RPC workers")
-    p.add_argument("--arena_pool", type=int, default=4,
-                   help="native ingest pipeline: recycled host arenas "
-                        "(pinned for --device cuda) kept per size class, "
-                        "released back at device-sync fences.  0 disables "
-                        "pooling: every window allocates")
     return p
 
 
@@ -63,10 +45,7 @@ def serve(argv: Optional[Sequence[str]] = None
     ns = _parser().parse_args(argv)
     args = ServerArgs(type=ns.type, name=ns.name, rpc_port=ns.rpc_port,
                       bind_address=ns.listen_addr, datadir=ns.datadir,
-                      configpath=ns.configpath, eth=ns.eth, device=ns.device,
-                      batch_max=ns.batch_max,
-                      batch_window_us=ns.batch_window_us,
-                      ingest_depth=ns.ingest_depth, arena_pool=ns.arena_pool)
+                      configpath=ns.configpath, eth=ns.eth, device=ns.device)
     server = JubatusServer(args)
     rpc = RpcServer()
     bind_service(server, rpc)

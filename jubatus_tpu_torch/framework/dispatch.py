@@ -1,20 +1,11 @@
-"""Device-dispatch threads of the raw train path (counterpart of
-jubatus_tpu/framework/dispatch.py).
+"""The device-dispatch threads of the raw train path (counterpart of
+jubatus_tpu/framework/dispatch.py, IngestPipeline).
 
-Every fused device step of the raw train path is issued from one
-dedicated thread, so steps stay back to back whatever the number of RPC
-workers feeding them, and the RPC reader never waits on the device.
-
-  TrainDispatcher — the per-request route: an RPC worker converts ONE
-                    request under the driver's convert_lock and submits
-                    the conversion; the dispatch thread fuses what is
-                    queued into one step (batching/coalescer.py).
-  IngestPipeline  — the batched route (the server's default when the
-                    native converter covers the config): raw frames go
-                    straight to a CONVERT thread, which converts a whole
-                    window in one GIL-released C call into a recycled
-                    arena (batching/arenas.py); a DISPATCH thread runs one
-                    fused step per window.
+Raw train frames go straight to a CONVERT thread, which converts a whole
+window in one GIL-released C call into a recycled arena
+(batching/arenas.py); a DISPATCH thread runs one fused device step per
+window.  So steps stay back to back whatever the number of RPC workers
+feeding them, and the RPC reader never waits on the device.
 
 Semantics: a request is acked only after the step holding it has been
 dispatched (issued to the device stream; the stream executes steps in
@@ -24,8 +15,9 @@ flush() BEFORE taking the model lock — never while holding it, or they
 deadlock against the dispatch thread acquiring that lock; flush() raises
 LockDisciplineError when the calling thread holds either side.
 
-The JAX package's tracer spans, journal records, tenant quotas and
-metrics registry have no counterpart yet; the places where they go are
+The JAX package's TrainDispatcher (per-request conversion on the RPC
+workers), tracer spans, journal records, tenant quotas and metrics
+registry have no counterpart yet; the places where the hooks go are
 marked.
 """
 
@@ -37,8 +29,7 @@ import threading
 import time
 from concurrent.futures import Future
 
-from jubatus_tpu_torch.batching import (FixedWindow, RequestCoalescer,
-                                        WindowController)
+from jubatus_tpu_torch.batching import WindowController
 from jubatus_tpu_torch.utils.rwlock import LockDisciplineError
 
 log = logging.getLogger("jubatus_tpu_torch.dispatch")
@@ -64,53 +55,6 @@ def _check_flush_lock_discipline(server, who: str) -> None:
             "(framework/dispatch.py)")
 
 
-class TrainDispatcher(RequestCoalescer):
-    # at most this many queued requests as one device step
-    MAX_COALESCE = 16
-    # a device_sync at least every N fused steps: bounds the queued device
-    # backlog without a blocking round trip per request
-    SYNC_EVERY = 4
-    # adaptive linger ceiling: 0 at low load, up to this under pressure
-    MAX_WAIT_S = 0.002
-
-    def __init__(self, server, max_batch: int = None,
-                 max_wait_s: float = None):
-        self._server = server
-        self._ops_since_sync = 0
-        super().__init__(
-            self._execute_batch, name="train",
-            max_batch=self.MAX_COALESCE if max_batch is None else max_batch,
-            max_wait_s=self.MAX_WAIT_S if max_wait_s is None else max_wait_s)
-
-    def flush(self) -> None:
-        """FIFO barrier (RequestCoalescer.flush) with the locking rule
-        enforced."""
-        _check_flush_lock_discipline(self._server, "train")
-        super().flush()
-
-    def _execute_batch(self, items) -> list:
-        """One write-lock hold, one fused device step.  Items are
-        (conv, msg_bytes, params_off) triples: the raw frames ride along
-        for the journal record."""
-        slot = self._server
-        convs = [conv for conv, _, _ in items]
-        # the journal's write check and the train.step span go here
-        with slot.model_lock.write():
-            results = slot.driver.train_converted_many(convs)
-            for _ in convs:
-                slot.event_model_updated()
-            # the journal record of the fused step goes here
-        return results
-
-    def _after_batch(self, n: int) -> None:
-        # sync every SYNC_EVERY steps, after the batch's futures resolved,
-        # so acks never wait on it
-        self._ops_since_sync += 1
-        if self._ops_since_sync >= self.SYNC_EVERY:
-            self._server.driver.device_sync()
-            self._ops_since_sync = 0
-
-
 _STOP = object()
 _BARRIER = object()
 
@@ -121,10 +65,10 @@ class IngestPipeline:
 
     The RPC reader frames messages with the native FrameSplitter and
     submits raw train frames here; the CONVERT thread gathers a window
-    (the same adaptive linger as the coalescer) and converts it in ONE C
+    (an adaptive linger, batching/controller.py) and converts it in ONE C
     call into an arena from the driver's pool; the DISPATCH thread
     runs one fused step per window under the model write lock.  The
-    bounded convert->dispatch queue (`depth`) is what pipelines: window
+    bounded convert->dispatch queue (DEPTH) is what pipelines: window
     W+1 converts while window W's step runs.  When it fills, the convert
     thread waits (counted in `stalls`), and backpressure reaches the RPC
     workers through the bounded frame queue.
@@ -132,33 +76,35 @@ class IngestPipeline:
     The periodic device_sync (every SYNC_EVERY steps) bounds the device
     backlog and is the fence after which consumed arenas go back to the
     pool: a pinned arena's copy to the card is asynchronous, so it may
-    not be rewritten before then.
+    not be rewritten before then.  `windows` and `frames` count the
+    converted windows and the frames in them.
     """
 
-    MAX_COALESCE = TrainDispatcher.MAX_COALESCE
-    SYNC_EVERY = TrainDispatcher.SYNC_EVERY
-    MAX_WAIT_S = TrainDispatcher.MAX_WAIT_S
-    accepts_raw_frames = True
-
+    # the JAX server's defaults (--batch_max, --batch_window_us,
+    # --ingest_depth); the port's server has no knobs for them yet
+    # at most this many queued frames as one window
+    MAX_COALESCE = 16
+    # adaptive linger ceiling: 0 at low load, up to this under pressure
+    MAX_WAIT_S = 0.002
+    # converted windows waiting for the dispatch stage
+    DEPTH = 2
+    # a device_sync at least every N fused steps: bounds the queued device
+    # backlog without a blocking round trip per request, and fences arenas
+    SYNC_EVERY = 4
     QUEUE_SIZE = 128             # frames waiting for the convert stage
 
-    def __init__(self, server, max_batch: int = None,
-                 max_wait_s: float = None, depth: int = 2):
+    def __init__(self, server):
         self._server = server
-        self.max_batch = max(1, int(max_batch if max_batch is not None
-                                    else self.MAX_COALESCE))
-        wait = self.MAX_WAIT_S if max_wait_s is None else max_wait_s
-        if wait > 0:
-            self.controller = WindowController(
-                max_wait_s=wait, target_batch=max(2, self.max_batch // 2))
-        else:
-            self.controller = FixedWindow(0.0)
-        self.depth = max(1, int(depth))
+        self.controller = WindowController(
+            max_wait_s=self.MAX_WAIT_S,
+            target_batch=max(2, self.MAX_COALESCE // 2))
         self._q: "queue.Queue" = queue.Queue(self.QUEUE_SIZE)
-        self._dq: "queue.Queue" = queue.Queue(self.depth)  # converted
+        self._dq: "queue.Queue" = queue.Queue(self.DEPTH)  # converted
         self._ops_since_sync = 0
         self._spent_arenas = []      # consumed, awaiting the sync fence
         self.stalls = 0              # convert thread waited on dispatch
+        self.windows = 0             # windows converted
+        self.frames = 0              # frames in them
         self._convert_thread = threading.Thread(
             target=self._convert_loop, daemon=True, name="ingest-convert")
         self._dispatch_thread = threading.Thread(
@@ -219,7 +165,7 @@ class IngestPipeline:
         items = [self._q.get()]
         deadline = 0.0
         window = self.controller.wait_s
-        while len(items) < self.max_batch:
+        while len(items) < self.MAX_COALESCE:
             tail_ctl = items[-1][0] is _STOP or items[-1][0] is _BARRIER
             if tail_ctl:
                 window = 0.0
@@ -298,6 +244,8 @@ class IngestPipeline:
                 else:
                     batch.append((item, fut))
             if batch:
+                self.windows += 1
+                self.frames += len(batch)
                 self._convert_window(batch)
                 self.controller.observe(len(batch), self._q.qsize())
             for fut in trailing:

@@ -18,7 +18,9 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import jubatus_tpu_torch
+from jubatus_tpu_torch.batching.arenas import ArenaPool
 from jubatus_tpu_torch.device import device_telemetry
+from jubatus_tpu_torch.framework.dispatch import IngestPipeline
 from jubatus_tpu_torch.framework.save_load import load_model, save_model
 from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
@@ -57,11 +59,6 @@ class ServerArgs:
     configpath: str = ""
     eth: str = ""                # advertised address override
     device: str = "cuda"
-    # micro-batching and native ingest knobs (the JAX server's defaults)
-    batch_max: int = 16
-    batch_window_us: float = 2000.0
-    ingest_depth: int = 2
-    arena_pool: int = 4
 
 
 class JubatusServer:
@@ -78,7 +75,6 @@ class JubatusServer:
         self.model_lock = RWLock()
         # raw-train dispatcher (framework/service.setup_slot_pipelines)
         self.dispatcher = None
-        self.dispatch_mode = "threaded"
         self.update_count = 0
         self.start_time = time.time()
         # the advertised address: --eth, else the bind address (a
@@ -156,15 +152,20 @@ class JubatusServer:
             "device": str(self.driver.device),
             # whether the native wire converter covers this config
             "fast_path": str(getattr(self.driver, "_fast", None) is not None),
-            "dispatch_mode": self.dispatch_mode,
-            "batch_max": str(self.args.batch_max),
-            "batch_window_us": str(self.args.batch_window_us),
+            # the one dispatch mode the port has (the JAX server's default)
+            "dispatch_mode": "threaded",
             # whether raw train frames go through the IngestPipeline
-            "ingest_pipeline": str(int(getattr(
-                self.dispatcher, "accepts_raw_frames", False))),
-            "ingest_depth": str(self.args.ingest_depth),
-            "arena_pool": str(self.args.arena_pool),
+            "ingest_pipeline": str(int(self.dispatcher is not None)),
+            # its fixed settings, the JAX server's defaults
+            "batch_max": str(IngestPipeline.MAX_COALESCE),
+            "batch_window_us": str(IngestPipeline.MAX_WAIT_S * 1e6),
+            "ingest_depth": str(IngestPipeline.DEPTH),
+            "arena_pool": str(ArenaPool.MAX_PER_SIZE),
         }
+        if self.dispatcher is not None:
+            st["ingest_windows"] = str(self.dispatcher.windows)
+            st["ingest_frames"] = str(self.dispatcher.frames)
+            st["ingest_stalls"] = str(self.dispatcher.stalls)
         for name, n in kernel_launches().items():
             st[f"kernel_launches.{name}"] = str(n)
         for k, v in device_telemetry(self.driver.device).items():

@@ -55,42 +55,23 @@ def _datum(obj) -> Datum:
     return Datum.from_msgpack(obj)
 
 
-def _build_train_dispatcher(server):
-    """The raw-train dispatcher: the IngestPipeline when the native
-    batched converter is live for the config and --ingest_depth > 0,
-    else the per-request-convert TrainDispatcher."""
-    from jubatus_tpu_torch.framework.dispatch import (IngestPipeline,
-                                                      TrainDispatcher)
-    args = server.args
-    max_wait = args.batch_window_us / 1e6
-    drv = server.driver
-    if args.ingest_depth > 0 and hasattr(drv, "convert_raw_batch") \
-            and getattr(drv, "_fast", None) is not None:
-        return IngestPipeline(server, max_batch=args.batch_max,
-                              max_wait_s=max_wait, depth=args.ingest_depth)
-    return TrainDispatcher(server, max_batch=args.batch_max,
-                           max_wait_s=max_wait)
-
-
 def setup_slot_pipelines(server) -> None:
-    """The raw-train dispatcher of the server's one model slot (threaded
-    dispatch; the read-coalescing lane is later work)."""
+    """The raw-train dispatcher of the server's one model slot: the
+    IngestPipeline when the native converter covers the config (threaded
+    dispatch; the read-coalescing lane is later work).  Otherwise there is
+    none and train frames take the decoded route."""
+    from jubatus_tpu_torch.framework.dispatch import IngestPipeline
     sd = SERVICES.get(server.args.type)
     if (sd is not None and "train" in sd.methods
             and server.dispatcher is None
-            and hasattr(server.driver, "train_raw")
-            and hasattr(server.driver, "convert_raw_request")):
-        server.dispatcher = _build_train_dispatcher(server)
+            and getattr(server.driver, "_fast", None) is not None):
+        server.dispatcher = IngestPipeline(server)
 
 
 def bind_service(server, rpc_server) -> None:
     """Attach the server's service methods, its raw train route and the
     common RPCs."""
     sd = SERVICES[server.args.type]
-    pool = getattr(server.driver, "arena_pool", None)
-    if pool is not None:
-        pool.configure(server.args.arena_pool)
-    server.dispatch_mode = "threaded"
     setup_slot_pipelines(server)
 
     def _flush():
@@ -124,30 +105,16 @@ def bind_service(server, rpc_server) -> None:
         def raw_train(msg: bytes, params_off: int):
             """Runs on an RPC worker thread.  Returns the result, or a
             Future the RPC layer awaits before the ack."""
-            drv = server.driver
-            if drv._fast is None:
+            if server.dispatcher is None:
                 # the config needs the Python converter: decode and train
                 # like any update (the reference's routing)
                 params = msgpack.unpackb(msg, raw=False,
                                          strict_map_key=False,
                                          unicode_errors="surrogateescape")[3]
                 return _plain_train(*params)
-            dispatcher = server.dispatcher
-            if getattr(dispatcher, "accepts_raw_frames", False):
-                # the frame goes straight to the pipeline's convert stage;
-                # frames arrive in wire order and its queues are FIFO
-                return dispatcher.submit(msg, params_off)
-            if dispatcher is not None:
-                # per-request route: convert here WITHOUT the model lock
-                # (overlapping earlier steps), submit under convert_lock so
-                # conversion order is queue order
-                with drv.convert_lock:
-                    conv = drv.convert_raw_request(msg, params_off)
-                    return dispatcher.submit((conv, msg, params_off))
-            with server.model_lock.write():
-                result = drv.train_raw(msg, params_off)
-                server.event_model_updated()
-            return result
+            # the frame goes straight to the pipeline's convert stage;
+            # frames arrive in wire order and its queues are FIFO
+            return server.dispatcher.submit(msg, params_off)
 
         rpc_server.add_raw("train", raw_train)
 

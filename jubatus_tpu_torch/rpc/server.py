@@ -46,12 +46,16 @@ ARGUMENT_ERROR = 2
 
 
 class RpcServer:
-    def __init__(self, threads: int = 2):
+    # worker threads of the raw handlers (each connection's reader awaits
+    # its own handler, so this many connections hand frames over at once)
+    WORKERS = 2
+
+    def __init__(self):
         self._methods: Dict[str, Tuple[Callable[..., Any],
                                        Optional[inspect.Signature]]] = {}
         self._raw_methods: Dict[str, Callable[[bytes, int], Any]] = {}
         self._splitter = None             # native FrameSplitter type
-        self._pool = ThreadPoolExecutor(max_workers=max(threads, 1),
+        self._pool = ThreadPoolExecutor(max_workers=self.WORKERS,
                                         thread_name_prefix="rpc-worker")
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.base_events.Server] = None

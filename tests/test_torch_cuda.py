@@ -14,7 +14,8 @@ state bitwise, for all seven margin methods: on random batches, on
 streams built to hit the prefetch ring's read-after-write hazard (8 to
 256 labels, 16 and 64 entries per datum, ring depths 1 to 8, and the
 shapes that read cov or w on demand), and two launches of it agree
-bitwise.
+bitwise.  The ingest pipeline's fused windows (pinned arenas, one copy and
+one scan each) leave the model bitwise equal to train_raw frame by frame.
 """
 
 import numpy as np
@@ -374,3 +375,73 @@ def test_v3_wire_bytes_do_not_depend_on_the_device(dev):
             "k": 1}
     on_card = codec.packb(encode_wire_diff(diff, True, dev))
     assert on_card == codec.packb(encode_wire_diff(diff, True, "cpu"))
+
+
+def test_ingest_pipeline_fused_windows_on_the_card(dev):
+    """The raw train path on the card: 32 frames queued behind the held
+    model lock fuse into windows of up to 16 (each one pinned arena, one
+    copy, one scan launch) and leave w, cov and counts bitwise equal to
+    train_raw with a synchronize after each frame."""
+    import msgpack
+
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.batching.arenas import pinned_tensor
+    from jubatus_tpu_torch.framework.dispatch import IngestPipeline
+    from jubatus_tpu_torch.utils.rwlock import RWLock
+
+    conf = {"method": "AROW", "parameter": {"regularization_weight": 1.0},
+            "converter": {
+                "string_rules": [{"key": "*", "type": "str",
+                                  "sample_weight": "bin",
+                                  "global_weight": "bin"}],
+                "num_rules": [{"key": "*", "type": "num"}],
+                "hash_max_size": 1 << 16}}
+    rng = np.random.default_rng(3)
+    frames = []
+    for i in range(32):
+        data = [[f"l{int(rng.integers(0, 8))}",
+                 [[[f"w{t % 4}", f"tok{t}"]
+                   for t in rng.integers(0, 4096, 8)],
+                  [["x", float(rng.random())]], []]]
+                for _ in range(int(rng.integers(1, 300)))]
+        msg = msgpack.packb([0, i, "train", ["", data]], use_bin_type=True)
+        frames.append((msg, native.load().parse_envelope(msg, 0)[4]))
+
+    class Slot:
+        def __init__(self, driver):
+            self.driver, self.model_lock = driver, RWLock()
+            self.update_count = 0
+
+        def event_model_updated(self):
+            self.update_count += 1
+
+    drv = tc.ClassifierDriver(conf, device="cuda")
+    pinned, step = [], drv.train_converted_batch
+
+    def checked_step(rb):
+        host = pinned_tensor(rb.arena)
+        pinned.append(host is not None and host.is_pinned())
+        return step(rb)
+
+    drv.train_converted_batch = checked_step
+    slot = Slot(drv)
+    pipe = IngestPipeline(slot)
+    try:
+        with slot.model_lock.write():         # the dispatch stage waits
+            futs = [pipe.submit(m, o) for m, o in frames]
+        ns = [f.result(timeout=120) for f in futs]
+        pipe.flush()
+    finally:
+        pipe.stop()
+    drv.device_sync()
+    ref = tc.ClassifierDriver(conf, device="cuda")
+    want = []
+    for m, o in frames:
+        want.append(ref.train_raw(m, o))
+        torch.cuda.synchronize()
+    assert ns == want
+    assert pipe.windows < pipe.frames == len(frames)
+    assert len(pinned) == pipe.windows and all(pinned)
+    assert drv.labels == ref.labels
+    for name in ("w", "cov", "counts"):
+        assert torch.equal(getattr(drv, name), getattr(ref, name)), name

@@ -1,7 +1,7 @@
 """The port's native raw train path on the CPU: C conversion into pooled
 arenas (models/classifier.convert_raw_batch), the fused device step
 (train_converted_batch) and the threads that drive them
-(framework/dispatch.IngestPipeline, TrainDispatcher).
+(framework/dispatch.IngestPipeline).
 
   - the fused arena equals the port's decoded path (Python convert_batch
     + fuse_sparse_batches + _pack_batch) byte for byte on datums whose
@@ -16,8 +16,10 @@ arenas (models/classifier.convert_raw_batch), the fused device step
     the stale window;
   - arenas recycle per size class, within the bound, and only after the
     pipeline's sync fence;
+  - windows of many frames train bitwise like train_raw frame by frame;
   - flush() is a FIFO barrier and raises under the model lock;
-  - a bad frame fails its own caller only.
+  - a bad frame fails its own caller only;
+  - the server builds the pipeline only for a config the C code covers.
 """
 
 import threading
@@ -25,14 +27,12 @@ import threading
 import msgpack
 import numpy as np
 import pytest
-import torch
 
 from jubatus_tpu_torch import native
 from jubatus_tpu_torch.batching.arenas import ArenaPool, pinned_tensor
 from jubatus_tpu_torch.batching.bucketing import fuse_sparse_batches, round_b
 from jubatus_tpu_torch.batching.controller import WindowController
-from jubatus_tpu_torch.framework.dispatch import (IngestPipeline,
-                                                  TrainDispatcher)
+from jubatus_tpu_torch.framework.dispatch import IngestPipeline
 from jubatus_tpu_torch.fv import Datum
 from jubatus_tpu_torch.models.classifier import (ClassifierDriver,
                                                  _pack_batch,
@@ -360,10 +360,11 @@ def test_pool_bound_and_disable():
     pool.release(a)
     pool.release(b)                                   # over the bound
     assert pool.free_arenas() == 1
-    pool.configure(0)
-    assert pool.free_arenas() == 0
-    pool.release(pool.acquire(64))
-    assert pool.free_arenas() == 0
+    off = ArenaPool(max_per_size=0)
+    off.release(off.acquire(64))
+    assert off.free_arenas() == 0
+    off.acquire(64)
+    assert (off.hits, off.misses) == (0, 2)
 
 
 def test_each_driver_owns_its_pool():
@@ -407,7 +408,7 @@ def test_pipeline_releases_arenas_only_after_the_sync_fence(monkeypatch):
                         lambda: events.append(("sync", None)))
     hits0, miss0 = pool.hits, pool.misses
     srv = _Server(drv)
-    pipe = IngestPipeline(srv, max_batch=1, max_wait_s=0.0)
+    pipe = IngestPipeline(srv)
     try:
         for r in range(6 * IngestPipeline.SYNC_EVERY):
             m, o = train_frame(r, [("l0", [r % 5, 7, 9, 11, 13], None)])
@@ -434,14 +435,14 @@ def test_pipeline_releases_arenas_only_after_the_sync_fence(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# pipeline and dispatcher threads
+# pipeline threads
 # ---------------------------------------------------------------------------
 
 def test_pipeline_trains_bitwise_like_the_fused_path():
     frames = rand_frames(21, 24, numbers=True)
     drv = ClassifierDriver(AROW, device="cpu")
     srv = _Server(drv)
-    pipe = IngestPipeline(srv, max_batch=8, max_wait_s=0.0)
+    pipe = IngestPipeline(srv)
     try:
         futs = [pipe.submit(m, o) for m, o in frames]
         ns = [f.result(timeout=60) for f in futs]
@@ -458,22 +459,40 @@ def test_pipeline_trains_bitwise_like_the_fused_path():
     assert srv.update_count == len(frames)
 
 
-@pytest.mark.parametrize("kind", ["pipeline", "dispatcher"])
+@pytest.mark.parametrize("method", ["AROW", "PA1", "CW"])
+def test_fused_windows_train_bitwise_like_train_raw(method):
+    """The pipeline at its default window (MAX_COALESCE frames, the
+    adaptive linger): frames queued behind a held model lock fuse into
+    windows of many frames, and the state equals train_raw frame by
+    frame."""
+    frames = rand_frames(40, 3 * IngestPipeline.MAX_COALESCE, numbers=True)
+    drv = ClassifierDriver(cfg(method), device="cpu")
+    srv = _Server(drv)
+    pipe = IngestPipeline(srv)
+    try:
+        with srv.model_lock.write():     # hold the dispatch stage
+            futs = [pipe.submit(m, o) for m, o in frames]
+        ns = [f.result(timeout=60) for f in futs]
+        pipe.flush()
+    finally:
+        pipe.stop()
+    assert pipe.frames == len(frames)
+    assert pipe.windows < pipe.frames     # some window held many frames
+    ref = ClassifierDriver(cfg(method), device="cpu")
+    assert ns == [ref.train_raw(m, o) for m, o in frames]
+    assert drv.labels == ref.labels
+    for a, b in zip(state(drv), state(ref)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["pipeline"])
 def test_flush_is_a_fifo_barrier(kind):
     drv = ClassifierDriver(cfg("PA"), device="cpu")
     srv = _Server(drv)
     frames = rand_frames(0, 10, empties=False)
-    if kind == "pipeline":
-        d = IngestPipeline(srv, max_batch=4, max_wait_s=0.0)
-        submit = d.submit
-    else:
-        d = TrainDispatcher(srv, max_batch=4, max_wait_s=0.0)
-
-        def submit(m, o):
-            with drv.convert_lock:
-                return d.submit((drv.convert_raw_request(m, o), m, o))
+    d = IngestPipeline(srv)
     try:
-        futs = [submit(m, o) for m, o in frames]
+        futs = [d.submit(m, o) for m, o in frames]
         d.flush()
         assert all(f.done() for f in futs)
         assert srv.update_count == 10
@@ -481,10 +500,10 @@ def test_flush_is_a_fifo_barrier(kind):
         d.stop()
 
 
-@pytest.mark.parametrize("kind", ["pipeline", "dispatcher"])
+@pytest.mark.parametrize("kind", ["pipeline"])
 def test_flush_under_the_model_lock_raises(kind):
     srv = _Server(ClassifierDriver(cfg("PA"), device="cpu"))
-    d = IngestPipeline(srv) if kind == "pipeline" else TrainDispatcher(srv)
+    d = IngestPipeline(srv)
     try:
         with srv.model_lock.write():
             with pytest.raises(LockDisciplineError, match="write lock"):
@@ -500,7 +519,7 @@ def test_flush_under_the_model_lock_raises(kind):
 def test_bad_frame_fails_only_its_caller():
     drv = ClassifierDriver(cfg("PA"), device="cpu")
     srv = _Server(drv)
-    pipe = IngestPipeline(srv, max_batch=4, max_wait_s=0.0)
+    pipe = IngestPipeline(srv)
     try:
         good1 = train_frame(0, [("l0", [1, 2], None)])
         bad_msg = msgpack.packb([0, 1, "train", ["", 42]])
@@ -519,10 +538,12 @@ def test_bad_frame_fails_only_its_caller():
         pipe.stop()
 
 
-def test_stalls_count_when_the_device_stage_lags():
+def test_stalls_count_when_the_device_stage_lags(monkeypatch):
+    monkeypatch.setattr(IngestPipeline, "MAX_COALESCE", 1)
+    monkeypatch.setattr(IngestPipeline, "DEPTH", 1)
     drv = ClassifierDriver(cfg("PA"), device="cpu")
     srv = _Server(drv)
-    pipe = IngestPipeline(srv, max_batch=1, max_wait_s=0.0, depth=1)
+    pipe = IngestPipeline(srv)
     try:
         with srv.model_lock.write():       # the dispatch stage waits
             futs = [pipe.submit(*train_frame(i, [("l0", [i], None)]))
@@ -570,7 +591,7 @@ def test_concurrent_trains_reads_and_admin_ops_lose_no_update():
     import sys
     drv = ClassifierDriver(cfg("PA1"), device="cpu")
     srv = _Server(drv)
-    pipe = IngestPipeline(srv, max_batch=8)
+    pipe = IngestPipeline(srv)
     acked, errors, done = [], [], threading.Event()
 
     def client(t):
@@ -582,7 +603,7 @@ def test_concurrent_trains_reads_and_admin_ops_lose_no_update():
 
     def reader():
         q = [Datum().add_string("w0", "tok1")]
-        while not done.is_set():
+        while not done.wait(0.001):
             with srv.model_lock.read():
                 drv.classify(q)
                 drv.get_labels()
@@ -617,3 +638,32 @@ def test_concurrent_trains_reads_and_admin_ops_lose_no_update():
     assert sum(labels.values()) == sum(acked) > 0
     assert all(labels[f"extra{i}"] == 0 for i in range(5))
     assert srv.update_count == 60
+
+
+@pytest.mark.parametrize("eligible", [True, False])
+def test_server_builds_the_pipeline_only_for_a_covered_config(eligible):
+    """The port's server: an IngestPipeline in front of the driver when
+    the C converter covers the config, none (the decoded route) when it
+    does not; get_status reports the route and the fixed settings."""
+    import json
+    from jubatus_tpu_torch.framework.server_base import (JubatusServer,
+                                                         ServerArgs)
+    from jubatus_tpu_torch.framework.service import bind_service
+    from jubatus_tpu_torch.rpc.server import RpcServer
+    conf = json.loads(json.dumps(AROW))
+    if not eligible:      # a regex key matcher: the C code does not cover it
+        conf["converter"]["string_rules"] = [{"key": "/^w[0-2]$/",
+                                              "type": "str", **BIN}]
+    srv = JubatusServer(ServerArgs(type="classifier", name="t", rpc_port=0,
+                                   device="cpu"), config=json.dumps(conf))
+    bind_service(srv, RpcServer())
+    try:
+        (st,) = srv.get_status().values()
+        assert (srv.dispatcher is not None) is eligible
+        assert (st["fast_path"], st["ingest_pipeline"]) == \
+            (str(eligible), str(int(eligible)))
+        assert (st["batch_max"], st["ingest_depth"], st["arena_pool"],
+                st["dispatch_mode"]) == ("16", "2", "4", "threaded")
+        assert ("ingest_windows" in st) is eligible
+    finally:
+        srv.stop()

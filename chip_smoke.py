@@ -61,9 +61,26 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 a CUDA graph (the card's time alone), call_ms from CUDA
                 events around eager wrapper calls (the host's pace when it
                 is the slower)
-  6. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 and 5; counters are zeroed just before each), then the
-                result line {"ok": true, "device": {...}} last.
+  6. regression — the same three paths for the regression service, the
+                reference's shipped PA configuration at hash_max_size 2^20:
+                the regression scan kernel (csrc/regression_scan.cu) against
+                its plain version within rtol 1e-5 / atol 1e-6 (PA, PA1, PA2
+                at B=256; PA at B=8192; PA on an 8192-datum stream where
+                every datum shares one column; PA at K=4096; PA2 at the
+                shipped C = 3.4e38), two launches bitwise equal, and its
+                time at one 8192-datum microbatch; the regression server on
+                cuda (a warm train request, then 4 timed 8192-datum
+                requests through the ingest pipeline, each split by the
+                server's raw-path calls, then again under torch.profiler
+                for the card's busy share; estimate against a CPU driver
+                fed the same frames; save, clear, load; get_status with the
+                scan kernel's launches) and its `regression` line;
+                one v3 MIX round between two regression drivers on the card
+                (replicas bitwise equal, drift within the quantization
+                bound, both quantizer kernels launched)
+  7. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4, 5 and 6; counters are zeroed just before each path), then
+                the result line {"ok": true, "device": {...}} last.
 
 It exits non-zero and prints no result line when CUDA is unavailable or
 when the port's package is not beside this script.
@@ -94,6 +111,14 @@ SERVER_CONFIG = {
         "hash_max_size": 1 << 20,
     },
 }
+# the reference's shipped regression config (config/regression/pa.json:
+# PA, sensitivity 0.1, regularization_weight 1.0) with bench.py's converter
+REG_CONFIG = {
+    "method": "PA",
+    "parameter": {"sensitivity": 0.1, "regularization_weight": 1.0},
+    "converter": SERVER_CONFIG["converter"],
+}
+SHIPPED_C = 3.4e38      # regularization_weight of the shipped PA config
 N_LABELS = 32
 REQ_B = 8192            # datums per train request
 N_TRAIN_REQS = 4
@@ -120,6 +145,20 @@ def bench_batch(rng, n, label_offset=0):
         for t in rng.integers(0, 1 << 16, size=8):
             d[0].append([f"w{t % 4}", f"tok{t}"])
         batch.append([f"class{(i + label_offset) % N_LABELS}", d])
+    return batch
+
+
+def reg_batch(rng, n):
+    """n wire [score, datum] pairs shaped like bench_batch's datums; the
+    score is 3x plus or minus 2 by the parity of the first token, plus
+    normal noise of 0.1."""
+    batch = []
+    for _ in range(n):
+        toks = rng.integers(0, 1 << 16, size=8)
+        x = float(rng.random())
+        y = 3.0 * x + (2.0 if toks[0] % 2 else -2.0) + float(rng.normal(0, .1))
+        batch.append([y, [[[f"w{t % 4}", f"tok{t}"] for t in toks],
+                          [["x", x]], []]])
     return batch
 
 
@@ -1122,6 +1161,297 @@ def phase_mix(torch, np, card):
     return counts, shape
 
 
+def reg_scan_inputs(torch, np, dev, b, seed, k=16, d=1 << 20, live=9,
+                    shared=False):
+    """A small random w [d] and a b-datum regression microbatch on `dev`,
+    bench-shaped: live - 1 entries of value 1 at random columns and one
+    number x in [0, 1) (at SHARED_COL in every datum when `shared`: the
+    read-after-write hazard of the smoke's traffic), padding (column 0,
+    value 0) after; a real column-0 feature in every 16th datum, a column
+    repeated in every 8th (across 32-entry chunks when live > 33);
+    targets 3x +- 2 plus noise; three padding datums at the end."""
+    r = np.random.default_rng(seed)
+    w = (r.standard_normal(d) * 0.01).astype(np.float32)
+    idx = np.zeros((b, k), np.int32)
+    val = np.zeros((b, k), np.float32)
+    idx[:, :live] = r.integers(1, d, (b, live))
+    val[:, :live] = 1.0
+    x = r.random(b).astype(np.float32)
+    if shared:
+        idx[:, live - 1] = SHARED_COL
+    val[:, live - 1] = x
+    idx[::16, 0] = 0
+    idx[::8, live // 2] = idx[::8, 1]
+    tgt = (3.0 * x + np.where(r.random(b) < 0.5, 2.0, -2.0)
+           + r.normal(0.0, 0.1, b)).astype(np.float32)
+    mask = np.ones(b, np.float32)
+    mask[-3:] = 0.0
+    return (torch.from_numpy(w).to(dev),
+            [torch.from_numpy(a).to(dev) for a in (idx, val, tgt, mask)])
+
+
+def phase_reg_kernels(torch, np):
+    """Phase 6a: the regression scan kernel against its plain version, two
+    launches bitwise equal, then its time at the main path's shape."""
+    from jubatus_tpu_torch.models.regression import train_scan, train_scan_ref
+    dev = torch.device("cuda")
+    eps = REG_CONFIG["parameter"]["sensitivity"]
+    worst = 0.0
+
+    def check(what, w, batch, method, c):
+        nonlocal worst
+        got, ref, again = w.clone(), w.clone(), w.clone()
+        train_scan(got, *batch, method, c, eps)
+        train_scan(again, *batch, method, c, eps)
+        train_scan_ref(ref, *batch, method, c, eps)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"regression_scan {what}: max |diff| {err} "
+                                 f"beyond rtol 1e-5 atol 1e-6")
+        if not torch.equal(got, again):
+            raise AssertionError(f"regression_scan {what}: two launches "
+                                 f"differ")
+        if torch.equal(got, w):
+            raise AssertionError(f"regression_scan {what}: no update")
+        worst = max(worst, err)
+        return got
+
+    for method in ("PA", "PA1", "PA2"):
+        check(f"{method} B=256 C=0.1", *reg_scan_inputs(torch, np, dev, 256,
+                                                         10), method, 0.1)
+    check("PA2 B=256 C=3.4e38", *reg_scan_inputs(torch, np, dev, 256, 11),
+          "PA2", SHIPPED_C)
+    check("PA B=8 K=4096", *reg_scan_inputs(torch, np, dev, 8, 12, k=4096,
+                                            live=2304), "PA", 1.0)
+    sh_w, sh_batch = reg_scan_inputs(torch, np, dev, REQ_B, 13, shared=True)
+    out = check("PA shared-column stream B=8192", sh_w, sh_batch, "PA", 1.0)
+    if float(out[SHARED_COL]) == float(sh_w[SHARED_COL]):
+        raise AssertionError("regression_scan shared-column stream: the "
+                             "shared column never moved")
+    w, batch = reg_scan_inputs(torch, np, dev, REQ_B, 14)
+    before = w.clone()
+    one = check("PA B=8192", w, batch, "PA", 1.0)
+    log(f"kernels: regression_scan within rtol 1e-5 atol 1e-6 of plain (PA, "
+        f"PA1, PA2 at B=256 K=16 D=2^20; PA2 at C=3.4e38; PA at K=4096; PA "
+        f"at B=8192 and on the shared-column stream), two launches bitwise "
+        f"equal each time, max |diff| {worst:.3g}")
+
+    t_ms = time_cuda(torch, lambda: train_scan(w, *batch, "PA", 1.0, eps), 5)
+    sh_ms = time_cuda(torch, lambda: train_scan(sh_w, *sh_batch, "PA", 1.0,
+                                                eps), 5)
+    ref = before.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_scan_ref(ref, *batch, "PA", 1.0, eps)
+    torch.cuda.synchronize()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    # bytes this batch needs: the packed batch once; w at every distinct
+    # column of the live datums once; the w entries it changes written once
+    k = batch[0].shape[1]
+    ucols = int(torch.unique(batch[0][batch[3] > 0]).numel())
+    w_written = int((one != before).sum())
+    nbytes = REQ_B * (2 * k + 2) * 4 + 4 * ucols + 4 * w_written
+    row = dict(ms=t_ms, plain_ms=t_plain, library_ms=None, max_abs_err=worst,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               shape=[REQ_B, k, 1 << 20], us_per_datum=t_ms * 1e3 / REQ_B,
+               shared_column_ms=sh_ms)
+    log(f"kernels: regression_train_scan {row['shape']}: {t_ms:.4f} ms "
+        f"({row['us_per_datum']:.4f} us a datum; shared-column stream "
+        f"{sh_ms:.4f} ms; plain {t_plain:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms by bytes)")
+    return row
+
+
+def phase_reg_server(torch, np, card):
+    """Phase 6b: the wire session against the port's regression server on
+    cuda, whose train frames take the native ingest pipeline."""
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.cli.server import serve
+    from jubatus_tpu_torch.framework.server_base import (kernel_launches,
+                                                         reset_kernel_launches)
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+
+    rng = np.random.default_rng(6)
+    warm_req = reg_batch(rng, REQ_B)
+    reqs = [reg_batch(rng, REQ_B) for _ in range(N_TRAIN_REQS)]
+    query = [d for _, d in reg_batch(rng, 64)]
+    warnings = PortWarnings()
+    logging.getLogger("jubatus_tpu_torch").addHandler(warnings)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "regression.json")
+        with open(cfg_path, "w") as f:
+            json.dump(REG_CONFIG, f)
+        server, rpc = serve(["--type", "regression", "--configpath", cfg_path,
+                             "--rpc-port", "0", "--listen_addr", "127.0.0.1",
+                             "--datadir", tmp, "--device", "cuda"])
+        try:
+            cli = WireClient(server.args.rpc_port)
+            warm_frame = cli.frame("train", warm_req)
+            frames = [cli.frame("train", r) for r in reqs]
+            clock = StageClock(server.driver)
+            cli.call("estimate", query)
+            # the server's first train request, up to a read that waits
+            t0 = time.perf_counter()
+            cli.send(warm_frame, "train")
+            cli.call("estimate", query[:1])
+            warm_split = clock.split(t0, time.perf_counter())
+            reset_kernel_launches()
+            marks = []
+            t0 = time.perf_counter()
+            for frame in frames:
+                marks.append(time.perf_counter())
+                n = cli.send(frame, "train")
+                if n != REQ_B:
+                    raise AssertionError(f"train acknowledged {n!r} datums")
+            marks.append(time.perf_counter())
+            est = cli.call("estimate", query)    # reads w back: a fence
+            train_s = time.perf_counter() - t0
+            timed_split = [clock.split(a, b)
+                           for a, b in zip(marks, marks[1:])]
+            clock.close()
+
+            # the card's busy share: the same frames again, under
+            # torch.profiler, up to a read that waits for their steps
+            def again():
+                for frame in frames:
+                    cli.send(frame, "train")
+                cli.call("estimate", query[:1])
+
+            busy_ms, busy_wall_ms = time_device_busy(torch, again)
+            lat = []
+            for i in range(20):
+                t1 = time.perf_counter()
+                cli.call("estimate", [query[i]])
+                lat.append((time.perf_counter() - t1) * 1e3)
+            before = cli.call("estimate", query)
+            saved = cli.call("save", "smoke")
+            cleared = cli.call("clear")
+            zeros = cli.call("estimate", query)
+            loaded = cli.call("load", "smoke")
+            after = cli.call("estimate", query)
+            status = cli.call("get_status")
+            cli.close()
+            counts = kernel_launches()
+        finally:
+            rpc.stop()
+            server.stop()
+    logging.getLogger("jubatus_tpu_torch").removeHandler(warnings)
+    warnings.check("phase 6 regression server session")
+
+    sent = REQ_B * (2 * N_TRAIN_REQS + 1)
+    got = np.array(est, np.float64)
+    if got.shape != (len(query),) or not np.isfinite(got).all() \
+            or not np.abs(got).max() > 0:
+        raise AssertionError("estimate not finite and non-zero per datum")
+    if not (len(saved) == 1 and cleared is True and loaded is True):
+        raise AssertionError(f"save/clear/load failed: {saved!r} {cleared!r} "
+                             f"{loaded!r}")
+    if zeros != [0.0] * len(query) or after != before:
+        raise AssertionError("estimate not 0 after clear, or changed across "
+                             "save/load")
+    (st,) = status.values()
+    if (st["fast_path"], st["ingest_pipeline"]) != ("True", "1") \
+            or st["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"the regression server's train path is not the "
+                             f"native ingest pipeline on cuda: {st}")
+    if int(st["num_trained"]) != sent:
+        raise AssertionError(f"num_trained {st['num_trained']}, sent {sent}")
+    if int(st["kernel_launches.regression_train_scan"]) <= 0 \
+            or counts["regression_train_scan"] <= 0:
+        raise AssertionError("the regression scan kernel never launched on "
+                             "the main path")
+    # the CPU driver (the plain version) fed the same frames
+    splitter = native.load()
+    cpu = RegressionDriver(REG_CONFIG, device="cpu")
+    for f in [warm_frame] + frames:
+        cpu.train_raw(f, splitter.parse_envelope(f, 0)[4])
+    # est was read before the profiled pass: the same model state
+    ref = np.array(cpu.estimate([Datum.from_msgpack(d) for d in query]))
+    if not np.allclose(got, ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"regression server vs cpu driver: max |diff| "
+                             f"{np.abs(got - ref).max()}")
+    line = {"samples_per_s": REQ_B * N_TRAIN_REQS / train_s,
+            "train_request_ms": [(b - a) * 1e3
+                                 for a, b in zip(marks, marks[1:])],
+            "request_split_ms": {"warm": warm_split, "timed": timed_split},
+            "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
+            "device_busy_share": (busy_ms / busy_wall_ms
+                                  if busy_ms is not None else None),
+            "estimate_ms_p50": float(np.median(lat)),
+            "estimate_max_abs_diff_vs_cpu": float(np.abs(got - ref).max()),
+            "train_requests": N_TRAIN_REQS, "datums_per_request": REQ_B,
+            "scan_launches": counts["regression_train_scan"], "card": card}
+    log("regression: " + json.dumps(line))
+    return counts
+
+
+def phase_reg_mix(torch, np):
+    """Phase 6c: one v3 MIX round between two regression drivers on the
+    card, against the same round on the f32 wire."""
+    from jubatus_tpu_torch.framework.server_base import (kernel_launches,
+                                                         reset_kernel_launches)
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.mix import codec
+    from jubatus_tpu_torch.mix.linear_mixer import encode_wire_diff
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+
+    rng = np.random.default_rng(7)
+    halves = [[(y, Datum.from_msgpack(d)) for y, d in reg_batch(rng, REQ_B)]
+              for _ in range(2)]
+
+    def trained():
+        drivers = [RegressionDriver(REG_CONFIG, device="cuda")
+                   for _ in range(2)]
+        for d, half in zip(drivers, halves):
+            d.train(half)
+        return drivers
+
+    def wire(diff, quantize, stats):
+        return codec.decode(codec.unpackb(codec.packb(
+            encode_wire_diff(diff, quantize, "cuda", stats))), "cuda")
+
+    def mix_round(drivers, quantize, stats=None):
+        diffs = [wire(d.encode_diff(d.get_diff()), quantize, stats)
+                 for d in drivers]
+        merged = RegressionDriver.mix(diffs[0], diffs[1])
+        back = wire(merged, quantize, stats)
+        for d in drivers:
+            d.put_diff(back)
+        torch.cuda.synchronize()
+        return merged
+
+    exact = trained()
+    mix_round(exact, False)
+    quant = trained()
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    stats = {}
+    merged = mix_round(quant, True, stats)
+    counts = kernel_launches()
+    if not torch.equal(quant[0].w, quant[1].w):
+        raise AssertionError("regression v3 round: replicas differ in w")
+    drift = float((quant[0].w - exact[0].w).abs().max())
+    if drift > stats["max_abs_err"]:
+        raise AssertionError(f"regression v3 round: w drift {drift} beyond "
+                             f"the bound {stats['max_abs_err']}")
+    if counts["quantize_int8"] <= 0 or counts["dequantize_int8"] <= 0:
+        raise AssertionError(f"quantizer kernels not launched on the "
+                             f"regression diff: {counts}")
+    on_card = codec.packb(encode_wire_diff(merged, True, "cuda"))
+    if on_card != codec.packb(encode_wire_diff(merged, True, "cpu")):
+        raise AssertionError("v3 wire bytes of the merged regression diff "
+                             "differ between the card's codec and the host's")
+    log(f"mix: regression diff of {merged['cols'].size} columns, wire "
+        f"{stats['wire']} bytes for {stats['raw']} f32 bytes; replicas "
+        f"bitwise equal; w drift from the f32 round {drift:.3g} <= bound "
+        f"{stats['max_abs_err']:.3g}; quantize_int8 launches "
+        f"{counts['quantize_int8']}, dequantize_int8 launches "
+        f"{counts['dequantize_int8']}")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -1168,18 +1498,27 @@ def main() -> int:
     server_counts = phase_server(torch, np, card)
     mix_counts, diff_shape = phase_mix(torch, np, card)
     rows.update(time_quantizer(torch, np, diff_shape))
+    # 6. regression
+    rows["regression_train_scan"] = phase_reg_kernels(torch, np)
+    reg_counts = phase_reg_server(torch, np, card)
+    reg_mix_counts = phase_reg_mix(torch, np)
 
-    # 6. report
+    # 7. report: the quantizer pair's launches are both v3 rounds'
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
-                          mix_counts["quantize_int8"]),
+                          mix_counts["quantize_int8"]
+                          + reg_mix_counts["quantize_int8"]),
         "dequantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                             "jubatus_tpu/parallel/quantized.py:88",
-                            mix_counts["dequantize_int8"]),
+                            mix_counts["dequantize_int8"]
+                            + reg_mix_counts["dequantize_int8"]),
         "train_scan": ("jubatus_tpu_torch/csrc/train_scan.cu",
                        "jubatus_tpu/models/classifier.py:59",
                        server_counts["train_scan"]),
+        "regression_train_scan": ("jubatus_tpu_torch/csrc/regression_scan.cu",
+                                  "jubatus_tpu/models/regression.py:32",
+                                  reg_counts["regression_train_scan"]),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():

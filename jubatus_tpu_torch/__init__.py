@@ -6,21 +6,24 @@ module paths so each counterpart is found under the same name
 It imports torch, numpy, msgpack and the stdlib only — never jax and never
 jubatus_tpu.
 
-Slice 1 (this tree): the classifier server with its wire train/classify
-loop, the driver-level MIX diff algebra and the blockwise-int8 (v3) MIX
-wire.  Model state lives on one torch device (CUDA unless the caller asks
-for the CPU); the hot loops are hand-written CUDA kernels (csrc/), each
-with a plain PyTorch version beside its wrapper.
+What it holds: the classifier and regression servers with their wire
+train loops (native raw-frame ingest into pinned arenas) and read RPCs,
+the driver-level MIX diff algebra and the blockwise-int8 (v3) MIX wire.
+Model state lives on one torch device (CUDA unless the caller asks for
+the CPU); the hot loops are hand-written CUDA kernels (csrc/), each with
+a plain PyTorch version beside its wrapper.
 
-  fv/        feature-vector converter (pure-Python copy)
+  fv/        feature-vector converter (pure-Python copy) + native eligibility
+  native/    C FastConverter and FrameSplitter (built by cc at first use)
   ops/       sparse gather/scatter primitives as torch ops
   csrc/      CUDA C++ kernels for sm_90a; kernels/build.py builds them
   parallel/  blockwise int8 quantizer (kernel wrappers + plain versions)
-  models/    driver protocol + the classifier driver; carry.py moves state
-             across packages
+  batching/  shape buckets, the window controller, pinned arena pool
+  models/    driver protocol, the classifier and regression drivers;
+             carry.py moves state across packages
   mix/       msgpack diff codec + the v3 wire encode
   rpc/       lean asyncio msgpack-RPC server (old-spec wire)
-  framework/ service table, server object, model-file save/load
+  framework/ service tables, server object, ingest pipeline, model files
   cli/       `python -m jubatus_tpu_torch.cli.server`
 """
 

@@ -100,3 +100,15 @@ def pinned_tensor(arena) -> Optional[torch.Tensor]:
             and base.data_ptr() == arena.ctypes.data:
         return base
     return None
+
+
+def arena_to_device(arena: np.ndarray, nbytes: int,
+                    device: torch.device) -> torch.Tensor:
+    """The first `nbytes` of a packed arena as a uint8 tensor on `device`,
+    in one host->device copy: asynchronous from an arena of a pinned pool
+    (which must then outlive the copy, see the recycling rule above), and
+    a zero-copy view on the CPU.  Caller has `device` current."""
+    host = pinned_tensor(arena)
+    if host is not None:
+        return host[:nbytes].to(device, non_blocking=True)
+    return torch.from_numpy(arena[:nbytes]).to(device)

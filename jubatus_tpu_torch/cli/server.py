@@ -1,6 +1,6 @@
 """Server entry point of the port.
 
-    python -m jubatus_tpu_torch.cli.server --type classifier \
+    python -m jubatus_tpu_torch.cli.server --type classifier|regression \
         --configpath CONFIG.json --rpc-port 9199 [--device cuda|cpu]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda

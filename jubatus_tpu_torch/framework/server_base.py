@@ -24,6 +24,8 @@ from jubatus_tpu_torch.framework.dispatch import IngestPipeline
 from jubatus_tpu_torch.framework.save_load import load_model, save_model
 from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
+from jubatus_tpu_torch.models.regression import \
+    train_scan as regression_train_scan
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
 from jubatus_tpu_torch.utils.rwlock import RWLock
@@ -33,6 +35,7 @@ USER_DATA_VERSION = 1
 # every kernel wrapper of the port, by the name get_status reports
 KERNEL_WRAPPERS = {
     "train_scan": train_scan,
+    "regression_train_scan": regression_train_scan,
     "quantize_int8": quantize_int8,
     "dequantize_int8": dequantize_int8,
 }

@@ -1,5 +1,6 @@
 """Service tables and their binding to the RPC server (counterpart of
-jubatus_tpu/framework/service.py, classifier table + common RPCs).
+jubatus_tpu/framework/service.py: the classifier and regression tables
+and the common RPCs).
 
 Each service is a table of Method specs bound to driver callables.  Every
 method takes the cluster `name` as wire argument 0 (dropped server-side),
@@ -155,4 +156,18 @@ register_service(ServiceDef("classifier", [
            update=True),
     Method("delete_label", lambda s, lbl: s.driver.delete_label(_to_str(lbl)),
            update=True),
+]))
+
+
+# ---------------------------------------------------------------------------
+# regression (server/regression.idl)
+# ---------------------------------------------------------------------------
+
+register_service(ServiceDef("regression", [
+    Method("train",
+           lambda s, data: s.driver.train(
+               [(float(score), _datum(d)) for score, d in data]),
+           update=True),
+    Method("estimate",
+           lambda s, data: s.driver.estimate([_datum(d) for d in data])),
 ]))

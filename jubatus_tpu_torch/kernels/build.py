@@ -30,7 +30,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
-KERNELS = ("quantize", "train_scan")
+KERNELS = ("quantize", "train_scan", "regression_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

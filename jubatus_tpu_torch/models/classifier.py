@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from jubatus_tpu_torch.batching.arenas import ArenaPool, pinned_tensor
+from jubatus_tpu_torch.batching.arenas import ArenaPool, arena_to_device
 from jubatus_tpu_torch.batching.bucketing import (B_BUCKETS as _B_BUCKETS,
                                                   fuse_sparse_batches,
                                                   round_b as _round_b,
@@ -415,14 +415,17 @@ def _pack_batch(indices, values, per_row, mask,
     return packed
 
 
-def _unpack_batch(buf: torch.Tensor, b: int, k: int):
-    """Zero-copy views of a device-resident _pack_batch blob."""
+def _unpack_batch(buf: torch.Tensor, b: int, k: int,
+                  per_row_dtype=torch.int32):
+    """Zero-copy views of a device-resident _pack_batch blob; the per-row
+    lane is viewed as `per_row_dtype` (int32 label rows, or float32
+    regression targets)."""
     nb = b * k * 4
     idx = buf[:nb].view(torch.int32).view(b, k)
     val = buf[nb:2 * nb].view(torch.float32).view(b, k)
-    lbl = buf[2 * nb:2 * nb + 4 * b].view(torch.int32)
+    per_row = buf[2 * nb:2 * nb + 4 * b].view(per_row_dtype)
     msk = buf[2 * nb + 4 * b:].view(torch.float32)
-    return idx, val, lbl, msk
+    return idx, val, per_row, msk
 
 
 # ---------------------------------------------------------------------------
@@ -594,11 +597,7 @@ class ClassifierDriver(Driver):
         if packed is None:
             packed = _pack_batch(indices, values, labels, mask)
         with device_context(self.device):
-            host = pinned_tensor(packed)
-            if host is not None:
-                buf = host[:nbytes].to(self.device, non_blocking=True)
-            else:
-                buf = torch.from_numpy(packed[:nbytes]).to(self.device)
+            buf = arena_to_device(packed, nbytes, self.device)
             idx, val, lbl, msk = _unpack_batch(buf, b, k)
             if self._is_centroid:
                 _centroid_train(self.w, self.counts, self.active, idx, val,

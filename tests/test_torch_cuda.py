@@ -16,6 +16,12 @@ streams built to hit the prefetch ring's read-after-write hazard (8 to
 shapes that read cov or w on demand), and two launches of it agree
 bitwise.  The ingest pipeline's fused windows (pinned arenas, one copy and
 one scan each) leave the model bitwise equal to train_raw frame by frame.
+The regression scan kernel agrees with its plain version within the same
+tolerance for PA, PA1 and PA2 (PA2 also at C = 3.4e38), on random batches,
+on streams where every datum shares a column, with columns repeated within
+a datum and across its 32-entry chunks (K 16 to 4096), two launches of it
+agree bitwise, and a regression driver on the card estimates like one on
+the CPU.
 """
 
 import numpy as np
@@ -26,6 +32,7 @@ from jubatus_tpu_torch.fv import Datum
 from jubatus_tpu_torch.mix import codec
 from jubatus_tpu_torch.mix.linear_mixer import encode_wire_diff
 from jubatus_tpu_torch.models import classifier as tc
+from jubatus_tpu_torch.models import regression as tr
 from jubatus_tpu_torch.parallel import quantized as tq
 
 pytestmark = pytest.mark.cuda
@@ -445,3 +452,140 @@ def test_ingest_pipeline_fused_windows_on_the_card(dev):
     assert drv.labels == ref.labels
     for name in ("w", "cov", "counts"):
         assert torch.equal(getattr(drv, name), getattr(ref, name)), name
+
+
+# -- regression scan ------------------------------------------------------------
+
+REG = ("PA", "PA1", "PA2")
+
+
+def _reg_inputs(seed, kind, B=256, K=16, D=1 << 16):
+    """A regression microbatch: about 9/16 of each datum's entries live,
+    padding (index 0, value 0) after, three padding datums, two not-ok
+    datums (all values 0), targets +-(2..4) with w small.  kind "shared":
+    every datum carries one column (5) and every 7th a real column-0
+    feature, the read-after-write hazard of consecutive datums; "dup":
+    columns repeated within a datum, inside one 32-entry chunk and across
+    chunks (K > 32)."""
+    rng = np.random.default_rng(seed)
+    live = max(1, K * 9 // 16)
+    w = (rng.standard_normal(D) * 0.01).astype(np.float32)
+    idx = rng.integers(1, D, (B, K)).astype(np.int32)
+    val = rng.standard_normal((B, K)).astype(np.float32)
+    idx[:, live:] = 0
+    val[:, live:] = 0.0
+    if kind == "shared":
+        idx[:, live - 1] = 5
+        idx[::7, 0] = 0
+    elif kind == "dup":
+        idx[::2, 3 % live] = idx[::2, 1 % live]
+        idx[::3, (live - 1)] = idx[::3, 0]      # across chunks when live > 32
+        idx[::5, live // 2] = idx[::5, 2 % live]
+    tgt = (rng.choice([-1.0, 1.0], B) * (2 + 2 * rng.random(B))
+           ).astype(np.float32)
+    mask = np.ones(B, np.float32)
+    mask[-3:] = 0.0
+    if B > 12:
+        val[10:12] = 0.0
+    return w, [idx, val, tgt, mask]
+
+
+def _reg_kernel_vs_plain(dev, w, batch, method, c=0.5, eps=0.1):
+    gpu = torch.from_numpy(w.copy()).to(dev)
+    ref = gpu.clone()
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    before = tr.train_scan.launches
+    tr.train_scan(gpu, *bt, method, c, eps)
+    torch.cuda.synchronize()
+    assert tr.train_scan.launches == before + 1
+    tr.train_scan_ref(ref, *bt, method, c, eps)
+    torch.testing.assert_close(gpu, ref, rtol=RTOL, atol=ATOL)
+    assert not torch.equal(gpu.cpu(), torch.from_numpy(w))
+    return gpu
+
+
+@pytest.mark.parametrize("kind,B,K", [
+    ("random", 256, 16), ("shared", 2048, 16), ("dup", 256, 16),
+    ("dup", 64, 64), ("random", 8, 4096), ("dup", 8, 4096)])
+@pytest.mark.parametrize("method", REG)
+def test_regression_scan_matches_the_plain_version(dev, method, kind, B, K):
+    w, batch = _reg_inputs(REG.index(method) + K, kind, B, K)
+    out = _reg_kernel_vs_plain(dev, w, batch, method)
+    if kind == "shared":
+        assert float(out[5]) != float(w[5])
+
+
+def test_regression_scan_pa2_at_the_shipped_regularization_weight(dev):
+    w, batch = _reg_inputs(7, "shared", 512)
+    _reg_kernel_vs_plain(dev, w, batch, "PA2", c=3.4e38)
+
+
+@pytest.mark.parametrize("method", REG)
+def test_regression_scan_is_deterministic(dev, method):
+    """No atomics: two launches from the same w over the same batch give
+    bitwise-equal weights."""
+    w, batch = _reg_inputs(3, "shared", 4096, 16, 1 << 20)
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    outs = []
+    for _ in range(2):
+        out = torch.from_numpy(w.copy()).to(dev)
+        tr.train_scan(out, *bt, method, 0.5, 0.1)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_regression_scan_refuses_what_it_does_not_take(dev):
+    w, batch = _reg_inputs(4, "random", 16)
+    gw = torch.from_numpy(w).to(dev)
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    before = tr.train_scan.launches
+    wide = torch.zeros((16, 32), dtype=torch.float32, device=dev)
+    bad = [
+        [bt[0].long(), *bt[1:]],                        # int64 indices
+        [bt[0], bt[1].double(), *bt[2:]],               # float64 values
+        [bt[0], wide[:, ::2], *bt[2:]],                 # not contiguous
+        [bt[0], bt[1], bt[2].cpu(), bt[3]],             # on another device
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tr.train_scan(gw, *args, "PA", 1.0, 0.1)
+    with pytest.raises(ValueError):
+        tr.train_scan(gw, *bt, "AROW", 1.0, 0.1)
+    assert tr.train_scan.launches == before
+
+
+def _reg_config(method):
+    return {"method": method,
+            "parameter": {"regularization_weight": 0.5, "sensitivity": 0.1},
+            "converter": {"string_rules": [{"key": "*", "type": "str",
+                                            "sample_weight": "bin",
+                                            "global_weight": "bin"}],
+                          "num_rules": [{"key": "*", "type": "num"}],
+                          "hash_max_size": 1 << 12}}
+
+
+def _scored(rng, n):
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, 200, 5)
+        x = float(rng.random())
+        out.append((3.0 * x + (2.0 if toks[0] % 2 else -2.0),
+                    Datum([(f"w{t % 4}", f"tok{t}") for t in toks],
+                          [("x", x)])))
+    return out
+
+
+@pytest.mark.parametrize("method", REG)
+def test_regression_driver_on_the_card_matches_the_cpu(dev, method):
+    drivers = [tr.RegressionDriver(_reg_config(method), device=d)
+               for d in (dev, "cpu")]
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        data = _scored(rng, 40)
+        for d in drivers:
+            d.train(data)
+    q = [d for _, d in _scored(rng, 8)]
+    got, ref = (np.array(d.estimate(q)) for d in drivers)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    assert drivers[0].num_trained == drivers[1].num_trained == 120

@@ -75,6 +75,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
             tdevice.resolve_device(dev)
     with pytest.raises(RuntimeError):
         ClassifierDriver(config())          # the default device is cuda
+    from jubatus_tpu_torch.models.regression import RegressionDriver
+    from tests.test_torch_regression import config as reg_config
+    with pytest.raises(RuntimeError, match="is_available"):
+        RegressionDriver(reg_config())
 
 
 def test_cpu_and_unsupported_devices():

@@ -23,11 +23,11 @@ from tests.test_wire_golden import (CLASSIFIER_CFG, GoldenConn, _spawn,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _spawn_port(cfg, tmp_path):
+def _spawn_port(cfg, tmp_path, service="classifier"):
     from jubatus_tpu_torch.cli.server import serve
     path = tmp_path / "port_cfg.json"
     path.write_text(json.dumps(cfg))
-    srv, rpc = serve(["--type", "classifier", "--configpath", str(path),
+    srv, rpc = serve(["--type", service, "--configpath", str(path),
                       "--rpc-port", "0", "--listen_addr", "127.0.0.1",
                       "--name", "wiretest", "--datadir", str(tmp_path),
                       "--device", "cpu"])
@@ -42,11 +42,13 @@ REGEX_CFG = dict(CLASSIFIER_CFG, converter=dict(
                    "sample_weight": "bin", "global_weight": "bin"}]))
 
 
-def _pair(tmp_path, cfg):
+def _pair(tmp_path, cfg, service="classifier"):
+    """A JAX server and a port server (--device cpu) of `service` on
+    `cfg`, each with one old-spec client connection."""
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
-    jsrv, jrpc, jport = _spawn("classifier", cfg, tmp_path / "jax")
-    tsrv, trpc, tport = _spawn_port(cfg, tmp_path / "port")
+    jsrv, jrpc, jport = _spawn(service, cfg, tmp_path / "jax")
+    tsrv, trpc, tport = _spawn_port(cfg, tmp_path / "port", service)
     conns = (GoldenConn(jport), GoldenConn(tport))
     yield conns, (jsrv, tsrv), (jport, tport)
     for c in conns:
@@ -235,15 +237,16 @@ def test_errors_answer_alike(pair, frame):
         assert tmsg[2] == jmsg[2]
 
 
-def _cli(tmp_path, device, **env):
-    cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps(CLASSIFIER_CFG))
+def _cli(tmp_path, device, cfg=CLASSIFIER_CFG, service="classifier", **env):
+    """The server CLI in a subprocess; device None leaves --device out."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
     env = {**os.environ, "PYTHONPATH": REPO, **env}
+    dev = [] if device is None else ["--device", device]
     return subprocess.Popen(
         [sys.executable, "-m", "jubatus_tpu_torch.cli.server", "--type",
-         "classifier", "--configpath", str(cfg), "--rpc-port", "0",
-         "--listen_addr", "127.0.0.1", "--datadir", str(tmp_path),
-         "--device", device],
+         service, "--configpath", str(path), "--rpc-port", "0",
+         "--listen_addr", "127.0.0.1", "--datadir", str(tmp_path), *dev],
         cwd=tmp_path, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 

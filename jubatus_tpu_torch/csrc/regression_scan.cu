@@ -68,14 +68,38 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
 
+// Optional cycle accounting, a measurement hook (prof is null in the
+// service): lane 0 adds clock64() deltas per stage and writes the sums to
+// prof[0 ..] at the end.
+struct Stopwatch {
+  long long* out;
+  long long t, acc[5];
+  __device__ explicit Stopwatch(long long* o) : out(o), t(0) {
+    for (int i = 0; i < 5; ++i) acc[i] = 0;
+    if (out) t = clock64();
+  }
+  __device__ __forceinline__ void lap(int i) {
+    if (out) {
+      const long long now = clock64();
+      acc[i] += now - t;
+      t = now;
+    }
+  }
+  __device__ void flush() {
+    if (out)
+      for (int i = 0; i < 5; ++i) out[i] = acc[i];
+  }
+};
+
 __global__ void __launch_bounds__(32, 1)
 regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
                        const float* __restrict__ val,
                        const float* __restrict__ tgt,
                        const float* __restrict__ mask, int B, int K,
-                       int method, float c, float eps) {
+                       int method, float c, float eps, long long* prof) {
   __shared__ float delta[32];
   const int lane = threadIdx.x;
+  Stopwatch sw(lane == 0 ? prof : nullptr);
   const bool has_first = lane < K;
 
   int n_col = 0;
@@ -114,8 +138,10 @@ regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
       pred = __fadd_rn(pred, __fmul_rn(w[idx[row + k]], v));
       sqn = __fadd_rn(sqn, __fmul_rn(v, v));
     }
+    sw.lap(0);
     pred = warp_sum(pred);
     sqn = warp_sum(sqn);
+    sw.lap(1);
 
     // 2. step size
     const float err = __fsub_rn(y, pred);
@@ -131,6 +157,7 @@ regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
     }
     if (!(mk > 0.f && loss > 0.f && sqn > 0.f)) tau = 0.f;
     const float coef = __fmul_rn(sign_of(err), tau);
+    sw.lap(2);
 
     // 3. scatter, chunk by chunk
     for (int base = 0; base < K; base += 32) {
@@ -148,6 +175,7 @@ regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
       delta[lane] = __fmul_rn(coef, v);
       const unsigned grp = __match_any_sync(FULL, live ? col : -1 - lane);
       __syncwarp();
+      sw.lap(3);
       if (live && __ffs(grp) - 1 == lane) {
         // chunk 0's gather is still current: nothing of this datum has
         // been stored yet
@@ -157,24 +185,42 @@ regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
         w[col] = acc;
       }
       __syncwarp();
+      sw.lap(4);
     }
   }
+  sw.flush();
 }
 
 }  // namespace
 
+// The launch with cycle accounting: prof (long long[5], zeroed by the
+// caller) receives lane 0's cycles by stage: 0 gather (loads and
+// products), 1 the two reductions, 2 the step, 3 grouping (delta store,
+// __match_any_sync, __syncwarp), 4 the leaders' adds and stores with the
+// __syncwarp after them.  A measurement hook: the service never passes it.
+//
 // Plain C entry point: every pointer and the stream as void*; method 0-2
 // (PA, PA1, PA2).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int regression_scan_launch_profiled(
+    void* w, const void* indices, const void* values, const void* targets,
+    const void* mask, int B, int K, int method, float c, float eps,
+    void* stream, void* prof) {
+  if (B < 0 || K < 1 || method < PA || method > PA2)
+    return (int)cudaErrorInvalidValue;
+  regression_scan_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (float*)w, (const int32_t*)indices, (const float*)values,
+      (const float*)targets, (const float*)mask, B, K, method, c, eps,
+      (long long*)prof);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int regression_scan_launch(void* w, const void* indices,
                                       const void* values, const void* targets,
                                       const void* mask, int B, int K,
                                       int method, float c, float eps,
                                       void* stream) {
-  if (B < 0 || K < 1 || method < PA || method > PA2)
-    return (int)cudaErrorInvalidValue;
-  regression_scan_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (float*)w, (const int32_t*)indices, (const float*)values,
-      (const float*)targets, (const float*)mask, B, K, method, c, eps);
-  return (int)cudaGetLastError();
+  return regression_scan_launch_profiled(w, indices, values, targets, mask,
+                                         B, K, method, c, eps, stream,
+                                         nullptr);
 }

@@ -7,11 +7,16 @@ a shared library with a plain C interface, loaded with ctypes:
          -Xcompiler -fPIC -Xptxas=-v -o build/torch_kernels/lib<name>-<hash>.so \
          jubatus_tpu_torch/csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Kernels build at first
-use, from the checkout's sources only; build_all() starts one nvcc per
-source, all at once.  No --use_fast_math: the quantizer's bitwise parity
-with numpy needs IEEE division.  Nothing here runs at import time.
+plus the kernel's own flags (KERNEL_FLAGS).  The library name carries a
+hash of the source and of all its flags, so an edited source or flag
+rebuilds and an unchanged one is reused.  Kernels build at first use,
+from the checkout's sources only; build_all() starts one nvcc per source,
+all at once.  No --use_fast_math: the quantizer's bitwise parity with
+numpy needs IEEE division.  The two scans are built with -ftz=true:
+float32 subnormal inputs read as zero and subnormal results flush to
+zero, as XLA computes the scans they replace; the quantizer keeps the
+default, so its wire bytes stay equal to the host codec's.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 KERNELS = ("quantize", "train_scan", "regression_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# flags of one kernel beyond NVCC_FLAGS
+KERNEL_FLAGS = {"train_scan": ("-ftz=true",),
+                "regression_scan": ("-ftz=true",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -50,9 +58,14 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for kernel `name`: NVCC_FLAGS, then its own."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -79,7 +92,8 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", str(tmp),
+               str(SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

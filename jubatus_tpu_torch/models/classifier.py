@@ -45,7 +45,7 @@ from jubatus_tpu_torch.fv.fast import make_fast_converter
 from jubatus_tpu_torch.fv.weight_manager import WeightManager
 from jubatus_tpu_torch.kernels import build
 from jubatus_tpu_torch.models.base import Driver, RawBatch, register_driver
-from jubatus_tpu_torch.ops.sparse import batch_scores, sample_scores
+from jubatus_tpu_torch.ops.sparse import batch_scores, ftz, sample_scores
 
 MARGIN_METHODS = ("perceptron", "PA", "PA1", "PA2", "CW", "AROW", "NHERD")
 CENTROID_METHODS = ("cosine", "euclidean")
@@ -78,18 +78,27 @@ def train_scan_ref(w, cov, counts, active, indices, values, labels, mask,
     over one microbatch, in place.  Mirrors train_scan_impl of the JAX
     package expression by expression, in f32.
 
+    Subnormals are flushed as XLA flushes them (ops.sparse.ftz): the
+    gathered w and cov, the values, mask and c read as zero where
+    subnormal, and every elementwise result flushes, the scatter-add's
+    too (the touched columns of w are flushed before and after it).  The
+    inner partial sums of the reductions (scores, |x|^2, v) and of a
+    column's duplicate entries in the scatter-add are not flushed one by
+    one.
+
     w, cov: [L, D] f32   counts: [L] i32   active: [L] bool
     indices/values: [B, K]   labels: [B] i32   mask: [B] f32 (0 = padding)
     """
     dev = w.device
-    cf = torch.tensor(c, dtype=torch.float32, device=dev)
+    cf = ftz(torch.tensor(c, dtype=torch.float32, device=dev))
     neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    half_c = ftz(0.5 / cf)
     for b in range(indices.shape[0]):
-        if not bool(mask[b] > 0):
+        if not bool(ftz(mask[b]) > 0):
             continue                       # padding datum: a no-op step
         idx = indices[b].long()
-        val = values[b]
+        val = ftz(values[b])
         y = int(labels[b])
         s = sample_scores(w, idx, val)                      # [L]
         active[y] = True
@@ -97,65 +106,72 @@ def train_scan_ref(w, cov, counts, active, indices, values, labels, mask,
         rival = torch.where(active, s, neg_inf)
         rival[y] = neg_inf
         r = int(torch.argmax(rival))       # first maximum; 0 if all -inf
-        margin = s[y] - rival[r]
-        x2 = val * val
-        sqn = x2.sum()
+        margin = ftz(s[y] - rival[r])
+        x2 = ftz(val * val)
+        sqn = ftz(x2.sum())
         if not (bool(torch.isfinite(rival[r])) and bool(sqn > 0)):
             continue                       # not ok: every table unchanged
         if method == "perceptron":
             alpha = torch.where(margin <= 0, 1.0, 0.0)
-            dy, dr = alpha * val, -alpha * val
+            dy, dr = ftz(alpha * val), ftz(-alpha * val)
         elif method in ("PA", "PA1", "PA2"):
-            loss = 1.0 - margin
+            loss = ftz(1.0 - margin)
             if method == "PA":
-                tau = loss / (2.0 * sqn)
+                tau = ftz(loss / ftz(2.0 * sqn))
             elif method == "PA1":
-                tau = torch.minimum(cf, loss / (2.0 * sqn))
+                tau = torch.minimum(cf, ftz(loss / ftz(2.0 * sqn)))
             else:
-                tau = loss / (2.0 * sqn + 0.5 / cf)
+                tau = ftz(loss / ftz(ftz(2.0 * sqn) + half_c))
             tau = torch.where(loss > 0, tau, zero)
-            dy, dr = tau * val, -tau * val
+            dy, dr = ftz(tau * val), ftz(-tau * val)
         else:
-            cy = cov[y, idx]
-            cr = cov[r, idx]
-            v = (x2 * (cy + cr)).sum()
+            cy = ftz(cov[y, idx])
+            cr = ftz(cov[r, idx])
+            v = ftz(ftz(x2 * ftz(cy + cr)).sum())
             if method == "AROW":
-                beta = 1.0 / (v + cf)
+                beta = ftz(1.0 / ftz(v + cf))
                 gate = margin < 1.0
-                alpha = torch.where(gate, torch.clamp_min(1.0 - margin, 0.0)
-                                    * beta, zero)
+                alpha = torch.where(gate, ftz(torch.clamp_min(
+                    ftz(1.0 - margin), 0.0) * beta), zero)
                 g = torch.where(gate, beta, zero)
-                dy = alpha * cy * val
-                dr = -alpha * cr * val
-                ncy = cy - g * cy * cy * x2
-                ncr = cr - g * cr * cr * x2
+                dy = ftz(ftz(alpha * cy) * val)
+                dr = ftz(ftz(-alpha * cr) * val)
+                ncy = ftz(cy - ftz(ftz(ftz(g * cy) * cy) * x2))
+                ncr = ftz(cr - ftz(ftz(ftz(g * cr) * cr) * x2))
             elif method == "CW":
                 phi = cf
-                t = 1.0 + 2.0 * phi * margin
-                inner = t * t - 8.0 * phi * (margin - phi * v)
-                gamma = (-t + torch.sqrt(torch.clamp_min(inner, 0.0))) / (
-                    4.0 * phi * torch.clamp_min(v, 1e-12))
+                t = ftz(1.0 + ftz(ftz(2.0 * phi) * margin))
+                inner = ftz(ftz(t * t) - ftz(ftz(8.0 * phi) * ftz(
+                    margin - ftz(phi * v))))
+                gamma = ftz(ftz(-t + ftz(torch.sqrt(torch.clamp_min(
+                    inner, 0.0)))) / ftz(ftz(4.0 * phi)
+                                         * torch.clamp_min(v, 1e-12)))
                 alpha = torch.clamp_min(gamma, 0.0)
-                dy = alpha * cy * val
-                dr = -alpha * cr * val
-                g = 2.0 * alpha * phi
-                ncy = 1.0 / (1.0 / torch.clamp_min(cy, 1e-12) + g * x2)
-                ncr = 1.0 / (1.0 / torch.clamp_min(cr, 1e-12) + g * x2)
+                dy = ftz(ftz(alpha * cy) * val)
+                dr = ftz(ftz(-alpha * cr) * val)
+                g = ftz(ftz(2.0 * alpha) * phi)
+                ncy = ftz(1.0 / ftz(ftz(1.0 / torch.clamp_min(cy, 1e-12))
+                                    + ftz(g * x2)))
+                ncr = ftz(1.0 / ftz(ftz(1.0 / torch.clamp_min(cr, 1e-12))
+                                    + ftz(g * x2)))
             else:  # NHERD
                 gate = margin < 1.0
-                alpha = torch.where(gate, torch.clamp_min(1.0 - margin, 0.0)
-                                    / (v + cf), zero)
-                g = torch.where(gate, 2.0 * cf + cf * cf * v, zero)
-                dy = alpha * cy * val
-                dr = -alpha * cr * val
-                denom = 1.0 + g * x2
-                ncy = cy / denom
-                ncr = cr / denom
+                alpha = torch.where(gate, ftz(torch.clamp_min(
+                    ftz(1.0 - margin), 0.0) / ftz(v + cf)), zero)
+                g = torch.where(gate, ftz(ftz(2.0 * cf) + ftz(
+                    ftz(cf * cf) * v)), zero)
+                dy = ftz(ftz(alpha * cy) * val)
+                dr = ftz(ftz(-alpha * cr) * val)
+                denom = ftz(1.0 + ftz(g * x2))
+                ncy = ftz(cy / denom)
+                ncr = ftz(cr / denom)
             keep = _last_occurrence(idx)
             cov[y, idx[keep]] = ncy[keep]
             cov[r, idx[keep]] = ncr[keep]
-        w[y].index_add_(0, idx, dy)
-        w[r].index_add_(0, idx, dr)
+        for row, d in ((y, dy), (r, dr)):
+            w[row, idx] = ftz(w[row, idx])
+            w[row].index_add_(0, idx, d)
+            w[row, idx] = ftz(w[row, idx])
 
 
 # Launch plan of csrc/train_scan.cu (enum Mode, struct Plan there): where

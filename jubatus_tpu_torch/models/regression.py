@@ -41,7 +41,7 @@ from jubatus_tpu_torch.fv.weight_manager import WeightManager
 from jubatus_tpu_torch.kernels import build
 from jubatus_tpu_torch.models.base import Driver, RawBatch, register_driver
 from jubatus_tpu_torch.models.classifier import _pack_batch, _unpack_batch
-from jubatus_tpu_torch.ops.sparse import row_scores
+from jubatus_tpu_torch.ops.sparse import ftz, row_scores
 
 METHODS = ("PA", "PA1", "PA2")   # method ids of csrc/regression_scan.cu
 
@@ -66,28 +66,40 @@ def train_scan_ref(w, indices, values, targets, mask, method: str, c: float,
     package expression by expression, in float32 (c and eps are float32
     scalars, as they are dynamic float32 arguments there).
 
+    Subnormals are flushed as XLA flushes them (ops.sparse.ftz): the
+    gathered w, the values, targets, mask, c and eps read as zero where
+    subnormal, and every elementwise result flushes, the scatter-add's
+    too (the touched columns of w are flushed before and after it).  The
+    inner partial sums of the two reductions, and of a column's
+    duplicate entries in the scatter-add, are not flushed one by one.
+
     w: [D] f32   indices/values: [B, K]   targets, mask: [B] f32
     """
     dev = w.device
-    cf = torch.tensor(c, dtype=torch.float32, device=dev)
-    ef = torch.tensor(eps, dtype=torch.float32, device=dev)
+    cf = ftz(torch.tensor(c, dtype=torch.float32, device=dev))
+    ef = ftz(torch.tensor(eps, dtype=torch.float32, device=dev))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    half_c = ftz(0.5 / cf)
     for i in range(indices.shape[0]):
         idx = indices[i].long()
-        val = values[i]
-        pred = (w[idx] * val).sum()
-        err = targets[i] - pred
-        loss = err.abs() - ef
-        sqn = (val * val).sum()
-        ok = (mask[i] > 0) & (loss > 0) & (sqn > 0)
+        val = ftz(values[i])
+        g = ftz(w[idx])
+        pred = ftz(ftz(g * val).sum())
+        err = ftz(ftz(targets[i]) - pred)
+        loss = ftz(err.abs() - ef)
+        sqn = ftz(ftz(val * val).sum())
+        ok = (ftz(mask[i]) > 0) & (loss > 0) & (sqn > 0)
         if method == "PA":
-            tau = loss / sqn
+            tau = ftz(loss / sqn)
         elif method == "PA1":
-            tau = torch.minimum(cf, loss / sqn)
+            tau = torch.minimum(cf, ftz(loss / sqn))
         else:  # PA2
-            tau = loss / (sqn + 0.5 / cf)
+            tau = ftz(loss / ftz(sqn + half_c))
         tau = torch.where(ok, tau, zero)
-        w.index_add_(0, idx, _sign(err) * tau * val)
+        upd = ftz(ftz(_sign(err) * tau) * val)
+        w[idx] = g
+        w.index_add_(0, idx, upd)
+        w[idx] = ftz(w[idx])
 
 
 def _scan_lib() -> ctypes.CDLL:

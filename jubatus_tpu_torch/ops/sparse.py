@@ -5,31 +5,47 @@ A batch is (indices [B,K] int, values [B,K] f32) with zero-valued padding;
 model tables are dense [L, D] (or [D]) tensors, so scoring is a gather plus
 a reduction and updating is a scatter-add.  These are plain tensor ops in
 both packages (XLA there, PyTorch here), not hand kernels.
+
+XLA flushes float32 subnormals to zero (inputs read as zero, results
+flush), and torch keeps them; ftz() flushes explicitly where the port
+must compute as XLA does: the gathered inputs, every elementwise product
+and each reduction's result.  A reduction's inner partial sums are not
+flushed one by one, so a partial sum that falls into the subnormal range
+can still differ in its last bits.
 """
 
 from __future__ import annotations
 
 import torch
 
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """x with float32 subnormals flushed to a zero of the same sign, as
+    x86's flush-to-zero mode (and XLA) gives them; NaN and inf stay."""
+    return torch.where(x.abs() < _TINY, x * 0, x)
+
 
 def batch_scores(w: torch.Tensor, indices: torch.Tensor,
                  values: torch.Tensor) -> torch.Tensor:
     """w: [L, D]; indices/values: [B, K] -> [B, L].  Padding entries
-    (value 0) contribute nothing."""
-    g = w[:, indices]                          # [L, B, K]
-    return torch.einsum("lbk,bk->bl", g, values)
+    (value 0) contribute nothing.  Subnormals flushed (ftz)."""
+    g = ftz(w[:, indices])                     # [L, B, K]
+    return ftz(ftz(g * ftz(values)).sum(dim=-1).T)
 
 
 def row_scores(w: torch.Tensor, indices: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
-    """w: [D]; indices/values: [B, K] -> [B]."""
-    return (w[indices] * values).sum(dim=-1)
+    """w: [D]; indices/values: [B, K] -> [B].  Subnormals flushed."""
+    return ftz(ftz(ftz(w[indices]) * ftz(values)).sum(dim=-1))
 
 
 def sample_scores(w: torch.Tensor, idx: torch.Tensor,
                   val: torch.Tensor) -> torch.Tensor:
-    """w: [L, D]; idx/val: [K] -> [L]  (single-sample gather-dot)."""
-    return w[:, idx] @ val
+    """w: [L, D]; idx/val: [K] -> [L]  (single-sample gather-dot).
+    Subnormals flushed."""
+    return ftz(ftz(ftz(w[:, idx]) * ftz(val)).sum(dim=-1))
 
 
 def scatter_add_row(w: torch.Tensor, row: int, idx: torch.Tensor,

@@ -9,9 +9,10 @@ DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists); its
 jubatus_tpu_torch/csrc/train_scan.cu must have the slice-1 C entry point
 (train_scan_launch without mode, ring and producers).  Both kernels are
-built with the flags of jubatus_tpu_torch/kernels/build.py
-and timed by CUDA events at the main path's shape (AROW, B 8192, K 16,
-L 32, D 2^20) on two microbatches: chip_smoke.py's random-column batch and
+built with the current kernel's flags (flags("train_scan") of
+jubatus_tpu_torch/kernels/build.py, -ftz=true included) and timed by
+CUDA events at the main path's shape (AROW, B 8192, K 16, L 32, D 2^20)
+on two microbatches: chip_smoke.py's random-column batch and
 its shared-column stream.  The earlier and current kernels run in turns
 (earlier, current, current, earlier), each from a fresh state.  The stage
 split comes from train_scan_launch_profiled (clock64 sums of the consumer
@@ -45,14 +46,16 @@ CURRENT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
 
 
 def build_lib(build, src: str, label: str) -> ctypes.CDLL:
-    """nvcc `src` with the port's flags into the build directory (reused
-    when the source is unchanged)."""
-    tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    """nvcc `src` with the current scan kernel's flags into the build
+    directory (reused when the source and flags are unchanged)."""
+    cmd = [build.nvcc_path(), *build.flags("train_scan")]
+    tag = hashlib.sha256(open(src, "rb").read()
+                         + " ".join(cmd).encode()).hexdigest()[:16]
     out = build.BUILD_DIR / f"libtrain_scan_{label}-{tag}.so"
     if not out.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-                        src], check=True, capture_output=True, text=True)
+        subprocess.run([*cmd, "-o", str(out), src], check=True,
+                       capture_output=True, text=True)
     return ctypes.CDLL(str(out))
 
 

@@ -18,7 +18,9 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 as in the host codec), train_scan within rtol 1e-5 /
                 atol 1e-6 (AROW, PA1, CW at B=256; AROW at B=8192; AROW on
                 an 8192-datum stream where every datum shares one column,
-                the prefetch ring's read-after-write hazard); then the scan
+                the prefetch ring's read-after-write hazard; bitwise at the
+                subnormal datums [3e-20, 3e-20] and [1e-39, 1.0] for all
+                seven methods, which must not move w); then the scan
                 kernel's time at one 8192-datum microbatch beside its plain
                 version's, with its µs per datum and ring depth
   4. server   — the classifier server (jubatus_tpu_torch.cli.server, device
@@ -66,9 +68,13 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the regression scan kernel (csrc/regression_scan.cu) against
                 its plain version within rtol 1e-5 / atol 1e-6 (PA, PA1, PA2
                 at B=256; PA at B=8192; PA on an 8192-datum stream where
-                every datum shares one column; PA at K=4096; PA2 at the
-                shipped C = 3.4e38), two launches bitwise equal, and its
-                time at one 8192-datum microbatch; the regression server on
+                every datum shares one column; PA1 on an 8192-datum stream
+                whose 40 columns recur across block boundaries and in every
+                block in flight; PA at K=4096; PA2 at the shipped C =
+                3.4e38), two launches bitwise equal, bitwise equal at the
+                subnormal datums (w stays 0 where XLA's does), and its time
+                at one 8192-datum microbatch with its plan (T, S, P) and its
+                cycles a datum by stage; the regression server on
                 cuda (a warm train request, then 4 timed 8192-datum
                 requests through the ingest pipeline, each split by the
                 server's raw-path calls, then again under torch.profiler
@@ -125,11 +131,12 @@ N_TRAIN_REQS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # keys a kernel row carries beyond the contract's: the scan's per-datum
 # time, ring depth and shared-column stream; the quantizer pair's device
-# and call times, the library's by both methods, and the whole-table shape
+# and call times, the library's by both methods, and the whole-table shape;
+# the regression scan's plan (T, S, P) and cycles a datum by stage
 EXTRA_KEYS = ("us_per_datum", "ring", "shared_column_ms", "device_ms",
               "device_method", "call_ms", "plain_call_ms",
               "library_device_ms", "library_device_method", "library_call_ms",
-              "whole_table")
+              "whole_table", "plan", "cycles_per_datum")
 
 
 def log(*a):
@@ -449,6 +456,34 @@ def phase_kernels(torch, np):
             raise AssertionError(f"train_scan {method}: no update happened")
     log(f"kernels: train_scan within rtol 1e-5 atol 1e-6 of plain at "
         f"B=256 K=16 L=32 D=2^20 (AROW, PA1, CW), max |diff| {scan_err:.3g}")
+
+    # float32 subnormals flush as under XLA: |x|^2 of [3e-20, 3e-20] is 0
+    # (no update), 1e-39 reads as 0 (its column stays 0); bitwise to plain
+    for vals in ([3e-20, 3e-20], [1e-39, 1.0]):
+        for method in ("perceptron", "PA", "PA1", "PA2", "CW", "AROW",
+                       "NHERD"):
+            sub = [torch.zeros((2, 8), dtype=torch.float32, device=dev),
+                   torch.ones((2, 8), dtype=torch.float32, device=dev),
+                   torch.zeros(2, dtype=torch.int32, device=dev),
+                   torch.tensor([False, True], device=dev)]
+            sub_ref = [t.clone() for t in sub]
+            sub_batch = [
+                torch.tensor([[1, 2, 0, 0]], dtype=torch.int32, device=dev),
+                torch.tensor([vals + [0.0, 0.0]], dtype=torch.float32,
+                             device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.ones(1, dtype=torch.float32, device=dev)]
+            train_scan(*sub, *sub_batch, method, 1.0)
+            train_scan_ref(*sub_ref, *sub_batch, method, 1.0)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(sub, sub_ref)) or \
+                    float(sub[0][:, 1].abs().max()) != 0.0:
+                raise AssertionError(
+                    f"train_scan {method} at the subnormal datum {vals}: "
+                    f"kernel w {sub[0][:, :3].tolist()}, plain "
+                    f"{sub_ref[0][:, :3].tolist()}")
+    log("kernels: train_scan bitwise equal to plain at the subnormal datums "
+        "[3e-20, 3e-20] and [1e-39, 1.0], all seven methods")
 
     # -- timing at the main path's shape: one 8192-datum AROW microbatch
     state, batch = scan_inputs(torch, np, dev, REQ_B, 2)
@@ -1190,6 +1225,37 @@ def reg_scan_inputs(torch, np, dev, b, seed, k=16, d=1 << 20, live=9,
             [torch.from_numpy(a).to(dev) for a in (idx, val, tgt, mask)])
 
 
+REG_CONSUMER_STAGES = ("wait_block", "forward", "table_reads", "reduction",
+                       "step", "group_adds", "syncwarp", "block_commit")
+REG_PRODUCER_STAGES = ("wait_free_slot", "hash", "lookup_gather",
+                       "per_datum", "commit")
+
+
+def reg_scan_cycles(torch, dev, w, batch, plan, eps):
+    """One PA launch of regression_scan_launch_profiled (clock64 sums by
+    stage) from a copy of w: cycles a datum of the consumer warp and of
+    the first producer thread.  Not counted as a launch of the path."""
+    import ctypes
+    from jubatus_tpu_torch.models.regression import _scan_lib
+    fn = _scan_lib().regression_scan_launch_profiled
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    prof = torch.zeros(24, dtype=torch.int64, device=dev)
+    b, k = batch[0].shape
+    err = fn(w.clone().data_ptr(), *[t.data_ptr() for t in batch], b, k, 0,
+             1.0, eps, *plan, torch.cuda.current_stream().cuda_stream,
+             prof.data_ptr())
+    if err != 0:
+        raise AssertionError(f"regression_scan_launch_profiled: CUDA error "
+                             f"{err}")
+    p = prof.cpu().tolist()
+    return {"consumer": {n: v / b for n, v in zip(REG_CONSUMER_STAGES, p)},
+            "producer": {n: v / b for n, v in zip(REG_PRODUCER_STAGES,
+                                                   p[8:])}}
+
+
 def phase_reg_kernels(torch, np):
     """Phase 6a: the regression scan kernel against its plain version, two
     launches bitwise equal, then its time at the main path's shape."""
@@ -1224,6 +1290,41 @@ def phase_reg_kernels(torch, np):
           "PA2", SHIPPED_C)
     check("PA B=8 K=4096", *reg_scan_inputs(torch, np, dev, 8, 12, k=4096,
                                             live=2304), "PA", 1.0)
+    # float32 subnormals flush as under XLA: |x|^2 of [3e-20, 3e-20] is 0
+    # (w stays 0); 1e-39 reads as 0 (its column stays 0)
+    for vals in ([3e-20, 3e-20], [1e-39, 1.0]):
+        for method in ("PA", "PA1", "PA2"):
+            sub_idx = torch.tensor([[1, 2, 0, 0]], dtype=torch.int32,
+                                   device=dev)
+            sub_val = torch.tensor([vals + [0.0, 0.0]], dtype=torch.float32,
+                                   device=dev)
+            one = torch.ones(1, dtype=torch.float32, device=dev)
+            got = torch.zeros(8, dtype=torch.float32, device=dev)
+            ref = got.clone()
+            train_scan(got, sub_idx, sub_val, one, one, method, 1.0, eps)
+            train_scan_ref(ref, sub_idx, sub_val, one, one, method, 1.0, eps)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref) or float(got[1]) != 0.0 or \
+                    (float(got[2]) != 0.0) != (vals[1] == 1.0):
+                raise AssertionError(
+                    f"regression_scan {method} at the subnormal datum "
+                    f"{vals}: kernel {got[:3].tolist()}, plain "
+                    f"{ref[:3].tolist()}")
+    # columns that recur across block boundaries and in every block in
+    # flight (a pool of 40 columns)
+    r = np.random.default_rng(15)
+    pool = (r.integers(0, 40, (REQ_B, 16)) * 7919).astype(np.int32)
+    pool[:, 9:] = 0
+    pool_val = np.zeros((REQ_B, 16), np.float32)
+    pool_val[:, :9] = r.standard_normal((REQ_B, 9))
+    pool_tgt = (r.choice([-1.0, 1.0], REQ_B) * (2 + 2 * r.random(REQ_B))
+                ).astype(np.float32)
+    pool_w = torch.from_numpy((r.standard_normal(1 << 20) * 0.01).astype(
+        np.float32)).to(dev)
+    check("PA1 block-boundary stream B=8192", pool_w,
+          [torch.from_numpy(a).to(dev) for a in
+           (pool, pool_val, pool_tgt, np.ones(REQ_B, np.float32))],
+          "PA1", 0.1)
     sh_w, sh_batch = reg_scan_inputs(torch, np, dev, REQ_B, 13, shared=True)
     out = check("PA shared-column stream B=8192", sh_w, sh_batch, "PA", 1.0)
     if float(out[SHARED_COL]) == float(sh_w[SHARED_COL]):
@@ -1233,9 +1334,14 @@ def phase_reg_kernels(torch, np):
     before = w.clone()
     one = check("PA B=8192", w, batch, "PA", 1.0)
     log(f"kernels: regression_scan within rtol 1e-5 atol 1e-6 of plain (PA, "
-        f"PA1, PA2 at B=256 K=16 D=2^20; PA2 at C=3.4e38; PA at K=4096; PA "
-        f"at B=8192 and on the shared-column stream), two launches bitwise "
-        f"equal each time, max |diff| {worst:.3g}")
+        f"PA1, PA2 at B=256 K=16 D=2^20; PA2 at C=3.4e38; PA at K=4096; PA1 "
+        f"on a block-boundary stream; PA at B=8192 and on the shared-column "
+        f"stream), two launches bitwise equal each time, max |diff| "
+        f"{worst:.3g}; bitwise equal to plain at the subnormal datums")
+    plan = train_scan.last_plan
+    cycles = reg_scan_cycles(torch, dev, w, batch, plan, eps)
+    log(f"kernels: regression_scan plan T={plan[0]} S={plan[1]} "
+        f"P={plan[2]}; cycles a datum by stage {json.dumps(cycles)}")
 
     t_ms = time_cuda(torch, lambda: train_scan(w, *batch, "PA", 1.0, eps), 5)
     sh_ms = time_cuda(torch, lambda: train_scan(sh_w, *sh_batch, "PA", 1.0,
@@ -1255,7 +1361,9 @@ def phase_reg_kernels(torch, np):
     row = dict(ms=t_ms, plain_ms=t_plain, library_ms=None, max_abs_err=worst,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                shape=[REQ_B, k, 1 << 20], us_per_datum=t_ms * 1e3 / REQ_B,
-               shared_column_ms=sh_ms)
+               shared_column_ms=sh_ms,
+               plan={"T": plan[0], "S": plan[1], "P": plan[2]},
+               cycles_per_datum=cycles)
     log(f"kernels: regression_train_scan {row['shape']}: {t_ms:.4f} ms "
         f"({row['us_per_datum']:.4f} us a datum; shared-column stream "
         f"{sh_ms:.4f} ms; plain {t_plain:.4f} ms, bound "

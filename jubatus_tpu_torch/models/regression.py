@@ -5,9 +5,9 @@ Methods PA, PA1, PA2 over one [D] float32 weight vector in the hashed
 feature space, with an epsilon-insensitive loss (`sensitivity`) and
 `regularization_weight` C.  Train keeps the reference's strict per-datum
 order: on CUDA it is ONE launch of the hand-written scan kernel
-(csrc/regression_scan.cu) over the whole packed batch; train_scan_ref is
-its plain PyTorch version, the JAX package's train_scan_impl step for
-step.  Wire train frames [name, [[score, datum], ...]] take the native
+(csrc/regression_scan.cu, planned by reg_scan_plan) over the whole packed
+batch; train_scan_ref is its plain PyTorch version, the JAX package's
+train_scan_impl step for step.  Wire train frames [name, [[score, datum], ...]] take the native
 raw path when the converter config is eligible (fv/fast.py): the C
 FastConverter (mode 1) fills one packed [idx | val | target | mask] arena
 per window, which reaches the device in one copy (convert_raw_batch /
@@ -102,21 +102,81 @@ def train_scan_ref(w, indices, values, targets, mask, method: str, c: float,
         w[idx] = ftz(w[idx])
 
 
+# Launch plan of csrc/regression_scan.cu (struct Plan there): T datums a
+# block, S block slots in the ring, P producer warps.
+REG_BLOCK_ENTRIES = 1024  # entries a block aims at: T = this // K
+REG_RING = 2              # ring depth S: the fastest measured (PERF.md)
+REG_PRODUCERS = 6         # producer warps P: the fastest measured
+REG_MAX_RING = 8          # deepest ring the kernel takes (MAX_RING)
+REG_MAX_PRODUCERS = 8     # most producer warps it takes (MAX_PRODUCERS)
+REG_SMEM_LIMIT = 232448   # shared memory one block can opt into on sm_90
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def reg_scan_smem_bytes(t: int, s: int, k: int) -> int:
+    """Shared-memory bytes of the scan kernel's layout (make_plan in
+    csrc/regression_scan.cu): 3 barriers a slot, then S slots of a
+    T-datum block: header, per-datum meta, the values, table numbers and
+    group masks of T*K entries, a value table of T*K columns with their
+    forwarding lists, and a column hash of at least 2*T*K (>= 32)
+    entries."""
+    nt = t * k
+    hsize = max(32, 1 << (2 * nt - 1).bit_length())
+    return _align16(24 * s) + s * _align16(16 + 16 * t + 28 * nt + 8 * hsize)
+
+
+def reg_scan_plan(k: int, block: Optional[int] = None,
+                  ring: Optional[int] = None, producers: Optional[int] = None,
+                  limit: int = REG_SMEM_LIMIT) -> Tuple[int, int, int]:
+    """(T, S, P) for a launch at K entries per datum: T = `block` (by
+    default REG_BLOCK_ENTRIES // K, at least 1) datums a block, S = `ring`
+    slots (REG_RING) and P = `producers` warps (REG_PRODUCERS), cut to
+    fit `limit` bytes: first S down to 2, then T halved down to 1, then S
+    down to 1.  Raises ValueError where not even one one-datum slot
+    fits."""
+    t = max(1, REG_BLOCK_ENTRIES // k) if block is None else block
+    s = min(REG_RING if ring is None else ring, REG_MAX_RING)
+    p = min(REG_PRODUCERS if producers is None else producers,
+            REG_MAX_PRODUCERS)
+    if t < 1 or s < 1 or p < 1:
+        raise ValueError(f"regression train_scan: bad plan T={t} S={s} "
+                         f"P={p}")
+    while reg_scan_smem_bytes(t, s, k) > limit:
+        if s > 2:
+            s -= 1
+        elif t > 1:
+            t //= 2
+        elif s > 1:
+            s -= 1
+        else:
+            raise ValueError(
+                f"regression train_scan: K={k} entries per datum need "
+                f"{reg_scan_smem_bytes(1, 1, k)} bytes of shared memory for "
+                f"one one-datum slot; one block has {limit}")
+    return t, s, p
+
+
 def _scan_lib() -> ctypes.CDLL:
     lib = build.load("regression_scan")
     lib.regression_scan_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.regression_scan_launch.restype = ctypes.c_int
+    lib.regression_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.regression_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def train_scan(w, indices, values, targets, mask, method: str, c: float,
                eps: float) -> None:
     """Sequential PA regression updates over one microbatch, in place.
-    CUDA tensors: one launch of csrc/regression_scan.cu.  CPU tensors: the
-    plain version.  Shapes as train_scan_ref; indices int32, each in
-    [0, D) (the converter hashes into the model's width)."""
+    CUDA tensors: one launch of csrc/regression_scan.cu, planned by
+    reg_scan_plan.  CPU tensors: the plain version.  Shapes as
+    train_scan_ref; indices int32, each in [0, D) (the converter hashes
+    into the model's width)."""
     if w.device.type == "cpu":
         train_scan_ref(w, indices, values, targets, mask, method, c, eps)
         return
@@ -134,16 +194,24 @@ def train_scan(w, indices, values, targets, mask, method: str, c: float,
     if w.dim() != 1 or tuple(values.shape) != (b, k) \
             or tuple(targets.shape) != (b,) or tuple(mask.shape) != (b,):
         raise ValueError("train_scan: inconsistent batch/state shapes")
+    if (b + 1) * k >= 1 << 30:
+        raise ValueError(f"train_scan: B={b} x K={k} entries is more than "
+                         f"the kernel takes in one launch")
+    if b == 0:
+        return                         # nothing to launch
+    plan = reg_scan_plan(k)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     err = _scan_lib().regression_scan_launch(
         w.data_ptr(), indices.data_ptr(), values.data_ptr(),
         targets.data_ptr(), mask.data_ptr(), b, k, METHODS.index(method),
-        float(c), float(eps), stream)
+        float(c), float(eps), *plan, stream)
     train_scan.launches += 1
+    train_scan.last_plan = plan
     build.check(err, "regression_scan launch")
 
 
 train_scan.launches = 0
+train_scan.last_plan = None
 
 
 # ---------------------------------------------------------------------------

@@ -297,6 +297,57 @@ def test_packed_batch_views_roundtrip():
         np.testing.assert_array_equal(t.numpy(), a)
 
 
+SUBNORMAL = {"tiny_norm": [3e-20, 3e-20], "subnormal_value": [1e-39, 1.0]}
+
+
+@pytest.mark.parametrize("fn", ("train_scan_ref", "train_scan"))
+@pytest.mark.parametrize("vals", sorted(SUBNORMAL))
+@pytest.mark.parametrize("method", MARGIN)
+def test_subnormal_datums_match_jax_bitwise(method, vals, fn):
+    """XLA flushes subnormals: |x|^2 of [3e-20, 3e-20] is 0, so no method
+    moves a table (torch alone would write +-8.3e18 or +-3e-20); 1e-39
+    reads as 0, so its column stays 0.  Label 0 of 2, row 1 the rival."""
+    state = (np.zeros((2, 8), np.float32), np.ones((2, 8), np.float32),
+             np.zeros(2, np.int32), np.array([False, True]))
+    batch = (np.array([[1, 2, 0, 0]], np.int32),
+             np.array([SUBNORMAL[vals] + [0.0, 0.0]], np.float32),
+             np.zeros(1, np.int32), np.ones(1, np.float32))
+    out_j, out_t = run_both(jc.train_scan_impl, getattr(tc, fn), state,
+                            batch, method, 1.0)
+    for a, b in zip(out_j, out_t):
+        np.testing.assert_array_equal(b.view(np.uint8), a.view(np.uint8))
+    assert not out_t[0][:, 1].any()
+    assert out_t[0][:, 2].any() == (vals == "subnormal_value")
+
+
+def test_sparse_reads_flush_like_jax():
+    """batch_scores (classify) and sample_scores read a subnormal value or
+    weight as 0 and flush subnormal products, as XLA does."""
+    w = np.array([[0.9, 1e-39, 2.0, -3e-20], [1.0, 4.0, 1e-39, 0.5]],
+                 np.float32)
+    idx = np.array([[0, 1, 2, 3], [1, 0, 0, 0], [3, 3, 0, 0]], np.int32)
+    val = np.array([[1e-39, 5.0, 1e-39, 3e-20], [5.0, 0, 0, 0],
+                    [2e-20, 1.0, 0, 0]], np.float32)
+    tw, ti, tv = (torch.from_numpy(a) for a in (w, idx, val))
+    got = tsparse.batch_scores(tw, ti.long(), tv).numpy()
+    want = np.asarray(jsparse.batch_scores(w, idx, val))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert got[1, 0] == 0.0
+    got = tsparse.sample_scores(tw, ti[0].long(), tv[0]).numpy()
+    want = np.asarray(jsparse.sample_scores(w, idx[0], val[0]))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("method", ("PA", "AROW"))
+def test_classify_of_a_subnormal_datum_is_jax_s(method):
+    jd, td, _ = trained_pair(method)
+    q = [[], [("x", 1e-39)]]
+    jres = jd.classify([JDatum(*q)])
+    tres = td.classify([TDatum(*q)])
+    assert [sorted(r) for r in tres] == [sorted(r) for r in jres]
+    assert all(score == 0.0 for _, score in tres[0])
+
+
 # ---------------------------------------------------------------------------
 # ops, bucketing and the converter copy
 # ---------------------------------------------------------------------------

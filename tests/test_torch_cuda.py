@@ -21,7 +21,12 @@ tolerance for PA, PA1 and PA2 (PA2 also at C = 3.4e38), on random batches,
 on streams where every datum shares a column, with columns repeated within
 a datum and across its 32-entry chunks (K 16 to 4096), two launches of it
 agree bitwise, and a regression driver on the card estimates like one on
-the CPU.
+the CPU; also across block boundaries and every block in flight (blocks
+of 1 to 64 datums, rings of 1 to 8 slots, 1 to 8 producer warps), at
+B 0, 1 and B not a multiple of the block, at every K bucket, and with a
+shared-memory layout that agrees with the plan's.  Both scans flush
+float32 subnormals as their plain versions do (bitwise on those
+datums).
 """
 
 import numpy as np
@@ -553,6 +558,133 @@ def test_regression_scan_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         tr.train_scan(gw, *bt, "AROW", 1.0, 0.1)
     assert tr.train_scan.launches == before
+
+
+def _subnormal_batch(dev, vals):
+    """One datum [vals..., padding], target 1 (regression) / label 0 of 2
+    (classifier), on `dev`."""
+    k = 4
+    idx = torch.tensor([[1, 2, 0, 0]], dtype=torch.int32, device=dev)
+    val = torch.zeros((1, k), dtype=torch.float32, device=dev)
+    val[0, :2] = torch.tensor(vals, dtype=torch.float32)
+    return idx, val
+
+
+SUBNORMAL = ([3e-20, 3e-20], [1e-39, 1.0])
+
+
+@pytest.mark.parametrize("vals", SUBNORMAL)
+@pytest.mark.parametrize("method", REG)
+def test_regression_scan_flushes_subnormals_like_the_plain_version(
+        dev, method, vals):
+    """Built with -ftz=true, the kernel reads a subnormal as zero and
+    flushes subnormal results, as XLA and the plain version do: |x|^2 of
+    [3e-20, 3e-20] is 0, so w stays 0; 1e-39 reads as 0, so its column
+    stays 0."""
+    idx, val = _subnormal_batch(dev, vals)
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    got = torch.zeros(8, dtype=torch.float32, device=dev)
+    ref = got.clone()
+    tr.train_scan(got, idx, val, one, one, method, 1.0, 0.1)
+    tr.train_scan_ref(ref, idx, val, one, one, method, 1.0, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert float(got[1]) == 0.0
+    assert (float(got[2]) != 0.0) == (vals[1] == 1.0)
+
+
+@pytest.mark.parametrize("vals", SUBNORMAL)
+@pytest.mark.parametrize("method", MARGIN)
+def test_scan_kernel_flushes_subnormals_like_the_plain_version(
+        dev, method, vals):
+    idx, val = _subnormal_batch(dev, vals)
+    state = [torch.zeros((2, 8), dtype=torch.float32, device=dev),
+             torch.ones((2, 8), dtype=torch.float32, device=dev),
+             torch.zeros(2, dtype=torch.int32, device=dev),
+             torch.tensor([False, True], device=dev)]
+    ref = [t.clone() for t in state]
+    lab = torch.zeros(1, dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    tc.train_scan(*state, idx, val, lab, one, method, 1.0)
+    tc.train_scan_ref(*ref, idx, val, lab, one, method, 1.0)
+    torch.cuda.synchronize()
+    for a, b in zip(state, ref):
+        assert torch.equal(a, b)
+    assert float(state[0][:, 1].abs().max()) == 0.0
+
+
+def _reg_pool_inputs(seed, B, K, vocab=40, D=1 << 16):
+    """Columns drawn from a pool of `vocab`, so each column recurs within
+    datums, across block boundaries and in every block in flight (the
+    forwarding hazard), padding after the live entries of some datums."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal(D) * 0.01).astype(np.float32)
+    idx = rng.integers(0, vocab, (B, K)).astype(np.int32) * 97 % D
+    val = rng.standard_normal((B, K)).astype(np.float32)
+    short = rng.random(B) < 0.3
+    idx[short, K // 2:] = 0
+    val[short, K // 2:] = 0.0
+    tgt = (rng.choice([-1.0, 1.0], B) * (2 + 2 * rng.random(B))
+           ).astype(np.float32)
+    mask = np.ones(B, np.float32)
+    mask[rng.random(B) < 0.05] = 0.0
+    return w, [idx, val, tgt, mask]
+
+
+@pytest.mark.parametrize("entries,ring,producers", [
+    (16, 1, 1), (48, 2, 1), (64, 4, 2), (1024, 4, 4), (256, 8, 8),
+    (512, 3, 4)])
+@pytest.mark.parametrize("method", REG)
+def test_regression_scan_across_blocks_and_the_ring(dev, monkeypatch, method,
+                                                    entries, ring, producers):
+    """Blocks of 1, 3, 4, 16, 32 and 64 datums, rings of 1 to 8 slots and 1
+    to 8 producer warps, on a stream whose columns recur across every
+    block in flight, B not a multiple of T."""
+    monkeypatch.setattr(tr, "REG_BLOCK_ENTRIES", entries)
+    monkeypatch.setattr(tr, "REG_RING", ring)
+    monkeypatch.setattr(tr, "REG_PRODUCERS", producers)
+    w, batch = _reg_pool_inputs(entries + ring, 301, 16)
+    _reg_kernel_vs_plain(dev, w, batch, method)
+    assert tr.train_scan.last_plan == (max(1, entries // 16), ring,
+                                       producers)
+
+
+@pytest.mark.parametrize("b", (1, 2, 63, 65, 130))
+def test_regression_scan_at_small_and_ragged_batches(dev, b):
+    w, batch = _reg_pool_inputs(b, b, 16, vocab=12)
+    batch[3][:] = 1.0
+    _reg_kernel_vs_plain(dev, w, batch, "PA")
+
+
+def test_regression_scan_of_an_empty_batch_launches_nothing(dev):
+    w = torch.ones(64, dtype=torch.float32, device=dev)
+    empty = [torch.zeros((0, 16), dtype=torch.int32, device=dev),
+             torch.zeros((0, 16), dtype=torch.float32, device=dev),
+             torch.zeros(0, dtype=torch.float32, device=dev),
+             torch.zeros(0, dtype=torch.float32, device=dev)]
+    before = tr.train_scan.launches
+    tr.train_scan(w, *empty, "PA", 1.0, 0.1)
+    torch.cuda.synchronize()
+    assert tr.train_scan.launches == before
+    assert torch.equal(w, torch.ones_like(w))
+
+
+@pytest.mark.parametrize("k", (16, 32, 64, 128, 256, 512, 1024, 2048, 4096))
+def test_regression_scan_at_every_k_bucket(dev, k):
+    """Every K bucket of the converter, at its planned T, S, P: repeated
+    columns within a datum (across its 32-entry chunks) and across
+    blocks."""
+    t = tr.reg_scan_plan(k)[0]
+    w, batch = _reg_pool_inputs(k, 2 * t + 1, k, vocab=3 * k // 2)
+    _reg_kernel_vs_plain(dev, w, batch, "PA1")
+
+
+def test_regression_smem_layout_agrees_with_the_kernel(dev):
+    lib = tr._scan_lib()
+    for k in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+        for t, s in ((1, 1), (3, 2), tr.reg_scan_plan(k)[:2]):
+            assert lib.regression_scan_smem_bytes(t, s, k) == \
+                tr.reg_scan_smem_bytes(t, s, k)
 
 
 def _reg_config(method):

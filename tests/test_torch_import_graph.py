@@ -105,6 +105,22 @@ def test_library_name_follows_the_source():
     assert build.lib_path("quantize") == a              # deterministic
 
 
+def test_only_the_scans_flush_subnormals_and_flags_enter_the_hash(
+        monkeypatch):
+    """-ftz=true (XLA's flush of float32 subnormals) goes to the two scan
+    kernels and not to the quantizer, whose wire bytes must equal the
+    host codec's; a kernel's flags are part of its library's name."""
+    assert build.flags("quantize") == build.NVCC_FLAGS
+    for name in ("train_scan", "regression_scan"):
+        assert build.flags(name) == build.NVCC_FLAGS + ("-ftz=true",)
+    assert set(build.KERNEL_FLAGS) <= set(build.KERNELS)
+    before = {n: build.lib_path(n) for n in build.KERNELS}
+    monkeypatch.setitem(build.KERNEL_FLAGS, "regression_scan", ())
+    assert build.lib_path("regression_scan") != before["regression_scan"]
+    assert build.lib_path("train_scan") == before["train_scan"]
+    assert build.lib_path("quantize") == before["quantize"]
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -9,10 +9,12 @@ within rtol 1e-5 / atol 1e-6.  The seeded streams keep |err| - eps away
 from 0 (targets several eps away from any prediction the few steps reach),
 where a last-bit difference could flip an update.
 
-Subnormals: at c = 3.4e38 (the reference's shipped PA config) PA2's
-0.5 / c is a float32 subnormal.  XLA on the CPU flushes it to 0; torch on
-the CPU (and the CUDA kernel, built without fast math) keeps it.  Any
-normal |x|^2 absorbs either, so the two agree there; the test pins that.
+Subnormals: XLA flushes float32 subnormals (inputs read as zero, results
+flush), and the port's plain versions and reads flush them explicitly
+(ops.sparse.ftz; the CUDA kernel is built with -ftz=true).  So at c =
+3.4e38 (the reference's shipped PA config) PA2's 0.5 / c, a subnormal, is
+0 in both packages, and on the datums [3e-20, 3e-20] (|x|^2 flushes to 0)
+and [1e-39, 1.0] (1e-39 reads as 0) the port is bitwise the JAX package.
 """
 
 import io
@@ -30,6 +32,7 @@ from jubatus_tpu.mix import codec as jcodec
 from jubatus_tpu.mix.linear_mixer import encode_wire_diff as jencode
 from jubatus_tpu.models import classifier as jc
 from jubatus_tpu.models import regression as jr
+from jubatus_tpu.ops import sparse as jsparse
 from jubatus_tpu_torch import native
 from jubatus_tpu_torch.framework import save_load as tsave
 from jubatus_tpu_torch.fv import Datum as TDatum
@@ -39,6 +42,8 @@ from jubatus_tpu_torch.models import classifier as tc
 from jubatus_tpu_torch.models import regression as tr
 from jubatus_tpu_torch.models.carry import (export_reference_state,
                                             load_reference_state)
+from jubatus_tpu_torch.ops import sparse as tsparse
+from jubatus_tpu_torch.ops.sparse import ftz
 
 torch.set_num_threads(1)
 
@@ -118,13 +123,94 @@ def test_pa2_at_the_shipped_regularization_weight():
     w, batch = scan_inputs(7, "shared")
     out_j, out_t = run_both(tr.train_scan_ref, w, batch, "PA2", BIG_C)
     np.testing.assert_allclose(out_t, out_j, rtol=RTOL, atol=ATOL)
-    # the packages differ on 0.5 / c (XLA flushes the subnormal) ...
+    # 0.5 / c is a subnormal, which XLA flushes and the port flushes too
+    # (torch alone keeps it) ...
     assert float(jnp.float32(0.5) / jnp.float32(BIG_C)) == 0.0
     half = torch.tensor(0.5) / torch.tensor(BIG_C, dtype=torch.float32)
     assert 0.0 < float(half) < float(np.finfo(np.float32).tiny)
-    # ... and PA2 then takes PA's step, since |x|^2 absorbs it
+    assert float(ftz(half)) == 0.0
+    # ... so PA2 takes PA's step exactly
     _, pa = run_both(tr.train_scan_ref, w, batch, "PA", BIG_C)
     np.testing.assert_array_equal(out_t, pa)
+
+
+SUBNORMAL = {"tiny_norm": [3e-20, 3e-20], "subnormal_value": [1e-39, 1.0]}
+
+
+@pytest.mark.parametrize("fn", ("train_scan_ref", "train_scan"))
+@pytest.mark.parametrize("c", (1.0, BIG_C))
+@pytest.mark.parametrize("vals", sorted(SUBNORMAL))
+@pytest.mark.parametrize("method", METHODS)
+def test_subnormal_datums_match_jax_bitwise(method, vals, c, fn):
+    """XLA flushes subnormals: |x|^2 of [3e-20, 3e-20] is 0, so JAX leaves
+    w at 0 (torch alone would write inf, 3e-20 or 5.4e-20); 1e-39 reads as
+    0, so its column stays 0 (torch alone would write 9e-40)."""
+    w = np.zeros(8, np.float32)
+    batch = (np.array([[1, 2, 0, 0]], np.int32),
+             np.array([SUBNORMAL[vals] + [0.0, 0.0]], np.float32),
+             np.ones(1, np.float32), np.ones(1, np.float32))
+    out_j, out_t = run_both(getattr(tr, fn), w, batch, method, c)
+    np.testing.assert_array_equal(out_t.view(np.int32), out_j.view(np.int32))
+    assert out_t[1] == 0.0
+    assert (out_t[2] != 0.0) == (vals == "subnormal_value")
+
+
+def test_sparse_reads_flush_like_jax():
+    """row_scores (estimate) reads a subnormal value or weight as 0 and
+    flushes a subnormal product, as XLA does."""
+    w = np.array([0.9, 1e-39, 2.0, -3e-20], np.float32)
+    idx = np.array([[0, 1, 2, 3], [1, 0, 0, 0], [3, 3, 0, 0]], np.int32)
+    val = np.array([[1e-39, 5.0, 1e-39, 3e-20], [5.0, 0, 0, 0],
+                    [2e-20, 1.0, 0, 0]], np.float32)
+    got = tsparse.row_scores(torch.from_numpy(w), torch.from_numpy(idx)
+                             .long(), torch.from_numpy(val)).numpy()
+    want = np.asarray(jsparse.row_scores(jnp.asarray(w), jnp.asarray(idx),
+                                         jnp.asarray(val)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert not got[:2].any()
+
+
+def test_estimate_of_a_subnormal_datum_is_jax_s():
+    jd, td, _ = trained_pair()
+    q = [[("w0", "tok1")], [("x", 1e-39)]], [[], [("x", 1e-39)]]
+    got = td.estimate([TDatum(*d) for d in q])
+    want = jd.estimate([JDatum(*d) for d in q])
+    np.testing.assert_array_equal(np.float32(got), np.float32(want))
+    assert got[1] == 0.0
+
+
+@pytest.mark.parametrize("k", (16, 32, 64, 128, 256, 512, 1024, 2048, 4096))
+def test_scan_plan_fits_every_k_bucket(k):
+    """Every K bucket of the converter gets a plan within one block's 227 KB
+    of shared memory, with T >= 1; the default block holds 1024 entries
+    at a 4-slot ring where that fits, and T is 1 from K 1024 on."""
+    t, s, p = tr.reg_scan_plan(k)
+    assert t >= 1 and 1 <= s <= tr.REG_MAX_RING and p == tr.REG_PRODUCERS
+    assert tr.reg_scan_smem_bytes(t, s, k) <= tr.REG_SMEM_LIMIT
+    assert t == max(1, 1024 // k)
+    if k <= 1024:
+        assert s == tr.REG_RING
+    assert (t, s) == ((1, 1) if k == 4096 else (t, s))
+
+
+def test_scan_plan_cuts_the_ring_then_the_block():
+    need = tr.reg_scan_smem_bytes
+    p = tr.REG_PRODUCERS
+    # the ring first, down to 2 slots
+    assert tr.reg_scan_plan(16, block=64, ring=8) == (64, 5, p)
+    assert tr.reg_scan_plan(16, block=64, ring=4,
+                            limit=need(64, 3, 16)) == (64, 3, p)
+    # then the block, halved
+    assert tr.reg_scan_plan(16, block=64, ring=4,
+                            limit=need(64, 2, 16) - 1) == (32, 2, p)
+    # then the last slot
+    assert tr.reg_scan_plan(16, block=1, ring=2,
+                            limit=need(1, 2, 16) - 1) == (1, 1, p)
+    with pytest.raises(ValueError):
+        tr.reg_scan_plan(16, block=1, ring=1, limit=need(1, 1, 16) - 1)
+    with pytest.raises(ValueError):
+        tr.reg_scan_plan(8192)
+    assert tr.reg_scan_plan(16, producers=99)[2] == tr.REG_MAX_PRODUCERS
 
 
 def test_duplicate_columns_accumulate():

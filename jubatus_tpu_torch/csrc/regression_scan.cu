@@ -73,8 +73,21 @@
 // reading and writing device memory) read; pred and |x|^2 are summed in
 // its lane order (lane l holds entries l, l+32, ..., products rounded
 // before the sums, then the xor butterfly); each column gets its deltas in
-// ascending k.  So w is bitwise equal to that kernel's when both are built
-// with the same flags, and two launches give the same bits.
+// ascending k.  A group member whose value has the same bits as the
+// member before it and is a signed zero adds the same zero (or NaN) delta,
+// and (x + z) + z == x + z, so the producers leave such members out: a
+// datum's padding entries cost one add.  So w is bitwise equal to that
+// kernel's when both are built with the same flags, and two launches give
+// the same bits.
+//
+// What bounds it now (measured, PERF.md): the consumer's chain, about 430
+// cycles a datum on an H100 (a shared-memory table read, the butterfly,
+// the step's IEEE division, the group's add and store, __syncwarp); the
+// consumer is compiled per method and for K 16 and 32, so the chain has
+// no loop or branch.  The producers keep up from P 6 on.  The previous
+// kernel, one warp reading and writing w in device memory, spent about
+// 80% of its ~2,200 cycles a datum in the gather and in the stores
+// before the next datum's gather.
 //
 // Shapes.  The wrapper plans T, S and P (models/regression.py
 // reg_scan_plan) from the shared-memory budget (227 KB) with the layout of
@@ -475,6 +488,7 @@ __device__ __forceinline__ void consume(
     uint64_t* released, int B, int Kr, int T, int S, float c, float eps,
     int lane, long long* prof) {
   const int K = KC ? KC : Kr;
+  const float half_c = __fdiv_rn(0.5f, c);   // PA2's 0.5/c, once
   Stopwatch sw(prof, lane == 0);
   const int nblocks = (B + T - 1) / T;
   for (int n = 0; n < nblocks; ++n) {
@@ -536,7 +550,7 @@ __device__ __forceinline__ void consume(
         const float q = __fdiv_rn(loss, sqn);
         tau = q > c ? c : q;            // jnp.minimum: a NaN q stays NaN
       } else {
-        tau = __fdiv_rn(loss, __fadd_rn(sqn, __fdiv_rn(0.5f, c)));
+        tau = __fdiv_rn(loss, __fadd_rn(sqn, half_c));
       }
       if (!(mk > 0.f && loss > 0.f && sqn > 0.f)) tau = 0.f;
       const float coef = __fmul_rn(sign_of(err), tau);

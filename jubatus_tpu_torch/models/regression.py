@@ -7,13 +7,15 @@ feature space, with an epsilon-insensitive loss (`sensitivity`) and
 order: on CUDA it is ONE launch of the hand-written scan kernel
 (csrc/regression_scan.cu, planned by reg_scan_plan) over the whole packed
 batch; train_scan_ref is its plain PyTorch version, the JAX package's
-train_scan_impl step for step.  Wire train frames [name, [[score, datum], ...]] take the native
-raw path when the converter config is eligible (fv/fast.py): the C
-FastConverter (mode 1) fills one packed [idx | val | target | mask] arena
-per window, which reaches the device in one copy (convert_raw_batch /
-train_converted_batch, driven by framework/dispatch.IngestPipeline).
-estimate is a gather-dot in torch ops (ops/sparse.row_scores), as it is a
-plain XLA op in the JAX package.  w is updated in place.
+train_scan_impl step for step.  Wire train frames [name, [[score,
+datum], ...]] take the native raw path when the converter config is
+eligible (fv/fast.py): the C FastConverter (mode 1) fills one packed
+[idx | val | target | mask] arena per window, which reaches the device
+in one copy (convert_raw_batch / train_converted_batch, driven by
+framework/dispatch.IngestPipeline).  estimate is a gather-dot in torch
+ops (ops/sparse.row_scores), as it is a plain XLA op in the JAX package.
+w is updated in place.  float32 subnormals flush as under XLA, in the
+kernel (-ftz=true) and in the plain version and the reads (ops.sparse.ftz).
 
 MIX: get_diff exports (w - w_base) over the columns touched since the
 last confirmed round; mix sums; put_diff applies the mean delta and

@@ -3,20 +3,24 @@
 train_scan.cu) against an earlier version of it on one CUDA card, sweep
 its ring depth and producer warps, and split its cycles by stage.
 
-    python3 scripts/torch_scan_ab.py --earlier DIR [--out FILE]
+    python3 scripts/torch_scan_ab.py --earlier DIR [--earlier-flags base]
+                                     [--out FILE]
 
 DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists); its
-jubatus_tpu_torch/csrc/train_scan.cu must have the slice-1 C entry point
-(train_scan_launch without mode, ring and producers).  Both kernels are
-built with the current kernel's flags (flags("train_scan") of
-jubatus_tpu_torch/kernels/build.py, -ftz=true included) and timed by
-CUDA events at the main path's shape (AROW, B 8192, K 16, L 32, D 2^20)
-on two microbatches: chip_smoke.py's random-column batch and
-its shared-column stream.  The earlier and current kernels run in turns
-(earlier, current, current, earlier), each from a fresh state.  The stage
-split comes from train_scan_launch_profiled (clock64 sums of the consumer
-warp and the first producer warp).  Prints one `scan_ab {...}` JSON line
+jubatus_tpu_torch/csrc/train_scan.cu has the slice-1 C entry point
+(train_scan_launch without mode, ring and producers) or the planned one
+of PR 2 on, which runs at the current plan.  Both kernels are built with
+the current kernel's flags (flags("train_scan") of
+jubatus_tpu_torch/kernels/build.py, -ftz=true included), or the earlier
+one without -ftz=true under --earlier-flags base (an A/B of one source
+then times the flush itself), and timed by CUDA events at the main
+path's shape (AROW, B 8192, K 16, L 32, D 2^20) on two microbatches:
+chip_smoke.py's random-column batch and its shared-column stream.  The
+earlier and current kernels run in turns (earlier, current, current,
+earlier), each from a fresh state.  The stage split comes from
+train_scan_launch_profiled (clock64 sums of the consumer warp and the
+first producer warp).  Prints one `scan_ab {...}` JSON line
 (with the card's name and power limit) and writes it to FILE when given.
 """
 
@@ -45,10 +49,11 @@ CURRENT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
 
 
-def build_lib(build, src: str, label: str) -> ctypes.CDLL:
-    """nvcc `src` with the current scan kernel's flags into the build
-    directory (reused when the source and flags are unchanged)."""
-    cmd = [build.nvcc_path(), *build.flags("train_scan")]
+def build_lib(build, src: str, label: str, flags=None) -> ctypes.CDLL:
+    """nvcc `src` with `flags` (by default the current scan kernel's) into
+    the build directory (reused when the source and flags are
+    unchanged)."""
+    cmd = [build.nvcc_path(), *(flags or build.flags("train_scan"))]
     tag = hashlib.sha256(open(src, "rb").read()
                          + " ".join(cmd).encode()).hexdigest()[:16]
     out = build.BUILD_DIR / f"libtrain_scan_{label}-{tag}.so"
@@ -64,6 +69,12 @@ def main() -> int:
     ap.add_argument("--earlier", required=True,
                     help="root of the checkout holding the earlier kernel")
     ap.add_argument("--out", help="also write the JSON line here")
+    ap.add_argument("--earlier-flags", choices=("current", "base"),
+                    default="current",
+                    help="build the earlier kernel with the current "
+                         "kernel's flags (default) or with the common "
+                         "NVCC_FLAGS alone (no -ftz=true), to time the "
+                         "flush itself")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -83,10 +94,16 @@ def main() -> int:
     L, K, D, B = smoke.N_LABELS, 16, 1 << 20, smoke.REQ_B
     aid = tc._METHOD_ID["AROW"]
     src = str(build.SRC_DIR / "train_scan.cu")
+    earlier_flags = (build.NVCC_FLAGS if args.earlier_flags == "base"
+                     else build.flags("train_scan"))
     earlier = build_lib(build, os.path.join(
         args.earlier, "jubatus_tpu_torch", "csrc", "train_scan.cu"),
-        "earlier")
-    earlier.train_scan_launch.argtypes = EARLIER_ARGS
+        "earlier", earlier_flags)
+    # an earlier kernel with the planned entry point (PR 2 on) runs at the
+    # current plan
+    planned = hasattr(earlier, "train_scan_smem_bytes")
+    earlier.train_scan_launch.argtypes = (CURRENT_ARGS[:-1] if planned
+                                          else EARLIER_ARGS)
     earlier.train_scan_launch.restype = ctypes.c_int
     lib = build_lib(build, src, "current")
     lib.train_scan_launch_profiled.argtypes = CURRENT_ARGS
@@ -96,15 +113,20 @@ def main() -> int:
         return torch.cuda.current_stream(dev).cuda_stream
 
     def run_earlier(state, batch):
+        plan = ()
+        if planned:
+            mode, depth = tc.scan_plan(L, K, True, tc.SCAN_RING)
+            plan = (mode, depth, min(tc.SCAN_PRODUCERS, depth))
         build.check(earlier.train_scan_launch(
             *[t.data_ptr() for t in state + batch], B, K, L, D, aid, 1.0,
-            stream()), "earlier train_scan launch")
+            *plan, stream()), "earlier train_scan launch")
 
-    def runner(ring=tc.SCAN_RING, producers=tc.SCAN_PRODUCERS, prof=None):
+    def runner(ring=tc.SCAN_RING, producers=tc.SCAN_PRODUCERS, prof=None,
+               kernel=None):
         mode, depth = tc.scan_plan(L, K, True, ring)
 
         def run(state, batch):
-            build.check(lib.train_scan_launch_profiled(
+            build.check((kernel or lib).train_scan_launch_profiled(
                 *[t.data_ptr() for t in state + batch], B, K, L, D, aid,
                 1.0, mode, depth, min(producers, depth), stream(),
                 None if prof is None else prof.data_ptr()),
@@ -121,10 +143,10 @@ def main() -> int:
         state, batch = make()
         return smoke.time_cuda(torch, lambda: fn(state, batch), reps)
 
-    def stages(make, ring, producers):
+    def stages(make, ring, producers, kernel=None):
         prof = torch.zeros(16, dtype=torch.int64, device=dev)
         state, batch = make()
-        runner(ring, producers, prof)(state, batch)
+        runner(ring, producers, prof, kernel)(state, batch)
         p = prof.cpu().tolist()
         return {"ring": ring, "producers": producers,
                 "consumer_cycles_per_datum": {
@@ -135,6 +157,8 @@ def main() -> int:
                     k: v / B for k, v in zip(WRITEBACK, p[12:14])}}
 
     result = {"card": card, "shape": [B, K, L, D], "method": "AROW",
+              "earlier_flags": list(earlier_flags),
+              "current_flags": list(build.flags("train_scan")),
               "plan": {"ring": tc.SCAN_RING,
                        "producers": tc.SCAN_PRODUCERS}}
     current = runner()
@@ -164,6 +188,11 @@ def main() -> int:
                                   "ms": ms, "us_per_datum": ms * 1e3 / B})
         split = [stages(make, ring, producers)
                  for ring, producers in ((1, 1), (2, 2), (3, 2), (4, 2))]
+        if planned:
+            earlier.train_scan_launch_profiled.argtypes = CURRENT_ARGS
+            earlier.train_scan_launch_profiled.restype = ctypes.c_int
+            result.setdefault("earlier_stages", {})[name] = stages(
+                make, tc.SCAN_RING, tc.SCAN_PRODUCERS, earlier)
         result[name] = {"turns_ms": turns, "sweep": sweep, "stages": split,
                         "earlier_vs_current_max_abs_diff": diff,
                         "counts_active_equal": same_ints}

@@ -742,9 +742,12 @@ __device__ __forceinline__ void consume(
 }
 
 // Warp 0 consumes, warp 1 writes back (RING_ALL; idle otherwise), warps
-// 2 .. P+1 produce.
+// 2 .. P+1 produce.  One block a launch, so one block per SM: the bound
+// lets ptxas give each thread up to 65,536 / 320 registers.  Without the
+// 1, under -ftz=true ptxas kept the RING_ALL kernels near 96 registers
+// and spilled (PERF.md, PR 6).
 template <int MODE, bool HAS_COV>
-__global__ void __launch_bounds__(32 * (2 + MAX_PRODUCERS))
+__global__ void __launch_bounds__(32 * (2 + MAX_PRODUCERS), 1)
 train_scan_kernel(float* w, float* cov, int32_t* counts, uint8_t* active,
                   const int32_t* __restrict__ indices,
                   const float* __restrict__ values,

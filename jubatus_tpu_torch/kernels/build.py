@@ -38,12 +38,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 KERNELS = ("quantize", "train_scan", "regression_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# flags of one kernel beyond NVCC_FLAGS.  Under -ftz=true ptxas gives the
-# classifier scan fewer registers than its 320-thread launch bound allows
-# and moves values to local memory (35% slower a launch on an H100,
-# PERF.md); -maxrregcount=200 (65,536 registers / 320 threads, in steps
-# of 8) gives it back the registers it had.
-KERNEL_FLAGS = {"train_scan": ("-ftz=true", "-maxrregcount=200"),
+# flags of one kernel beyond NVCC_FLAGS
+KERNEL_FLAGS = {"train_scan": ("-ftz=true",),
                 "regression_scan": ("-ftz=true",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,7 @@ train_scan.cu) against an earlier version of it on one CUDA card, sweep
 its ring depth and producer warps, and split its cycles by stage.
 
     python3 scripts/torch_scan_ab.py --earlier DIR [--earlier-flags base]
-                                     [--out FILE]
+                                     [--method M] [--out FILE]
 
 DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists); its
@@ -15,7 +15,8 @@ the current kernel's flags (flags("train_scan") of
 jubatus_tpu_torch/kernels/build.py, -ftz=true included), or the earlier
 one without -ftz=true under --earlier-flags base (an A/B of one source
 then times the flush itself), and timed by CUDA events at the main
-path's shape (AROW, B 8192, K 16, L 32, D 2^20) on two microbatches:
+path's shape (AROW, or --method, B 8192, K 16, L 32, D 2^20) on two
+microbatches:
 chip_smoke.py's random-column batch and its shared-column stream.  The
 earlier and current kernels run in turns (earlier, current, current,
 earlier), each from a fresh state.  The stage split comes from
@@ -41,6 +42,7 @@ CONSUMER = ("wait_slot", "forward", "scores_argmax", "step_sizes", "updates",
             "commit")
 PRODUCER = ("wait_free_slot", "stage", "gather")
 WRITEBACK = ("wait_commit", "store")
+MARGIN = ("perceptron", "PA", "PA1", "PA2", "CW", "AROW", "NHERD")
 EARLIER_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p])
@@ -69,6 +71,8 @@ def main() -> int:
     ap.add_argument("--earlier", required=True,
                     help="root of the checkout holding the earlier kernel")
     ap.add_argument("--out", help="also write the JSON line here")
+    ap.add_argument("--method", default="AROW", choices=MARGIN,
+                    help="margin method of the timed scan")
     ap.add_argument("--earlier-flags", choices=("current", "base"),
                     default="current",
                     help="build the earlier kernel with the current "
@@ -92,7 +96,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     L, K, D, B = smoke.N_LABELS, 16, 1 << 20, smoke.REQ_B
-    aid = tc._METHOD_ID["AROW"]
+    aid = tc._METHOD_ID[args.method]
+    has_cov = tc._has_cov(args.method)
     src = str(build.SRC_DIR / "train_scan.cu")
     earlier_flags = (build.NVCC_FLAGS if args.earlier_flags == "base"
                      else build.flags("train_scan"))
@@ -115,7 +120,7 @@ def main() -> int:
     def run_earlier(state, batch):
         plan = ()
         if planned:
-            mode, depth = tc.scan_plan(L, K, True, tc.SCAN_RING)
+            mode, depth = tc.scan_plan(L, K, has_cov, tc.SCAN_RING)
             plan = (mode, depth, min(tc.SCAN_PRODUCERS, depth))
         build.check(earlier.train_scan_launch(
             *[t.data_ptr() for t in state + batch], B, K, L, D, aid, 1.0,
@@ -123,7 +128,7 @@ def main() -> int:
 
     def runner(ring=tc.SCAN_RING, producers=tc.SCAN_PRODUCERS, prof=None,
                kernel=None):
-        mode, depth = tc.scan_plan(L, K, True, ring)
+        mode, depth = tc.scan_plan(L, K, has_cov, ring)
 
         def run(state, batch):
             build.check((kernel or lib).train_scan_launch_profiled(
@@ -156,7 +161,7 @@ def main() -> int:
                 "writeback_cycles_per_datum": {
                     k: v / B for k, v in zip(WRITEBACK, p[12:14])}}
 
-    result = {"card": card, "shape": [B, K, L, D], "method": "AROW",
+    result = {"card": card, "shape": [B, K, L, D], "method": args.method,
               "earlier_flags": list(earlier_flags),
               "current_flags": list(build.flags("train_scan")),
               "plan": {"ring": tc.SCAN_RING,

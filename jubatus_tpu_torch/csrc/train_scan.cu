@@ -745,7 +745,7 @@ __device__ __forceinline__ void consume(
 // 2 .. P+1 produce.  One block a launch, so one block per SM: the bound
 // lets ptxas give each thread up to 65,536 / 320 registers.  Without the
 // 1, under -ftz=true ptxas kept the RING_ALL kernels near 96 registers
-// and spilled (PERF.md, PR 6).
+// and spilled (PERF.md).
 template <int MODE, bool HAS_COV>
 __global__ void __launch_bounds__(32 * (2 + MAX_PRODUCERS), 1)
 train_scan_kernel(float* w, float* cov, int32_t* counts, uint8_t* active,

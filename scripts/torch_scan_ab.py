@@ -10,7 +10,7 @@ DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists); its
 jubatus_tpu_torch/csrc/train_scan.cu has the slice-1 C entry point
 (train_scan_launch without mode, ring and producers) or the planned one
-of PR 2 on, which runs at the current plan.  Both kernels are built with
+(with them), which runs at the current plan.  Both kernels are built with
 the current kernel's flags (flags("train_scan") of
 jubatus_tpu_torch/kernels/build.py, -ftz=true included), or the earlier
 one without -ftz=true under --earlier-flags base (an A/B of one source
@@ -104,8 +104,8 @@ def main() -> int:
     earlier = build_lib(build, os.path.join(
         args.earlier, "jubatus_tpu_torch", "csrc", "train_scan.cu"),
         "earlier", earlier_flags)
-    # an earlier kernel with the planned entry point (PR 2 on) runs at the
-    # current plan
+    # an earlier kernel with the planned entry point runs at the current
+    # plan
     planned = hasattr(earlier, "train_scan_smem_bytes")
     earlier.train_scan_launch.argtypes = (CURRENT_ARGS[:-1] if planned
                                           else EARLIER_ARGS)

@@ -77,8 +77,9 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 cycles a datum by stage; the regression server on
                 cuda (a warm train request, then 4 timed 8192-datum
                 requests through the ingest pipeline, each split by the
-                server's raw-path calls, then again under torch.profiler
-                for the card's busy share; estimate against a CPU driver
+                server's raw-path calls, then again under torch.profiler,
+                whose device time is printed without a busy share (it
+                undercounts the scan here); estimate against a CPU driver
                 fed the same frames; save, clear, load; get_status with the
                 scan kernel's launches) and its `regression` line;
                 one v3 MIX round between two regression drivers on the card
@@ -1420,8 +1421,8 @@ def phase_reg_server(torch, np, card):
                            for a, b in zip(marks, marks[1:])]
             clock.close()
 
-            # the card's busy share: the same frames again, under
-            # torch.profiler, up to a read that waits for their steps
+            # the card's time seen by torch.profiler: the same frames
+            # again, up to a read
             def again():
                 for frame in frames:
                     cli.send(frame, "train")
@@ -1484,9 +1485,9 @@ def phase_reg_server(torch, np, card):
             "train_request_ms": [(b - a) * 1e3
                                  for a, b in zip(marks, marks[1:])],
             "request_split_ms": {"warm": warm_split, "timed": timed_split},
+            # the profiler's readings alone, no busy share: it sees less
+            # device time than the pass's scan launches take (PERF.md §7)
             "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
-            "device_busy_share": (busy_ms / busy_wall_ms
-                                  if busy_ms is not None else None),
             "estimate_ms_p50": float(np.median(lat)),
             "estimate_max_abs_diff_vs_cpu": float(np.abs(got - ref).max()),
             "train_requests": N_TRAIN_REQS, "datums_per_request": REQ_B,

@@ -29,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
@@ -63,10 +63,14 @@ def flags(name: str) -> tuple:
     return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
+def _hashed_path(stem: str, src: bytes, nvcc_flags: Iterable[str]) -> Path:
+    digest = hashlib.sha256(src + " ".join(nvcc_flags).encode()).hexdigest()
+    return BUILD_DIR / f"lib{stem}-{digest[:16]}.so"
+
+
 def lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return _hashed_path(name, (SRC_DIR / f"{name}.cu").read_bytes(),
+                        flags(name))
 
 
 def build_log(name: str) -> str:
@@ -121,6 +125,28 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def load_variant(name: str, src, label: str,
+                 nvcc_flags: Optional[Iterable[str]] = None) -> ctypes.CDLL:
+    """Kernel `name` built from the source file `src` (another checkout's,
+    for an A/B against the current kernel) with `nvcc_flags` (by default
+    flags(name)) into lib<name>_<label>-<hash>.so beside the kernels' own
+    libraries, the hash taken over the source and the flags as in
+    lib_path; reused while both are unchanged."""
+    fl = tuple(flags(name) if nvcc_flags is None else nvcc_flags)
+    out = _hashed_path(f"{name}_{label}", Path(src).read_bytes(), fl)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run([nvcc_path(), *fl, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} "
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
 
 
 def check(err: int, what: str) -> None:

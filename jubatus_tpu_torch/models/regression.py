@@ -109,8 +109,6 @@ def train_scan_ref(w, indices, values, targets, mask, method: str, c: float,
 REG_BLOCK_ENTRIES = 1024  # entries a block aims at: T = this // K
 REG_RING = 2              # ring depth S: the fastest measured (PERF.md)
 REG_PRODUCERS = 6         # producer warps P: the fastest measured
-REG_MAX_RING = 8          # deepest ring the kernel takes (MAX_RING)
-REG_MAX_PRODUCERS = 8     # most producer warps it takes (MAX_PRODUCERS)
 REG_SMEM_LIMIT = 232448   # shared memory one block can opt into on sm_90
 
 
@@ -130,26 +128,17 @@ def reg_scan_smem_bytes(t: int, s: int, k: int) -> int:
     return _align16(24 * s) + s * _align16(16 + 16 * t + 28 * nt + 8 * hsize)
 
 
-def reg_scan_plan(k: int, block: Optional[int] = None,
-                  ring: Optional[int] = None, producers: Optional[int] = None,
-                  limit: int = REG_SMEM_LIMIT) -> Tuple[int, int, int]:
-    """(T, S, P) for a launch at K entries per datum: T = `block` (by
-    default REG_BLOCK_ENTRIES // K, at least 1) datums a block, S = `ring`
-    slots (REG_RING) and P = `producers` warps (REG_PRODUCERS), cut to
-    fit `limit` bytes: first S down to 2, then T halved down to 1, then S
-    down to 1.  Raises ValueError where not even one one-datum slot
-    fits."""
-    t = max(1, REG_BLOCK_ENTRIES // k) if block is None else block
-    s = min(REG_RING if ring is None else ring, REG_MAX_RING)
-    p = min(REG_PRODUCERS if producers is None else producers,
-            REG_MAX_PRODUCERS)
-    if t < 1 or s < 1 or p < 1:
-        raise ValueError(f"regression train_scan: bad plan T={t} S={s} "
-                         f"P={p}")
-    while reg_scan_smem_bytes(t, s, k) > limit:
-        if s > 2:
-            s -= 1
-        elif t > 1:
+def reg_scan_plan(k: int) -> Tuple[int, int, int]:
+    """(T, S, P) for a launch at K entries per datum: T =
+    REG_BLOCK_ENTRIES // K (at least 1) datums a block, S = REG_RING slots
+    and P = REG_PRODUCERS warps, cut to fit REG_SMEM_LIMIT bytes: T halved
+    down to 1, then S down to 1.  Raises ValueError where not even one
+    one-datum slot fits (the C entry refuses a ring or a producer count
+    beyond its own limits)."""
+    t = max(1, REG_BLOCK_ENTRIES // k)
+    s = REG_RING
+    while reg_scan_smem_bytes(t, s, k) > REG_SMEM_LIMIT:
+        if t > 1:
             t //= 2
         elif s > 1:
             s -= 1
@@ -157,8 +146,8 @@ def reg_scan_plan(k: int, block: Optional[int] = None,
             raise ValueError(
                 f"regression train_scan: K={k} entries per datum need "
                 f"{reg_scan_smem_bytes(1, 1, k)} bytes of shared memory for "
-                f"one one-datum slot; one block has {limit}")
-    return t, s, p
+                f"one one-datum slot; one block has {REG_SMEM_LIMIT}")
+    return t, s, REG_PRODUCERS
 
 
 def _scan_lib() -> ctypes.CDLL:

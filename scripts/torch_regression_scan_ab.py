@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
-import hashlib
 import json
 import os
 import re
@@ -54,20 +53,6 @@ CURRENT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p] * 2)
 F32_OP = re.compile(r"^\s*(?:@!?%p\d+\s+)?((?:add|sub|mul|div|fma|setp|abs|"
                     r"neg|min|max|sqrt|rcp)\.[\w.]*f32)\b", re.M)
-
-
-def build_lib(build, src: str, label: str) -> ctypes.CDLL:
-    """nvcc `src` with the current regression kernel's flags into the build
-    directory (reused when the source and flags are unchanged)."""
-    cmd = [build.nvcc_path(), *build.flags("regression_scan")]
-    tag = hashlib.sha256(open(src, "rb").read()
-                         + " ".join(cmd).encode()).hexdigest()[:16]
-    out = build.BUILD_DIR / f"libregression_scan_{label}-{tag}.so"
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([*cmd, "-o", str(out), src], check=True,
-                       capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
 
 
 def ptx_ftz(build, name: str) -> dict:
@@ -108,7 +93,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     B, K, D = smoke.REQ_B, 16, 1 << 20
-    earlier = build_lib(build, os.path.join(
+    earlier = build.load_variant("regression_scan", os.path.join(
         args.earlier, "jubatus_tpu_torch", "csrc", "regression_scan.cu"),
         "earlier")
     earlier.regression_scan_launch.argtypes = EARLIER_ARGS
@@ -117,8 +102,7 @@ def main() -> int:
     if earlier_prof is not None:
         earlier_prof.argtypes = EARLIER_ARGS + [ctypes.c_void_p]
         earlier_prof.restype = ctypes.c_int
-    lib = build_lib(build, str(build.SRC_DIR / "regression_scan.cu"),
-                    "current")
+    lib = build.load("regression_scan")
     lib.regression_scan_launch_profiled.argtypes = CURRENT_ARGS
     lib.regression_scan_launch_profiled.restype = ctypes.c_int
 

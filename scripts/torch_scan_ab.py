@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -49,21 +48,6 @@ EARLIER_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
 CURRENT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-
-
-def build_lib(build, src: str, label: str, flags=None) -> ctypes.CDLL:
-    """nvcc `src` with `flags` (by default the current scan kernel's) into
-    the build directory (reused when the source and flags are
-    unchanged)."""
-    cmd = [build.nvcc_path(), *(flags or build.flags("train_scan"))]
-    tag = hashlib.sha256(open(src, "rb").read()
-                         + " ".join(cmd).encode()).hexdigest()[:16]
-    out = build.BUILD_DIR / f"libtrain_scan_{label}-{tag}.so"
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([*cmd, "-o", str(out), src], check=True,
-                       capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
 
 
 def main() -> int:
@@ -98,10 +82,9 @@ def main() -> int:
     L, K, D, B = smoke.N_LABELS, 16, 1 << 20, smoke.REQ_B
     aid = tc._METHOD_ID[args.method]
     has_cov = tc._has_cov(args.method)
-    src = str(build.SRC_DIR / "train_scan.cu")
     earlier_flags = (build.NVCC_FLAGS if args.earlier_flags == "base"
                      else build.flags("train_scan"))
-    earlier = build_lib(build, os.path.join(
+    earlier = build.load_variant("train_scan", os.path.join(
         args.earlier, "jubatus_tpu_torch", "csrc", "train_scan.cu"),
         "earlier", earlier_flags)
     # an earlier kernel with the planned entry point runs at the current
@@ -110,7 +93,7 @@ def main() -> int:
     earlier.train_scan_launch.argtypes = (CURRENT_ARGS[:-1] if planned
                                           else EARLIER_ARGS)
     earlier.train_scan_launch.restype = ctypes.c_int
-    lib = build_lib(build, src, "current")
+    lib = build.load("train_scan")
     lib.train_scan_launch_profiled.argtypes = CURRENT_ARGS
     lib.train_scan_launch_profiled.restype = ctypes.c_int
 

@@ -613,6 +613,22 @@ def test_scan_kernel_flushes_subnormals_like_the_plain_version(
     assert float(state[0][:, 1].abs().max()) == 0.0
 
 
+def test_ftz_on_the_card_is_the_cpu_s(dev):
+    """ftz() (hardshrink and copysign) on a CUDA tensor flushes the same
+    values to the same signed zeros as on the CPU, NaN passing."""
+    from jubatus_tpu_torch.ops.sparse import ftz
+    tiny = np.finfo(np.float32).tiny
+    sub_max = np.nextafter(tiny, np.float32(0))
+    x = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-39, -1e-39, sub_max,
+                      -sub_max, tiny, -tiny, 3e-20, -1.0, np.inf, -np.inf,
+                      np.nan] * 5, dtype=torch.float32)
+    got = ftz(x.to(dev)).cpu()
+    want = ftz(x)
+    assert torch.equal(got.isnan(), x.isnan())
+    ok = ~x.isnan()
+    assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
+
+
 def _reg_pool_inputs(seed, B, K, vocab=40, D=1 << 16):
     """Columns drawn from a pool of `vocab`, so each column recurs within
     datums, across block boundaries and in every block in flight (the

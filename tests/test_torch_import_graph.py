@@ -121,6 +121,36 @@ def test_only_the_scans_flush_subnormals_and_flags_enter_the_hash(
     assert build.lib_path("quantize") == before["quantize"]
 
 
+def test_a_variant_library_follows_its_source_and_flags(monkeypatch,
+                                                       tmp_path):
+    """load_variant (an earlier checkout's kernel, for an A/B) names its
+    library by kernel, label, source and flags, builds it once and
+    reuses it; nvcc and the loader are stood in for here."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    runs = []
+
+    def fake_nvcc(cmd, **kw):
+        runs.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", None)
+
+    monkeypatch.setattr(build.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    src = tmp_path / "regression_scan.cu"
+    src.write_text("// one version\n")
+    a = build.load_variant("regression_scan", src, "earlier")
+    assert a == build.load_variant("regression_scan", src, "earlier")
+    assert len(runs) == 1 and runs[0][1:-3] == list(
+        build.flags("regression_scan"))
+    assert a.startswith(str(tmp_path / "out" / "libregression_scan_earlier-"))
+    b = build.load_variant("regression_scan", src, "earlier",
+                           build.NVCC_FLAGS)
+    src.write_text("// another version\n")
+    c = build.load_variant("regression_scan", src, "earlier")
+    assert len({a, b, c}) == 3 and len(runs) == 3
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

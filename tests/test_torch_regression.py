@@ -20,6 +20,7 @@ and [1e-39, 1.0] (1e-39 reads as 0) the port is bitwise the JAX package.
 import io
 import json
 
+import jax
 import jax.numpy as jnp
 import msgpack
 import numpy as np
@@ -119,6 +120,24 @@ def test_train_scan_matches_train_scan_impl(method, kind, fn):
         assert out_t[5] != w[5]
 
 
+def test_ftz_flushes_as_xla_does():
+    """ftz() against XLA's own flush (a product by a traced 1): every
+    subnormal becomes a zero of its sign, the largest subnormal too; the
+    smallest normal, zeros, infinities and NaN pass unchanged."""
+    tiny = np.finfo(np.float32).tiny
+    sub_max = np.nextafter(tiny, np.float32(0))
+    x = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-39, -1e-39, sub_max,
+                  -sub_max, tiny, -tiny, 3e-20, -1.0, np.inf, -np.inf,
+                  np.nan] * 5, np.float32)
+    want = np.asarray(jax.jit(lambda a, one: a * one)(x, np.float32(1.0)))
+    got = ftz(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(x))
+    ok = ~np.isnan(x)
+    np.testing.assert_array_equal(got[ok].view(np.int32),
+                                  want[ok].view(np.int32))
+    assert (got[:10].view(np.int32) & 0x7fffffff == 0).sum() == 8
+
+
 def test_pa2_at_the_shipped_regularization_weight():
     w, batch = scan_inputs(7, "shared")
     out_j, out_t = run_both(tr.train_scan_ref, w, batch, "PA2", BIG_C)
@@ -183,34 +202,43 @@ def test_estimate_of_a_subnormal_datum_is_jax_s():
 def test_scan_plan_fits_every_k_bucket(k):
     """Every K bucket of the converter gets a plan within one block's 227 KB
     of shared memory, with T >= 1; the default block holds 1024 entries
-    at a 4-slot ring where that fits, and T is 1 from K 1024 on."""
+    at the 2-slot ring (REG_RING), T is 1 from K 1024 on, and only K 4096
+    must give up the second slot."""
     t, s, p = tr.reg_scan_plan(k)
-    assert t >= 1 and 1 <= s <= tr.REG_MAX_RING and p == tr.REG_PRODUCERS
+    assert t >= 1 and p == tr.REG_PRODUCERS
     assert tr.reg_scan_smem_bytes(t, s, k) <= tr.REG_SMEM_LIMIT
     assert t == max(1, 1024 // k)
-    if k <= 1024:
+    if k == 4096:
+        assert (t, s) == (1, 1)
+    else:
         assert s == tr.REG_RING
-    assert (t, s) == ((1, 1) if k == 4096 else (t, s))
 
 
-def test_scan_plan_cuts_the_ring_then_the_block():
+def test_scan_plan_cuts_the_block_then_the_ring(monkeypatch):
     need = tr.reg_scan_smem_bytes
     p = tr.REG_PRODUCERS
-    # the ring first, down to 2 slots
-    assert tr.reg_scan_plan(16, block=64, ring=8) == (64, 5, p)
-    assert tr.reg_scan_plan(16, block=64, ring=4,
-                            limit=need(64, 3, 16)) == (64, 3, p)
-    # then the block, halved
-    assert tr.reg_scan_plan(16, block=64, ring=4,
-                            limit=need(64, 2, 16) - 1) == (32, 2, p)
-    # then the last slot
-    assert tr.reg_scan_plan(16, block=1, ring=2,
-                            limit=need(1, 2, 16) - 1) == (1, 1, p)
+    monkeypatch.setattr(tr, "REG_BLOCK_ENTRIES", 1024)
+    monkeypatch.setattr(tr, "REG_RING", 4)
+    assert tr.reg_scan_plan(16) == (64, 4, p)      # fits as asked
+    # the block first, halved down to one datum, the ring kept
+    monkeypatch.setattr(tr, "REG_SMEM_LIMIT", need(64, 4, 16) - 1)
+    assert tr.reg_scan_plan(16) == (32, 4, p)
+    monkeypatch.setattr(tr, "REG_SMEM_LIMIT", need(2, 4, 16) - 1)
+    assert tr.reg_scan_plan(16) == (1, 4, p)
+    # then the ring, one slot at a time
+    monkeypatch.setattr(tr, "REG_SMEM_LIMIT", need(1, 4, 16) - 1)
+    assert tr.reg_scan_plan(16) == (1, 3, p)
+    monkeypatch.setattr(tr, "REG_SMEM_LIMIT", need(1, 2, 16) - 1)
+    assert tr.reg_scan_plan(16) == (1, 1, p)
+    # and nothing where one one-datum slot does not fit
+    monkeypatch.setattr(tr, "REG_SMEM_LIMIT", need(1, 1, 16) - 1)
     with pytest.raises(ValueError):
-        tr.reg_scan_plan(16, block=1, ring=1, limit=need(1, 1, 16) - 1)
+        tr.reg_scan_plan(16)
+
+
+def test_scan_plan_refuses_a_k_beyond_the_buckets():
     with pytest.raises(ValueError):
         tr.reg_scan_plan(8192)
-    assert tr.reg_scan_plan(16, producers=99)[2] == tr.REG_MAX_PRODUCERS
 
 
 def test_duplicate_columns_accumulate():

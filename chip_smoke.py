@@ -85,9 +85,23 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 one v3 MIX round between two regression drivers on the card
                 (replicas bitwise equal, drift within the quantization
                 bound, both quantizer kernels launched)
-  7. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4, 5 and 6; counters are zeroed just before each path), then
-                the result line {"ok": true, "device": {...}} last.
+  7. cluster  — for each service, a cross-process v3 MIX round: the port's
+                coordinator and two port servers (device cuda,
+                --mix_quantize, a trigger out of reach) as subprocesses, each
+                server trained over the wire on its own 8192-datum half, then
+                do_mix on one: the replicas bitwise equal to each other and
+                to the same round run in this process on two drivers fed the
+                same frames through their raw entry (drift from its f32 twin
+                within the quantization bound), the classifier's counts the
+                exact sum of both halves, a second do_mix changing nothing,
+                both quantizer kernels launched in each server process; a
+                `cluster_mix` line per service with the round's time, bytes
+                and stages (the master's gather, decode, fold, encode and
+                scatter; each server's get_diff and put_diff handler)
+  8. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 7; counters are zeroed just before each path, and a
+                cluster server's start at 0 with its process), then the
+                result line {"ok": true, "device": {...}} last.
 
 It exits non-zero and prints no result line when CUDA is unavailable or
 when the port's package is not beside this script.
@@ -1561,6 +1575,297 @@ def phase_reg_mix(torch, np):
     return counts
 
 
+class Child:
+    """A subprocess of the cluster phase (python -m MODULE ...) run from
+    this checkout; a thread drains its output and keeps the last lines
+    for an error message."""
+
+    def __init__(self, argv):
+        import queue
+        import threading
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        self.p = subprocess.Popen([sys.executable, "-m", *argv], cwd=HERE,
+                                  env=env, text=True, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+        self.lines = queue.Queue()
+        self.tail = []
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.p.stdout:
+            self.tail = (self.tail + [line])[-40:]
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def wait_line(self, prefix, timeout):
+        import queue
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(0.05, deadline - time.monotonic()))
+            except queue.Empty:
+                line = ""
+            if line is None:
+                raise AssertionError("a cluster process ended:\n"
+                                     + "".join(self.tail))
+            if line.startswith(prefix):
+                return line
+            if time.monotonic() > deadline:
+                raise AssertionError(f"no {prefix!r} line within {timeout} s:"
+                                     "\n" + "".join(self.tail))
+
+    def stop(self):
+        if self.p.poll() is None:
+            self.p.terminate()
+            try:
+                self.p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.p.kill()
+                self.p.wait(timeout=15)
+
+
+def model_tables(np, pack, service):
+    """A driver's pack as {key: array}: the classifier's w and cov rows
+    and counts keyed by label (rows are numbered per process), the
+    regression's w."""
+    if service == "regression":
+        return {"w": np.frombuffer(pack["w"], np.float32)}
+    labels = {(k.decode() if isinstance(k, bytes) else k): int(v)
+              for k, v in pack["labels"].items()}
+    cap, dim = int(pack["capacity"]), int(pack["dim"])
+    out = {}
+    for name in ("w", "cov"):
+        t = np.frombuffer(pack[name], np.float32).reshape(cap, dim)
+        out.update({f"{name}:{lbl}": t[row] for lbl, row in labels.items()})
+    counts = np.frombuffer(pack["counts"], np.int32)
+    out.update({f"count:{lbl}": counts[row:row + 1]
+                for lbl, row in labels.items()})
+    return out
+
+
+def same_tables(np, a, b):
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+
+
+def phase_cluster(torch, np, card, service, device="cuda"):
+    """Phase 7: a cross-process v3 MIX round.  The port's coordinator and
+    two port servers (device cuda, --mix_quantize, a trigger out of
+    reach) run as subprocesses; each server is trained over the wire on
+    its own 8192-datum half, then do_mix on one.  The replicas must be
+    bitwise equal to each other and to the same v3 round run here on two
+    drivers fed the same frames through their raw entry (in the
+    master's member order), whose drift from its f32 twin stays within
+    the round's accumulated quantization bound; the classifier's counts
+    must be the exact sum of both halves; a second do_mix on the other
+    server must change nothing; and both quantizer kernels must have
+    launched in each server process.  Returns the servers' kernel
+    launches, summed."""
+    from collections import Counter
+
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.cluster.membership import MembershipClient
+    from jubatus_tpu_torch.mix import codec
+    from jubatus_tpu_torch.mix.linear_mixer import encode_wire_diff
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.rpc.client import Client
+
+    cfg = SERVER_CONFIG if service == "classifier" else REG_CONFIG
+    rng = np.random.default_rng(11)
+    halves = ([bench_batch(rng, REQ_B, label_offset=h) for h in range(2)]
+              if service == "classifier"
+              else [reg_batch(rng, REQ_B) for _ in range(2)])
+    name = f"smoke_{service}"
+
+    def model_of(port):
+        with Client("127.0.0.1", port, timeout=600) as c:
+            return model_tables(np, codec.decode(
+                c.call_raw("get_model", 0))["model"], service)
+
+    children = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, f"{service}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        try:
+            coord = Child(["jubatus_tpu_torch.cluster.coordinator",
+                           "--rpc-port", "0", "--listen_addr", "127.0.0.1"])
+            children.append(coord)
+            addr = coord.wait_line("jubacoordinator", 120).split()[-1]
+            servers = [Child([
+                "jubatus_tpu_torch.cli.server", "--type", service,
+                "--configpath", cfg_path, "--name", name, "--rpc-port", "0",
+                "--listen_addr", "127.0.0.1", "--eth", "127.0.0.1",
+                "--datadir", tmp, "--device", device, "--coordinator", addr,
+                "--mix_quantize", "--interval_sec", "100000",
+                "--interval_count", "1000000"]) for _ in range(2)]
+            children.extend(servers)
+            ports = [int(s.wait_line("jubatus ready", 300).split()[2]
+                         .split("=")[1]) for s in servers]
+            membership = MembershipClient(addr, service, name)
+            deadline = time.monotonic() + 60
+            while set(membership.get_all_nodes()) != \
+                    {("127.0.0.1", p) for p in ports}:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{service} cluster: both servers "
+                                         "never listed in get_all_nodes")
+                time.sleep(0.1)
+            # the master folds in this order
+            order = [ports.index(p) for _, p in membership.get_all_nodes()]
+            membership.close()
+            clients = [WireClient(p) for p in ports]
+            frames = [c.frame("train", h) for c, h in zip(clients, halves)]
+            for c, fr in zip(clients, frames):
+                if c.send(fr, "train") != REQ_B:
+                    raise AssertionError(f"{service} cluster: a train "
+                                         "request was not acknowledged")
+            t0 = time.perf_counter()
+            if clients[0].call("do_mix") is not True:
+                raise AssertionError(f"{service} cluster: do_mix failed")
+            do_mix_ms = (time.perf_counter() - t0) * 1e3
+            status = [next(iter(c.call("get_status").values()))
+                      for c in clients]
+            models = [model_of(p) for p in ports]
+            if service == "classifier":
+                want = Counter(lbl for h in halves for lbl, _ in h)
+                for c in clients:
+                    if c.call("get_labels") != dict(want):
+                        raise AssertionError("classifier cluster: label "
+                                             "counts are not the halves' sum")
+            if clients[1].call("do_mix") is not True:
+                raise AssertionError(f"{service} cluster: 2nd do_mix failed")
+            for p, before in zip(ports, models):
+                after = model_of(p)
+                if not same_tables(np, after, before):
+                    moved = max(float(np.abs(after[k] - before[k]).max())
+                                for k in before)
+                    raise AssertionError(f"{service} cluster: the second "
+                                         f"do_mix moved a model by {moved}")
+            # a third round on fresh halves in the same processes: the
+            # round's time once each process has run every step before
+            # (the first round pays each process's first CUDA calls)
+            more = ([bench_batch(rng, REQ_B, label_offset=h)
+                     for h in range(2)] if service == "classifier"
+                    else [reg_batch(rng, REQ_B) for _ in range(2)])
+            for c, h in zip(clients, more):
+                if c.send(c.frame("train", h), "train") != REQ_B:
+                    raise AssertionError(f"{service} cluster: a train "
+                                         "request was not acknowledged")
+            t0 = time.perf_counter()
+            if clients[0].call("do_mix") is not True:
+                raise AssertionError(f"{service} cluster: 3rd do_mix failed")
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            warm = [next(iter(c.call("get_status").values()))
+                    for c in clients]
+            third = [model_of(p) for p in ports]
+            if not same_tables(np, third[0], third[1]):
+                raise AssertionError(f"{service} cluster: replicas differ "
+                                     "after the third round")
+            if service == "classifier":
+                want = Counter(lbl for h in halves + more for lbl, _ in h)
+                for c in clients:
+                    if c.call("get_labels") != dict(want):
+                        raise AssertionError("classifier cluster: label "
+                                             "counts after the third round "
+                                             "are not the four halves' sum")
+            for c in clients:
+                c.close()
+        finally:
+            for ch in children:
+                ch.stop()
+
+    # the same v3 round on two drivers in this process, and its f32 twin
+    splitter = native.load()
+
+    def round_here(quantize, stats=None):
+        drivers = [create_driver(service, cfg, device=device)
+                   for _ in range(2)]
+        for d, fr in zip(drivers, frames):
+            d.train_raw(fr, splitter.parse_envelope(fr, 0)[4])
+
+        def wire(x):
+            return codec.decode(codec.unpackb(codec.packb(encode_wire_diff(
+                x, quantize, device, stats))), device)
+
+        got = [wire(drivers[i].encode_diff(drivers[i].get_diff_snapshot()))
+               for i in order]
+        merged = got[0]
+        for g in got[1:]:
+            merged = type(drivers[0]).mix(merged, g)
+        back = wire(merged)
+        for d in drivers:
+            d.put_diff(back)
+        return [model_tables(np, d.pack(), service) for d in drivers]
+
+    stats = {}
+    here = round_here(True, stats)
+    exact = round_here(False)
+    for i, m in enumerate(models):
+        if not same_tables(np, m, models[0]):
+            raise AssertionError(f"{service} cluster: replicas differ")
+        if not same_tables(np, m, here[i]):
+            raise AssertionError(f"{service} cluster: server {i} differs "
+                                 "from the in-process v3 round")
+    drift = max(float(np.abs(here[0][k] - exact[0][k]).max())
+                for k in here[0] if not k.startswith("count:"))
+    if drift > stats["max_abs_err"]:
+        raise AssertionError(f"{service} cluster: drift {drift} beyond the "
+                             f"bound {stats['max_abs_err']}")
+    launches = {}
+    for st in status:
+        for k, v in st.items():
+            if k.startswith("kernel_launches."):
+                kern = k.split(".", 1)[1]
+                launches[kern] = launches.get(kern, 0) + int(v)
+        for kern in ("quantize_int8", "dequantize_int8"):
+            if device == "cuda" and int(st[f"kernel_launches.{kern}"]) <= 0:
+                raise AssertionError(f"{service} cluster: {kern} never "
+                                     "launched in a server process")
+    master = status[0]
+
+    def legs_ms(sts):
+        """Each server's get_diff handler (snapshot, subtraction, wire
+        encode) and put_diff handler (decode, fold), in ms."""
+        return {leg: [float(st[f"last_{leg}_sec"]) * 1e3 for st in sts]
+                for leg in ("get_diff_snapshot", "get_diff_encode",
+                            "get_diff_wire", "put_diff_decode",
+                            "put_diff_apply")}
+
+    line = {
+        "service": service, "do_mix_ms": do_mix_ms,
+        "last_mix_sec": float(master["last_mix_sec"]),
+        "last_mix_bytes": int(master["last_mix_bytes"]),
+        "last_mix_wire_bytes": int(master["last_mix_wire_bytes"]),
+        "mix_round": int(master["mix_round"]),
+        "stages_ms": {st: float(master[f"last_mix_{st}_sec"]) * 1e3
+                      for st in ("gather", "decode", "fold", "encode",
+                                 "scatter")},
+        "legs_ms": legs_ms(status),
+        "mix_compression_ratio": float(master["mix_compression_ratio"]),
+        "quantize_launches": [int(st["kernel_launches.quantize_int8"])
+                              for st in status],
+        "dequantize_launches": [int(st["kernel_launches.dequantize_int8"])
+                                for st in status],
+        "drift": drift, "bound": stats["max_abs_err"],
+        "warm_round": {
+            "do_mix_ms": warm_ms,
+            "last_mix_sec": float(warm[0]["last_mix_sec"]),
+            "last_mix_wire_bytes": int(warm[0]["last_mix_wire_bytes"]),
+            "mix_round": int(warm[0]["mix_round"]),
+            "stages_ms": {st: float(warm[0][f"last_mix_{st}_sec"]) * 1e3
+                          for st in ("gather", "decode", "fold", "encode",
+                                     "scatter")},
+            "legs_ms": legs_ms(warm)},
+        "card": card}
+    log(f"cluster: {service}: two server processes and the in-process v3 "
+        f"round bitwise equal; drift from the f32 twin {drift:.3g} <= "
+        f"bound {stats['max_abs_err']:.3g}; second do_mix changed nothing")
+    log("cluster_mix " + json.dumps(line))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -1611,23 +1916,34 @@ def main() -> int:
     rows["regression_train_scan"] = phase_reg_kernels(torch, np)
     reg_counts = phase_reg_server(torch, np, card)
     reg_mix_counts = phase_reg_mix(torch, np)
+    # 7. cluster: cross-process v3 rounds, one cluster per service
+    cluster_counts = [phase_cluster(torch, np, card, svc)
+                      for svc in ("classifier", "regression")]
 
-    # 7. report: the quantizer pair's launches are both v3 rounds'
+    def served(kern):
+        return sum(c.get(kern, 0) for c in cluster_counts)
+
+    # 8. report: the quantizer pair's launches are the v3 rounds' (both
+    # in-process rounds and both clusters' server processes); the scans'
+    # are the server sessions' and the cluster servers'
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
                           mix_counts["quantize_int8"]
-                          + reg_mix_counts["quantize_int8"]),
+                          + reg_mix_counts["quantize_int8"]
+                          + served("quantize_int8")),
         "dequantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                             "jubatus_tpu/parallel/quantized.py:88",
                             mix_counts["dequantize_int8"]
-                            + reg_mix_counts["dequantize_int8"]),
+                            + reg_mix_counts["dequantize_int8"]
+                            + served("dequantize_int8")),
         "train_scan": ("jubatus_tpu_torch/csrc/train_scan.cu",
                        "jubatus_tpu/models/classifier.py:59",
-                       server_counts["train_scan"]),
+                       server_counts["train_scan"] + served("train_scan")),
         "regression_train_scan": ("jubatus_tpu_torch/csrc/regression_scan.cu",
                                   "jubatus_tpu/models/regression.py:32",
-                                  reg_counts["regression_train_scan"]),
+                                  reg_counts["regression_train_scan"]
+                                  + served("regression_train_scan")),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():

@@ -8,7 +8,9 @@ jubatus_tpu.
 
 What it holds: the classifier and regression servers with their wire
 train loops (native raw-frame ingest into pinned arenas) and read RPCs,
-the driver-level MIX diff algebra and the blockwise-int8 (v3) MIX wire.
+standalone or in a cluster (coordinator, membership, MIX rounds between
+processes, JAX servers included), the driver-level MIX diff algebra and
+the blockwise-int8 (v3) MIX wire.
 Model state lives on one torch device (CUDA unless the caller asks for
 the CPU); the hot loops are hand-written CUDA kernels (csrc/), each with
 a plain PyTorch version beside its wrapper.
@@ -21,8 +23,9 @@ a plain PyTorch version beside its wrapper.
   batching/  shape buckets, the window controller, pinned arena pool
   models/    driver protocol, the classifier and regression drivers;
              carry.py moves state across packages
-  mix/       msgpack diff codec + the v3 wire encode
-  rpc/       lean asyncio msgpack-RPC server (old-spec wire)
+  mix/       msgpack diff codec, the v3 wire encode, the mixers
+  rpc/       lean asyncio msgpack-RPC server (old-spec wire) and client
+  cluster/   coordinator, lock-service client, membership
   framework/ service tables, server object, ingest pipeline, model files
   cli/       `python -m jubatus_tpu_torch.cli.server`
 """

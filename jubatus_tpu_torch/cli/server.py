@@ -1,19 +1,30 @@
 """Server entry point of the port.
 
     python -m jubatus_tpu_torch.cli.server --type classifier|regression \
-        --configpath CONFIG.json --rpc-port 9199 [--device cuda|cpu]
+        --configpath CONFIG.json --rpc-port 9199 [--device cuda|cpu] \
+        [--name CLUSTER --coordinator HOST:PORT [--mixer linear_mixer] \
+         [--interval_sec 16 --interval_count 512] [--mix_quantize]]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
-on a machine without it fails at startup.  Like the JAX server's CLI it
-logs `... listening on host:port` and then prints the machine-readable
-line `jubatus ready rpc_port=N metrics_port=0 state=ready` on stdout once
-it serves.  SIGTERM or SIGINT stops it.
+on a machine without it fails at startup.  With --coordinator the
+process joins the cluster <type>/<name>: it reads its config from the
+coordinator when --configpath is absent, takes ids from the coordinator,
+pulls the model from a random live member if there is one, registers as
+an actor and an active member, and starts its mixer thread, which mixes
+every --interval_count updates or --interval_sec seconds (do_mix mixes
+at once).  A coordinator it cannot reach fails the start, as does
+--mixer collective_mixer (the data-parallel tier is not ported).
+
+Like the JAX server's CLI it logs `... listening on host:port` and then
+prints the machine-readable line `jubatus ready rpc_port=N metrics_port=0
+state=ready` on stdout once it serves.  SIGTERM or SIGINT stops it.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import random
 import signal
 import sys
 import threading
@@ -21,7 +32,11 @@ from typing import Optional, Sequence, Tuple
 
 from jubatus_tpu_torch.framework.server_base import JubatusServer, ServerArgs
 from jubatus_tpu_torch.framework.service import SERVICES, bind_service
+from jubatus_tpu_torch.mix.linear_mixer import MixProtocolMismatch
+from jubatus_tpu_torch.mix.mixer_factory import check_mixer, create_mixer
 from jubatus_tpu_torch.rpc.server import RpcServer
+
+log = logging.getLogger("jubatus_tpu_torch.server")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -30,23 +45,75 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--rpc-port", type=int, default=9199)
     p.add_argument("--listen_addr", default="0.0.0.0")
     p.add_argument("--datadir", default="/tmp")
-    p.add_argument("--configpath", required=True)
+    p.add_argument("--configpath", default="",
+                   help="engine config; with --coordinator it may be left "
+                        "out and is read from the coordinator")
     p.add_argument("--name", default="")
     p.add_argument("--eth", default="", help="advertised address override")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where model state and kernels run")
+    p.add_argument("--mixer", default="linear_mixer",
+                   help="reconciliation strategy (mix/mixer_factory.py)")
+    p.add_argument("--interval_sec", type=float, default=16.0)
+    p.add_argument("--interval_count", type=int, default=512)
+    p.add_argument("--coordinator", default="",
+                   help="host:port of the coordination service")
+    p.add_argument("--interconnect_timeout", type=float, default=10.0,
+                   help="deadline budget of a server-to-server mix call, "
+                        "shared by its retries")
+    p.add_argument("--mix_quantize", action="store_true",
+                   help="ship MIX diff bodies as blockwise-int8 tensors + "
+                        "f32 absmax scales (wire version 3); flip it "
+                        "cluster-wide")
     return p
 
 
 def serve(argv: Optional[Sequence[str]] = None
           ) -> Tuple[JubatusServer, RpcServer]:
-    """Build the server and start answering RPCs on a background thread;
-    returns (server, rpc).  rpc.stop() and then server.stop() end it."""
-    ns = _parser().parse_args(argv)
+    """Build the server, join the cluster when --coordinator is given and
+    start answering RPCs on a background thread; returns (server, rpc).
+    rpc.stop() and then server.stop() end it."""
+    parser = _parser()
+    ns = parser.parse_args(argv)
+    try:
+        check_mixer(ns.mixer)
+    except ValueError as e:
+        parser.error(str(e))
+    if not ns.configpath and not ns.coordinator:
+        parser.error("--configpath is required without --coordinator")
     args = ServerArgs(type=ns.type, name=ns.name, rpc_port=ns.rpc_port,
                       bind_address=ns.listen_addr, datadir=ns.datadir,
-                      configpath=ns.configpath, eth=ns.eth, device=ns.device)
-    server = JubatusServer(args)
+                      configpath=ns.configpath, eth=ns.eth, device=ns.device,
+                      mixer=ns.mixer, interval_sec=ns.interval_sec,
+                      interval_count=ns.interval_count,
+                      coordinator=ns.coordinator,
+                      interconnect_timeout=ns.interconnect_timeout,
+                      mix_quantize=ns.mix_quantize)
+    membership = None
+    config = None
+    if args.coordinator:
+        from jubatus_tpu_torch.cluster.membership import MembershipClient
+        membership = MembershipClient(args.coordinator, args.type, args.name)
+        if not args.configpath:
+            config = membership.get_config()
+            if config is None:
+                membership.close()
+                raise RuntimeError(
+                    f"no config registered in the coordinator for "
+                    f"{args.type}/{args.name}; give --configpath")
+    try:
+        server = JubatusServer(args, config=config)
+    except BaseException:
+        if membership is not None:
+            membership.close()
+        raise
+    if membership is not None:
+        server.membership = membership
+        server.mixer = create_mixer(
+            args.mixer, server, membership, interval_sec=args.interval_sec,
+            interval_count=args.interval_count,
+            rpc_timeout=args.interconnect_timeout,
+            quantize=args.mix_quantize)
     rpc = RpcServer()
     bind_service(server, rpc)
     try:
@@ -55,9 +122,38 @@ def serve(argv: Optional[Sequence[str]] = None
         server.stop()
         raise
     args.rpc_port = port  # with --rpc-port 0, server_id uses the bound port
-    logging.info("jubatus_tpu_torch %s server listening on %s:%d (device %s)",
-                 args.type, args.bind_address, port, server.driver.device)
+    if membership is not None:
+        try:
+            _join_cluster(server, membership, port)
+        except BaseException:
+            rpc.stop()
+            server.stop()
+            raise
+    log.info("jubatus_tpu_torch %s server listening on %s:%d (device %s)",
+             args.type, args.bind_address, port, server.driver.device)
     return server, rpc
+
+
+def _join_cluster(server: JubatusServer, membership, port: int) -> None:
+    """A fresh joiner pulls the model from a random live member before it
+    becomes routable, then registers as an actor and an active member
+    and starts its mixer thread."""
+    peers = [p for p in membership.get_all_nodes() if p != (server.ip, port)]
+    if peers:
+        peer = random.choice(peers)
+        try:
+            if server.mixer.bootstrap(
+                    server, peer[0], peer[1],
+                    timeout=server.args.interconnect_timeout):
+                log.info("bootstrapped model from %s:%d", *peer)
+        except MixProtocolMismatch:
+            raise                  # fatal, as in the JAX server
+        except Exception as e:  # noqa: BLE001 - the peer may be gone
+            log.warning("bootstrap from %s:%d failed: %s; starting empty",
+                        peer[0], peer[1], e)
+    membership.register_actor(server.ip, port)
+    server.mixer.start()
+    server.mixer.register_active(server.ip, port)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

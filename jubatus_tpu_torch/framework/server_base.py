@@ -3,16 +3,20 @@ jubatus_tpu/framework/server_base.py, one model per process).
 
 It builds the engine's driver on its device, holds the model lock and the
 raw-train dispatcher (the JAX server's default model slot), counts
-updates, and answers the common RPCs: get_config, save, load, clear and
-get_status.  Model files use the reference format (framework/save_load.py)
-with the JAX package's naming and user-data version, so a file saved by
-either package loads in the other.
+updates, and answers the common RPCs: get_config, save, load, clear,
+get_status and do_mix.  In a cluster (--coordinator) it also holds the
+membership client, the mixer and an id generator drawing from the
+coordinator's create_id; standalone it has none of them.  Model files
+use the reference format (framework/save_load.py) with the JAX package's
+naming and user-data version, so a file saved by either package loads in
+the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -28,6 +32,7 @@ from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
+from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
 from jubatus_tpu_torch.utils.rwlock import RWLock
 
 USER_DATA_VERSION = 1
@@ -62,6 +67,15 @@ class ServerArgs:
     configpath: str = ""
     eth: str = ""                # advertised address override
     device: str = "cuda"
+    # MIX: the mixer's name (mix/mixer_factory.py), its trigger, the
+    # coordinator's address (empty: standalone), the timeout budget of
+    # server-to-server calls, and the v3 (blockwise int8) wire
+    mixer: str = "linear_mixer"
+    interval_sec: float = 16.0
+    interval_count: int = 512
+    coordinator: str = ""
+    interconnect_timeout: float = 10.0
+    mix_quantize: bool = False
 
 
 class JubatusServer:
@@ -80,6 +94,11 @@ class JubatusServer:
         self.dispatcher = None
         self.update_count = 0
         self.start_time = time.time()
+        # cluster: set by cli/server.py when --coordinator is given
+        self.membership = None
+        self.mixer = None
+        self._local_id = 0      # idgen's counter when standalone
+        self._id_lock = threading.Lock()
         # the advertised address: --eth, else the bind address (a
         # wildcard bind advertises loopback)
         self.ip = args.eth or (args.bind_address
@@ -90,8 +109,26 @@ class JubatusServer:
     def server_id(self) -> str:
         return f"{self.ip}_{self.args.rpc_port}"
 
+    def idgen(self) -> int:
+        """A cluster-unique id: the coordinator's create_id when
+        distributed, a local counter standalone."""
+        if self.membership is not None:
+            return self.membership.create_id()
+        with self._id_lock:
+            self._local_id += 1
+            return self._local_id
+
     def event_model_updated(self) -> None:
         self.update_count += 1
+        if self.mixer is not None:
+            self.mixer.updated()
+
+    def do_mix(self) -> bool:
+        """One MIX round now (the caller flushes the ingest pipeline
+        first); False standalone or when another master holds the lock."""
+        if self.mixer is None:
+            return False
+        return self.mixer.mix_now()
 
     def get_config(self) -> str:
         return self.config_str
@@ -137,10 +174,15 @@ class JubatusServer:
         return True
 
     def stop(self) -> None:
-        """Stop the raw-train dispatcher's threads; queued requests fail
-        with "server stopping"."""
+        """Stop the mixer and the raw-train dispatcher's threads (queued
+        requests fail with "server stopping") and leave the cluster."""
+        if self.mixer is not None:
+            self.mixer.stop()
         if self.dispatcher is not None:
             self.dispatcher.stop()
+        if self.membership is not None:
+            # closing the session withdraws our ephemeral registrations
+            self.membership.close()
 
     def get_status(self) -> Dict[str, Dict[str, str]]:
         st: Dict[str, str] = {
@@ -151,7 +193,7 @@ class JubatusServer:
             "uptime": str(int(time.time() - self.start_time)),
             "pid": str(os.getpid()),
             "version": jubatus_tpu_torch.__version__,
-            "is_standalone": "1",
+            "is_standalone": str(int(self.membership is None)),
             "device": str(self.driver.device),
             # whether the native wire converter covers this config
             "fast_path": str(getattr(self.driver, "_fast", None) is not None),
@@ -178,4 +220,9 @@ class JubatusServer:
             st["arena_pool_hit_total"] = str(pool.hits)
             st["arena_pool_miss_total"] = str(pool.misses)
         st.update(self.driver.get_status())
+        # the MIX counters (mix_bytes_*_total, mix_compression_ratio,
+        # retries and breakers) and the mixer's own status
+        st.update(metrics.snapshot())
+        if self.mixer is not None:
+            st.update(self.mixer.get_status())
         return {self.server_id: st}

@@ -12,8 +12,11 @@ model read lock, update handlers first flush() the raw-train dispatcher
 Decoded handlers run on the RPC event loop.  Wire `train` frames take the
 raw route (raw_train): with an eligible converter config they go to the
 IngestPipeline (framework/dispatch.py) without being decoded in Python;
-otherwise they are decoded and trained like any update.  do_mix, the
-journal, tenancy, quotas and the observability planes are later work.
+otherwise they are decoded and trained like any update.  do_mix runs on
+the RPC server's call pool (threaded): it flushes the ingest pipeline,
+then the mixer fans get_diff and put_diff out to every member, this
+server included.  The journal, tenancy, quotas and the observability
+planes are later work.
 """
 
 from __future__ import annotations
@@ -131,11 +134,23 @@ def bind_service(server, rpc_server) -> None:
         _flush()
         return server.clear()
 
+    def _do_mix(_n):
+        # every acked train lands before the round's snapshot
+        _flush()
+        return server.do_mix()
+
     rpc_server.add("get_config", lambda _n: server.get_config())
     rpc_server.add("save", _save)
     rpc_server.add("load", _load)
     rpc_server.add("get_status", lambda _n: server.get_status())
     rpc_server.add("clear", _clear)
+    # do_mix's fan-out includes a self-call: on the loop it would wait on
+    # itself, so it runs on the call pool
+    rpc_server.add("do_mix", _do_mix, threaded=True)
+    if server.mixer is not None:
+        # the mixer's peer RPCs (get_diff / put_diff / get_model, or the
+        # gossip mixers' pull / push)
+        server.mixer.register_api(rpc_server)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""MIX: the diff codec and the v3 wire encode (rounds are later work)."""
+"""MIX: the diff codec, the v3 wire encode and the mixers (rounds
+between server processes)."""

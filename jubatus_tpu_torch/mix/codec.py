@@ -23,8 +23,10 @@ import numpy as np
 import torch
 
 from jubatus_tpu_torch.device import DeviceLike, resolve_device
-from jubatus_tpu_torch.parallel.quantized import (dequantize_blockwise,
+from jubatus_tpu_torch.parallel.quantized import (_BLOCK,
+                                                  dequantize_blockwise,
                                                   quantize_blockwise)
+from jubatus_tpu_torch.utils import to_bytes
 
 
 def packb(obj: Any) -> bytes:
@@ -135,6 +137,25 @@ def wire_size(obj: Any) -> int:
     return n
 
 
+def quant_estimate(obj: Any) -> "tuple[int, int]":
+    """(raw_bytes, quantized_bytes) the float32 tensors of a DECODED
+    pytree cost in f32 and in blockwise-int8 form: the MIX master's
+    estimate for gathered diffs, whose tensors it sees dequantized."""
+    raw = q = 0
+    stack = [obj]
+    while stack:
+        o = stack.pop()
+        if isinstance(o, np.ndarray):
+            if o.dtype == np.float32 and o.size:
+                raw += o.size * 4
+                q += o.size + 4 * ((o.size + _BLOCK - 1) // _BLOCK)
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+    return raw, q
+
+
 def _nd(a: np.ndarray) -> dict:
     return {"__nd__": [str(a.dtype), list(a.shape),
                        np.ascontiguousarray(a).tobytes()]}
@@ -184,13 +205,6 @@ def encode(obj: Any) -> Any:
     return obj
 
 
-def _as_bytes(raw) -> bytes:
-    # old-spec wire: binary traveled as raw and was decoded into str via
-    # surrogateescape — re-encode to exact bytes
-    return raw.encode("utf-8", "surrogateescape") if isinstance(raw, str) \
-        else raw
-
-
 def decode(obj: Any, device: DeviceLike = None) -> Any:
     """Inverse of encode; v3 tensors are dequantized by the kernel on
     `device` (None: cuda) and returned as host float32 arrays.  A body
@@ -200,21 +214,21 @@ def decode(obj: Any, device: DeviceLike = None) -> Any:
             dtype, shape, raw = obj["__nd__"]
             if isinstance(dtype, bytes):
                 dtype = dtype.decode()
-            return np.frombuffer(_as_bytes(raw), dtype=np.dtype(dtype)
+            return np.frombuffer(to_bytes(raw), dtype=np.dtype(dtype)
                                  ).reshape(shape).copy()
         if "__by__" in obj and len(obj) == 1:
-            return _as_bytes(obj["__by__"])
+            return to_bytes(obj["__by__"])
         if "__ndq__" in obj and len(obj) == 1:
             shape, scales, q = obj["__ndq__"]
-            scale = np.frombuffer(_as_bytes(scales), np.float32)
-            rows = np.frombuffer(_as_bytes(q), np.int8).reshape(len(scale), -1)
+            scale = np.frombuffer(to_bytes(scales), np.float32)
+            rows = np.frombuffer(to_bytes(q), np.int8).reshape(len(scale), -1)
             return (rows.astype(np.float32) * scale[:, None]).reshape(shape)
         if "__ndq3__" in obj and len(obj) == 1:
             shape, scales, q = obj["__ndq3__"]
             dev = resolve_device(device)
-            qt = torch.from_numpy(np.frombuffer(_as_bytes(q), np.int8).copy())
+            qt = torch.from_numpy(np.frombuffer(to_bytes(q), np.int8).copy())
             st = torch.from_numpy(
-                np.frombuffer(_as_bytes(scales), np.float32).copy())
+                np.frombuffer(to_bytes(scales), np.float32).copy())
             return dequantize_blockwise(qt.to(dev), st.to(dev),
                                         shape).cpu().numpy()
         return {(k.decode() if isinstance(k, bytes) else k): decode(v, device)

@@ -66,7 +66,9 @@ class Driver:
     """Base class; engines override what they support.
 
     MIX contract (the get_diff/mix/put_diff algebra of linear_mixable):
-      get_diff() -> diff object (msgpack-able host pytree)
+      get_diff() -> diff object (msgpack-able host pytree); the mixer
+          takes it as get_diff_snapshot() under the model write lock
+          and encode_diff() outside it
       mix(lhs, rhs) -> merged diff (associative)
       put_diff(diff) -> apply cluster-merged diff; returns freshness bool
     """
@@ -81,8 +83,27 @@ class Driver:
     def get_diff(self) -> Any:
         return None
 
+    def get_diff_snapshot(self) -> Any:
+        """The mixer's lock-phase split: called UNDER the model write
+        lock, it only snapshots (device gathers to the host, copies of
+        the bases).  Default: the whole diff."""
+        return self.get_diff()
+
     def encode_diff(self, snap: Any) -> Any:
+        """Called WITHOUT the model lock on a snapshot (or a finished
+        diff): the subtraction and transport encoding, so trains proceed
+        meanwhile.  Default: identity."""
         return snap
+
+    @staticmethod
+    def _subtract_bases(snap: Dict[str, Any]) -> Dict[str, Any]:
+        """A snapshot's diff: each table `name` minus its copied base
+        `name_base`, in the key order of the finished diff.  A finished
+        diff (no base keys) comes back as it is."""
+        if not any(k.endswith("_base") for k in snap):
+            return snap
+        return {k: (v - snap[k + "_base"] if k + "_base" in snap else v)
+                for k, v in snap.items() if not k.endswith("_base")}
 
     @classmethod
     def mix(cls, lhs: Any, rhs: Any) -> Any:

@@ -293,13 +293,18 @@ def train_parallel(w, cov, counts, active, indices, values, labels, mask,
     JAX package): every sample's margin is computed against the weights as
     of the START of the batch, then all updates land in one scatter-add
     (w) and one scatter-multiply (cov, factors clamped at >= 1e-6; a
-    column hit twice in the batch compounds its factors)."""
+    column hit twice in the batch compounds its factors).  Subnormals are
+    flushed as in train_scan_ref: the inputs, every elementwise result
+    and the touched table entries before and after each scatter; the
+    inner partial sums of the reductions and of a column's duplicate
+    entries are not."""
     dev = w.device
-    cf = torch.tensor(c, dtype=torch.float32, device=dev)
+    cf = ftz(torch.tensor(c, dtype=torch.float32, device=dev))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     idx = indices.long()
     lab = labels.long()
-    live = mask > 0                                          # [B]
+    values = ftz(values)
+    live = ftz(mask) > 0                                     # [B]
     s = batch_scores(w, idx, values)                         # [B, L]
     brange = torch.arange(idx.shape[0], device=dev)
 
@@ -311,82 +316,95 @@ def train_parallel(w, cov, counts, active, indices, values, labels, mask,
     rival[brange, lab] = float("-inf")
     r = torch.argmax(rival, dim=1)                           # [B]
     rmax = rival[brange, r]
-    margin = sy - rmax
-    x2 = values * values                                     # [B, K]
-    sqn = x2.sum(dim=1)
+    margin = ftz(sy - rmax)
+    x2 = ftz(values * values)                                # [B, K]
+    sqn = ftz(x2.sum(dim=1))
     ok = live & torch.isfinite(rmax) & (sqn > 0)
 
     fac_y = fac_r = None
     if method == "perceptron":
         alpha = torch.where(ok & (margin <= 0), 1.0, 0.0)
-        dy = alpha[:, None] * values
+        dy = ftz(alpha[:, None] * values)
         dr = -dy
     elif method in ("PA", "PA1", "PA2"):
-        loss = 1.0 - margin
+        loss = ftz(1.0 - margin)
         if method == "PA":
-            tau = loss / (2.0 * torch.clamp_min(sqn, 1e-12))
+            tau = ftz(loss / ftz(2.0 * torch.clamp_min(sqn, 1e-12)))
         elif method == "PA1":
-            tau = torch.minimum(cf, loss / (2.0 * torch.clamp_min(sqn, 1e-12)))
+            tau = torch.minimum(cf, ftz(loss / ftz(
+                2.0 * torch.clamp_min(sqn, 1e-12))))
         else:
-            tau = loss / (2.0 * sqn + 0.5 / cf)
+            tau = ftz(loss / ftz(ftz(2.0 * sqn) + ftz(0.5 / cf)))
         tau = torch.where(ok & (loss > 0), tau, zero)
-        dy = tau[:, None] * values
+        dy = ftz(tau[:, None] * values)
         dr = -dy
     else:
-        cy = cov[lab[:, None], idx]                          # [B, K]
-        cr = cov[r[:, None], idx]
-        v = (x2 * (cy + cr)).sum(dim=1)                      # [B]
+        cy = ftz(cov[lab[:, None], idx])                     # [B, K]
+        cr = ftz(cov[r[:, None], idx])
+        v = ftz(ftz(x2 * ftz(cy + cr)).sum(dim=1))           # [B]
         if method == "AROW":
-            beta = 1.0 / (v + cf)
+            beta = ftz(1.0 / ftz(v + cf))
             gate = ok & (margin < 1.0)
-            alpha = torch.where(gate, torch.clamp_min(1.0 - margin, 0.0)
-                                * beta, zero)
-            dy = alpha[:, None] * cy * values
-            dr = -alpha[:, None] * cr * values
+            alpha = torch.where(gate, ftz(torch.clamp_min(
+                ftz(1.0 - margin), 0.0) * beta), zero)
+            dy = ftz(ftz(alpha[:, None] * cy) * values)
+            dr = ftz(ftz(-alpha[:, None] * cr) * values)
             g = torch.where(gate, beta, zero)[:, None]
-            fac_y = 1.0 - g * cy * x2
-            fac_r = 1.0 - g * cr * x2
+            fac_y = ftz(1.0 - ftz(ftz(g * cy) * x2))
+            fac_r = ftz(1.0 - ftz(ftz(g * cr) * x2))
         elif method == "CW":
             phi = cf
-            t = 1.0 + 2.0 * phi * margin
-            inner = t * t - 8.0 * phi * (margin - phi * v)
-            gamma = (-t + torch.sqrt(torch.clamp_min(inner, 0.0))) / (
-                4.0 * phi * torch.clamp_min(v, 1e-12))
+            t = ftz(1.0 + ftz(ftz(2.0 * phi) * margin))
+            inner = ftz(ftz(t * t) - ftz(ftz(8.0 * phi) * ftz(
+                margin - ftz(phi * v))))
+            gamma = ftz(ftz(-t + ftz(torch.sqrt(torch.clamp_min(
+                inner, 0.0)))) / ftz(ftz(4.0 * phi)
+                                     * torch.clamp_min(v, 1e-12)))
             alpha = torch.where(ok, torch.clamp_min(gamma, 0.0), zero)
-            dy = alpha[:, None] * cy * values
-            dr = -alpha[:, None] * cr * values
-            a2 = 2.0 * alpha[:, None] * phi * x2
-            fac_y = 1.0 / (1.0 + a2 * cy)
-            fac_r = 1.0 / (1.0 + a2 * cr)
+            dy = ftz(ftz(alpha[:, None] * cy) * values)
+            dr = ftz(ftz(-alpha[:, None] * cr) * values)
+            a2 = ftz(ftz(ftz(2.0 * alpha[:, None]) * phi) * x2)
+            fac_y = ftz(1.0 / ftz(1.0 + ftz(a2 * cy)))
+            fac_r = ftz(1.0 / ftz(1.0 + ftz(a2 * cr)))
         else:  # NHERD
             gate = ok & (margin < 1.0)
-            alpha = torch.where(gate, torch.clamp_min(1.0 - margin, 0.0)
-                                / (v + cf), zero)
-            dy = alpha[:, None] * cy * values
-            dr = -alpha[:, None] * cr * values
-            denom = 1.0 + torch.where(gate, 1.0, 0.0)[:, None] * (
-                2.0 * cf + cf * cf * v[:, None]) * x2
-            fac_y = 1.0 / denom
-            fac_r = 1.0 / denom
+            alpha = torch.where(gate, ftz(torch.clamp_min(
+                ftz(1.0 - margin), 0.0) / ftz(v + cf)), zero)
+            dy = ftz(ftz(alpha[:, None] * cy) * values)
+            dr = ftz(ftz(-alpha[:, None] * cr) * values)
+            denom = ftz(1.0 + ftz(ftz(
+                torch.where(gate, 1.0, 0.0)[:, None]
+                * ftz(ftz(2.0 * cf) + ftz(ftz(cf * cf) * v[:, None])))
+                * x2))
+            fac_y = ftz(1.0 / denom)
+            fac_r = fac_y
 
-    rows = torch.cat([lab, r])[:, None]                      # [2B, 1]
-    idx2 = torch.cat([idx, idx], dim=0)                      # [2B, K]
+    rows = torch.cat([lab, r])[:, None].expand(-1, idx.shape[1])  # [2B, K]
+    idx2 = torch.cat([idx, idx], dim=0)
     upd = torch.cat([dy, dr], dim=0)
-    w.index_put_((rows.expand_as(idx2), idx2), upd, accumulate=True)
+    w[rows, idx2] = ftz(w[rows, idx2])
+    w.index_put_((rows, idx2), upd, accumulate=True)
+    w[rows, idx2] = ftz(w[rows, idx2])
     if fac_y is not None:
         fac = torch.clamp_min(torch.cat([fac_y, fac_r], dim=0), 1e-6)
+        cov[rows, idx2] = ftz(cov[rows, idx2])
         flat = (rows * cov.shape[1] + idx2).reshape(-1)
         cov.view(-1).scatter_reduce_(0, flat, fac.reshape(-1), "prod")
+        cov[rows, idx2] = ftz(cov[rows, idx2])
 
 
 def _centroid_train(sums, counts, active, indices, values, labels,
                     mask) -> None:
-    """cosine/euclidean keep per-label sums; one batch scatter, in place."""
+    """cosine/euclidean keep per-label sums; one batch scatter, in place,
+    subnormals flushed as in train_parallel."""
     idx = indices.long()
-    lab = labels.long()
-    sums.index_put_((lab[:, None].expand_as(idx), idx),
-                    values * mask[:, None], accumulate=True)
-    counts.index_add_(0, lab, mask.to(torch.int32))
+    rows = labels.long()[:, None].expand_as(idx)
+    mask = ftz(mask)
+    sums[rows, idx] = ftz(sums[rows, idx])
+    sums.index_put_((rows, idx), ftz(ftz(values) * mask[:, None]),
+                    accumulate=True)
+    sums[rows, idx] = ftz(sums[rows, idx])
+    counts.index_add_(0, labels.long(), mask.to(torch.int32))
     active |= counts > 0
 
 
@@ -397,17 +415,21 @@ def _classify_scores(w, active, indices, values) -> torch.Tensor:
 
 def _centroid_scores(sums, counts, active, indices, values,
                      kind: str) -> torch.Tensor:
+    """Subnormals flushed: the inputs and every elementwise result and
+    reduction."""
     cnt = torch.clamp_min(counts, 1).to(torch.float32)[:, None]
-    cents = sums / cnt                                       # [L, D] means
+    cents = ftz(ftz(sums) / cnt)                             # [L, D] means
+    values = ftz(values)
     dots = batch_scores(cents, indices.long(), values)       # [B, L]
+    x2 = ftz(ftz(values * values).sum(dim=-1, keepdim=True))
+    c2 = ftz(ftz(cents * cents).sum(dim=-1))[None, :]
     if kind == "cosine":
-        xn = torch.sqrt((values * values).sum(dim=-1, keepdim=True))
-        cn = torch.sqrt((cents * cents).sum(dim=-1))[None, :]
-        s = dots / torch.clamp_min(xn * cn, 1e-12)
+        xn = ftz(torch.sqrt(x2))
+        cn = ftz(torch.sqrt(c2))
+        s = ftz(dots / torch.clamp_min(ftz(xn * cn), 1e-12))
     else:  # euclidean: -||x - c||  (monotone in similarity)
-        x2 = (values * values).sum(dim=-1, keepdim=True)
-        c2 = (cents * cents).sum(dim=-1)[None, :]
-        s = -torch.sqrt(torch.clamp_min(x2 + c2 - 2.0 * dots, 0.0))
+        s = -ftz(torch.sqrt(torch.clamp_min(
+            ftz(ftz(x2 + c2) - ftz(2.0 * dots)), 0.0)))
     return torch.where(active[None, :], s, float("-inf"))
 
 
@@ -852,6 +874,12 @@ class ClassifierDriver(Driver):
     def get_diff(self) -> Dict[str, Any]:
         """Column-sparse diff: only features touched since the last
         confirmed round ship — O(touched), not O(L x D)."""
+        return self._subtract_bases(self.get_diff_snapshot())
+
+    def get_diff_snapshot(self) -> Dict[str, Any]:
+        """The part of get_diff taken under the model write lock: the
+        harvest, one device gather of the [rows x touched] block to the
+        host, and a copy of its bases; encode_diff subtracts them."""
         self._ensure_base()
         J = self._harvest_touched_cols()
         label_rows = {l: r for l, r in list(self.labels.items())
@@ -868,21 +896,21 @@ class ClassifierDriver(Driver):
             "weights": self.converter.weights.get_diff(),
         }
         if len(rows) and J.size:
-            diff["w"] = self._gather(self.w, rows, J) - \
-                self._w_base[np.ix_(rows, J)]
+            diff["w"] = self._gather(self.w, rows, J)
+            diff["w_base"] = self._w_base[np.ix_(rows, J)]
             if _has_cov(self.method):
-                diff["cov"] = self._gather(self.cov, rows, J) - \
-                    self._cov_base[np.ix_(rows, J)]
+                diff["cov"] = self._gather(self.cov, rows, J)
+                diff["cov_base"] = self._cov_base[np.ix_(rows, J)]
         else:
             diff["w"] = np.zeros((len(rows), J.size), np.float32)
             if _has_cov(self.method):
                 diff["cov"] = np.zeros((len(rows), J.size), np.float32)
         return diff
 
-    def encode_diff(self, diff: Dict[str, Any]) -> Dict[str, Any]:
-        """Optional per-row int8 transport quantization
-        ({"dcn_payload": "int8"})."""
-        return self._quantize_diff_payload(diff)
+    def encode_diff(self, snap: Dict[str, Any]) -> Dict[str, Any]:
+        """Outside the lock: a snapshot's subtraction, then the optional
+        per-row int8 transport quantization ({"dcn_payload": "int8"})."""
+        return self._quantize_diff_payload(self._subtract_bases(snap))
 
     @staticmethod
     def _to_dense_diff(side: Dict[str, Any]) -> Dict[str, Any]:

@@ -380,16 +380,28 @@ class RegressionDriver(Driver):
     def get_diff(self) -> Dict[str, Any]:
         """Column-sparse diff: only features touched since the last
         confirmed round ship."""
+        return self._subtract_bases(self.get_diff_snapshot())
+
+    def get_diff_snapshot(self) -> Dict[str, Any]:
+        """The part of get_diff taken under the model write lock: the
+        harvest, one device gather of the touched columns to the host and
+        a copy of their base; encode_diff subtracts it."""
         self._ensure_base()
         J = self._harvest_touched_cols()
-        w = (self.w[self._cols(J)].cpu().numpy() - self._w_base[J]) \
-            if J.size else np.zeros((0,), np.float32)
-        return {"cols": J, "dim": self.dim, "w": w, "k": 1,
-                "weights": self.converter.weights.get_diff()}
+        snap = {"cols": J, "dim": self.dim,
+                "w": np.zeros((0,), np.float32)}
+        if J.size:
+            snap["w"] = self.w[self._cols(J)].cpu().numpy()
+            snap["w_base"] = self._w_base[J]
+        snap["k"] = 1
+        snap["weights"] = self.converter.weights.get_diff()
+        return snap
 
-    def encode_diff(self, diff: Dict[str, Any]) -> Dict[str, Any]:
-        """Optional int8 transport quantization ({"dcn_payload": "int8"})."""
-        return self._quantize_diff_payload(diff, keys=("w",))
+    def encode_diff(self, snap: Dict[str, Any]) -> Dict[str, Any]:
+        """Outside the lock: a snapshot's subtraction, then the optional
+        int8 transport quantization ({"dcn_payload": "int8"})."""
+        return self._quantize_diff_payload(self._subtract_bases(snap),
+                                           keys=("w",))
 
     @staticmethod
     def _to_dense_w(side) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""msgpack-RPC server of the port (old-spec wire)."""
+"""msgpack-RPC server and client of the port (old-spec wire)."""

@@ -10,7 +10,14 @@ are decoded with raw=False + surrogateescape so binary that traveled as
 raw round-trips to exact bytes.
 
 Threads: decoded handlers (add) run on the event-loop thread, one request
-at a time.  Raw handlers (add_raw) run on a pool of worker threads: once
+at a time, unless they are registered with threaded=True: those run on a
+pool of their own (CALL_WORKERS threads), as the JAX server's threaded
+mode runs them on its executor.  A handler that makes peer RPCs (do_mix
+fans get_diff and put_diff out to every member, this server included)
+must be threaded: on the loop it would wait forever on its own
+self-call.  The mixer's peer handlers are threaded too, so a round's
+decode and fold never stall the loop.  Raw handlers (add_raw) run on a
+pool of worker threads: once
 a server registers one, every connection is framed by the native
 FrameSplitter (native/_fastconv.c), which scans each stream byte once,
 and a request whose method has a raw handler is handed over as its
@@ -49,14 +56,21 @@ class RpcServer:
     # worker threads of the raw handlers (each connection's reader awaits
     # its own handler, so this many connections hand frames over at once)
     WORKERS = 2
+    # worker threads of the threaded decoded handlers, a pool apart from
+    # the raw one: a do_mix, its get_diff or put_diff self-call and a
+    # peer's leg each hold one while raw trains keep the other pool
+    CALL_WORKERS = 4
 
     def __init__(self):
         self._methods: Dict[str, Tuple[Callable[..., Any],
                                        Optional[inspect.Signature]]] = {}
         self._raw_methods: Dict[str, Callable[[bytes, int], Any]] = {}
+        self._threaded: set = set()
         self._splitter = None             # native FrameSplitter type
         self._pool = ThreadPoolExecutor(max_workers=self.WORKERS,
                                         thread_name_prefix="rpc-worker")
+        self._call_pool = ThreadPoolExecutor(max_workers=self.CALL_WORKERS,
+                                             thread_name_prefix="rpc-call")
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.base_events.Server] = None
         self._thread: Optional[threading.Thread] = None
@@ -64,12 +78,19 @@ class RpcServer:
         self._error: Optional[BaseException] = None
         self.port: Optional[int] = None
 
-    def add(self, name: str, fn: Callable[..., Any]) -> None:
+    def add(self, name: str, fn: Callable[..., Any],
+            threaded: bool = False) -> None:
+        """Register a decoded handler; threaded=True runs it on the call
+        pool instead of the event loop (see the module docstring)."""
         try:
             sig = inspect.signature(fn)
         except (TypeError, ValueError):
             sig = None
         self._methods[name] = (fn, sig)
+        if threaded:
+            self._threaded.add(name)
+        else:
+            self._threaded.discard(name)
 
     def add_raw(self, name: str, fn: Callable[[bytes, int], Any]) -> None:
         """Register a raw handler fn(message_bytes, params_offset): it gets
@@ -212,7 +233,11 @@ class RpcServer:
                 await self._reply(writer, msgid, ARGUMENT_ERROR, None)
                 return
         try:
-            result = fn(*params)
+            if method in self._threaded:
+                result = await asyncio.get_running_loop().run_in_executor(
+                    self._call_pool, lambda: fn(*params))
+            else:
+                result = fn(*params)
         except Exception as e:  # noqa: BLE001 - relayed to the client
             log.warning("error in %s: %s", method, e, exc_info=True)
             await self._reply(writer, msgid, str(e), None)
@@ -274,3 +299,4 @@ class RpcServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
         self._pool.shutdown(wait=False)
+        self._call_pool.shutdown(wait=False)

@@ -97,10 +97,38 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 both quantizer kernels launched in each server process; a
                 `cluster_mix` line per service with the round's time, bytes
                 and stages (the master's gather, decode, fold, encode and
-                scatter; each server's get_diff and put_diff handler)
-  8. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 7; counters are zeroed just before each path, and a
-                cluster server's start at 0 with its process), then the
+                scatter; each server's get_diff and put_diff handler).
+                Each server journals (--journal, no snapshot timer); after
+                a third round server 1 is SIGKILLed and restarted on its
+                directory: it must come back bitwise equal to its model
+                before the kill, having replayed its three applied v3
+                scatters through dequantize_int8 and its train windows
+                through the scan kernel in its new process
+  8. durable  — for each service, two port servers on cuda, one with
+                --journal (fsync batch, a 15 s snapshot timer) and one
+                without, get the same four 8192-datum train requests, timed
+                in turns; the journaled one's first snapshot is awaited
+                after the first two.  SIGKILL, restart on the directory:
+                it must restore the snapshot, replay the 2 windows after it
+                with no error, launch its scan kernel once per replayed
+                window, and hold the model and answer a read bitwise as a
+                driver here fed the same frames through its raw entry.  A
+                `durable` line: request ms with and without the journal,
+                the snapshot's bytes and pack/write/fsync ms, the
+                recovery's restore ms, replay ms (per record) and
+                boot-to-routable ms
+  9. read lane — for each service, two port servers on cuda trained alike,
+                one with --read_batch_window_us 200: 32 client threads each
+                send 64 one-datum reads (classify / estimate) to each, in
+                turns, twice; every lane answer must be bitwise the same
+                read sent alone and the lane must fuse (read_batch_size
+                mean > 1).  A `read_lane` line: p50/p99 with and without
+                the lane, read_batch_size mean/max, and the driver's
+                classify_many / estimate_many alone on the card at B 1,
+                16, 64 (CUDA events)
+ 10. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 9; counters are zeroed just before each path, and a
+                server process's start at 0 with its process), then the
                 result line {"ok": true, "device": {...}} last.
 
 It exits non-zero and prints no result line when CUDA is unavailable or
@@ -1625,6 +1653,37 @@ class Child:
                 self.p.kill()
                 self.p.wait(timeout=15)
 
+    def kill(self):
+        """SIGKILL: the crash the durability plane recovers from."""
+        self.p.kill()
+        self.p.wait(timeout=15)
+
+
+def start_server(service, cfg_path, tmp, *extra, device="cuda"):
+    """A port server subprocess on `device`; (child, its start time)."""
+    return Child(["jubatus_tpu_torch.cli.server", "--type", service,
+                  "--configpath", cfg_path, "--rpc-port", "0",
+                  "--listen_addr", "127.0.0.1", "--eth", "127.0.0.1",
+                  "--datadir", tmp, "--device", device, *extra]), \
+        time.perf_counter()
+
+
+def server_ready(child, t0):
+    """(port, ms from the process's start to its `jubatus ready` line)."""
+    port = int(child.wait_line("jubatus ready", 300).split()[2]
+               .split("=")[1])
+    return port, (time.perf_counter() - t0) * 1e3
+
+
+def status_of(cli):
+    return next(iter(cli.call("get_status").values()))
+
+
+def launches_of(st):
+    """A server's kernel launches by kernel, from its get_status."""
+    return {k.split(".", 1)[1]: int(v) for k, v in st.items()
+            if k.startswith("kernel_launches.")}
+
 
 def model_tables(np, pack, service):
     """A driver's pack as {key: array}: the classifier's w and cov rows
@@ -1653,16 +1712,21 @@ def same_tables(np, a, b):
 def phase_cluster(torch, np, card, service, device="cuda"):
     """Phase 7: a cross-process v3 MIX round.  The port's coordinator and
     two port servers (device cuda, --mix_quantize, a trigger out of
-    reach) run as subprocesses; each server is trained over the wire on
-    its own 8192-datum half, then do_mix on one.  The replicas must be
+    reach, each with its own --journal and no snapshot timer) run as
+    subprocesses; each server is trained over the wire on its own
+    8192-datum half, then do_mix on one.  The replicas must be
     bitwise equal to each other and to the same v3 round run here on two
     drivers fed the same frames through their raw entry (in the
     master's member order), whose drift from its f32 twin stays within
     the round's accumulated quantization bound; the classifier's counts
     must be the exact sum of both halves; a second do_mix on the other
     server must change nothing; and both quantizer kernels must have
-    launched in each server process.  Returns the servers' kernel
-    launches, summed."""
+    launched in each server process.  After a third round, server 1 is
+    SIGKILLed and restarted on its journal directory: it must come back
+    bitwise equal to its model before the kill, having replayed its
+    journaled scatters through dequantize_int8 in its new process.
+    Returns the servers' kernel launches (the restarted process's
+    included), summed."""
     from collections import Counter
 
     from jubatus_tpu_torch import native
@@ -1694,13 +1758,17 @@ def phase_cluster(torch, np, card, service, device="cuda"):
                            "--rpc-port", "0", "--listen_addr", "127.0.0.1"])
             children.append(coord)
             addr = coord.wait_line("jubacoordinator", 120).split()[-1]
-            servers = [Child([
+            argv = [[
                 "jubatus_tpu_torch.cli.server", "--type", service,
                 "--configpath", cfg_path, "--name", name, "--rpc-port", "0",
                 "--listen_addr", "127.0.0.1", "--eth", "127.0.0.1",
                 "--datadir", tmp, "--device", device, "--coordinator", addr,
                 "--mix_quantize", "--interval_sec", "100000",
-                "--interval_count", "1000000"]) for _ in range(2)]
+                "--interval_count", "1000000",
+                "--journal", os.path.join(tmp, f"dur{i}"),
+                "--journal_fsync", "batch", "--snapshot_interval", "0"]
+                for i in range(2)]
+            servers = [Child(a) for a in argv]
             children.extend(servers)
             ports = [int(s.wait_line("jubatus ready", 300).split()[2]
                          .split("=")[1]) for s in servers]
@@ -1772,6 +1840,20 @@ def phase_cluster(torch, np, card, service, device="cuda"):
                                              "are not the four halves' sum")
             for c in clients:
                 c.close()
+            # the journaled scatters: SIGKILL server 1, restart it on its
+            # directory; it replays its train windows and the three
+            # applied v3 scatters (dequantize_int8 in the new process)
+            servers[1].kill()
+            t0 = time.perf_counter()
+            servers[1] = Child(argv[1])
+            children.append(servers[1])
+            port1 = int(servers[1].wait_line("jubatus ready", 300).split()[2]
+                        .split("=")[1])
+            reboot_ms = (time.perf_counter() - t0) * 1e3
+            cli = WireClient(port1)
+            restarted = status_of(cli)
+            cli.close()
+            recovered = model_of(port1)
         finally:
             for ch in children:
                 ch.stop()
@@ -1802,6 +1884,15 @@ def phase_cluster(torch, np, card, service, device="cuda"):
     stats = {}
     here = round_here(True, stats)
     exact = round_here(False)
+    if restarted["recovery_errors"] != "0" or \
+            int(restarted["recovery_replayed"]) < 4:
+        raise AssertionError(f"{service} cluster: the restarted server "
+                             f"replayed {restarted['recovery_replayed']} "
+                             f"records, {restarted['recovery_errors']} "
+                             "errors (want its windows and 3 scatters)")
+    if not same_tables(np, recovered, third[1]):
+        raise AssertionError(f"{service} cluster: the restarted server's "
+                             "model differs from its model before the kill")
     for i, m in enumerate(models):
         if not same_tables(np, m, models[0]):
             raise AssertionError(f"{service} cluster: replicas differ")
@@ -1814,15 +1905,22 @@ def phase_cluster(torch, np, card, service, device="cuda"):
         raise AssertionError(f"{service} cluster: drift {drift} beyond the "
                              f"bound {stats['max_abs_err']}")
     launches = {}
+    # each server's launches to its first round, as in PR 7's table, and
+    # the restarted process's
+    for st in status + [restarted]:
+        for kern, n in launches_of(st).items():
+            launches[kern] = launches.get(kern, 0) + n
     for st in status:
-        for k, v in st.items():
-            if k.startswith("kernel_launches."):
-                kern = k.split(".", 1)[1]
-                launches[kern] = launches.get(kern, 0) + int(v)
         for kern in ("quantize_int8", "dequantize_int8"):
             if device == "cuda" and int(st[f"kernel_launches.{kern}"]) <= 0:
                 raise AssertionError(f"{service} cluster: {kern} never "
                                      "launched in a server process")
+    scan = "train_scan" if service == "classifier" else \
+        "regression_train_scan"
+    for kern in ("dequantize_int8", scan):
+        if device == "cuda" and launches_of(restarted)[kern] <= 0:
+            raise AssertionError(f"{service} cluster: {kern} never launched "
+                                 "in the restarted server's replay")
     master = status[0]
 
     def legs_ms(sts):
@@ -1858,12 +1956,324 @@ def phase_cluster(torch, np, card, service, device="cuda"):
                           for st in ("gather", "decode", "fold", "encode",
                                      "scatter")},
             "legs_ms": legs_ms(warm)},
+        "restart": {"boot_to_routable_ms": reboot_ms,
+                    "recovery_replayed": int(restarted["recovery_replayed"]),
+                    "recovery_replay_ms": float(
+                        restarted["recovery_replay_ms"]),
+                    "launches": launches_of(restarted)},
         "card": card}
     log(f"cluster: {service}: two server processes and the in-process v3 "
         f"round bitwise equal; drift from the f32 twin {drift:.3g} <= "
-        f"bound {stats['max_abs_err']:.3g}; second do_mix changed nothing")
+        f"bound {stats['max_abs_err']:.3g}; second do_mix changed nothing; "
+        f"server 1 SIGKILLed and recovered bitwise from "
+        f"{restarted['recovery_replayed']} journal records")
     log("cluster_mix " + json.dumps(line))
     return launches
+
+
+# seconds between a durable server's background snapshots: the first
+# fires after the phase's first two requests, the next after the kill
+SNAPSHOT_S = 15
+LANE_THREADS = 32
+LANE_CALLS = 64             # one-datum reads per client thread
+LANE_WINDOW_US = 200
+
+
+def saved_tables(np, cli, service, cfg):
+    """The server's model through its save RPC: the file read back with
+    the port's load_model, as tables."""
+    from jubatus_tpu_torch.framework.save_load import load_model
+    from jubatus_tpu_torch.framework.server_base import USER_DATA_VERSION
+    (path,) = cli.call("save", "durable").values()
+    with open(path, "rb") as fp:
+        data = load_model(fp, server_type=service,
+                          expected_config=json.dumps(cfg),
+                          user_data_version=USER_DATA_VERSION)
+    return model_tables(np, data, service)
+
+
+def phase_durable(torch, np, card, service, device="cuda"):
+    """Phase 8: the durable server.  Two port servers on cuda as
+    subprocesses, one with --journal (fsync batch, a snapshot timer) and
+    one without, get the same four 8192-datum train requests (each timed,
+    in turns); after the first two the journaled server's first snapshot
+    is awaited.  Then SIGKILL and a restart on the same directory: it
+    must restore the snapshot, replay the two windows after it with no
+    error, launch its scan kernel once per replayed window, answer a read
+    bitwise as a driver here fed the same four frames through its raw
+    entry does, and hold that driver's model bitwise (its save, read
+    back).  Returns the servers' kernel launches, summed."""
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+
+    cfg = SERVER_CONFIG if service == "classifier" else REG_CONFIG
+    scan = "train_scan" if service == "classifier" else \
+        "regression_train_scan"
+    read = "classify" if service == "classifier" else "estimate"
+    rng = np.random.default_rng(8)
+    reqs = ([bench_batch(rng, REQ_B) for _ in range(4)]
+            if service == "classifier"
+            else [reg_batch(rng, REQ_B) for _ in range(4)])
+    query = [d for _, d in reqs[0][:N_LABELS]]
+    children = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, f"{service}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        journaled = ["--journal", os.path.join(tmp, "dur"),
+                     "--journal_fsync", "batch",
+                     "--snapshot_interval", str(SNAPSHOT_S)]
+        try:
+            dur, t_dur = start_server(service, cfg_path, tmp, *journaled,
+                                      device=device)
+            plain, t_plain = start_server(service, cfg_path, tmp,
+                                          device=device)
+            children += [dur, plain]
+            port, boot_ms = server_ready(dur, t_dur)
+            clis = {"journal": WireClient(port),
+                    "plain": WireClient(server_ready(plain, t_plain)[0])}
+            frames = [clis["journal"].frame("train", r) for r in reqs]
+            req_ms = {"journal": [], "plain": []}
+
+            def send(i):
+                # in turns: the first server alternates per request
+                order = ("journal", "plain") if i % 2 == 0 \
+                    else ("plain", "journal")
+                for k in order:
+                    t0 = time.perf_counter()
+                    if clis[k].send(frames[i], "train") != REQ_B:
+                        raise AssertionError(f"durable {service}: a train "
+                                             "request was not acknowledged")
+                    req_ms[k].append((time.perf_counter() - t0) * 1e3)
+
+            send(0)
+            send(1)
+            deadline = time.monotonic() + 4 * SNAPSHOT_S
+            while int(status_of(clis["journal"])["snapshot_count"]) < 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"durable {service}: no snapshot "
+                                         "was published")
+                time.sleep(0.2)
+            snap = status_of(clis["journal"])
+            send(2)
+            send(3)
+            before = status_of(clis["journal"])
+            plain_launches = launches_of(status_of(clis["plain"]))
+            for c in clis.values():
+                c.close()
+            dur.kill()
+            dur, t_dur = start_server(service, cfg_path, tmp, *journaled,
+                                      device=device)
+            children.append(dur)
+            port, reboot_ms = server_ready(dur, t_dur)
+            cli = WireClient(port)
+            st = status_of(cli)
+            answer = cli.call(read, query)
+            recovered = saved_tables(np, cli, service, cfg)
+            cli.close()
+        finally:
+            for ch in children:
+                ch.stop()
+
+    replayed = int(st["recovery_replayed"])
+    if (st["recovery_restored"], st["recovery_errors"]) != ("1", "0") \
+            or replayed < 2:
+        raise AssertionError(
+            f"durable {service}: restored {st['recovery_restored']}, "
+            f"replayed {replayed}, errors {st['recovery_errors']} (want a "
+            "snapshot restored and at least the 2 windows after it)")
+    if device == "cuda" and launches_of(st)[scan] != replayed:
+        raise AssertionError(f"durable {service}: {scan} launched "
+                             f"{launches_of(st)[scan]} times replaying "
+                             f"{replayed} windows")
+    # the uncrashed twin: the same four frames through the raw entry
+    twin = create_driver(service, cfg, device=device)
+    splitter = native.load()
+    for fr in frames:
+        twin.train_raw(fr, splitter.parse_envelope(fr, 0)[4])
+    if not same_tables(np, recovered, model_tables(np, twin.pack(),
+                                                   service)):
+        raise AssertionError(f"durable {service}: the recovered model "
+                             "differs from the uncrashed driver's")
+    qd = [Datum.from_msgpack(d) for d in query]
+    want = ([[[lbl, sc] for lbl, sc in row] for row in twin.classify(qd)]
+            if service == "classifier" else twin.estimate(qd))
+    if answer != want:
+        raise AssertionError(f"durable {service}: the recovered server's "
+                             f"{read} differs from the uncrashed driver's")
+    line = {
+        "service": service,
+        "request_ms": req_ms,
+        "journal": {k: before[k] for k in (
+            "journal_position", "journal_records_total",
+            "journal_bytes_total", "journal_fsync_total")
+            if k in before},
+        "snapshot": {"bytes": int(snap["snapshot_last_bytes"]),
+                     "pack_ms": float(snap["snapshot_last_pack_ms"]),
+                     "write_ms": float(snap["snapshot_last_write_ms"]),
+                     "sync_ms": float(snap["snapshot_last_sync_ms"])},
+        "recovery": {"restore_ms": float(st["recovery_restore_ms"]),
+                     "replay_ms": float(st["recovery_replay_ms"]),
+                     "replayed": replayed,
+                     "replay_ms_per_record":
+                         float(st["recovery_replay_ms"]) / replayed,
+                     "boot_to_routable_ms": reboot_ms,
+                     "first_boot_ms": boot_ms,
+                     "reanchor_snapshot": {
+                         "pack_ms": float(st["snapshot_last_pack_ms"]),
+                         "write_ms": float(st["snapshot_last_write_ms"]),
+                         "sync_ms": float(st["snapshot_last_sync_ms"])}},
+        "launches": {"journaled_before_kill": launches_of(before),
+                     "plain": plain_launches,
+                     "restarted": launches_of(st)},
+        "card": card}
+    log(f"durable: {service}: SIGKILL after 4 acked requests; restored "
+        f"{st['recovery_source']}, replayed {replayed} windows through "
+        f"{scan} ({launches_of(st)[scan]} launches), model bitwise equal "
+        "to the uncrashed driver's")
+    log("durable " + json.dumps(line))
+    launches = {}
+    for counts in line["launches"].values():
+        for kern, n in counts.items():
+            launches[kern] = launches.get(kern, 0) + n
+    return launches
+
+
+def lane_reads(lat, answers, port, read, queries, idx):
+    """One client thread of phase 9: one-datum reads of queries[i] for i
+    in idx, each timed."""
+    cli = WireClient(port)
+    try:
+        for i in idx:
+            t0 = time.perf_counter()
+            answers[i] = cli.call(read, [queries[i]])
+            lat[i] = (time.perf_counter() - t0) * 1e3
+    finally:
+        cli.close()
+
+
+def phase_read_lane(torch, np, card, service, device="cuda"):
+    """Phase 9: the read lane.  Two port servers on cuda as subprocesses,
+    one with --read_batch_window_us 200 and one without, trained alike
+    (a warm and 4 timed 8192-datum requests, as phase 4).  32 client
+    threads each send 64 one-datum reads to each server in turn; every
+    answer of the lane server must be bitwise the answer of the same
+    read sent alone (one client, one read at a time, on that server),
+    and its sweeps must have fused reads (read_batch_size mean > 1).
+    Then the driver's *_many alone on the card at B 1, 16 and 64 (CUDA
+    events).  Returns the servers' kernel launches, summed."""
+    import threading
+
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+
+    cfg = SERVER_CONFIG if service == "classifier" else REG_CONFIG
+    read = "classify" if service == "classifier" else "estimate"
+    many = "classify_many" if service == "classifier" else "estimate_many"
+    batch = bench_batch if service == "classifier" else reg_batch
+    rng = np.random.default_rng(9)
+    reqs = [batch(rng, REQ_B) for _ in range(N_TRAIN_REQS + 1)]
+    n = LANE_THREADS * LANE_CALLS
+    queries = [d for _, d in batch(rng, n)]
+    out = {}
+    children = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, f"{service}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        try:
+            started = {
+                "lane": start_server(service, cfg_path, tmp,
+                                     "--read_batch_window_us",
+                                     str(LANE_WINDOW_US), device=device),
+                "plain": start_server(service, cfg_path, tmp,
+                                      device=device)}
+            children += [c for c, _ in started.values()]
+            ports = {k: server_ready(*v)[0] for k, v in started.items()}
+            for k, port in ports.items():
+                cli = WireClient(port)
+                frames = [cli.frame("train", r) for r in reqs]
+                for fr in frames:
+                    if cli.send(fr, "train") != REQ_B:
+                        raise AssertionError(f"read lane {service}: a train "
+                                             "request was not acknowledged")
+                cli.call(read, queries[:1])          # warm
+                cli.close()
+            for k in ("lane", "plain", "lane", "plain"):
+                lat, answers = [0.0] * n, [None] * n
+                threads = [threading.Thread(
+                    target=lane_reads,
+                    args=(lat, answers, ports[k], read, queries,
+                          range(t, n, LANE_THREADS)))
+                    for t in range(LANE_THREADS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                if any(t.is_alive() for t in threads) or None in answers:
+                    raise AssertionError(f"read lane {service}: a client "
+                                         "thread did not finish")
+                out.setdefault(k, []).append((lat, answers))
+            cli = WireClient(ports["lane"])
+            lane_st = status_of(cli)
+            alone = [cli.call(read, [q]) for q in queries]
+            cli.close()
+            counts = {}
+            for port in ports.values():
+                cli = WireClient(port)
+                for kern, c in launches_of(status_of(cli)).items():
+                    counts[kern] = counts.get(kern, 0) + c
+                cli.close()
+        finally:
+            for ch in children:
+                ch.stop()
+
+    for lat, answers in out["lane"]:
+        if answers != alone:
+            bad = sum(a != b for a, b in zip(answers, alone))
+            raise AssertionError(f"read lane {service}: {bad} of {n} lane "
+                                 "answers differ from the read sent alone")
+    mean = float(lane_st["read_batch_size_mean"])
+    if not mean > 1.0:
+        raise AssertionError(f"read lane {service}: read_batch_size mean "
+                             f"{mean}: the lane fused no reads")
+    same_plain = all(a == alone for _, a in out["plain"])
+
+    # the driver's fused sweep alone on the card, by CUDA events
+    drv = create_driver(service, cfg, device=device)
+    splitter = native.load()
+    for fr in frames:
+        drv.train_raw(fr, splitter.parse_envelope(fr, 0)[4])
+    many_ms = {}
+    for b in (1, 16, 64):
+        groups = [[Datum.from_msgpack(q)] for q in queries[:b]]
+        if device == "cuda":
+            many_ms[b] = time_cuda(
+                torch, lambda: getattr(drv, many)(groups), 20)
+
+    def pct(k, q):
+        return [float(np.percentile(lat, q)) for lat, _ in out[k]]
+
+    line = {
+        "service": service, "threads": LANE_THREADS, "calls": n,
+        "window_us": LANE_WINDOW_US,
+        f"{read}_ms_p50": {"lane": pct("lane", 50), "plain": pct("plain", 50)},
+        f"{read}_ms_p99": {"lane": pct("lane", 99), "plain": pct("plain", 99)},
+        "read_batch_size_mean": mean,
+        "read_batch_size_max": float(lane_st["read_batch_size_max"]),
+        "read_batch_size_count": int(lane_st["read_batch_size_count"]),
+        "read_lock_wait_p99_ms": float(
+            lane_st["read_lock_wait_p99_sec"]) * 1e3,
+        "plain_answers_equal": same_plain,
+        f"{many}_ms": many_ms,
+        "card": card}
+    log(f"read lane: {service}: {4 * n} reads from {LANE_THREADS} threads, "
+        f"each lane answer bitwise the read sent alone; read_batch_size "
+        f"mean {mean:.2f}, max {line['read_batch_size_max']:.0f}")
+    log("read_lane " + json.dumps(line))
+    return counts
 
 
 def main() -> int:
@@ -1919,13 +2329,20 @@ def main() -> int:
     # 7. cluster: cross-process v3 rounds, one cluster per service
     cluster_counts = [phase_cluster(torch, np, card, svc)
                       for svc in ("classifier", "regression")]
+    # 8. durable: SIGKILL and recovery, per service
+    cluster_counts += [phase_durable(torch, np, card, svc)
+                       for svc in ("classifier", "regression")]
+    # 9. read lane: fused reads, per service
+    cluster_counts += [phase_read_lane(torch, np, card, svc)
+                       for svc in ("classifier", "regression")]
 
     def served(kern):
         return sum(c.get(kern, 0) for c in cluster_counts)
 
-    # 8. report: the quantizer pair's launches are the v3 rounds' (both
-    # in-process rounds and both clusters' server processes); the scans'
-    # are the server sessions' and the cluster servers'
+    # 10. report: the quantizer pair's launches are the v3 rounds' (both
+    # in-process rounds, both clusters' server processes and the restarted
+    # cluster server's replay); the scans' are the server sessions', the
+    # server processes' of phases 7-9 and the recovered servers' replays
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",

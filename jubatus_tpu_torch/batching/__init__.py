@@ -3,6 +3,7 @@ jubatus_tpu/batching):
 
   bucketing.py  — power-of-two shape buckets and the fused-batch builder
   controller.py — the queue-depth-driven batching-window controller
+  coalescer.py  — RequestCoalescer, the read lane's fused sweeps
   arenas.py     — recycled host arenas (pinned for cuda drivers) for the
                   native batched ingest path
 """

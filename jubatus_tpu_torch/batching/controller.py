@@ -1,4 +1,4 @@
-"""Queue-depth-driven batching-window controller (copy of
+"""Queue-depth-driven batching-window controllers (copy of
 jubatus_tpu/batching/controller.py).
 
 Lingering for more requests grows the fused batch (throughput) but delays
@@ -42,3 +42,14 @@ class WindowController:
         # ewma == 1 (steady singles) -> 0 wait; >= target -> full window
         frac = (self._ewma - 1.0) / (self.target_batch - 1.0)
         self._wait = self.max_wait_s * min(max(frac, 0.0), 1.0)
+
+
+class FixedWindow:
+    """A constant window (0: drain what is queued and linger not at
+    all), for a coalescer given no window to adapt."""
+
+    def __init__(self, wait_s: float = 0.0):
+        self.wait_s = wait_s
+
+    def observe(self, drained: int, backlog: int = 0) -> None:
+        pass

@@ -3,7 +3,9 @@
     python -m jubatus_tpu_torch.cli.server --type classifier|regression \
         --configpath CONFIG.json --rpc-port 9199 [--device cuda|cpu] \
         [--name CLUSTER --coordinator HOST:PORT [--mixer linear_mixer] \
-         [--interval_sec 16 --interval_count 512] [--mix_quantize]]
+         [--interval_sec 16 --interval_count 512] [--mix_quantize]] \
+        [--journal DIR [--journal_fsync batch] [--journal_segment_bytes N] \
+         [--snapshot_interval 60]] [--read_batch_window_us W]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
@@ -14,6 +16,16 @@ an actor and an active member, and starts its mixer thread, which mixes
 every --interval_count updates or --interval_sec seconds (do_mix mixes
 at once).  A coordinator it cannot reach fails the start, as does
 --mixer collective_mixer (the data-parallel tier is not ported).
+
+With --journal DIR the server recovers its model from DIR (the newest
+valid snapshot, then the journal past it, replayed through the card's
+kernels) before the RPC server is routable, journals every applied
+update before acking it and snapshots in the background; a recovered
+cluster member skips the joiner's bootstrap and resumes at the larger of
+its mixer's and the recovered MIX round, healing missed rounds as a
+straggler.  The JAX server's --model_file is not in the port yet.  With
+--read_batch_window_us W > 0 concurrent classify (estimate) calls are
+served as fused sweeps (framework/dispatch.py ReadDispatcher).
 
 Like the JAX server's CLI it logs `... listening on host:port` and then
 prints the machine-readable line `jubatus ready rpc_port=N metrics_port=0
@@ -65,6 +77,28 @@ def _parser() -> argparse.ArgumentParser:
                    help="ship MIX diff bodies as blockwise-int8 tensors + "
                         "f32 absmax scales (wire version 3); flip it "
                         "cluster-wide")
+    p.add_argument("--journal", default="",
+                   help="durability-plane directory (write-ahead journal "
+                        "+ snapshots + boot crash recovery); empty "
+                        "disables it.  Each server needs its OWN "
+                        "directory")
+    p.add_argument("--journal_fsync", default="batch",
+                   choices=("always", "batch", "off"),
+                   help="journal durability policy: 'always' fsyncs "
+                        "every acked batch, 'batch' group-commits "
+                        "(bounded records/interval), 'off' leaves it to "
+                        "the OS")
+    p.add_argument("--journal_segment_bytes", type=int, default=64 << 20,
+                   help="journal segment rotation threshold in bytes")
+    p.add_argument("--snapshot_interval", type=float, default=60.0,
+                   help="background snapshot period in seconds (packs "
+                        "the model under the READ lock, truncates "
+                        "covered journal segments); 0 disables the timer")
+    p.add_argument("--read_batch_window_us", type=float, default=0.0,
+                   help="gather concurrent classify/estimate calls for "
+                        "up to this many microseconds into ONE fused "
+                        "sweep under one read-lock hold; 0 (default) "
+                        "builds no read lane")
     return p
 
 
@@ -88,7 +122,11 @@ def serve(argv: Optional[Sequence[str]] = None
                       interval_count=ns.interval_count,
                       coordinator=ns.coordinator,
                       interconnect_timeout=ns.interconnect_timeout,
-                      mix_quantize=ns.mix_quantize)
+                      mix_quantize=ns.mix_quantize, journal_dir=ns.journal,
+                      journal_fsync=ns.journal_fsync,
+                      journal_segment_bytes=ns.journal_segment_bytes,
+                      snapshot_interval_sec=ns.snapshot_interval,
+                      read_batch_window_us=ns.read_batch_window_us)
     membership = None
     config = None
     if args.coordinator:
@@ -101,9 +139,15 @@ def serve(argv: Optional[Sequence[str]] = None
                 raise RuntimeError(
                     f"no config registered in the coordinator for "
                     f"{args.type}/{args.name}; give --configpath")
+    server = None
     try:
         server = JubatusServer(args, config=config)
+        # crash recovery BEFORE anything can route to us: snapshot
+        # restore and journal replay run on the unstarted server
+        recovery = server.init_durability()
     except BaseException:
+        if server is not None:
+            server.stop()          # closes a journal recovery opened
         if membership is not None:
             membership.close()
         raise
@@ -114,6 +158,11 @@ def serve(argv: Optional[Sequence[str]] = None
             interval_count=args.interval_count,
             rpc_timeout=args.interconnect_timeout,
             quantize=args.mix_quantize)
+        if recovery is not None and hasattr(server.mixer, "round"):
+            # resume at the recovered round: the first scatter that
+            # out-rounds us marks us behind, and the catch-up heals the
+            # rounds we slept through
+            server.mixer.round = max(server.mixer.round, recovery.round)
     rpc = RpcServer()
     bind_service(server, rpc)
     try:
@@ -123,8 +172,12 @@ def serve(argv: Optional[Sequence[str]] = None
         raise
     args.rpc_port = port  # with --rpc-port 0, server_id uses the bound port
     if membership is not None:
+        # recovered local state converges through MIX; a bootstrap would
+        # discard its acked updates
+        recovered = recovery is not None and (recovery.restored
+                                              or recovery.replayed > 0)
         try:
-            _join_cluster(server, membership, port)
+            _join_cluster(server, membership, port, bootstrap=not recovered)
         except BaseException:
             rpc.stop()
             server.stop()
@@ -134,12 +187,13 @@ def serve(argv: Optional[Sequence[str]] = None
     return server, rpc
 
 
-def _join_cluster(server: JubatusServer, membership, port: int) -> None:
-    """A fresh joiner pulls the model from a random live member before it
-    becomes routable, then registers as an actor and an active member
-    and starts its mixer thread."""
+def _join_cluster(server: JubatusServer, membership, port: int,
+                  bootstrap: bool = True) -> None:
+    """A fresh joiner (`bootstrap`) pulls the model from a random live
+    member before it becomes routable; then the server registers as an
+    actor and an active member and starts its mixer thread."""
     peers = [p for p in membership.get_all_nodes() if p != (server.ip, port)]
-    if peers:
+    if bootstrap and peers:
         peer = random.choice(peers)
         try:
             if server.mixer.bootstrap(

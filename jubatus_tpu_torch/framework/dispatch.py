@@ -1,5 +1,6 @@
-"""The device-dispatch threads of the raw train path (counterpart of
-jubatus_tpu/framework/dispatch.py, IngestPipeline).
+"""The device-dispatch threads of the raw train path and the read lane
+(counterpart of jubatus_tpu/framework/dispatch.py: IngestPipeline and
+ReadDispatcher).
 
 Raw train frames go straight to a CONVERT thread, which converts a whole
 window in one GIL-released C call into a recycled arena
@@ -9,16 +10,18 @@ feeding them, and the RPC reader never waits on the device.
 
 Semantics: a request is acked only after the step holding it has been
 dispatched (issued to the device stream; the stream executes steps in
-order, so a later read sees every acked train).  Order across requests
-is FIFO.  Paths that change the model outside these queues must call
-flush() BEFORE taking the model lock — never while holding it, or they
-deadlock against the dispatch thread acquiring that lock; flush() raises
+order, so a later read sees every acked train) and, with a journal,
+after the window's record is committed.  Order across requests is FIFO.
+Paths that change the model outside these queues must call flush()
+BEFORE taking the model lock — never while holding it, or they deadlock
+against the dispatch thread acquiring that lock; flush() raises
 LockDisciplineError when the calling thread holds either side.
 
-The JAX package's TrainDispatcher (per-request conversion on the RPC
-workers), tracer spans, journal records, tenant quotas and metrics
-registry have no counterpart yet; the places where the hooks go are
-marked.
+The read lane (ReadDispatcher, --read_batch_window_us) gathers
+concurrent reads of one method into one read-lock hold and one fused
+sweep.  The JAX package's TrainDispatcher (per-request conversion on the
+RPC workers), tracer spans, heat accounting and tenant quotas have no
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ import time
 from concurrent.futures import Future
 
 from jubatus_tpu_torch.batching import WindowController
+from jubatus_tpu_torch.batching.coalescer import RequestCoalescer
+from jubatus_tpu_torch.durability.journal import check_writable
+from jubatus_tpu_torch.utils import metrics as _metrics
 from jubatus_tpu_torch.utils.rwlock import LockDisciplineError
 
 log = logging.getLogger("jubatus_tpu_torch.dispatch")
@@ -67,11 +73,14 @@ class IngestPipeline:
     submits raw train frames here; the CONVERT thread gathers a window
     (an adaptive linger, batching/controller.py) and converts it in ONE C
     call into an arena from the driver's pool; the DISPATCH thread
-    runs one fused step per window under the model write lock.  The
-    bounded convert->dispatch queue (DEPTH) is what pipelines: window
-    W+1 converts while window W's step runs.  When it fills, the convert
-    thread waits (counted in `stalls`), and backpressure reaches the RPC
-    workers through the bounded frame queue.
+    runs one fused step per window under the model write lock, appends
+    the window's raw frames to the journal as ONE `train` record under
+    that lock, and commits it after releasing the lock, before any
+    future of the window resolves.  The bounded convert->dispatch queue
+    (DEPTH) is what pipelines: window W+1 converts while window W's step
+    runs.  When it fills, the convert thread waits (counted in
+    `stalls`), and backpressure reaches the RPC workers through the
+    bounded frame queue.
 
     The periodic device_sync (every SYNC_EVERY steps) bounds the device
     backlog and is the fence after which consumed arenas go back to the
@@ -254,17 +263,30 @@ class IngestPipeline:
 
     # -- dispatch stage ------------------------------------------------------
 
-    def _fused_step(self, futs, run) -> None:
-        """One write-lock hold, one device step (`run`), FIFO acks — for
-        both the batched and the per-frame dispatch routes."""
+    def _fused_step(self, frames, futs, run) -> None:
+        """One write-lock hold, one device step (`run`), one journal
+        record, FIFO acks — for both the batched and the per-frame
+        dispatch routes."""
         slot = self._server
+        journal = getattr(slot, "journal", None)
         try:
-            # the journal's write check and the train.step span go here
+            # fail-stop gate: a stalled journal rejects the window before
+            # the model mutates
+            check_writable(journal)
             with slot.model_lock.write():
                 results = run()
                 for _ in futs:
                     slot.event_model_updated()
-                # the journal record of the fused step goes here
+                if journal is not None and frames:
+                    # the request bytes themselves: recovery re-converts
+                    # them into the same fused step
+                    journal.append(
+                        {"k": "train",
+                         "f": [[bytes(m), int(o)] for m, o in frames]},
+                        slot.current_mix_round())
+            if journal is not None and frames:
+                # storage wait outside the lock; the acks wait for it
+                journal.commit()
             for f, r in zip(futs, results):
                 if not f.done():
                     f.set_result(r)
@@ -279,7 +301,8 @@ class IngestPipeline:
         list recycled at the next sync fence."""
         try:
             self._fused_step(
-                futs, lambda: self._server.driver.train_converted_batch(rb))
+                rb.frames, futs,
+                lambda: self._server.driver.train_converted_batch(rb))
         finally:
             if rb.arena is not None:
                 self._spent_arenas.append(rb.arena)
@@ -289,6 +312,7 @@ class IngestPipeline:
         """Per-frame route (the batched convert failed): the same fused
         step over individually converted frames."""
         self._fused_step(
+            [(m, o) for _, m, o, _ in convs],
             [f for _, _, _, f in convs],
             lambda: self._server.driver.train_converted_many(
                 [c for c, _, _, _ in convs]))
@@ -327,3 +351,123 @@ class IngestPipeline:
                 # does (a dead dispatch thread would hang every later
                 # train).  A CUDA error is sticky: the next step fails too.
                 log.warning("ingest post-batch sync failed", exc_info=True)
+
+
+class _Failure:
+    """Per-request error marker riding a fused read sweep's result list
+    (a raised exception would fail every caller in the sweep)."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class ReadDispatcher:
+    """The read lane (--read_batch_window_us).
+
+    Without it every read RPC pays its own convert, host->device copy,
+    sweep and readback under its own read-lock hold, so N concurrent
+    classify calls cost N sweeps of one datum.  Here concurrent reads of
+    the SAME method are gathered for up to the window (adaptively, as
+    the ingest pipeline lingers), executed as ONE fused sweep (the
+    Method's `many` entry, e.g. driver.classify_many over the
+    concatenation) under ONE read-lock hold, and split back per caller.
+
+    One RequestCoalescer per method name, made at its first read.  Reads
+    never call flush(), so the lane thread only ever holds the read lock
+    while it runs driver code.  Window 0 builds no lane
+    (setup_slot_pipelines).  Each sweep records `read_batch_size` (its
+    width), `read_lock_wait` and, through the coalescer,
+    `batch.read.<method>.size`.  Left out of the JAX class: the tracer's
+    span per sweep, the heat accounting of the lock wait and the
+    candidate-index stats (no engine of the port has an index).
+    """
+
+    MAX_COALESCE = 64    # fused sweep width bound (padding stays sane)
+    QUEUE_SIZE = 128     # reads waiting for a lane
+
+    def __init__(self, server, window_us: float,
+                 registry: "_metrics.Registry" = None):
+        self._server = server
+        self.window_s = max(0.0, float(window_us)) / 1e6
+        self._registry = registry if registry is not None else _metrics.GLOBAL
+        self._lanes = {}
+        self._lock = threading.Lock()
+
+    def _lane(self, m) -> RequestCoalescer:
+        lane = self._lanes.get(m.name)
+        if lane is None:
+            with self._lock:
+                lane = self._lanes.get(m.name)
+                if lane is None:
+                    lane = RequestCoalescer(
+                        lambda items, _m=m: self._execute(_m, items),
+                        name=f"read.{m.name}", maxsize=self.QUEUE_SIZE,
+                        max_batch=self.MAX_COALESCE,
+                        max_wait_s=self.window_s, registry=self._registry)
+                    self._lanes[m.name] = lane
+        return lane
+
+    def submit(self, m, args: tuple) -> Future:
+        """Queue one read on its method's lane; the Future resolves with
+        this caller's result once its fused sweep has run.  A per-request
+        failure (a malformed datum) raises from it, for its own caller
+        only.  The RPC loop awaits the Future without blocking, so reads
+        of other connections join the sweep meanwhile."""
+        out: Future = Future()
+
+        def done(f: Future) -> None:
+            try:
+                r = f.result()
+            except BaseException as e:  # noqa: BLE001 - to this caller
+                out.set_exception(e)
+                return
+            if isinstance(r, _Failure):
+                out.set_exception(r.exc)
+            else:
+                out.set_result(r)
+
+        self._lane(m).submit(tuple(args)).add_done_callback(done)
+        return out
+
+    def _execute(self, m, items) -> list:
+        """One read-lock hold, one fused sweep, split per caller.  A fused
+        sweep that raises falls back to the per-item loop inside the same
+        hold, so one bad request fails ITS caller instead of every one
+        coalesced with it."""
+        slot = self._server
+        reg = self._registry
+        t0 = time.monotonic()
+        with slot.model_lock.read():
+            t1 = time.monotonic()
+            results = None
+            if m.many is not None:
+                try:
+                    results = m.many(slot, list(items))
+                except Exception:
+                    if len(items) == 1:
+                        raise    # sole caller: the normal error path
+                    log.warning("fused %s sweep failed; isolating via "
+                                "per-item fallback", m.name, exc_info=True)
+            if results is None:
+                results = []
+                for a in items:
+                    try:
+                        results.append(m.fn(slot, *a))
+                    except Exception as e:  # noqa: BLE001 - per caller
+                        results.append(_Failure(e))
+        if len(items) > 1:
+            # requests that shared a sweep with another caller
+            reg.inc("read_coalesced_total", len(items))
+        reg.observe_value("read_batch_size", len(items))
+        # the queue an operator cannot otherwise see: a long train step
+        # holds every read behind one acquire
+        reg.observe("read_lock_wait", t1 - t0)
+        return results
+
+    def stop(self) -> None:
+        with self._lock:
+            lanes, self._lanes = list(self._lanes.values()), {}
+        for lane in lanes:
+            lane.stop()

@@ -1,19 +1,25 @@
 """The port's per-process model host (counterpart of
 jubatus_tpu/framework/server_base.py, one model per process).
 
-It builds the engine's driver on its device, holds the model lock and the
-raw-train dispatcher (the JAX server's default model slot), counts
-updates, and answers the common RPCs: get_config, save, load, clear,
-get_status and do_mix.  In a cluster (--coordinator) it also holds the
-membership client, the mixer and an id generator drawing from the
-coordinator's create_id; standalone it has none of them.  Model files
-use the reference format (framework/save_load.py) with the JAX package's
-naming and user-data version, so a file saved by either package loads in
-the other.
+It builds the engine's driver on its device, holds the model lock, the
+raw-train dispatcher and the read lane (the JAX server's default model
+slot), counts updates, and answers the common RPCs: get_config, save,
+load, clear, get_status and do_mix.  In a cluster (--coordinator) it also
+holds the membership client, the mixer and an id generator drawing from
+the coordinator's create_id; standalone it has none of them.  With
+--journal it holds the durability plane (durability/): init_durability
+recovers the model from the journal directory before the server is
+routable, then the journal takes every applied update and the
+snapshotter writes the model in the background.  Model files use the
+reference format (framework/save_load.py) with the JAX package's naming
+and user-data version, so a file saved by either package loads in the
+other; `save` publishes through tmp + fsync + rename + directory fsync
+under a flock on the file.
 """
 
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import threading
@@ -24,6 +30,8 @@ from typing import Dict, Optional
 import jubatus_tpu_torch
 from jubatus_tpu_torch.batching.arenas import ArenaPool
 from jubatus_tpu_torch.device import device_telemetry
+from jubatus_tpu_torch.durability import write_file_durably
+from jubatus_tpu_torch.durability.journal import check_writable
 from jubatus_tpu_torch.framework.dispatch import IngestPipeline
 from jubatus_tpu_torch.framework.save_load import load_model, save_model
 from jubatus_tpu_torch.models import create_driver
@@ -76,6 +84,15 @@ class ServerArgs:
     coordinator: str = ""
     interconnect_timeout: float = 10.0
     mix_quantize: bool = False
+    # durability: the journal directory (empty: off), its fsync policy
+    # (always|batch|off), segment rotation size, and the background
+    # snapshot period (0: no timer)
+    journal_dir: str = ""
+    journal_fsync: str = "batch"
+    journal_segment_bytes: int = 64 << 20
+    snapshot_interval_sec: float = 60.0
+    # the read lane's window (0: no lane)
+    read_batch_window_us: float = 0.0
 
 
 class JubatusServer:
@@ -90,8 +107,15 @@ class JubatusServer:
         # readers (classify, get_labels, save) share; updates and the
         # dispatch thread's fused steps are exclusive
         self.model_lock = RWLock()
-        # raw-train dispatcher (framework/service.setup_slot_pipelines)
+        # raw-train dispatcher and read lane
+        # (framework/service.setup_slot_pipelines)
         self.dispatcher = None
+        self.read_dispatch = None
+        # durability plane (init_durability); None while it is off
+        self.journal = None
+        self.snapshotter = None
+        self.recovery_info = None
+        self._recovered_round = 0
         self.update_count = 0
         self.start_time = time.time()
         # cluster: set by cli/server.py when --coordinator is given
@@ -130,6 +154,39 @@ class JubatusServer:
             return False
         return self.mixer.mix_now()
 
+    # -- durability plane ----------------------------------------------------
+
+    def init_durability(self):
+        """Bring the WAL root to layout v2, recover the model from it and
+        open the journal and the snapshotter.  Call BEFORE the server is
+        routable (replay mutates the driver with no lock held).  Returns
+        the RecoveryResult, or None when durability is off."""
+        if not self.args.journal_dir:
+            return None
+        from jubatus_tpu_torch.durability import init_durability
+        from jubatus_tpu_torch.tenancy.layout import prepare_root
+        prepare_root(self.args.journal_dir)
+        return init_durability(self)
+
+    def current_mix_round(self) -> int:
+        """The MIX round journal records and snapshots are labelled
+        with: the live mixer's round when it keeps one, else the round
+        recovery restored."""
+        r = getattr(self.mixer, "round", None)
+        return int(self._recovered_round if r is None else r)
+
+    def checkpoint_after_restore(self) -> None:
+        """A full-model overwrite (operator load, straggler catch-up, a
+        joiner's bootstrap) supersedes every earlier journal record:
+        snapshot NOW so a crash never replays them onto the restored
+        model.  It also lifts the truncation floor an errored replay
+        pinned and resumes the background snapshots.  Call with no model
+        lock held."""
+        if self.snapshotter is not None:
+            self.snapshotter.snapshot_now()
+            self.journal.truncate_floor = None
+            self.snapshotter.start()
+
     def get_config(self) -> str:
         return self.config_str
 
@@ -145,14 +202,16 @@ class JubatusServer:
         path = self._model_path(model_id)
         with self.model_lock.read():
             data = self.driver.pack()
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as fp:
-            save_model(fp, server_type=self.args.type, model_id=model_id,
-                       config=self.config_str,
-                       user_data_version=USER_DATA_VERSION, driver_data=data)
-            fp.flush()
-            os.fsync(fp.fileno())
-        os.replace(tmp, path)
+        # the flock keeps two concurrent saves of one id from interleaving
+        # in one tmp file (the reference locks the model file too); tmp +
+        # fsync + rename + directory fsync, or a host crash after the
+        # rename can surface a missing or torn file
+        with open(path + ".lock", "w") as lock_fp:
+            fcntl.flock(lock_fp, fcntl.LOCK_EX)
+            write_file_durably(path, lambda fp: save_model(
+                fp, server_type=self.args.type, model_id=model_id,
+                config=self.config_str, user_data_version=USER_DATA_VERSION,
+                driver_data=data))
         return {self.server_id: path}
 
     def load(self, model_id: str) -> bool:
@@ -165,21 +224,38 @@ class JubatusServer:
         with self.model_lock.write():
             self.driver.unpack(data)
             self.event_model_updated()
+        self.checkpoint_after_restore()
         return True
 
     def clear(self) -> bool:
+        journal = self.journal
+        check_writable(journal)    # refused before the model mutates
         with self.model_lock.write():
             self.driver.clear()
             self.event_model_updated()
+            if journal is not None:
+                journal.append({"k": "clear"}, self.current_mix_round())
+        if journal is not None:
+            journal.commit()
         return True
 
     def stop(self) -> None:
-        """Stop the mixer and the raw-train dispatcher's threads (queued
-        requests fail with "server stopping") and leave the cluster."""
+        """Stop the mixer, the snapshotter, the raw-train dispatcher's
+        and the read lane's threads (queued requests fail with "server
+        stopping"), close the journal (flush + fsync) and leave the
+        cluster.  The snapshotter stops before the dispatcher: a
+        snapshot flushes the dispatcher, which a stopped one never
+        answers."""
         if self.mixer is not None:
             self.mixer.stop()
+        if self.snapshotter is not None:
+            self.snapshotter.stop()
         if self.dispatcher is not None:
             self.dispatcher.stop()
+        if self.read_dispatch is not None:
+            self.read_dispatch.stop()
+        if self.journal is not None:
+            self.journal.close()
         if self.membership is not None:
             # closing the session withdraws our ephemeral registrations
             self.membership.close()
@@ -206,6 +282,13 @@ class JubatusServer:
             "batch_window_us": str(IngestPipeline.MAX_WAIT_S * 1e6),
             "ingest_depth": str(IngestPipeline.DEPTH),
             "arena_pool": str(ArenaPool.MAX_PER_SIZE),
+            # the read lane's window, 0 when there is no lane
+            "read_batch_window_us": str(
+                self.read_dispatch.window_s * 1e6
+                if self.read_dispatch is not None else 0),
+            # durability: the flag always; the journal's, snapshotter's
+            # and recovery's keys below when it is on
+            "journal_enabled": str(int(self.journal is not None)),
         }
         if self.dispatcher is not None:
             st["ingest_windows"] = str(self.dispatcher.windows)
@@ -223,6 +306,10 @@ class JubatusServer:
         # the MIX counters (mix_bytes_*_total, mix_compression_ratio,
         # retries and breakers) and the mixer's own status
         st.update(metrics.snapshot())
-        if self.mixer is not None:
-            st.update(self.mixer.get_status())
+        # after the registry: the journal reports journal_stalled as its
+        # stall REASON, which wins over the registry's 0/1 gauge
+        for plane in (self.journal, self.snapshotter, self.recovery_info,
+                      self.mixer):
+            if plane is not None:
+                st.update(plane.get_status())
         return {self.server_id: st}

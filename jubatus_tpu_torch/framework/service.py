@@ -7,25 +7,30 @@ method takes the cluster `name` as wire argument 0 (dropped server-side),
 and datum/result shapes follow the reference IDL.
 
 Locking follows the reference's JRLOCK_/JWLOCK_: read handlers hold the
-model read lock, update handlers first flush() the raw-train dispatcher
-(so every acked train lands before them) and then hold the write lock.
-Decoded handlers run on the RPC event loop.  Wire `train` frames take the
-raw route (raw_train): with an eligible converter config they go to the
-IngestPipeline (framework/dispatch.py) without being decoded in Python;
-otherwise they are decoded and trained like any update.  do_mix runs on
-the RPC server's call pool (threaded): it flushes the ingest pipeline,
-then the mixer fans get_diff and put_diff out to every member, this
-server included.  The journal, tenancy, quotas and the observability
-planes are later work.
+model read lock (or ride the read lane, one hold per fused sweep, with
+--read_batch_window_us), update handlers first flush() the raw-train
+dispatcher (so every acked train lands before them) and then hold the
+write lock.  With a journal (--journal) an update is refused while the
+journal is stalled, appended under the write lock after it applied, and
+committed after the lock, before the ack.  Decoded handlers run on the
+RPC event loop.  Wire `train` frames take the raw route (raw_train):
+with an eligible converter config they go to the IngestPipeline
+(framework/dispatch.py) without being decoded in Python; otherwise they
+are decoded and trained like any update.  do_mix runs on the RPC
+server's call pool (threaded): it flushes the ingest pipeline, then the
+mixer fans get_diff and put_diff out to every member, this server
+included.  Tenancy, quotas, the query cache and the
+observability planes are later work.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import msgpack
 
+from jubatus_tpu_torch.durability.journal import check_writable
 from jubatus_tpu_torch.fv import Datum
 
 
@@ -34,6 +39,10 @@ class Method:
     name: str
     fn: Callable[..., Any]        # fn(server, *wire_args) -> wire result
     update: bool = False          # write-locks + counts as a model update
+    # the read lane's entry: many(server, [wire_args, ...]) ->
+    # [wire_result, ...] runs N concurrent calls as ONE fused sweep
+    # (framework/dispatch.ReadDispatcher); None: the lane loops fn
+    many: Optional[Callable[..., Any]] = None
 
 
 class ServiceDef:
@@ -60,11 +69,16 @@ def _datum(obj) -> Datum:
 
 
 def setup_slot_pipelines(server) -> None:
-    """The raw-train dispatcher of the server's one model slot: the
-    IngestPipeline when the native converter covers the config (threaded
-    dispatch; the read-coalescing lane is later work).  Otherwise there is
-    none and train frames take the decoded route."""
-    from jubatus_tpu_torch.framework.dispatch import IngestPipeline
+    """The read lane and the raw-train dispatcher of the server's one
+    model slot.  The lane exists when --read_batch_window_us > 0.  The
+    dispatcher is the IngestPipeline when the native converter covers the
+    config; otherwise there is none and train frames take the decoded
+    route."""
+    from jubatus_tpu_torch.framework.dispatch import (IngestPipeline,
+                                                      ReadDispatcher)
+    window_us = server.args.read_batch_window_us
+    if window_us > 0 and server.read_dispatch is None:
+        server.read_dispatch = ReadDispatcher(server, window_us)
     sd = SERVICES.get(server.args.type)
     if (sd is not None and "train" in sd.methods
             and server.dispatcher is None
@@ -87,15 +101,30 @@ def bind_service(server, rpc_server) -> None:
     def wrap(m: Method):
         if m.update:
             def handler(_name, *args, _m=m):
-                # the tenant quota and journal write checks go here
+                # fail-stop gate: a stalled journal refuses the write
+                # before the model mutates; reads go on being served
+                check_writable(server.journal)
                 _flush()
+                journal = server.journal
                 with server.model_lock.write():
                     result = _m.fn(server, *args)
                     server.event_model_updated()
-                    # the journal record of the update goes here
+                    # after the apply (a failed update must not replay),
+                    # under the lock (a snapshot's position matches its
+                    # pack); durable before the ack, outside the lock
+                    if journal is not None:
+                        journal.append(
+                            {"k": "u", "m": _m.name, "a": list(args)},
+                            server.current_mix_round())
+                if journal is not None:
+                    journal.commit()
                 return result
         else:
             def handler(_name, *args, _m=m):
+                rd = server.read_dispatch
+                if rd is not None:
+                    # a Future: the RPC loop awaits the fused sweep
+                    return rd.submit(_m, args)
                 with server.model_lock.read():
                     return _m.fn(server, *args)
         return handler
@@ -116,6 +145,7 @@ def bind_service(server, rpc_server) -> None:
                                          strict_map_key=False,
                                          unicode_errors="surrogateescape")[3]
                 return _plain_train(*params)
+            check_writable(server.journal)
             # the frame goes straight to the pipeline's convert stage;
             # frames arrive in wire order and its queues are FIFO
             return server.dispatcher.submit(msg, params_off)
@@ -154,6 +184,22 @@ def bind_service(server, rpc_server) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the read lane's batched entries (Method.many): N concurrent wire calls as
+# the driver's one *_many sweep, encoded per call as Method.fn encodes one
+# ---------------------------------------------------------------------------
+
+def _classify_many(s, calls):
+    groups = [[_datum(d) for d in data] for (data,) in calls]
+    return [[[[lbl, sc] for lbl, sc in row] for row in rows]
+            for rows in s.driver.classify_many(groups)]
+
+
+def _estimate_many(s, calls):
+    return s.driver.estimate_many([[_datum(d) for d in data]
+                                   for (data,) in calls])
+
+
+# ---------------------------------------------------------------------------
 # classifier (server/classifier.idl)
 # ---------------------------------------------------------------------------
 
@@ -165,7 +211,8 @@ register_service(ServiceDef("classifier", [
     Method("classify",
            lambda s, data: [
                [[lbl, sc] for lbl, sc in row]
-               for row in s.driver.classify([_datum(d) for d in data])]),
+               for row in s.driver.classify([_datum(d) for d in data])],
+           many=_classify_many),
     Method("get_labels", lambda s: s.driver.get_labels()),
     Method("set_label", lambda s, lbl: s.driver.set_label(_to_str(lbl)),
            update=True),
@@ -184,5 +231,6 @@ register_service(ServiceDef("regression", [
                [(float(score), _datum(d)) for score, d in data]),
            update=True),
     Method("estimate",
-           lambda s, data: s.driver.estimate([_datum(d) for d in data])),
+           lambda s, data: s.driver.estimate([_datum(d) for d in data]),
+           many=_estimate_many),
 ]))

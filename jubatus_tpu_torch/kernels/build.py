@@ -16,7 +16,9 @@ numpy needs IEEE division.  The two scans are built with -ftz=true:
 float32 subnormal inputs read as zero and subnormal results flush to
 zero, as XLA computes the scans they replace; the quantizer keeps the
 default, so its wire bytes stay equal to the host codec's.  Nothing here
-runs at import time.
+runs at import time.  A kernel that cannot be built, loaded or launched
+raises KernelError (a RuntimeError), so a caller that must not carry on
+without its kernels (boot recovery) can tell it from a bad input.
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = os.path.join(cuda_home, "bin", "nvcc")
@@ -53,8 +59,8 @@ def nvcc_path() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH); the port's CUDA kernels cannot build")
+        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on "
+                          "PATH); the port's CUDA kernels cannot build")
     return found
 
 
@@ -112,7 +118,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
         out.with_suffix(".log").write_text(text)
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return times
 
 
@@ -122,7 +128,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build_all((name,))
-            lib = ctypes.CDLL(str(lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(lib_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load the {name} kernel: {e}") \
+                    from e
             _LIBS[name] = lib
         return lib
 
@@ -152,4 +162,4 @@ def load_variant(name: str, src, label: str,
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise KernelError(f"{what}: CUDA error {err}")

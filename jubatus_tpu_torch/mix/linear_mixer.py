@@ -25,11 +25,17 @@ the driver's device.  The diff itself goes card -> host (get_diff's
 gather), host -> card (the quantizer) and back: the wire bytes are the
 host codec's bit for bit.
 
-Not in the port yet: the tracer's spans and the metrics histograms, the
-journal record of an applied put_diff (its place is marked), the
-per-slot (tenancy) routing of frames, and the in-mesh fold of a
-data-parallel driver (_device_fold): the port's server has no
-device_mix, so a round has no in-mesh replicas to reconcile.
+With a journal (--journal) an applied put_diff is journaled as a `diff`
+record under the same write lock as the fold and committed after it;
+recovery replays it through the same round-id guard.  A straggler's
+catch-up and a joiner's bootstrap replace the model, so each snapshots
+at once (checkpoint_after_restore): no earlier record replays onto the
+adopted model.
+
+Not in the port yet: the tracer's spans, the per-slot (tenancy) routing
+of frames, and the in-mesh fold of a data-parallel driver
+(_device_fold): the port's server has no device_mix, so a round has no
+in-mesh replicas to reconcile.
 """
 
 from __future__ import annotations
@@ -304,6 +310,8 @@ class LinearMixer(TriggeredMixer):
             return False
         rnd = obj.get("round")
         behind_from = None
+        journal = self.server.journal
+        journaled = False
         with self.server.model_lock.write():
             # the round check, the fold and the round advance form ONE
             # critical section: concurrent duplicate deliveries of a
@@ -320,10 +328,12 @@ class LinearMixer(TriggeredMixer):
                 else:
                     fresh = self.server.driver.put_diff(obj["diff"])
                     self.round = rnd
-                    # the journal record of the applied diff goes here
+                    journaled = self._journal_diff(journal, packed)
             else:
                 fresh = self.server.driver.put_diff(obj["diff"])
-                # the journal record of the applied diff goes here
+                journaled = self._journal_diff(journal, packed)
+        if journaled:
+            journal.commit()
         self.last_legs.update(put_diff_decode=t1 - t0,
                               put_diff_apply=time.monotonic() - t1)
         if behind_from:
@@ -335,6 +345,15 @@ class LinearMixer(TriggeredMixer):
         # obsolete, back once a diff lands
         self._update_active(bool(fresh))
         return bool(fresh)
+
+    def _journal_diff(self, journal, packed) -> bool:
+        """Journal an APPLIED scatter inside put_diff's critical section.
+        Replay re-folds it through the same round-id guard, so a diff is
+        never folded twice across a crash (durability/recovery.py)."""
+        if journal is None:
+            return False
+        journal.append({"k": "diff", "p": packed}, self.round)
+        return True
 
     def _mark_behind(self, host: str, port: int) -> None:
         self._behind = (host, port)
@@ -371,6 +390,7 @@ class LinearMixer(TriggeredMixer):
                 self.round = max(self.round, int(peer_round))
         if self._behind_gen == gen:
             self._behind = None
+        anchor_durability(self.server)
         self._reset_trigger()
         self._update_active(True)
         log.warning("missed mix round(s): re-bootstrapped from master "
@@ -654,7 +674,8 @@ def bootstrap_from_peer(server, host: str, port: int,
     """Fresh-joiner model transfer: get_model from a live peer, and its
     mix round adopted under the same lock as the unpack (never moving
     back), so a scatter folded meanwhile does not make the joiner look
-    like a straggler."""
+    like a straggler.  Then a snapshot anchors durability on the adopted
+    model."""
     out = _fetch_model(host, port, timeout=timeout)
     mixer = getattr(server, "mixer", None)
     peer_round = out.get("round")
@@ -663,4 +684,15 @@ def bootstrap_from_peer(server, host: str, port: int,
         if mixer is not None and peer_round is not None \
                 and hasattr(mixer, "round"):
             mixer.round = max(mixer.round, int(peer_round))
+    anchor_durability(server)
     return True
+
+
+def anchor_durability(server) -> None:
+    """Anchor durability on an adopted model (a joiner's bootstrap, a
+    straggler's catch-up): snapshot now, so a crash never replays earlier
+    journal records onto it (no-op without a journal)."""
+    try:
+        server.checkpoint_after_restore()
+    except Exception:  # noqa: BLE001 - the next snapshot retries
+        log.warning("snapshot after adopting a model failed", exc_info=True)

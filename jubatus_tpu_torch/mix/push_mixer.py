@@ -14,6 +14,10 @@ Strategies:
   random    — one uniformly random peer per round
   broadcast — every peer each round
   skip      — peers at stride n/2, n/4, ... from self in the sorted ring
+
+With a journal an acked push fold is journaled as a `diff` record.  The
+JAX package also journals the pulled peer delta of its own gossip round;
+the port does not yet (ROADMAP Queue 1 item 3.2).
 """
 
 from __future__ import annotations
@@ -112,9 +116,18 @@ class PushMixer(TriggeredMixer):
         obj = codec.decode(packed, self._device)
         if obj.get("protocol_version") != self.wire_version:
             return False
+        journal = self.server.journal
         with self.server.model_lock.write():
             self.server.driver.put_diff(obj["diff"])
-            # the journal record of the applied push goes here
+            if journal is not None:
+                # an acked push fold must survive a crash: the pusher's
+                # diff base is already consumed, so nothing re-delivers
+                # it.  No round id on this tier; exactly-once across the
+                # crash comes from the snapshot's covered position alone
+                journal.append({"k": "diff", "p": packed},
+                               self.server.current_mix_round())
+        if journal is not None:
+            journal.commit()
         self._reset_trigger()
         return True
 

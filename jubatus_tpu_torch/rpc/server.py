@@ -16,15 +16,17 @@ mode runs them on its executor.  A handler that makes peer RPCs (do_mix
 fans get_diff and put_diff out to every member, this server included)
 must be threaded: on the loop it would wait forever on its own
 self-call.  The mixer's peer handlers are threaded too, so a round's
-decode and fold never stall the loop.  Raw handlers (add_raw) run on a
-pool of worker threads: once
-a server registers one, every connection is framed by the native
-FrameSplitter (native/_fastconv.c), which scans each stream byte once,
-and a request whose method has a raw handler is handed over as its
-undecoded bytes.  A raw train handler returns a concurrent Future, and
-its ack waits for it: the ack proves the request's device step was
-dispatched (the dispatch thread of framework/dispatch.py issues it, not
-this loop).  Acks keep wire order per connection, and a decoded request
+decode and fold never stall the loop.  A decoded handler may also return
+a concurrent Future (a read queued on the read lane,
+framework/dispatch.py): the loop awaits it without blocking, so reads of
+other connections arrive meanwhile and share the lane's sweep.  Raw
+handlers (add_raw) run on a pool of worker threads: once a server
+registers one, every connection is framed by the native FrameSplitter
+(native/_fastconv.c), which scans each stream byte once, and a request
+whose method has a raw handler is handed over as its undecoded bytes.
+A raw train handler returns a concurrent Future, and its ack waits for
+it: the ack proves the request's device step was dispatched (the
+dispatch thread of framework/dispatch.py issues it, not this loop).  Acks keep wire order per connection, and a decoded request
 first waits for the acks of the raw requests before it, so a classify
 pipelined after trains sees all of them.  Handlers that share model state
 across these threads take the server's model lock (framework/service.py).
@@ -238,6 +240,8 @@ class RpcServer:
                     self._call_pool, lambda: fn(*params))
             else:
                 result = fn(*params)
+            if isinstance(result, Future):
+                result = await asyncio.wrap_future(result)
         except Exception as e:  # noqa: BLE001 - relayed to the client
             log.warning("error in %s: %s", method, e, exc_info=True)
             await self._reply(writer, msgid, str(e), None)

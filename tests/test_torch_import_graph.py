@@ -48,6 +48,16 @@ def test_every_module_imports_without_jax():
     assert r.stdout.strip() == "[]"
 
 
+def test_the_checks_cover_every_plane_of_the_port():
+    """The module walk and the per-source check above include the
+    durability plane, the root layout and the read lane."""
+    names = {str(p.relative_to(PKG)) for p in SOURCES if PKG in p.parents}
+    assert {"durability/__init__.py", "durability/fsio.py",
+            "durability/journal.py", "durability/snapshotter.py",
+            "durability/recovery.py", "tenancy/layout.py",
+            "batching/coalescer.py"} <= names
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
     p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):

@@ -126,10 +126,37 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the lane, read_batch_size mean/max, and the driver's
                 classify_many / estimate_many alone on the card at B 1,
                 16, 64 (CUDA events)
- 10. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 9; counters are zeroed just before each path, and a
-                server process's start at 0 with its process), then the
-                result line {"ok": true, "device": {...}} last.
+ 10. nearest_neighbor — (a) the LSH kernels of csrc/lsh.cu against their
+                plain versions: the PRNG's fold_in keys, bits and uniforms
+                of the plain version bitwise between the card and the CPU;
+                lsh_signature and minhash_signature at B 1024, K 16, H 64
+                and 512, equal but for bits or slots in the rounding band
+                (none outside it); sig_sweep over 10^6 rows (lsh H 64,
+                euclid_lsh H 512, minhash H 64 — a 256 MB table) with 1
+                and 64 queries and by stored row, keys bitwise for lsh and
+                minhash, euclid_lsh scores within rtol/atol 1e-6; each
+                timed beside its plain version and its bound, the sweep
+                beside torch.topk over [R] scores.  (b) The service: a
+                10^6-row lsh table (bench.py's converter, hash_num 64)
+                built here through set_row_many, 1024 rows a call, saved in
+                the port's model-file format and loaded by two port servers
+                (--type nearest_neighbor, one with --read_batch_window_us
+                200); 1024 set_row and 256 calls of each of the four reads
+                at size 10 over the wire, each bitwise the in-process
+                driver's; 32 client threads of one-datum reads on each,
+                every lane answer bitwise the read sent alone and the lane
+                fusing; similar_row_from_datum_many at B 1/16/64.  (c) MIX
+                and recovery, for lsh and for minhash at once: per method
+                the port's coordinator's cluster of two journaled servers,
+                4096 set_row each, do_mix, both tables bitwise the union
+                applied in the master's order, a second do_mix changing
+                nothing, server 1 SIGKILLed and recovered bitwise through
+                its signature kernel.  Lines `nn_service` and `nn_cluster`
+ 11. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 10; counters are zeroed just before each path, and a
+                server process's start at 0 with its process; each kernel
+                must have launched), then the result line {"ok": true,
+                "device": {...}} last.
 
 It exits non-zero and prints no result line when CUDA is unavailable or
 when the port's package is not beside this script.
@@ -175,11 +202,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # keys a kernel row carries beyond the contract's: the scan's per-datum
 # time, ring depth and shared-column stream; the quantizer pair's device
 # and call times, the library's by both methods, and the whole-table shape;
-# the regression scan's plan (T, S, P) and cycles a datum by stage
+# the regression scan's plan (T, S, P) and cycles a datum by stage; the
+# LSH kernels' other shapes
 EXTRA_KEYS = ("us_per_datum", "ring", "shared_column_ms", "device_ms",
               "device_method", "call_ms", "plain_call_ms",
               "library_device_ms", "library_device_method", "library_call_ms",
-              "whole_table", "plan", "cycles_per_datum")
+              "whole_table", "plan", "cycles_per_datum", "bytes_bound_ms",
+              "in_band", "variants")
 
 
 def log(*a):
@@ -2276,6 +2305,785 @@ def phase_read_lane(torch, np, card, service, device="cuda"):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 10. nearest_neighbor: the LSH kernels, the service at 10^6 rows, MIX and
+# recovery
+# ---------------------------------------------------------------------------
+
+# bench.py's nearest_neighbor converter (bench.py:1004-1007) with lsh at
+# hash_num 64 (bench.py:981)
+NN_CONFIG = {
+    "method": "lsh", "parameter": {"hash_num": 64},
+    "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                  "hash_max_size": 4096},
+}
+NN_ROWS = 10 ** 6          # rows of the service's table (bench.py:1199)
+NN_BATCH = 1024            # rows a set_row_many call while building it
+NN_KEYS = 1024             # feature names a datum draws from
+NN_NNZ = 16                # features a datum
+NN_NEW = 1024              # set_row calls over the wire
+NN_READS = 256             # calls of each read method over the wire
+NN_SIZE = 10               # their result size
+NN_CLUSTER_ROWS = 4096     # set_row calls to each cluster server
+NN_SWEEP_ROWS = 10 ** 6    # rows of the sweep kernel's tables
+NN_SIG_B = 1024            # datums of the signature kernels' batches
+NN_BAND = 1e-6             # rounding band of a signature bit or slot
+NN_RTOL = NN_ATOL = 1e-6   # euclid_lsh scores
+F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# float32 operations of one (feature, hash) draw of K1 (the uniform's 3,
+# the erf_inv's log1p, compare, select and sqrt-or-subtract 5, its 8
+# fused multiply-adds 16, its product and the sqrt(2) 2, the projection's
+# multiply and add 2) and of K2 (uniform 3, log, negate, max, divide,
+# compare 5); the threefry's integer operations are not counted
+K1_F32_OPS = 28
+K2_F32_OPS = 8
+
+
+def nn_datums(np, rng, n):
+    """n datums as (names, values) lists: NN_NNZ distinct features of
+    NN_KEYS names (an odd stride from a random start), standard normal
+    values."""
+    start = rng.integers(0, NN_KEYS, n)[:, None]
+    stride = (2 * rng.integers(0, NN_KEYS // 2, n) + 1)[:, None]
+    keys = (start + stride * np.arange(NN_NNZ)[None, :]) % NN_KEYS
+    vals = rng.standard_normal((n, NN_NNZ))
+    names = [f"f{k}" for k in range(NN_KEYS)]
+    return [([names[k] for k in ks], vs)
+            for ks, vs in zip(keys.tolist(), vals.tolist())]
+
+
+def nn_wire(d):
+    return [[], [[k, v] for k, v in zip(*d)], []]
+
+
+def nn_datum(Datum, d):
+    return Datum([], list(zip(*d)))
+
+
+def nn_times(torch, fn, device, calls):
+    """(ms, method, call_ms) of one wrapper call: the card's time alone
+    (time_device: `calls` calls in a CUDA graph) where it captures, else
+    the call time; call_ms is CUDA events around eager calls, the host's
+    pace where that is the slower.  None on the CPU."""
+    if device != "cuda":
+        return None, None, None
+    call_ms = time_cuda(torch, fn, 50)
+    dev_ms, method = time_device(torch, fn, calls)
+    return (call_ms if dev_ms is None else dev_ms), method, call_ms
+
+
+def nn_sig_batch(torch, np, dev, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 4096, (NN_SIG_B, NN_NNZ)).astype(np.int32)
+    val = rng.standard_normal((NN_SIG_B, NN_NNZ)).astype(np.float32)
+    idx[0], val[0] = 0, 0.0                    # an empty datum
+    val[1, NN_NNZ // 2:] = 0.0                 # a half-padded one
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev))
+
+
+def nn_bits(torch, sig, h):
+    """[B, W] int32 signature words -> [B, h] bool."""
+    w = sig.to(torch.int64) & 0xFFFFFFFF
+    sh = torch.arange(32, device=sig.device)
+    return ((w[..., None] >> sh) & 1).reshape(sig.shape[0], -1)[:, :h] > 0
+
+
+def phase_nn_kernels(torch, np, device="cuda"):
+    """Phase 10a: the LSH kernels against their plain versions on the
+    card.  The PRNG (fold_in keys, bits, both uniforms) of the plain
+    version on the card bitwise its CPU run; K1 and K2 at B 1024, K 16, H
+    64 and 512, their signatures equal to the plain versions' but for
+    bits or slots in the rounding band (counted; none outside); K3 at
+    10^6 rows for lsh H 64, euclid_lsh H 512 and minhash H 64, with 1
+    and 64 queries and by stored row: keys bitwise for lsh and minhash,
+    euclid_lsh scores within rtol/atol 1e-6.  Each timed by CUDA events
+    beside its plain version, its bound and, for the sweep, torch.topk
+    over [R] float32 scores (the selection's yardstick).  Returns the
+    kernels' rows."""
+    from jubatus_tpu_torch.ops import lsh as L
+
+    dev = torch.device(device)
+    key = L.prng_key(0x1EAF)
+    ids = torch.arange(0, 1 << 16, 7, dtype=torch.int32)
+    for h in (64, 512):
+        kc, kd = L.fold_in(key, ids), L.fold_in(key, ids.to(dev))
+        bc, bd = L.random_bits(*kc, h), L.random_bits(*kd, h)
+        if not (torch.equal(kc[0], kd[0].cpu()) and
+                torch.equal(kc[1], kd[1].cpu()) and
+                torch.equal(bc, bd.cpu())):
+            raise AssertionError("nn: fold_in keys or bits differ between "
+                                 "the card and the CPU")
+        for lo in (L._MINHASH_LO, L._NORMAL_LO):
+            uc = L.uniform_from_bits(bc, lo, 1.0)
+            ud = L.uniform_from_bits(bd, lo, 1.0)
+            if not torch.equal(uc.view(torch.int32),
+                               ud.cpu().view(torch.int32)):
+                raise AssertionError("nn: uniforms differ between the card "
+                                     "and the CPU")
+    rows = {}
+    variants = {"lsh_signature": [], "minhash_signature": []}
+    for h in (64, 512):
+        idx, val = nn_sig_batch(torch, np, dev, h)
+        nz = int((val != 0).sum())
+        f1, f2 = L.fold_in(key, idx)
+        draws = L.random_bits(f1, f2, h)            # [B, K, H]
+        # K1: flips only where |proj| <= band * sum |v n|
+        got = L.lsh_signature(key, idx, val, h)
+        ref = L.lsh_signature_ref(key, idx, val, h)
+        terms = val.double()[..., None] * L.normal_from_bits(draws).double()
+        proj, scale = terms.sum(1), terms.abs().sum(1)
+        flip = nn_bits(torch, got, h) != nn_bits(torch, ref, h)
+        band = proj.abs() <= NN_BAND * scale
+        if bool((flip & ~band).any()):
+            raise AssertionError(f"nn: lsh_signature H {h}: "
+                                 f"{int((flip & ~band).sum())} bits differ "
+                                 "from the plain version outside the band")
+        del terms
+        # K2: slot changes only where the two smallest e are that close
+        gotm = L.minhash_signature(key, idx, val, h)
+        refm = L.minhash_signature_ref(key, idx, val, h)
+        u = L.uniform_from_bits(draws, L._MINHASH_LO, 1.0).double()
+        w = val.double().abs()[..., None]
+        e = torch.where(w > 0, -torch.log(u) / w.clamp_min(1e-12),
+                        torch.inf).sort(1).values
+        near = (e[:, 1] - e[:, 0]).nan_to_num(0.0) <= NN_BAND * e[:, 0].abs()
+        moved = gotm != refm
+        if bool((moved & ~near).any()):
+            raise AssertionError(f"nn: minhash_signature H {h}: "
+                                 f"{int((moved & ~near).sum())} slots differ "
+                                 "from the plain version outside the band")
+        del draws, u, e
+        # max_abs_err over the outputs' values: K1's bits, K2's slots
+        # (feature indices); 0.0 where they equal the plain version's
+        errs = {"lsh_signature": float(flip.any()),
+                "minhash_signature": float(
+                    (gotm.to(torch.int64) - refm.to(torch.int64)).abs()
+                    .max()) if bool(moved.any()) else 0.0}
+        for name, fn, refn, out, bad, ops in (
+                ("lsh_signature", L.lsh_signature, L.lsh_signature_ref, got,
+                 flip, K1_F32_OPS),
+                ("minhash_signature", L.minhash_signature,
+                 L.minhash_signature_ref, gotm, moved, K2_F32_OPS)):
+            ms, method, call_ms = nn_times(
+                torch, lambda: fn(key, idx, val, h), device, 50)
+            plain_ms = time_cuda(torch, lambda: refn(key, idx, val, h), 3) \
+                if device == "cuda" else None
+            nbytes = idx.numel() * 8 + out.numel() * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nz * h * ops / F32_OPS_PER_S * 1e3
+            # bits (K1) or slots (K2) that differ from the plain
+            # version's, all inside the rounding band (checked above)
+            variants[name].append({
+                "shape": [NN_SIG_B, NN_NNZ, h], "ms": ms,
+                "device_method": method, "call_ms": call_ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bytes_bound_ms": t_bytes, "in_band": int(bad.sum()),
+                "max_abs_err": errs[name]})
+    for name, v in variants.items():
+        main = v[0]                       # H 64: the service's table
+        rows[name] = {**{k: main[k] for k in (
+            "ms", "device_method", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "bytes_bound_ms", "shape", "in_band",
+            "max_abs_err")}, "library_ms": None, "variants": v}
+        log(f"nn kernels: {name}: " + "; ".join(
+            f"H {x['shape'][2]}: {x['ms']} ms (call {x['call_ms']}, plain "
+            f"{x['plain_ms']}, bound "
+            f"{x['bound_ms']:.4g} by {x['bound_by']}), {x['in_band']} in "
+            "the band" for x in v))
+
+    sweeps = []
+    for kind, h in (("lsh", 64), ("euclid_lsh", 512), ("minhash", 64)):
+        rng = np.random.default_rng(h + len(kind))
+        r, w = NN_SWEEP_ROWS, L.sig_width(kind, h)
+        if kind == "minhash":
+            tab = torch.from_numpy(rng.integers(0, 8, (r, w), dtype=np.int32))
+        else:
+            tab = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (r, w),
+                                                dtype=np.int64).astype(
+                                                    np.int32))
+        tab = tab.to(dev)
+        norms = torch.from_numpy((rng.random(r) * 4).astype(np.float32)).to(
+            dev)
+        for nq in (1, 64):
+            q_rows = torch.from_numpy(rng.integers(0, r, nq)).to(dev)
+            qs, qn = tab[q_rows].contiguous(), norms[q_rows].contiguous()
+            valid = r - 3
+            got = L.sig_sweep(kind, tab, norms, valid, q_sigs=qs, qnorms=qn,
+                              hash_num=h)
+            by_row = L.sig_sweep(kind, tab, norms, valid, q_rows=q_rows,
+                                 hash_num=h)
+            ref = L.sig_sweep_ref(kind, tab, norms, valid, qs, qn, h)
+            same = float((got == ref).double().mean())
+            gr, gs = L.keys_to_rows_scores(got)
+            rr, rs = L.keys_to_rows_scores(ref)
+            fin = torch.isfinite(rs)
+            err = float((gs - rs)[fin].abs().max())
+            if kind != "euclid_lsh":
+                if not (torch.equal(got, ref) and torch.equal(by_row, ref)):
+                    raise AssertionError(f"nn: sig_sweep {kind} Nq {nq}: "
+                                         "keys differ from the plain "
+                                         "version's")
+            elif not (torch.equal(fin, torch.isfinite(gs)) and bool(
+                    ((gs - rs)[fin].abs() <= NN_ATOL + NN_RTOL
+                     * rs[fin].abs()).all()) and torch.equal(got, by_row)):
+                raise AssertionError(f"nn: sig_sweep euclid_lsh Nq {nq}: "
+                                     "scores beyond the tolerance")
+            del ref, gr, gs, rr, rs
+            # one query: the card's time alone (a CUDA graph) beside the
+            # call's; 64 queries write 512 MB of keys a call, so the call
+            # time is the card's there
+            def sweep():
+                return L.sig_sweep(kind, tab, norms, valid, q_sigs=qs,
+                                   qnorms=qn, hash_num=h)
+
+            if nq == 1:
+                ms, method, call_ms = nn_times(torch, sweep, device, 20)
+            else:
+                ms = time_cuda(torch, sweep, 20) if device == "cuda" else None
+                method, call_ms = "call", None
+            row_ms = time_cuda(torch, lambda: L.sig_sweep(
+                kind, tab, norms, valid, q_rows=q_rows, hash_num=h), 20) \
+                if device == "cuda" else None
+            plain_ms = time_cuda(torch, lambda: L.sig_sweep_ref(
+                kind, tab, norms, valid, qs, qn, h), 2) \
+                if device == "cuda" and nq == 1 else None
+            # numpy's draws: an earlier phase's failed graph capture can
+            # leave torch's CUDA generator unusable
+            scores = torch.from_numpy(rng.random(r, dtype=np.float32)).to(
+                dev)
+            lib_ms = nn_times(torch, lambda: torch.topk(scores, 16), device,
+                              20)[0] if nq == 1 else None
+            nbytes = sweep_bytes(kind, r, w, valid, nq)
+            sweeps.append({
+                "kind": kind, "hash_num": h, "route": "signature",
+                "shape": [r, w, nq], "valid_rows": valid, "ms": ms,
+                "device_method": method, "call_ms": call_ms,
+                "by_row_ms": row_ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "library_ms": lib_ms,
+                "keys_equal": same, "max_abs_err": err})
+            del got, by_row
+        del tab, norms
+    rows["sig_sweep_variants"] = sweeps
+    log("nn kernels: sig_sweep: " + "; ".join(
+        f"{x['kind']} H {x['hash_num']} Nq {x['shape'][2]}: {x['ms']} ms "
+        f"({x['device_method']}; call {x['call_ms']}, by row {x['by_row_ms']}, plain {x['plain_ms']}, bound "
+        f"{x['bound_ms']:.4g}, topk {x['library_ms']}), keys equal "
+        f"{x['keys_equal']:.6f}" for x in sweeps))
+    return rows
+
+
+def sweep_bytes(kind, r, w, n_valid, nq):
+    """The bytes K3 must move: the valid rows' signatures (and norms, for
+    euclid_lsh only: the other kinds never read them) once, the queries
+    once and one int64 key per (query, row) once."""
+    norms = n_valid * 4 if kind == "euclid_lsh" else 0
+    return n_valid * w * 4 + norms + nq * (w * 4 + 4) + nq * r * 8
+
+
+def nn_served_sweep(torch, np, drv, datum, row_id, device="cuda"):
+    """K3 on a driver's own table at a read's query: one datum signed as
+    similar_row_from_datum signs it, and one stored row (the _from_id
+    routes), keys bitwise the plain version's (the service's lsh table),
+    each timed beside its plain version, its bound and torch.topk over
+    [R] float32 scores."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.ops import lsh as L
+
+    kind, h = drv.method, drv.hash_num
+    table, norms, n = drv.sig, drv.norms, drv.pages.n_rows
+    r, w = table.shape
+    dev = table.device
+    batch = drv.converter.convert_batch([nn_datum(Datum, datum)],
+                                        update_weights=False)
+    q_sig = L.signature(drv.key, L._host(batch.indices, np.int32, dev),
+                        L._host(batch.values, np.float32, dev), h, kind)
+    q_norm = L._host(np.sqrt((batch.values * batch.values).sum(axis=1)),
+                     np.float32, dev)
+    q_row = torch.tensor([drv.ids[row_id]], dtype=torch.int64, device=dev)
+    rng = np.random.default_rng(r)
+    scores = torch.from_numpy(rng.random(r, dtype=np.float32)).to(dev)
+    lib_ms = nn_times(torch, lambda: torch.topk(scores, 16), device, 20)[0]
+    out = []
+    for route, kw, qs, qn in (
+            ("datum", {"q_sigs": q_sig, "qnorms": q_norm}, q_sig, q_norm),
+            ("row", {"q_rows": q_row}, table[q_row], norms[q_row])):
+        def sweep(kw=kw):
+            return L.sig_sweep(kind, table, norms, n, hash_num=h, **kw)
+
+        got = sweep()
+        ref = L.sig_sweep_ref(kind, table, norms, n, qs, qn, h)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"nn: sig_sweep on the served table "
+                                 f"({route} query): keys differ from the "
+                                 "plain version's")
+        del got, ref
+        ms, method, call_ms = nn_times(torch, sweep, device, 20)
+        plain_ms = time_cuda(torch, lambda: L.sig_sweep_ref(
+            kind, table, norms, n, qs, qn, h), 2) \
+            if device == "cuda" else None
+        t_bytes = sweep_bytes(kind, r, w, n, 1) / HBM_BYTES_PER_S * 1e3
+        out.append({
+            "kind": kind, "hash_num": h, "route": route, "shape": [r, w, 1],
+            "valid_rows": n, "ms": ms, "device_method": method,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
+            "bound_by": "bytes", "bytes_bound_ms": t_bytes,
+            "library_ms": lib_ms, "keys_equal": 1.0, "max_abs_err": 0.0})
+    log("nn kernels: sig_sweep on the served table: " + "; ".join(
+        f"{x['route']} query at {x['shape']} ({x['valid_rows']} valid): "
+        f"{x['ms']} ms ({x['device_method']}; call {x['call_ms']}, plain "
+        f"{x['plain_ms']}, bound {x['bound_ms']:.4g}, topk "
+        f"{x['library_ms']}), keys bitwise" for x in out))
+    return out
+
+
+def pct(np, xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def phase_nn_service(torch, np, card, device="cuda"):
+    """Phase 10b: the service at full size.  A 10^6-row lsh table built in
+    this process through set_row_many, NN_BATCH rows a call, saved in the
+    port's model-file format and loaded over the wire by two port servers
+    (--type nearest_neighbor), one with --read_batch_window_us 200.  The
+    plain one takes NN_NEW set_row calls of new ids and NN_READS calls of
+    each of the four reads at size NN_SIZE, every answer bitwise the
+    in-process driver's; then LANE_THREADS client threads of one-datum
+    similar_row_from_datum reads go to each server, every lane answer
+    bitwise the read sent alone and the lane fusing (read_batch_size
+    mean > 1); then similar_row_from_datum_many alone at B 1, 16 and 64
+    (CUDA events); last, K3 against its plain version on a copy of the
+    servers' table (the file's rows loaded, the new rows set: the
+    servers' layout and slot count) at a datum and a by-row query.
+    Returns the launches of this path, the build's and the server
+    processes', and that check's sig_sweep rows."""
+    import threading
+
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.framework.save_load import save_model
+    from jubatus_tpu_torch.framework.server_base import (USER_DATA_VERSION,
+                                                         kernel_launches,
+                                                         reset_kernel_launches)
+    from jubatus_tpu_torch.models import create_driver
+
+    rng = np.random.default_rng(12)
+    drv = create_driver("nearest_neighbor", NN_CONFIG, device=device)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    for start in range(0, NN_ROWS, NN_BATCH):
+        n = min(NN_BATCH, NN_ROWS - start)
+        drv.set_row_many([(f"r{start + i}", nn_datum(Datum, d))
+                          for i, d in enumerate(nn_datums(np, rng, n))])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = kernel_launches()
+    t0 = time.perf_counter()
+    pack = drv.pack()
+    pack_s = time.perf_counter() - t0
+    cfg_s = json.dumps(NN_CONFIG)
+    fresh = nn_datums(np, rng, NN_NEW + NN_READS * 2)
+    new_rows = fresh[:NN_NEW]
+    queries = fresh[NN_NEW:]
+    ids = [f"r{i}" for i in rng.integers(0, NN_ROWS, NN_READS * 2)]
+    n_lane = LANE_THREADS * LANE_CALLS
+    lane_q = [nn_wire(d) for d in nn_datums(np, rng, n_lane)]
+    lat = {}
+    children = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "nn.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg_s)
+        try:
+            started = {
+                "plain": start_server("nearest_neighbor", cfg_path, tmp,
+                                      device=device),
+                "lane": start_server("nearest_neighbor", cfg_path, tmp,
+                                     "--read_batch_window_us",
+                                     str(LANE_WINDOW_US), device=device)}
+            children += [c for c, _ in started.values()]
+            ports = {k: server_ready(*v)[0] for k, v in started.items()}
+            t0 = time.perf_counter()
+            for k, port in ports.items():
+                path = os.path.join(
+                    tmp, f"127.0.0.1_{port}_jubatus_nearest_neighbor__nn"
+                    ".jubatus")
+                with open(path, "wb") as f:
+                    save_model(f, server_type="nearest_neighbor",
+                               model_id="nn", config=cfg_s,
+                               user_data_version=USER_DATA_VERSION,
+                               driver_data=pack)
+            save_s = time.perf_counter() - t0
+            load_ms = {}
+            for k, port in ports.items():
+                cli = WireClient(port)
+                t0 = time.perf_counter()
+                if cli.call("load", "nn") is not True:
+                    raise AssertionError(f"nn: the {k} server did not load")
+                load_ms[k] = (time.perf_counter() - t0) * 1e3
+                cli.close()
+            cli = WireClient(ports["plain"])
+            t_set = []
+            for i, d in enumerate(new_rows):
+                t0 = time.perf_counter()
+                if cli.call("set_row", f"n{i}", nn_wire(d)) is not True:
+                    raise AssertionError("nn: a set_row was not acknowledged")
+                t_set.append((time.perf_counter() - t0) * 1e3)
+            for i, d in enumerate(new_rows):
+                drv.set_row(f"n{i}", nn_datum(Datum, d))
+            answers = {}
+            for method in ("similar_row_from_datum", "neighbor_row_from_datum",
+                           "similar_row_from_id", "neighbor_row_from_id"):
+                args = ([nn_wire(q) for q in queries[:NN_READS]]
+                        if method.endswith("datum") else ids[:NN_READS])
+                if method.startswith("neighbor"):
+                    args = ([nn_wire(q) for q in queries[NN_READS:]]
+                            if method.endswith("datum") else ids[NN_READS:])
+                lat[method], answers[method] = [], []
+                for a in args:
+                    t0 = time.perf_counter()
+                    answers[method].append(cli.call(method, a, NN_SIZE))
+                    lat[method].append((time.perf_counter() - t0) * 1e3)
+                for a, got in zip(args, answers[method]):
+                    x = (Datum.from_msgpack(a) if method.endswith("datum")
+                         else a)
+                    want = [[i, s] for i, s in getattr(drv, method)(
+                        x, NN_SIZE)]
+                    if got != want:
+                        raise AssertionError(f"nn: {method} over the wire "
+                                             "differs from the in-process "
+                                             "driver")
+            st_plain = status_of(cli)
+            cli.close()
+            if int(st_plain["num_rows"]) != NN_ROWS + NN_NEW:
+                raise AssertionError(f"nn: the server holds "
+                                     f"{st_plain['num_rows']} rows")
+            lane = {}
+            for k in ("lane", "plain"):
+                la, ans = [0.0] * n_lane, [None] * n_lane
+
+                def reads(idx, k=k, la=la, ans=ans):
+                    c = WireClient(ports[k])
+                    try:
+                        for i in idx:
+                            t0 = time.perf_counter()
+                            ans[i] = c.call("similar_row_from_datum",
+                                            lane_q[i], NN_SIZE)
+                            la[i] = (time.perf_counter() - t0) * 1e3
+                    finally:
+                        c.close()
+
+                threads = [threading.Thread(
+                    target=reads, args=(range(t, n_lane, LANE_THREADS),))
+                    for t in range(LANE_THREADS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                if any(t.is_alive() for t in threads) or None in ans:
+                    raise AssertionError("nn: a read-lane client thread did "
+                                         "not finish")
+                lane[k] = (la, ans)
+            cli = WireClient(ports["lane"])
+            lane_st = status_of(cli)
+            alone = [cli.call("similar_row_from_datum", q, NN_SIZE)
+                     for q in lane_q]
+            cli.close()
+            served_launches = {}
+            for port in ports.values():
+                cli = WireClient(port)
+                for kern, c in launches_of(status_of(cli)).items():
+                    served_launches[kern] = served_launches.get(kern, 0) + c
+                cli.close()
+        finally:
+            for ch in children:
+                ch.stop()
+    if lane["lane"][1] != alone:
+        bad = sum(a != b for a, b in zip(lane["lane"][1], alone))
+        raise AssertionError(f"nn: {bad} of {n_lane} lane answers differ "
+                             "from the read sent alone")
+    mean = float(lane_st["read_batch_size_mean"])
+    if not mean > 1.0:
+        raise AssertionError(f"nn: read_batch_size mean {mean}: the lane "
+                             "fused no reads")
+    # the table the servers sweep: loading sizes the store to the file,
+    # the new rows then double its pages
+    served = create_driver("nearest_neighbor", NN_CONFIG, device=device)
+    served.unpack(pack)
+    served.set_row_many([(f"n{i}", nn_datum(Datum, d))
+                         for i, d in enumerate(new_rows)])
+    slots = int(st_plain["pages"]) * int(st_plain["page_rows"])
+    if served.pages.capacity != slots:
+        raise AssertionError(f"nn: the copy of the servers' table has "
+                             f"{served.pages.capacity} slots, the servers "
+                             f"{slots}")
+    served_sweeps = nn_served_sweep(torch, np, served, queries[0], ids[0],
+                                    device)
+    del served
+    many_ms = {}
+    for b in (1, 16, 64):
+        pairs = [(Datum.from_msgpack(q), NN_SIZE) for q in lane_q[:b]]
+        if device == "cuda":
+            many_ms[b] = time_cuda(
+                torch, lambda: drv.similar_row_from_datum_many(pairs), 20)
+    counts = {k: build.get(k, 0) + served_launches.get(k, 0)
+              for k in ("lsh_signature", "minhash_signature", "sig_sweep")}
+    line = {
+        "rows": NN_ROWS + NN_NEW, "hash_num": 64,
+        "build_rows_per_s": NN_ROWS / build_s, "build_s": build_s,
+        "build_launches": {k: build[k] for k in ("lsh_signature",
+                                                 "sig_sweep")},
+        "pack_s": pack_s, "save_s": save_s, "load_ms": load_ms,
+        "set_row_ms_p50": pct(np, t_set, 50),
+        "set_row_ms_p99": pct(np, t_set, 99),
+        **{f"{m}_ms_p50": pct(np, v, 50) for m, v in lat.items()},
+        **{f"{m}_ms_p99": pct(np, v, 99) for m, v in lat.items()},
+        "lane": {"threads": LANE_THREADS, "calls": n_lane,
+                 "window_us": LANE_WINDOW_US,
+                 "p50_ms": {k: pct(np, v[0], 50) for k, v in lane.items()},
+                 "p99_ms": {k: pct(np, v[0], 99) for k, v in lane.items()},
+                 "read_batch_size_mean": mean,
+                 "read_batch_size_max": float(
+                     lane_st["read_batch_size_max"])},
+        "similar_row_from_datum_many_ms": many_ms,
+        "server_launches": served_launches, "card": card}
+    log(f"nn service: {NN_ROWS} rows built at "
+        f"{line['build_rows_per_s']:.0f} rows/s, loaded by two servers; "
+        f"{NN_NEW} set_row and 4 x {NN_READS} reads over the wire bitwise "
+        f"the in-process driver's; {n_lane} lane reads bitwise the reads "
+        f"sent alone, read_batch_size mean {mean:.2f}")
+    log("nn_service " + json.dumps(line))
+    return counts, served_sweeps
+
+
+def nn_table(np, pack):
+    """A driver's pack as {id: (signature bytes, norm bits)}."""
+    cap, h = int(pack["capacity"]), int(pack["hash_num"])
+    method = pack["method"]
+    w = h if (method if isinstance(method, str)
+              else method.decode()) == "minhash" else (h + 31) // 32
+    sig = np.frombuffer(pack["sig"], np.uint32).reshape(cap, w)
+    norms = np.frombuffer(pack["norms"], np.uint32)
+    return {(r if isinstance(r, str) else r.decode()):
+            (sig[i].tobytes(), int(norms[i]))
+            for i, r in enumerate(pack["row_ids"])}
+
+
+NN_CLUSTER_METHODS = {"lsh": "lsh_signature", "minhash": "minhash_signature"}
+
+
+def phase_nn_cluster(torch, np, card, device="cuda"):
+    """Phase 10c: MIX and recovery, for lsh and for minhash (hash_num 64)
+    at once.  The port's coordinator and, per method, two port
+    nearest_neighbor servers (--mix_quantize, a trigger out of reach,
+    each with its own --journal and no snapshot timer) as subprocesses;
+    each server gets NN_CLUSTER_ROWS set_row calls over the wire (one id
+    on both), then do_mix: both tables bitwise equal, and equal to a
+    driver here that applied the rows in the master's member order; a
+    second do_mix changes nothing.  Server 1 of each is SIGKILLed and
+    restarted on its directory: it must come back bitwise, having
+    replayed its "u" records through its signature kernel (launched in
+    the new process) and its "diff" records.  Returns the server
+    processes' launches."""
+    import threading
+
+    from jubatus_tpu_torch.cluster.membership import MembershipClient
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.mix import codec
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.rpc.client import Client
+
+    methods = list(NN_CLUSTER_METHODS)
+    cfgs = {m: dict(NN_CONFIG, method=m) for m in methods}
+    rng = np.random.default_rng(13)
+    own = {}
+    for m in methods:
+        own[m] = [[(f"s{s}_{i}", d) for i, d in enumerate(
+            nn_datums(np, rng, NN_CLUSTER_ROWS))] for s in range(2)]
+        own[m][1][-1] = ("s0_0", own[m][1][-1][1])  # an id written on both
+
+    def table_of(port):
+        with Client("127.0.0.1", port, timeout=600) as c:
+            return nn_table(np, codec.decode(c.call_raw("get_model",
+                                                        0))["model"])
+
+    def each(fn, args):
+        """fn(*a) for every a at once, on threads; their results."""
+        out = [None] * len(args)
+        errs = []
+
+        def run(i, a):
+            try:
+                out[i] = fn(*a)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=run, args=(i, a))
+                   for i, a in enumerate(args)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if errs:
+            raise errs[0]
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("nn cluster: a worker thread hung")
+        return out
+
+    children = []
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        try:
+            coord = Child(["jubatus_tpu_torch.cluster.coordinator",
+                           "--rpc-port", "0", "--listen_addr", "127.0.0.1"])
+            children.append(coord)
+            addr = coord.wait_line("jubacoordinator", 120).split()[-1]
+            argv, servers = {}, {}
+            for m in methods:
+                cfg_path = os.path.join(tmp, f"nn_{m}.json")
+                with open(cfg_path, "w") as f:
+                    json.dump(cfgs[m], f)
+                argv[m] = [[
+                    "jubatus_tpu_torch.cli.server", "--type",
+                    "nearest_neighbor", "--configpath", cfg_path, "--name",
+                    f"smoke_nn_{m}", "--rpc-port", "0", "--listen_addr",
+                    "127.0.0.1", "--eth", "127.0.0.1", "--datadir", tmp,
+                    "--device", device, "--coordinator", addr,
+                    "--mix_quantize", "--interval_sec", "100000",
+                    "--interval_count", "100000000",
+                    "--journal", os.path.join(tmp, f"dur_{m}{i}"),
+                    "--journal_fsync", "batch", "--snapshot_interval", "0"]
+                    for i in range(2)]
+                servers[m] = [Child(a) for a in argv[m]]
+                children.extend(servers[m])
+            ports = {m: [int(s.wait_line("jubatus ready", 300).split()[2]
+                             .split("=")[1]) for s in servers[m]]
+                     for m in methods}
+            order = {}
+            for m in methods:
+                membership = MembershipClient(addr, "nearest_neighbor",
+                                              f"smoke_nn_{m}")
+                deadline = time.monotonic() + 60
+                while set(membership.get_all_nodes()) != \
+                        {("127.0.0.1", p) for p in ports[m]}:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"nn cluster {m}: both servers "
+                                             "never listed in get_all_nodes")
+                    time.sleep(0.1)
+                order[m] = [ports[m].index(p)
+                            for _, p in membership.get_all_nodes()]
+                membership.close()
+
+            def feed(m, s):
+                c = WireClient(ports[m][s])
+                for rid, d in own[m][s]:
+                    if c.call("set_row", rid, nn_wire(d)) is not True:
+                        raise AssertionError(f"nn cluster {m}: a set_row "
+                                             "was not acknowledged")
+                c.close()
+
+            t0 = time.perf_counter()
+            each(feed, [(m, s) for m in methods for s in range(2)])
+            feed_s = time.perf_counter() - t0
+
+            def mix(m):
+                cli = WireClient(ports[m][0])
+                t0 = time.perf_counter()
+                if cli.call("do_mix") is not True:
+                    raise AssertionError(f"nn cluster {m}: do_mix failed")
+                ms = (time.perf_counter() - t0) * 1e3
+                tables = [table_of(p) for p in ports[m]]
+                st = status_of(cli)
+                cli.close()
+                cli = WireClient(ports[m][1])
+                if cli.call("do_mix") is not True:
+                    raise AssertionError(f"nn cluster {m}: the second "
+                                         "do_mix failed")
+                cli.close()
+                if [table_of(p) for p in ports[m]] != tables:
+                    raise AssertionError(f"nn cluster {m}: the second do_mix "
+                                         "moved a table")
+                statuses = []
+                for p in ports[m]:
+                    cli = WireClient(p)
+                    statuses.append(status_of(cli))
+                    cli.close()
+                servers[m][1].kill()
+                t0 = time.perf_counter()
+                servers[m][1] = Child(argv[m][1])
+                children.append(servers[m][1])
+                port1 = int(servers[m][1].wait_line("jubatus ready", 300)
+                            .split()[2].split("=")[1])
+                reboot_ms = (time.perf_counter() - t0) * 1e3
+                cli = WireClient(port1)
+                restarted = status_of(cli)
+                cli.close()
+                return {"do_mix_ms": ms, "tables": tables, "status": st,
+                        "statuses": statuses, "restarted": restarted,
+                        "reboot_ms": reboot_ms,
+                        "recovered": table_of(port1)}
+
+            res = dict(zip(methods, each(mix, [(m,) for m in methods])))
+        finally:
+            for ch in children:
+                ch.stop()
+    launches = {}
+    lines = {}
+    for m in methods:
+        r = res[m]
+        ref = create_driver("nearest_neighbor", cfgs[m], device=device)
+        for s in order[m]:
+            ref.set_row_many([(rid, nn_datum(Datum, d))
+                              for rid, d in own[m][s]])
+        want = nn_table(np, ref.pack())
+        tables = r["tables"]
+        if not tables[0] == tables[1] == want:
+            raise AssertionError(f"nn cluster {m}: the tables after do_mix "
+                                 "differ from each other or from the union "
+                                 "applied in the master's order")
+        if len(want) != 2 * NN_CLUSTER_ROWS - 1:
+            raise AssertionError(f"nn cluster {m}: {len(want)} rows in the "
+                                 "union")
+        if r["recovered"] != tables[1]:
+            raise AssertionError(f"nn cluster {m}: the restarted server's "
+                                 "table differs from its table before the "
+                                 "kill")
+        rs = r["restarted"]
+        got = launches_of(rs)
+        kern = NN_CLUSTER_METHODS[m]
+        if rs["recovery_errors"] != "0" or \
+                int(rs["recovery_replayed"]) < NN_CLUSTER_ROWS + 1 or \
+                (device == "cuda" and got[kern] <= 0):
+            raise AssertionError(f"nn cluster {m}: the restarted server "
+                                 f"replayed {rs['recovery_replayed']} records "
+                                 f"with {rs['recovery_errors']} errors and "
+                                 f"{got[kern]} {kern} launches")
+        for st in r["statuses"] + [rs]:
+            for k, n in launches_of(st).items():
+                launches[k] = launches.get(k, 0) + n
+        st = r["status"]
+        lines[m] = {
+            "rows_per_server": NN_CLUSTER_ROWS, "do_mix_ms": r["do_mix_ms"],
+            "last_mix_sec": float(st["last_mix_sec"]),
+            "last_mix_wire_bytes": int(st["last_mix_wire_bytes"]),
+            "mix_wire_version": st["mix_wire_version"],
+            "restart": {"boot_to_routable_ms": r["reboot_ms"],
+                        "recovery_replayed": int(rs["recovery_replayed"]),
+                        "recovery_replay_ms": float(
+                            rs["recovery_replay_ms"]),
+                        "launches": got}}
+        log(f"nn cluster: {m}: two servers' tables bitwise equal to the "
+            f"union in the master's order ({len(want)} rows); the second "
+            f"do_mix changed nothing; server 1 SIGKILLed and recovered "
+            f"bitwise from {rs['recovery_replayed']} journal records "
+            f"({got[kern]} {kern} launches)")
+    log("nn_cluster " + json.dumps({"feed_s": feed_s, **lines,
+                                    "card": card}))
+    return launches
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -2335,14 +3143,32 @@ def main() -> int:
     # 9. read lane: fused reads, per service
     cluster_counts += [phase_read_lane(torch, np, card, svc)
                        for svc in ("classifier", "regression")]
+    # 10. nearest_neighbor: the LSH kernels, the service, MIX and recovery
+    rows.update(phase_nn_kernels(torch, np))
+    svc_counts, served_sweeps = phase_nn_service(torch, np, card)
+    nn_counts = [svc_counts, phase_nn_cluster(torch, np, card)]
+    # K3's row: the served table's sweep at a one-datum read; the 10^6-row
+    # tables of each kind follow among its variants
+    main_sweep = served_sweeps[0]
+    rows["sig_sweep"] = {
+        **{k: main_sweep[k] for k in (
+            "ms", "device_method", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "bytes_bound_ms", "library_ms", "shape",
+            "max_abs_err")},
+        "variants": served_sweeps + rows.pop("sig_sweep_variants")}
 
     def served(kern):
         return sum(c.get(kern, 0) for c in cluster_counts)
 
-    # 10. report: the quantizer pair's launches are the v3 rounds' (both
+    def nn_served(kern):
+        return sum(c.get(kern, 0) for c in nn_counts)
+
+    # 11. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
-    # server processes' of phases 7-9 and the recovered servers' replays
+    # server processes' of phases 7-9 and the recovered servers' replays;
+    # the LSH kernels' are phase 10's: the in-process build, its server
+    # processes and the clusters' (the restarted servers' replays too)
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
@@ -2361,9 +3187,21 @@ def main() -> int:
                                   "jubatus_tpu/models/regression.py:32",
                                   reg_counts["regression_train_scan"]
                                   + served("regression_train_scan")),
+        "lsh_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
+                          "jubatus_tpu/ops/lsh.py:51",
+                          nn_served("lsh_signature")),
+        "minhash_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
+                              "jubatus_tpu/ops/lsh.py:67",
+                              nn_served("minhash_signature")),
+        "sig_sweep": ("jubatus_tpu_torch/csrc/lsh.cu",
+                      "jubatus_tpu/ops/lsh.py:189",
+                      nn_served("sig_sweep")),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():
+        if launches <= 0:
+            raise AssertionError(f"report: {name} was never launched on the "
+                                 "main path")
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -2373,6 +3211,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             **{key: r[key] for key in EXTRA_KEYS if key in r}})
+    for k in kernels:
+        log(f"kernel {k['name']}: {k['ms']} ms at {k['shape']}, bytes bound "
+            f"{k.get('bytes_bound_ms', k['bound_ms'])} ms, launches "
+            f"{k['launches']}")
     log(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,6 +8,8 @@ jubatus_tpu.
 
 What it holds: the classifier and regression servers with their wire
 train loops (native raw-frame ingest into pinned arenas) and read RPCs,
+the nearest_neighbor server (lsh, minhash, euclid_lsh over a paged
+signature table, jax's threefry draws bit for bit),
 standalone or in a cluster (coordinator, membership, MIX rounds between
 processes, JAX servers included), the driver-level MIX diff algebra and
 the blockwise-int8 (v3) MIX wire.
@@ -17,12 +19,15 @@ a plain PyTorch version beside its wrapper.
 
   fv/        feature-vector converter (pure-Python copy) + native eligibility
   native/    C FastConverter and FrameSplitter (built by cc at first use)
-  ops/       sparse gather/scatter primitives as torch ops
+  ops/       sparse gather/scatter primitives as torch ops; LSH signatures,
+             the signature-table sweep and top-k (kernel wrappers + plain
+             versions)
   csrc/      CUDA C++ kernels for sm_90a; kernels/build.py builds them
   parallel/  blockwise int8 quantizer (kernel wrappers + plain versions)
   batching/  shape buckets, the window controller, pinned arena pool
-  models/    driver protocol, the classifier and regression drivers;
-             carry.py moves state across packages
+  models/    driver protocol, the classifier, regression and
+             nearest_neighbor drivers, the paged row store; carry.py
+             moves state across packages
   mix/       msgpack diff codec, the v3 wire encode, the mixers
   rpc/       lean asyncio msgpack-RPC server (old-spec wire) and client
   cluster/   coordinator, lock-service client, membership

@@ -1,6 +1,7 @@
 """Server entry point of the port.
 
-    python -m jubatus_tpu_torch.cli.server --type classifier|regression \
+    python -m jubatus_tpu_torch.cli.server \
+        --type classifier|regression|nearest_neighbor \
         --configpath CONFIG.json --rpc-port 9199 [--device cuda|cpu] \
         [--name CLUSTER --coordinator HOST:PORT [--mixer linear_mixer] \
          [--interval_sec 16 --interval_count 512] [--mix_quantize]] \
@@ -25,7 +26,9 @@ cluster member skips the joiner's bootstrap and resumes at the larger of
 its mixer's and the recovered MIX round, healing missed rounds as a
 straggler.  The JAX server's --model_file is not in the port yet.  With
 --read_batch_window_us W > 0 concurrent classify (estimate) calls are
-served as fused sweeps (framework/dispatch.py ReadDispatcher).
+served as fused sweeps (framework/dispatch.py ReadDispatcher), and so
+are concurrent nearest_neighbor *_from_datum reads.  --index takes only
+"off": the sublinear index is not ported (ROADMAP Queue 1 item 5.3).
 
 Like the JAX server's CLI it logs `... listening on host:port` and then
 prints the machine-readable line `jubatus ready rpc_port=N metrics_port=0
@@ -99,6 +102,9 @@ def _parser() -> argparse.ArgumentParser:
                         "up to this many microseconds into ONE fused "
                         "sweep under one read-lock hold; 0 (default) "
                         "builds no read lane")
+    p.add_argument("--index", default="off",
+                   help="sublinear candidate index of the row-store "
+                        "engines; only 'off' (the full sweep) is served")
     return p
 
 
@@ -115,6 +121,9 @@ def serve(argv: Optional[Sequence[str]] = None
         parser.error(str(e))
     if not ns.configpath and not ns.coordinator:
         parser.error("--configpath is required without --coordinator")
+    if ns.index != "off":
+        from jubatus_tpu_torch.models.nearest_neighbor import INDEX_REFUSAL
+        parser.error(f"--index {ns.index}: {INDEX_REFUSAL}")
     args = ServerArgs(type=ns.type, name=ns.name, rpc_port=ns.rpc_port,
                       bind_address=ns.listen_addr, datadir=ns.datadir,
                       configpath=ns.configpath, eth=ns.eth, device=ns.device,

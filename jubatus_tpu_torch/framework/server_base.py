@@ -38,6 +38,8 @@ from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
 from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
+from jubatus_tpu_torch.ops.lsh import (lsh_signature, minhash_signature,
+                                       sig_sweep)
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -51,6 +53,9 @@ KERNEL_WRAPPERS = {
     "regression_train_scan": regression_train_scan,
     "quantize_int8": quantize_int8,
     "dequantize_int8": dequantize_int8,
+    "lsh_signature": lsh_signature,
+    "minhash_signature": minhash_signature,
+    "sig_sweep": sig_sweep,
 }
 
 

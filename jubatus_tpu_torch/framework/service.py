@@ -1,6 +1,6 @@
 """Service tables and their binding to the RPC server (counterpart of
-jubatus_tpu/framework/service.py: the classifier and regression tables
-and the common RPCs).
+jubatus_tpu/framework/service.py: the classifier, regression and
+nearest_neighbor tables and the common RPCs).
 
 Each service is a table of Method specs bound to driver callables.  Every
 method takes the cluster `name` as wire argument 0 (dropped server-side),
@@ -32,6 +32,7 @@ import msgpack
 
 from jubatus_tpu_torch.durability.journal import check_writable
 from jubatus_tpu_torch.fv import Datum
+from jubatus_tpu_torch.models.nearest_neighbor import PARTITION_REFUSAL
 
 
 @dataclass
@@ -234,3 +235,53 @@ register_service(ServiceDef("regression", [
            lambda s, data: s.driver.estimate([_datum(d) for d in data]),
            many=_estimate_many),
 ]))
+
+
+# ---------------------------------------------------------------------------
+# nearest_neighbor (server/nearest_neighbor.idl).  The partition plane's
+# internal methods are not ported (ROADMAP Queue 1 item 5.5): each is
+# registered to refuse with that item, so a wire call names it
+# ---------------------------------------------------------------------------
+
+def _id_scores(rows):
+    return [[i, s] for i, s in rows]
+
+
+def _nn_query_many(s, calls, kind: str):
+    pairs = [(_datum(d), int(size)) for d, size in calls]
+    return [_id_scores(out)
+            for out in getattr(s.driver, f"{kind}_many")(pairs)]
+
+
+def _nn_partition_refused(_s, *_args):
+    raise NotImplementedError(PARTITION_REFUSAL)
+
+
+NN_PARTITION_METHODS = ("partition_query_sig",
+                        "neighbor_row_from_sig_partial",
+                        "similar_row_from_sig_partial",
+                        "partition_accept_rows", "partition_drop_rows")
+
+
+register_service(ServiceDef("nearest_neighbor", [
+    Method("set_row",
+           lambda s, i, d: s.driver.set_row(_to_str(i), _datum(d)),
+           update=True),
+    Method("neighbor_row_from_id",
+           lambda s, i, size: _id_scores(
+               s.driver.neighbor_row_from_id(_to_str(i), int(size)))),
+    Method("neighbor_row_from_datum",
+           lambda s, d, size: _id_scores(
+               s.driver.neighbor_row_from_datum(_datum(d), int(size))),
+           many=lambda s, calls: _nn_query_many(
+               s, calls, "neighbor_row_from_datum")),
+    Method("similar_row_from_id",
+           lambda s, i, n: _id_scores(
+               s.driver.similar_row_from_id(_to_str(i), int(n)))),
+    Method("similar_row_from_datum",
+           lambda s, d, n: _id_scores(
+               s.driver.similar_row_from_datum(_datum(d), int(n))),
+           many=lambda s, calls: _nn_query_many(
+               s, calls, "similar_row_from_datum")),
+    Method("get_all_rows", lambda s: s.driver.get_all_rows()),
+] + [Method(m, _nn_partition_refused) for m in NN_PARTITION_METHODS]))

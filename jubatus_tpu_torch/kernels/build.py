@@ -15,7 +15,8 @@ all at once.  No --use_fast_math: the quantizer's bitwise parity with
 numpy needs IEEE division.  The two scans are built with -ftz=true:
 float32 subnormal inputs read as zero and subnormal results flush to
 zero, as XLA computes the scans they replace; the quantizer keeps the
-default, so its wire bytes stay equal to the host codec's.  Nothing here
+default, so its wire bytes stay equal to the host codec's, and so do the
+LSH kernels, which round as their plain PyTorch versions do.  Nothing here
 runs at import time.  A kernel that cannot be built, loaded or launched
 raises KernelError (a RuntimeError), so a caller that must not carry on
 without its kernels (boot recovery) can tell it from a bad input.
@@ -37,7 +38,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
-KERNELS = ("quantize", "train_scan", "regression_scan")
+KERNELS = ("quantize", "train_scan", "regression_scan", "lsh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # flags of one kernel beyond NVCC_FLAGS

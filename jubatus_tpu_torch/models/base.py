@@ -125,6 +125,12 @@ class Driver:
     def get_status(self) -> Dict[str, str]:
         return {}
 
+    def query_tier_status(self) -> str:
+        """Where the row engines' query tables live: the driver's device
+        (the JAX package may mirror them to a host tier,
+        utils/placement.py; the port keeps them where the model is)."""
+        return str(self.device)
+
     def device_sync(self) -> None:
         """Block until the work queued on this driver's device stream has
         executed (the JAX driver blocks on one model leaf).  The ingest

@@ -1,0 +1,359 @@
+"""Nearest-neighbor engine over a device signature table (counterpart of
+jubatus_tpu/models/nearest_neighbor.py).
+
+Methods lsh, minhash and euclid_lsh, each parameterized by hash_num.  The
+table is a PagedRowStore (models/pages.py) on the driver's device: [R, W]
+packed sign bits for lsh and euclid_lsh, [R, H] minhash slots, and [R]
+row norms, plus a host id <-> row dict.  Signatures come from the JAX
+package's PRNG (ops/lsh.py: threefry-exact), so a row written here
+compares with a query signed by a JAX server, and model files, MIX diffs
+and journals cross packages.  On the card an insert is one signature
+launch (K1 or K2 of csrc/lsh.cu) and one scatter per column; a query is a
+signature launch, one sweep launch over the whole table (K3) and a
+torch.topk over its unique keys, whose order is jax.lax.top_k's.
+
+Score conventions (the reference engines'):
+  neighbor_row_*  -> ascending distance (lsh: hamming/H; minhash:
+                     1 - jaccard; euclid_lsh: LSH-estimated euclidean)
+  similar_row_*   -> descending similarity (lsh: 1 - hamming/H; minhash:
+                     jaccard; euclid_lsh: -distance)
+
+MIX: a table union.  The diff is the rows written since the last round
+(ids -> {"sig": bytes, "norm": float}) plus the converter's weight diff;
+mix is a dict union, the later side winning an id; put_diff upserts.
+
+Not ported, each refused where a caller could ask for it, with the
+ROADMAP item that brings it: the sublinear index (the CLI's --index,
+item 5.3), the spill tier (pages.resident_pages > 0, item 5.4) and the
+partition plane (the service table's partition_* and *_sig_partial
+methods, item 5.5).  The JAX driver's query tier has no
+counterpart: the table lives on the driver's device, which get_status
+reports as query_tier.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from jubatus_tpu_torch.device import device_context, resolve_device
+from jubatus_tpu_torch.fv import ConverterConfig, Datum, DatumToFVConverter
+from jubatus_tpu_torch.fv.weight_manager import WeightManager
+from jubatus_tpu_torch.models.base import Driver, register_driver
+from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
+from jubatus_tpu_torch.ops import lsh as lshops
+
+METHODS = ("lsh", "minhash", "euclid_lsh")
+DEFAULT_SEED = 0x1EAF
+
+INDEX_REFUSAL = ("the sublinear query index (--index lsh_probe|ivf, "
+                 "jubatus_tpu/index/ and ops/candidates.py) is not in the "
+                 "port yet: ROADMAP Queue 1 item 5.3")
+PARTITION_REFUSAL = ("the partition plane (framework/partition.py and the "
+                     "nearest_neighbor partition_* methods) is not in the "
+                     "port yet: ROADMAP Queue 1 item 5.5")
+
+
+def _to_str(x) -> str:
+    return x.decode() if isinstance(x, bytes) else x
+
+
+def _to_bytes(x) -> bytes:
+    return x.encode("latin-1") if isinstance(x, str) else bytes(x)
+
+
+@register_driver("nearest_neighbor")
+class NearestNeighborDriver(Driver):
+    INITIAL_ROWS = 128
+
+    def __init__(self, config: Dict[str, Any], device=None):
+        super().__init__(config)
+        self.device = resolve_device(device)
+        self.method = config.get("method", "lsh")
+        if self.method not in METHODS:
+            raise ValueError(f"unknown nearest_neighbor method: {self.method}")
+        param = config.get("parameter") or {}
+        self.hash_num = int(param.get("hash_num", 64))
+        if self.hash_num <= 0:
+            raise ValueError("hash_num must be > 0")
+        self.seed = int(param.get("seed", DEFAULT_SEED))
+        self.key = lshops.prng_key(self.seed)
+        self.converter = DatumToFVConverter(
+            ConverterConfig.from_json(config.get("converter")))
+        self.ids: Dict[str, int] = {}
+        self.row_ids: List[str] = []
+        self._page_spec = PageSpec.from_config(config.get("pages"))
+        self._alloc()
+        self._pending: Dict[str, Dict[str, Any]] = {}   # rows since last mix
+        self._diff_rows = None
+
+    @property
+    def _sig_width(self) -> int:
+        return lshops.sig_width(self.method, self.hash_num)
+
+    def _alloc(self) -> None:
+        self.pages = PagedRowStore(
+            {"sig": ((self._sig_width,), np.uint32),
+             "norms": ((), np.float32)},
+            capacity=self.INITIAL_ROWS, device=self.device,
+            spec=self._page_spec)
+
+    @property
+    def sig(self):
+        """The flat device signature table (int32 bit patterns)."""
+        return self.pages.device("sig")
+
+    @property
+    def norms(self):
+        return self.pages.device("norms")
+
+    def _row(self, id_: str) -> int:
+        return int(self._rows([id_])[0])
+
+    def _rows(self, ids: Sequence[str]) -> np.ndarray:
+        """The slots of distinct ids, allocating the new ones in order of
+        appearance: the slots (and the store's capacity) of one _row call
+        per id in the JAX driver, with one allocation."""
+        new = [i for i in ids if i not in self.ids]
+        if new:
+            slots = self.pages.alloc_seq(len(new))
+            top = int(slots.max()) + 1
+            if len(self.row_ids) < top:
+                self.row_ids.extend([""] * (top - len(self.row_ids)))
+            for i, s in zip(new, slots.tolist()):
+                self.ids[i] = s
+                self.row_ids[s] = i
+        return np.fromiter((self.ids[i] for i in ids), np.int64, len(ids))
+
+    # -- signatures ---------------------------------------------------------
+
+    def _signature(self, batch) -> Tuple[np.ndarray, np.ndarray]:
+        """SparseBatch -> (sig [B, Wsig] uint32, norms [B] f32); the norms
+        are the JAX driver's numpy arithmetic."""
+        with device_context(self.device):
+            sig = lshops.host_signature(self.key, batch.indices,
+                                        batch.values, self.hash_num,
+                                        self.method, self.device)
+        norms = np.sqrt((batch.values * batch.values).sum(axis=1))
+        return sig, norms.astype(np.float32)
+
+    def _datum_signature(self, datum: Datum, update: bool):
+        batch = self.converter.convert_batch([datum], update_weights=update)
+        sig, norms = self._signature(batch)
+        return sig[0], float(norms[0])
+
+    # -- RPC surface (nearest_neighbor.idl) ---------------------------------
+
+    def set_row(self, id_: str, datum: Datum) -> bool:
+        sig, norm = self._datum_signature(datum, update=True)
+        row = self._row(id_)
+        self.pages.write([row], {"sig": sig[None],
+                                 "norms": np.array([norm], np.float32)})
+        self._pending[id_] = {"sig": sig.tobytes(), "norm": norm}
+        return True
+
+    def set_row_many(self, rows: Sequence[Tuple[str, Datum]]) -> int:
+        """Batched upsert: one converter pass, one signature launch and
+        one scatter per column.  Duplicate ids resolve last-writer-wins,
+        as sequential set_row calls do: only each id's last occurrence
+        reaches the scatter, so the table and the pending MIX rows agree."""
+        if not rows:
+            return 0
+        batch = self.converter.convert_batch([d for _, d in rows],
+                                             update_weights=True)
+        sigs, norms = self._signature(batch)
+        last = {id_: pos for pos, (id_, _) in enumerate(rows)}
+        sel = sorted(last.values())
+        self._scatter_rows([rows[p][0] for p in sel], sigs[sel], norms[sel])
+        for p in sel:
+            self._pending[rows[p][0]] = {"sig": sigs[p].tobytes(),
+                                         "norm": float(norms[p])}
+        return len(rows)
+
+    def _scatter_rows(self, ids, sigs, norms) -> None:
+        idx = self._rows(ids)
+        self.pages.write(idx, {"sig": np.asarray(sigs),
+                               "norms": np.asarray(norms, np.float32)})
+
+    def _to_results(self, rows, sims, size: int, similarity: bool):
+        """Top rows + similarities -> wire results, stopping at the first
+        non-finite score; neighbor_* maps similarity to distance (lsh,
+        minhash 1 - s; euclid_lsh -s)."""
+        out: List[Tuple[str, float]] = []
+        for r, s in zip(rows, sims):
+            if not np.isfinite(s) or len(out) >= int(size):
+                break
+            if similarity:
+                v = float(s)
+            else:
+                v = float(-s) if self.method == "euclid_lsh" else float(1.0 - s)
+            out.append((self.row_ids[int(r)], v))
+        return out
+
+    def _query_datum(self, datum: Datum, size: int, similarity: bool):
+        if not self.ids or size <= 0:
+            return []
+        batch = self.converter.convert_batch([datum], update_weights=False)
+        qnorm = float(np.sqrt((batch.values * batch.values).sum(axis=1)[0]))
+        with device_context(self.device):
+            rows, sims = lshops.fused_sig_query(
+                self.method, self.key, batch.indices, batch.values,
+                self.sig, self.norms, self.pages.n_rows, self.hash_num,
+                qnorm, int(size))
+        return self._to_results(rows, sims, size, similarity)
+
+    def _query_id(self, id_: str, size: int, similarity: bool):
+        if id_ not in self.ids:
+            raise KeyError(f"no such row: {id_}")
+        if size <= 0:
+            return []
+        with device_context(self.device):
+            rows, sims = lshops.fused_sig_query_row(
+                self.method, self.sig, self.ids[id_], self.norms,
+                self.pages.n_rows, self.hash_num, int(size))
+        return self._to_results(rows, sims, size, similarity)
+
+    def _query_datum_many(self, pairs: Sequence[Tuple[Datum, int]],
+                          similarity: bool):
+        """The read lane's entry: N datum queries as one signature launch,
+        one sweep launch and one top-k, demuxed per caller (the top rows
+        of the largest size hold every smaller size's as a prefix)."""
+        if not self.ids:
+            return [[] for _ in pairs]
+        sizes = [int(s) for _, s in pairs]
+        kmax = max(sizes)
+        if kmax <= 0:
+            return [[] for _ in pairs]
+        batch = self.converter.convert_batch([d for d, _ in pairs],
+                                             update_weights=False)
+        qnorms = np.sqrt((batch.values * batch.values).sum(axis=1))
+        with device_context(self.device):
+            rows_b, sims_b = lshops.fused_sig_query_batch(
+                self.method, self.key, batch.indices, batch.values,
+                self.sig, self.norms, self.pages.n_rows, self.hash_num,
+                qnorms, kmax)
+        return [self._to_results(rows_b[i], sims_b[i], sizes[i], similarity)
+                for i in range(len(pairs))]
+
+    def neighbor_row_from_id(self, id_: str, size: int):
+        return self._query_id(id_, size, similarity=False)
+
+    def neighbor_row_from_datum(self, datum: Datum, size: int):
+        return self._query_datum(datum, size, similarity=False)
+
+    def neighbor_row_from_datum_many(self, pairs):
+        return self._query_datum_many(pairs, similarity=False)
+
+    def similar_row_from_id(self, id_: str, ret_num: int):
+        return self._query_id(id_, ret_num, similarity=True)
+
+    def similar_row_from_datum(self, datum: Datum, ret_num: int):
+        return self._query_datum(datum, ret_num, similarity=True)
+
+    def similar_row_from_datum_many(self, pairs):
+        return self._query_datum_many(pairs, similarity=True)
+
+    def get_all_rows(self) -> List[str]:
+        return [i for i in self.row_ids if i]
+
+    def clear(self) -> None:
+        self.ids.clear()
+        self.row_ids = []
+        self.pages.clear(self.INITIAL_ROWS)
+        self.converter.weights.clear()
+        self._pending.clear()
+
+    # -- MIX (row-table union) ----------------------------------------------
+
+    def get_diff(self) -> Dict[str, Any]:
+        rows = {k: dict(v) for k, v in self._pending.items()}
+        # put_diff retires exactly this set: rows written between get_diff
+        # and put_diff survive to the next round
+        self._diff_rows = rows
+        return {"rows": rows, "weights": self.converter.weights.get_diff()}
+
+    @classmethod
+    def mix(cls, lhs: Dict[str, Any], rhs: Dict[str, Any]) -> Dict[str, Any]:
+        rows = dict(lhs["rows"])
+        rows.update(rhs["rows"])
+        return {"rows": rows,
+                "weights": WeightManager.mix(lhs["weights"], rhs["weights"])}
+
+    def _bulk_store(self, rows: Dict[str, Dict[str, Any]]) -> None:
+        """Upsert many rows with one scatter per column."""
+        if not rows:
+            return
+        idx = self._rows(list(rows))
+        sigs = np.stack([np.frombuffer(_to_bytes(r["sig"]), np.uint32)
+                         for r in rows.values()])
+        norms = np.array([float(r["norm"]) for r in rows.values()],
+                         np.float32)
+        self.pages.write(idx, {"sig": sigs, "norms": norms})
+
+    def _retire_pending(self) -> None:
+        snap = self._diff_rows
+        if snap is not None:
+            for k, rec in snap.items():
+                if k in self._pending and dict(self._pending[k]) == rec:
+                    del self._pending[k]
+            self._diff_rows = None
+
+    def put_diff(self, diff: Dict[str, Any]) -> bool:
+        rows = {_to_str(i): rec for i, rec in diff["rows"].items()}
+        self._bulk_store(rows)
+        self.converter.weights.put_diff(diff["weights"])
+        self._retire_pending()
+        return True
+
+    # -- persistence --------------------------------------------------------
+
+    def pack(self) -> Dict[str, Any]:
+        """The JAX driver's model-file layout: the legacy flat table (rows
+        compacted in slot order, zero-padded to a power-of-two capacity of
+        at least INITIAL_ROWS)."""
+        live = self.get_all_rows()
+        slots = [self.ids[i] for i in live]
+        cap = max(self.INITIAL_ROWS, 1)
+        while cap < len(live):
+            cap *= 2
+        return {
+            "method": self.method,
+            "hash_num": self.hash_num,
+            "seed": self.seed,
+            "capacity": cap,
+            "row_ids": live,
+            "sig": self.pages.pack_flat("sig", slots, cap).tobytes(),
+            "norms": self.pages.pack_flat("norms", slots, cap).tobytes(),
+            "weights": self.converter.weights.pack(),
+        }
+
+    def unpack(self, obj: Dict[str, Any]) -> None:
+        self.hash_num = int(obj["hash_num"])
+        self.seed = int(obj["seed"])
+        self.key = lshops.prng_key(self.seed)
+        cap = int(obj["capacity"])
+        self.row_ids = [_to_str(r) for r in obj["row_ids"]]
+        self.ids = {r: i for i, r in enumerate(self.row_ids)}
+        n = len(self.row_ids)
+        sig = np.frombuffer(obj["sig"], np.uint32).reshape(
+            cap, self._sig_width)
+        norms = np.frombuffer(obj["norms"], np.float32)
+        self.pages = PagedRowStore(
+            {"sig": ((self._sig_width,), np.uint32),
+             "norms": ((), np.float32)},
+            capacity=max(self.INITIAL_ROWS, n), device=self.device,
+            spec=self._page_spec)
+        if n:
+            slots = self.pages.alloc(n)
+            self.pages.write(slots, {"sig": sig[:n], "norms": norms[:n]})
+        self.converter.weights.unpack(obj["weights"])
+        self._pending.clear()
+        self._diff_rows = None
+
+    def get_status(self) -> Dict[str, str]:
+        st = {"method": self.method, "num_rows": str(len(self.ids)),
+              "hash_num": str(self.hash_num),
+              "query_tier": self.query_tier_status()}
+        st.update(self.pages.get_status())
+        return st

@@ -9,9 +9,12 @@ both packages (XLA there, PyTorch here), not hand kernels.
 XLA flushes float32 subnormals to zero (inputs read as zero, results
 flush), and torch keeps them; ftz() flushes explicitly where the port
 must compute as XLA does: the gathered inputs, every elementwise product
-and each reduction's result.  A reduction's inner partial sums are not
-flushed one by one, so a partial sum that falls into the subnormal range
-can still differ in its last bits.
+and each reduction's result.  On the CPU, row_scores (estimate) also
+flushes its reduction's partial sums in XLA's CPU order (ftz_sum) for K
+up to 32; the other reductions, and every reduction on the card (torch's
+CUDA sum has its own tree order), flush only their result, so a partial
+sum that falls into the subnormal range can still differ in its last
+bits there.
 """
 
 from __future__ import annotations
@@ -40,10 +43,48 @@ def batch_scores(w: torch.Tensor, indices: torch.Tensor,
     return ftz(ftz(g * ftz(values)).sum(dim=-1).T)
 
 
+# below this magnitude a nonzero term can leave a partial sum subnormal:
+# every float32 of at least 2^-103 is a multiple of 2^-126, the smallest
+# normal, and so is every rounded partial sum of such terms
+_PARTIAL_SAFE = 2.0 ** -103
+
+
+def ftz_sum(p: torch.Tensor) -> torch.Tensor:
+    """p.sum(-1) of flushed terms as XLA's CPU code reduces a row of K
+    float32 terms under flush-to-zero, every partial sum flushed:
+    sequentially in k from +0 for K <= 16; in 8 lanes (k mod 8) from +0,
+    then a halving tree over the lanes, for K = 32 (tests/
+    test_torch_partial_sums.py pins both).  A partial sum can only be
+    subnormal where some nonzero term lies below 2^-103, so otherwise, and
+    for K > 32 (whose order in XLA is not reproduced here), it is one sum
+    with its result flushed.  So is every sum of a tensor on the card: the
+    check would read a bool back on the estimate's path, and torch's CUDA
+    reduction does not sum in XLA's CPU order anyway."""
+    k = p.shape[-1]
+    if p.device.type != "cpu" or k > 32 or not bool(
+            ((p != 0) & (p.abs() < _PARTIAL_SAFE)).any()):
+        return ftz(p.sum(dim=-1))
+    if k <= 16:
+        acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+        for j in range(k):
+            acc = ftz(acc + p[..., j])
+        return acc
+    lanes = p.reshape(*p.shape[:-1], k // 8, 8)
+    acc = torch.zeros(lanes.shape[:-2] + (8,), dtype=p.dtype,
+                      device=p.device)
+    for j in range(k // 8):
+        acc = ftz(acc + lanes[..., j, :])
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = ftz(acc[..., :h] + acc[..., h:])
+    return acc[..., 0]
+
+
 def row_scores(w: torch.Tensor, indices: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
-    """w: [D]; indices/values: [B, K] -> [B].  Subnormals flushed."""
-    return ftz(ftz(ftz(w[indices]) * ftz(values)).sum(dim=-1))
+    """w: [D]; indices/values: [B, K] -> [B].  Subnormals flushed, on the
+    CPU the reduction's partial sums too (ftz_sum)."""
+    return ftz_sum(ftz(ftz(w[indices]) * ftz(values)))
 
 
 def sample_scores(w: torch.Tensor, idx: torch.Tensor,

@@ -8,14 +8,18 @@ CUDA card, to show what flushing float32 subnormals costs a read.
 Each form is called as a driver calls it for a one-datum read: the
 padded [8, 16] index and value arrays go from the host to the card, the
 read runs on a [32, 2^20] (classify) or [2^20] (estimate) table, and the
-scores come back to the host.  Three forms, in turns (unflushed,
-flush_where, flush, flush, flush_where, unflushed), each timed on the
-host clock as the median of N calls:
-  unflushed    the reads without any flush (an einsum for classify, a
-               product and sum for estimate);
-  flush_where  every flush as torch.where(|x| < tiny, x * 0, x), four
-               elementwise ops;
-  flush        ops/sparse.py as it is (two elementwise ops a flush).
+scores come back to the host.  Four forms, in turns (unflushed,
+flush_where, flush, flush_checked, flush_checked, flush, flush_where,
+unflushed), each timed on the host clock as the median of N calls:
+  unflushed      the reads without any flush (an einsum for classify, a
+                 product and sum for estimate);
+  flush_where    every flush as torch.where(|x| < tiny, x * 0, x), four
+                 elementwise ops;
+  flush          ops/sparse.py as it is (two elementwise ops a flush);
+  flush_checked  flush, with the estimate's sum first checking its terms
+                 for one below 2^-103 (sparse.ftz_sum's test, which
+                 reads one bool back; ftz_sum makes it on CPU tensors
+                 only), to time what the check would cost on the card.
 The flushed forms must agree bitwise, and with the unflushed one within
 rtol 1e-5 / atol 1e-6 on these normal inputs.  Prints one `read_ab {...}`
 JSON line with the card's name and power limit and writes it to FILE
@@ -59,6 +63,11 @@ def main() -> int:
     def ftz_where(x):
         return torch.where(x.abs() < tiny, x * 0, x)
 
+    def checked_sum(p):
+        if bool(((p != 0) & (p.abs() < 2.0 ** -103)).any()):
+            raise AssertionError("torch_read_ab: a term below 2^-103")
+        return sparse.ftz(p.sum(dim=-1))
+
     forms = {
         "unflushed": {
             "classify": lambda w, i, v: torch.einsum("lbk,bk->bl",
@@ -71,6 +80,10 @@ def main() -> int:
                 ftz_where(w[i]) * ftz_where(v)).sum(dim=-1))},
         "flush": {"classify": sparse.batch_scores,
                   "estimate": sparse.row_scores},
+        "flush_checked": {
+            "classify": sparse.batch_scores,
+            "estimate": lambda w, i, v: checked_sum(sparse.ftz(
+                sparse.ftz(w[i]) * sparse.ftz(v)))},
     }
     rng = np.random.default_rng(5)
     tables = {"classify": torch.from_numpy(
@@ -103,13 +116,15 @@ def main() -> int:
     ok = True
     for read, w in tables.items():
         outs = {name: call(f[read], w) for name, f in forms.items()}
-        same = bool(np.array_equal(outs["flush"].view(np.int32),
-                                   outs["flush_where"].view(np.int32)))
+        same = all(np.array_equal(outs["flush"].view(np.int32),
+                                  outs[name].view(np.int32))
+                   for name in ("flush_where", "flush_checked"))
         close = bool(np.allclose(outs["flush"], outs["unflushed"],
                                  rtol=1e-5, atol=1e-6))
         ok &= same and close
         turns = [[name, median_ms(forms[name][read], w)]
-                 for name in ("unflushed", "flush_where", "flush", "flush",
+                 for name in ("unflushed", "flush_where", "flush",
+                              "flush_checked", "flush_checked", "flush",
                               "flush_where", "unflushed")]
         result[read] = {"flushed_forms_bitwise": same,
                         "close_to_unflushed": close, "turns_ms": turns}

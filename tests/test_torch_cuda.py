@@ -737,3 +737,140 @@ def test_regression_driver_on_the_card_matches_the_cpu(dev, method):
     got, ref = (np.array(d.estimate(q)) for d in drivers)
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     assert drivers[0].num_trained == drivers[1].num_trained == 120
+
+
+# ---------------------------------------------------------------------------
+# the LSH kernels (csrc/lsh.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+from jubatus_tpu_torch.models import nearest_neighbor as tnn  # noqa: E402
+from jubatus_tpu_torch.ops import lsh as tl  # noqa: E402
+
+LSH_KEY = tl.prng_key(0x1EAF)
+
+
+def _lsh_batch(dev, seed, b, k, d=4096):
+    """Random datums plus an empty one, a half-padded one and one whose
+    features repeat."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, (b, k)).astype(np.int32)
+    val = rng.standard_normal((b, k)).astype(np.float32)
+    idx[0], val[0] = 0, 0.0
+    idx[1, k // 2:], val[1, k // 2:] = 0, 0.0
+    idx[2, :] = idx[2, 0]
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev))
+
+
+@pytest.mark.parametrize("h", [1, 32, 64, 77, 512])
+@pytest.mark.parametrize("b, k", [(1, 16), (1024, 16), (33, 48), (4, 64)])
+def test_lsh_signature_kernel_matches_plain(dev, h, b, k):
+    """K1 against its plain version on the card: bitwise (both sum in k
+    order and take the card's log1pf and sqrtf; the plain polynomial's
+    float64 multiply-adds round as fmaf)."""
+    idx, val = _lsh_batch(dev, h + b, max(b, 3), k)
+    n0 = tl.lsh_signature.launches
+    got = tl.lsh_signature(LSH_KEY, idx, val, h)
+    torch.cuda.synchronize()
+    assert tl.lsh_signature.launches == n0 + 1
+    ref = tl.lsh_signature_ref(LSH_KEY, idx, val, h)
+    assert got.shape == (idx.shape[0], tl.words_for(h))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("h", [1, 64, 77, 512])
+@pytest.mark.parametrize("b, k", [(1024, 16), (33, 48)])
+def test_minhash_signature_kernel_matches_plain(dev, h, b, k):
+    idx, val = _lsh_batch(dev, 7 * h + b, b, k)
+    n0 = tl.minhash_signature.launches
+    got = tl.minhash_signature(LSH_KEY, idx, val, h)
+    torch.cuda.synchronize()
+    assert tl.minhash_signature.launches == n0 + 1
+    assert torch.equal(got, tl.minhash_signature_ref(LSH_KEY, idx, val, h))
+    assert bool((got[0] == idx[0, 0]).all())
+
+
+def _sweep_inputs(dev, kind, h, r, seed):
+    rng = np.random.default_rng(seed)
+    w = tl.sig_width(kind, h)
+    if kind == "minhash":
+        tab = rng.integers(0, 6, (r, w)).astype(np.int32)
+    else:
+        tab = rng.integers(-2**31, 2**31, (r, w)).astype(np.int32)
+        if h % 32:
+            tab[:, -1] &= (1 << (h % 32)) - 1
+    norms = (rng.random(r) * 4).astype(np.float32)
+    return torch.from_numpy(tab).to(dev), torch.from_numpy(norms).to(dev)
+
+
+@pytest.mark.parametrize("kind", tl.SIG_KINDS)
+@pytest.mark.parametrize("h", [64, 77, 512])
+@pytest.mark.parametrize("nq", [1, 5, 64, 130])
+def test_sig_sweep_kernel_matches_plain(dev, kind, h, nq):
+    """K3's keys bitwise equal the plain version's for every kind, by
+    signature and by stored row, with every row valid and with a count
+    below the table's rows (the euclid estimate's fused steps round as
+    the plain version's float64 ones)."""
+    table, norms = _sweep_inputs(dev, kind, h, 3000, nq + h)
+    rng = np.random.default_rng(nq)
+    rows = torch.from_numpy(rng.integers(0, 3000, nq)).to(dev)
+    qs, qn = table[rows].contiguous(), norms[rows].contiguous()
+    for valid in (2990, 3000):
+        n0 = tl.sig_sweep.launches
+        got = tl.sig_sweep(kind, table, norms, valid, q_sigs=qs, qnorms=qn,
+                           hash_num=h)
+        by_row = tl.sig_sweep(kind, table, norms, valid, q_rows=rows,
+                              hash_num=h)
+        torch.cuda.synchronize()
+        assert tl.sig_sweep.launches == n0 + 2
+        ref = tl.sig_sweep_ref(kind, table, norms, valid, qs, qn, h)
+        assert torch.equal(got, ref) and torch.equal(by_row, ref)
+
+
+def test_sig_sweep_kernel_wide_minhash_rows(dev):
+    """Rows wider than the kernel's 64 register words (minhash H 512) are
+    read from memory per query."""
+    table, norms = _sweep_inputs(dev, "minhash", 512, 700, 3)
+    rows = torch.arange(0, 700, 7, device=dev)
+    got = tl.sig_sweep("minhash", table, norms, 700, q_rows=rows,
+                       hash_num=512)
+    ref = tl.sig_sweep_ref("minhash", table, norms, 700, table[rows],
+                           norms[rows], 512)
+    assert torch.equal(got, ref)
+
+
+def test_sig_sweep_refuses_bad_inputs(dev):
+    table, norms = _sweep_inputs(dev, "lsh", 64, 10, 1)
+    with pytest.raises(ValueError):
+        tl.sig_sweep("lsh", table, norms, 10, q_rows=torch.zeros(
+            1, dtype=torch.int64, device=dev), hash_num=128)
+    with pytest.raises(ValueError):
+        tl.sig_sweep("lsh", table.float(), norms, 10, q_rows=torch.zeros(
+            1, dtype=torch.int64, device=dev), hash_num=64)
+    with pytest.raises(ValueError):
+        tl.sig_sweep("lsh", table, norms, torch.ones(10, device=dev),
+                     q_rows=torch.zeros(1, dtype=torch.int64, device=dev),
+                     hash_num=64)
+
+
+@pytest.mark.parametrize("method", ["lsh", "minhash", "euclid_lsh"])
+def test_nn_driver_on_the_card_matches_the_cpu(dev, method):
+    cfg = {"method": method, "parameter": {"hash_num": 64},
+           "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                         "hash_max_size": 4096}}
+    drivers = [tnn.NearestNeighborDriver(cfg, device=d) for d in (dev, "cpu")]
+    rng = np.random.default_rng(5)
+    data = [Datum([], [(f"f{j}", float(rng.standard_normal()))
+                       for j in rng.choice(512, 16, replace=False)])
+            for _ in range(300)]
+    for d in drivers:
+        d.set_row_many([(f"r{i % 250}", x) for i, x in enumerate(data[:280])])
+        d.set_row("r7", data[299])
+    assert drivers[0].pack() == drivers[1].pack()
+    for q in data[280:290]:
+        a, b = (d.similar_row_from_datum(q, 10) for d in drivers)
+        assert a == b
+    a, b = (d.neighbor_row_from_id("r7", 20) for d in drivers)
+    assert a == b
+    pairs = [(q, 5) for q in data[285:299]]
+    a, b = (d.neighbor_row_from_datum_many(pairs) for d in drivers)
+    assert a == b

@@ -58,6 +58,15 @@ def test_the_checks_cover_every_plane_of_the_port():
             "batching/coalescer.py"} <= names
 
 
+def test_the_checks_cover_the_nearest_neighbor_slice():
+    """The walk and the per-source check include the row-store modules,
+    and the LSH kernels build from their own source."""
+    names = {str(p.relative_to(PKG)) for p in SOURCES if PKG in p.parents}
+    assert {"ops/lsh.py", "models/pages.py",
+            "models/nearest_neighbor.py"} <= names
+    assert "lsh" in build.KERNELS and build.flags("lsh") == build.NVCC_FLAGS
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
     p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):
@@ -89,6 +98,23 @@ def test_cuda_without_a_card_raises(monkeypatch):
     from tests.test_torch_regression import config as reg_config
     with pytest.raises(RuntimeError, match="is_available"):
         RegressionDriver(reg_config())
+
+
+def test_nearest_neighbor_without_a_card_raises(monkeypatch, tmp_path):
+    """The NN driver defaults to cuda and raises without it; so does the
+    server CLI for --type nearest_neighbor without --device cpu."""
+    from jubatus_tpu_torch.models.nearest_neighbor import \
+        NearestNeighborDriver
+    from tests.test_torch_nearest_neighbor import config as nn_config
+    from tests.test_torch_server import _cli
+    proc = _cli(tmp_path, None, nn_config("minhash"), "nearest_neighbor",
+                CUDA_VISIBLE_DEVICES="")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        NearestNeighborDriver(nn_config("lsh"))
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode != 0
+    assert "jubatus ready" not in out and "is_available" in err
 
 
 def test_cpu_and_unsupported_devices():

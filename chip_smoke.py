@@ -130,22 +130,32 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 plain versions: the PRNG's fold_in keys, bits and uniforms
                 of the plain version bitwise between the card and the CPU;
                 lsh_signature and minhash_signature at B 1024, K 16, H 64
-                and 512, equal but for bits or slots in the rounding band
-                (none outside it); sig_sweep over 10^6 rows (lsh H 64,
-                euclid_lsh H 512, minhash H 64 — a 256 MB table) with 1
-                and 64 queries and by stored row, keys bitwise for lsh and
-                minhash, euclid_lsh scores within rtol/atol 1e-6; each
-                timed beside its plain version and its bound, the sweep
-                beside torch.topk over [R] scores.  (b) The service: a
+                and 512 and at B 1, K 16, H 64 (a set_row's and a datum
+                read's shape), equal but for bits or slots in the rounding
+                band (none outside it); sig_topk (the sweep with its top-16
+                selection) over 10^6 rows (lsh H 64, euclid_lsh H 512,
+                minhash H 64 — a 256 MB table) with 1 and 64 queries, by
+                signature and by stored row, its top keys bitwise the plain
+                version's (sig_sweep_ref, then torch.topk); each timed
+                beside its plain version and its bound (bytes, or the
+                operations class by class: integer, popcount, float32,
+                special-function, each at its own rate), sig_topk beside
+                torch.topk over [Nq, R] float32 scores.  (b) The service: a
                 10^6-row lsh table (bench.py's converter, hash_num 64)
                 built here through set_row_many, 1024 rows a call, saved in
                 the port's model-file format and loaded by two port servers
                 (--type nearest_neighbor, one with --read_batch_window_us
                 200); 1024 set_row and 256 calls of each of the four reads
                 at size 10 over the wire, each bitwise the in-process
-                driver's; 32 client threads of one-datum reads on each,
-                every lane answer bitwise the read sent alone and the lane
-                fusing; similar_row_from_datum_many at B 1/16/64.  (c) MIX
+                driver's, whose reads launch sig_topk once each and call
+                neither torch.topk nor a plain version; 32 client threads
+                of one-datum reads on each, every lane answer bitwise the
+                read sent alone and the lane fusing; each server's sig_topk
+                launches equal to its reads (plain) or its lane sweeps;
+                similar_row_from_datum_many at B 1/16/64; sig_topk on a copy
+                of the servers' table at a datum and a by-row read, bitwise
+                its plain version, and a datum read's device split (K1 at B
+                1, sig_topk, the copy out, the whole call).  (c) MIX
                 and recovery, for lsh and for minhash at once: per method
                 the port's coordinator's cluster of two journaled servers,
                 4096 set_row each, do_mix, both tables bitwise the union
@@ -2329,14 +2339,33 @@ NN_SWEEP_ROWS = 10 ** 6    # rows of the sweep kernel's tables
 NN_SIG_B = 1024            # datums of the signature kernels' batches
 NN_BAND = 1e-6             # rounding band of a signature bit or slot
 NN_RTOL = NN_ATOL = 1e-6   # euclid_lsh scores
+NN_KB = 16                 # kb of a read at NN_SIZE: _round_k(10)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# the card's other rates, each class at its own: 132 SMs at the H100
+# SXM's 1.98 GHz boost (data sheet) times the results a clock an SM of
+# the CUDA programming guide's throughput table for compute capability
+# 9.0: 64 for 32-bit integer add, logical, shift, compare and select; 16
+# for population count; 16 for the special function unit (log, sqrt,
+# reciprocal)
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9
+INT32_OPS_PER_S = 64 * SM_COUNT * SM_CLOCK_HZ
+POPC_PER_S = 16 * SM_COUNT * SM_CLOCK_HZ
+SFU_PER_S = 16 * SM_COUNT * SM_CLOCK_HZ
 # float32 operations of one (feature, hash) draw of K1 (the uniform's 3,
 # the erf_inv's log1p, compare, select and sqrt-or-subtract 5, its 8
 # fused multiply-adds 16, its product and the sqrt(2) 2, the projection's
 # multiply and add 2) and of K2 (uniform 3, log, negate, max, divide,
-# compare 5); the threefry's integer operations are not counted
+# compare 5)
 K1_F32_OPS = 28
 K2_F32_OPS = 8
+# integer operations: threefry2x32 is 72 (the 2 key adds, 20 rounds of
+# add, rotate and xor, 5 key injections of 2 adds); a draw adds hi ^ lo
+# and the uniform's shift and or; a fold key is one threefry a (datum,
+# feature).  Special-function operations of a draw: K1's log1p, K2's log
+# and the reciprocal of its division
+THREEFRY_INT_OPS = 72
+DRAW_INT_OPS = THREEFRY_INT_OPS + 3
+K1_SFU_OPS, K2_SFU_OPS = 1, 2
 
 
 def nn_datums(np, rng, n):
@@ -2372,12 +2401,15 @@ def nn_times(torch, fn, device, calls):
     return (call_ms if dev_ms is None else dev_ms), method, call_ms
 
 
-def nn_sig_batch(torch, np, dev, seed):
-    rng = np.random.default_rng(seed)
-    idx = rng.integers(0, 4096, (NN_SIG_B, NN_NNZ)).astype(np.int32)
-    val = rng.standard_normal((NN_SIG_B, NN_NNZ)).astype(np.float32)
-    idx[0], val[0] = 0, 0.0                    # an empty datum
-    val[1, NN_NNZ // 2:] = 0.0                 # a half-padded one
+def nn_sig_batch(torch, np, dev, seed, b=NN_SIG_B):
+    """b datums of NN_NNZ features; at b > 2 an empty one and a
+    half-padded one among them."""
+    rng = np.random.default_rng(seed if b == NN_SIG_B else seed + b)
+    idx = rng.integers(0, 4096, (b, NN_NNZ)).astype(np.int32)
+    val = rng.standard_normal((b, NN_NNZ)).astype(np.float32)
+    if b > 2:
+        idx[0], val[0] = 0, 0.0                # an empty datum
+        val[1, NN_NNZ // 2:] = 0.0             # a half-padded one
     return (torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev))
 
 
@@ -2422,8 +2454,8 @@ def phase_nn_kernels(torch, np, device="cuda"):
                                      "and the CPU")
     rows = {}
     variants = {"lsh_signature": [], "minhash_signature": []}
-    for h in (64, 512):
-        idx, val = nn_sig_batch(torch, np, dev, h)
+    for h, b in ((64, NN_SIG_B), (512, NN_SIG_B), (64, 1)):
+        idx, val = nn_sig_batch(torch, np, dev, h, b)
         nz = int((val != 0).sum())
         f1, f2 = L.fold_in(key, idx)
         draws = L.random_bits(f1, f2, h)            # [B, K, H]
@@ -2459,27 +2491,35 @@ def phase_nn_kernels(torch, np, device="cuda"):
                 "minhash_signature": float(
                     (gotm.to(torch.int64) - refm.to(torch.int64)).abs()
                     .max()) if bool(moved.any()) else 0.0}
-        for name, fn, refn, out, bad, ops in (
+        for name, fn, refn, out, bad, f32, sfu in (
                 ("lsh_signature", L.lsh_signature, L.lsh_signature_ref, got,
-                 flip, K1_F32_OPS),
+                 flip, K1_F32_OPS, K1_SFU_OPS),
                 ("minhash_signature", L.minhash_signature,
-                 L.minhash_signature_ref, gotm, moved, K2_F32_OPS)):
+                 L.minhash_signature_ref, gotm, moved, K2_F32_OPS,
+                 K2_SFU_OPS)):
             ms, method, call_ms = nn_times(
                 torch, lambda: fn(key, idx, val, h), device, 50)
             plain_ms = time_cuda(torch, lambda: refn(key, idx, val, h), 3) \
                 if device == "cuda" else None
             nbytes = idx.numel() * 8 + out.numel() * 4
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = nz * h * ops / F32_OPS_PER_S * 1e3
+            classes = {
+                "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                "int32": (nz * h * DRAW_INT_OPS + idx.numel()
+                          * THREEFRY_INT_OPS) / INT32_OPS_PER_S * 1e3,
+                "f32": nz * h * f32 / F32_OPS_PER_S * 1e3,
+                "sfu": nz * h * sfu / SFU_PER_S * 1e3}
+            by = max(classes, key=classes.get)
             # bits (K1) or slots (K2) that differ from the plain
             # version's, all inside the rounding band (checked above)
             variants[name].append({
-                "shape": [NN_SIG_B, NN_NNZ, h], "ms": ms,
+                "shape": [b, NN_NNZ, h], "ms": ms,
                 "device_method": method, "call_ms": call_ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "bytes_bound_ms": t_bytes, "in_band": int(bad.sum()),
-                "max_abs_err": errs[name]})
+                "plain_ms": plain_ms, "bound_ms": classes[by],
+                "bound_by": "bytes" if by == "bytes" else "operations",
+                "bound_class": by, "bound_classes_ms": classes,
+                "f32_only_bound_ms": max(classes["bytes"], classes["f32"]),
+                "bytes_bound_ms": classes["bytes"],
+                "in_band": int(bad.sum()), "max_abs_err": errs[name]})
     for name, v in variants.items():
         main = v[0]                       # H 64: the service's table
         rows[name] = {**{k: main[k] for k in (
@@ -2487,9 +2527,10 @@ def phase_nn_kernels(torch, np, device="cuda"):
             "bound_by", "bytes_bound_ms", "shape", "in_band",
             "max_abs_err")}, "library_ms": None, "variants": v}
         log(f"nn kernels: {name}: " + "; ".join(
-            f"H {x['shape'][2]}: {x['ms']} ms (call {x['call_ms']}, plain "
+            f"B {x['shape'][0]} H {x['shape'][2]}: {x['ms']} ms (call "
+            f"{x['call_ms']}, plain "
             f"{x['plain_ms']}, bound "
-            f"{x['bound_ms']:.4g} by {x['bound_by']}), {x['in_band']} in "
+            f"{x['bound_ms']:.4g} by {x['bound_class']}), {x['in_band']} in "
             "the band" for x in v))
 
     sweeps = []
@@ -2509,135 +2550,170 @@ def phase_nn_kernels(torch, np, device="cuda"):
             q_rows = torch.from_numpy(rng.integers(0, r, nq)).to(dev)
             qs, qn = tab[q_rows].contiguous(), norms[q_rows].contiguous()
             valid = r - 3
-            got = L.sig_sweep(kind, tab, norms, valid, q_sigs=qs, qnorms=qn,
-                              hash_num=h)
-            by_row = L.sig_sweep(kind, tab, norms, valid, q_rows=q_rows,
-                                 hash_num=h)
-            ref = L.sig_sweep_ref(kind, tab, norms, valid, qs, qn, h)
-            same = float((got == ref).double().mean())
-            gr, gs = L.keys_to_rows_scores(got)
-            rr, rs = L.keys_to_rows_scores(ref)
-            fin = torch.isfinite(rs)
-            err = float((gs - rs)[fin].abs().max())
-            if kind != "euclid_lsh":
-                if not (torch.equal(got, ref) and torch.equal(by_row, ref)):
-                    raise AssertionError(f"nn: sig_sweep {kind} Nq {nq}: "
-                                         "keys differ from the plain "
-                                         "version's")
-            elif not (torch.equal(fin, torch.isfinite(gs)) and bool(
-                    ((gs - rs)[fin].abs() <= NN_ATOL + NN_RTOL
-                     * rs[fin].abs()).all()) and torch.equal(got, by_row)):
-                raise AssertionError(f"nn: sig_sweep euclid_lsh Nq {nq}: "
-                                     "scores beyond the tolerance")
-            del ref, gr, gs, rr, rs
-            # one query: the card's time alone (a CUDA graph) beside the
-            # call's; 64 queries write 512 MB of keys a call, so the call
-            # time is the card's there
-            def sweep():
-                return L.sig_sweep(kind, tab, norms, valid, q_sigs=qs,
-                                   qnorms=qn, hash_num=h)
-
-            if nq == 1:
-                ms, method, call_ms = nn_times(torch, sweep, device, 20)
-            else:
-                ms = time_cuda(torch, sweep, 20) if device == "cuda" else None
-                method, call_ms = "call", None
-            row_ms = time_cuda(torch, lambda: L.sig_sweep(
-                kind, tab, norms, valid, q_rows=q_rows, hash_num=h), 20) \
-                if device == "cuda" else None
-            plain_ms = time_cuda(torch, lambda: L.sig_sweep_ref(
-                kind, tab, norms, valid, qs, qn, h), 2) \
-                if device == "cuda" and nq == 1 else None
-            # numpy's draws: an earlier phase's failed graph capture can
-            # leave torch's CUDA generator unusable
-            scores = torch.from_numpy(rng.random(r, dtype=np.float32)).to(
-                dev)
-            lib_ms = nn_times(torch, lambda: torch.topk(scores, 16), device,
-                              20)[0] if nq == 1 else None
-            nbytes = sweep_bytes(kind, r, w, valid, nq)
-            sweeps.append({
-                "kind": kind, "hash_num": h, "route": "signature",
-                "shape": [r, w, nq], "valid_rows": valid, "ms": ms,
-                "device_method": method, "call_ms": call_ms,
-                "by_row_ms": row_ms, "plain_ms": plain_ms,
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes",
-                "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "library_ms": lib_ms,
-                "keys_equal": same, "max_abs_err": err})
-            del got, by_row
+            sweeps.append(topk_row(torch, np, L, kind, h, tab, norms, valid,
+                                   qs, qn, q_rows, "signature", device))
         del tab, norms
-    rows["sig_sweep_variants"] = sweeps
-    log("nn kernels: sig_sweep: " + "; ".join(
+    rows["sig_topk_variants"] = sweeps
+    log("nn kernels: sig_topk: " + "; ".join(
         f"{x['kind']} H {x['hash_num']} Nq {x['shape'][2]}: {x['ms']} ms "
-        f"({x['device_method']}; call {x['call_ms']}, by row {x['by_row_ms']}, plain {x['plain_ms']}, bound "
-        f"{x['bound_ms']:.4g}, topk {x['library_ms']}), keys equal "
-        f"{x['keys_equal']:.6f}" for x in sweeps))
+        f"({x['device_method']}; call {x['call_ms']}, by row "
+        f"{x['by_row_ms']}, plain {x['plain_ms']}, bound "
+        f"{x['bound_ms']:.4g} by {x['bound_class']}, topk "
+        f"{x['library_ms']}), bitwise" for x in sweeps))
     return rows
 
 
-def sweep_bytes(kind, r, w, n_valid, nq):
-    """The bytes K3 must move: the valid rows' signatures (and norms, for
-    euclid_lsh only: the other kinds never read them) once, the queries
-    once and one int64 key per (query, row) once."""
+def topk_bound(kind, r, w, n_valid, nq, kb):
+    """K3's least time in ms by class: the bytes it must move (the valid
+    rows' signatures, and norms for euclid_lsh only, read once; the
+    queries read once; the top keys written once) and the operations its
+    scores need, each class at its own rate: per valid row and query W
+    popcounts and 2 W integer operations (xor and add; minhash: W
+    compares and W adds, no popcount) and, for euclid_lsh, the
+    estimate's 8 float32 operations and its sqrt.  The selection's
+    compares are not counted."""
     norms = n_valid * 4 if kind == "euclid_lsh" else 0
-    return n_valid * w * 4 + norms + nq * (w * 4 + 4) + nq * r * 8
+    nbytes = n_valid * w * 4 + norms + nq * (w * 4 + 4) + nq * kb * 8
+    pairs = n_valid * nq
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "int32": pairs * 2 * w / INT32_OPS_PER_S * 1e3,
+            "popc": (0 if kind == "minhash" else pairs * w) / POPC_PER_S
+            * 1e3,
+            "f32": (pairs * 8 if kind == "euclid_lsh" else 0)
+            / F32_OPS_PER_S * 1e3,
+            "sfu": (pairs if kind == "euclid_lsh" else 0) / SFU_PER_S * 1e3}
+
+
+def topk_row(torch, np, L, kind, h, table, norms, n, qs, qn, q_rows, route,
+             device):
+    """K3 (the sweep with its top-NN_KB selection) at one shape: by
+    signature and, where q_rows names the rows qs holds, by stored row,
+    both bitwise its plain version's (sig_sweep_ref, then torch.topk over
+    the keys); the card's time (a
+    CUDA graph at one query, CUDA events at more), the call's, the by-row
+    call's and the plain version's; the bound by class; torch.topk over
+    [Nq, R] float32 scores as the selection's yardstick."""
+    r, w = table.shape
+    nq = qs.shape[0]
+
+    def topk(**kw):
+        return L.sig_topk(kind, table, norms, n, hash_num=h, kb=NN_KB, **kw)
+
+    got = topk(q_sigs=qs, qnorms=qn)
+    by_row = got if q_rows is None else topk(q_rows=q_rows)
+    ref = L.sig_topk_ref(kind, table, norms, n, qs, qn, h, NN_KB)
+    if not (torch.equal(got, ref) and torch.equal(by_row, ref)):
+        raise AssertionError(f"nn: sig_topk {kind} H {h} Nq {nq} ({route}): "
+                             "top keys differ from the plain version's")
+    del got, by_row, ref
+    if nq == 1:
+        ms, method, call_ms = nn_times(
+            torch, lambda: topk(q_sigs=qs, qnorms=qn), device, 20)
+    else:
+        ms = time_cuda(torch, lambda: topk(q_sigs=qs, qnorms=qn), 20) \
+            if device == "cuda" else None
+        method, call_ms = "call", ms
+    row_ms = time_cuda(torch, lambda: topk(q_rows=q_rows), 20) \
+        if device == "cuda" and q_rows is not None else None
+    plain_ms = time_cuda(torch, lambda: L.sig_topk_ref(
+        kind, table, norms, n, qs, qn, h, NN_KB), 2) \
+        if device == "cuda" else None
+    # numpy's draws: an earlier phase's failed graph capture can leave
+    # torch's CUDA generator unusable
+    scores = torch.from_numpy(np.random.default_rng(r).random(
+        (nq, r), dtype=np.float32)).to(table.device)
+    lib_ms = (nn_times(torch, lambda: torch.topk(scores, NN_KB), device,
+                       20)[0] if nq == 1 else
+              time_cuda(torch, lambda: torch.topk(scores, NN_KB), 20)) \
+        if device == "cuda" else None
+    del scores
+    classes = topk_bound(kind, r, w, n, nq, NN_KB)
+    by = max(classes, key=classes.get)
+    return {
+        "kind": kind, "hash_num": h, "route": route, "shape": [r, w, nq],
+        "kb": NN_KB, "valid_rows": n, "ms": ms, "device_method": method,
+        "call_ms": call_ms, "by_row_ms": row_ms, "plain_ms": plain_ms,
+        "bound_ms": classes[by],
+        "bound_by": "bytes" if by == "bytes" else "operations",
+        "bound_class": by, "bound_classes_ms": classes,
+        "bytes_bound_ms": classes["bytes"], "library_ms": lib_ms,
+        "plan": L.topk_plan(r, w, nq, NN_KB, n, kind) if device == "cuda"
+        else None, "keys_equal": 1.0, "max_abs_err": 0.0}
 
 
 def nn_served_sweep(torch, np, drv, datum, row_id, device="cuda"):
     """K3 on a driver's own table at a read's query: one datum signed as
-    similar_row_from_datum signs it, and one stored row (the _from_id
-    routes), keys bitwise the plain version's (the service's lsh table),
-    each timed beside its plain version, its bound and torch.topk over
-    [R] float32 scores."""
+    similar_row_from_datum signs it and one stored row (the _from_id
+    routes), bitwise the plain version's (topk_row); and a datum read's
+    device split: K1 at B 1, K3, the copy of its [1, NN_KB] keys out, and
+    the whole fused_sig_query call."""
     from jubatus_tpu_torch.fv import Datum
     from jubatus_tpu_torch.ops import lsh as L
 
     kind, h = drv.method, drv.hash_num
     table, norms, n = drv.sig, drv.norms, drv.pages.n_rows
-    r, w = table.shape
     dev = table.device
     batch = drv.converter.convert_batch([nn_datum(Datum, datum)],
                                         update_weights=False)
-    q_sig = L.signature(drv.key, L._host(batch.indices, np.int32, dev),
-                        L._host(batch.values, np.float32, dev), h, kind)
-    q_norm = L._host(np.sqrt((batch.values * batch.values).sum(axis=1)),
-                     np.float32, dev)
+    idx = L._host(batch.indices, np.int32, dev)
+    val = L._host(batch.values, np.float32, dev)
+    q_sig = L.signature(drv.key, idx, val, h, kind)
+    qnorm = np.sqrt((batch.values * batch.values).sum(axis=1))
+    q_norm = L._host(qnorm, np.float32, dev)
     q_row = torch.tensor([drv.ids[row_id]], dtype=torch.int64, device=dev)
-    rng = np.random.default_rng(r)
-    scores = torch.from_numpy(rng.random(r, dtype=np.float32)).to(dev)
-    lib_ms = nn_times(torch, lambda: torch.topk(scores, 16), device, 20)[0]
-    out = []
-    for route, kw, qs, qn in (
-            ("datum", {"q_sigs": q_sig, "qnorms": q_norm}, q_sig, q_norm),
-            ("row", {"q_rows": q_row}, table[q_row], norms[q_row])):
-        def sweep(kw=kw):
-            return L.sig_sweep(kind, table, norms, n, hash_num=h, **kw)
-
-        got = sweep()
-        ref = L.sig_sweep_ref(kind, table, norms, n, qs, qn, h)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"nn: sig_sweep on the served table "
-                                 f"({route} query): keys differ from the "
-                                 "plain version's")
-        del got, ref
-        ms, method, call_ms = nn_times(torch, sweep, device, 20)
-        plain_ms = time_cuda(torch, lambda: L.sig_sweep_ref(
-            kind, table, norms, n, qs, qn, h), 2) \
-            if device == "cuda" else None
-        t_bytes = sweep_bytes(kind, r, w, n, 1) / HBM_BYTES_PER_S * 1e3
-        out.append({
-            "kind": kind, "hash_num": h, "route": route, "shape": [r, w, 1],
-            "valid_rows": n, "ms": ms, "device_method": method,
-            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
-            "bound_by": "bytes", "bytes_bound_ms": t_bytes,
-            "library_ms": lib_ms, "keys_equal": 1.0, "max_abs_err": 0.0})
-    log("nn kernels: sig_sweep on the served table: " + "; ".join(
+    out = [topk_row(torch, np, L, kind, h, table, norms, n, q_sig, q_norm,
+                    None, "datum", device),
+           topk_row(torch, np, L, kind, h, table, norms, n, table[q_row],
+                    norms[q_row], q_row, "row", device)]
+    split = None
+    if device == "cuda":
+        keys = L.sig_topk(kind, table, norms, n, q_sigs=q_sig,
+                          qnorms=q_norm, hash_num=h, kb=NN_KB)
+        sig_ms = nn_times(torch, lambda: L.signature(drv.key, idx, val, h,
+                                                     kind), device, 20)
+        reps = 200
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            L.fused_sig_query(kind, drv.key, batch.indices, batch.values,
+                              table, norms, n, h, float(qnorm[0]), NN_SIZE)
+        read_ms = (time.perf_counter() - t0) * 1e3 / reps
+        split = {"signature_ms": sig_ms[0], "signature_method": sig_ms[1],
+                 "signature_call_ms": sig_ms[2], "sig_topk_ms": out[0]["ms"],
+                 "sig_topk_call_ms": out[0]["call_ms"],
+                 "copy_out_ms": time_cuda(torch, lambda: keys.cpu(), 200),
+                 "fused_sig_query_ms": read_ms}
+    log("nn kernels: sig_topk on the served table: " + "; ".join(
         f"{x['route']} query at {x['shape']} ({x['valid_rows']} valid): "
         f"{x['ms']} ms ({x['device_method']}; call {x['call_ms']}, plain "
-        f"{x['plain_ms']}, bound {x['bound_ms']:.4g}, topk "
-        f"{x['library_ms']}), keys bitwise" for x in out))
-    return out
+        f"{x['plain_ms']}, bound {x['bound_ms']:.4g} by "
+        f"{x['bound_class']}, topk {x['library_ms']}), bitwise"
+        for x in out) + f"; a datum read's device split {split}")
+    return out, split
+
+
+class counting_calls:
+    """Within the block, torch.topk and the plain K3 (sig_topk_ref) count
+    their calls into `counts` (keys "torch.topk", "sig_topk_ref")."""
+
+    def __init__(self, torch, lshops, counts):
+        self.torch, self.lshops, self.counts = torch, lshops, counts
+
+    def __enter__(self):
+        self.saved = (self.torch.topk, self.lshops.sig_topk_ref)
+
+        def wrap(name, fn):
+            def counted(*a, **kw):
+                self.counts[name] += 1
+                return fn(*a, **kw)
+            return counted
+
+        self.torch.topk = wrap("torch.topk", self.saved[0])
+        self.lshops.sig_topk_ref = wrap("sig_topk_ref", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.topk, self.lshops.sig_topk_ref = self.saved
+        return False
 
 
 def pct(np, xs, q):
@@ -2657,9 +2733,13 @@ def phase_nn_service(torch, np, card, device="cuda"):
     mean > 1); then similar_row_from_datum_many alone at B 1, 16 and 64
     (CUDA events); last, K3 against its plain version on a copy of the
     servers' table (the file's rows loaded, the new rows set: the
-    servers' layout and slot count) at a datum and a by-row query.
+    servers' layout and slot count) at a datum and a by-row query, with
+    a datum read's device split.  Every read sweeps through one K3
+    launch: the in-process driver's reads launch it once each and call
+    neither torch.topk nor a plain version; the plain server's launches
+    equal its reads and the lane server's its read_batch_size count.
     Returns the launches of this path, the build's and the server
-    processes', and that check's sig_sweep rows."""
+    processes', and that check's sig_topk rows and split."""
     import threading
 
     from jubatus_tpu_torch.fv import Datum
@@ -2668,6 +2748,7 @@ def phase_nn_service(torch, np, card, device="cuda"):
                                                          kernel_launches,
                                                          reset_kernel_launches)
     from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as lshops
 
     rng = np.random.default_rng(12)
     drv = create_driver("nearest_neighbor", NN_CONFIG, device=device)
@@ -2735,6 +2816,8 @@ def phase_nn_service(torch, np, card, device="cuda"):
             for i, d in enumerate(new_rows):
                 drv.set_row(f"n{i}", nn_datum(Datum, d))
             answers = {}
+            local = {"reads": 0, "torch.topk": 0, "sig_topk_ref": 0}
+            n0 = lshops.sig_topk.launches
             for method in ("similar_row_from_datum", "neighbor_row_from_datum",
                            "similar_row_from_id", "neighbor_row_from_id"):
                 args = ([nn_wire(q) for q in queries[:NN_READS]]
@@ -2750,14 +2833,23 @@ def phase_nn_service(torch, np, card, device="cuda"):
                 for a, got in zip(args, answers[method]):
                     x = (Datum.from_msgpack(a) if method.endswith("datum")
                          else a)
-                    want = [[i, s] for i, s in getattr(drv, method)(
-                        x, NN_SIZE)]
+                    with counting_calls(torch, lshops, local):
+                        want = [[i, s] for i, s in getattr(drv, method)(
+                            x, NN_SIZE)]
+                    local["reads"] += 1
                     if got != want:
                         raise AssertionError(f"nn: {method} over the wire "
                                              "differs from the in-process "
                                              "driver")
             st_plain = status_of(cli)
             cli.close()
+            local["sig_topk"] = lshops.sig_topk.launches - n0
+            if device == "cuda" and (
+                    local["sig_topk"] != local["reads"]
+                    or local["torch.topk"] or local["sig_topk_ref"]):
+                raise AssertionError(f"nn: the in-process reads {local}: "
+                                     "not one K3 launch each, or a "
+                                     "torch.topk or plain-version call")
             if int(st_plain["num_rows"]) != NN_ROWS + NN_NEW:
                 raise AssertionError(f"nn: the server holds "
                                      f"{st_plain['num_rows']} rows")
@@ -2792,10 +2884,11 @@ def phase_nn_service(torch, np, card, device="cuda"):
             alone = [cli.call("similar_row_from_datum", q, NN_SIZE)
                      for q in lane_q]
             cli.close()
-            served_launches = {}
-            for port in ports.values():
+            served_launches, final = {}, {}
+            for k, port in ports.items():
                 cli = WireClient(port)
-                for kern, c in launches_of(status_of(cli)).items():
+                final[k] = status_of(cli)
+                for kern, c in launches_of(final[k]).items():
                     served_launches[kern] = served_launches.get(kern, 0) + c
                 cli.close()
         finally:
@@ -2809,6 +2902,15 @@ def phase_nn_service(torch, np, card, device="cuda"):
     if not mean > 1.0:
         raise AssertionError(f"nn: read_batch_size mean {mean}: the lane "
                              "fused no reads")
+    # one K3 launch a read (plain server) and a lane sweep (lane server)
+    sweeps = {"plain": {"reads": 4 * NN_READS + n_lane},
+              "lane": {"reads": int(final["lane"]["read_batch_size_count"])}}
+    for k in sweeps:
+        sweeps[k]["sig_topk"] = launches_of(final[k]).get("sig_topk", 0)
+        if device == "cuda" and sweeps[k]["sig_topk"] != sweeps[k]["reads"]:
+            raise AssertionError(f"nn: the {k} server launched K3 "
+                                 f"{sweeps[k]['sig_topk']} times for "
+                                 f"{sweeps[k]['reads']} reads")
     # the table the servers sweep: loading sizes the store to the file,
     # the new rows then double its pages
     served = create_driver("nearest_neighbor", NN_CONFIG, device=device)
@@ -2820,8 +2922,8 @@ def phase_nn_service(torch, np, card, device="cuda"):
         raise AssertionError(f"nn: the copy of the servers' table has "
                              f"{served.pages.capacity} slots, the servers "
                              f"{slots}")
-    served_sweeps = nn_served_sweep(torch, np, served, queries[0], ids[0],
-                                    device)
+    served_sweeps, read_split = nn_served_sweep(torch, np, served,
+                                                queries[0], ids[0], device)
     del served
     many_ms = {}
     for b in (1, 16, 64):
@@ -2830,12 +2932,12 @@ def phase_nn_service(torch, np, card, device="cuda"):
             many_ms[b] = time_cuda(
                 torch, lambda: drv.similar_row_from_datum_many(pairs), 20)
     counts = {k: build.get(k, 0) + served_launches.get(k, 0)
-              for k in ("lsh_signature", "minhash_signature", "sig_sweep")}
+              for k in ("lsh_signature", "minhash_signature", "sig_topk")}
     line = {
         "rows": NN_ROWS + NN_NEW, "hash_num": 64,
         "build_rows_per_s": NN_ROWS / build_s, "build_s": build_s,
         "build_launches": {k: build[k] for k in ("lsh_signature",
-                                                 "sig_sweep")},
+                                                 "sig_topk")},
         "pack_s": pack_s, "save_s": save_s, "load_ms": load_ms,
         "set_row_ms_p50": pct(np, t_set, 50),
         "set_row_ms_p99": pct(np, t_set, 99),
@@ -2849,6 +2951,8 @@ def phase_nn_service(torch, np, card, device="cuda"):
                  "read_batch_size_max": float(
                      lane_st["read_batch_size_max"])},
         "similar_row_from_datum_many_ms": many_ms,
+        "read_split": read_split, "local_reads": local,
+        "reads_and_sweeps": sweeps,
         "server_launches": served_launches, "card": card}
     log(f"nn service: {NN_ROWS} rows built at "
         f"{line['build_rows_per_s']:.0f} rows/s, loaded by two servers; "
@@ -3147,15 +3251,16 @@ def main() -> int:
     rows.update(phase_nn_kernels(torch, np))
     svc_counts, served_sweeps = phase_nn_service(torch, np, card)
     nn_counts = [svc_counts, phase_nn_cluster(torch, np, card)]
-    # K3's row: the served table's sweep at a one-datum read; the 10^6-row
-    # tables of each kind follow among its variants
+    # K3's row: the served table's sweep with its selection at a one-datum
+    # read; the by-row read and the 10^6-row tables of each kind at 1 and
+    # 64 queries follow among its variants
     main_sweep = served_sweeps[0]
-    rows["sig_sweep"] = {
+    rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
             "ms", "device_method", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "bytes_bound_ms", "library_ms", "shape",
             "max_abs_err")},
-        "variants": served_sweeps + rows.pop("sig_sweep_variants")}
+        "variants": served_sweeps + rows.pop("sig_topk_variants")}
 
     def served(kern):
         return sum(c.get(kern, 0) for c in cluster_counts)
@@ -3193,9 +3298,9 @@ def main() -> int:
         "minhash_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                               "jubatus_tpu/ops/lsh.py:67",
                               nn_served("minhash_signature")),
-        "sig_sweep": ("jubatus_tpu_torch/csrc/lsh.cu",
-                      "jubatus_tpu/ops/lsh.py:189",
-                      nn_served("sig_sweep")),
+        "sig_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
+                     "jubatus_tpu/ops/lsh.py:189",
+                     nn_served("sig_topk")),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():

@@ -39,7 +39,7 @@ from jubatus_tpu_torch.models.classifier import train_scan
 from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
 from jubatus_tpu_torch.ops.lsh import (lsh_signature, minhash_signature,
-                                       sig_sweep)
+                                       sig_topk)
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -55,7 +55,7 @@ KERNEL_WRAPPERS = {
     "dequantize_int8": dequantize_int8,
     "lsh_signature": lsh_signature,
     "minhash_signature": minhash_signature,
-    "sig_sweep": sig_sweep,
+    "sig_topk": sig_topk,
 }
 
 

@@ -9,8 +9,9 @@ package's PRNG (ops/lsh.py: threefry-exact), so a row written here
 compares with a query signed by a JAX server, and model files, MIX diffs
 and journals cross packages.  On the card an insert is one signature
 launch (K1 or K2 of csrc/lsh.cu) and one scatter per column; a query is a
-signature launch, one sweep launch over the whole table (K3) and a
-torch.topk over its unique keys, whose order is jax.lax.top_k's.
+signature launch and one launch of K3, which sweeps the whole table and
+keeps each query's top keys (unique, in jax.lax.top_k's order): only
+those leave the card, in one copy.
 
 Score conventions (the reference engines'):
   neighbor_row_*  -> ascending distance (lsh: hamming/H; minhash:
@@ -216,9 +217,10 @@ class NearestNeighborDriver(Driver):
 
     def _query_datum_many(self, pairs: Sequence[Tuple[Datum, int]],
                           similarity: bool):
-        """The read lane's entry: N datum queries as one signature launch,
-        one sweep launch and one top-k, demuxed per caller (the top rows
-        of the largest size hold every smaller size's as a prefix)."""
+        """The read lane's entry: N datum queries as one signature launch
+        and one launch of the sweep with its top-k, demuxed per caller
+        (the top rows of the largest size hold every smaller size's as a
+        prefix)."""
         if not self.ids:
             return [[] for _ in pairs]
         sizes = [int(s) for _, s in pairs]

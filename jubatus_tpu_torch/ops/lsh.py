@@ -19,15 +19,17 @@ log1p differs in the last bits).
 
 A table sweep scores one or many query signatures against every row
 (lsh: 1 - hamming/H; minhash: equal slots/H; euclid_lsh: minus the
-LSH-estimated distance) and emits one unique, order-preserving int64 key
-per (query, row): the score's order-preserving image in the high word and
-0xFFFFFFFF - row in the low word.  torch.topk over those keys gives
-jax.lax.top_k's order exactly, ties to the lower row included.
+LSH-estimated distance) and keeps each query's top kb rows as unique,
+order-preserving int64 keys: the score's order-preserving image in the
+high word and 0xFFFFFFFF - row in the low word, so the keys' order is
+jax.lax.top_k's, ties to the lower row included.
 
 Three hand kernels in csrc/lsh.cu do the work on the card (K1
-lsh_signature, K2 minhash_signature, K3 sig_sweep); each wrapper below
-launches its kernel for a CUDA tensor, raising where it cannot, and runs
-the plain PyTorch version (the *_ref functions) for a CPU tensor.
+lsh_signature, K2 minhash_signature, K3 sig_topk: the sweep with its
+top-kb selection, so only [Nq, kb] keys leave the card); each wrapper
+below launches its kernel for a CUDA tensor, raising where it cannot,
+and runs the plain PyTorch version (the *_ref functions) for a CPU
+tensor.
 Signature tables are int32 tensors holding the uint32 bit patterns
 (torch's uint32 has few CPU ops); host arrays stay uint32.
 """
@@ -222,16 +224,25 @@ def minhash_signature_ref(key, indices: torch.Tensor, values: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The LSH library, its three entry points bound once."""
+    """The LSH library, its entry points bound once."""
     lib = build.load("lsh")
     for fn in (lib.lsh_signature_launch, lib.minhash_signature_launch):
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_uint32] * 2
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.sig_sweep_launch.argtypes = (
+    lib.sig_topk_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    lib.sig_sweep_launch.restype = ctypes.c_int
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
+    lib.sig_topk_launch.restype = ctypes.c_int
+    lib.sig_topk_workspace.argtypes = (
+        [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        + [ctypes.c_int])
+    lib.sig_topk_workspace.restype = ctypes.c_longlong
+    lib.sig_topk_plan.argtypes = (
+        [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.sig_topk_plan.restype = ctypes.c_int
     return lib
 
 
@@ -306,7 +317,7 @@ def signature(key, indices: torch.Tensor, values: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the table sweep: plain version and the K3 wrapper
+# the table sweep with its selection: plain version and the K3 wrapper
 # ---------------------------------------------------------------------------
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
@@ -397,9 +408,9 @@ def keys_to_rows_scores(keys: torch.Tensor
 def sig_sweep_ref(kind: str, table: torch.Tensor, norms: torch.Tensor,
                   n_valid: int, q_sigs: torch.Tensor, qnorms: torch.Tensor,
                   hash_num: int) -> torch.Tensor:
-    """Plain version of K3: int64 keys [Nq, R] of each query signature
-    (q_sigs [Nq, W], qnorms [Nq]) against the table, the rows from
-    n_valid on at -inf."""
+    """The key of every (query, row): int64 [Nq, R] of each query
+    signature (q_sigs [Nq, W], qnorms [Nq]) against the table, the rows
+    from n_valid on at -inf.  The first step of sig_topk_ref."""
     r = table.shape[0]
     mask = torch.arange(r, device=table.device) < int(n_valid)
     keys = []
@@ -412,72 +423,127 @@ def sig_sweep_ref(kind: str, table: torch.Tensor, norms: torch.Tensor,
     return torch.stack(keys)
 
 
-def sig_sweep(kind: str, table: torch.Tensor, norms: torch.Tensor,
-              n_valid: int,
-              q_sigs: Optional[torch.Tensor] = None,
-              qnorms: Optional[torch.Tensor] = None,
-              q_rows: Optional[torch.Tensor] = None,
-              hash_num: int = 0) -> torch.Tensor:
-    """Keys [Nq, R] of Nq queries against table [R, W] (int32), norms [R]
-    float32, of which the rows below n_valid are valid (the store's rows
-    are a prefix: nothing frees a slot yet).  The queries are signatures
-    q_sigs [Nq, W] with qnorms [Nq], or stored rows q_rows [Nq] int64,
-    each in [0, R) (the kernel gathers their signatures and norms).  CUDA tensors: one launch
-    of K3 (csrc/lsh.cu); CPU: the plain version."""
+def sig_topk_ref(kind: str, table: torch.Tensor, norms: torch.Tensor,
+                 n_valid: int, q_sigs: torch.Tensor, qnorms: torch.Tensor,
+                 hash_num: int, kb: int) -> torch.Tensor:
+    """Plain version of K3: each query's top kb keys [Nq, kb], descending
+    (sig_sweep_ref, then torch.topk over its unique keys: the order is
+    the keys' own, jax.lax.top_k's)."""
+    keys = sig_sweep_ref(kind, table, norms, n_valid, q_sigs, qnorms,
+                         hash_num)
+    return torch.topk(keys, kb, dim=1, largest=True, sorted=True).values
+
+
+def _sig_topk_args(kind, table, n_valid, q_sigs, q_rows, kb) -> None:
     if kind not in SIG_KINDS:
         raise ValueError(f"unknown signature kind: {kind}")
     if not isinstance(n_valid, (int, np.integer)):
-        raise ValueError(f"sig_sweep: n_valid is a row count, not "
+        raise ValueError(f"sig_topk: n_valid is a row count, not "
                          f"{type(n_valid).__name__}")
+    r = table.shape[0]
+    if not 0 <= int(n_valid) <= r:
+        raise ValueError(f"sig_topk: {n_valid} valid rows of {r}")
+    if not 1 <= int(kb) <= r:
+        raise ValueError(f"sig_topk: kb {kb} outside [1, {r}]")
+    if (q_rows is None) == (q_sigs is None):
+        raise ValueError("sig_topk: give q_sigs (with qnorms) or q_rows")
+
+
+def sig_topk(kind: str, table: torch.Tensor, norms: torch.Tensor,
+             n_valid: int,
+             q_sigs: Optional[torch.Tensor] = None,
+             qnorms: Optional[torch.Tensor] = None,
+             q_rows: Optional[torch.Tensor] = None,
+             hash_num: int = 0, kb: int = 8) -> torch.Tensor:
+    """Each query's top kb keys [Nq, kb] int64, descending, against table
+    [R, W] (int32), norms [R] float32, of which the rows below n_valid
+    are valid (the store's rows are a prefix: nothing frees a slot yet;
+    the rest score -inf and fill in, the lowest rows first, where fewer
+    than kb are valid).  The queries are signatures q_sigs [Nq, W] with
+    qnorms [Nq], or stored rows q_rows [Nq] int64, each in [0, R) (the
+    kernel gathers their signatures and norms).  1 <= kb <= R.  CUDA
+    tensors: one launch of K3 (csrc/lsh.cu), with its scratch from
+    torch.empty; CPU: the plain version."""
+    _sig_topk_args(kind, table, n_valid, q_sigs, q_rows, kb)
     if table.device.type == "cpu":
         if q_rows is not None:
             q_sigs, qnorms = table[q_rows], norms[q_rows]
-        return sig_sweep_ref(kind, table, norms, n_valid, q_sigs, qnorms,
-                             hash_num)
+        return sig_topk_ref(kind, table, norms, int(n_valid), q_sigs,
+                            qnorms, hash_num, int(kb))
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check(table, torch.int32, dev, "sig_sweep table")
-    _check(norms, torch.float32, dev, "sig_sweep norms")
+    _check(table, torch.int32, dev, "sig_topk table")
+    _check(norms, torch.float32, dev, "sig_topk norms")
     r, w = table.shape
     if w != sig_width(kind, hash_num) or norms.shape != (r,):
-        raise ValueError(f"sig_sweep: table {tuple(table.shape)} / norms "
+        raise ValueError(f"sig_topk: table {tuple(table.shape)} / norms "
                          f"{tuple(norms.shape)} do not fit {kind} at "
                          f"hash_num {hash_num}")
+    if r >= MASK32:
+        raise ValueError(f"sig_topk: {r} rows do not fit the 32-bit row "
+                         f"word of a key")
     if q_rows is not None:
-        _check(q_rows, torch.int64, dev, "sig_sweep q_rows")
+        _check(q_rows, torch.int64, dev, "sig_topk q_rows")
+        if q_rows.dim() != 1:
+            raise ValueError("sig_topk: q_rows must be [Nq]")
         nq = q_rows.shape[0]
         qs_ptr = qn_ptr = 0
         qr_ptr = q_rows.data_ptr()
     else:
-        _check(q_sigs, torch.int32, dev, "sig_sweep q_sigs")
-        _check(qnorms, torch.float32, dev, "sig_sweep qnorms")
+        _check(q_sigs, torch.int32, dev, "sig_topk q_sigs")
+        _check(qnorms, torch.float32, dev, "sig_topk qnorms")
         nq = q_sigs.shape[0]
         if q_sigs.shape != (nq, w) or qnorms.shape != (nq,):
-            raise ValueError("sig_sweep: query shapes do not fit the table")
+            raise ValueError("sig_topk: query shapes do not fit the table")
         qs_ptr, qn_ptr, qr_ptr = q_sigs.data_ptr(), qnorms.data_ptr(), 0
-    keys = torch.empty((nq, r), dtype=torch.int64, device=dev)
-    if nq == 0 or r == 0:
-        return keys
-    if r >= MASK32:
-        raise ValueError(f"sig_sweep: {r} rows do not fit the 32-bit row "
-                         f"word of a key")
+    kb = int(kb)
+    out = torch.empty((nq, kb), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return out
+    lib = _lib()
+    ws_bytes = lib.sig_topk_workspace(r, w, nq, kb, int(n_valid),
+                                      SIG_KINDS.index(kind))
+    if ws_bytes < 0:
+        raise ValueError(f"sig_topk: no plan for R {r}, W {w}, Nq {nq}, "
+                         f"kb {kb}, {n_valid} valid rows")
+    ws = torch.empty(max(ws_bytes, 8), dtype=torch.uint8, device=dev)
     tab = _count_table_dev(kind, hash_num, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().sig_sweep_launch(
+    err = lib.sig_topk_launch(
         table.data_ptr(), norms.data_ptr(), int(n_valid), qs_ptr, qn_ptr,
-        qr_ptr, tab.data_ptr(), r, w, nq, SIG_KINDS.index(kind),
-        keys.data_ptr(), stream)
-    sig_sweep.launches += 1
-    build.check(err, "sig_sweep launch")
-    return keys
+        qr_ptr, tab.data_ptr(), r, w, nq, SIG_KINDS.index(kind), kb,
+        ws.data_ptr(), ws_bytes, out.data_ptr(), stream)
+    sig_topk.launches += 1
+    build.check(err, "sig_topk launch")
+    return out
 
 
-sig_sweep.launches = 0
+sig_topk.launches = 0
+
+TOPK_PATHS = ("fast", "sort")
+TOPK_MODES = ("direct", "staged", "split")
+
+
+def topk_plan(rows: int, width: int, nq: int, kb: int, n_valid: int,
+              kind: str = "lsh") -> dict:
+    """K3's launch plan for a shape (the card's library): its path
+    (fast: the lists; sort: kb > 1024 or a query too wide), how rows are
+    read (direct, staged, split), the queries a block, the blocks over
+    the rows, the rows a block and the list length."""
+    out = (ctypes.c_longlong * 6)()
+    err = _lib().sig_topk_plan(rows, width, nq, kb, n_valid,
+                               SIG_KINDS.index(kind), ctypes.addressof(out))
+    if err != 0:
+        raise ValueError(f"sig_topk: no plan for R {rows}, W {width}, "
+                         f"Nq {nq}, kb {kb}, {n_valid} valid rows")
+    return {"path": TOPK_PATHS[out[0]], "mode": TOPK_MODES[out[1]],
+            "query_chunk": int(out[2]), "blocks": int(out[3]),
+            "rows_per_block": int(out[4]), "list_len": int(out[5])}
 
 
 # ---------------------------------------------------------------------------
-# selection and the fused query routes (ops/lsh.py _fused_sig_query*)
+# the fused query routes (ops/lsh.py _fused_sig_query*)
 # ---------------------------------------------------------------------------
 
 def _round_k(k: int) -> int:
@@ -488,14 +554,11 @@ def _round_k(k: int) -> int:
     return x
 
 
-def select_topk(keys: torch.Tensor, kb: int
-                ) -> Tuple[np.ndarray, np.ndarray]:
-    """The top kb of each query's keys -> host (rows [Nq, kb] int64,
-    scores [Nq, kb] float32), in jax.lax.top_k's order: the keys are
-    unique, so torch.topk's order is the keys' own."""
-    top = torch.topk(keys, kb, dim=1, largest=True, sorted=True).values
-    rows, scores = keys_to_rows_scores(top)
-    return rows.cpu().numpy(), scores.cpu().numpy()
+def keys_to_host(keys: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """Top keys [Nq, kb] -> host (rows [Nq, kb] int64, scores [Nq, kb]
+    float32): one copy, the decode on the host."""
+    rows, scores = keys_to_rows_scores(keys.cpu())
+    return rows.numpy(), scores.numpy()
 
 
 def _kb(k: int, n_rows: int) -> int:
@@ -513,17 +576,18 @@ def fused_sig_query_batch(kind: str, key, q_indices: np.ndarray,
                           q_values: np.ndarray, table: torch.Tensor,
                           norms: torch.Tensor, n_valid: int, hash_num: int,
                           qnorms, k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """[Nq] datum queries: signatures (K1/K2), the sweep (K3), top-k ->
-    (rows [Nq, k'], scores [Nq, k']) numpy, k' = min(_round_k(k), R); the
-    caller trims and drops non-finite entries."""
+    """[Nq] datum queries: signatures (K1/K2), then the sweep with its
+    selection (K3) -> (rows [Nq, k'], scores [Nq, k']) numpy, k' =
+    min(_round_k(k), R); the caller trims and drops non-finite
+    entries."""
     dev = table.device
     idx = _host(q_indices, np.int32, dev)
     val = _host(q_values, np.float32, dev)
     q_sigs = signature(key, idx, val, hash_num, kind)
-    keys = sig_sweep(kind, table, norms, n_valid, q_sigs=q_sigs,
-                     qnorms=_host(qnorms, np.float32, dev),
-                     hash_num=hash_num)
-    return select_topk(keys, _kb(k, table.shape[0]))
+    return keys_to_host(sig_topk(
+        kind, table, norms, n_valid, q_sigs=q_sigs,
+        qnorms=_host(qnorms, np.float32, dev), hash_num=hash_num,
+        kb=_kb(k, table.shape[0])))
 
 
 def fused_sig_query(kind: str, key, q_indices, q_values, table, norms,
@@ -543,14 +607,14 @@ def fused_sig_query(kind: str, key, q_indices, q_values, table, norms,
 def fused_sig_query_row(kind: str, table: torch.Tensor, row: int,
                         norms: torch.Tensor, n_valid: int, hash_num: int,
                         k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Query by a stored row: the sweep gathers its signature and norm
+    """Query by a stored row: the kernel gathers its signature and norm
     on the device (no host readback before the sweep)."""
     if not 0 <= int(row) < table.shape[0]:
         raise IndexError(f"row {row} outside the table's {table.shape[0]}")
     q_rows = torch.tensor([int(row)], dtype=torch.int64, device=table.device)
-    keys = sig_sweep(kind, table, norms, n_valid, q_rows=q_rows,
-                     hash_num=hash_num)
-    rows, scores = select_topk(keys, _kb(k, table.shape[0]))
+    rows, scores = keys_to_host(sig_topk(
+        kind, table, norms, n_valid, q_rows=q_rows, hash_num=hash_num,
+        kb=_kb(k, table.shape[0])))
     return rows[0], scores[0]
 
 

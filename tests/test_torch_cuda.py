@@ -26,7 +26,12 @@ of 1 to 64 datums, rings of 1 to 8 slots, 1 to 8 producer warps), at
 B 0, 1 and B not a multiple of the block, at every K bucket, and with a
 shared-memory layout that agrees with the plan's.  Both scans flush
 float32 subnormals as their plain versions do (bitwise on those
-datums).
+datums).  The LSH kernels: the signatures bitwise their plain versions;
+the sweep with its top-k selection (sig_topk) bitwise its plain version
+(sig_sweep_ref, then torch.topk) for every kind and way rows are read,
+by signature and by stored row, at every kb of the fast path and the
+sort path's, with fillers, a count of 0, a last block holding fewer rows
+than kb, and ties across blocks.
 """
 
 import numpy as np
@@ -802,54 +807,122 @@ def _sweep_inputs(dev, kind, h, r, seed):
     return torch.from_numpy(tab).to(dev), torch.from_numpy(norms).to(dev)
 
 
+def _topk_both(dev, kind, h, table, norms, valid, rows, kb):
+    """K3 by signature and by stored row, both against the plain
+    version (sig_sweep_ref + torch.topk), bitwise; one launch each."""
+    qs, qn = table[rows].contiguous(), norms[rows].contiguous()
+    n0 = tl.sig_topk.launches
+    got = tl.sig_topk(kind, table, norms, valid, q_sigs=qs, qnorms=qn,
+                      hash_num=h, kb=kb)
+    by_row = tl.sig_topk(kind, table, norms, valid, q_rows=rows,
+                         hash_num=h, kb=kb)
+    torch.cuda.synchronize()
+    assert tl.sig_topk.launches == n0 + 2
+    ref = tl.sig_topk_ref(kind, table, norms, valid, qs, qn, h, kb)
+    assert got.shape == (rows.shape[0], kb)
+    assert torch.equal(got, ref), (kind, h, valid, kb)
+    assert torch.equal(by_row, ref), (kind, h, valid, kb)
+
+
 @pytest.mark.parametrize("kind", tl.SIG_KINDS)
 @pytest.mark.parametrize("h", [64, 77, 512])
 @pytest.mark.parametrize("nq", [1, 5, 64, 130])
 def test_sig_sweep_kernel_matches_plain(dev, kind, h, nq):
-    """K3's keys bitwise equal the plain version's for every kind, by
-    signature and by stored row, with every row valid and with a count
-    below the table's rows (the euclid estimate's fused steps round as
-    the plain version's float64 ones)."""
+    """K3's top keys (the sweep with its selection) bitwise equal the
+    plain version's for every kind and every way rows are read (direct:
+    lsh/euclid_lsh H 64 and 77; staged: euclid_lsh H 512, minhash H 64;
+    split: minhash H 77 and 512), by signature and by stored row, with
+    every row valid and with a count below the table's rows, at kb 16
+    and 64 (the euclid estimate's fused steps round as the plain
+    version's float64 ones)."""
     table, norms = _sweep_inputs(dev, kind, h, 3000, nq + h)
     rng = np.random.default_rng(nq)
     rows = torch.from_numpy(rng.integers(0, 3000, nq)).to(dev)
-    qs, qn = table[rows].contiguous(), norms[rows].contiguous()
     for valid in (2990, 3000):
-        n0 = tl.sig_sweep.launches
-        got = tl.sig_sweep(kind, table, norms, valid, q_sigs=qs, qnorms=qn,
-                           hash_num=h)
-        by_row = tl.sig_sweep(kind, table, norms, valid, q_rows=rows,
-                              hash_num=h)
-        torch.cuda.synchronize()
-        assert tl.sig_sweep.launches == n0 + 2
-        ref = tl.sig_sweep_ref(kind, table, norms, valid, qs, qn, h)
-        assert torch.equal(got, ref) and torch.equal(by_row, ref)
+        for kb in (16, 64):
+            _topk_both(dev, kind, h, table, norms, valid, rows, kb)
+
+
+@pytest.mark.parametrize("kind", tl.SIG_KINDS)
+@pytest.mark.parametrize("kb", [1, 8, 16, 33, 64, 256, 1024, 2048])
+def test_sig_topk_kernel_every_kb(dev, kind, kb):
+    """Every kb, the fast path's (<= 1024: one key a lane up to 32, slots
+    of 2 to 32 a lane above) and the sort path's (2048), on R 5001 (not
+    a multiple of the 256-row tile): no valid row (all fillers), fewer
+    valid rows than kb (fillers after them, the lowest rows first), a
+    count whose last block holds fewer rows than kb, and every row."""
+    table, norms = _sweep_inputs(dev, kind, 64, 5001, kb + 11)
+    rng = np.random.default_rng(kb)
+    rows = torch.from_numpy(rng.integers(0, 5001, 3)).to(dev)
+    for valid in (0, 5, max(kb // 2, 1), 4097, 4999, 5001):
+        _topk_both(dev, kind, 64, table, norms, valid, rows, kb)
+
+
+@pytest.mark.parametrize("kind", tl.SIG_KINDS)
+@pytest.mark.parametrize("kb", [8, 64, 1024])
+def test_sig_topk_kernel_ties_across_blocks(dev, kind, kb):
+    """Ties across warps and blocks: a table of identical signatures (the
+    top is pure row order, rows 0..kb-1) and one of three signatures
+    repeated (each score's rows spread over every block), 70,001 rows,
+    69,999 valid: many blocks, every list's keys tied in score."""
+    w = tl.sig_width(kind, 64)
+    rng = np.random.default_rng(kb)
+    pats = rng.integers(-2**31, 2**31, (3, w)).astype(np.int32)
+    if kind == "minhash":
+        pats = rng.integers(0, 4, (3, w)).astype(np.int32)
+    norms = torch.full((70001,), 1.5, dtype=torch.float32, device=dev)
+    rows = torch.tensor([0, 5, 69998], dtype=torch.int64, device=dev)
+    for pick in (np.zeros(70001, np.int64), rng.integers(0, 3, 70001)):
+        table = torch.from_numpy(pats[pick]).to(dev)
+        plan = tl.topk_plan(70001, w, 3, kb, 69999, kind)
+        assert plan["blocks"] > 1
+        _topk_both(dev, kind, 64, table, norms, 69999, rows, kb)
+        if not pick.any():
+            top, _ = tl.keys_to_rows_scores(tl.sig_topk(
+                kind, table, norms, 69999, q_rows=rows, hash_num=64, kb=kb))
+            assert torch.equal(top, torch.arange(kb, device=dev).expand(
+                3, kb))
 
 
 def test_sig_sweep_kernel_wide_minhash_rows(dev):
-    """Rows wider than the kernel's 64 register words (minhash H 512) are
-    read from memory per query."""
+    """Rows of 512 words (minhash H 512, wider than the staged path's 64):
+    a warp a row, the counts summed across it."""
     table, norms = _sweep_inputs(dev, "minhash", 512, 700, 3)
+    assert tl.topk_plan(700, 512, 100, 16, 700, "minhash")["mode"] == "split"
     rows = torch.arange(0, 700, 7, device=dev)
-    got = tl.sig_sweep("minhash", table, norms, 700, q_rows=rows,
-                       hash_num=512)
-    ref = tl.sig_sweep_ref("minhash", table, norms, 700, table[rows],
-                           norms[rows], 512)
-    assert torch.equal(got, ref)
+    _topk_both(dev, "minhash", 512, table, norms, 700, rows, 16)
+
+
+def test_sig_topk_plan_shapes(dev):
+    """The plan at the shapes the main path and the tests give it."""
+    served = tl.topk_plan(2000128, 2, 1, 16, 1001024)
+    assert served["path"] == "fast" and served["mode"] == "direct"
+    assert served["blocks"] > 132 and served["rows_per_block"] % 256 == 0
+    assert tl.topk_plan(10**6, 64, 64, 16, 10**6, "minhash")["mode"] == \
+        "staged"
+    assert tl.topk_plan(10**6, 16, 64, 16, 10**6, "euclid_lsh")["mode"] == \
+        "staged"
+    assert tl.topk_plan(5001, 2, 3, 2048, 4999)["path"] == "sort"
+    assert tl.topk_plan(5001, 2, 3, 1024, 4999)["path"] == "fast"
+    assert tl.topk_plan(5001, 2, 3, 16, 0)["blocks"] == 0
+    with pytest.raises(ValueError):
+        tl.topk_plan(10, 2, 1, 11, 10)
 
 
 def test_sig_sweep_refuses_bad_inputs(dev):
     table, norms = _sweep_inputs(dev, "lsh", 64, 10, 1)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
-        tl.sig_sweep("lsh", table, norms, 10, q_rows=torch.zeros(
-            1, dtype=torch.int64, device=dev), hash_num=128)
+        tl.sig_topk("lsh", table, norms, 10, q_rows=one, hash_num=128)
     with pytest.raises(ValueError):
-        tl.sig_sweep("lsh", table.float(), norms, 10, q_rows=torch.zeros(
-            1, dtype=torch.int64, device=dev), hash_num=64)
+        tl.sig_topk("lsh", table.float(), norms, 10, q_rows=one, hash_num=64)
     with pytest.raises(ValueError):
-        tl.sig_sweep("lsh", table, norms, torch.ones(10, device=dev),
-                     q_rows=torch.zeros(1, dtype=torch.int64, device=dev),
-                     hash_num=64)
+        tl.sig_topk("lsh", table, norms, torch.ones(10, device=dev),
+                    q_rows=one, hash_num=64)
+    for kb in (0, 11):
+        with pytest.raises(ValueError):
+            tl.sig_topk("lsh", table, norms, 10, q_rows=one, hash_num=64,
+                        kb=kb)
 
 
 @pytest.mark.parametrize("method", ["lsh", "minhash", "euclid_lsh"])

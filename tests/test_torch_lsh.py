@@ -340,8 +340,8 @@ def test_round_k_buckets():
 def test_sweep_refuses_an_unknown_kind():
     table = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown signature kind"):
-        tlsh.sig_sweep("cosine", table, torch.zeros(4), 4,
-                       q_rows=torch.zeros(1, dtype=torch.int64), hash_num=64)
+        tlsh.sig_topk("cosine", table, torch.zeros(4), 4,
+                      q_rows=torch.zeros(1, dtype=torch.int64), hash_num=64)
 
 
 def test_sweep_takes_a_row_count_only():
@@ -349,9 +349,9 @@ def test_sweep_takes_a_row_count_only():
     table with holes) is refused until an engine frees rows."""
     table = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="row count"):
-        tlsh.sig_sweep("lsh", table, torch.zeros(4),
-                       torch.ones(4, dtype=torch.bool),
-                       q_rows=torch.zeros(1, dtype=torch.int64), hash_num=64)
+        tlsh.sig_topk("lsh", table, torch.zeros(4),
+                      torch.ones(4, dtype=torch.bool),
+                      q_rows=torch.zeros(1, dtype=torch.int64), hash_num=64)
 
 
 def test_fused_query_without_norms():

@@ -370,7 +370,7 @@ def test_wire_session_answers_alike(nn_pair):
               "paged_rows", "paged_free_slots"):
         assert st[0][k] == st[1][k], k
     assert st[1]["query_tier"] == "cpu"
-    assert st[1]["kernel_launches.sig_sweep"] == "0"
+    assert st[1]["kernel_launches.sig_topk"] == "0"
 
 
 def test_model_files_cross_packages(nn_pair):

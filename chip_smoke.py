@@ -130,9 +130,10 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 plain versions: the PRNG's fold_in keys, bits and uniforms
                 of the plain version bitwise between the card and the CPU;
                 lsh_signature and minhash_signature at B 1024, K 16, H 64
-                and 512 and at B 1, K 16, H 64 (a set_row's and a datum
-                read's shape), equal but for bits or slots in the rounding
-                band (none outside it); sig_topk (the sweep with its top-16
+                and 512, at B 64, K 16, H 64 (a lane sweep's) and at B 1,
+                K 16, H 64 (a set_row's and a datum read's shape),
+                bitwise the plain versions' (a differing bit or slot
+                fails); sig_topk (the sweep with its top-16
                 selection) over 10^6 rows (lsh H 64, euclid_lsh H 512,
                 minhash H 64 — a 256 MB table) with 1 and 64 queries, by
                 signature and by stored row, its top keys bitwise the plain
@@ -2337,7 +2338,6 @@ NN_SIZE = 10               # their result size
 NN_CLUSTER_ROWS = 4096     # set_row calls to each cluster server
 NN_SWEEP_ROWS = 10 ** 6    # rows of the sweep kernel's tables
 NN_SIG_B = 1024            # datums of the signature kernels' batches
-NN_BAND = 1e-6             # rounding band of a signature bit or slot
 NN_RTOL = NN_ATOL = 1e-6   # euclid_lsh scores
 NN_KB = 16                 # kb of a read at NN_SIZE: _round_k(10)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -2351,13 +2351,15 @@ SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9
 INT32_OPS_PER_S = 64 * SM_COUNT * SM_CLOCK_HZ
 POPC_PER_S = 16 * SM_COUNT * SM_CLOCK_HZ
 SFU_PER_S = 16 * SM_COUNT * SM_CLOCK_HZ
-# float32 operations of one (feature, hash) draw of K1 (the uniform's 3,
-# the erf_inv's log1p, compare, select and sqrt-or-subtract 5, its 8
-# fused multiply-adds 16, its product and the sqrt(2) 2, the projection's
-# multiply and add 2) and of K2 (uniform 3, log, negate, max, divide,
-# compare 5)
-K1_F32_OPS = 28
-K2_F32_OPS = 8
+# float32 operations of one (feature, hash) draw of K1 (the uniform's 3;
+# XLA's log1p about 30: its log's range reduction 8, 9 multiply-adds of
+# 2, 5 multiplies and adds, or its rational's 12 multiply-adds of 2, a
+# division and 5 more; the erf_inv's compare, select and sqrt-or-subtract
+# 3, its 8 fused multiply-adds 16, its product and the sqrt(2) 2, the
+# projection's fused multiply-add 2) and of K2 (uniform 2, XLA's log
+# about 30, negate, max, divide, compare 4)
+K1_F32_OPS = 56
+K2_F32_OPS = 36
 # integer operations: threefry2x32 is 72 (the 2 key adds, 20 rounds of
 # add, rotate and xor, 5 key injections of 2 adds); a draw adds hi ^ lo
 # and the uniform's shift and or; a fold key is one threefry a (datum,
@@ -2424,8 +2426,9 @@ def phase_nn_kernels(torch, np, device="cuda"):
     """Phase 10a: the LSH kernels against their plain versions on the
     card.  The PRNG (fold_in keys, bits, both uniforms) of the plain
     version on the card bitwise its CPU run; K1 and K2 at B 1024, K 16, H
-    64 and 512, their signatures equal to the plain versions' but for
-    bits or slots in the rounding band (counted; none outside); K3 at
+    64 and 512, at B 64 and at B 1, K 16, H 64, their signatures bitwise
+    the plain versions' (in_band counts the differing bits or slots and
+    must be 0); K3 at
     10^6 rows for lsh H 64, euclid_lsh H 512 and minhash H 64, with 1
     and 64 queries and by stored row: keys bitwise for lsh and minhash,
     euclid_lsh scores within rtol/atol 1e-6.  Each timed by CUDA events
@@ -2454,37 +2457,22 @@ def phase_nn_kernels(torch, np, device="cuda"):
                                      "and the CPU")
     rows = {}
     variants = {"lsh_signature": [], "minhash_signature": []}
-    for h, b in ((64, NN_SIG_B), (512, NN_SIG_B), (64, 1)):
+    for h, b in ((64, NN_SIG_B), (512, NN_SIG_B), (64, 64), (64, 1)):
         idx, val = nn_sig_batch(torch, np, dev, h, b)
         nz = int((val != 0).sum())
-        f1, f2 = L.fold_in(key, idx)
-        draws = L.random_bits(f1, f2, h)            # [B, K, H]
-        # K1: flips only where |proj| <= band * sum |v n|
+        # K1 and K2: bitwise their plain versions (XLA's order, its log1p
+        # and log, its fused steps and flushes in both)
         got = L.lsh_signature(key, idx, val, h)
         ref = L.lsh_signature_ref(key, idx, val, h)
-        terms = val.double()[..., None] * L.normal_from_bits(draws).double()
-        proj, scale = terms.sum(1), terms.abs().sum(1)
         flip = nn_bits(torch, got, h) != nn_bits(torch, ref, h)
-        band = proj.abs() <= NN_BAND * scale
-        if bool((flip & ~band).any()):
-            raise AssertionError(f"nn: lsh_signature H {h}: "
-                                 f"{int((flip & ~band).sum())} bits differ "
-                                 "from the plain version outside the band")
-        del terms
-        # K2: slot changes only where the two smallest e are that close
         gotm = L.minhash_signature(key, idx, val, h)
         refm = L.minhash_signature_ref(key, idx, val, h)
-        u = L.uniform_from_bits(draws, L._MINHASH_LO, 1.0).double()
-        w = val.double().abs()[..., None]
-        e = torch.where(w > 0, -torch.log(u) / w.clamp_min(1e-12),
-                        torch.inf).sort(1).values
-        near = (e[:, 1] - e[:, 0]).nan_to_num(0.0) <= NN_BAND * e[:, 0].abs()
         moved = gotm != refm
-        if bool((moved & ~near).any()):
-            raise AssertionError(f"nn: minhash_signature H {h}: "
-                                 f"{int((moved & ~near).sum())} slots differ "
-                                 "from the plain version outside the band")
-        del draws, u, e
+        if bool(flip.any()) or bool(moved.any()):
+            raise AssertionError(
+                f"nn: B {b} H {h}: {int(flip.sum())} lsh_signature bits and "
+                f"{int(moved.sum())} minhash_signature slots differ from "
+                "the plain versions")
         # max_abs_err over the outputs' values: K1's bits, K2's slots
         # (feature indices); 0.0 where they equal the plain version's
         errs = {"lsh_signature": float(flip.any()),
@@ -2510,7 +2498,7 @@ def phase_nn_kernels(torch, np, device="cuda"):
                 "sfu": nz * h * sfu / SFU_PER_S * 1e3}
             by = max(classes, key=classes.get)
             # bits (K1) or slots (K2) that differ from the plain
-            # version's, all inside the rounding band (checked above)
+            # version's: 0 (checked above)
             variants[name].append({
                 "shape": [b, NN_NNZ, h], "ms": ms,
                 "device_method": method, "call_ms": call_ms,
@@ -2530,8 +2518,8 @@ def phase_nn_kernels(torch, np, device="cuda"):
             f"B {x['shape'][0]} H {x['shape'][2]}: {x['ms']} ms (call "
             f"{x['call_ms']}, plain "
             f"{x['plain_ms']}, bound "
-            f"{x['bound_ms']:.4g} by {x['bound_class']}), {x['in_band']} in "
-            "the band" for x in v))
+            f"{x['bound_ms']:.4g} by {x['bound_class']}), {x['in_band']} "
+            "differing" for x in v))
 
     sweeps = []
     for kind, h in (("lsh", 64), ("euclid_lsh", 512), ("minhash", 64)):
@@ -2643,8 +2631,9 @@ def topk_row(torch, np, L, kind, h, table, norms, n, qs, qn, q_rows, route,
 
 def nn_served_sweep(torch, np, drv, datum, row_id, device="cuda"):
     """K3 on a driver's own table at a read's query: one datum signed as
-    similar_row_from_datum signs it and one stored row (the _from_id
-    routes), bitwise the plain version's (topk_row); and a datum read's
+    similar_row_from_datum signs it, one stored row (the _from_id routes)
+    and 64 stored rows (a lane sweep's), bitwise the plain version's
+    (topk_row); and a datum read's
     device split: K1 at B 1, K3, the copy of its [1, NN_KB] keys out, and
     the whole fused_sig_query call."""
     from jubatus_tpu_torch.fv import Datum
@@ -2661,10 +2650,15 @@ def nn_served_sweep(torch, np, drv, datum, row_id, device="cuda"):
     qnorm = np.sqrt((batch.values * batch.values).sum(axis=1))
     q_norm = L._host(qnorm, np.float32, dev)
     q_row = torch.tensor([drv.ids[row_id]], dtype=torch.int64, device=dev)
+    # a lane sweep's shape too: 64 stored rows at once
+    q_rows = torch.arange(0, n, max(1, n // 64), dtype=torch.int64,
+                          device=dev)[:64]
     out = [topk_row(torch, np, L, kind, h, table, norms, n, q_sig, q_norm,
                     None, "datum", device),
            topk_row(torch, np, L, kind, h, table, norms, n, table[q_row],
-                    norms[q_row], q_row, "row", device)]
+                    norms[q_row], q_row, "row", device),
+           topk_row(torch, np, L, kind, h, table, norms, n, table[q_rows],
+                    norms[q_rows], q_rows, "rows", device)]
     split = None
     if device == "cuda":
         keys = L.sig_topk(kind, table, norms, n, q_sigs=q_sig,

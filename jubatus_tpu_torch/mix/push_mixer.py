@@ -15,9 +15,11 @@ Strategies:
   broadcast — every peer each round
   skip      — peers at stride n/2, n/4, ... from self in the sorted ring
 
-With a journal an acked push fold is journaled as a `diff` record.  The
-JAX package also journals the pulled peer delta of its own gossip round;
-the port does not yet (ROADMAP Queue 1 item 3.2).
+With a journal every fold is journaled as a `diff` record, as the JAX
+package journals it: an acked push fold on the peer side, and the pulled
+peer delta of this node's own gossip round (inside the lock hold that
+applies it, committed after).  Neither carries a round id, so recovery's
+round guard folds both on replay.
 """
 
 from __future__ import annotations
@@ -168,10 +170,25 @@ class PushMixer(TriggeredMixer):
                     # merge and apply under ONE lock hold: a train landing
                     # between them would be clobbered by put_diff's base
                     # reset
+                    journal = self.server.journal
                     with self.server.model_lock.write():
                         my_diff = self.server.driver.get_diff()
                         merged = driver_cls.mix(my_diff, peer_out["diff"])
                         self.server.driver.put_diff(merged)
+                        if journal is not None:
+                            # the pulled peer delta is folded now: nothing
+                            # re-delivers it, so it is journaled like any
+                            # applied fold (replay re-merges it onto the
+                            # recovered base)
+                            journal.append(
+                                {"k": "diff",
+                                 "p": {"protocol_version":
+                                       MIX_PROTOCOL_VERSION,
+                                       "diff": codec.encode(
+                                           peer_out["diff"])}},
+                                self.server.current_mix_round())
+                    if journal is not None:
+                        journal.commit()
                     # push folds additively with no round guard: a re-sent
                     # push would fold twice, so only the reads retry
                     c.retry = None

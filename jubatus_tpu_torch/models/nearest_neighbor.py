@@ -34,10 +34,11 @@ reports as query_tier.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from jubatus_tpu_torch.batching.bucketing import round_b
 from jubatus_tpu_torch.device import device_context, resolve_device
 from jubatus_tpu_torch.fv import ConverterConfig, Datum, DatumToFVConverter
 from jubatus_tpu_torch.fv.weight_manager import WeightManager
@@ -129,13 +130,16 @@ class NearestNeighborDriver(Driver):
 
     # -- signatures ---------------------------------------------------------
 
-    def _signature(self, batch) -> Tuple[np.ndarray, np.ndarray]:
-        """SparseBatch -> (sig [B, Wsig] uint32, norms [B] f32); the norms
-        are the JAX driver's numpy arithmetic."""
+    def _signature(self, batch, padded_b: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """SparseBatch -> (sig [B, Wsig] uint32, norms [B] f32), signed as
+        the JAX driver signs it in a batch of padded_b (it pads the *_many
+        routes to round_b; XLA's summation order depends on the batch);
+        the norms are the JAX driver's numpy arithmetic."""
         with device_context(self.device):
             sig = lshops.host_signature(self.key, batch.indices,
                                         batch.values, self.hash_num,
-                                        self.method, self.device)
+                                        self.method, self.device, padded_b)
         norms = np.sqrt((batch.values * batch.values).sum(axis=1))
         return sig, norms.astype(np.float32)
 
@@ -163,7 +167,7 @@ class NearestNeighborDriver(Driver):
             return 0
         batch = self.converter.convert_batch([d for _, d in rows],
                                              update_weights=True)
-        sigs, norms = self._signature(batch)
+        sigs, norms = self._signature(batch, round_b(len(rows)))
         last = {id_: pos for pos, (id_, _) in enumerate(rows)}
         sel = sorted(last.values())
         self._scatter_rows([rows[p][0] for p in sel], sigs[sel], norms[sel])
@@ -234,7 +238,7 @@ class NearestNeighborDriver(Driver):
             rows_b, sims_b = lshops.fused_sig_query_batch(
                 self.method, self.key, batch.indices, batch.values,
                 self.sig, self.norms, self.pages.n_rows, self.hash_num,
-                qnorms, kmax)
+                qnorms, kmax, round_b(len(pairs)))
         return [self._to_results(rows_b[i], sims_b[i], sizes[i], similarity)
                 for i in range(len(pairs))]
 

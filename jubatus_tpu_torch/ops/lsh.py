@@ -3,12 +3,15 @@ jubatus_tpu/ops/lsh.py).
 
 Signatures are part of the model: rows written by one server are compared
 with queries signed by another, and model files, MIX diffs and journals
-move between this package and the JAX one.  So the random numbers are
-jax's own: threefry2x32 (jax_threefry_partitionable), fold_in, and jax's
-uniform and normal transforms, reproduced bit for bit here (the bits and
-the uniforms exactly; the normals through XLA's float32 erf_inv
-polynomial with its fused multiply-adds, within 3 ulp of XLA's, whose
-log1p differs in the last bits).
+move between this package and the JAX one.  So the random numbers and
+the signatures are jax's own, bit for bit as XLA's CPU code computes
+them: threefry2x32 (jax_threefry_partitionable), fold_in, jax's uniform
+and normal transforms, XLA's float32 log1p and log (xla_log1p, xla_log)
+and erf_inv, and the projection's sum in XLA's order (project), each
+multiply fused into its add where XLA's compiled code fuses it, with
+denormals flushed as XLA flushes them.  XLA's order depends on the batch
+it signs, and the JAX driver pads some routes' batches: the signing
+functions take that batch's size (padded_b).
 
   * lsh / euclid_lsh: signed random projections.  Feature i's hyperplane
     row is normal(fold_in(key, i), (H,)); a datum's signature packs
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from jubatus_tpu_torch.kernels import build
+from jubatus_tpu_torch.ops.sparse import ftz
 
 MASK32 = 0xFFFFFFFF
 SIG_KINDS = ("lsh", "minhash", "euclid_lsh")
@@ -129,35 +133,162 @@ def random_bits(k1: torch.Tensor, k2: torch.Tensor, n: int) -> torch.Tensor:
 
 def uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float
                       ) -> torch.Tensor:
-    """jax's _uniform: the top 23 bits as the mantissa of [1, 2), minus
-    1, scaled into [minval, maxval) in float32, floored at minval."""
+    """jax's _uniform as XLA computes it: the top 23 bits as the mantissa
+    of [1, 2), minus 1, scaled into [minval, maxval) in float32, floored
+    at minval.  XLA's simplifier drops a scale of 1 and then folds the two
+    constants of (f - 1) + minval into one, f32(minval - 1): so minhash's
+    uniform is max(1e-12, f - 1) exactly, with no 1e-12 added."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, (f - 1.0) * (hi - lo) + lo)
+    lo = np.float32(minval)
+    scale = np.float32(maxval) - lo
+    if scale == 1.0:
+        u = f + float(np.float32(-1.0) + lo)
+    else:
+        u = _fma(f - 1.0, torch.full_like(f, float(scale)), float(lo))
+    return torch.maximum(torch.tensor(float(lo), dtype=torch.float32,
+                                      device=bits.device), u)
+
+
+# ---------------------------------------------------------------------------
+# XLA's CPU float32 arithmetic
+# ---------------------------------------------------------------------------
+#
+# XLA's CPU backend runs its code with denormals flushed (inputs read as
+# zero, results written as zero: DAZ and FTZ, ops.sparse.ftz here) and
+# lets LLVM contract a multiply and the add that takes its result into one
+# fused multiply-add wherever the multiply has no other use
+# (FPOpFusion::Fast, on a host with FMA).  The functions below repeat the
+# instructions of XLA's compiled code (read from its dumped object files,
+# --xla_dump_to), fused where it is fused.
+
+MIN_NORMAL = float(np.float32(2.0 ** -126))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """float32 a * b + c with one rounding.  The product is exact in
+    float64; the sum is rounded to odd there (TwoSum's error decides), so
+    the one rounding to float32 is the only one that counts."""
+    p = a.double() * b.double()
+    cd = c.double() if isinstance(c, torch.Tensor) else float(c)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    odd = (s.view(torch.int64) & 1) == 1
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & ~odd, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt of x >= 0, as vsqrtps gives it
+    (torch's vectorized CPU sqrt may miss by an ulp): the float64 root
+    rounded to float32, then moved by an ulp where x lies beyond a
+    neighbour's midpoint (squares of 25-bit midpoints are exact in
+    float64)."""
+    xd = x.double()
+    s = torch.sqrt(xd).float()
+    up = torch.nextafter(s, torch.full_like(s, math.inf))
+    dn = torch.nextafter(s, torch.zeros_like(s))
+    mid_up = (s.double() + up.double()) * 0.5
+    mid_dn = (s.double() + dn.double()) * 0.5
+    s = torch.where(xd > mid_up * mid_up, up, s)
+    return torch.where(xd < mid_dn * mid_dn, dn, s)
+
+
+def _bits_f32(b: int) -> float:
+    return float(np.array(b, np.uint32).view(np.float32))
+
+
+# XLA's float32 log (Cephes' logf): a range reduction on the exponent
+# bits, then x + x^2 (-1/2 + x P(x)) in three interleaved chains
+_LOG_C = tuple(_bits_f32(b) for b in (
+    0x3D9021BB, 0xBDEBD1B8, 0xBDFE5D4F, 0x3E11E9BF, 0x3E4CCEAC, 0xBE7FFFFC,
+    0x3DEF251A, 0xBE2AAE50, 0x3EAAAAAA))
+_LOG_Q1 = _bits_f32(0xB95E8083)          # log(2) = Q2 + Q1
+_LOG_Q2 = _bits_f32(0x3F318000)
+_SQRTHF = _bits_f32(0x3F3504F3)
+# XLA's log1p below |x| < sqrt(2) - 1: x + (-x^2/2 + x^3 Q(x) / P(x))
+_LOG1P_THRESH = _bits_f32(0x3ED413CD)
+_LOG1P_P = tuple(_bits_f32(b) for b in (
+    0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0x43586D8A,
+    0x42707982))
+_LOG1P_Q = tuple(_bits_f32(b) for b in (
+    0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76,
+    0x426473AD, 0x41A05101))
+_NAN_BITS = -1                           # 0xFFFFFFFF
+_NEG_INF_BITS = -0x800000                # 0xFF800000
+_INF_BITS = 0x7F800000
+
+
+def _log_core(a: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log of a (whose subnormals the caller has read as
+    zero), special cases included: log(+-0) = -inf, log(+inf) = +inf,
+    log(<0 or NaN) = 0xFFFFFFFF."""
+    le0 = ~(a > 0)
+    eq0 = a == 0
+    inf = a == math.inf
+    m0 = torch.where(a > MIN_NORMAL, a, MIN_NORMAL)
+    bits = m0.view(torch.int32)
+    e = bits >> 23
+    mant = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    t = (e - 127).float() + 1.0
+    lt = mant < _SQRTHF
+    xr = (mant - 1.0) + torch.where(lt, mant, 0.0)
+    t = torch.where(lt, t - 1.0, t)
+    z = xr * xr
+    z3 = z * xr
+    c = _LOG_C
+    a1 = _fma(xr, _fma(xr, torch.full_like(xr, c[0]), c[1]), c[6])
+    a2 = _fma(xr, _fma(xr, torch.full_like(xr, c[2]), c[3]), c[7])
+    a3 = _fma(xr, _fma(xr, torch.full_like(xr, c[4]), c[5]), c[8])
+    s = _fma(z3, _fma(z3, a1, a2), a3)
+    s = _fma(z3, s, t * _LOG_Q1)
+    r = _fma(z, torch.full_like(z, -0.5), xr) + s
+    r = _fma(t, torch.full_like(t, _LOG_Q2), r)
+    out = torch.where(le0, _NAN_BITS, r.view(torch.int32))
+    out = torch.where(inf, _INF_BITS, out)
+    out = torch.where(eq0, _NEG_INF_BITS, out)
+    return out.view(torch.float32)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """jnp.log of a float32 tensor, bit for bit as XLA's CPU code
+    computes it."""
+    return _log_core(ftz(x))
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """jnp.log1p of a float32 tensor, bit for bit as XLA's CPU code
+    computes it: the rational below |x| < sqrt(2) - 1, else log(1 + x)."""
+    x = ftz(x)
+    big = _log_core(x + 1.0)
+    x2 = x * x
+    zero = x * 0.0
+    p = zero + 1.0
+    for c in _LOG1P_P:
+        p = _fma(x, p, c)
+    q = zero + _LOG1P_Q[0]
+    for c in _LOG1P_Q[1:]:
+        q = _fma(x, q, c)
+    small = x + _fma(x2, torch.full_like(x2, -0.5), (x * x2) * (q / p))
+    return torch.where(x.abs() < _LOG1P_THRESH, small, big)
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 erf_inv, operation by operation.  XLA's CPU code
-    contracts each step c + p * w of the polynomial into a fused
-    multiply-add, so this one does too: p * w is exact in float64 and the
-    sum rounds once more to float32 (csrc/lsh.cu takes fmaf).  The normals
-    then equal jax's in about 99% of draws and lie within 3 ulp of them
-    otherwise (XLA's own log1p)."""
-    w = -torch.log1p(x * -x)
+    """XLA's float32 erf_inv, operation by operation, each step c + p * w
+    of the polynomial fused as XLA's CPU code fuses it."""
+    w = -xla_log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
-    wd = w.double()
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        c = torch.where(lt, a, b).to(torch.float32)
-        p = (c.double() + p.double() * wd).float()
+        p = _fma(p, w, torch.where(lt, a, b).to(torch.float32))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
 def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """jax.random.normal's float32 draw from its random bits."""
-    return _SQRT2 * erf_inv(uniform_from_bits(bits, _NORMAL_LO, 1.0))
+    return erf_inv(uniform_from_bits(bits, _NORMAL_LO, 1.0)) * _SQRT2
 
 
 # ---------------------------------------------------------------------------
@@ -182,37 +313,102 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def lsh_signature_ref(key, indices: torch.Tensor, values: torch.Tensor,
-                      hash_num: int) -> torch.Tensor:
-    """Plain version of K1: [B, K] -> [B, ceil(H/32)] int32.  The
-    projection sums feature by feature in k order in float32, as the
-    kernel does (XLA's einsum sums in its own order: signature bits may
-    differ where the projection is within rounding of zero)."""
-    b, k = indices.shape
-    proj = torch.zeros((b, hash_num), dtype=torch.float32,
-                       device=indices.device)
-    for j in range(k):
+# K1's summation orders (csrc/lsh.cu ORDER_*)
+ORDER_K, ORDER_LANES16, ORDER_LANES = 0, 1, 2
+
+
+def projection_order(b: int, k: int) -> int:
+    """XLA's summation order for the projection of a [b, k] batch, b the
+    batch XLA signs (the JAX driver pads some routes' batches: their
+    callers pass padded_b).  At one datum whose width is a multiple of 16
+    the einsum is a dot fused with the normals and LLVM vectorizes its sum
+    over k: eight lanes (ORDER_LANES16 at K 16, ORDER_LANES above); every
+    other shape goes to XLA's column-major gemv, in k order (ORDER_K).
+    Every width the converter pads to (16, 32, 64, ...) is such a
+    multiple; at one datum of another width XLA's order is its own
+    (ROADMAP Queue 3), and this one is k order."""
+    if b != 1 or k < 16 or k % 16:
+        return ORDER_K
+    return ORDER_LANES16 if k == 16 else ORDER_LANES
+
+
+def project(normal_of, values: torch.Tensor, order: int) -> torch.Tensor:
+    """einsum("bkh,bk->bh") of the normals ([B, H] of feature k:
+    normal_of(k)) and [B, K] values (read with DAZ) in XLA's order, each
+    step a fused multiply-add from +0 and each result flushed as XLA's
+    CPU code flushes it:
+      * ORDER_K: one chain in k order;
+      * ORDER_LANES: lane j < 8 keeps two chains, A over k = j, j+16, ...
+        and B over k = j+8, j+24, ...; S_j = B_j + A_j;
+      * ORDER_LANES16: lane j's one chain over k = j, j+8 (XLA fuses B's
+        one product into the sum: S_j = fma(n_{j+8}, v_{j+8}, A_j));
+    then S_j + S_{j+4}, then + the pair two apart, then the last two."""
+    b, k = values.shape
+    v = ftz(values)
+    if order == ORDER_K:
+        acc = None
+        for j in range(k):
+            n = normal_of(j)
+            acc = ftz(_fma(n, v[:, j:j + 1].expand_as(n),
+                           torch.zeros_like(n) if acc is None else acc))
+        return acc
+    normals = torch.stack([normal_of(j) for j in range(k)], 1)
+    h = normals.shape[-1]
+    lanes = 8 if order == ORDER_LANES16 else 16
+    n = normals.reshape(b, k // lanes, lanes, h)
+    vv = v.reshape(b, k // lanes, lanes, 1).expand(b, k // lanes, lanes, h)
+    s = torch.zeros((b, lanes, h), dtype=torch.float32,
+                    device=normals.device)
+    for i in range(k // lanes):
+        s = ftz(_fma(n[:, i], vv[:, i], s))
+    if order == ORDER_LANES:
+        s = ftz(s[:, 8:] + s[:, :8])
+    s = ftz(s[:, :4] + s[:, 4:])
+    s = ftz(s[:, :2] + s[:, 2:])
+    return ftz(s[:, 0] + s[:, 1])
+
+
+def feature_normals(key, indices: torch.Tensor, hash_num: int):
+    """normal_of(k) for project: feature k's hyperplane rows [B, H],
+    normal(fold_in(key, i_k), (H,))."""
+    def normal_of(j: int) -> torch.Tensor:
         f1, f2 = fold_in(key, indices[:, j])
-        row = normal_from_bits(random_bits(f1, f2, hash_num))
-        proj = proj + values[:, j:j + 1] * row
+        return normal_from_bits(random_bits(f1, f2, hash_num))
+    return normal_of
+
+
+def lsh_signature_ref(key, indices: torch.Tensor, values: torch.Tensor,
+                      hash_num: int, padded_b: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Plain version of K1: [B, K] -> [B, ceil(H/32)] int32, the
+    projection summed in XLA's order for a batch of padded_b (default B)
+    datums (project)."""
+    b, k = indices.shape
+    if k == 0:
+        return _pack_bits(torch.ones((b, hash_num), dtype=torch.bool,
+                                     device=indices.device))
+    proj = project(feature_normals(key, indices, hash_num), values,
+                   projection_order(padded_b or b, k))
     return _pack_bits(proj >= 0)
 
 
 def minhash_signature_ref(key, indices: torch.Tensor, values: torch.Tensor,
                           hash_num: int) -> torch.Tensor:
     """Plain version of K2: [B, K] -> [B, H] int32 (uint32 feature
-    indices), the first k winning ties, slot 0 where every value is 0."""
+    indices), the first k winning ties, slot 0 where every value is 0
+    (values read with DAZ, as XLA reads them)."""
     b, k = indices.shape
     best_e = None
     best_k = torch.zeros((b, hash_num), dtype=torch.int64,
                          device=indices.device)
+    w_all = ftz(values).abs()
     for j in range(k):
         f1, f2 = fold_in(key, indices[:, j])
         u = uniform_from_bits(random_bits(f1, f2, hash_num), _MINHASH_LO,
                               1.0)
-        w = values[:, j:j + 1].abs()
-        e = torch.where(w > 0, -torch.log(u) / torch.clamp_min(
-            w, _MINHASH_LO), math.inf)
+        w = w_all[:, j:j + 1]
+        e = torch.where(w > 0, ftz(-xla_log(u) / torch.clamp_min(
+            w, _MINHASH_LO)), math.inf)
         if best_e is None:
             best_e = e
             continue
@@ -226,9 +422,11 @@ def minhash_signature_ref(key, indices: torch.Tensor, values: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     """The LSH library, its entry points bound once."""
     lib = build.load("lsh")
-    for fn in (lib.lsh_signature_launch, lib.minhash_signature_launch):
+    # (idx, val, out, k0, k1, B, K, H[, K1's order], stream)
+    for fn, ints in ((lib.lsh_signature_launch, 4),
+                     (lib.minhash_signature_launch, 3)):
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_uint32] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * ints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.sig_topk_launch.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
@@ -253,9 +451,10 @@ def _check(t: torch.Tensor, dtype, dev, what: str) -> None:
 
 
 def _signature_launch(wrapper, key, indices, values, hash_num: int,
-                      width: int) -> torch.Tensor:
+                      width: int, padded_b: Optional[int] = None
+                      ) -> torch.Tensor:
     """One launch of the kernel of `wrapper` (lsh_signature or
-    minhash_signature), counted on it."""
+    minhash_signature), counted on it; K1 takes its summation order."""
     fn_name = wrapper.__name__
     dev = indices.device
     if dev.type != "cuda":
@@ -271,24 +470,31 @@ def _signature_launch(wrapper, key, indices, values, hash_num: int,
     out = torch.empty((b, width), dtype=torch.int32, device=dev)
     if b == 0:
         return out
+    if k == 0:
+        raise ValueError(f"{fn_name}: a batch of width 0")
+    order = ((projection_order(padded_b or b, k),)
+             if wrapper is lsh_signature else ())
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(_lib(), f"{fn_name}_launch")(
         indices.data_ptr(), values.data_ptr(), out.data_ptr(),
-        key[0] & MASK32, key[1] & MASK32, b, k, hash_num, stream)
+        key[0] & MASK32, key[1] & MASK32, b, k, hash_num, *order, stream)
     wrapper.launches += 1
     build.check(err, f"{fn_name} launch")
     return out
 
 
 def lsh_signature(key, indices: torch.Tensor, values: torch.Tensor,
-                  hash_num: int) -> torch.Tensor:
+                  hash_num: int, padded_b: Optional[int] = None
+                  ) -> torch.Tensor:
     """Signed-random-projection signatures: [B, K] int32 indices and
-    float32 values -> [B, ceil(H/32)] int32 (uint32 patterns).  CUDA
-    tensors: one launch of K1 (csrc/lsh.cu); CPU: the plain version."""
+    float32 values -> [B, ceil(H/32)] int32 (uint32 patterns), as the JAX
+    package signs them in a batch of padded_b datums (default B: XLA's
+    summation order depends on it, projection_order).  CUDA tensors: one
+    launch of K1 (csrc/lsh.cu); CPU: the plain version."""
     if indices.device.type == "cpu":
-        return lsh_signature_ref(key, indices, values, hash_num)
+        return lsh_signature_ref(key, indices, values, hash_num, padded_b)
     return _signature_launch(lsh_signature, key, indices, values, hash_num,
-                             words_for(hash_num))
+                             words_for(hash_num), padded_b)
 
 
 lsh_signature.launches = 0
@@ -309,11 +515,14 @@ minhash_signature.launches = 0
 
 
 def signature(key, indices: torch.Tensor, values: torch.Tensor,
-              hash_num: int, kind: str) -> torch.Tensor:
-    """The kind's signature: [B, K] -> [B, sig_width] int32."""
+              hash_num: int, kind: str, padded_b: Optional[int] = None
+              ) -> torch.Tensor:
+    """The kind's signature: [B, K] -> [B, sig_width] int32, signed as in
+    a batch of padded_b datums (lsh_signature; minhash's argmin has no
+    order)."""
     if kind == "minhash":
         return minhash_signature(key, indices, values, hash_num)
-    return lsh_signature(key, indices, values, hash_num)
+    return lsh_signature(key, indices, values, hash_num, padded_b)
 
 
 # ---------------------------------------------------------------------------
@@ -575,15 +784,16 @@ def _host(x, dtype, device) -> torch.Tensor:
 def fused_sig_query_batch(kind: str, key, q_indices: np.ndarray,
                           q_values: np.ndarray, table: torch.Tensor,
                           norms: torch.Tensor, n_valid: int, hash_num: int,
-                          qnorms, k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """[Nq] datum queries: signatures (K1/K2), then the sweep with its
-    selection (K3) -> (rows [Nq, k'], scores [Nq, k']) numpy, k' =
-    min(_round_k(k), R); the caller trims and drops non-finite
-    entries."""
+                          qnorms, k: int, padded_b: Optional[int] = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """[Nq] datum queries: signatures (K1/K2, signed as in a batch of
+    padded_b), then the sweep with its selection (K3) -> (rows [Nq, k'],
+    scores [Nq, k']) numpy, k' = min(_round_k(k), R); the caller trims and
+    drops non-finite entries."""
     dev = table.device
     idx = _host(q_indices, np.int32, dev)
     val = _host(q_values, np.float32, dev)
-    q_sigs = signature(key, idx, val, hash_num, kind)
+    q_sigs = signature(key, idx, val, hash_num, kind, padded_b)
     return keys_to_host(sig_topk(
         kind, table, norms, n_valid, q_sigs=q_sigs,
         qnorms=_host(qnorms, np.float32, dev), hash_num=hash_num,
@@ -620,10 +830,12 @@ def fused_sig_query_row(kind: str, table: torch.Tensor, row: int,
 
 def host_signature(key, indices: np.ndarray, values: np.ndarray,
                    hash_num: int, kind: str,
-                   device: Union[str, torch.device]) -> np.ndarray:
+                   device: Union[str, torch.device],
+                   padded_b: Optional[int] = None) -> np.ndarray:
     """Signatures of a host batch computed on `device` -> uint32 numpy
-    [B, sig_width]."""
+    [B, sig_width], signed as in a batch of padded_b datums."""
     dev = torch.device(device)
     sig = signature(key, _host(indices, np.int32, dev),
-                    _host(values, np.float32, dev), hash_num, kind)
+                    _host(values, np.float32, dev), hash_num, kind,
+                    padded_b)
     return sig.cpu().numpy().view(np.uint32)

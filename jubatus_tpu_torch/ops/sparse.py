@@ -49,26 +49,39 @@ def batch_scores(w: torch.Tensor, indices: torch.Tensor,
 _PARTIAL_SAFE = 2.0 ** -103
 
 
+def _seq_sum(p: torch.Tensor) -> torch.Tensor:
+    """p.sum(-1) in k order from +0, every partial sum flushed."""
+    acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+    for j in range(p.shape[-1]):
+        acc = ftz(acc + p[..., j])
+    return acc
+
+
 def ftz_sum(p: torch.Tensor) -> torch.Tensor:
     """p.sum(-1) of flushed terms as XLA's CPU code reduces a row of K
     float32 terms under flush-to-zero, every partial sum flushed:
     sequentially in k from +0 for K <= 16; in 8 lanes (k mod 8) from +0,
-    then a halving tree over the lanes, for K = 32 (tests/
-    test_torch_partial_sums.py pins both).  A partial sum can only be
-    subnormal where some nonzero term lies below 2^-103, so otherwise, and
-    for K > 32 (whose order in XLA is not reproduced here), it is one sum
-    with its result flushed.  So is every sum of a tensor on the card: the
+    then a halving tree over the lanes, for K = 32; above 32, where XLA
+    rewrites the reduce as a tree, in windows of 32 (each in k order from
+    +0) until at most 32 sums are left, then those in order from +0, for
+    K a multiple of 32 (every converter width is).  tests/
+    test_torch_partial_sums.py pins the three.  A partial sum can only be
+    subnormal where some nonzero term lies below 2^-103, so otherwise,
+    and for a K above 32 that is no multiple of 32, it is one sum with
+    its result flushed.  So is every sum of a tensor on the card: the
     check would read a bool back on the estimate's path, and torch's CUDA
     reduction does not sum in XLA's CPU order anyway."""
     k = p.shape[-1]
-    if p.device.type != "cpu" or k > 32 or not bool(
+    if p.device.type != "cpu" or (k > 32 and k % 32) or not bool(
             ((p != 0) & (p.abs() < _PARTIAL_SAFE)).any()):
         return ftz(p.sum(dim=-1))
     if k <= 16:
-        acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
-        for j in range(k):
-            acc = ftz(acc + p[..., j])
-        return acc
+        return _seq_sum(p)
+    if k > 32:
+        while p.shape[-1] > 32:
+            n = p.shape[-1]
+            p = _seq_sum(p.reshape(*p.shape[:-1], n // 32, 32))
+        return _seq_sum(p)
     lanes = p.reshape(*p.shape[:-1], k // 8, 8)
     acc = torch.zeros(lanes.shape[:-2] + (8,), dtype=p.dtype,
                       device=p.device)

@@ -755,24 +755,31 @@ LSH_KEY = tl.prng_key(0x1EAF)
 
 
 def _lsh_batch(dev, seed, b, k, d=4096):
-    """Random datums plus an empty one, a half-padded one and one whose
-    features repeat."""
+    """Random datums plus, from three datums on, an empty one, a
+    half-padded one and one whose features repeat."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, d, (b, k)).astype(np.int32)
     val = rng.standard_normal((b, k)).astype(np.float32)
-    idx[0], val[0] = 0, 0.0
-    idx[1, k // 2:], val[1, k // 2:] = 0, 0.0
-    idx[2, :] = idx[2, 0]
+    if b >= 3:
+        idx[0], val[0] = 0, 0.0
+        idx[1, k // 2:], val[1, k // 2:] = 0, 0.0
+        idx[2, :] = idx[2, 0]
     return (torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev))
 
 
+# the tile design (a datum alone, up to 1,023 signature words) and the
+# stream design (1,024 words and more; (1100, 40) in two feature chunks)
+SIG_SHAPES = [(1, 8), (1, 16), (1, 32), (1, 64), (64, 16), (1024, 16),
+              (33, 48), (4, 64), (1100, 40)]
+
+
 @pytest.mark.parametrize("h", [1, 32, 64, 77, 512])
-@pytest.mark.parametrize("b, k", [(1, 16), (1024, 16), (33, 48), (4, 64)])
+@pytest.mark.parametrize("b, k", SIG_SHAPES)
 def test_lsh_signature_kernel_matches_plain(dev, h, b, k):
-    """K1 against its plain version on the card: bitwise (both sum in k
-    order and take the card's log1pf and sqrtf; the plain polynomial's
-    float64 multiply-adds round as fmaf)."""
-    idx, val = _lsh_batch(dev, h + b, max(b, 3), k)
+    """K1 against its plain version on the card: bitwise (both sum in
+    projection_order's order with the same fused steps and flushes, and
+    both take XLA's log1p, xla_log1p, and a correctly rounded sqrt)."""
+    idx, val = _lsh_batch(dev, h + b + k, b, k)
     n0 = tl.lsh_signature.launches
     got = tl.lsh_signature(LSH_KEY, idx, val, h)
     torch.cuda.synchronize()
@@ -783,15 +790,99 @@ def test_lsh_signature_kernel_matches_plain(dev, h, b, k):
 
 
 @pytest.mark.parametrize("h", [1, 64, 77, 512])
-@pytest.mark.parametrize("b, k", [(1024, 16), (33, 48)])
+@pytest.mark.parametrize("b, k", SIG_SHAPES)
 def test_minhash_signature_kernel_matches_plain(dev, h, b, k):
-    idx, val = _lsh_batch(dev, 7 * h + b, b, k)
+    idx, val = _lsh_batch(dev, 7 * h + b + k, b, k)
     n0 = tl.minhash_signature.launches
     got = tl.minhash_signature(LSH_KEY, idx, val, h)
     torch.cuda.synchronize()
     assert tl.minhash_signature.launches == n0 + 1
     assert torch.equal(got, tl.minhash_signature_ref(LSH_KEY, idx, val, h))
-    assert bool((got[0] == idx[0, 0]).all())
+    if b >= 3:
+        assert bool((got[0] == idx[0, 0]).all())
+
+
+def test_signature_kernels_on_subnormal_values(dev):
+    """Values below 2^-126 read as zero in both (XLA's DAZ): such a
+    feature adds nothing to K1 and never wins in K2."""
+    idx, val = _lsh_batch(dev, 5, 4, 16)
+    val[:, ::3] = 1e-40
+    for fn, ref in ((tl.lsh_signature, tl.lsh_signature_ref),
+                    (tl.minhash_signature, tl.minhash_signature_ref)):
+        assert torch.equal(fn(LSH_KEY, idx, val, 64),
+                           ref(LSH_KEY, idx, val, 64))
+
+
+@pytest.mark.parametrize("kind", ["lsh", "minhash"])
+@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("edge", ["empty", "half", "repeated"])
+def test_signature_kernels_on_one_edge_datum(dev, kind, k, edge):
+    """A datum alone (a set_row's, a datum read's: the tile design) that
+    is all padding, half padding, or one feature repeated, bitwise its
+    plain version, signed at one datum and as in a padded batch of 8 (the
+    *_many routes'); a datum of zeros projects to +0 (every lsh bit 1)
+    and keeps minhash slot index 0."""
+    idx, val = _lsh_batch(dev, 31 * k + len(edge), 1, k)
+    if edge == "empty":
+        idx.zero_()
+        val.zero_()
+    elif edge == "half":
+        idx[0, k // 2:] = 0
+        val[0, k // 2:] = 0.0
+    else:
+        idx[0, :] = idx[0, 0]
+    for h in (64, 77):
+        for padded_b in (None, 8):
+            if kind == "lsh":
+                got = tl.lsh_signature(LSH_KEY, idx, val, h, padded_b)
+                ref = tl.lsh_signature_ref(LSH_KEY, idx, val, h, padded_b)
+            else:
+                got = tl.minhash_signature(LSH_KEY, idx, val, h)
+                ref = tl.minhash_signature_ref(LSH_KEY, idx, val, h)
+            assert torch.equal(got, ref), (h, padded_b)
+            if edge == "empty" and kind == "lsh":
+                assert int(got[0, 0]) == -1
+            elif edge == "empty":
+                assert bool((got[0] == idx[0, 0]).all())
+
+
+def test_lsh_signature_kernel_in_a_padded_batchs_order(dev):
+    """One datum signed as in a padded batch (padded_b 8: k order, on the
+    tile design) and alone (eight lanes) each equal their plain versions,
+    and the first equals that datum's row of a batch of 64 (k order, on
+    the stream design)."""
+    idx, val = _lsh_batch(dev, 77, 64, 16)
+    for r in range(64):
+        i, v = idx[r:r + 1].contiguous(), val[r:r + 1].contiguous()
+        alone = tl.lsh_signature(LSH_KEY, i, v, 512)
+        padded = tl.lsh_signature(LSH_KEY, i, v, 512, padded_b=8)
+        assert torch.equal(alone, tl.lsh_signature_ref(LSH_KEY, i, v, 512))
+        assert torch.equal(padded, tl.lsh_signature_ref(LSH_KEY, i, v, 512,
+                                                        padded_b=8))
+        assert torch.equal(padded, tl.lsh_signature(
+            LSH_KEY, idx, val, 512)[r:r + 1])
+
+
+def test_lsh_signature_launch_refuses_an_order_its_width_lacks(dev):
+    """The eight-lane orders need K 16 (ORDER_LANES16) or a multiple of
+    16 above it (ORDER_LANES); the launcher refuses any other pairing."""
+    lib = tl._lib()
+    idx, val = _lsh_batch(dev, 3, 1, 20)
+    out = torch.empty((1, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for order in (tl.ORDER_LANES16, tl.ORDER_LANES, 3, -1):
+        err = lib.lsh_signature_launch(
+            idx.data_ptr(), val.data_ptr(), out.data_ptr(), LSH_KEY[0],
+            LSH_KEY[1], 1, 20, 64, order, stream)
+        assert err != 0, order
+
+
+def test_signature_kernels_refuse_width_zero(dev):
+    idx = torch.zeros((2, 0), dtype=torch.int32, device=dev)
+    val = torch.zeros((2, 0), dtype=torch.float32, device=dev)
+    for fn in (tl.lsh_signature, tl.minhash_signature):
+        with pytest.raises(ValueError, match="width 0"):
+            fn(LSH_KEY, idx, val, 64)
 
 
 def _sweep_inputs(dev, kind, h, r, seed):

@@ -15,13 +15,18 @@ JAX package's (jubatus_tpu/durability/), both in this process on the CPU.
   by the other to the writer's own recovery, within rtol 1e-5 / atol
   1e-6 for floats, labels and counts exact.
 - The WAL root's layout, the durable save(), get_status.
+- A gossip round's pulled fold (random_mixer): journaled as the JAX
+  mixer's record, bytes equal; after SIGKILL the port's recovery and the
+  JAX package's of the directory agree.
 
 Every wait has its own timeout."""
 
 import json
 import os
 import shutil
+import signal
 import socket
+import sys
 import time
 
 import msgpack
@@ -35,12 +40,15 @@ from jubatus_tpu.mix import codec as jcodec
 from jubatus_tpu.utils.metrics import Registry as JRegistry
 from jubatus_tpu_torch import native
 from jubatus_tpu_torch.cli.server import serve
+from jubatus_tpu_torch.cluster.membership import (MEMBERS_TTL_S,
+                                                  MembershipClient)
 from jubatus_tpu_torch.durability import journal as tjournal
 from jubatus_tpu_torch.durability.snapshotter import Manifest
 from jubatus_tpu_torch.framework import server_base as tserver_base
 from jubatus_tpu_torch.framework import service as tservice
 from jubatus_tpu_torch.kernels.build import KernelError
 from jubatus_tpu_torch.mix import codec as tcodec
+from jubatus_tpu_torch.rpc.client import Client as tclient
 from jubatus_tpu_torch.utils.metrics import Registry as TRegistry
 from jubatus_tpu_torch.utils.rwlock import LockDisciplineError
 from tests.test_torch_classifier import ATOL, RTOL
@@ -818,3 +826,121 @@ def test_save_fsyncs_file_and_dir_under_a_flock(tmp_path, monkeypatch):
     srv.clear()
     assert srv.load("m1") is True
     assert packed(srv) == expected
+
+
+# ---------------------------------------------------------------------------
+# the gossip round's pulled fold: journaled, SIGKILL, recovered by both
+# ---------------------------------------------------------------------------
+
+
+def gossip_argv(tmp_path, tag, coordinator, name):
+    """A port server process (--device cpu) with --journal in a
+    random_mixer cluster whose trigger is out of reach (do_mix mixes)."""
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps(CONFIGS["classifier"]))
+    return [sys.executable, "-m", "jubatus_tpu_torch.cli.server", "--type",
+            "classifier", "--configpath", str(cfg), "--rpc-port", "0",
+            "--listen_addr", "127.0.0.1", "--eth", "127.0.0.1", "--device",
+            "cpu", "--datadir", str(tmp_path), "--journal",
+            str(tmp_path / f"dur_{tag}"), "--journal_fsync", "always",
+            "--snapshot_interval", "0", "--name", name, "--coordinator",
+            coordinator, "--mixer", "random_mixer", "--interval_sec",
+            "100000", "--interval_count", "1000000"]
+
+
+def diff_records(dirpath):
+    return [rec for _pos, _rnd, rec in tjournal.iter_records(str(dirpath))
+            if rec.get("k") == "diff"]
+
+
+class OnePeer:
+    """Membership that lists one peer (the JAX mixer's gossip target)."""
+
+    def __init__(self, port):
+        self.port = port
+
+    def get_all_nodes(self):
+        return [("127.0.0.1", self.port)]
+
+
+def test_gossip_fold_is_journaled_as_the_jax_record(tmp_path):
+    """A port server with --journal and random_mixer pulls its peer's
+    delta in a gossip round (do_mix) and is SIGKILLed.  Its journal holds
+    the pulled fold as a `diff` record whose bytes are the JAX mixer's
+    record of the same pull, and the port's recovery of the directory
+    and the JAX package's give the same model, the peer's labels in it
+    (no round id: the round guard folds it)."""
+    from jubatus_tpu.durability import journal as jj
+    from jubatus_tpu.mix.push_mixer import PushMixer as JPushMixer
+    from tests.test_torch_cluster_mixed import Proc
+
+    def port_of(proc):
+        return int(proc.wait_for("jubatus ready", 60).split()[2]
+                   .split("=")[1])
+
+    def train_wire(port, seed):
+        w = Wire(port)
+        for fr in train_frames("classifier", seed, n_frames=2):
+            assert w.send(fr)[2] is None
+        w.close()
+
+    coord = Proc([sys.executable, "-m",
+                  "jubatus_tpu_torch.cluster.coordinator", "--rpc-port", "0",
+                  "--listen_addr", "127.0.0.1"])
+    procs = [coord]
+    try:
+        addr = coord.wait_for("jubacoordinator", 60).split()[-1]
+        a, b = (Proc(gossip_argv(tmp_path, t, addr, "g")) for t in "ab")
+        procs += [a, b]
+        pa, pb = port_of(a), port_of(b)
+        members = MembershipClient(addr, "classifier", "g")
+        wait_until(lambda: set(members.get_all_nodes()) ==
+                   {("127.0.0.1", pa), ("127.0.0.1", pb)}, "both listed")
+        members.close()
+        # a's gossip reads the member list from a cache up to
+        # MEMBERS_TTL_S old: let the one it read before b joined expire
+        time.sleep(MEMBERS_TTL_S + 0.2)
+        train_wire(pa, 61)
+        train_wire(pb, 62)
+        with tclient("127.0.0.1", pa, timeout=WAIT_S) as c:
+            assert c.call_raw("do_mix", "g") is True, "".join(a.tail)
+        a.p.send_signal(signal.SIGKILL)
+        a.p.wait(timeout=WAIT_S)
+        (rec,) = diff_records(tmp_path / "dur_a")
+        assert "round" not in rec["p"]
+        # the JAX mixer's record of the same pull: a second peer fed the
+        # same frames, pulled by a JAX server's PushMixer
+        b2 = Proc(gossip_argv(tmp_path, "b2", addr, "g2"))
+        procs.append(b2)
+        pb2 = port_of(b2)
+        train_wire(pb2, 62)
+        jsrv = make_server("jax", "classifier", tmp_path / "jax_mixer")
+        try:
+            assert JPushMixer(jsrv, OnePeer(pb2), interval_sec=1e9,
+                              interval_count=10 ** 9)._gossip_round()
+        finally:
+            shut("jax", jsrv)
+        (jrec,) = diff_records(tmp_path / "jax_mixer")
+        assert tjournal.pack_record(rec) == jj.pack_record(jrec)
+    finally:
+        for p in procs:
+            p.kill()
+    for name in ("port", "jax"):
+        shutil.copytree(tmp_path / "dur_a", tmp_path / name)
+        os.remove(tmp_path / name / "LOCK")
+    port = make_server("port", "classifier", tmp_path / "port")
+    jax_ = make_server("jax", "classifier", tmp_path / "jax")
+    try:
+        for srv in (port, jax_):
+            ri = srv.recovery_info
+            assert ri.errors == 0 and ri.replayed >= 2
+        labels = port.driver.get_labels()
+        assert labels == jax_.driver.get_labels()
+        assert_close_models("classifier", port.driver.pack(),
+                            jax_.driver.pack())
+        peer = twin("classifier", train_frames("classifier", 62,
+                                               n_frames=2))
+        assert set(peer.get_labels()) <= set(labels)
+    finally:
+        shut("port", port)
+        shut("jax", jax_)

@@ -187,6 +187,53 @@ def test_empty_datum_row():
         assert j.pack()["sig"] == t.pack()["sig"]
 
 
+# A datum whose projection onto hash 35 lies within an ulp of zero: its
+# last value was moved by ulps until XLA's two summation orders (eight
+# lanes at one datum, k order in a padded batch; ops/lsh.py
+# projection_order) gave it opposite signs under the default seed.
+BOUNDARY = [
+    ("f953", -1.3442145586013794), ("f585", -0.45761576294898987),
+    ("f511", -1.9012227058410645), ("f931", -1.289537787437439),
+    ("f56", -1.8417350053787231), ("f228", -0.23509113490581512),
+    ("f5", -1.267446517944336), ("f786", 0.27126434445381165),
+    ("f840", 0.15675108134746552), ("f290", -0.18693093955516815),
+    ("f907", -2.5167596340179443), ("f305", -0.5386928915977478),
+    ("f846", -0.048500943928956985), ("f631", 0.11330898851156235),
+    ("f891", -1.5301357507705688), ("f691", 6.629077434539795)]
+
+
+@pytest.mark.parametrize("method", ("lsh", "euclid_lsh"))
+def test_each_route_signs_in_the_jax_drivers_order(method):
+    """The JAX driver signs set_row and a single datum read at one datum
+    and pads set_row_many and the *_many reads to round_b (at least 8),
+    so one datum near a decision boundary stores and queries different
+    bits by route; the port signs each route as the JAX driver does, a
+    lone set_row_many and a lone *_many read included."""
+    j, t = JNN(config(method)), TNN(config(method), device="cpu")
+    for drv, mk in ((j, jd), (t, td)):
+        drv.set_row("one", mk(BOUNDARY))
+        drv.set_row_many([("many1", mk(BOUNDARY))])
+        drv.set_row_many([("many2", mk(BOUNDARY)),
+                          ("short", mk(BOUNDARY[:3]))])
+    jp, tp = j.pack(), t.pack()
+    sigs = np.frombuffer(jp["sig"], np.uint32).reshape(-1, 2)
+    assert sigs[j.ids["one"]][1] != sigs[j.ids["many1"]][1]
+    assert jp["sig"] == tp["sig"] and jp["norms"] == tp["norms"]
+    for size in (2, 4):
+        assert_same_results(method, j.similar_row_from_datum(jd(BOUNDARY),
+                                                             size),
+                            t.similar_row_from_datum(td(BOUNDARY), size))
+        for n in (1, 2):
+            reads = [(BOUNDARY, size), (BOUNDARY[:3], 3)][:n]
+            ja = j.neighbor_row_from_datum_many([(jd(q), s) for q, s in reads])
+            ta = t.neighbor_row_from_datum_many([(td(q), s) for q, s in reads])
+            for a, b in zip(ja, ta):
+                assert_same_results(method, a, b)
+    assert j.similar_row_from_datum(jd(BOUNDARY), 1)[0][0] == "one"
+    assert j.similar_row_from_datum_many([(jd(BOUNDARY), 1)])[0][0][0] == \
+        "many1"
+
+
 @pytest.mark.parametrize("method", METHODS)
 def test_mix_algebra_across_packages(method):
     """Diffs of each package, mixed by either package's mix, applied by

@@ -4,9 +4,10 @@ estimate of a datum whose feature products are [1.5e-38, -1.4e-38,
 2e-38] is 2e-38 (1.5e-38 - 1.4e-38 = 1e-39 flushes to 0 before 2e-38 is
 added), where an unflushed sum gives 2.1e-38.  The port's estimate
 (ops/sparse.row_scores through ftz_sum) reduces as XLA does and must be
-bitwise JAX's, at K 16 (XLA sums in k order) and K 32 (8 lanes, then a
-halving tree), on the repro and on random rows of terms near the
-smallest normal; ftz_sum itself against those two orders."""
+bitwise JAX's, at K 16 (XLA sums in k order), K 32 (8 lanes, then a
+halving tree) and K 64 and 128 (XLA's tree rewrite: windows of 32 in k
+order, then their sums in order), on the repro and on random rows of
+terms near the smallest normal; ftz_sum itself against those orders."""
 
 import jax
 import jax.numpy as jnp
@@ -46,10 +47,13 @@ def _estimates(prods, n_features, at):
 
 
 # (features, positions of the repro's terms): K 16 sums in k order; at K
-# 32 the terms of one lane (k mod 8) sum in k order
+# 32 the terms of one lane (k mod 8) sum in k order; at K 64 the terms
+# of one window of 32 sum in k order, and the windows' sums after
 @pytest.mark.parametrize("n_features, at", [(3, (0, 1, 2)), (16, (3, 9, 15)),
                                             (20, (0, 8, 16)),
-                                            (32, (5, 13, 29))])
+                                            (32, (5, 13, 29)),
+                                            (64, (3, 9, 40)),
+                                            (64, (33, 47, 60))])
 def test_the_repro_estimate_is_jax_s(n_features, at):
     want, got = _estimates(REPRO, n_features, at)
     assert np.float32(want) == np.float32(2e-38)
@@ -64,7 +68,7 @@ def _xla_row(prods):
         jnp.asarray(w), jnp.asarray(idx), jnp.ones((1, k), jnp.float32)))[0]
 
 
-@pytest.mark.parametrize("k", [8, 16, 32])
+@pytest.mark.parametrize("k", [8, 16, 32, 64, 128])
 def test_row_scores_flush_partial_sums_as_xla(k):
     rng = np.random.default_rng(k)
     for _ in range(60):

@@ -142,7 +142,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 operations class by class: integer, popcount, float32,
                 special-function, each at its own rate), sig_topk beside
                 torch.topk over [Nq, R] float32 scores.  (b) The service: a
-                10^6-row lsh table (bench.py's converter, hash_num 64)
+                250,000-row lsh table (bench.py's converter, hash_num 64)
                 built here through set_row_many, 1024 rows a call, saved in
                 the port's model-file format and loaded by two port servers
                 (--type nearest_neighbor, one with --read_batch_window_us
@@ -163,8 +163,31 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 applied in the master's order, a second do_mix changing
                 nothing, server 1 SIGKILLed and recovered bitwise through
                 its signature kernel.  Lines `nn_service` and `nn_cluster`
- 11. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 10; counters are zeroed just before each path, and a
+ 11. recommender, anomaly, NN classifier — (a) K4 dense_topk over 10^6
+                rows (Kr 32, D 4096, a mask with 1% holes, kb 16), K4
+                dense_dots at the exact LOF's sweep and at 10^6 rows, K5
+                sig_counts at the LOF table's sweep and at 10^6 rows, K3
+                with a mask over a 10^6-row lsh H 128 table: each bitwise
+                its plain version on the same card tensors, timed beside
+                it, its library yardstick (torch.topk of the scores,
+                torch.sparse.mm of the table as CSR) and its bound.  (b)
+                The recommender: bench.py's lsh H 128 on a port server,
+                8192 update_rows and 64 clear_rows over the wire, 72
+                reads bitwise an in-process driver's, each one K3 launch
+                (masked) on both; inverted_index at 10^6 rows, 1%
+                dropped, 32 reads each one K4 launch, four against the
+                plain version.  (c) Anomaly: bench.py's lof over
+                euclid_lsh H 64 on a port server, 16,384 adds over the
+                wire (the in-process driver's add overlapping each after
+                the first 512, which are timed alone) and 64 calc_score
+                reads, every score bitwise the driver's, each sweep one
+                K5 launch on both; the exact lof through dense_dots,
+                bitwise a CPU driver's.  (d) The NN classifier (euclid_lsh
+                H 64, k 128) on bench.py's converter: 4 trains of 2048 and
+                32 classifies of 8 to a server and an in-process driver,
+                bitwise, each classify one K3 launch
+ 12. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 11; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -183,6 +206,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -416,6 +440,19 @@ class WireClient:
 
     def call(self, method, *args):
         return self.send(self.frame(method, *args), method)
+
+    def receive(self):
+        """The result of the one request sent by hand (sock.sendall of a
+        frame)."""
+        while True:
+            for msg in self.unpacker:
+                if msg[2] is not None:
+                    raise RuntimeError(f"rpc error: {msg[2]}")
+                return msg[3]
+            chunk = self.sock.recv(1 << 20)
+            if not chunk:
+                raise RuntimeError("connection closed")
+            self.unpacker.feed(chunk)
 
     def close(self):
         self.sock.close()
@@ -2328,7 +2365,10 @@ NN_CONFIG = {
     "converter": {"num_rules": [{"key": "*", "type": "num"}],
                   "hash_max_size": 4096},
 }
-NN_ROWS = 10 ** 6          # rows of the service's table (bench.py:1199)
+# rows of the service's table: bench.py:1199's 10^6 cut to a quarter so
+# the whole smoke stays within half its time limit with phase 11 (the
+# sweep kernels are still timed over 10^6 rows: NN_SWEEP_ROWS)
+NN_ROWS = 250_000
 NN_BATCH = 1024            # rows a set_row_many call while building it
 NN_KEYS = 1024             # feature names a datum draws from
 NN_NNZ = 16                # features a datum
@@ -2422,6 +2462,52 @@ def nn_bits(torch, sig, h):
     return ((w[..., None] >> sh) & 1).reshape(sig.shape[0], -1)[:, :h] > 0
 
 
+def sig_variant(idx, nz, out, h, f32, sfu, ms, method, call_ms, plain_ms,
+                in_band, err):
+    """A K1 or K2 report row at one shape: its times and its bound by
+    class, from a batch idx [B, K] of nz nonzero values signed into out
+    at H h (f32 and sfu: the kernel's float32 and special-function
+    operations a draw)."""
+    nbytes = idx.numel() * 8 + out.numel() * 4
+    classes = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "int32": (nz * h * DRAW_INT_OPS + idx.numel() * THREEFRY_INT_OPS)
+        / INT32_OPS_PER_S * 1e3,
+        "f32": nz * h * f32 / F32_OPS_PER_S * 1e3,
+        "sfu": nz * h * sfu / SFU_PER_S * 1e3}
+    by = max(classes, key=classes.get)
+    return {"shape": list(idx.shape) + [h], "ms": ms,
+            "device_method": method, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": classes[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_class": by, "bound_classes_ms": classes,
+            "f32_only_bound_ms": max(classes["bytes"], classes["f32"]),
+            "bytes_bound_ms": classes["bytes"], "in_band": in_band,
+            "max_abs_err": err}
+
+
+def k1_at(torch, L, key, idx, val, h, padded_b, route, device):
+    """K1 at one of a path's shapes (idx/val on the card, signed as in a
+    batch of padded_b): its bits equal the plain version's (raises
+    otherwise), timed beside it; the report row (sig_variant)."""
+    got = L.lsh_signature(key, idx, val, h, padded_b)
+    ref = L.lsh_signature_ref(key, idx, val, h, padded_b)
+    flip = nn_bits(torch, got, h) != nn_bits(torch, ref, h)
+    if bool(flip.any()):
+        raise AssertionError(f"{route}: K1 at B {idx.shape[0]} H {h}: "
+                             f"{int(flip.sum())} bits differ from the plain "
+                             "version's")
+    ms, method, call_ms = nn_times(
+        torch, lambda: L.lsh_signature(key, idx, val, h, padded_b), device,
+        50)
+    plain_ms = time_cuda(torch, lambda: L.lsh_signature_ref(
+        key, idx, val, h, padded_b), 2) if device == "cuda" else None
+    row = sig_variant(idx, int((val != 0).sum()), got, h, K1_F32_OPS,
+                      K1_SFU_OPS, ms, method, call_ms, plain_ms, 0, 0.0)
+    row["route"] = route
+    return row
+
+
 def phase_nn_kernels(torch, np, device="cuda"):
     """Phase 10a: the LSH kernels against their plain versions on the
     card.  The PRNG (fold_in keys, bits, both uniforms) of the plain
@@ -2489,25 +2575,11 @@ def phase_nn_kernels(torch, np, device="cuda"):
                 torch, lambda: fn(key, idx, val, h), device, 50)
             plain_ms = time_cuda(torch, lambda: refn(key, idx, val, h), 3) \
                 if device == "cuda" else None
-            nbytes = idx.numel() * 8 + out.numel() * 4
-            classes = {
-                "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                "int32": (nz * h * DRAW_INT_OPS + idx.numel()
-                          * THREEFRY_INT_OPS) / INT32_OPS_PER_S * 1e3,
-                "f32": nz * h * f32 / F32_OPS_PER_S * 1e3,
-                "sfu": nz * h * sfu / SFU_PER_S * 1e3}
-            by = max(classes, key=classes.get)
             # bits (K1) or slots (K2) that differ from the plain
             # version's: 0 (checked above)
-            variants[name].append({
-                "shape": [b, NN_NNZ, h], "ms": ms,
-                "device_method": method, "call_ms": call_ms,
-                "plain_ms": plain_ms, "bound_ms": classes[by],
-                "bound_by": "bytes" if by == "bytes" else "operations",
-                "bound_class": by, "bound_classes_ms": classes,
-                "f32_only_bound_ms": max(classes["bytes"], classes["f32"]),
-                "bytes_bound_ms": classes["bytes"],
-                "in_band": int(bad.sum()), "max_abs_err": errs[name]})
+            variants[name].append(sig_variant(
+                idx, nz, out, h, f32, sfu, ms, method, call_ms, plain_ms,
+                int(bad.sum()), errs[name]))
     for name, v in variants.items():
         main = v[0]                       # H 64: the service's table
         rows[name] = {**{k: main[k] for k in (
@@ -2573,26 +2645,29 @@ def topk_bound(kind, r, w, n_valid, nq, kb):
 
 
 def topk_row(torch, np, L, kind, h, table, norms, n, qs, qn, q_rows, route,
-             device):
-    """K3 (the sweep with its top-NN_KB selection) at one shape: by
-    signature and, where q_rows names the rows qs holds, by stored row,
-    both bitwise its plain version's (sig_sweep_ref, then torch.topk over
-    the keys); the card's time (a
-    CUDA graph at one query, CUDA events at more), the call's, the by-row
-    call's and the plain version's; the bound by class; torch.topk over
-    [Nq, R] float32 scores as the selection's yardstick."""
+             device, kb=NN_KB, mask=None):
+    """K3 (the sweep with its top-kb selection, over the rows below n
+    that the mask keeps) at one shape: by signature and, where q_rows
+    names the rows qs holds, by stored row, both bitwise its plain
+    version's (sig_sweep_ref, then torch.topk over the keys); the card's
+    time (a CUDA graph at one query, CUDA events at more), the call's,
+    the by-row call's and the plain version's; the bound by class (the
+    mask's bytes too); torch.topk over [Nq, R] float32 scores as the
+    selection's yardstick."""
     r, w = table.shape
     nq = qs.shape[0]
 
     def topk(**kw):
-        return L.sig_topk(kind, table, norms, n, hash_num=h, kb=NN_KB, **kw)
+        return L.sig_topk(kind, table, norms, n, hash_num=h, kb=kb,
+                          mask=mask, **kw)
 
     got = topk(q_sigs=qs, qnorms=qn)
     by_row = got if q_rows is None else topk(q_rows=q_rows)
-    ref = L.sig_topk_ref(kind, table, norms, n, qs, qn, h, NN_KB)
+    ref = L.sig_topk_ref(kind, table, norms, n, qs, qn, h, kb, mask)
     if not (torch.equal(got, ref) and torch.equal(by_row, ref)):
-        raise AssertionError(f"nn: sig_topk {kind} H {h} Nq {nq} ({route}): "
-                             "top keys differ from the plain version's")
+        raise AssertionError(f"nn: sig_topk {kind} H {h} Nq {nq} kb {kb} "
+                             f"({route}): top keys differ from the plain "
+                             "version's")
     del got, by_row, ref
     if nq == 1:
         ms, method, call_ms = nn_times(
@@ -2604,28 +2679,30 @@ def topk_row(torch, np, L, kind, h, table, norms, n, qs, qn, q_rows, route,
     row_ms = time_cuda(torch, lambda: topk(q_rows=q_rows), 20) \
         if device == "cuda" and q_rows is not None else None
     plain_ms = time_cuda(torch, lambda: L.sig_topk_ref(
-        kind, table, norms, n, qs, qn, h, NN_KB), 2) \
+        kind, table, norms, n, qs, qn, h, kb, mask), 2) \
         if device == "cuda" else None
     # numpy's draws: an earlier phase's failed graph capture can leave
     # torch's CUDA generator unusable
     scores = torch.from_numpy(np.random.default_rng(r).random(
         (nq, r), dtype=np.float32)).to(table.device)
-    lib_ms = (nn_times(torch, lambda: torch.topk(scores, NN_KB), device,
+    lib_ms = (nn_times(torch, lambda: torch.topk(scores, kb), device,
                        20)[0] if nq == 1 else
-              time_cuda(torch, lambda: torch.topk(scores, NN_KB), 20)) \
+              time_cuda(torch, lambda: torch.topk(scores, kb), 20)) \
         if device == "cuda" else None
     del scores
-    classes = topk_bound(kind, r, w, n, nq, NN_KB)
+    classes = topk_bound(kind, r, w, n, nq, kb)
+    if mask is not None:
+        classes["bytes"] += n / HBM_BYTES_PER_S * 1e3
     by = max(classes, key=classes.get)
     return {
         "kind": kind, "hash_num": h, "route": route, "shape": [r, w, nq],
-        "kb": NN_KB, "valid_rows": n, "ms": ms, "device_method": method,
+        "kb": kb, "valid_rows": n, "ms": ms, "device_method": method,
         "call_ms": call_ms, "by_row_ms": row_ms, "plain_ms": plain_ms,
         "bound_ms": classes[by],
         "bound_by": "bytes" if by == "bytes" else "operations",
         "bound_class": by, "bound_classes_ms": classes,
         "bytes_bound_ms": classes["bytes"], "library_ms": lib_ms,
-        "plan": L.topk_plan(r, w, nq, NN_KB, n, kind) if device == "cuda"
+        "plan": L.topk_plan(r, w, nq, kb, n, kind) if device == "cuda"
         else None, "keys_equal": 1.0, "max_abs_err": 0.0}
 
 
@@ -3182,6 +3259,584 @@ def phase_nn_cluster(torch, np, card, device="cuda"):
                                     "card": card}))
     return launches
 
+# ---------------------------------------------------------------------------
+# 11. the recommender, anomaly and the NN classifier: K4 (dense_topk,
+#     dense_dots), K5 (sig_counts) and K3 with a validity mask
+# ---------------------------------------------------------------------------
+
+RECO_CONFIG = {         # bench.py:156-163
+    "method": "lsh", "parameter": {"hash_num": 128},
+    "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                  "hash_max_size": 1 << 16},
+}
+RECO_EXACT_CONFIG = {   # the exact sweep's table: 16 numeric features
+    "method": "inverted_index", "parameter": {},
+    "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                  "hash_max_size": 4096},
+}
+LOF_CONFIG = {          # bench.py:824-831
+    "method": "lof",
+    "parameter": {"nearest_neighbor_num": 10,
+                  "reverse_nearest_neighbor_num": 30,
+                  "method": "euclid_lsh", "parameter": {"hash_num": 64}},
+    "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                  "hash_max_size": 1 << 16},
+}
+LOF_EXACT_CONFIG = dict(LOF_CONFIG, parameter=dict(
+    LOF_CONFIG["parameter"], method="inverted_index_euclid"))
+NNC_CONFIG = {          # method NN on bench.py's converter
+    "method": "NN",
+    "parameter": {"method": "euclid_lsh", "parameter": {"hash_num": 64},
+                  "nearest_neighbor_num": 128},
+    "converter": SERVER_CONFIG["converter"],
+}
+RECO_ROWS = 8192        # update_row calls over the wire
+RECO_EXACT_ROWS = 10 ** 6
+RECO_DROPS = 64         # clear_row calls: holes in the store's mask
+RECO_READS = 64         # similar_row_from_datum calls
+ANOM_ADDS = 16384       # add calls over the wire
+ANOM_TIMED = 512        # of them sent alone, their wire time kept
+ANOM_EXACT_ADDS = 1024  # adds of the exact LOF in process (K4 dense_dots)
+ANOM_READS = 64         # calc_score calls
+NNC_TRAINS = 4          # train requests of NNC_B datums
+NNC_B = 2048
+NNC_READS = 32          # classify requests of 8 datums
+
+
+def row_datums(np, rng, n, keys, nnz=16):
+    """n datums of nnz distinct numeric features of `keys` names, standard
+    normal values: (names, values) lists."""
+    out = []
+    for _ in range(n):
+        ks = rng.choice(keys, nnz, replace=False)
+        out.append(([f"f{k}" for k in ks.tolist()],
+                    rng.standard_normal(nnz).tolist()))
+    return out
+
+
+def kernel_row(torch, fn, ref, device, plain_reps, lib=None,
+               classes=None, shape=None, err=None):
+    """One kernel's report row: fn's device ms (a CUDA graph where it
+    captures), its call ms, the plain version's ms (`ref` on the same
+    card tensors), the library call's, and the bound by class."""
+    ms, method, call_ms = nn_times(torch, fn, device, 20)
+    plain_ms = time_cuda(torch, ref, plain_reps) if device == "cuda" \
+        else None
+    lib_ms = None
+    if lib is not None and device == "cuda":
+        lib_ms = nn_times(torch, lib, device, 20)[0]
+    by = max(classes, key=classes.get)
+    return {"ms": ms, "device_method": method, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": classes[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_classes_ms": classes, "bytes_bound_ms": classes["bytes"],
+            "shape": shape, "max_abs_err": err}
+
+
+def sparse_rows(torch, np, dev, r, kr, d, seed, nnz=16):
+    """A sparse row table [r, kr] of nnz features a row (the rest
+    padding) and its norms, as the stores hold them."""
+    rng = np.random.default_rng(seed)
+    idx = np.zeros((r, kr), np.int32)
+    val = np.zeros((r, kr), np.float32)
+    idx[:, :nnz] = rng.integers(0, d, (r, nnz))
+    val[:, :nnz] = rng.standard_normal((r, nnz))
+    norms = np.sqrt((val * val).sum(1)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (idx, val, norms)]
+
+
+def phase_row_kernels(torch, np, device="cuda"):
+    """Phase 11a: K4 dense_topk at the exact recommender's table (10^6
+    rows, Kr 32, D 4096, 1% holes in the mask, kb 16, and kb 2048 on the
+    sort path), K4 dense_dots at
+    the exact LOF's sweep (its table after ANOM_EXACT_ADDS adds: Kr 32, D
+    2^16, one query) and at 10^6 rows, K5 sig_counts at the LOF table's
+    sweep (euclid_lsh H 64, ANOM_ADDS rows, one query) and at 10^6 rows,
+    and K3 with a mask at the recommender's lsh H 128 table: each bitwise
+    its plain version on the same card tensors, timed beside it, beside
+    its library yardstick (torch.topk of the scores for dense_topk and
+    masked K3, torch.sparse.mm of the table as CSR for dense_dots) and
+    its bound."""
+    from jubatus_tpu_torch.ops import lsh as L
+    dev = torch.device(device)
+    rows = {}
+    rng = np.random.default_rng(21)
+    # dense_topk
+    r, kr, d, kb = RECO_EXACT_ROWS, 32, 4096, 16
+    idx, val, norms = sparse_rows(torch, np, dev, r, kr, d, 22)
+    mask = torch.from_numpy(rng.random(r) >= 0.01).to(dev)
+    q = torch.from_numpy(rng.standard_normal((1, d)).astype(
+        np.float32)).to(dev)
+    qn = torch.sqrt((q * q).sum(1))
+    variants = []
+    for metric in ("cosine", "euclid"):
+        got = L.dense_topk(metric, idx, val, norms, r, mask, q, qn, kb)
+        ref = L.dense_topk_ref(metric, idx, val, norms, r, mask, q, qn, kb)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"rows: dense_topk {metric} differs from "
+                                 "its plain version")
+        scores = torch.from_numpy(np.random.default_rng(1).random(
+            (1, r), dtype=np.float32)).to(dev)
+        nbytes = r * kr * 8 + r * 4 + r + d * 4 + 4 + kb * 8
+        row = kernel_row(
+            torch,
+            lambda m=metric: L.dense_topk(m, idx, val, norms, r, mask, q,
+                                          qn, kb),
+            lambda m=metric: L.dense_topk_ref(m, idx, val, norms, r, mask,
+                                              q, qn, kb),
+            device, 1, lib=lambda: torch.topk(scores, kb),
+            classes={"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "f32": r * kr * 2 / F32_OPS_PER_S * 1e3},
+            shape=[r, kr, d, 1, kb], err=0.0)
+        row["metric"] = metric
+        variants.append(row)
+        del scores
+    # a read of more rows than K3's lists hold (kb 2048): the sort path
+    kb2 = 2048
+    got = L.dense_topk("cosine", idx, val, norms, r, mask, q, qn, kb2)
+    if not torch.equal(got, L.dense_topk_ref("cosine", idx, val, norms, r,
+                                             mask, q, qn, kb2)):
+        raise AssertionError("rows: dense_topk at kb 2048 differs from its "
+                             "plain version")
+    scores = torch.from_numpy(np.random.default_rng(1).random(
+        (1, r), dtype=np.float32)).to(dev)
+    nbytes = r * kr * 8 + r * 4 + r + d * 4 + 4 + kb2 * 8
+    row = kernel_row(
+        torch, lambda: L.dense_topk("cosine", idx, val, norms, r, mask, q,
+                                    qn, kb2),
+        lambda: L.dense_topk_ref("cosine", idx, val, norms, r, mask, q, qn,
+                                 kb2),
+        device, 1, lib=lambda: torch.topk(scores, kb2),
+        classes={"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "f32": r * kr * 2 / F32_OPS_PER_S * 1e3},
+        shape=[r, kr, d, 1, kb2], err=0.0)
+    row["metric"] = "cosine"
+    variants.append(row)
+    del scores
+    rows["dense_topk"] = dict(variants[0], variants=variants[1:])
+    # dense_dots: the exact LOF's sweep, then 10^6 rows
+    variants = []
+    for r2, d2 in ((ANOM_EXACT_ADDS, 1 << 16), (RECO_EXACT_ROWS, 4096)):
+        i2, v2, _ = sparse_rows(torch, np, dev, r2, kr, d2, 23)
+        q2 = torch.from_numpy(np.random.default_rng(r2).standard_normal(
+            (1, d2)).astype(np.float32)).to(dev)
+        got = L.dense_dots(i2, v2, q2)
+        ref = L.dense_dots_ref(i2, v2, q2)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError("rows: dense_dots differs from its plain "
+                                 "version")
+        crow = torch.arange(0, r2 * kr + 1, kr, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # CSR's beta notice
+            csr = torch.sparse_csr_tensor(crow, i2.reshape(-1).long(),
+                                          v2.reshape(-1), (r2, d2),
+                                          check_invariants=False)
+        qt = q2.T.contiguous()
+        nbytes = r2 * kr * 8 + d2 * 4 + r2 * 4
+        variants.append(kernel_row(
+            torch, lambda: L.dense_dots(i2, v2, q2),
+            lambda: L.dense_dots_ref(i2, v2, q2), device, 1,
+            lib=lambda: torch.sparse.mm(csr, qt),
+            classes={"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "f32": r2 * kr * 2 / F32_OPS_PER_S * 1e3},
+            shape=[r2, kr, d2, 1], err=0.0))
+        del i2, v2, csr
+    rows["dense_dots"] = dict(variants[0], variants=variants[1:])
+    # sig_counts: the LOF table's sweep, then 10^6 rows
+    variants = []
+    h, w = 64, 2
+    for r3 in (ANOM_ADDS, RECO_EXACT_ROWS):
+        rg = np.random.default_rng(r3)
+        tab = torch.from_numpy(rg.integers(0, 2 ** 32, (r3, w),
+                                           dtype=np.uint64).astype(
+            np.uint32).view(np.int32)).to(dev)
+        n3 = torch.from_numpy((rg.random(r3) * 4).astype(np.float32)).to(dev)
+        qs3 = tab[5:6].clone()
+        qn3 = n3[5:6].clone()
+        got = L.sig_counts("euclid_lsh", tab, qs3, n3, qn3, h)
+        ref = L.sig_counts_ref("euclid_lsh", tab, qs3, n3, qn3, h)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError("rows: sig_counts differs from its plain "
+                                 "version")
+        nbytes = r3 * w * 4 + r3 * 4 + w * 4 + 4 + r3 * 4
+        variants.append(kernel_row(
+            torch, lambda: L.sig_counts("euclid_lsh", tab, qs3, n3, qn3,
+                                            h),
+            lambda: L.sig_counts_ref("euclid_lsh", tab, qs3, n3, qn3, h),
+            device, 2, lib=None,
+            classes={"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "popc": r3 * w / POPC_PER_S * 1e3,
+                     "f32": r3 * 8 / F32_OPS_PER_S * 1e3,
+                     "sfu": r3 / SFU_PER_S * 1e3},
+            shape=[r3, w, 1], err=0.0))
+        del tab, n3
+    rows["sig_counts"] = dict(variants[0], variants=variants[1:])
+    # K3 with a mask: the recommender's lsh H 128 table at 10^6 rows
+    h, w = 128, 4
+    rg = np.random.default_rng(24)
+    tab = torch.from_numpy(rg.integers(0, 2 ** 32, (r, w), dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32)).to(dev)
+    n4 = torch.zeros(r, dtype=torch.float32, device=dev)
+    qs4 = tab[7:8].clone()
+    qn4 = n4[7:8].clone()
+    got = L.sig_topk("lsh", tab, n4, r, q_sigs=qs4, qnorms=qn4, hash_num=h,
+                     kb=kb, mask=mask)
+    ref = L.sig_topk_ref("lsh", tab, n4, r, qs4, qn4, h, kb, mask)
+    if not torch.equal(got, ref):
+        raise AssertionError("rows: masked sig_topk differs from its plain "
+                             "version")
+    scores = torch.from_numpy(np.random.default_rng(2).random(
+        (1, r), dtype=np.float32)).to(dev)
+    classes = topk_bound("lsh", r, w, r, 1, kb)
+    classes["bytes"] += r / HBM_BYTES_PER_S * 1e3          # the mask
+    rows["sig_topk_masked"] = kernel_row(
+        torch, lambda: L.sig_topk("lsh", tab, n4, r, q_sigs=qs4,
+                                      qnorms=qn4, hash_num=h, kb=kb,
+                                      mask=mask),
+        lambda: L.sig_topk_ref("lsh", tab, n4, r, qs4, qn4, h, kb, mask),
+        device, 1, lib=lambda: torch.topk(scores, kb), classes=classes,
+        shape=[r, w, 1, kb], err=0.0)
+    for name in ("dense_topk", "dense_dots", "sig_counts", "sig_topk_masked"):
+        rr = rows[name]
+        log(f"rows: {name} {rr['ms']} ms at {rr['shape']} (plain "
+            f"{rr['plain_ms']} ms, library {rr['library_ms']} ms, bound "
+            f"{rr['bound_ms']:.4g} ms by {rr['bound_by']})")
+    return rows
+
+
+def launch_counts():
+    from jubatus_tpu_torch.framework.server_base import kernel_launches
+    return kernel_launches()
+
+
+def launch_delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def check_reads(what, delta, reads, kern):
+    """Every read launched `kern` once."""
+    if delta.get(kern, 0) != reads:
+        raise AssertionError(f"{what}: {reads} reads launched {kern} "
+                             f"{delta.get(kern, 0)} times")
+
+
+def phase_reco_service(torch, np, card, device="cuda"):
+    """Phase 11b: the recommender.  (1) bench.py's lsh H 128 config on a
+    port server: RECO_ROWS update_row calls over the wire, RECO_DROPS
+    clear_rows (holes in the mask), RECO_READS similar_row_from_datum and
+    8 similar_row_from_id reads, every answer bitwise an in-process
+    driver's fed the same calls; each read launches K1 and the masked K3
+    once (the server's counters and the driver's).  K1 at this path's H
+    128 (the 8,192 rows of the first read's sync, and a read's one datum)
+    and the masked K3 on the served table at a read's kb, each bitwise
+    its plain version on the same card tensors and timed.  (2)
+    inverted_index at 10^6 rows of 16 features (injected into the host
+    rows and written to the store in one write, as bench.py:921-928
+    fills the driver), 1% dropped, 32 reads and one of 1,500 rows (kb
+    2048: K4's sort path), each one K4 dense_topk launch, five of them
+    against the plain version; a read's time.  Returns the launches and
+    the K1 and K3 rows."""
+    from jubatus_tpu_torch.fv import Datum, SparseBatch
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(31)
+    data = row_datums(np, rng, RECO_ROWS + RECO_READS, 4096)
+    drv = create_driver("recommender", RECO_CONFIG, device=device)
+    served = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "reco.json")
+        with open(cfg_path, "w") as f:
+            json.dump(RECO_CONFIG, f)
+        child, t0 = start_server("recommender", cfg_path, tmp, device=device)
+        try:
+            port, _ = server_ready(child, t0)
+            cli = WireClient(port)
+            t0 = time.perf_counter()
+            for i, d in enumerate(data[:RECO_ROWS]):
+                cli.call("update_row", f"r{i}", nn_wire(d))
+                drv.update_row(f"r{i}", nn_datum(Datum, d))
+            upd_s = time.perf_counter() - t0
+            for i in rng.choice(RECO_ROWS, RECO_DROPS, replace=False):
+                if cli.call("clear_row", f"r{i}") is not True or \
+                        not drv.clear_row(f"r{i}"):
+                    raise AssertionError("reco: clear_row failed")
+            s0 = launches_of(status_of(cli))
+            before = launch_counts()
+            t0 = time.perf_counter()
+            for d in data[RECO_ROWS:]:
+                a = cli.call("similar_row_from_datum", nn_wire(d), NN_SIZE)
+                b = drv.similar_row_from_datum(nn_datum(Datum, d), NN_SIZE)
+                if [tuple(x) for x in a] != [tuple(x) for x in b]:
+                    raise AssertionError("reco: a read differs from the "
+                                         "in-process driver's")
+            read_s = time.perf_counter() - t0
+            live = [i for i in (f"r{k * 97}" for k in range(40))
+                    if i in drv.ids][:8]
+            for i in live:
+                a = cli.call("similar_row_from_id", i, NN_SIZE)
+                b = drv.similar_row_from_id(i, NN_SIZE)
+                if [tuple(x) for x in a] != [tuple(x) for x in b]:
+                    raise AssertionError("reco: a from_id read differs")
+            reads = RECO_READS + 8
+            delta = launch_delta(before, launch_counts())
+            sdelta = launch_delta(s0, launches_of(status_of(cli)))
+            if device == "cuda":
+                check_reads("reco (in process)", delta, reads, "sig_topk")
+                check_reads("reco (server)", sdelta, reads, "sig_topk")
+                if delta["lsh_signature"] < reads:
+                    raise AssertionError("reco: a read did not sign")
+            served = launches_of(status_of(cli))
+            cli.call("save", "reco")
+        finally:
+            child.stop()
+    log(f"reco: lsh H 128, {RECO_ROWS} update_rows over the wire in "
+        f"{upd_s:.1f} s (both sides), {RECO_READS} datum reads in "
+        f"{read_s:.2f} s; server launches {served}")
+    # K1 at H 128 as this path runs it: the first read's sync signed the
+    # RECO_ROWS rows as one batch (the live ones here, padded to that
+    # count with repeats as the sync pads), a read signs its one datum;
+    # then K3 on the served table with its mask, at a read's kb
+    dev = torch.device(device)
+    live = [i for i in (f"r{k}" for k in range(RECO_ROWS)) if i in drv.ids]
+    _, idx_np, val_np, _ = drv._dirty_batch(live, RECO_ROWS)
+    q = drv.converter.convert_row(nn_datum(Datum, data[RECO_ROWS]))
+    qb = SparseBatch.from_rows([q])
+    qi, qv = L._host(qb.indices, np.int32, dev), L._host(qb.values,
+                                                        np.float32, dev)
+    k1 = [k1_at(torch, L, drv.key, L._host(idx_np, np.int32, dev),
+                L._host(val_np, np.float32, dev), 128, None, "reco sync",
+                device),
+          k1_at(torch, L, drv.key, qi, qv, 128, None, "reco read", device)]
+    t = drv._sync()
+    qn = torch.tensor([float(np.sqrt(sum(v * v for v in q.values())))],
+                      dtype=torch.float32, device=dev)
+    k3 = topk_row(torch, np, L, "lsh", 128, t["sig"], t["norms"], t["rows"],
+                  L.signature(drv.key, qi, qv, 128, "lsh"), qn, None,
+                  "reco read (masked)", device,
+                  kb=L._kb(NN_SIZE, t["rows"]), mask=t["mask"])
+    log("reco: K1 H 128 " + "; ".join(
+        f"{x['route']} at {x['shape']}: {x['ms']} ms (plain {x['plain_ms']},"
+        f" bound {x['bound_ms']:.4g} by {x['bound_class']}), bitwise"
+        for x in k1) + f"; masked K3 on the served table at {k3['shape']} "
+        f"kb {k3['kb']}: {k3['ms']} ms (plain {k3['plain_ms']}), bitwise")
+    # (2) the exact sweep at 10^6 rows
+    exact = create_driver("recommender", RECO_EXACT_CONFIG, device=device)
+    n = RECO_EXACT_ROWS
+    ks = rng.integers(0, 4096, (n, 16))
+    vs = rng.standard_normal((n, 16))
+    ids = [f"e{i}" for i in range(n)]
+    t0 = time.perf_counter()
+    # the host rows and the dirty marks bench.py sets, the slots of one
+    # allocation, then the first sync's one write
+    slots = exact.pages.alloc_seq(n).tolist()
+    exact.ids = dict(zip(ids, slots))
+    exact.row_ids = list(ids)
+    kl, vl = ks.tolist(), vs.tolist()
+    exact.rows = {id_: dict(zip(kl[j], vl[j])) for j, id_ in enumerate(ids)}
+    exact._dirty = dict.fromkeys(ids, True)
+    exact._sync()
+    fill_s = time.perf_counter() - t0
+    for i in rng.choice(n, n // 100, replace=False):
+        exact.clear_row(ids[i])
+    qs = row_datums(np, rng, 32, 4096)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    outs = [exact.similar_row_from_datum(nn_datum(Datum, d), NN_SIZE)
+            for d in qs]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(qs)
+    # a read of more rows than K3's lists hold: kb 2048, the sort path
+    big = exact.similar_row_from_datum(nn_datum(Datum, qs[0]), 1500)
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda":
+        check_reads("reco exact", delta, len(qs) + 1, "dense_topk")
+    p = exact.pages
+    for d, out, size in list(zip(qs, outs, [NN_SIZE] * 4)) + [
+            (qs[0], big, 1500)]:
+        qd, qn = exact._query_row(exact.converter.convert_row(
+            nn_datum(Datum, d)))
+        keys = L.dense_topk_ref(
+            "cosine", p.device("indices"), p.device("values"),
+            p.device("norms"), p.capacity, p.mask_dev(),
+            torch.from_numpy(qd[None]).to(p.device("norms").device),
+            torch.tensor([qn], dtype=torch.float32,
+                         device=p.device("norms").device),
+            L._kb(size, p.capacity))
+        r_, s_ = L.keys_to_host(keys)
+        want = [(exact.row_ids[int(a)], float(b))
+                for a, b in zip(r_[0], s_[0])][:size]
+        if [tuple(x) for x in out] != want:
+            raise AssertionError(f"reco exact: a read of {size} differs "
+                                 "from the plain version")
+    log(f"reco: inverted_index at {n} rows ({p.capacity} slots, Kr "
+        f"{exact.kr}): filled in {fill_s:.1f} s, a read {read_ms:.3f} ms")
+    return ({**{k: served.get(k, 0) for k in ("sig_topk", "lsh_signature")},
+             "dense_topk": delta.get("dense_topk", 0)},
+            {"lsh_signature": k1, "sig_topk": [k3]})
+
+
+def phase_anomaly_service(torch, np, card, device="cuda"):
+    """Phase 11c: anomaly.  (1) bench.py's lof over euclid_lsh H 64 on a
+    port server: ANOM_ADDS adds over the wire (server-minted ids 1, 2,
+    ...), every score bitwise an in-process driver's fed the same ids and
+    datums, then ANOM_READS calc_score reads, bitwise; each sweep one K5
+    launch.  (2) lof over inverted_index_euclid in process: ANOM_EXACT_ADDS
+    adds, each sweep one K4 dense_dots launch, the scores bitwise a CPU
+    driver's.  Returns the launches."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    rng = np.random.default_rng(41)
+    data = row_datums(np, rng, ANOM_ADDS + ANOM_READS, 1 << 16)
+    drv = create_driver("anomaly", LOF_CONFIG, device=device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "lof.json")
+        with open(cfg_path, "w") as f:
+            json.dump(LOF_CONFIG, f)
+        child, t0 = start_server("anomaly", cfg_path, tmp, device=device)
+        try:
+            port, _ = server_ready(child, t0)
+            cli = WireClient(port)
+            s0 = launches_of(status_of(cli))
+            before = launch_counts()
+            t0 = time.perf_counter()
+            lat = []
+            for i, d in enumerate(data[:ANOM_ADDS]):
+                # the server mints ids 1, 2, ...; after ANOM_TIMED adds the
+                # driver's add runs while the server's is in flight
+                rid = str(i + 1)
+                if i < ANOM_TIMED:
+                    t1 = time.perf_counter()
+                    got = cli.call("add", nn_wire(d))
+                    lat.append(time.perf_counter() - t1)
+                    mine = drv.add(rid, nn_datum(Datum, d))
+                else:
+                    cli.sock.sendall(cli.frame("add", nn_wire(d)))
+                    mine = drv.add(rid, nn_datum(Datum, d))
+                    got = cli.receive()
+                if got != [rid, mine]:
+                    raise AssertionError(f"anomaly: add {rid} answered {got}"
+                                         f", the in-process driver {mine}")
+            add_s = time.perf_counter() - t0
+            for d in data[ANOM_ADDS:]:
+                if cli.call("calc_score", nn_wire(d)) != \
+                        drv.calc_score(nn_datum(Datum, d)):
+                    raise AssertionError("anomaly: calc_score differs")
+            sweeps = ANOM_ADDS + ANOM_READS
+            delta = launch_delta(before, launch_counts())
+            sdelta = launch_delta(s0, launches_of(status_of(cli)))
+            if device == "cuda":
+                check_reads("anomaly (in process)", delta, sweeps,
+                            "sig_counts")
+                check_reads("anomaly (server)", sdelta, sweeps, "sig_counts")
+            served = launches_of(status_of(cli))
+        finally:
+            child.stop()
+    lat_ms = sorted(x * 1e3 for x in lat)
+    log(f"anomaly: lof euclid_lsh H 64, {ANOM_ADDS} adds over the wire in "
+        f"{add_s:.1f} s (both sides; the first {ANOM_TIMED} wire adds p50 "
+        f"{lat_ms[len(lat_ms) // 2]:.3f} ms, p99 "
+        f"{lat_ms[int(len(lat_ms) * 0.99)]:.3f} ms); server launches "
+        f"{served}")
+    exact = [create_driver("anomaly", LOF_EXACT_CONFIG, device=dv)
+             for dv in (device, "cpu")]
+    before = launch_counts()
+    for i, d in enumerate(data[:ANOM_EXACT_ADDS]):
+        a, b = (x.add(f"x{i}", nn_datum(Datum, d)) for x in exact)
+        if a != b:
+            raise AssertionError(f"anomaly exact: add {i} differs from the "
+                                 "CPU driver's")
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda" and delta["dense_dots"] < ANOM_EXACT_ADDS:
+        raise AssertionError("anomaly exact: an add did not sweep through "
+                             "dense_dots")
+    log(f"anomaly: lof inverted_index_euclid, {ANOM_EXACT_ADDS} adds, "
+        f"dense_dots launches {delta['dense_dots']}")
+    return ({"sig_counts": served.get("sig_counts", 0),
+             "lsh_signature": served.get("lsh_signature", 0),
+             "dense_dots": delta.get("dense_dots", 0)}, {})
+
+
+def phase_nn_classifier(torch, np, card, device="cuda"):
+    """Phase 11d: the NN classifier (euclid_lsh H 64, k 128) on bench.py's
+    converter: NNC_TRAINS train requests of NNC_B datums to a port server
+    and to an in-process driver, then NNC_READS classify requests of 8,
+    the answers bitwise (labels vote by row order, so the rows' random
+    ids do not matter); a classify is one K1 and one K3 launch (kb 128).
+    Then K1 and K3 at a classify's shapes (8 datums signed as a batch of
+    round_b(8), the served table's capacity, kb 128: the lists' offer and
+    rank-merge branch), each bitwise its plain version on the same card
+    tensors and timed.  Returns the launches and the K1 and K3 rows."""
+    from jubatus_tpu_torch.batching.bucketing import round_b
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(51)
+    drv = create_driver("classifier", NNC_CONFIG, device=device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "nnc.json")
+        with open(cfg_path, "w") as f:
+            json.dump(NNC_CONFIG, f)
+        child, t0 = start_server("classifier", cfg_path, tmp, device=device)
+        try:
+            port, _ = server_ready(child, t0)
+            cli = WireClient(port)
+            t0 = time.perf_counter()
+            for _ in range(NNC_TRAINS):
+                batch = bench_batch(rng, NNC_B)
+                cli.call("train", batch)
+                drv.train([(lbl, Datum.from_msgpack(d)) for lbl, d in batch])
+            train_s = time.perf_counter() - t0
+            s0 = launches_of(status_of(cli))
+            before = launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(NNC_READS):
+                q = [d for _, d in bench_batch(rng, 8)]
+                a = cli.call("classify", q)
+                b = drv.classify([Datum.from_msgpack(d) for d in q])
+                if [[tuple(x) for x in row] for row in a] != \
+                        [[tuple(x) for x in row] for row in b]:
+                    raise AssertionError("nnc: classify differs from the "
+                                         "in-process driver's")
+            read_s = time.perf_counter() - t0
+            delta = launch_delta(before, launch_counts())
+            sdelta = launch_delta(s0, launches_of(status_of(cli)))
+            if device == "cuda":
+                check_reads("nnc (in process)", delta, NNC_READS, "sig_topk")
+                check_reads("nnc (server)", sdelta, NNC_READS, "sig_topk")
+            served = launches_of(status_of(cli))
+        finally:
+            child.stop()
+    log(f"nnc: NN euclid_lsh H 64 k 128, {NNC_TRAINS} x {NNC_B} trains in "
+        f"{train_s:.1f} s, {NNC_READS} classify x 8 in {read_s:.2f} s; "
+        f"server launches {served}")
+    nn = drv.nn
+    dev = nn.sig.device
+    batch = nn.converter.convert_batch(
+        [Datum.from_msgpack(d) for _, d in bench_batch(rng, 8)])
+    qi = L._host(batch.indices, np.int32, dev)
+    qv = L._host(batch.values, np.float32, dev)
+    qn = L._host(np.sqrt((batch.values * batch.values).sum(axis=1)),
+                 np.float32, dev)
+    k1 = k1_at(torch, L, nn.key, qi, qv, nn.hash_num, round_b(8),
+               "nnc classify", device)
+    k3 = topk_row(torch, np, L, nn.method, nn.hash_num, nn.sig, nn.norms,
+                  nn.pages.n_rows,
+                  L.signature(nn.key, qi, qv, nn.hash_num, nn.method,
+                              round_b(8)),
+                  qn, None, "nnc classify", device,
+                  kb=L._kb(drv.k, nn.sig.shape[0]))
+    log(f"nnc: K1 at {k1['shape']}: {k1['ms']} ms (plain {k1['plain_ms']}), "
+        f"bitwise; K3 on the served table at {k3['shape']} kb {k3['kb']} "
+        f"({k3['valid_rows']} valid): {k3['ms']} ms (plain "
+        f"{k3['plain_ms']}, topk {k3['library_ms']}, bound "
+        f"{k3['bound_ms']:.4g} by {k3['bound_class']}), bitwise")
+    return ({k: served.get(k, 0) for k in ("sig_topk", "lsh_signature")},
+            {"lsh_signature": [k1], "sig_topk": [k3]})
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -3248,13 +3903,22 @@ def main() -> int:
     # K3's row: the served table's sweep with its selection at a one-datum
     # read; the by-row read and the 10^6-row tables of each kind at 1 and
     # 64 queries follow among its variants
+    # 11. the recommender, anomaly and the NN classifier
+    rows.update(phase_row_kernels(torch, np))
+    row_counts, row_extra = zip(phase_reco_service(torch, np, card),
+                                phase_anomaly_service(torch, np, card),
+                                phase_nn_classifier(torch, np, card))
+    for extra in row_extra:
+        rows["lsh_signature"]["variants"] += extra.get("lsh_signature", [])
+        rows["sig_topk_variants"] += extra.get("sig_topk", [])
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
             "ms", "device_method", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "bytes_bound_ms", "library_ms", "shape",
             "max_abs_err")},
-        "variants": served_sweeps + rows.pop("sig_topk_variants")}
+        "variants": served_sweeps + rows.pop("sig_topk_variants")
+        + [dict(rows.pop("sig_topk_masked"), route="masked")]}
 
     def served(kern):
         return sum(c.get(kern, 0) for c in cluster_counts)
@@ -3262,12 +3926,16 @@ def main() -> int:
     def nn_served(kern):
         return sum(c.get(kern, 0) for c in nn_counts)
 
-    # 11. report: the quantizer pair's launches are the v3 rounds' (both
+    def row_served(kern):
+        return sum(c.get(kern, 0) for c in row_counts)
+
+    # 12. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
     # server processes' of phases 7-9 and the recovered servers' replays;
-    # the LSH kernels' are phase 10's: the in-process build, its server
-    # processes and the clusters' (the restarted servers' replays too)
+    # the LSH kernels' are phase 10's (the in-process build, its server
+    # processes and the clusters', the restarted servers' replays too) and
+    # phase 11's (the row engines' servers; K4's in process)
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
@@ -3288,13 +3956,25 @@ def main() -> int:
                                   + served("regression_train_scan")),
         "lsh_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                           "jubatus_tpu/ops/lsh.py:51",
-                          nn_served("lsh_signature")),
+                          nn_served("lsh_signature")
+                          + row_served("lsh_signature")),
         "minhash_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                               "jubatus_tpu/ops/lsh.py:67",
                               nn_served("minhash_signature")),
         "sig_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
                      "jubatus_tpu/ops/lsh.py:189",
-                     nn_served("sig_topk")),
+                     nn_served("sig_topk") + row_served("sig_topk")),
+        # phase 11: K4 and K5 (K3's launches above count the recommender's
+        # masked reads and the NN classifier's classifies too)
+        "dense_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
+                       "jubatus_tpu/ops/lsh.py:327",
+                       row_served("dense_topk")),
+        "dense_dots": ("jubatus_tpu_torch/csrc/lsh.cu",
+                       "jubatus_tpu/models/anomaly.py:83",
+                       row_served("dense_dots")),
+        "sig_counts": ("jubatus_tpu_torch/csrc/lsh.cu",
+                       "jubatus_tpu/ops/lsh.py:106",
+                       row_served("sig_counts")),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():

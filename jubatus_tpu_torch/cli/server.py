@@ -1,7 +1,7 @@
 """Server entry point of the port.
 
     python -m jubatus_tpu_torch.cli.server \
-        --type classifier|regression|nearest_neighbor \
+        --type classifier|regression|nearest_neighbor|recommender|anomaly \
         --configpath CONFIG.json --rpc-port 9199 [--device cuda|cpu] \
         [--name CLUSTER --coordinator HOST:PORT [--mixer linear_mixer] \
          [--interval_sec 16 --interval_count 512] [--mix_quantize]] \
@@ -12,8 +12,9 @@ Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
 process joins the cluster <type>/<name>: it reads its config from the
 coordinator when --configpath is absent, takes ids from the coordinator,
-pulls the model from a random live member if there is one, registers as
-an actor and an active member, and starts its mixer thread, which mixes
+pulls the model from a random live member if there is one, registers
+its CHT ring points (anomaly's add writes an id's two owners), an actor
+and an active member, and starts its mixer thread, which mixes
 every --interval_count updates or --interval_sec seconds (do_mix mixes
 at once).  A coordinator it cannot reach fails the start, as does
 --mixer collective_mixer (the data-parallel tier is not ported).
@@ -214,6 +215,12 @@ def _join_cluster(server: JubatusServer, membership, port: int,
         except Exception as e:  # noqa: BLE001 - the peer may be gone
             log.warning("bootstrap from %s:%d failed: %s; starting empty",
                         peer[0], peer[1], e)
+    # the CHT ring before the actor registration: once a proxy or a peer
+    # can route here, replicating handlers (anomaly's add) must see it
+    from jubatus_tpu_torch.cluster.cht import CHT
+    cht = CHT(membership.ls, server.args.type, server.args.name)
+    cht.register_node(server.ip, port)
+    server.cht = cht
     membership.register_actor(server.ip, port)
     server.mixer.start()
     server.mixer.register_active(server.ip, port)

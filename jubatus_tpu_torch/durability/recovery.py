@@ -35,11 +35,20 @@ mix/push_mixer.py):
          replayed through the round-id guard
   clear  model reset
 
-The JAX package also writes `drv` (a driver mutation with no wire
-method, of the row-store engines) and `cmix` (an in-mesh collective
-round); the port has neither engine, so such a record counts as a
-replay error that names the ROADMAP item bringing it, under the usual
-errored-replay rules (truncation floor, snapshots suspended).
+  drv    a driver mutation with no wire method: anomaly's add, whose
+         server-generated id the record carries ({"k": "drv", "m":
+         "add", "a": [id, datum]})
+
+The id watermark: a standalone server mints ids from a local counter
+(server_base idgen), so recovery sets that counter past every id the
+restored snapshot (its MANIFEST entry's local_id) and the journal (every
+drv or u record of an id-minting method, replayed or covered) hold: a
+recovered server never mints an id twice.
+
+The JAX package also writes `cmix` (an in-mesh collective round); the
+port has no such mixer, so that record counts as a replay error that
+names the ROADMAP item bringing it, under the usual errored-replay rules
+(truncation floor, snapshots suspended).
 
 No fallback to the CPU: a kernel that fails to build or launch during
 replay (kernels.build.KernelError) fails the boot.
@@ -64,9 +73,41 @@ log = logging.getLogger("jubatus_tpu_torch.durability")
 # record kinds of the JAX package that need engines or mixers the port
 # lacks, and the ROADMAP Queue 1 item that brings each
 UNPORTED_KINDS = {
-    "drv": "ROADMAP Queue 1 item 5 (row-store engines)",
     "cmix": "ROADMAP Queue 1 item 4 (the data-parallel tier)",
 }
+
+
+def _drv_add(slot, row_id, datum):
+    from jubatus_tpu_torch.fv import Datum
+    slot.driver.add(row_id.decode() if isinstance(row_id, bytes) else row_id,
+                    Datum.from_msgpack(datum))
+
+
+# driver mutations journaled without a wire method (framework/service.py
+# _anomaly_add): name -> apply(slot, *args)
+DRIVER_REPLAY = {"add": _drv_add}
+
+# record methods whose first argument is a server-generated id (anomaly's
+# add; the JAX package's graph methods too, so a directory of either
+# package sets the watermark alike)
+_ID_METHODS = {"add", "create_node_here", "create_edge_here",
+               "remove_global_node"}
+
+
+def _record_id_watermark(rec: Any) -> int:
+    if not isinstance(rec, dict) or rec.get("k") not in ("drv", "u") \
+            or rec.get("m") not in _ID_METHODS:
+        return 0
+    args = rec.get("a") or []
+    if not args:
+        return 0
+    head = args[0]
+    if isinstance(head, bytes):
+        head = head.decode("utf-8", "surrogateescape")
+    try:
+        return int(head)
+    except (TypeError, ValueError):
+        return 0
 
 
 @dataclass
@@ -80,6 +121,7 @@ class RecoveryResult:
     errors: int = 0               # records that failed to apply
     first_error_position: Optional[int] = None  # earliest errored record
     round: int = 0                # MIX round after recovery
+    local_id: int = 0             # the id watermark (standalone idgen)
     position: int = 0             # journal position the writer resumes at
     next_seq: int = 0             # next free journal segment seq
     restore_sec: float = 0.0      # snapshot read + unpack
@@ -129,6 +171,7 @@ def _load_snapshot(slot, dirpath: str, manifest: Manifest,
         result.source = ent.get("file", "")
         result.position = int(ent.get("covered_position", 0))
         result.round = int(ent.get("round", 0))
+        result.local_id = int(ent.get("local_id", 0))
         log.info("recovered snapshot %s: journal position %d, round %d",
                  result.source, result.position, result.round)
         return
@@ -187,6 +230,13 @@ def _apply(slot, rec: Any, state: RecoveryResult) -> bool:
     if kind == "clear":
         slot.driver.clear()
         return True
+    if kind == "drv":
+        m = rec.get("m")
+        if m not in DRIVER_REPLAY or not hasattr(slot.driver, m):
+            raise ValueError(f"journal record drv {m!r}: the "
+                             f"{slot.args.type} driver has no such mutation")
+        DRIVER_REPLAY[m](slot, *rec.get("a", []))
+        return True
     if kind in UNPORTED_KINDS:
         raise ValueError(f"journal record kind {kind!r} needs what the port "
                          f"does not have yet: {UNPORTED_KINDS[kind]}")
@@ -214,6 +264,10 @@ def recover(slot, dirpath: str,
             result.torn += 1
         for offset, rec in enumerate(records):
             pos = info.start + offset
+            # covered records count too: their ids live in the snapshot,
+            # whose entry may predate the local_id field
+            result.local_id = max(result.local_id,
+                                  _record_id_watermark(rec))
             if pos < result.position:
                 result.skipped += 1
                 continue
@@ -241,6 +295,9 @@ def recover(slot, dirpath: str,
     slot.driver.device_sync()
     result.replay_sec = time.perf_counter() - t1
     result.position = max(result.position, end_position)
+    if result.local_id:
+        with slot._id_lock:
+            slot._local_id = max(slot._local_id, result.local_id)
     reg.inc("recovery_replayed_records_total", result.replayed)
 
     if result.replayed:

@@ -14,7 +14,8 @@ MANIFEST (JSON, atomically replaced; the JAX package reads it too):
 
   {"version": 1,
    "snapshots": [{"file": "snapshot-00000007.jubatus",
-                  "covered_position": 1234, "round": 9, "time": ...},
+                  "covered_position": 1234, "round": 9, "local_id": 3,
+                  "time": ...},
                  ...newest first, KEEP entries...]}
 
 Journal segments whose every record is covered by the OLDEST retained
@@ -192,18 +193,22 @@ class Snapshotter:
             data = slot.driver.pack()
             position = self.journal.position
             round_ = slot.current_mix_round()
+            # the standalone id sequence's watermark: ids minted after this
+            # read have their records past `position`, so recovery's max of
+            # the entry and the replayed ids covers them
+            local_id = slot._local_id
         pack_s = time.perf_counter() - t1
         with self._snap_lock:
             entry, covered_floor = self._publish(data, position, round_,
-                                                 t0, pack_s)
+                                                 local_id, t0, pack_s)
         # journal truncation AFTER releasing _snap_lock (lock order
         # journal -> snapshot); a racing publish truncates with its own,
         # possibly smaller, floor and so only removes fewer segments
         self.journal.truncate_through(covered_floor)
         return entry
 
-    def _publish(self, data, position: int, round_: int, t0: float,
-                 pack_s: float):
+    def _publish(self, data, position: int, round_: int, local_id: int,
+                 t0: float, pack_s: float):
         """Disk side of one snapshot (under _snap_lock).  Returns
         (manifest_entry, covered_floor)."""
         from jubatus_tpu_torch.framework.save_load import save_model
@@ -226,7 +231,7 @@ class Snapshotter:
 
         manifest = Manifest.load(self.dirpath)
         entry = {"file": fname, "covered_position": position,
-                 "round": round_, "time": time.time()}
+                 "round": round_, "local_id": local_id, "time": time.time()}
         # by coverage, not insertion: concurrent snapshot_nows may publish
         # out of pack order (the stable sort keeps the newer file first)
         entries = [entry] + manifest.snapshots

@@ -38,8 +38,9 @@ from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
 from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
-from jubatus_tpu_torch.ops.lsh import (lsh_signature, minhash_signature,
-                                       sig_topk)
+from jubatus_tpu_torch.ops.lsh import (dense_dots, dense_topk,
+                                       lsh_signature, minhash_signature,
+                                       sig_counts, sig_topk)
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -56,6 +57,9 @@ KERNEL_WRAPPERS = {
     "lsh_signature": lsh_signature,
     "minhash_signature": minhash_signature,
     "sig_topk": sig_topk,
+    "dense_topk": dense_topk,
+    "dense_dots": dense_dots,
+    "sig_counts": sig_counts,
 }
 
 
@@ -126,6 +130,7 @@ class JubatusServer:
         # cluster: set by cli/server.py when --coordinator is given
         self.membership = None
         self.mixer = None
+        self.cht = None         # the CHT ring, registered at cluster join
         self._local_id = 0      # idgen's counter when standalone
         self._id_lock = threading.Lock()
         # the advertised address: --eth, else the bind address (a

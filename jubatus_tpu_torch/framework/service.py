@@ -1,6 +1,6 @@
 """Service tables and their binding to the RPC server (counterpart of
-jubatus_tpu/framework/service.py: the classifier, regression and
-nearest_neighbor tables and the common RPCs).
+jubatus_tpu/framework/service.py: the classifier, regression,
+nearest_neighbor, recommender and anomaly tables and the common RPCs).
 
 Each service is a table of Method specs bound to driver callables.  Every
 method takes the cluster `name` as wire argument 0 (dropped server-side),
@@ -19,12 +19,17 @@ with an eligible converter config they go to the IngestPipeline
 are decoded and trained like any update.  do_mix runs on the RPC
 server's call pool (threaded): it flushes the ingest pipeline, then the
 mixer fans get_diff and put_diff out to every member, this server
-included.  Tenancy, quotas, the query cache and the
-observability planes are later work.
+included.  Anomaly's add is the one handler that takes its own locks
+(Method.nolock): it mints the row's id, then writes the row under the
+write lock, journaled as a `drv` record that carries the id, standalone;
+in a cluster it writes the CHT's two owners of the id, the primary
+required and the replica best effort.  Tenancy, quotas, the query cache
+and the observability planes are later work.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -33,6 +38,8 @@ import msgpack
 from jubatus_tpu_torch.durability.journal import check_writable
 from jubatus_tpu_torch.fv import Datum
 from jubatus_tpu_torch.models.nearest_neighbor import PARTITION_REFUSAL
+
+log = logging.getLogger("jubatus_tpu_torch.service")
 
 
 @dataclass
@@ -44,6 +51,10 @@ class Method:
     # [wire_result, ...] runs N concurrent calls as ONE fused sweep
     # (framework/dispatch.ReadDispatcher); None: the lane loops fn
     many: Optional[Callable[..., Any]] = None
+    # the handler takes its own locks and writes its own journal record
+    # (anomaly's add: a server-generated id, replica writes to peers); it
+    # runs on the RPC call pool, since it may call other servers
+    nolock: bool = False
 
 
 class ServiceDef:
@@ -100,26 +111,18 @@ def bind_service(server, rpc_server) -> None:
             server.dispatcher.flush()
 
     def wrap(m: Method):
-        if m.update:
+        if m.nolock:
+            def handler(_name, *args, _m=m):
+                return _m.fn(server, *args)
+        elif m.update:
             def handler(_name, *args, _m=m):
                 # fail-stop gate: a stalled journal refuses the write
                 # before the model mutates; reads go on being served
                 check_writable(server.journal)
                 _flush()
-                journal = server.journal
-                with server.model_lock.write():
-                    result = _m.fn(server, *args)
-                    server.event_model_updated()
-                    # after the apply (a failed update must not replay),
-                    # under the lock (a snapshot's position matches its
-                    # pack); durable before the ack, outside the lock
-                    if journal is not None:
-                        journal.append(
-                            {"k": "u", "m": _m.name, "a": list(args)},
-                            server.current_mix_round())
-                if journal is not None:
-                    journal.commit()
-                return result
+                return _locked_update(
+                    server, lambda: _m.fn(server, *args),
+                    {"k": "u", "m": _m.name, "a": list(args)})
         else:
             def handler(_name, *args, _m=m):
                 rd = server.read_dispatch
@@ -131,7 +134,7 @@ def bind_service(server, rpc_server) -> None:
         return handler
 
     for m in sd.methods.values():
-        rpc_server.add(m.name, wrap(m))
+        rpc_server.add(m.name, wrap(m), threaded=m.nolock)
 
     if "train" in sd.methods and hasattr(server.driver, "train_raw"):
         _plain_train = wrap(sd.methods["train"])
@@ -285,3 +288,133 @@ register_service(ServiceDef("nearest_neighbor", [
                s, calls, "similar_row_from_datum")),
     Method("get_all_rows", lambda s: s.driver.get_all_rows()),
 ] + [Method(m, _nn_partition_refused) for m in NN_PARTITION_METHODS]))
+
+
+# ---------------------------------------------------------------------------
+# recommender (server/recommender.idl) and anomaly (server/anomaly.idl).
+# Their partition-plane methods are not ported (ROADMAP Queue 1 item 5.5)
+# and refuse on the wire, as the nearest_neighbor table's do
+# ---------------------------------------------------------------------------
+
+def _reco_similar_many(s, calls):
+    pairs = [(_datum(d), int(size)) for d, size in calls]
+    return [_id_scores(out)
+            for out in s.driver.similar_row_from_datum_many(pairs)]
+
+
+def _calc_score_many(s, calls):
+    return s.driver.calc_score_many([_datum(d) for (d,) in calls])
+
+
+RECO_PARTITION_METHODS = ("partition_query_fv", "similar_row_from_fv_partial",
+                          "partition_accept_rows", "partition_drop_rows")
+ANOMALY_PARTITION_METHODS = ("calc_score_partial", "partition_accept_rows",
+                             "partition_drop_rows")
+
+register_service(ServiceDef("recommender", [
+    Method("clear_row", lambda s, i: s.driver.clear_row(_to_str(i)),
+           update=True),
+    Method("update_row",
+           lambda s, i, d: s.driver.update_row(_to_str(i), _datum(d)),
+           update=True),
+    Method("complete_row_from_id",
+           lambda s, i: s.driver.complete_row_from_id(
+               _to_str(i)).to_msgpack()),
+    Method("complete_row_from_datum",
+           lambda s, d: s.driver.complete_row_from_datum(
+               _datum(d)).to_msgpack()),
+    Method("similar_row_from_id",
+           lambda s, i, size: _id_scores(
+               s.driver.similar_row_from_id(_to_str(i), int(size)))),
+    Method("similar_row_from_datum",
+           lambda s, d, size: _id_scores(
+               s.driver.similar_row_from_datum(_datum(d), int(size))),
+           many=_reco_similar_many),
+    Method("decode_row",
+           lambda s, i: s.driver.decode_row(_to_str(i)).to_msgpack()),
+    Method("get_all_rows", lambda s: s.driver.get_all_rows()),
+    Method("calc_similarity",
+           lambda s, lhs, rhs: s.driver.calc_similarity(_datum(lhs),
+                                                        _datum(rhs))),
+    Method("calc_l2norm", lambda s, d: s.driver.calc_l2norm(_datum(d))),
+] + [Method(m, _nn_partition_refused) for m in RECO_PARTITION_METHODS]))
+
+
+def _self_loc(s):
+    return (s.ip, s.args.rpc_port)
+
+
+def _peer_call(s, host: str, port: int, method: str, *args):
+    """One server-to-server RPC, argument 0 the cluster name."""
+    from jubatus_tpu_torch.rpc.client import Client
+    with Client(host, port, timeout=s.args.interconnect_timeout) as c:
+        return c.call_raw(method, s.args.name, *args)
+
+
+def _locked_update(s, fn, record):
+    """A model mutation under the write lock, journaled as `record` (its
+    server-generated id already in it, or replay would mint another) and
+    committed before the ack; refused while the journal is stalled."""
+    journal = s.journal
+    check_writable(journal)
+    with s.model_lock.write():
+        result = fn()
+        s.event_model_updated()
+        # after the apply (a failed update must not replay), under the
+        # lock (a snapshot's position matches its pack); durable before
+        # the ack, outside the lock
+        if journal is not None:
+            journal.append(record, s.current_mix_round())
+    if journal is not None:
+        journal.commit()
+    return result
+
+
+def _anomaly_add(s, d):
+    """Mint an id, then write the row: standalone under the write lock
+    (the `drv` record); in a cluster to the id's two CHT owners, the
+    primary required and the replica best effort (the JAX service's
+    rule, anomaly_serv.cpp:152-205 of the reference)."""
+    id_ = str(s.idgen())
+    record = {"k": "drv", "m": "add", "a": [id_, d]}
+
+    def local():
+        return _locked_update(s, lambda: s.driver.add(id_, _datum(d)),
+                              record)
+
+    if s.cht is None:
+        return [id_, local()]
+    owners = s.cht.find(id_, 2)
+    if not owners:
+        raise RuntimeError(f"no server found in cht: {s.args.name}")
+    score = 0.0
+    for i, (host, port) in enumerate(owners):
+        try:
+            if (host, port) == _self_loc(s):
+                r = local()
+            else:
+                r = _peer_call(s, host, port, "update", id_, d)
+            if i == 0:
+                score = float(r)
+        except Exception as e:  # noqa: BLE001 - the replica is best effort
+            if i == 0:
+                raise
+            log.warning("anomaly replica write of id %s to %s:%d failed: "
+                        "%s", id_, host, port, e)
+    return [id_, score]
+
+
+register_service(ServiceDef("anomaly", [
+    Method("add", _anomaly_add, nolock=True),
+    Method("update",
+           lambda s, i, d: s.driver.update(_to_str(i), _datum(d)),
+           update=True),
+    Method("overwrite",
+           lambda s, i, d: s.driver.overwrite(_to_str(i), _datum(d)),
+           update=True),
+    Method("clear_row", lambda s, i: s.driver.clear_row(_to_str(i)),
+           update=True),
+    Method("calc_score", lambda s, d: s.driver.calc_score(_datum(d)),
+           many=_calc_score_many),
+    Method("get_all_rows", lambda s: s.driver.get_all_rows()),
+] + [Method(m, _nn_partition_refused) for m in ANOMALY_PARTITION_METHODS]))

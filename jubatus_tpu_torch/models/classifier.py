@@ -470,8 +470,9 @@ def _unpack_batch(buf: torch.Tensor, b: int, k: int,
 # driver
 # ---------------------------------------------------------------------------
 
-@register_driver("classifier")
 class ClassifierDriver(Driver):
+    service_name = "classifier"
+
     INITIAL_CAPACITY = 8
 
     def __init__(self, config: Dict[str, Any], device=None):
@@ -1086,3 +1087,198 @@ class ClassifierDriver(Driver):
             "num_features": str(self.dim),
             "method": self.method,
         }
+
+
+class NNClassifierDriver(Driver):
+    """method "NN": a k-NN vote over a nearest_neighbor row table
+    (counterpart of jubatus_tpu/models/classifier.py NNClassifierDriver:
+    jubatus_core's nearest_neighbor_classifier, each of the k nearest
+    stored rows voting exp(-local_sensitivity * distance) for its label).
+
+    The rows live in the port's NearestNeighborDriver on this driver's
+    device: train is its set_row_many (one K1/K2 launch and one write a
+    request), classify is one fused_sig_query_batch (K1/K2, then one K3
+    launch with kb = _round_k(k), signed as the JAX driver's batch padded
+    to round_b).  Labels live in host dicts keyed by the rows' ids, which
+    are random and unique across servers (uuid4), so MIX is the table
+    union plus a label-map union, and model files cross packages."""
+
+    service_name = "classifier"
+
+    def __init__(self, config: Dict[str, Any], device=None):
+        super().__init__(config)
+        from jubatus_tpu_torch.models.nearest_neighbor import \
+            NearestNeighborDriver
+        self.method = "NN"
+        param = config.get("parameter") or {}
+        self.k = int(param.get("nearest_neighbor_num", 128))
+        self.alpha = float(param.get("local_sensitivity", 1.0))
+        self.nn = NearestNeighborDriver({
+            "method": param.get("method", "euclid_lsh"),
+            "parameter": param.get("parameter") or {},
+            "converter": config.get("converter"),
+        }, device=device)
+        self.device = self.nn.device
+        self.row_labels: Dict[str, str] = {}
+        self.label_counts: Dict[str, int] = {}
+        self._pending_labels: Dict[str, str] = {}
+        self._diff_labels: Dict[str, str] = {}
+        # labels deleted since the last round: put_diff must not bring
+        # them back from an in-flight diff or a peer's rows
+        self._deleted_labels: set = set()
+
+    # -- RPC surface ----------------------------------------------------------
+
+    def train(self, data: Sequence[Tuple[str, Datum]]) -> int:
+        import uuid
+        rows = [(uuid.uuid4().hex[:16], datum) for _, datum in data]
+        # the rows first: a failed write must leave no label behind
+        self.nn.set_row_many(rows)
+        for (rid, _), (label, _) in zip(rows, data):
+            self.row_labels[rid] = label
+            self._pending_labels[rid] = label
+            self.label_counts[label] = self.label_counts.get(label, 0) + 1
+        return len(data)
+
+    def classify(self, data: Sequence[Datum]) -> List[List[Tuple[str, float]]]:
+        if not data:
+            return []
+        nn = self.nn
+        if not nn.row_ids:
+            return [sorted((lbl, 0.0) for lbl in self.label_counts)
+                    for _ in data]
+        from jubatus_tpu_torch.ops import lsh as lshops
+        batch = nn.converter.convert_batch(list(data))
+        qnorms = np.sqrt((batch.values * batch.values).sum(axis=1))
+        with device_context(nn.device):
+            rows_b, sims_b = lshops.fused_sig_query_batch(
+                nn.method, nn.key, batch.indices, batch.values, nn.sig,
+                nn.norms, nn.pages.n_rows, nn.hash_num, qnorms, self.k,
+                _round_b(len(data)))
+        known_labels = list(self.label_counts)
+        row_labels = self.row_labels
+        out: List[List[Tuple[str, float]]] = []
+        for i in range(len(data)):
+            votes: Dict[str, float] = {lbl: 0.0 for lbl in known_labels}
+            voted = 0
+            for r, s in zip(rows_b[i], sims_b[i]):
+                # exactly k voters (the sweep returns kb >= k rows)
+                if not np.isfinite(s) or voted >= self.k:
+                    break
+                voted += 1
+                dist = float(-s) if nn.method == "euclid_lsh" \
+                    else float(1.0 - s)
+                label = row_labels.get(nn.row_ids[int(r)])
+                if label is not None:
+                    votes[label] = votes.get(label, 0.0) + \
+                        float(np.exp(-self.alpha * max(dist, 0.0)))
+            out.append(sorted(votes.items()))
+        return out
+
+    def classify_many(self, groups: Sequence[Sequence[Datum]]
+                      ) -> List[List[List[Tuple[str, float]]]]:
+        """The read lane's entry: one classify of every request's datums,
+        demuxed per request."""
+        flat = [d for g in groups for d in g]
+        return split_groups(self.classify(flat), groups)
+
+    def get_labels(self) -> Dict[str, int]:
+        return dict(self.label_counts)
+
+    def set_label(self, label: str) -> bool:
+        if label in self.label_counts:
+            return False
+        self.label_counts[label] = 0
+        return True
+
+    def delete_label(self, label: str) -> bool:
+        if label not in self.label_counts:
+            return False
+        del self.label_counts[label]
+        # the label's rows stay in the table, unlabeled: they never vote
+        # again; pending entries go too, or MIX would bring the label back
+        self.row_labels = {r: lb for r, lb in self.row_labels.items()
+                           if lb != label}
+        self._pending_labels = {r: lb for r, lb in
+                                self._pending_labels.items() if lb != label}
+        self._deleted_labels.add(label)
+        return True
+
+    def clear(self) -> None:
+        self.nn.clear()
+        self.row_labels.clear()
+        self.label_counts.clear()
+        self._pending_labels.clear()
+        self._deleted_labels.clear()
+
+    # -- MIX ------------------------------------------------------------------
+
+    def get_diff(self) -> Dict[str, Any]:
+        labels = dict(self._pending_labels)
+        self._diff_labels = labels
+        return {"nn": self.nn.get_diff(), "labels": labels}
+
+    @classmethod
+    def mix(cls, lhs, rhs):
+        from jubatus_tpu_torch.models.nearest_neighbor import \
+            NearestNeighborDriver
+        labels = dict(lhs["labels"])
+        labels.update(rhs["labels"])
+        return {"nn": NearestNeighborDriver.mix(lhs["nn"], rhs["nn"]),
+                "labels": labels}
+
+    def put_diff(self, diff) -> bool:
+        fresh = self.nn.put_diff(diff["nn"])
+        dec = lambda x: x.decode() if isinstance(x, bytes) else x  # noqa
+        for rid, label in diff["labels"].items():
+            label = dec(label)
+            if label in self._deleted_labels:
+                continue        # deleted mid-round: not brought back
+            self.row_labels[dec(rid)] = label
+        counts: Dict[str, int] = {lbl: 0 for lbl in self.label_counts
+                                  if lbl not in self._deleted_labels}
+        for label in self.row_labels.values():
+            counts[label] = counts.get(label, 0) + 1
+        self.label_counts = counts
+        for rid in self._diff_labels:
+            self._pending_labels.pop(rid, None)
+        self._diff_labels = {}
+        self._deleted_labels.clear()
+        return fresh
+
+    # -- persistence ----------------------------------------------------------
+
+    def pack(self) -> Dict[str, Any]:
+        return {"nn": self.nn.pack(),
+                "labels": dict(self.row_labels),
+                "label_counts": dict(self.label_counts)}
+
+    def unpack(self, obj) -> None:
+        self.nn.unpack(obj["nn"])
+        dec = lambda x: x.decode() if isinstance(x, bytes) else x  # noqa
+        self.row_labels = {dec(r): dec(lb) for r, lb in obj["labels"].items()}
+        self.label_counts = {dec(lb): int(c)
+                             for lb, c in obj["label_counts"].items()}
+        # a load replaces every label state
+        self._pending_labels.clear()
+        self._deleted_labels.clear()
+        self._diff_labels = {}
+
+    def get_status(self) -> Dict[str, str]:
+        st = self.nn.get_status()
+        st["nn_method"] = st.get("method", "")
+        st.update({"method": "NN",
+                   "num_classes": str(len(self.label_counts)),
+                   "num_rows": str(len(self.row_labels))})
+        return st
+
+
+def _classifier_factory(config: Dict[str, Any], device=None) -> Driver:
+    """The classifier service's drivers: the weight-table driver for the
+    margin and centroid methods, the k-NN vote driver for "NN"."""
+    if config.get("method") == "NN":
+        return NNClassifierDriver(config, device=device)
+    return ClassifierDriver(config, device=device)
+
+
+register_driver("classifier")(_classifier_factory)

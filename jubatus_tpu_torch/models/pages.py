@@ -6,16 +6,21 @@ slots.  The device tensors stay physically contiguous: a column is one
 [capacity, *tail] tensor (the flat view of [n_pages, page_rows, *tail]),
 so a sweep reads the whole pool in one launch with a validity count.
 
-Inserts fill the current page; growth appends whole pages, at least
-doubling the page count, and never renumbers a slot.  No engine of the
-port frees a row yet, so the live rows are always the prefix of the
-slots below the fill frontier; the JAX store's free list, occupancy
-holes and mask (alloc1, free, occupy, adopt_*, mask_*) come with the
-first engine that drops rows (ROADMAP Queue 1 item 5.2).
+Inserts take freed slots first (last freed, first reused), then fill
+the current page; growth appends whole pages, at least doubling the page
+count, and never renumbers a slot.  A drop punches a hole in the
+occupancy plane and returns the slot to the free list: the host keeps
+the occupancy (mask_host) and the device a bool [capacity] mask
+(mask_dev), updated by one index_fill_ on every alloc and free and
+rebuilt only when the capacity moves, which the sweeps take where rows
+can be dropped (the recommender, anomaly).  The nearest_neighbor engine
+never drops a row, so its live rows stay a prefix and its sweeps take
+the count.
 
-Slot numbering is the JAX package's exactly, so an append-only history
-lays its rows out as the JAX store does, and the model file's flat table
-(pack_flat) is byte-identical.  The spill tier (resident_pages > 0, the
+Slot numbering is the JAX package's exactly, free list included, so a
+history of inserts and drops lays its rows out as the JAX store does (a
+top-k breaks ties by the lower slot, so reads depend on it), and the
+model file's flat table (pack_flat) is byte-identical.  The spill tier (resident_pages > 0, the
 host master copy behind a device page pool, jubatus_tpu/ops/paged.py) is
 not ported: a config asking for it is refused with the ROADMAP item that
 brings it.
@@ -29,7 +34,7 @@ write lock.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,9 +88,11 @@ class PagedRowStore:
 
     def __init__(self, columns: Dict[str, Tuple[Tuple[int, ...], Any]],
                  capacity: int, device: torch.device,
-                 spec: Optional[PageSpec] = None):
+                 spec: Optional[PageSpec] = None,
+                 grow_cb: Optional[Callable[[int, int], None]] = None):
         self.spec = spec or PageSpec()
         self._dev = device
+        self._grow_cb = grow_cb
         self._schema: Dict[str, Tuple[Tuple[int, ...], np.dtype]] = {
             n: (tuple(tail), np.dtype(dt)) for n, (tail, dt) in
             columns.items()}
@@ -107,6 +114,11 @@ class PagedRowStore:
 
     def _init_state(self) -> None:
         self._frontier = 0
+        self._occ = np.zeros((self.capacity,), bool)
+        self._free: List[int] = []
+        self._holes = 0
+        self._live = 0
+        self._mask_dev: Optional[torch.Tensor] = None
         self._cols = {n: self._zeros(n, self.capacity) for n in self._schema}
 
     # -- shape facts ---------------------------------------------------------
@@ -117,36 +129,97 @@ class PagedRowStore:
 
     @property
     def n_rows(self) -> int:
-        """Live rows: the slots below the fill frontier."""
-        return self._frontier
+        """Live rows."""
+        return self._live
+
+    @property
+    def has_holes(self) -> bool:
+        return self._holes > 0
 
     # -- allocation ----------------------------------------------------------
 
-    def alloc(self, n: int = 1) -> np.ndarray:
-        """n slots at the page-fill frontier (0, 1, 2, ...), growing once
-        to the power of two of pages that fits."""
-        end = self._frontier + n
-        if end > self.capacity:
-            self._grow_to(end)
-        out = np.arange(self._frontier, end, dtype=np.int64)
-        self._frontier = end
+    def _take_free(self, n: int) -> List[int]:
+        out = []
+        while len(out) < n and self._free:
+            out.append(self._free.pop())
+            self._holes -= 1
         return out
 
+    def alloc(self, n: int = 1) -> np.ndarray:
+        """n slots: freed slots first (the last freed first), then the
+        page-fill frontier (0, 1, 2, ...), growing once to the power of
+        two of pages that fits."""
+        reused = self._take_free(n)
+        end = self._frontier + n - len(reused)
+        if end > self.capacity:
+            self._grow_to(end)
+        out = np.concatenate([np.asarray(reused, np.int64),
+                              np.arange(self._frontier, end, dtype=np.int64)])
+        self._frontier = end
+        self._note_occupy(out)
+        return out
+
+    def alloc1(self) -> int:
+        return int(self.alloc(1)[0])
+
     def alloc_seq(self, n: int) -> np.ndarray:
-        """The slots of n single-row allocations in a row, capacity
-        included: each growth doubles the page count at least, as one
-        allocation past the end does (alloc(n) grows once, to the power
-        of two that fits)."""
-        end = self._frontier + n
+        """The slots of n single-row allocations in a row (alloc1 n
+        times), capacity included: each growth doubles the page count at
+        least, as one allocation past the end does (alloc(n) grows once,
+        to the power of two that fits)."""
+        reused = self._take_free(n)
+        end = self._frontier + n - len(reused)
         while end > self.capacity:
             self._grow_to(self.capacity + 1)
-        out = np.arange(self._frontier, end, dtype=np.int64)
+        out = np.concatenate([np.asarray(reused, np.int64),
+                              np.arange(self._frontier, end, dtype=np.int64)])
         self._frontier = end
+        self._note_occupy(out)
         return out
+
+    def _note_occupy(self, slots: np.ndarray) -> None:
+        if not slots.size:
+            return
+        self._live += int((~self._occ[slots]).sum())
+        self._occ[slots] = True
+        self._mask_fill(slots, True)
+
+    def free(self, slots: Sequence[int]) -> int:
+        """Punch occupancy holes and return the slots to the free list,
+        in the order given (one mask write on the device).  Returns the
+        number of pages touched."""
+        slots = np.asarray([int(s) for s in slots
+                            if 0 <= int(s) < self.capacity], np.int64)
+        slots = slots[self._occ[slots]]
+        if not slots.size:
+            return 0
+        self._occ[slots] = False
+        self._live -= int(slots.size)
+        self._free.extend(int(s) for s in slots)
+        self._holes += int(slots.size)
+        self._mask_fill(slots, False)
+        return int(np.unique(slots // self.page_rows).size)
+
+    def _mask_fill(self, slots: np.ndarray, value: bool) -> None:
+        if self._mask_dev is not None:
+            self._mask_dev.index_fill_(0, self._dev_slots(slots), value)
+
+    def mask_host(self) -> np.ndarray:
+        """Host occupancy, bool [capacity] (a read-only view: callers copy
+        before they mutate it)."""
+        return self._occ
+
+    def mask_dev(self) -> torch.Tensor:
+        """Device occupancy, bool [capacity]: uploaded once, then kept up
+        to date by alloc and free; a capacity change rebuilds it."""
+        if self._mask_dev is None:
+            self._mask_dev = torch.from_numpy(self._occ.copy()).to(self._dev)
+        return self._mask_dev
 
     def _grow_to(self, need_cap: int) -> None:
         """Append pages (at least doubling the page count); rows keep
         their slots."""
+        old_cap = self.capacity
         new_pages = max(_pow2((need_cap + self.page_rows - 1)
                               // self.page_rows), self.n_pages * 2)
         new_cap = new_pages * self.page_rows
@@ -154,8 +227,24 @@ class PagedRowStore:
             grown = self._zeros(n, new_cap)
             grown[: col.shape[0]] = col
             self._cols[n] = grown
+        self._occ = np.pad(self._occ, (0, new_cap - old_cap))
         self.n_pages = new_pages
         self._cap = new_cap
+        self._mask_dev = None          # the capacity moved: rebuilt lazily
+        if self._grow_cb is not None:
+            self._grow_cb(old_cap, new_cap)
+
+    def widen_column(self, name: str, new_tail0: int) -> None:
+        """Grow a column's row width in place (the recommender's and
+        anomaly's Kr buckets); pages and slots stay."""
+        tail, dt = self._schema[name]
+        if new_tail0 <= tail[0]:
+            return
+        self._schema[name] = ((new_tail0,) + tail[1:], dt)
+        col = self._cols[name]
+        grown = self._zeros(name, self.capacity)
+        grown[:, : tail[0]] = col
+        self._cols[name] = grown
 
     # -- writes / reads ------------------------------------------------------
 
@@ -227,6 +316,6 @@ class PagedRowStore:
             "page_rows": str(self.page_rows),
             "pages": str(self.n_pages),
             "paged_rows": str(self.n_rows),
-            "paged_free_slots": "0",       # nothing frees a slot yet
+            "paged_free_slots": str(self._holes),
             "pages_resident": str(self.n_pages),
         }

@@ -1,0 +1,500 @@
+"""Recommender engine over a sparse row table on one torch device
+(counterpart of jubatus_tpu/models/recommender.py).
+
+Methods inverted_index and inverted_index_euclid (exact), lsh, minhash and
+euclid_lsh (signature estimates), and nearest_neighbor_recommender (an
+embedded signature method), each with an optional {unlearner: lru,
+unlearner_parameter: {max_size}}.
+
+The row store is a PagedRowStore (models/pages.py) on the driver's device:
+indices [R, Kr] int32, values [R, Kr] float32 and norms [R], plus the
+signature table of the signature methods.  Kr grows through the JAX
+package's buckets (32, 64, ..., 4096, then multiples of 4096).  The host
+keeps each row's sparse dict as the source of truth (update_row merges
+columns into it, decode_row and complete_row read it); dirty rows reach
+the device in one write a batch when a query syncs them, with norms and
+signatures computed as the JAX driver computes them (numpy norms; K1/K2
+signatures signed as a batch of the dirty rows).  A dropped row (clear_row,
+the LRU unlearner) is a hole in the store's occupancy mask, and its slot
+is reused in the JAX store's order, so the reads' ties name the same rows.
+
+A query is one sweep of the whole table with its top-k on the card: the
+exact methods through K4 dense_topk (the gather-dot in XLA's order, the
+cosine or euclid score, the mask, the top kb keys), the signature methods
+through K1/K2 and K3 sig_topk with the validity mask; only [Nq, kb] keys
+leave the card.  The read lane's similar_row_from_datum_many signs all its
+signature queries as one batch padded to round_b, as the JAX driver does.
+
+MIX: a row-table union with tombstones (clear_row travels as None), the
+revert table, and the converter's weight diff.  Model files (pack) cross
+packages unchanged.
+
+Not ported, each refused where a caller could ask for it, with the ROADMAP
+item that brings it: the sublinear index (--index, item 5.3), the spill
+tier (pages.resident_pages > 0, item 5.4) and the partition plane (the
+service table's partition_* methods, item 5.5).  The JAX driver's query
+tier has no counterpart: get_status reports the driver's device.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from jubatus_tpu_torch.batching.bucketing import round_b
+from jubatus_tpu_torch.device import device_context, resolve_device
+from jubatus_tpu_torch.fv import (ConverterConfig, Datum, DatumToFVConverter,
+                                  SparseBatch)
+from jubatus_tpu_torch.fv.weight_manager import WeightManager
+from jubatus_tpu_torch.models.base import Driver, register_driver
+from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
+from jubatus_tpu_torch.ops import lsh as lshops
+
+EXACT_METHODS = ("inverted_index", "inverted_index_euclid")
+APPROX_METHODS = ("lsh", "minhash", "euclid_lsh")
+METHODS = EXACT_METHODS + APPROX_METHODS + ("nearest_neighbor_recommender",)
+
+_KR_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+COMPLETE_ROW_NEIGHBORS = 20
+DEFAULT_SEED = 0x1EAF
+
+
+def _round_kr(k: int) -> int:
+    for b in _KR_BUCKETS:
+        if k <= b:
+            return b
+    return ((k + 4095) // 4096) * 4096
+
+
+def _to_str(x) -> str:
+    return x.decode() if isinstance(x, bytes) else x
+
+
+class SparseRowTable:
+    """The row engines' shared host and device row state: ids, host rows
+    (the source of truth), the LRU order, the paged store with its Kr
+    bucket, and the dirty rows awaiting their device write."""
+
+    INITIAL_ROWS = 128
+
+    def _init_rows(self, config: Dict[str, Any], sig_method: Optional[str],
+                   hash_num: int, keep_revert: bool) -> None:
+        self.sig_method = sig_method
+        self.hash_num = hash_num
+        self.converter = DatumToFVConverter(
+            ConverterConfig.from_json(config.get("converter")),
+            keep_revert=keep_revert)
+        self.dim = self.converter.dim
+        self.ids: Dict[str, int] = {}
+        self.row_ids: List[str] = []
+        self.rows: Dict[str, Dict[int, float]] = {}
+        self._lru: List[str] = []
+        self._page_spec = PageSpec.from_config(config.get("pages"))
+        self.kr = _KR_BUCKETS[0]
+        self._alloc()
+        self._dirty: Dict[str, bool] = {}
+        self._pending: Dict[str, Optional[Dict]] = {}
+        self._diff_rows = None
+        # reads run under the model's read lock, concurrently, and a read
+        # writes the dirty rows: one at a time
+        self._sync_lock = threading.Lock()
+
+    def _store_columns(self) -> Dict[str, Any]:
+        cols = {"indices": ((self.kr,), np.int32),
+                "values": ((self.kr,), np.float32),
+                "norms": ((), np.float32)}
+        if self.sig_method is not None:
+            cols["sig"] = ((lshops.sig_width(self.sig_method,
+                                             self.hash_num),), np.uint32)
+        return cols
+
+    def _alloc(self) -> None:
+        self.pages = PagedRowStore(self._store_columns(),
+                                   capacity=self.INITIAL_ROWS,
+                                   device=self.device, spec=self._page_spec,
+                                   grow_cb=self._on_pages_grow)
+
+    def _on_pages_grow(self, old_cap: int, new_cap: int) -> None:
+        """Host tables that track the store's slot space grow with it."""
+
+    @property
+    def capacity(self) -> int:
+        return self.pages.capacity
+
+    def _grow_kr(self, need: int) -> None:
+        new_kr = _round_kr(need)
+        if new_kr <= self.kr:
+            return
+        self.pages.widen_column("indices", new_kr)
+        self.pages.widen_column("values", new_kr)
+        self.kr = new_kr
+
+    def _row(self, id_: str) -> int:
+        row = self.ids.get(id_)
+        if row is None:
+            row = self.pages.alloc1()
+            self.ids[id_] = row
+            while len(self.row_ids) <= row:
+                self.row_ids.append("")
+            self.row_ids[row] = id_
+        return row
+
+    def _dirty_batch(self, dirty: List[str], nb: int):
+        """(slots [nb], indices [nb, Kr], values [nb, Kr], norms [nb]) of
+        the dirty rows, padded to nb with repeats of the last row; norms
+        are the JAX driver's numpy arithmetic."""
+        n = len(dirty)
+        kmax = max((len(self.rows[i]) for i in dirty), default=1)
+        self._grow_kr(kmax)
+        rows_np = np.zeros((nb,), np.int64)
+        idx_np = np.zeros((nb, self.kr), np.int32)
+        val_np = np.zeros((nb, self.kr), np.float32)
+        for j, id_ in enumerate(dirty):
+            r = self.rows[id_]
+            rows_np[j] = self.ids[id_]
+            if r:
+                idx_np[j, : len(r)] = np.fromiter(r.keys(), np.int32, len(r))
+                val_np[j, : len(r)] = np.fromiter(r.values(), np.float32,
+                                                  len(r))
+        if nb > n:
+            rows_np[n:] = rows_np[n - 1]
+            idx_np[n:] = idx_np[n - 1]
+            val_np[n:] = val_np[n - 1]
+        norms = np.sqrt((val_np * val_np).sum(axis=1)).astype(np.float32)
+        return rows_np, idx_np, val_np, norms
+
+    def _write_dirty(self, nb_of=lambda n: n):
+        """One store write (one index_copy_ a column) of the dirty rows,
+        their signatures signed as the JAX driver signs them: a batch of
+        nb_of(n) rows (the recommender signs the n rows, anomaly pads
+        them to a power of two).  Returns the rows' (slots, norms), or
+        None when nothing was dirty."""
+        dirty = [i for i in self._dirty if i in self.ids]
+        self._dirty.clear()
+        if not dirty:
+            return None
+        n = len(dirty)
+        nb = nb_of(n)
+        rows_np, idx_np, val_np, norms = self._dirty_batch(dirty, nb)
+        cols = {"indices": idx_np[:n], "values": val_np[:n],
+                "norms": norms[:n]}
+        if self.sig_method is not None:
+            with device_context(self.device):
+                sig = lshops.host_signature(
+                    self.key, idx_np, val_np, self.hash_num,
+                    self.sig_method, self.device)
+            cols["sig"] = sig[:n]
+        self.pages.write(rows_np[:n], cols)
+        return rows_np[:n], norms[:n]
+
+    def get_all_rows(self) -> List[str]:
+        return [i for i in self.row_ids if i]
+
+    def _clear_rows(self) -> None:
+        self.ids.clear()
+        self.row_ids = []
+        self.rows.clear()
+        self._lru = []
+        self.kr = _KR_BUCKETS[0]
+        self._alloc()
+        self._dirty.clear()
+        self._pending.clear()
+        self.converter.weights.clear()
+
+    def _retire_pending(self) -> None:
+        """put_diff retires exactly the rows its round's get_diff took:
+        rows written between the two survive to the next round."""
+        snap = self._diff_rows
+        if snap is not None:
+            for k, rec in snap.items():
+                cur = self._pending.get(k, False)   # False: absent
+                if cur is not False and \
+                        (dict(cur) if cur is not None else None) == rec:
+                    del self._pending[k]
+            self._diff_rows = None
+
+    def _pending_rows(self) -> Dict[str, Optional[Dict]]:
+        rows = {k: (dict(v) if v is not None else None)
+                for k, v in self._pending.items()}
+        self._diff_rows = rows
+        return rows
+
+    @staticmethod
+    def _host_rows(obj_rows) -> Dict[str, Dict[int, float]]:
+        return {_to_str(i): {int(k): float(v) for k, v in row.items()}
+                for i, row in obj_rows.items()}
+
+
+@register_driver("recommender")
+class RecommenderDriver(SparseRowTable, Driver):
+
+    def __init__(self, config: Dict[str, Any], device=None):
+        Driver.__init__(self, config)
+        self.device = resolve_device(device)
+        self.method = config.get("method", "inverted_index")
+        if self.method not in METHODS:
+            raise ValueError(f"unknown recommender method: {self.method}")
+        param = dict(config.get("parameter") or {})
+        if self.method == "nearest_neighbor_recommender":
+            sig_method = param.get("method", "euclid_lsh")
+            hash_num = int((param.get("parameter") or {}).get("hash_num",
+                                                              64))
+        elif self.method in APPROX_METHODS:
+            sig_method = self.method
+            hash_num = int(param.get("hash_num", 64))
+        else:
+            sig_method, hash_num = None, 0
+        self.seed = int(param.get("seed", DEFAULT_SEED))
+        self.key = lshops.prng_key(self.seed)
+        self.unlearner = param.get("unlearner")
+        up = param.get("unlearner_parameter") or {}
+        self.max_size = int(up.get("max_size", 0)) if self.unlearner else 0
+        if self.unlearner and self.unlearner != "lru":
+            raise ValueError(f"unknown unlearner: {self.unlearner}")
+        self._init_rows(config, sig_method, hash_num, keep_revert=True)
+
+    # -- rows ---------------------------------------------------------------
+
+    def _touch(self, id_: str) -> None:
+        if not self.max_size:
+            return
+        if id_ in self._lru:
+            self._lru.remove(id_)
+        self._lru.append(id_)
+        while len(self.ids) > self.max_size:
+            self._remove_row(self._lru.pop(0), record_tombstone=False)
+
+    def _remove_row(self, id_: str, record_tombstone: bool = True) -> bool:
+        row = self.ids.pop(id_, None)
+        if row is None:
+            return False
+        self.rows.pop(id_, None)
+        self._dirty.pop(id_, None)
+        self.row_ids[row] = ""
+        self.pages.free([row])
+        if id_ in self._lru:
+            self._lru.remove(id_)
+        if record_tombstone:
+            self._pending[id_] = None
+        return True
+
+    def _sync(self) -> Dict[str, Any]:
+        """Write the dirty rows and return a consistent snapshot of the
+        device table (a concurrent read's write may widen its columns)."""
+        with self._sync_lock:
+            self._write_dirty()
+            p = self.pages
+            snap = {n: p.device(n) for n in self._store_columns()}
+            snap["mask"] = p.mask_dev()
+            snap["rows"] = p.capacity
+            return snap
+
+    # -- scoring ------------------------------------------------------------
+
+    def _metric(self) -> str:
+        return "cosine" if self.method == "inverted_index" else "euclid"
+
+    def _query_row(self, q: Dict[int, float]) -> Tuple[np.ndarray, float]:
+        qd = np.zeros((self.dim,), np.float32)
+        if q:
+            qd[np.fromiter(q.keys(), np.int64, len(q))] = \
+                np.fromiter(q.values(), np.float32, len(q))
+        return qd, float(np.sqrt((qd * qd).sum()))
+
+    def _similar(self, q: Dict[int, float], size: int
+                 ) -> List[Tuple[str, float]]:
+        """One sweep with its top-k on the card (K4, or K1/K2 then K3),
+        one copy of the top keys out."""
+        if not self.ids or size <= 0:
+            return []
+        t = self._sync()
+        with device_context(self.device):
+            if self.sig_method is None:
+                qd, qn = self._query_row(q)
+                rows, sc = lshops.fused_dense_query(
+                    self._metric(), t["indices"], t["values"], t["norms"],
+                    t["rows"], t["mask"], qd, qn, int(size))
+            else:
+                batch = SparseBatch.from_rows([q])
+                qn = float(np.sqrt(sum(v * v for v in q.values())))
+                rows, sc = lshops.fused_sig_query(
+                    self.sig_method, self.key, batch.indices, batch.values,
+                    t["sig"], t["norms"], t["rows"], self.hash_num, qn,
+                    int(size), mask=t["mask"])
+        return self._trim_results(rows, sc, size)
+
+    def _trim_results(self, rows, sc, size: int) -> List[Tuple[str, float]]:
+        out: List[Tuple[str, float]] = []
+        for r, s in zip(rows, sc):
+            if not np.isfinite(s) or len(out) >= int(size):
+                break
+            out.append((self.row_ids[int(r)], float(s)))
+        return out
+
+    # -- RPC surface (recommender.idl) ---------------------------------------
+
+    def update_row(self, id_: str, datum: Datum) -> bool:
+        delta = self.converter.convert_row(datum, update_weights=True)
+        self._row(id_)
+        row = self.rows.setdefault(id_, {})
+        row.update(delta)     # column merge: new values overwrite same keys
+        self._dirty[id_] = True
+        self._pending[id_] = dict(row)
+        self._touch(id_)
+        return True
+
+    def clear_row(self, id_: str) -> bool:
+        return self._remove_row(id_)
+
+    def decode_row(self, id_: str) -> Datum:
+        if id_ not in self.rows:
+            return Datum()
+        return self._row_to_datum(self.rows[id_])
+
+    def _row_to_datum(self, row: Dict[int, float]) -> Datum:
+        d = Datum()
+        for idx, val in sorted(row.items()):
+            rev = self.converter.revert_feature(idx)
+            if rev is None:
+                d.add_number(f"#{idx}", float(val))
+            elif rev[1] is None:      # a numeric feature: the value
+                d.add_number(rev[0], float(val))
+            else:                     # a string feature
+                d.add_string(rev[0], str(rev[1]))
+        return d
+
+    def complete_row_from_id(self, id_: str) -> Datum:
+        if id_ not in self.rows:
+            return Datum()
+        return self._complete(self.rows[id_])
+
+    def complete_row_from_datum(self, datum: Datum) -> Datum:
+        return self._complete(self.converter.convert_row(datum))
+
+    def _complete(self, q: Dict[int, float]) -> Datum:
+        sims = self._similar(q, COMPLETE_ROW_NEIGHBORS)
+        acc: Dict[int, float] = {}
+        total = 0.0
+        for id_, score in sims:
+            w = max(float(score), 0.0)
+            if w <= 0 or id_ not in self.rows:
+                continue
+            total += w
+            for idx, val in self.rows[id_].items():
+                acc[idx] = acc.get(idx, 0.0) + w * val
+        if total > 0:
+            acc = {i: v / total for i, v in acc.items()}
+        return self._row_to_datum(acc)
+
+    def similar_row_from_id(self, id_: str, size: int):
+        if id_ not in self.rows:
+            return []
+        return self._similar(self.rows[id_], size)
+
+    def similar_row_from_datum(self, datum: Datum, size: int):
+        return self._similar(self.converter.convert_row(datum), size)
+
+    def similar_row_from_datum_many(self, pairs: Sequence[Tuple[Datum, int]]
+                                    ) -> List[List[Tuple[str, float]]]:
+        """The read lane's entry.  The signature methods sign all N
+        queries as one batch padded to round_b(N) (the JAX driver's
+        batch) and sweep them in one K3 launch; the exact methods sweep
+        each query (a [B, D] dense block is what the JAX driver avoids
+        too), under the caller's one read-lock hold."""
+        qs = [self.converter.convert_row(d) for d, _ in pairs]
+        sizes = [int(s) for _, s in pairs]
+        if self.sig_method is None or not self.ids or max(sizes) <= 0:
+            return [self._similar(q, s) for q, s in zip(qs, sizes)]
+        t = self._sync()
+        batch = SparseBatch.from_rows(qs)
+        qnorms = np.array([np.sqrt(sum(v * v for v in q.values()))
+                           for q in qs], np.float32)
+        with device_context(self.device):
+            rows_b, sims_b = lshops.fused_sig_query_batch(
+                self.sig_method, self.key, batch.indices, batch.values,
+                t["sig"], t["norms"], t["rows"], self.hash_num, qnorms,
+                max(sizes), round_b(len(qs)), mask=t["mask"])
+        return [self._trim_results(rows_b[i], sims_b[i], s)
+                for i, s in enumerate(sizes)]
+
+    def calc_similarity(self, lhs: Datum, rhs: Datum) -> float:
+        a = self.converter.convert_row(lhs)
+        b = self.converter.convert_row(rhs)
+        dot = sum(v * b.get(i, 0.0) for i, v in a.items())
+        na = np.sqrt(sum(v * v for v in a.values()))
+        nb = np.sqrt(sum(v * v for v in b.values()))
+        return float(dot / max(na * nb, 1e-12))
+
+    def calc_l2norm(self, datum: Datum) -> float:
+        row = self.converter.convert_row(datum)
+        return float(np.sqrt(sum(v * v for v in row.values())))
+
+    def clear(self) -> None:
+        self._clear_rows()
+        self.converter.revert_dict.clear()
+
+    # -- MIX (a row union with tombstones) -----------------------------------
+
+    def get_diff(self):
+        rows = self._pending_rows()
+        return {"rows": rows,
+                "revert": {i: self.converter.revert_dict[i]
+                           for k, v in self._pending.items() if v
+                           for i in v},
+                "weights": self.converter.weights.get_diff()}
+
+    @classmethod
+    def mix(cls, lhs, rhs):
+        rows = dict(lhs["rows"])
+        rows.update(rhs["rows"])
+        revert = dict(lhs.get("revert") or {})
+        revert.update(rhs.get("revert") or {})
+        return {"rows": rows, "revert": revert,
+                "weights": WeightManager.mix(lhs["weights"], rhs["weights"])}
+
+    def put_diff(self, diff) -> bool:
+        for idx, name in (diff.get("revert") or {}).items():
+            self.converter.revert_dict.setdefault(int(idx), _to_str(name))
+        for id_, row in diff["rows"].items():
+            id_ = _to_str(id_)
+            if row is None:
+                self._remove_row(id_, record_tombstone=False)
+                continue
+            self._row(id_)
+            self.rows[id_] = {int(i): float(v) for i, v in row.items()}
+            self._dirty[id_] = True
+            self._touch(id_)
+        self.converter.weights.put_diff(diff["weights"])
+        self._retire_pending()
+        return True
+
+    # -- persistence ----------------------------------------------------------
+
+    def pack(self) -> Dict[str, Any]:
+        return {
+            "method": self.method,
+            "rows": {i: self.rows[i] for i in self.rows},
+            "lru": list(self._lru),
+            "revert": dict(self.converter.revert_dict),
+            "weights": self.converter.weights.pack(),
+        }
+
+    def unpack(self, obj) -> None:
+        self.clear()
+        self.converter.weights.unpack(obj["weights"])
+        self.converter.revert_dict = {int(k): _to_str(v)
+                                      for k, v in obj["revert"].items()}
+        for id_, row in self._host_rows(obj["rows"]).items():
+            self._row(id_)
+            self.rows[id_] = row
+            self._dirty[id_] = True
+        self._lru = [_to_str(i) for i in obj.get("lru", [])]
+        self._pending.clear()
+
+    def get_status(self) -> Dict[str, str]:
+        st = {"method": self.method, "num_rows": str(len(self.ids)),
+              "query_tier": self.query_tier_status()}
+        st.update(self.pages.get_status())
+        return st

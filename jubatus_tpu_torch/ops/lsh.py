@@ -27,12 +27,22 @@ order-preserving int64 keys: the score's order-preserving image in the
 high word and 0xFFFFFFFF - row in the low word, so the keys' order is
 jax.lax.top_k's, ties to the lower row included.
 
-Three hand kernels in csrc/lsh.cu do the work on the card (K1
+A sweep's valid rows are those below a count (the nearest_neighbor
+store, a prefix) that an optional bool mask keeps (the recommender's
+store, with holes); the others score -inf and fill in as jax.lax.top_k
+places them.  The row engines' exact sweeps score a dense query against
+a sparse row table (indices / values [R, Kr]) in XLA's CPU order of
+their JAX expressions (ops/sparse.py xla_dot_rows), and anomaly's
+signature sweeps count every (query, row) pair.
+
+Five hand kernels in csrc/lsh.cu do the work on the card (K1
 lsh_signature, K2 minhash_signature, K3 sig_topk: the sweep with its
-top-kb selection, so only [Nq, kb] keys leave the card); each wrapper
-below launches its kernel for a CUDA tensor, raising where it cannot,
-and runs the plain PyTorch version (the *_ref functions) for a CPU
-tensor.
+top-kb selection, so only [Nq, kb] keys leave the card; K4 dense_topk
+and dense_dots: the exact sweep with its masked top-kb, or its [C, R]
+dots; K5 sig_counts: the counts or euclid estimates of every pair);
+each wrapper below launches its kernel for a CUDA tensor, raising where
+it cannot, and runs the plain PyTorch version (the *_ref functions) for
+a CPU tensor.
 Signature tables are int32 tensors holding the uint32 bit patterns
 (torch's uint32 has few CPU ops); host arrays stay uint32.
 """
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 
 from jubatus_tpu_torch.kernels import build
+from jubatus_tpu_torch.ops.sparse import fma as _fma
 from jubatus_tpu_torch.ops.sparse import ftz
 
 MASK32 = 0xFFFFFFFF
@@ -162,21 +173,6 @@ def uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float
 # --xla_dump_to), fused where it is fused.
 
 MIN_NORMAL = float(np.float32(2.0 ** -126))
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
-    """float32 a * b + c with one rounding.  The product is exact in
-    float64; the sum is rounded to odd there (TwoSum's error decides), so
-    the one rounding to float32 is the only one that counts."""
-    p = a.double() * b.double()
-    cd = c.double() if isinstance(c, torch.Tensor) else float(c)
-    s = p + cd
-    bb = s - p
-    err = (p - (s - bb)) + (cd - bb)
-    odd = (s.view(torch.int64) & 1) == 1
-    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
-    s = torch.where((err != 0) & ~odd, torch.nextafter(s, toward), s)
-    return s.float()
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -429,9 +425,29 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_int] * ints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.sig_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
+    # K4: (indices, values, norms, count, mask, q_dense, qnorms, R, Kr, D,
+    # NQ, metric, KB, ws, ws_bytes, out, stream)
+    lib.dense_topk_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+        + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
+    lib.dense_topk_launch.restype = ctypes.c_int
+    lib.dense_topk_workspace.argtypes = (
+        [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_longlong])
+    lib.dense_topk_workspace.restype = ctypes.c_longlong
+    # (indices, values, q_dense, R, Kr, D, C, out, stream)
+    lib.dense_dots_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 2)
+    lib.dense_dots_launch.restype = ctypes.c_int
+    # K5: (table, q_sigs, norms, qnorms, tab, R, W, NQ, kind, out, stream)
+    lib.sig_counts_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 2)
+    lib.sig_counts_launch.restype = ctypes.c_int
     lib.sig_topk_launch.restype = ctypes.c_int
     lib.sig_topk_workspace.argtypes = (
         [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_longlong]
@@ -548,10 +564,12 @@ def count_table(kind: str, hash_num: int) -> np.ndarray:
     fuses a multiply-add where it can, so:
       lsh        1 - c * r         (one fused multiply-add, r = f32(1/H))
       minhash    c * r
-      euclid_lsh cos(c * f32(f32(pi) * r)), correctly rounded (XLA's
-                 float32 cos is, torch's and CUDA's need not be)
-    Float64 arithmetic rounded once to float32 gives the fused and the
-    correctly rounded results (c * r and c * angle are exact there)."""
+      euclid_lsh cos(c * f32(f32(pi) * r)), as the C library's cosf
+                 gives it (XLA's CPU code calls cosf, which is one ulp
+                 off the correctly rounded cosine at a few counts above
+                 H 96: c 55 at H 128)
+    Float64 arithmetic rounded once to float32 gives the fused results
+    (c * r is exact there)."""
     top = hash_num if kind == "minhash" else 32 * words_for(hash_num)
     c = np.arange(top + 1, dtype=np.float32)
     r = np.float32(1.0) / np.float32(hash_num)
@@ -561,7 +579,8 @@ def count_table(kind: str, hash_num: int) -> np.ndarray:
     if kind == "minhash":
         return c * r
     ang = c * (np.float32(math.pi) * r)
-    return np.cos(ang.astype(np.float64)).astype(np.float32)
+    cosf = _libm_cosf()
+    return np.array([cosf(float(a)) for a in ang], np.float32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -579,7 +598,8 @@ def similarities_ref(kind: str, table: torch.Tensor, q_sig: torch.Tensor,
     [R, W] (higher is closer).  lsh and minhash scores and the euclid
     cosine come from count_table; the euclid estimate is
     -sqrt(max(fma(-t, cos, fma(n, n, qn * qn)), 0)), t = 2 * qn * n, the
-    multiply-adds fused as XLA fuses them (in float64, rounded once)."""
+    multiply-adds fused as XLA fuses them (in float64, rounded once) and
+    the root correctly rounded (_sqrt)."""
     tab = _count_table_dev(kind, hash_num, table.device)
     if kind == "minhash":
         return tab[(table == q_sig[None, :]).sum(1)]
@@ -591,7 +611,7 @@ def similarities_ref(kind: str, table: torch.Tensor, q_sig: torch.Tensor,
     a = (norms.double() * norms.double() + qq).float()
     t = (2.0 * qnorm) * norms
     d2 = (a.double() - t.double() * cos.double()).float()
-    return -torch.sqrt(torch.clamp_min(d2, 0.0))
+    return -_sqrt(torch.clamp_min(d2, 0.0))
 
 
 def scores_to_keys(scores: torch.Tensor) -> torch.Tensor:
@@ -614,14 +634,26 @@ def keys_to_rows_scores(keys: torch.Tensor
     return MASK32 - (keys & MASK32), b.view(torch.float32)
 
 
+def _valid_rows(r: int, n_valid: int, mask: Optional[torch.Tensor],
+                device) -> torch.Tensor:
+    """bool [r]: the rows below n_valid that the mask (bool or uint8 [r],
+    None: every row) keeps."""
+    ok = torch.arange(r, device=device) < int(n_valid)
+    if mask is not None:
+        ok &= mask.to(torch.bool)
+    return ok
+
+
 def sig_sweep_ref(kind: str, table: torch.Tensor, norms: torch.Tensor,
                   n_valid: int, q_sigs: torch.Tensor, qnorms: torch.Tensor,
-                  hash_num: int) -> torch.Tensor:
+                  hash_num: int, mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """The key of every (query, row): int64 [Nq, R] of each query
     signature (q_sigs [Nq, W], qnorms [Nq]) against the table, the rows
-    from n_valid on at -inf.  The first step of sig_topk_ref."""
+    from n_valid on, and those the mask leaves out, at -inf.  The first
+    step of sig_topk_ref."""
     r = table.shape[0]
-    mask = torch.arange(r, device=table.device) < int(n_valid)
+    mask = _valid_rows(r, n_valid, mask, table.device)
     keys = []
     for q in range(q_sigs.shape[0]):
         s = similarities_ref(kind, table, q_sigs[q], norms, qnorms[q],
@@ -634,13 +666,25 @@ def sig_sweep_ref(kind: str, table: torch.Tensor, norms: torch.Tensor,
 
 def sig_topk_ref(kind: str, table: torch.Tensor, norms: torch.Tensor,
                  n_valid: int, q_sigs: torch.Tensor, qnorms: torch.Tensor,
-                 hash_num: int, kb: int) -> torch.Tensor:
+                 hash_num: int, kb: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K3: each query's top kb keys [Nq, kb], descending
     (sig_sweep_ref, then torch.topk over its unique keys: the order is
     the keys' own, jax.lax.top_k's)."""
     keys = sig_sweep_ref(kind, table, norms, n_valid, q_sigs, qnorms,
-                         hash_num)
+                         hash_num, mask)
     return torch.topk(keys, kb, dim=1, largest=True, sorted=True).values
+
+
+def _check_mask(mask: Optional[torch.Tensor], r: int, dev,
+                what: str) -> None:
+    if mask is None:
+        return
+    if (mask.dtype not in (torch.bool, torch.uint8) or mask.shape != (r,)
+            or mask.device != dev or not mask.is_contiguous()):
+        raise ValueError(f"{what}: the mask must be a contiguous bool or "
+                         f"uint8 [{r}] tensor on {dev}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
 
 
 def _sig_topk_args(kind, table, n_valid, q_sigs, q_rows, kb) -> None:
@@ -663,22 +707,25 @@ def sig_topk(kind: str, table: torch.Tensor, norms: torch.Tensor,
              q_sigs: Optional[torch.Tensor] = None,
              qnorms: Optional[torch.Tensor] = None,
              q_rows: Optional[torch.Tensor] = None,
-             hash_num: int = 0, kb: int = 8) -> torch.Tensor:
+             hash_num: int = 0, kb: int = 8,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each query's top kb keys [Nq, kb] int64, descending, against table
     [R, W] (int32), norms [R] float32, of which the rows below n_valid
-    are valid (the store's rows are a prefix: nothing frees a slot yet;
-    the rest score -inf and fill in, the lowest rows first, where fewer
-    than kb are valid).  The queries are signatures q_sigs [Nq, W] with
+    that the mask (bool or uint8 [R] on the table's device, None: every
+    row) keeps are valid; the others score -inf and fill in, the lowest
+    rows first, where fewer than kb are valid, as jax.lax.top_k places
+    them.  The queries are signatures q_sigs [Nq, W] with
     qnorms [Nq], or stored rows q_rows [Nq] int64, each in [0, R) (the
     kernel gathers their signatures and norms).  1 <= kb <= R.  CUDA
     tensors: one launch of K3 (csrc/lsh.cu), with its scratch from
     torch.empty; CPU: the plain version."""
     _sig_topk_args(kind, table, n_valid, q_sigs, q_rows, kb)
+    _check_mask(mask, table.shape[0], table.device, "sig_topk")
     if table.device.type == "cpu":
         if q_rows is not None:
             q_sigs, qnorms = table[q_rows], norms[q_rows]
         return sig_topk_ref(kind, table, norms, int(n_valid), q_sigs,
-                            qnorms, hash_num, int(kb))
+                            qnorms, hash_num, int(kb), mask)
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -721,8 +768,9 @@ def sig_topk(kind: str, table: torch.Tensor, norms: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.sig_topk_launch(
         table.data_ptr(), norms.data_ptr(), int(n_valid), qs_ptr, qn_ptr,
-        qr_ptr, tab.data_ptr(), r, w, nq, SIG_KINDS.index(kind), kb,
-        ws.data_ptr(), ws_bytes, out.data_ptr(), stream)
+        qr_ptr, 0 if mask is None else mask.data_ptr(), tab.data_ptr(), r,
+        w, nq, SIG_KINDS.index(kind), kb, ws.data_ptr(), ws_bytes,
+        out.data_ptr(), stream)
     sig_topk.launches += 1
     build.check(err, "sig_topk launch")
     return out
@@ -784,12 +832,14 @@ def _host(x, dtype, device) -> torch.Tensor:
 def fused_sig_query_batch(kind: str, key, q_indices: np.ndarray,
                           q_values: np.ndarray, table: torch.Tensor,
                           norms: torch.Tensor, n_valid: int, hash_num: int,
-                          qnorms, k: int, padded_b: Optional[int] = None
+                          qnorms, k: int, padded_b: Optional[int] = None,
+                          mask: Optional[torch.Tensor] = None
                           ) -> Tuple[np.ndarray, np.ndarray]:
     """[Nq] datum queries: signatures (K1/K2, signed as in a batch of
-    padded_b), then the sweep with its selection (K3) -> (rows [Nq, k'],
-    scores [Nq, k']) numpy, k' = min(_round_k(k), R); the caller trims and
-    drops non-finite entries."""
+    padded_b), then the sweep with its selection (K3, over the rows below
+    n_valid that the mask keeps) -> (rows [Nq, k'], scores [Nq, k'])
+    numpy, k' = min(_round_k(k), R); the caller trims and drops
+    non-finite entries."""
     dev = table.device
     idx = _host(q_indices, np.int32, dev)
     val = _host(q_values, np.float32, dev)
@@ -797,11 +847,12 @@ def fused_sig_query_batch(kind: str, key, q_indices: np.ndarray,
     return keys_to_host(sig_topk(
         kind, table, norms, n_valid, q_sigs=q_sigs,
         qnorms=_host(qnorms, np.float32, dev), hash_num=hash_num,
-        kb=_kb(k, table.shape[0])))
+        kb=_kb(k, table.shape[0]), mask=mask))
 
 
 def fused_sig_query(kind: str, key, q_indices, q_values, table, norms,
-                    n_valid: int, hash_num: int, qnorm: float, k: int
+                    n_valid: int, hash_num: int, qnorm: float, k: int,
+                    mask: Optional[torch.Tensor] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """One datum query -> (rows [k'], scores [k']); norms may be None
     (zeros) for the kinds that do not read them."""
@@ -810,7 +861,7 @@ def fused_sig_query(kind: str, key, q_indices, q_values, table, norms,
                             device=table.device)
     rows, scores = fused_sig_query_batch(
         kind, key, q_indices, q_values, table, norms, n_valid, hash_num,
-        [qnorm], k)
+        [qnorm], k, mask=mask)
     return rows[0], scores[0]
 
 
@@ -839,3 +890,317 @@ def host_signature(key, indices: np.ndarray, values: np.ndarray,
                     _host(values, np.float32, dev), hash_num, kind,
                     padded_b)
     return sig.cpu().numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# the exact sweeps of the sparse row table (K4) and the all-rows signature
+# counts (K5): plain versions, wrappers and the routes of the JAX package
+# (ops/lsh.py _fused_dense_query, table_similarities_batch; anomaly's
+# _chunk_dots)
+# ---------------------------------------------------------------------------
+
+DENSE_METRICS = ("cosine", "euclid")
+
+
+def dense_scores_ref(metric: str, indices: torch.Tensor,
+                     values: torch.Tensor, norms: torch.Tensor,
+                     q_dense: torch.Tensor, qnorm: torch.Tensor
+                     ) -> torch.Tensor:
+    """_fused_dense_query's scores of one dense query q_dense [D] (qnorm, a
+    float32 0-d tensor) against every stored row (indices/values [R, Kr],
+    norms [R]) as XLA's CPU code computes them: the einsum's dot
+    (ops.sparse.xla_dot_rows "einsum"), then cosine dots / max(n * qn,
+    1e-12), or euclid -sqrt(max(fma(n, n, qn * qn) - 2 * dots, 0)),
+    flushed as XLA flushes."""
+    from jubatus_tpu_torch.ops.sparse import xla_dot_rows
+    dots = xla_dot_rows(q_dense[indices.long()], values, "einsum")
+    n = ftz(norms)
+    qn = ftz(qnorm)
+    if metric == "cosine":
+        return ftz(dots / torch.clamp_min(ftz(n * qn), 1e-12))
+    a = ftz(_fma(n, n, ftz(qn * qn).expand_as(n)))
+    return -_sqrt(torch.clamp_min(ftz(a - 2.0 * dots), 0.0))
+
+
+def dense_topk_ref(metric: str, indices: torch.Tensor, values: torch.Tensor,
+                   norms: torch.Tensor, n_valid: int,
+                   mask: Optional[torch.Tensor], q_dense: torch.Tensor,
+                   qnorms: torch.Tensor, kb: int) -> torch.Tensor:
+    """Plain version of K4's dense_topk: each query's (q_dense [Nq, D],
+    qnorms [Nq]) top kb keys [Nq, kb] over the rows below n_valid that the
+    mask keeps (the rest at -inf), in jax.lax.top_k's order."""
+    ok = _valid_rows(indices.shape[0], n_valid, mask, indices.device)
+    keys = [scores_to_keys(torch.where(
+        ok, dense_scores_ref(metric, indices, values, norms, q_dense[q],
+                             qnorms[q]), -math.inf))
+            for q in range(q_dense.shape[0])]
+    if not keys:
+        return torch.empty((0, kb), dtype=torch.int64)
+    return torch.topk(torch.stack(keys), kb, dim=1).values
+
+
+def dense_dots_ref(indices: torch.Tensor, values: torch.Tensor,
+                   q_dense: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4's dense_dots: dots [C, R] of every stored row
+    with each dense query of q_dense [C, D], as XLA's CPU code computes
+    anomaly's _chunk_dots, jnp.sum(q[:, indices] * values, -1)
+    (ops.sparse.xla_dot_rows "sum")."""
+    from jubatus_tpu_torch.ops.sparse import xla_dot_rows
+    return xla_dot_rows(q_dense[:, indices.long()], values[None], "sum")
+
+
+def _dense_args(indices, values, q_dense, what: str) -> None:
+    dev = indices.device
+    _check(indices, torch.int32, dev, f"{what} indices")
+    _check(values, torch.float32, dev, f"{what} values")
+    _check(q_dense, torch.float32, dev, f"{what} q_dense")
+    if indices.dim() != 2 or values.shape != indices.shape:
+        raise ValueError(f"{what}: indices {tuple(indices.shape)} and values "
+                         f"{tuple(values.shape)} differ")
+    if q_dense.dim() != 2:
+        raise ValueError(f"{what}: q_dense must be [Nq, D]")
+    kr = indices.shape[1]
+    if kr > 16 and kr % 32:
+        raise ValueError(f"{what}: a row width of {kr} (above 16 and no "
+                         f"multiple of 32) has no known XLA order")
+
+
+def dense_topk(metric: str, indices: torch.Tensor, values: torch.Tensor,
+               norms: torch.Tensor, n_valid: int,
+               mask: Optional[torch.Tensor], q_dense: torch.Tensor,
+               qnorms: torch.Tensor, kb: int) -> torch.Tensor:
+    """Each dense query's top kb keys [Nq, kb] int64 over the stored rows
+    (indices int32 / values float32 [R, Kr], norms [R]) below n_valid that
+    the mask keeps, scored as dense_scores_ref.  CUDA tensors: one launch
+    of K4's dense_topk (csrc/lsh.cu: the gather-dot in XLA's order with
+    fmaf, then K3's lists and merge, or above kb 1024 K3's bitonic sort
+    of every row's key); CPU: the plain version."""
+    if metric not in DENSE_METRICS:
+        raise ValueError(f"unknown dense metric {metric!r}")
+    r = indices.shape[0]
+    if not 0 <= int(n_valid) <= r or not 1 <= int(kb) <= r:
+        raise ValueError(f"dense_topk: n_valid {n_valid}, kb {kb} of {r}")
+    _check_mask(mask, r, indices.device, "dense_topk")
+    if indices.device.type == "cpu":
+        return dense_topk_ref(metric, indices, values, norms, int(n_valid),
+                              mask, q_dense, qnorms, int(kb))
+    dev = indices.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _dense_args(indices, values, q_dense, "dense_topk")
+    _check(norms, torch.float32, dev, "dense_topk norms")
+    _check(qnorms, torch.float32, dev, "dense_topk qnorms")
+    nq, d = q_dense.shape
+    if norms.shape != (r,) or qnorms.shape != (nq,):
+        raise ValueError("dense_topk: norms / qnorms do not fit")
+    kb = int(kb)
+    out = torch.empty((nq, kb), dtype=torch.int64, device=dev)
+    if nq == 0:
+        return out
+    lib = _lib()
+    ws_bytes = lib.dense_topk_workspace(r, indices.shape[1], d, nq, kb,
+                                        int(n_valid))
+    if ws_bytes < 0:
+        raise ValueError(f"dense_topk: no plan for R {r}, Nq {nq}, kb {kb}")
+    ws = torch.empty(max(ws_bytes, 8), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.dense_topk_launch(
+        indices.data_ptr(), values.data_ptr(), norms.data_ptr(),
+        int(n_valid), 0 if mask is None else mask.data_ptr(),
+        q_dense.data_ptr(), qnorms.data_ptr(), r, indices.shape[1], d, nq,
+        DENSE_METRICS.index(metric), kb, ws.data_ptr(), ws_bytes,
+        out.data_ptr(), stream)
+    dense_topk.launches += 1
+    build.check(err, "dense_topk launch")
+    return out
+
+
+dense_topk.launches = 0
+
+
+def dense_dots(indices: torch.Tensor, values: torch.Tensor,
+               q_dense: torch.Tensor) -> torch.Tensor:
+    """dots [C, R] float32 of every stored row (indices int32 / values
+    float32 [R, Kr]) with each dense query of q_dense [C, D], in XLA's
+    order of _chunk_dots.  CUDA tensors: one launch of K4's dense_dots
+    (csrc/lsh.cu); CPU: the plain version."""
+    if indices.device.type == "cpu":
+        return dense_dots_ref(indices, values, q_dense)
+    dev = indices.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _dense_args(indices, values, q_dense, "dense_dots")
+    r, kr = indices.shape
+    c, d = q_dense.shape
+    out = torch.empty((c, r), dtype=torch.float32, device=dev)
+    if c == 0 or r == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().dense_dots_launch(indices.data_ptr(), values.data_ptr(),
+                                   q_dense.data_ptr(), r, kr, d, c,
+                                   out.data_ptr(), stream)
+    dense_dots.launches += 1
+    build.check(err, "dense_dots launch")
+    return out
+
+
+dense_dots.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_cosf():
+    import ctypes.util
+    f = ctypes.CDLL(ctypes.util.find_library("m")).cosf
+    f.restype = ctypes.c_float
+    f.argtypes = [ctypes.c_float]
+    return f
+
+
+@functools.lru_cache(maxsize=64)
+def euclid_cos_table(hash_num: int) -> np.ndarray:
+    """float32 [C + 1]: the cosine _euclid_b takes from a hamming count c
+    (C = 32 * words_for(H)): cos(f32(f32(pi) * c) / f32(H)), H a traced
+    argument there, so a true division; XLA's CPU code calls the C
+    library's cosf, which is not always the correctly rounded cosine
+    (one ulp off at a few counts above H 96), so the table calls it too."""
+    cosf = _libm_cosf()
+    c = np.arange(32 * words_for(hash_num) + 1, dtype=np.float32)
+    ang = (np.float32(math.pi) * c) / np.float32(hash_num)
+    return np.array([cosf(float(a)) for a in ang], np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _euclid_cos_dev(hash_num: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(euclid_cos_table(hash_num), device=device)
+
+
+def euclid_estimates_ref(counts: torch.Tensor, norms: torch.Tensor,
+                         qnorms: torch.Tensor, hash_num: int) -> torch.Tensor:
+    """_euclid_b (euclid_scores of every (query, row)) as XLA computes it
+    from hamming counts [Nq, R]: sqrt(max(fma(-t, cos, fma(n, n, qn *
+    qn)), 0)), t = 2 * qn * n, cos from euclid_cos_table."""
+    cos = _euclid_cos_dev(hash_num, counts.device)[counts.long()]
+    n = norms[None, :]
+    qn = qnorms[:, None]
+    a = _fma(n.expand_as(cos), n.expand_as(cos), (qn * qn).expand_as(cos))
+    return _sqrt(torch.clamp_min(_fma(-((2.0 * qn) * n), cos, a), 0.0))
+
+
+def sig_counts_ref(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
+                   norms: torch.Tensor, qnorms: torch.Tensor,
+                   hash_num: int) -> torch.Tensor:
+    """Plain version of K5: every (query, row) of q_sigs [Nq, W] against
+    table [R, W]: int32 popcount(xor) counts for lsh, equal words for
+    minhash, float32 euclid estimates (euclid_estimates_ref) for
+    euclid_lsh -> [Nq, R]."""
+    out = []
+    for q in range(q_sigs.shape[0]):
+        if kind == "minhash":
+            out.append((table == q_sigs[q][None, :]).sum(1))
+        else:
+            x = (table ^ q_sigs[q][None, :]).to(torch.int64) & MASK32
+            out.append(_popcount(x).sum(1))
+    if not out:
+        cnt = torch.empty((0, table.shape[0]), dtype=torch.int32)
+    else:
+        cnt = torch.stack(out).to(torch.int32)
+    if kind == "euclid_lsh":
+        return euclid_estimates_ref(cnt, norms, qnorms, hash_num)
+    return cnt
+
+
+def sig_counts(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
+               norms: torch.Tensor, qnorms: torch.Tensor,
+               hash_num: int) -> torch.Tensor:
+    """[Nq, R] counts (lsh, minhash: int32) or euclid estimates
+    (euclid_lsh: float32) of every query signature against every row.
+    CUDA tensors: one launch of K5 (csrc/lsh.cu); CPU: the plain
+    version."""
+    if kind not in SIG_KINDS:
+        raise ValueError(f"unknown signature kind: {kind}")
+    if table.device.type == "cpu":
+        return sig_counts_ref(kind, table, q_sigs, norms, qnorms, hash_num)
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check(table, torch.int32, dev, "sig_counts table")
+    _check(q_sigs, torch.int32, dev, "sig_counts q_sigs")
+    _check(norms, torch.float32, dev, "sig_counts norms")
+    _check(qnorms, torch.float32, dev, "sig_counts qnorms")
+    r, w = table.shape
+    nq = q_sigs.shape[0]
+    if (w != sig_width(kind, hash_num) or q_sigs.shape != (nq, w)
+            or norms.shape != (r,) or qnorms.shape != (nq,)):
+        raise ValueError("sig_counts: shapes do not fit the table")
+    euclid = kind == "euclid_lsh"
+    out = torch.empty((nq, r), dtype=torch.float32 if euclid else torch.int32,
+                      device=dev)
+    if nq == 0 or r == 0:
+        return out
+    tab = _euclid_cos_dev(hash_num, dev) if euclid else norms
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().sig_counts_launch(
+        table.data_ptr(), q_sigs.data_ptr(), norms.data_ptr(),
+        qnorms.data_ptr(), tab.data_ptr(), r, w, nq, SIG_KINDS.index(kind),
+        out.data_ptr(), stream)
+    sig_counts.launches += 1
+    build.check(err, "sig_counts launch")
+    return out
+
+
+sig_counts.launches = 0
+
+
+def table_similarities_batch(kind: str, table: torch.Tensor, q_sigs,
+                             hash_num: int, norms: torch.Tensor,
+                             qnorms) -> np.ndarray:
+    """The JAX package's table_similarities_batch: [Nq, R] float64 on the
+    host of query signatures q_sigs [Nq, W] (uint32 numpy or an int32
+    tensor) against every row: lsh 1 - hamming/H, minhash equal/H (the
+    device's int32 counts, the float64 arithmetic on the host, as there),
+    euclid_lsh minus the estimate.  One K5 launch and one copy."""
+    dev = table.device
+    if not isinstance(q_sigs, torch.Tensor):
+        q_sigs = _host(np.asarray(q_sigs, np.uint32).view(np.int32),
+                       np.int32, dev)
+    out = sig_counts(kind, table, q_sigs, norms,
+                     _host(qnorms, np.float32, dev), hash_num).cpu().numpy()
+    if kind == "minhash":
+        return out.astype(np.float64) / hash_num
+    if kind == "lsh":
+        return 1.0 - out.astype(np.float64) / hash_num
+    return -out.astype(np.float64)
+
+
+def fused_dense_query(metric: str, indices: torch.Tensor,
+                      values: torch.Tensor, norms: torch.Tensor, n_valid: int,
+                      mask: Optional[torch.Tensor], q_dense: np.ndarray,
+                      qnorm: float, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """_fused_dense_query: one dense query [D] (host) -> (rows [k'],
+    scores [k']) numpy, k' = min(_round_k(k), R), through dense_topk."""
+    dev = indices.device
+    keys = dense_topk(metric, indices, values, norms, n_valid, mask,
+                      _host(np.asarray(q_dense, np.float32)[None], np.float32,
+                            dev),
+                      _host([qnorm], np.float32, dev),
+                      _kb(k, indices.shape[0]))
+    rows, scores = keys_to_host(keys)
+    return rows[0], scores[0]
+
+
+def topk_rows(scores: np.ndarray, valid: np.ndarray, k: int, largest: bool):
+    """Host top-k over a scored row table -> (row indices, scores): the
+    JAX package's topk_rows (ops/lsh.py), an argpartition then a stable
+    argsort of the k."""
+    scores = np.where(valid, scores, -np.inf if largest else np.inf)
+    n = int(valid.sum())
+    k = min(k, n)
+    if k <= 0:
+        return np.empty(0, np.int64), np.empty(0, scores.dtype)
+    if largest:
+        part = np.argpartition(-scores, k - 1)[:k]
+        order = part[np.argsort(-scores[part], kind="stable")]
+    else:
+        part = np.argpartition(scores, k - 1)[:k]
+        order = part[np.argsort(scores[part], kind="stable")]
+    return order, scores[order]

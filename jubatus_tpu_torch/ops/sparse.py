@@ -8,16 +8,18 @@ both packages (XLA there, PyTorch here), not hand kernels.
 
 XLA flushes float32 subnormals to zero (inputs read as zero, results
 flush), and torch keeps them; ftz() flushes explicitly where the port
-must compute as XLA does: the gathered inputs, every elementwise product
-and each reduction's result.  On the CPU, row_scores (estimate) also
-flushes its reduction's partial sums in XLA's CPU order (ftz_sum) for K
-up to 32; the other reductions, and every reduction on the card (torch's
-CUDA sum has its own tree order), flush only their result, so a partial
-sum that falls into the subnormal range can still differ in its last
-bits there.
+must compute as XLA does.  On the CPU the gather-dots (row_scores for
+the estimate, batch_scores for classify, sample_scores) sum as XLA's CPU
+code does, in its order and with its fused multiply-adds (xla_dot_rows),
+so they are bitwise the JAX package's.  On the card each is one torch
+CUDA sum of the flushed products with its result flushed: torch's CUDA
+reduction has its own order, and the card is held to the tolerance its
+tests state.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,72 +40,163 @@ def ftz(x: torch.Tensor) -> torch.Tensor:
 def batch_scores(w: torch.Tensor, indices: torch.Tensor,
                  values: torch.Tensor) -> torch.Tensor:
     """w: [L, D]; indices/values: [B, K] -> [B, L].  Padding entries
-    (value 0) contribute nothing.  Subnormals flushed (ftz)."""
-    g = ftz(w[:, indices])                     # [L, B, K]
-    return ftz(ftz(g * ftz(values)).sum(dim=-1).T)
+    (value 0) contribute nothing.  On the CPU XLA's order of the einsum
+    (xla_dot_rows: "dot1" at B 1, "gemv" above); on the card one torch sum,
+    subnormals flushed (ftz)."""
+    g = w[:, indices]                          # [L, B, K]
+    if w.device.type == "cpu":
+        form = "dot1" if indices.shape[0] == 1 else "gemv"
+        return xla_dot_rows(g, values, form).T
+    return ftz(ftz(ftz(g) * ftz(values)).sum(dim=-1).T)
 
 
-# below this magnitude a nonzero term can leave a partial sum subnormal:
-# every float32 of at least 2^-103 is a multiple of 2^-126, the smallest
-# normal, and so is every rounded partial sum of such terms
-_PARTIAL_SAFE = 2.0 ** -103
+def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """float32 a * b + c with one rounding, as x86's vfmadd gives it (and
+    CUDA's fmaf).  The product is exact in float64; the sum is rounded to
+    odd there (TwoSum's error decides), so the one rounding to float32 is
+    the only one that counts."""
+    p = a.double() * b.double()
+    cd = c.double() if isinstance(c, torch.Tensor) else float(c)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    odd = (s.view(torch.int64) & 1) == 1
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & ~odd, torch.nextafter(s, toward), s)
+    return s.float()
 
 
-def _seq_sum(p: torch.Tensor) -> torch.Tensor:
-    """p.sum(-1) in k order from +0, every partial sum flushed."""
-    acc = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
-    for j in range(p.shape[-1]):
-        acc = ftz(acc + p[..., j])
+# XLA's CPU code for a row of K products (K the last axis), read off its
+# dumps (--xla_dump_to, objdump -d of the object files: LLVM fuses a
+# multiply into the add that takes it where the multiply has no other
+# use).  Each form names the JAX expression that compiles to it:
+#   "sum"   jnp.sum(a * b, -1): the regression estimate (row_scores) and
+#           anomaly's _chunk_dots.  K <= 16: a chain of fused multiply-
+#           adds in k order from +0; K 32: 8 such chains (k mod 8), then
+#           a halving tree; K above 32, a multiple of 32: XLA's tree
+#           rewrite, windows of 32 products (each rounded, then added in
+#           k order from +0) until at most 32 sums are left, then those
+#           in order from +0;
+#   "dot1"  the dot of one datum (classify at B 1, sample_scores):
+#           K <= 16 and K 32 as "sum"; K above 32, a multiple of 32: 32
+#           chains (k mod 32) of fused multiply-adds from +0, then the
+#           four vectors of 8 added as v0 + v1, then + v2, then + v3,
+#           then a halving tree;
+#   "gemv"  a batched dot of B > 1 datums (classify's einsum): one fused
+#           chain in k order;
+#   "einsum" jnp.einsum("rk,rk->r"), _fused_dense_query's elemental dot:
+#           k order, starting from the first product, the first 8
+#           products rounded and added, the rest fused.
+# A "sum" or "einsum" zero keeps the last step's sign, as XLA's code
+# gives it: a fused step whose exact result is a negative subnormal
+# flushes to -0 (a row of tiny negative products at K <= 32), and -0
+# products from the +0 start give +0.  A zero result of "dot1" and
+# "gemv" is +0, as the einsum's own program gives it (the jitted reads
+# keep the fused step's -0 there, and a batched dot keeps -0 where every
+# product is exactly -0: ROADMAP Queue 3 item 1).
+# Every input is read with DAZ and every partial result flushed (ftz).
+XLA_DOT_FORMS = ("sum", "dot1", "gemv", "einsum")
+
+
+def _chain(a, b, acc, fused: bool):
+    for j in range(a.shape[-1]):
+        acc = ftz(fma(a[..., j], b[..., j], acc) if fused
+                  else acc + ftz(a[..., j] * b[..., j]))
     return acc
 
 
-def ftz_sum(p: torch.Tensor) -> torch.Tensor:
-    """p.sum(-1) of flushed terms as XLA's CPU code reduces a row of K
-    float32 terms under flush-to-zero, every partial sum flushed:
-    sequentially in k from +0 for K <= 16; in 8 lanes (k mod 8) from +0,
-    then a halving tree over the lanes, for K = 32; above 32, where XLA
-    rewrites the reduce as a tree, in windows of 32 (each in k order from
-    +0) until at most 32 sums are left, then those in order from +0, for
-    K a multiple of 32 (every converter width is).  tests/
-    test_torch_partial_sums.py pins the three.  A partial sum can only be
-    subnormal where some nonzero term lies below 2^-103, so otherwise,
-    and for a K above 32 that is no multiple of 32, it is one sum with
-    its result flushed.  So is every sum of a tensor on the card: the
-    check would read a bool back on the estimate's path, and torch's CUDA
-    reduction does not sum in XLA's CPU order anyway."""
-    k = p.shape[-1]
-    if p.device.type != "cpu" or (k > 32 and k % 32) or not bool(
-            ((p != 0) & (p.abs() < _PARTIAL_SAFE)).any()):
-        return ftz(p.sum(dim=-1))
-    if k <= 16:
-        return _seq_sum(p)
-    if k > 32:
-        while p.shape[-1] > 32:
-            n = p.shape[-1]
-            p = _seq_sum(p.reshape(*p.shape[:-1], n // 32, 32))
-        return _seq_sum(p)
-    lanes = p.reshape(*p.shape[:-1], k // 8, 8)
-    acc = torch.zeros(lanes.shape[:-2] + (8,), dtype=p.dtype,
-                      device=p.device)
-    for j in range(k // 8):
-        acc = ftz(acc + lanes[..., j, :])
+def _lanes(a, b, n: int):
+    """n fused chains (k mod n) from +0 -> [..., n]."""
+    k = a.shape[-1]
+    aa = a.reshape(*a.shape[:-1], k // n, n)
+    bb = b.reshape(*b.shape[:-1], k // n, n)
+    acc = torch.zeros(aa.shape[:-2] + (n,), dtype=torch.float32,
+                      device=a.device)
+    for j in range(k // n):
+        acc = ftz(fma(aa[..., j, :], bb[..., j, :], acc))
+    return acc
+
+
+def _halve(acc):
     while acc.shape[-1] > 1:
         h = acc.shape[-1] // 2
         acc = ftz(acc[..., :h] + acc[..., h:])
     return acc[..., 0]
 
 
+def _in_order(parts):
+    acc = torch.zeros(parts.shape[:-1], dtype=torch.float32,
+                      device=parts.device)
+    for j in range(parts.shape[-1]):
+        acc = ftz(acc + parts[..., j])
+    return acc
+
+
+def xla_dot_rows(a: torch.Tensor, b: torch.Tensor,
+                 form: str = "sum") -> torch.Tensor:
+    """sum_k a[..., k] * b[..., k] of float32 tensors as XLA's CPU code
+    computes the JAX expression of `form` (XLA_DOT_FORMS above), bit for
+    bit at every K of "gemv" and "einsum" and at K <= 16 or a multiple of
+    32 of the others; elsewhere one torch sum of the flushed products,
+    its result flushed.  An emulation in float64 steps,
+    one small op a column: the reads call it for CPU tensors only (the
+    card's kernels and sums have their own), and it gives the same bits
+    on the card, where the plain versions of K4 run it."""
+    a, b = torch.broadcast_tensors(ftz(a.float()), ftz(b.float()))
+    k = a.shape[-1]
+    zero = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    if k == 0:
+        return zero
+    if form == "einsum":
+        first = min(k, 8)
+        acc = _chain(a[..., 1:first], b[..., 1:first],
+                     ftz(a[..., 0] * b[..., 0]), fused=False)
+        return _chain(a[..., first:], b[..., first:], acc, fused=True)
+    if form not in XLA_DOT_FORMS:
+        raise ValueError(f"unknown dot form {form!r}")
+    out = _dot_rows(a, b, form, zero)
+    return out if form == "sum" else out + 0.0
+
+
+def _dot_rows(a, b, form: str, zero):
+    k = a.shape[-1]
+    if form == "gemv" or k <= 16:
+        return _chain(a, b, zero, fused=True)
+    if k % 32:
+        return ftz(ftz(a * b).sum(-1))
+    if k == 32:
+        return _halve(_lanes(a, b, 8))
+    if form == "dot1":
+        v = _lanes(a, b, 32)
+        s = ftz(v[..., 8:16] + v[..., :8])
+        s = ftz(v[..., 16:24] + s)
+        return _halve(ftz(v[..., 24:] + s))
+    p = ftz(a * b)
+    while p.shape[-1] > 32:
+        n = p.shape[-1]
+        p = _in_order(p.reshape(*p.shape[:-1], n // 32, 32))
+    return _in_order(p)
+
+
 def row_scores(w: torch.Tensor, indices: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
-    """w: [D]; indices/values: [B, K] -> [B].  Subnormals flushed, on the
-    CPU the reduction's partial sums too (ftz_sum)."""
-    return ftz_sum(ftz(ftz(w[indices]) * ftz(values)))
+    """w: [D]; indices/values: [B, K] -> [B].  On the CPU bitwise XLA's
+    jnp.sum(w[indices] * values, -1) (xla_dot_rows); on the card one torch
+    CUDA sum of the flushed products, its result flushed (torch's CUDA
+    reduction has its own tree order, so the card is held to the stated
+    tolerance, not to the bits)."""
+    if w.device.type == "cpu":
+        return xla_dot_rows(w[indices], values)
+    return ftz(ftz(ftz(w[indices]) * ftz(values)).sum(dim=-1))
 
 
 def sample_scores(w: torch.Tensor, idx: torch.Tensor,
                   val: torch.Tensor) -> torch.Tensor:
-    """w: [L, D]; idx/val: [K] -> [L]  (single-sample gather-dot).
-    Subnormals flushed."""
+    """w: [L, D]; idx/val: [K] -> [L]  (single-sample gather-dot).  On
+    the CPU XLA's order of one datum's dot (xla_dot_rows "dot1"); on the
+    card one torch sum, subnormals flushed."""
+    if w.device.type == "cpu":
+        return xla_dot_rows(w[:, idx], val, "dot1")
     return ftz(ftz(ftz(w[:, idx]) * ftz(val)).sum(dim=-1))
 
 

@@ -1038,3 +1038,203 @@ def test_nn_driver_on_the_card_matches_the_cpu(dev, method):
     pairs = [(q, 5) for q in data[285:299]]
     a, b = (d.neighbor_row_from_datum_many(pairs) for d in drivers)
     assert a == b
+
+
+# ---------------------------------------------------------------------------
+# K4 (dense_topk, dense_dots), K5 (sig_counts) and K3 with a validity mask:
+# bitwise their plain versions; the recommender, anomaly and NN classifier
+# on the card answer as on the CPU
+# ---------------------------------------------------------------------------
+
+def _sparse(rows, kr, d, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, (rows, kr)).astype(np.int32)
+    val = rng.standard_normal((rows, kr)).astype(np.float32)
+    nz = rng.integers(1, kr + 1, rows)
+    for r in range(rows):
+        idx[r, nz[r]:] = 0
+        val[r, nz[r]:] = 0.0
+    norms = np.sqrt((val * val).sum(1)).astype(np.float32)
+    return idx, val, norms
+
+
+@pytest.mark.parametrize("kr,d", [(16, 4096), (32, 4096), (64, 4096),
+                                  (128, 1 << 16), (2048, 4096)])
+@pytest.mark.parametrize("c", [1, 8])
+def test_dense_dots_kernel_is_bitwise_its_plain_version(dev, kr, d, c):
+    idx, val, _ = _sparse(1500, kr, d, kr + c)
+    q = np.random.default_rng(c).standard_normal((c, d)).astype(np.float32)
+    q[:, ::3] = 0.0
+    cpu = [torch.from_numpy(x) for x in (idx, val, q)]
+    n0 = tl.dense_dots.launches
+    got = tl.dense_dots(*(x.to(dev) for x in cpu)).cpu()
+    assert tl.dense_dots.launches == n0 + 1
+    want = tl.dense_dots_ref(*cpu)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kr", [16, 32, 64])
+def test_dense_dots_keeps_the_flushed_zero_s_sign(dev, kr):
+    """Rows whose products are all tiny negative (a fused step's exact
+    result a negative subnormal: -0 at Kr <= 32), all -0, or tiny of both
+    signs, beside normal rows: bitwise the plain version."""
+    rng = np.random.default_rng(700 + kr)
+    d = 4096
+    idx, val, _ = _sparse(64, kr, d, kr)
+    q = rng.standard_normal((1, d)).astype(np.float32)
+    q[0, :16] = np.float32(1e-22)
+    q[0, 16:32] = 0.0
+    idx[:3] = rng.integers(0, 16, (3, kr))
+    val[0] = -rng.uniform(1e-25, 1e-20, kr)
+    val[1] = -1.0
+    idx[1] = rng.integers(16, 32, kr)
+    val[2] = rng.choice([-1, 1], kr) * rng.uniform(1e-25, 1e-20, kr)
+    cpu = [torch.from_numpy(x) for x in (idx, val, q)]
+    got = tl.dense_dots(*(x.to(dev) for x in cpu)).cpu()
+    want = tl.dense_dots_ref(*cpu)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (want[0, 0].view(torch.int32) == -2 ** 31) == (kr <= 32)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+@pytest.mark.parametrize("kr,d", [(32, 4096), (64, 1 << 16), (128, 4096)])
+@pytest.mark.parametrize("kb", [8, 32, 128, 1024, 2048])
+def test_dense_topk_kernel_is_bitwise_its_plain_version(dev, metric, kr, d,
+                                                        kb):
+    rows = 3000
+    idx, val, norms = _sparse(rows, kr, d, kr)
+    rng = np.random.default_rng(kb)
+    q = rng.standard_normal((3, d)).astype(np.float32)
+    q[:, rng.random(d) < 0.5] = 0.0
+    qn = np.sqrt((q * q).sum(1)).astype(np.float32)
+    mask = rng.random(rows) < 0.6
+    cpu = [torch.from_numpy(x) for x in (idx, val, norms, mask, q, qn)]
+    g = [x.to(dev) for x in cpu]
+    for n_valid, m in ((rows, True), (rows - 50, False), (kb // 2, True)):
+        n0 = tl.dense_topk.launches
+        got = tl.dense_topk(metric, g[0], g[1], g[2], n_valid,
+                            g[3] if m else None, g[4], g[5], kb).cpu()
+        assert tl.dense_topk.launches == n0 + 1
+        want = tl.dense_topk_ref(metric, cpu[0], cpu[1], cpu[2], n_valid,
+                                 cpu[3] if m else None, cpu[4], cpu[5], kb)
+        assert torch.equal(got, want), (n_valid, m)
+
+
+@pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])
+@pytest.mark.parametrize("h", [64, 128, 512])
+def test_sig_counts_kernel_is_bitwise_its_plain_version(dev, kind, h):
+    rng = np.random.default_rng(h)
+    w, rows = tl.sig_width(kind, h), 5000
+    tab = rng.integers(0, 2 ** 32, (rows, w), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "minhash":
+        tab %= 5
+    qs = tab[rng.integers(0, rows, 7)].copy()
+    qs[:, 0] ^= 3
+    norms = (rng.random(rows) * 4).astype(np.float32)
+    qn = (rng.random(7) * 4).astype(np.float32)
+    cpu = [torch.from_numpy(x) for x in (tab.view(np.int32),
+                                         qs.view(np.int32), norms, qn)]
+    n0 = tl.sig_counts.launches
+    got = tl.sig_counts(kind, *(x.to(dev) for x in cpu), h).cpu()
+    assert tl.sig_counts.launches == n0 + 1
+    want = tl.sig_counts_ref(kind, *cpu, h)
+    assert got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])
+@pytest.mark.parametrize("kb", [8, 128, 2048])
+@pytest.mark.parametrize("rows", [5000, 200000])
+def test_masked_sig_topk_is_bitwise_its_plain_version(dev, kind, kb, rows):
+    h = 64
+    rng = np.random.default_rng(rows + kb)
+    w = tl.sig_width(kind, h)
+    tab = rng.integers(0, 2 ** 32, (rows, w), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "minhash":
+        tab %= 7
+    qs = tab[rng.integers(0, rows, 5)].copy()
+    norms = (rng.random(rows) * 3).astype(np.float32)
+    qn = (rng.random(5) * 3).astype(np.float32)
+    cpu = [torch.from_numpy(x) for x in (tab.view(np.int32), norms,
+                                         qs.view(np.int32), qn)]
+    g = [x.to(dev) for x in cpu]
+    for keep, n_valid, dtype in ((0.6, rows, torch.bool),
+                                 (0.001, rows - 100, torch.uint8)):
+        mask = torch.from_numpy(rng.random(rows) < keep).to(dtype)
+        got = tl.sig_topk(kind, g[0], g[1], n_valid, q_sigs=g[2],
+                          qnorms=g[3], hash_num=h, kb=kb,
+                          mask=mask.to(dev)).cpu()
+        want = tl.sig_topk_ref(kind, cpu[0], cpu[1], n_valid, cpu[2],
+                               cpu[3], h, kb, mask)
+        assert torch.equal(got, want), (keep, n_valid)
+
+
+@pytest.mark.parametrize("method", ["inverted_index", "inverted_index_euclid",
+                                    "lsh", "euclid_lsh"])
+def test_recommender_on_the_card_matches_the_cpu(dev, method):
+    from jubatus_tpu_torch.models.recommender import RecommenderDriver
+    cfg = {"method": method, "parameter": {"hash_num": 64},
+           "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                         "hash_max_size": 4096}}
+    drivers = [RecommenderDriver(cfg, device=d) for d in (dev, "cpu")]
+    rng = np.random.default_rng(6)
+    data = [Datum([], [(f"f{j}", float(rng.standard_normal()))
+                       for j in rng.choice(512, int(rng.integers(2, 60)),
+                                           replace=False)])
+            for _ in range(300)]
+    for d in drivers:
+        for i, x in enumerate(data[:260]):
+            d.update_row(f"r{i % 200}", x)
+            if i % 11 == 5:
+                d.clear_row(f"r{i - 3}")
+    for q in data[260:275]:
+        a, b = (d.similar_row_from_datum(q, 12) for d in drivers)
+        assert a == b
+    a, b = (d.similar_row_from_datum_many([(q, 4) for q in data[280:290]])
+            for d in drivers)
+    assert a == b
+
+
+@pytest.mark.parametrize("nn_method", ["inverted_index_euclid", "euclid_lsh",
+                                       "minhash"])
+def test_anomaly_on_the_card_matches_the_cpu(dev, nn_method):
+    from jubatus_tpu_torch.models.anomaly import AnomalyDriver
+    cfg = {"method": "lof",
+           "parameter": {"nearest_neighbor_num": 5, "method": nn_method,
+                         "parameter": {"hash_num": 64}},
+           "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                         "hash_max_size": 4096}}
+    drivers = [AnomalyDriver(cfg, device=d) for d in (dev, "cpu")]
+    rng = np.random.default_rng(7)
+    data = [Datum([], [(f"f{j}", float(rng.standard_normal()))
+                       for j in rng.choice(300, 8, replace=False)])
+            for _ in range(120)]
+    for i, x in enumerate(data[:100]):
+        a, b = (d.add(f"a{i}", x) for d in drivers)
+        assert a == b
+    assert drivers[0].calc_score_many(data[100:]) == \
+        drivers[1].calc_score_many(data[100:])
+
+
+def test_nn_classifier_on_the_card_matches_the_cpu(dev, monkeypatch):
+    import uuid
+    cfg = {"method": "NN",
+           "parameter": {"method": "euclid_lsh",
+                         "parameter": {"hash_num": 64}},
+           "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                         "hash_max_size": 4096}}
+    drivers = [tc.NNClassifierDriver(cfg, device=d) for d in (dev, "cpu")]
+    rng = np.random.default_rng(8)
+    data = [(f"l{i % 3}", Datum([], [(f"f{j}", float(rng.standard_normal()))
+                                     for j in rng.choice(300, 10,
+                                                         replace=False)]))
+            for i in range(300)]
+    for d in drivers:
+        seq = iter(range(10 ** 6))
+        monkeypatch.setattr(uuid, "uuid4",
+                            lambda: uuid.UUID(int=next(seq) + 1))
+        d.train(data[:280])
+    a, b = (d.classify([x for _, x in data[280:]]) for d in drivers)
+    assert a == b

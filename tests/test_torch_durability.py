@@ -564,15 +564,17 @@ def test_journal_dir_is_exclusively_locked(tmp_path):
 
 @pytest.mark.parametrize("record, message", [
     ({"k": "u", "m": "no_such_method", "a": []}, "no_such_method"),
-    ({"k": "drv", "m": "add", "a": ["1", {}]}, "Queue 1 item 5"),
+    ({"k": "drv", "m": "add", "a": ["1", {}]}, "has no such mutation"),
     ({"k": "cmix", "cr": 1}, "Queue 1 item 4"),
 ], ids=["unknown_method", "drv", "cmix"])
 def test_errored_replay_pins_the_floor_and_suspends_snapshots(
         tmp_path, caplog, record, message):
     """A record the port cannot replay (a JAX-only kind names the ROADMAP
-    item that brings it) counts as an error: the truncation floor pins
-    it, no snapshot publishes (one would mark it covered), and a
-    full-model overwrite (checkpoint_after_restore) lifts both."""
+    item that brings it; a driver mutation the service's driver lacks,
+    here anomaly's add on a classifier, says so) counts as an error: the
+    truncation floor pins it, no snapshot publishes (one would mark it
+    covered), and a full-model overwrite (checkpoint_after_restore)
+    lifts both."""
     srv = make_server("port", "classifier", tmp_path / "dur")
     train_u("port", srv, "classifier", [("A", "a1", 1.0)])
     with srv.model_lock.write():

@@ -531,8 +531,8 @@ def test_sweep_refuses_an_unknown_kind():
 
 
 def test_sweep_takes_a_row_count_only():
-    """The store's rows are a prefix, so validity is a count; a mask (a
-    table with holes) is refused until an engine frees rows."""
+    """n_valid is a row count; a validity mask (a table with holes) goes
+    in the mask argument, never in the count's place."""
     table = torch.zeros((4, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="row count"):
         tlsh.sig_topk("lsh", table, torch.zeros(4),
@@ -548,3 +548,100 @@ def test_fused_query_without_norms():
     got = tlsh.fused_sig_query("lsh", TKEY, idx[:1], val[:1], table, None,
                                40, 64, 0.0, 8)
     assert_same_top("lsh", want, got)
+
+
+# ---------------------------------------------------------------------------
+# the exact sweeps (K4's plain versions) and the all-rows counts (K5's)
+# against the JAX functions, at Kr 32, 64 and 128, with mask holes
+# ---------------------------------------------------------------------------
+
+def sparse_table(rows, kr, d, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, (rows, kr)).astype(np.int32)
+    val = rng.standard_normal((rows, kr)).astype(np.float32)
+    nz = rng.integers(1, kr + 1, rows)
+    for r in range(rows):
+        idx[r, nz[r]:] = 0
+        val[r, nz[r]:] = 0.0
+    norms = np.sqrt((val * val).sum(1)).astype(np.float32)
+    return idx, val, norms
+
+
+@pytest.mark.parametrize("kr", [32, 64, 128])
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+def test_fused_dense_query_is_bitwise_jax(kr, metric):
+    d, rows = 1024, 512
+    idx, val, norms = sparse_table(rows, kr, d, kr)
+    rng = np.random.default_rng(kr + 1)
+    mask = rng.random(rows) < 0.7
+    for q_seed, k in ((1, 5), (2, 60), (3, 400)):
+        q = np.random.default_rng(q_seed).standard_normal(d).astype(
+            np.float32)
+        q[np.random.default_rng(q_seed + 9).random(d) < 0.4] = 0.0
+        qn = float(np.sqrt((q * q).sum()))
+        for valid, tmask in ((jnp.asarray(mask), torch.from_numpy(mask)),
+                             (np.int32(rows - 30), None)):
+            want = jlsh.fused_dense_query(metric, idx, val, norms, valid, q,
+                                          qn, k)
+            got = tlsh.fused_dense_query(
+                metric, torch.from_numpy(idx), torch.from_numpy(val),
+                torch.from_numpy(norms), rows if tmask is not None
+                else rows - 30, tmask, q, qn, k)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1].view(np.uint32),
+                                          want[1].view(np.uint32))
+
+
+@pytest.mark.parametrize("kr", [32, 64, 128, 1024])
+def test_dense_dots_are_bitwise_chunk_dots(kr):
+    from jubatus_tpu.models.anomaly import _chunk_dots
+    d = 1024
+    idx, val, _ = sparse_table(256, kr, d, 100 + kr)
+    q = np.random.default_rng(kr).standard_normal((8, d)).astype(np.float32)
+    want = np.asarray(_chunk_dots(jnp.asarray(idx), jnp.asarray(val),
+                                  jnp.asarray(q)))
+    got = tlsh.dense_dots(torch.from_numpy(idx), torch.from_numpy(val),
+                          torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])
+@pytest.mark.parametrize("hash_num", [64, 128])
+def test_table_similarities_batch_is_bitwise_jax(kind, hash_num):
+    """Over a table of 512 rows (XLA's scalar tail of a row count no
+    multiple of 16 fuses euclid_lsh's estimate in another order: the
+    stores' capacities are multiples of 128)."""
+    rng = np.random.default_rng(hash_num)
+    w, rows = tlsh.sig_width(kind, hash_num), 512
+    tab = rng.integers(0, 2 ** 32, (rows, w), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "minhash":
+        tab %= 5
+    qs = tab[rng.integers(0, rows, 6)].copy()
+    qs[:, 0] ^= 9
+    norms = (rng.random(rows) * 4).astype(np.float32)
+    qn = (rng.random(6) * 4).astype(np.float32)
+    want = jlsh.table_similarities_batch(kind, jnp.asarray(tab), qs,
+                                         hash_num, jnp.asarray(norms), qn)
+    got = tlsh.table_similarities_batch(
+        kind, torch.from_numpy(tab.view(np.int32)), qs, hash_num,
+        torch.from_numpy(norms), qn)
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+
+
+def test_euclid_cos_tables_are_xla_s():
+    """The euclid cosines of K3's sweep and of _euclid_b, as XLA computes
+    them (the C library's cosf), at H 128 and 512 where the correctly
+    rounded cosine differs."""
+    for h in (128, 512):
+        c = jnp.arange(32 * tlsh.words_for(h) + 1, dtype=jnp.int32)
+        want = np.asarray(jax.jit(
+            lambda d, hh: jnp.cos(jnp.pi * d.astype(jnp.float32) / hh))(
+                c, np.float32(h)))
+        np.testing.assert_array_equal(tlsh.euclid_cos_table(h).view(
+            np.uint32), want.view(np.uint32))
+        want = np.asarray(jax.jit(
+            lambda d: jnp.cos(jnp.pi * d.astype(jnp.float32) / h))(c))
+        np.testing.assert_array_equal(
+            tlsh.count_table("euclid_lsh", h).view(np.uint32),
+            want.view(np.uint32))

@@ -3,11 +3,14 @@
 estimate of a datum whose feature products are [1.5e-38, -1.4e-38,
 2e-38] is 2e-38 (1.5e-38 - 1.4e-38 = 1e-39 flushes to 0 before 2e-38 is
 added), where an unflushed sum gives 2.1e-38.  The port's estimate
-(ops/sparse.row_scores through ftz_sum) reduces as XLA does and must be
+(ops/sparse.row_scores through xla_dot_rows) reduces as XLA does and must be
 bitwise JAX's, at K 16 (XLA sums in k order), K 32 (8 lanes, then a
 halving tree) and K 64 and 128 (XLA's tree rewrite: windows of 32 in k
 order, then their sums in order), on the repro and on random rows of
-terms near the smallest normal; ftz_sum itself against those orders."""
+terms near the smallest normal.  The same reads over seeded standard-
+normal rows, where XLA's fused multiply-adds decide the bits: the
+estimate, classify's scores at one datum and at eight, sample_scores and
+the einsum of the exact sweep (ops/sparse.xla_dot_rows)."""
 
 import jax
 import jax.numpy as jnp
@@ -84,8 +87,123 @@ def test_row_scores_flush_partial_sums_as_xla(k):
         assert got.view(np.uint32) == _xla_row(prods).view(np.uint32), prods
 
 
-def test_ftz_sum_takes_one_sum_where_no_partial_can_be_subnormal():
-    p = torch.tensor([[1.0, -1.0, 2.0 ** -100, 3.0]])
-    assert torch.equal(tsparse.ftz_sum(p), tsparse.ftz(p.sum(-1)))
-    zeros = torch.tensor([[-0.0, -0.0]])
-    assert tsparse.ftz_sum(zeros).item() == 0.0
+def _bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.uint32)
+
+
+def _zero_rows(rng, n, k):
+    """Rows a, b [n >= 6, k] whose products are all -0 (a 0 against a
+    negative value, a -0 against a positive one), all flush to zero
+    (subnormal products, all negative or of both signs), a mix of -0 and
+    tiny negative products, and normal rows after them."""
+    a = rng.standard_normal((n, k)).astype(np.float32)
+    b = rng.standard_normal((n, k)).astype(np.float32)
+    a[0], b[0] = 0.0, -1.0
+    a[1], b[1] = -0.0, np.abs(b[1])
+    a[2] = rng.uniform(1e-25, 1e-20, k).astype(np.float32)
+    b[2] = -rng.uniform(1e-25, 1e-20, k).astype(np.float32)
+    a[3] = rng.uniform(1e-25, 1e-20, k).astype(np.float32)
+    b[3] = (rng.choice([-1, 1], k) * rng.uniform(1e-25, 1e-20, k)).astype(
+        np.float32)
+    a[4, ::2], b[4, ::2] = 0.0, -1.0
+    a[4, 1::2], b[4, 1::2] = np.float32(1e-22), np.float32(-1e-22)
+    return a, b
+
+
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_sum_of_products_that_all_flush_keeps_xla_s_zero(k):
+    """The "sum" form against the JAX functions it stands for, jitted (the
+    estimate's jnp.sum(w[idx] * v, -1) and anomaly's _chunk_dots), on rows
+    whose products are all -0 or all flush to zero: a fused step whose
+    exact result is a negative subnormal flushes to -0 (K 16 and 32), the
+    windows of K 64 sum rounded products from +0, and -0 products from a
+    +0 start give +0."""
+    from jubatus_tpu.models.anomaly import _chunk_dots
+    from jubatus_tpu.models.regression import _estimate
+    n = 8
+    a, b = _zero_rows(np.random.default_rng(500 + k), n, k)
+    w = a.reshape(-1)
+    idx = np.arange(n * k, dtype=np.int32).reshape(n, k)
+    got = tsparse.xla_dot_rows(torch.from_numpy(a), torch.from_numpy(b),
+                               "sum").numpy()
+    np.testing.assert_array_equal(
+        _bits(got), _bits(np.asarray(_estimate(w, idx, b))))
+    np.testing.assert_array_equal(
+        _bits(got), _bits(np.asarray(_chunk_dots(idx, b, w[None]))[0]))
+    assert (_bits(got)[:2] == 0).all()
+    assert (_bits(got)[2] == 0x80000000) == (k <= 32)
+
+
+# the estimate over seeded standard-normal rows, where XLA's fused
+# multiply-adds and its order decide the last bits of most rows (a torch
+# sum of the products differs from _estimate on 65-73% of them)
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+def test_estimate_is_bitwise_jax_on_normal_rows(k):
+    from jubatus_tpu.models.regression import _estimate
+    rng = np.random.default_rng(100 + k)
+    d, n = 4096, 1024
+    w = rng.standard_normal(d).astype(np.float32)
+    idx = rng.integers(0, d, (n, k)).astype(np.int32)
+    val = rng.standard_normal((n, k)).astype(np.float32)
+    want = np.asarray(_estimate(jnp.asarray(w), jnp.asarray(idx),
+                                jnp.asarray(val)))
+    got = tsparse.row_scores(torch.from_numpy(w), torch.from_numpy(idx).long(),
+                             torch.from_numpy(val)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("b", [1, 8])
+def test_classify_scores_are_bitwise_jax_on_normal_rows(b, k):
+    """batch_scores against the JAX package's jitted _classify_scores
+    (all labels active): XLA's one-datum dot at B 1, its k-order gemv
+    above."""
+    from jubatus_tpu.models.classifier import _classify_scores
+    rng = np.random.default_rng(200 + k + b)
+    d, nl = 4096, 16
+    w = rng.standard_normal((nl, d)).astype(np.float32)
+    for _ in range(4):
+        idx = rng.integers(0, d, (b, k)).astype(np.int32)
+        val = rng.standard_normal((b, k)).astype(np.float32)
+        want = np.asarray(_classify_scores(
+            jnp.asarray(w), jnp.ones(nl, bool), jnp.asarray(idx),
+            jnp.asarray(val)))
+        got = tsparse.batch_scores(torch.from_numpy(w),
+                                   torch.from_numpy(idx).long(),
+                                   torch.from_numpy(val)).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+def test_sample_scores_are_bitwise_jax_on_normal_rows(k):
+    rng = np.random.default_rng(300 + k)
+    d, nl = 4096, 64
+    w = rng.standard_normal((nl, d)).astype(np.float32)
+    fn = jax.jit(jsparse.sample_scores)
+    for _ in range(8):
+        idx = rng.integers(0, d, k).astype(np.int32)
+        val = rng.standard_normal(k).astype(np.float32)
+        want = np.asarray(fn(jnp.asarray(w), jnp.asarray(idx),
+                             jnp.asarray(val)))
+        got = tsparse.sample_scores(torch.from_numpy(w),
+                                    torch.from_numpy(idx).long(),
+                                    torch.from_numpy(val)).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+def test_einsum_form_is_xla_s_elemental_dot(k):
+    """The "einsum" form against jnp.einsum("rk,rk->r") jitted, the dot of
+    _fused_dense_query: k order from the first product, the first 8
+    products unfused; a row whose products are all -0 sums to -0."""
+    rng = np.random.default_rng(400 + k)
+    a = rng.standard_normal((512, k)).astype(np.float32)
+    b = rng.standard_normal((512, k)).astype(np.float32)
+    a[7] = 0.0
+    b[7] = -1.0
+    want = np.asarray(jax.jit(lambda x, y: jnp.einsum("rk,rk->r", x, y))(
+        jnp.asarray(a), jnp.asarray(b)))
+    got = tsparse.xla_dot_rows(torch.from_numpy(a), torch.from_numpy(b),
+                               "einsum").numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert _bits(got)[7] == 0x80000000

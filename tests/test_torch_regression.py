@@ -33,7 +33,6 @@ from jubatus_tpu.mix import codec as jcodec
 from jubatus_tpu.mix.linear_mixer import encode_wire_diff as jencode
 from jubatus_tpu.models import classifier as jc
 from jubatus_tpu.models import regression as jr
-from jubatus_tpu.ops import sparse as jsparse
 from jubatus_tpu_torch import native
 from jubatus_tpu_torch.framework import save_load as tsave
 from jubatus_tpu_torch.fv import Datum as TDatum
@@ -176,15 +175,19 @@ def test_subnormal_datums_match_jax_bitwise(method, vals, c, fn):
 
 def test_sparse_reads_flush_like_jax():
     """row_scores (estimate) reads a subnormal value or weight as 0 and
-    flushes a subnormal product, as XLA does."""
+    flushes a subnormal product, as XLA does in the jitted _estimate the
+    JAX driver runs: there the last product fuses into the sum, and its
+    exact -9e-40 flushes to -0 (the op-by-op ops.sparse.row_scores rounds the
+    product apart and gives +0)."""
+    from jubatus_tpu.models.regression import _estimate
     w = np.array([0.9, 1e-39, 2.0, -3e-20], np.float32)
     idx = np.array([[0, 1, 2, 3], [1, 0, 0, 0], [3, 3, 0, 0]], np.int32)
     val = np.array([[1e-39, 5.0, 1e-39, 3e-20], [5.0, 0, 0, 0],
                     [2e-20, 1.0, 0, 0]], np.float32)
     got = tsparse.row_scores(torch.from_numpy(w), torch.from_numpy(idx)
                              .long(), torch.from_numpy(val)).numpy()
-    want = np.asarray(jsparse.row_scores(jnp.asarray(w), jnp.asarray(idx),
-                                         jnp.asarray(val)))
+    want = np.asarray(_estimate(jnp.asarray(w), jnp.asarray(idx),
+                                jnp.asarray(val)))
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     assert not got[:2].any()
 
@@ -348,6 +351,12 @@ def test_driver_matches_jax(method, c):
     np.testing.assert_allclose(td.estimate(qt), jd.estimate(qj), rtol=RTOL,
                                atol=ATOL)
     assert td.estimate([]) == jd.estimate([]) == []
+    # the read itself is bitwise the JAX package's (ops/sparse.py
+    # xla_dot_rows): on the JAX driver's weights the estimates are equal
+    td.w = torch.from_numpy(np.asarray(jd.w).copy())
+    np.testing.assert_array_equal(
+        np.float32(td.estimate(qt)).view(np.uint32),
+        np.float32(jd.estimate(qj)).view(np.uint32))
 
 
 def test_estimate_many_demuxes_like_single_calls():
@@ -563,10 +572,13 @@ def test_model_files_cross_packages():
     np.testing.assert_array_equal(np.asarray(in_j.w), td.w.numpy())
     np.testing.assert_array_equal(in_t.w.numpy(), np.asarray(jd.w))
     assert in_j.num_trained == in_t.num_trained == td.num_trained
-    np.testing.assert_allclose(in_j.estimate(qj), td.estimate(qt),
-                               rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(in_t.estimate(qt), jd.estimate(qj),
-                               rtol=RTOL, atol=ATOL)
+    # the same weights: the estimates are bitwise (ops/sparse.py
+    # xla_dot_rows sums as XLA's CPU code does)
+    bits = lambda e: np.float32(e).view(np.uint32)  # noqa: E731
+    np.testing.assert_array_equal(bits(in_j.estimate(qj)),
+                                  bits(td.estimate(qt)))
+    np.testing.assert_array_equal(bits(in_t.estimate(qt)),
+                                  bits(jd.estimate(qj)))
 
 
 def test_unpack_refuses_another_width():

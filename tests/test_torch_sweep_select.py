@@ -8,7 +8,8 @@ Covered: kb of 8, 16, 64 and 1024 (the _round_k buckets of the sizes
 asked); fewer valid rows than kb (the invalid rows fill in, the lowest
 first, as jax.lax.top_k places them) and a count of 0 (all fillers); a
 table of identical signatures (the top is pure row order); 1, 13, 64 and
-65 queries in one batch.
+65 queries in one batch; validity as a bool mask with holes (the
+recommender's store after drops), by datum and in a batch.
 
 Tolerances: lsh and minhash rows and scores bitwise; euclid_lsh scores
 within 1 ulp (the plain version's float64 steps round as XLA's fused
@@ -163,6 +164,73 @@ def test_topk_identical_signatures_is_row_order(kind, route):
             want, got = (want[0][2], want[1][2]), (got[0][2], got[1][2])
         assert_top(kind, want, got)
         np.testing.assert_array_equal(np.asarray(got[0]), np.arange(64))
+
+
+def holes(seed, n_valid_rows=None, keep=0.6):
+    """A bool validity mask of ROWS with holes (the recommender's store
+    after drops), or of only n_valid_rows rows set."""
+    rng = np.random.default_rng(seed)
+    m = rng.random(ROWS) < keep
+    if n_valid_rows is not None:
+        m[:] = False
+        m[rng.choice(ROWS, n_valid_rows, replace=False)] = True
+    return m
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kb", [8, 64, 1024])
+@pytest.mark.parametrize("case", ["holes", "fewer_than_kb", "none"])
+def test_masked_topk_by_datum_against_jax(kind, kb, case):
+    """The recommender's route: a bool mask with holes (the rows it
+    leaves out at -inf, filling in in lax.top_k's order, lowest first)."""
+    idx, val = datums(ROWS, 6)
+    sig, norms, (t_sig, t_norms) = table(kind, idx, val)
+    mask = {"holes": holes(1), "fewer_than_kb": holes(2, max(kb // 3, 1)),
+            "none": holes(3, 0)}[case]
+    q_idx, q_val = idx[11:12], val[11:12] * np.float32(-1.25)
+    qnorm = float(np.sqrt((q_val * q_val).sum()))
+    k = K_FOR_KB[kb]
+    want = jlsh.fused_sig_query(kind, JKEY, q_idx, q_val, sig, norms,
+                                jax.numpy.asarray(mask), H, qnorm, k)
+    got = tlsh.fused_sig_query(kind, TKEY, q_idx, q_val, t_sig, t_norms,
+                               ROWS, H, qnorm, k, mask=torch.from_numpy(mask))
+    assert_top(kind, want, got)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_masked_topk_batch_against_jax(kind):
+    idx, val = datums(ROWS, 7)
+    sig, norms, (t_sig, t_norms) = table(kind, idx, val)
+    mask = holes(4)
+    q_idx, q_val = datums(13, 60)
+    qnorms = np.sqrt((q_val * q_val).sum(1)).astype(np.float32)
+    want = jlsh.fused_sig_query_batch(kind, JKEY, q_idx, q_val, sig, norms,
+                                      jax.numpy.asarray(mask), H, qnorms, 30)
+    got = tlsh.fused_sig_query_batch(kind, TKEY, q_idx, q_val, t_sig,
+                                     t_norms, ROWS, H, qnorms, 30,
+                                     mask=torch.from_numpy(mask))
+    for i in range(13):
+        assert_top(kind, (want[0][i], want[1][i]), (got[0][i], got[1][i]))
+
+
+def test_a_mask_and_a_count_combine():
+    """Rows below the count that the mask keeps are valid: a count and
+    a mask give the top of their intersection."""
+    idx, val = datums(ROWS, 8)
+    _, _, (t_sig, t_norms) = table("lsh", idx, val)
+    mask = torch.from_numpy(holes(5))
+    qs = t_sig[20:23]
+    qn = t_norms[20:23]
+    both = tlsh.sig_topk("lsh", t_sig, t_norms, 700, q_sigs=qs, qnorms=qn,
+                         hash_num=H, kb=64, mask=mask)
+    inter = mask & (torch.arange(ROWS) < 700)
+    want = tlsh.sig_topk("lsh", t_sig, t_norms, ROWS, q_sigs=qs, qnorms=qn,
+                         hash_num=H, kb=64, mask=inter)
+    assert torch.equal(both, want)
+    for bad in (mask[:-1], mask.to(torch.int32)):
+        with pytest.raises(ValueError, match="mask"):
+            tlsh.sig_topk("lsh", t_sig, t_norms, ROWS, q_sigs=qs,
+                          qnorms=qn, hash_num=H, kb=8, mask=bad)
 
 
 def test_keys_to_host_decodes_as_keys_to_rows_scores():

@@ -165,10 +165,11 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 its signature kernel.  Lines `nn_service` and `nn_cluster`
  11. recommender, anomaly, NN classifier — (a) K4 dense_topk over 10^6
                 rows (Kr 32, D 4096, a mask with 1% holes, kb 16), K4
-                dense_dots at the exact LOF's sweep and at 10^6 rows, K5
-                sig_counts at the LOF table's sweep and at 10^6 rows, K3
-                with a mask over a 10^6-row lsh H 128 table: each bitwise
-                its plain version on the same card tensors, timed beside
+                dense_dots at the exact LOF's sweep, a 64-row LOF table
+                and 10^6 rows, K5 sig_counts at the LOF table's sweep
+                and at 10^6 rows, K3 with a mask over a 10^6-row lsh H
+                128 table: each bitwise its plain version on the same
+                card tensors, K4 one launch a call, timed beside
                 it, its library yardstick (torch.topk of the scores,
                 torch.sparse.mm of the table as CSR) and its bound.  (b)
                 The recommender: bench.py's lsh H 128 on a port server,
@@ -243,7 +244,7 @@ EXTRA_KEYS = ("us_per_datum", "ring", "shared_column_ms", "device_ms",
               "device_method", "call_ms", "plain_call_ms",
               "library_device_ms", "library_device_method", "library_call_ms",
               "whole_table", "plan", "cycles_per_datum", "bytes_bound_ms",
-              "in_band", "variants")
+              "in_band", "design", "variants")
 
 
 def log(*a):
@@ -3334,6 +3335,23 @@ def kernel_row(torch, fn, ref, device, plain_reps, lib=None,
             "shape": shape, "max_abs_err": err}
 
 
+# K4's design, named in the kernels line
+K4_DESIGN = ("persistent blocks; a producer warp streams tiles of 16-128 "
+             "rows into a 3-4 stage cp.async ring with mbarriers; 4 "
+             "consumer warps, a lane a row")
+
+
+def one_launch(fn, *args):
+    """fn(*args), checked on the card to launch its kernel once (the
+    wrapper's count, fn.launches)."""
+    n0 = fn.launches
+    out = fn(*args)
+    if out.device.type == "cuda" and fn.launches != n0 + 1:
+        raise AssertionError(f"{fn.__name__}: {fn.launches - n0} launches "
+                             "for one call")
+    return out
+
+
 def sparse_rows(torch, np, dev, r, kr, d, seed, nnz=16):
     """A sparse row table [r, kr] of nnz features a row (the rest
     padding) and its norms, as the stores hold them."""
@@ -3346,12 +3364,19 @@ def sparse_rows(torch, np, dev, r, kr, d, seed, nnz=16):
     return [torch.from_numpy(x).to(dev) for x in (idx, val, norms)]
 
 
+def gathered_query_bytes(torch, idx, nq):
+    """The bytes of nq dense queries that a sweep of the table idx must
+    read: the entries at its distinct indices, not the whole query."""
+    return nq * torch.unique(idx).numel() * 4
+
+
 def phase_row_kernels(torch, np, device="cuda"):
     """Phase 11a: K4 dense_topk at the exact recommender's table (10^6
     rows, Kr 32, D 4096, 1% holes in the mask, kb 16, and kb 2048 on the
     sort path), K4 dense_dots at
     the exact LOF's sweep (its table after ANOM_EXACT_ADDS adds: Kr 32, D
-    2^16, one query) and at 10^6 rows, K5 sig_counts at the LOF table's
+    2^16, one query), at a 64-row LOF table and at 10^6 rows (K4 one
+    launch a call, by the wrappers' counts), K5 sig_counts at the LOF table's
     sweep (euclid_lsh H 64, ANOM_ADDS rows, one query) and at 10^6 rows,
     and K3 with a mask at the recommender's lsh H 128 table: each bitwise
     its plain version on the same card tensors, timed beside it, beside
@@ -3371,14 +3396,16 @@ def phase_row_kernels(torch, np, device="cuda"):
     qn = torch.sqrt((q * q).sum(1))
     variants = []
     for metric in ("cosine", "euclid"):
-        got = L.dense_topk(metric, idx, val, norms, r, mask, q, qn, kb)
+        got = one_launch(L.dense_topk, metric, idx, val, norms, r, mask, q,
+                         qn, kb)
         ref = L.dense_topk_ref(metric, idx, val, norms, r, mask, q, qn, kb)
         if not torch.equal(got, ref):
             raise AssertionError(f"rows: dense_topk {metric} differs from "
                                  "its plain version")
         scores = torch.from_numpy(np.random.default_rng(1).random(
             (1, r), dtype=np.float32)).to(dev)
-        nbytes = r * kr * 8 + r * 4 + r + d * 4 + 4 + kb * 8
+        nbytes = (r * kr * 8 + r * 4 + r + gathered_query_bytes(torch, idx, 1)
+                  + 4 + kb * 8)
         row = kernel_row(
             torch,
             lambda m=metric: L.dense_topk(m, idx, val, norms, r, mask, q,
@@ -3394,14 +3421,16 @@ def phase_row_kernels(torch, np, device="cuda"):
         del scores
     # a read of more rows than K3's lists hold (kb 2048): the sort path
     kb2 = 2048
-    got = L.dense_topk("cosine", idx, val, norms, r, mask, q, qn, kb2)
+    got = one_launch(L.dense_topk, "cosine", idx, val, norms, r, mask, q,
+                     qn, kb2)
     if not torch.equal(got, L.dense_topk_ref("cosine", idx, val, norms, r,
                                              mask, q, qn, kb2)):
         raise AssertionError("rows: dense_topk at kb 2048 differs from its "
                              "plain version")
     scores = torch.from_numpy(np.random.default_rng(1).random(
         (1, r), dtype=np.float32)).to(dev)
-    nbytes = r * kr * 8 + r * 4 + r + d * 4 + 4 + kb2 * 8
+    nbytes = (r * kr * 8 + r * 4 + r + gathered_query_bytes(torch, idx, 1)
+              + 4 + kb2 * 8)
     row = kernel_row(
         torch, lambda: L.dense_topk("cosine", idx, val, norms, r, mask, q,
                                     qn, kb2),
@@ -3414,14 +3443,17 @@ def phase_row_kernels(torch, np, device="cuda"):
     row["metric"] = "cosine"
     variants.append(row)
     del scores
-    rows["dense_topk"] = dict(variants[0], variants=variants[1:])
-    # dense_dots: the exact LOF's sweep, then 10^6 rows
+    rows["dense_topk"] = dict(variants[0], variants=variants[1:],
+                              design=K4_DESIGN)
+    # dense_dots: the exact LOF's sweep, a small LOF table (a tile of 16
+    # rows on each of 4 blocks), then 10^6 rows
     variants = []
-    for r2, d2 in ((ANOM_EXACT_ADDS, 1 << 16), (RECO_EXACT_ROWS, 4096)):
+    for r2, d2 in ((ANOM_EXACT_ADDS, 1 << 16), (64, 1 << 16),
+                   (RECO_EXACT_ROWS, 4096)):
         i2, v2, _ = sparse_rows(torch, np, dev, r2, kr, d2, 23)
         q2 = torch.from_numpy(np.random.default_rng(r2).standard_normal(
             (1, d2)).astype(np.float32)).to(dev)
-        got = L.dense_dots(i2, v2, q2)
+        got = one_launch(L.dense_dots, i2, v2, q2)
         ref = L.dense_dots_ref(i2, v2, q2)
         if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
             raise AssertionError("rows: dense_dots differs from its plain "
@@ -3433,7 +3465,7 @@ def phase_row_kernels(torch, np, device="cuda"):
                                           v2.reshape(-1), (r2, d2),
                                           check_invariants=False)
         qt = q2.T.contiguous()
-        nbytes = r2 * kr * 8 + d2 * 4 + r2 * 4
+        nbytes = r2 * kr * 8 + gathered_query_bytes(torch, i2, 1) + r2 * 4
         variants.append(kernel_row(
             torch, lambda: L.dense_dots(i2, v2, q2),
             lambda: L.dense_dots_ref(i2, v2, q2), device, 1,
@@ -3442,7 +3474,8 @@ def phase_row_kernels(torch, np, device="cuda"):
                      "f32": r2 * kr * 2 / F32_OPS_PER_S * 1e3},
             shape=[r2, kr, d2, 1], err=0.0))
         del i2, v2, csr
-    rows["dense_dots"] = dict(variants[0], variants=variants[1:])
+    rows["dense_dots"] = dict(variants[0], variants=variants[1:],
+                              design=K4_DESIGN + "; 8 lanes a row at Kr 32")
     # sig_counts: the LOF table's sweep, then 10^6 rows
     variants = []
     h, w = 64, 2

@@ -960,9 +960,14 @@ def _dense_args(indices, values, q_dense, what: str) -> None:
     if q_dense.dim() != 2:
         raise ValueError(f"{what}: q_dense must be [Nq, D]")
     kr = indices.shape[1]
-    if kr > 16 and kr % 32:
+    if (kr > 16 and kr % 32) or (kr > 1024 and kr % 1024):
         raise ValueError(f"{what}: a row width of {kr} (above 16 and no "
-                         f"multiple of 32) has no known XLA order")
+                         f"multiple of 32, or above 1024 and no multiple "
+                         f"of 1024) has no known XLA order")
+    if kr % 4 == 0 and (indices.data_ptr() % 16 or values.data_ptr() % 16):
+        raise ValueError(f"{what}: the kernel copies rows 16 bytes at a "
+                         f"time; indices and values must start on a "
+                         f"16-byte boundary")
 
 
 def dense_topk(metric: str, indices: torch.Tensor, values: torch.Tensor,
@@ -972,7 +977,8 @@ def dense_topk(metric: str, indices: torch.Tensor, values: torch.Tensor,
     """Each dense query's top kb keys [Nq, kb] int64 over the stored rows
     (indices int32 / values float32 [R, Kr], norms [R]) below n_valid that
     the mask keeps, scored as dense_scores_ref.  CUDA tensors: one launch
-    of K4's dense_topk (csrc/lsh.cu: the gather-dot in XLA's order with
+    of K4's dense_topk (csrc/lsh.cu: persistent blocks stream row tiles
+    through a ring in shared memory, the gather-dot in XLA's order with
     fmaf, then K3's lists and merge, or above kb 1024 K3's bitonic sort
     of every row's key); CPU: the plain version."""
     if metric not in DENSE_METRICS:
@@ -1023,7 +1029,8 @@ def dense_dots(indices: torch.Tensor, values: torch.Tensor,
     """dots [C, R] float32 of every stored row (indices int32 / values
     float32 [R, Kr]) with each dense query of q_dense [C, D], in XLA's
     order of _chunk_dots.  CUDA tensors: one launch of K4's dense_dots
-    (csrc/lsh.cu); CPU: the plain version."""
+    (csrc/lsh.cu: the ring of row tiles, 8 lanes a row at Kr 32); CPU:
+    the plain version."""
     if indices.device.type == "cpu":
         return dense_dots_ref(indices, values, q_dense)
     dev = indices.device

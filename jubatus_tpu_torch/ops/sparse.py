@@ -79,21 +79,29 @@ def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
 #           in order from +0;
 #   "dot1"  the dot of one datum (classify at B 1, sample_scores):
 #           K <= 16 and K 32 as "sum"; K above 32, a multiple of 32: 32
-#           chains (k mod 32) of fused multiply-adds from +0, then the
-#           four vectors of 8 added as v0 + v1, then + v2, then + v3,
-#           then a halving tree;
-#   "gemv"  a batched dot of B > 1 datums (classify's einsum): one fused
-#           chain in k order;
+#           chains (k mod 32) of fused multiply-adds, then the four
+#           vectors of 8 added as v0 + v1, then + v2, then + v3, then a
+#           halving tree;
+#   "gemv"  a batched dot of B > 1 datums (classify's einsum over a
+#           [L, B, K] gather, L labels on the first axis): one fused chain
+#           in k order, from +0 for the labels that XLA's loop takes 8 at
+#           a time (l < 8 * (L // 8)) and from -0 for the rest (its scalar
+#           remainder: read at L 5 and 13; a served classify has none, as
+#           both packages' label capacities start at 8 and double);
 #   "einsum" jnp.einsum("rk,rk->r"), _fused_dense_query's elemental dot:
 #           k order, starting from the first product, the first 8
 #           products rounded and added, the rest fused.
-# A "sum" or "einsum" zero keeps the last step's sign, as XLA's code
-# gives it: a fused step whose exact result is a negative subnormal
-# flushes to -0 (a row of tiny negative products at K <= 32), and -0
-# products from the +0 start give +0.  A zero result of "dot1" and
-# "gemv" is +0, as the einsum's own program gives it (the jitted reads
-# keep the fused step's -0 there, and a batched dot keeps -0 where every
-# product is exactly -0: ROADMAP Queue 3 item 1).
+# The zero signs are those of the jitted programs (_estimate,
+# _chunk_dots, _classify_scores, sample_scores): a fused step whose exact
+# result is a negative subnormal flushes to -0, and -0 + +0 is +0.  The
+# chains of a vectorized loop (8 or 32 lanes) start as LLVM's vectorized
+# reduction starts them, the start value +0 in lane 0 and fadd's identity
+# -0 in the others, so a row of -0 products sums to -0 unless lane 0 ends
+# at +0; the gemv's remainder labels start from -0, so a row whose every
+# product is -0 gives -0 there.  These are read at the converter's K
+# buckets (16 and up); below K 16, where XLA unrolls the loops otherwise
+# and no jitted read of either package runs, "dot1" and "gemv" give +0
+# for every zero, as the eager einsum does.
 # Every input is read with DAZ and every partial result flushed (ftz).
 XLA_DOT_FORMS = ("sum", "dot1", "gemv", "einsum")
 
@@ -106,12 +114,14 @@ def _chain(a, b, acc, fused: bool):
 
 
 def _lanes(a, b, n: int):
-    """n fused chains (k mod n) from +0 -> [..., n]."""
+    """n fused chains (k mod n), lane 0 from +0 and the rest from -0 ->
+    [..., n]."""
     k = a.shape[-1]
     aa = a.reshape(*a.shape[:-1], k // n, n)
     bb = b.reshape(*b.shape[:-1], k // n, n)
     acc = torch.zeros(aa.shape[:-2] + (n,), dtype=torch.float32,
                       device=a.device)
+    acc[..., 1:] = -0.0
     for j in range(k // n):
         acc = ftz(fma(aa[..., j, :], bb[..., j, :], acc))
     return acc
@@ -137,11 +147,12 @@ def xla_dot_rows(a: torch.Tensor, b: torch.Tensor,
     """sum_k a[..., k] * b[..., k] of float32 tensors as XLA's CPU code
     computes the JAX expression of `form` (XLA_DOT_FORMS above), bit for
     bit at every K of "gemv" and "einsum" and at K <= 16 or a multiple of
-    32 of the others; elsewhere one torch sum of the flushed products,
-    its result flushed.  An emulation in float64 steps,
-    one small op a column: the reads call it for CPU tensors only (the
-    card's kernels and sums have their own), and it gives the same bits
-    on the card, where the plain versions of K4 run it."""
+    32 of the others, zero signs included at K 16 and up ("dot1" and
+    "gemv" give every zero as +0 below K 16); elsewhere one torch sum of
+    the flushed products, its result flushed.  An emulation in float64
+    steps, one small op a column: the reads call it for CPU tensors only
+    (the card's kernels and sums have their own), and it gives the same
+    bits on the card, where the plain versions of K4 run it."""
     a, b = torch.broadcast_tensors(ftz(a.float()), ftz(b.float()))
     k = a.shape[-1]
     zero = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
@@ -155,12 +166,18 @@ def xla_dot_rows(a: torch.Tensor, b: torch.Tensor,
     if form not in XLA_DOT_FORMS:
         raise ValueError(f"unknown dot form {form!r}")
     out = _dot_rows(a, b, form, zero)
-    return out if form == "sum" else out + 0.0
+    # below the converter's smallest K bucket no jitted read runs: +0 for
+    # every zero there, as the eager einsum gives it
+    return out + 0.0 if form in ("dot1", "gemv") and k < 16 else out
 
 
 def _dot_rows(a, b, form: str, zero):
     k = a.shape[-1]
-    if form == "gemv" or k <= 16:
+    if form == "gemv":
+        start = zero.clone()
+        start[8 * (a.shape[0] // 8):] = -0.0
+        return _chain(a, b, start, fused=True)
+    if k <= 16:
         return _chain(a, b, zero, fused=True)
     if k % 32:
         return ftz(ftz(a * b).sum(-1))

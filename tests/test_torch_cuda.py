@@ -1058,11 +1058,24 @@ def _sparse(rows, kr, d, seed):
     return idx, val, norms
 
 
-@pytest.mark.parametrize("kr,d", [(16, 4096), (32, 4096), (64, 4096),
-                                  (128, 1 << 16), (2048, 4096)])
-@pytest.mark.parametrize("c", [1, 8])
-def test_dense_dots_kernel_is_bitwise_its_plain_version(dev, kr, d, c):
-    idx, val, _ = _sparse(1500, kr, d, kr + c)
+# (Kr, D, rows): the ring's tiles are 16 to 128 rows (a table of fewer
+# than 132 * 128 rows is cut into tiles of 16, 32, ...), one slab of up to
+# 32 columns each (Kr 2048: 64 slabs); Kr 32 runs 8 lanes a row, other
+# widths a lane a row; Kr 5 copies 4 bytes at a time, Kr 12 three 16-byte
+# vectors a row; D 2^16 leaves the query out of shared memory (the exact
+# LOF's table at 1,024 rows); 17,099 rows end in a tile of 75
+DENSE_DOTS_SHAPES = (
+    [(16, 4096, 1500), (32, 4096, 1500), (64, 4096, 1500),
+     (128, 1 << 16, 1500), (2048, 4096, 1500)]
+    + [(32, 1 << 16, r) for r in list(range(1, 34)) + [257, 1024]]
+    + [(16, 4096, 257), (64, 4096, 257), (2048, 4096, 33), (5, 4096, 100),
+       (12, 4096, 1000), (32, 4096, 17000 + 99)])
+
+
+@pytest.mark.parametrize("kr,d,rows", DENSE_DOTS_SHAPES)
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_dense_dots_kernel_is_bitwise_its_plain_version(dev, kr, d, rows, c):
+    idx, val, _ = _sparse(rows, kr, d, kr + c)
     q = np.random.default_rng(c).standard_normal((c, d)).astype(np.float32)
     q[:, ::3] = 0.0
     cpu = [torch.from_numpy(x) for x in (idx, val, q)]
@@ -1089,28 +1102,52 @@ def test_dense_dots_keeps_the_flushed_zero_s_sign(dev, kr):
     val[1] = -1.0
     idx[1] = rng.integers(16, 32, kr)
     val[2] = rng.choice([-1, 1], kr) * rng.uniform(1e-25, 1e-20, kr)
+    for r, at in ((3, 0), (4, 1)):       # -0 products, one tiny at k 0 or 1
+        idx[r] = rng.integers(16, 32, kr)
+        val[r] = -1.0
+        idx[r, at] = 0
+        val[r, at] = -1e-20
     cpu = [torch.from_numpy(x) for x in (idx, val, q)]
     got = tl.dense_dots(*(x.to(dev) for x in cpu)).cpu()
     want = tl.dense_dots_ref(*cpu)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert (want[0, 0].view(torch.int32) == -2 ** 31) == (kr <= 32)
+    # Kr 32's lanes start at +0 (lane 0) and -0: only a tiny product in
+    # lane 0 leaves the row at -0
+    assert (want[0, 3].view(torch.int32) == -2 ** 31) == (kr <= 32)
+    assert (want[0, 4].view(torch.int32) == -2 ** 31) == (kr <= 16)
+
+
+# (Kr, D, rows, queries): the tables of 3000 rows, then the ring's edges
+# (see DENSE_DOTS_SHAPES): single rows and tiles, a last tile of 3 rows
+# (4099 = 32 * 128 + 3, the sort path's padding too), 64 slabs a row,
+# copies of 4 bytes, the query out of shared memory at the LOF's shape
+DENSE_TOPK_SHAPES = (
+    [(32, 4096, 3000, 3), (64, 1 << 16, 3000, 3), (128, 4096, 3000, 3)]
+    + [(32, 4096, 1, 1), (32, 4096, 17, 8), (32, 4096, 33, 3),
+       (16, 4096, 257, 1), (32, 4096, 257, 8), (32, 1 << 16, 1024, 1),
+       (2048, 4096, 300, 3), (5, 4096, 100, 3), (32, 4096, 4099, 2)])
+# each shape at kb 8, 32, 128, 1024 and 2048 (the sort path), a kb above
+# the table's rows taken once, as its row count
+DENSE_TOPK_CASES = [
+    (*shape, kb) for shape in DENSE_TOPK_SHAPES
+    for kb in sorted({min(kb, shape[2]) for kb in (8, 32, 128, 1024, 2048)})]
 
 
 @pytest.mark.parametrize("metric", ["cosine", "euclid"])
-@pytest.mark.parametrize("kr,d", [(32, 4096), (64, 1 << 16), (128, 4096)])
-@pytest.mark.parametrize("kb", [8, 32, 128, 1024, 2048])
+@pytest.mark.parametrize("kr,d,rows,nq,kb", DENSE_TOPK_CASES)
 def test_dense_topk_kernel_is_bitwise_its_plain_version(dev, metric, kr, d,
-                                                        kb):
-    rows = 3000
+                                                        rows, nq, kb):
     idx, val, norms = _sparse(rows, kr, d, kr)
     rng = np.random.default_rng(kb)
-    q = rng.standard_normal((3, d)).astype(np.float32)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
     q[:, rng.random(d) < 0.5] = 0.0
     qn = np.sqrt((q * q).sum(1)).astype(np.float32)
     mask = rng.random(rows) < 0.6
     cpu = [torch.from_numpy(x) for x in (idx, val, norms, mask, q, qn)]
     g = [x.to(dev) for x in cpu]
-    for n_valid, m in ((rows, True), (rows - 50, False), (kb // 2, True)):
+    for n_valid, m in ((rows, True), (max(rows - 50, rows // 2), False),
+                       (kb // 2, True)):
         n0 = tl.dense_topk.launches
         got = tl.dense_topk(metric, g[0], g[1], g[2], n_valid,
                             g[3] if m else None, g[4], g[5], kb).cpu()
@@ -1118,6 +1155,27 @@ def test_dense_topk_kernel_is_bitwise_its_plain_version(dev, metric, kr, d,
         want = tl.dense_topk_ref(metric, cpu[0], cpu[1], cpu[2], n_valid,
                                  cpu[3] if m else None, cpu[4], cpu[5], kb)
         assert torch.equal(got, want), (n_valid, m)
+
+
+def test_dense_kernels_refuse_rows_off_a_16_byte_boundary(dev):
+    """The ring copies rows 16 bytes at a time where Kr is a multiple of 4:
+    a table that starts 4 bytes into its storage is refused, never read
+    another way."""
+    idx, val, norms = _sparse(64, 32, 4096, 5)
+    flat_i = torch.zeros(64 * 32 + 1, dtype=torch.int32, device=dev)
+    flat_v = torch.zeros(64 * 32 + 1, dtype=torch.float32, device=dev)
+    flat_i[1:] = torch.from_numpy(idx.reshape(-1)).to(dev)
+    flat_v[1:] = torch.from_numpy(val.reshape(-1)).to(dev)
+    i_off, v_off = flat_i[1:].view(64, 32), flat_v[1:].view(64, 32)
+    q = torch.ones((1, 4096), dtype=torch.float32, device=dev)
+    n0 = (tl.dense_dots.launches, tl.dense_topk.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        tl.dense_dots(i_off, v_off, q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tl.dense_topk("cosine", i_off, v_off,
+                      torch.from_numpy(norms).to(dev), 64, None, q,
+                      torch.ones(1, device=dev), 8)
+    assert (tl.dense_dots.launches, tl.dense_topk.launches) == n0
 
 
 @pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])

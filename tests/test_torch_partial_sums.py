@@ -207,3 +207,129 @@ def test_einsum_form_is_xla_s_elemental_dot(k):
                                "einsum").numpy()
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert _bits(got)[7] == 0x80000000
+
+
+# the zero signs of the jitted reads (ROADMAP Queue 3 item 1): a vectorized
+# loop's lanes start at +0 (lane 0) and -0 (the others), the batched dot's
+# chains at +0 for the labels its loop takes 8 at a time and at -0 for the
+# rest, and a fused step whose exact result is a negative subnormal flushes
+# to -0.  13 labels: the first 8 one group of the batched dot, the last 5
+# its remainder; the served label capacities (8, 16, ...) have none.
+ZERO_SIGN_ROWS = ("normal", "zero", "neg_zero", "tiny_neg", "tiny_mixed",
+                  "neg_zero_then_tiny", "tiny_at_0", "tiny_at_1",
+                  "pos_zero_then_tiny_last", "neg_zero", "zero", "tiny_at_0",
+                  "normal")
+
+
+def _zero_sign_table(rng, b, k, labels=ZERO_SIGN_ROWS):
+    """A label table w [L, D] and a batch idx / val [b, k] on columns of
+    their own, so that label l's products w[l, idx[i]] * val[i] are, by
+    labels[l]: +-0 by val's sign; all -0; all negative subnormals
+    (|w| near the smallest normal, |val| < 0.5); subnormals of both signs;
+    -0 then negative subnormals; -0 but for a negative subnormal at k 0, or
+    at k 1; +0 but for a negative subnormal at the last k; normal."""
+    idx = (1 + rng.permutation(b * k)).astype(np.int32).reshape(b, k)
+    val = (rng.choice([-1.0, 1.0], (b, k))
+           * rng.uniform(0.05, 0.5, (b, k))).astype(np.float32)
+    sgn = np.sign(val)
+    tiny = rng.uniform(1.2e-38, 2.0e-38, (b, k)).astype(np.float32)
+    rows = {
+        "zero": np.zeros((b, k), np.float32),
+        "neg_zero": np.copysign(0.0, -sgn),
+        "tiny_neg": -sgn * tiny,
+        "tiny_mixed": rng.choice([-1.0, 1.0], (b, k)) * tiny,
+        "normal": rng.standard_normal((b, k)),
+    }
+    half = np.copysign(0.0, -sgn)
+    half[:, k // 2:] = (-sgn * tiny)[:, k // 2:]
+    rows["neg_zero_then_tiny"] = half
+    for name, at in (("tiny_at_0", 0), ("tiny_at_1", 1)):
+        r = np.copysign(0.0, -sgn)
+        r[:, at] = -sgn[:, at] * tiny[:, at]
+        rows[name] = r
+    r = np.copysign(0.0, sgn)
+    r[:, -1] = -sgn[:, -1] * tiny[:, -1]
+    rows["pos_zero_then_tiny_last"] = r
+    w = np.zeros((len(labels), b * k + 1), np.float32)
+    for l, name in enumerate(labels):
+        w[l, idx] = rows[name] if name != "normal" else \
+            rng.standard_normal((b, k))
+    return w, idx, val
+
+
+def _assert_zero_signs(got, want):
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    z = np.asarray(want).reshape(-1) == 0
+    signs = np.signbit(np.asarray(want).reshape(-1)[z])
+    assert signs.any() and not signs.all()   # both zeros are in the band
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("b", [1, 8, 32, 128])
+@pytest.mark.parametrize("n_labels", [8, 13, 16])
+def test_classify_scores_keep_the_jitted_zero_sign(n_labels, b, k):
+    """batch_scores against the jitted _classify_scores (its one-datum dot
+    at B 1, its gemv above; B 8 to 128 as the server pads a classify) on
+    rows of -0 products, of negative subnormal products and of both,
+    beside normal rows: at 8 and 16 labels (served capacities, the gemv's
+    loop of 8 only) and at 13 (5 in its remainder)."""
+    from jubatus_tpu.models.classifier import _classify_scores
+    labels = (ZERO_SIGN_ROWS * 2)[:n_labels]
+    w, idx, val = _zero_sign_table(
+        np.random.default_rng(600 + k + b + n_labels), b, k, labels)
+    want = np.asarray(_classify_scores(
+        jnp.asarray(w), jnp.ones(w.shape[0], bool), jnp.asarray(idx),
+        jnp.asarray(val)))
+    got = tsparse.batch_scores(torch.from_numpy(w),
+                               torch.from_numpy(idx).long(),
+                               torch.from_numpy(val)).numpy()
+    _assert_zero_signs(got, want)
+
+
+@jax.jit
+def _scanned_sample_scores(w, idx, val):
+    """sample_scores as train_scan_impl runs it: in the body of a jitted
+    lax.scan over the datums."""
+    def body(carry, xs):
+        return carry, jsparse.sample_scores(w, xs[0], xs[1])
+    return jax.lax.scan(body, 0, (idx, val))[1]
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+def test_sample_scores_keep_the_jitted_zero_sign(k):
+    """sample_scores against jsparse.sample_scores jitted alone and in a
+    jitted scan, datum by datum, on the rows of _zero_sign_table."""
+    w, idx, val = _zero_sign_table(np.random.default_rng(700 + k), 4, k)
+    scanned = np.asarray(_scanned_sample_scores(
+        jnp.asarray(w), jnp.asarray(idx), jnp.asarray(val)))
+    alone = jax.jit(jsparse.sample_scores)
+    got = np.stack([tsparse.sample_scores(
+        torch.from_numpy(w), torch.from_numpy(idx[i]).long(),
+        torch.from_numpy(val[i])).numpy() for i in range(4)])
+    want = np.stack([np.asarray(alone(jnp.asarray(w), jnp.asarray(idx[i]),
+                                      jnp.asarray(val[i])))
+                     for i in range(4)])
+    _assert_zero_signs(got, want)
+    np.testing.assert_array_equal(_bits(got), _bits(scanned))
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+def test_sum_keeps_the_jitted_zero_sign(k):
+    """The "sum" form against the jitted estimate and _chunk_dots on the
+    same rows: at K 32 the 8 lanes start at +0 and -0, so a row of -0
+    products with a negative subnormal at k 0 sums to -0."""
+    from jubatus_tpu.models.anomaly import _chunk_dots
+    from jubatus_tpu.models.regression import _estimate
+    w, idx, val = _zero_sign_table(np.random.default_rng(800 + k), 1, k)
+    a = np.ascontiguousarray(w[:, idx[0]])           # [L, k]
+    b = np.broadcast_to(val, a.shape).copy()
+    rows = np.arange(a.size, dtype=np.int32).reshape(a.shape)
+    got = tsparse.xla_dot_rows(torch.from_numpy(a), torch.from_numpy(b),
+                               "sum").numpy()
+    np.testing.assert_array_equal(
+        _bits(got), _bits(np.asarray(_estimate(a.reshape(-1), rows, b))))
+    np.testing.assert_array_equal(
+        _bits(got),
+        _bits(np.asarray(_chunk_dots(rows, b, a.reshape(1, -1)))[0]))
+    lane0 = ZERO_SIGN_ROWS.index("tiny_at_0")
+    assert np.signbit(got[lane0]) == (k <= 32)

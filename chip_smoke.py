@@ -167,11 +167,13 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 rows (Kr 32, D 4096, a mask with 1% holes, kb 16), K4
                 dense_dots at the exact LOF's sweep, a 64-row LOF table
                 and 10^6 rows, K5 sig_counts at the LOF table's sweep
-                and at 10^6 rows, K3 with a mask over a 10^6-row lsh H
-                128 table: each bitwise its plain version on the same
-                card tensors, K4 one launch a call, timed beside
-                it, its library yardstick (torch.topk of the scores,
-                torch.sparse.mm of the table as CSR) and its bound.  (b)
+                and four kinds at its 16,384 and at 10^6 rows, 1 and
+                64 queries, K3
+                with a mask over a 10^6-row lsh H 128 table: each
+                bitwise its plain version on the same card tensors, K4
+                and K5 one launch a call, timed beside it, its library
+                yardstick (torch.topk of the scores, torch.sparse.mm of
+                the table as CSR, torch.cdist(p=0)) and its bound.  (b)
                 The recommender: bench.py's lsh H 128 on a port server,
                 8192 update_rows and 64 clear_rows over the wire, 72
                 reads bitwise an in-process driver's, each one K3 launch
@@ -3316,16 +3318,19 @@ def row_datums(np, rng, n, keys, nnz=16):
 
 
 def kernel_row(torch, fn, ref, device, plain_reps, lib=None,
-               classes=None, shape=None, err=None):
+               classes=None, shape=None, err=None, lib_calls=None):
     """One kernel's report row: fn's device ms (a CUDA graph where it
     captures), its call ms, the plain version's ms (`ref` on the same
-    card tensors), the library call's, and the bound by class."""
+    card tensors), the library call's (lib_calls: that many calls in the
+    graph and no eager timing, for a slow call), and the bound by
+    class."""
     ms, method, call_ms = nn_times(torch, fn, device, 20)
     plain_ms = time_cuda(torch, ref, plain_reps) if device == "cuda" \
         else None
     lib_ms = None
     if lib is not None and device == "cuda":
-        lib_ms = nn_times(torch, lib, device, 20)[0]
+        lib_ms = (nn_times(torch, lib, device, 20)[0] if lib_calls is None
+                  else time_device(torch, lib, lib_calls)[0])
     by = max(classes, key=classes.get)
     return {"ms": ms, "device_method": method, "call_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -3370,6 +3375,93 @@ def gathered_query_bytes(torch, idx, nq):
     return nq * torch.unique(idx).numel() * 4
 
 
+# K5's design, named in the kernels line
+K5_DESIGN = ("the table read once for all queries; up to 16 words a row "
+             "a thread a row read straight from device memory, the queries "
+             "through L1, tiles of 32-256 rows (small tables: 2-8 threads "
+             "share a row's queries); wider rows a producer warp's 3-4 "
+             "stage cp.async ring with mbarriers, 8 consumer warps, 2-32 "
+             "lanes a row, queries staged in shared memory (32 KB a group)")
+
+
+def counts_bound(kind, r, w, nq):
+    """K5's least time in ms by class: the table, its norms (euclid_lsh
+    only) and the queries read once and [nq, r] written once; per pair W
+    popcounts (not minhash) and 2 W int32 operations (xor or compare, and
+    add); euclid_lsh's 8 float32 operations and sqrt a pair."""
+    euclid = kind == "euclid_lsh"
+    nbytes = (r * w * 4 + (r * 4 if euclid else 0) + nq * (w * 4 + 4)
+              + nq * r * 4)
+    pairs = r * nq
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "int32": pairs * 2 * w / INT32_OPS_PER_S * 1e3,
+            "popc": (0 if kind == "minhash" else pairs * w) / POPC_PER_S
+            * 1e3,
+            "f32": (pairs * 8 if euclid else 0) / F32_OPS_PER_S * 1e3,
+            "sfu": (pairs if euclid else 0) / SFU_PER_S * 1e3}
+
+
+def cdist_layout(torch, kind, h, x):
+    """torch.cdist(p=0)'s layout of signatures x [n, W] (K5's library
+    yardstick): the H signature bits as float32 (lsh, euclid_lsh; the
+    distance is the hamming count), the H words as float64 (minhash: H
+    minus the matches)."""
+    if kind == "minhash":
+        return x.double()
+    sh = torch.arange(32, device=x.device, dtype=torch.int64)
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    return ((v[..., None] >> sh) & 1).reshape(
+        x.shape[0], -1)[:, :h].float().contiguous()
+
+
+def counts_rows(torch, np, L, dev, device, kind, h, r, nqs):
+    """K5 at r rows of one kind for each query count in nqs: a seeded
+    table (minhash words in 0..4), built once and freed after; nq queries
+    drawn from it, one launch a call, bitwise its plain version; timed
+    beside torch.cdist(p=0) over the bits as float32 (lsh, euclid_lsh) or
+    the words as float64 (minhash), laid out before the timing, and the
+    bound by class."""
+    w = L.sig_width(kind, h)
+    rg = np.random.default_rng(r + h)
+    tab = rg.integers(0, 2 ** 32, (r, w), dtype=np.uint32)
+    if kind == "minhash":
+        tab %= 5
+    tab = torch.from_numpy(tab.view(np.int32)).to(dev)
+    n3 = torch.from_numpy((rg.random(r) * 4).astype(np.float32)).to(dev)
+    xr = cdist_layout(torch, kind, h, tab) if device == "cuda" else None
+    out = []
+    for nq in nqs:
+        pick = torch.from_numpy(rg.integers(0, r, nq)).to(dev)
+        qs3 = tab[pick].clone()
+        qs3[:, 0] ^= 3
+        qn3 = n3[pick].clone()
+        got = one_launch(L.sig_counts, kind, tab, qs3, n3, qn3, h)
+        ref = L.sig_counts_ref(kind, tab, qs3, n3, qn3, h)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"rows: sig_counts {kind} H {h} at {r} "
+                                 f"rows, {nq} queries differs from its "
+                                 "plain version")
+        lib = None
+        if device == "cuda":
+            xq = cdist_layout(torch, kind, h, qs3)
+
+            def lib(xq=xq):
+                return torch.cdist(xq, xr, p=0)
+        row = kernel_row(
+            torch, lambda: L.sig_counts(kind, tab, qs3, n3, qn3, h),
+            lambda: L.sig_counts_ref(kind, tab, qs3, n3, qn3, h), device, 2,
+            lib=lib, lib_calls=2, classes=counts_bound(kind, r, w, nq),
+            shape=[r, w, nq], err=0.0)
+        row.update(kind=kind, hash_num=h, plan=L.sig_counts_plan(
+            kind, r, h, nq, table_ptr=tab.data_ptr()) if device == "cuda"
+            else None, library="torch.cdist(p=0)")
+        out.append(row)
+    del tab, n3, xr
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_row_kernels(torch, np, device="cuda"):
     """Phase 11a: K4 dense_topk at the exact recommender's table (10^6
     rows, Kr 32, D 4096, 1% holes in the mask, kb 16, and kb 2048 on the
@@ -3377,12 +3469,15 @@ def phase_row_kernels(torch, np, device="cuda"):
     the exact LOF's sweep (its table after ANOM_EXACT_ADDS adds: Kr 32, D
     2^16, one query), at a 64-row LOF table and at 10^6 rows (K4 one
     launch a call, by the wrappers' counts), K5 sig_counts at the LOF table's
-    sweep (euclid_lsh H 64, ANOM_ADDS rows, one query) and at 10^6 rows,
-    and K3 with a mask at the recommender's lsh H 128 table: each bitwise
-    its plain version on the same card tensors, timed beside it, beside
-    its library yardstick (torch.topk of the scores for dense_topk and
-    masked K3, torch.sparse.mm of the table as CSR for dense_dots) and
-    its bound."""
+    sweep (euclid_lsh H 64, ANOM_ADDS rows, one query) and at ANOM_ADDS
+    and 10^6 rows of euclid_lsh and lsh H 64, lsh H 512 and minhash H 64
+    at one and 64 queries (one launch a call), and K3 with a mask at the
+    recommender's
+    lsh H 128 table: each bitwise its plain version on the same card
+    tensors, timed beside it, beside its library yardstick (torch.topk of
+    the scores for dense_topk and masked K3, torch.sparse.mm of the table
+    as CSR for dense_dots, torch.cdist(p=0) for sig_counts but at the LOF
+    table) and its bound."""
     from jubatus_tpu_torch.ops import lsh as L
     dev = torch.device(device)
     rows = {}
@@ -3476,35 +3571,19 @@ def phase_row_kernels(torch, np, device="cuda"):
         del i2, v2, csr
     rows["dense_dots"] = dict(variants[0], variants=variants[1:],
                               design=K4_DESIGN + "; 8 lanes a row at Kr 32")
-    # sig_counts: the LOF table's sweep, then 10^6 rows
-    variants = []
-    h, w = 64, 2
-    for r3 in (ANOM_ADDS, RECO_EXACT_ROWS):
-        rg = np.random.default_rng(r3)
-        tab = torch.from_numpy(rg.integers(0, 2 ** 32, (r3, w),
-                                           dtype=np.uint64).astype(
-            np.uint32).view(np.int32)).to(dev)
-        n3 = torch.from_numpy((rg.random(r3) * 4).astype(np.float32)).to(dev)
-        qs3 = tab[5:6].clone()
-        qn3 = n3[5:6].clone()
-        got = L.sig_counts("euclid_lsh", tab, qs3, n3, qn3, h)
-        ref = L.sig_counts_ref("euclid_lsh", tab, qs3, n3, qn3, h)
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            raise AssertionError("rows: sig_counts differs from its plain "
-                                 "version")
-        nbytes = r3 * w * 4 + r3 * 4 + w * 4 + 4 + r3 * 4
-        variants.append(kernel_row(
-            torch, lambda: L.sig_counts("euclid_lsh", tab, qs3, n3, qn3,
-                                            h),
-            lambda: L.sig_counts_ref("euclid_lsh", tab, qs3, n3, qn3, h),
-            device, 2, lib=None,
-            classes={"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "popc": r3 * w / POPC_PER_S * 1e3,
-                     "f32": r3 * 8 / F32_OPS_PER_S * 1e3,
-                     "sfu": r3 / SFU_PER_S * 1e3},
-            shape=[r3, w, 1], err=0.0))
-        del tab, n3
-    rows["sig_counts"] = dict(variants[0], variants=variants[1:])
+    # sig_counts: the LOF table's sweep first, then each kind at the LOF
+    # table's rows and 10^6 rows, one and 64 queries, beside torch.cdist
+    t0 = time.perf_counter()
+    variants = [row
+                for kind, h in (("euclid_lsh", 64), ("lsh", 64), ("lsh", 512),
+                                ("minhash", 64))
+                for r3 in (ANOM_ADDS, RECO_EXACT_ROWS)
+                for row in counts_rows(torch, np, L, dev, device, kind, h,
+                                       r3, (1, 64))]
+    log(f"rows: sig_counts's {len(variants)} shapes checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows["sig_counts"] = dict(variants[0], variants=variants[1:],
+                              design=K5_DESIGN)
     # K3 with a mask: the recommender's lsh H 128 table at 10^6 rows
     h, w = 128, 4
     rg = np.random.default_rng(24)

@@ -443,11 +443,15 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 2)
     lib.dense_dots_launch.restype = ctypes.c_int
-    # K5: (table, q_sigs, norms, qnorms, tab, R, W, NQ, kind, out, stream)
+    # K5: (table, q_sigs, norms, qnorms, tab, R, W, NQ, kind, out, stream);
+    # its plan (R, W, NQ, kind, table, out int32[13])
     lib.sig_counts_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 2)
     lib.sig_counts_launch.restype = ctypes.c_int
+    lib.sig_counts_plan.argtypes = (
+        [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    lib.sig_counts_plan.restype = ctypes.c_int
     lib.sig_topk_launch.restype = ctypes.c_int
     lib.sig_topk_workspace.argtypes = (
         [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_longlong]
@@ -1114,6 +1118,26 @@ def sig_counts_ref(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
     if kind == "euclid_lsh":
         return euclid_estimates_ref(cnt, norms, qnorms, hash_num)
     return cnt
+
+
+# K5's plan (csrc/lsh.cu); its design: 0 direct (up to 16 words a row),
+# 1 the ring (wider rows)
+SIG_COUNTS_PLAN_KEYS = ("design", "words_a_lane", "lanes_a_row", "slab",
+                        "slabs", "tile_rows", "stride", "stages",
+                        "queries_a_group", "groups", "blocks", "copy_bytes",
+                        "smem_bytes")
+
+
+def sig_counts_plan(kind: str, rows: int, hash_num: int, nq: int,
+                    table_ptr: int = 0) -> dict:
+    """K5's plan on this card for a sweep of `rows` rows for `nq` queries
+    (table_ptr: the table's address, whose alignment picks the copies):
+    SIG_COUNTS_PLAN_KEYS -> ints."""
+    out = (ctypes.c_int * len(SIG_COUNTS_PLAN_KEYS))()
+    build.check(_lib().sig_counts_plan(
+        rows, sig_width(kind, hash_num), nq, SIG_KINDS.index(kind),
+        table_ptr, out), "sig_counts plan")
+    return dict(zip(SIG_COUNTS_PLAN_KEYS, list(out)))
 
 
 def sig_counts(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,

@@ -31,7 +31,12 @@ the sweep with its top-k selection (sig_topk) bitwise its plain version
 (sig_sweep_ref, then torch.topk) for every kind and way rows are read,
 by signature and by stored row, at every kb of the fast path and the
 sort path's, with fillers, a count of 0, a last block holding fewer rows
-than kb, and ties across blocks.
+than kb, and ties across blocks.  The all-rows count sweep (sig_counts)
+bitwise its plain version, one launch a call, for every kind at 2 to 625
+words a row (the ring's slabs past 512), tables of 1 to 100,003 rows,
+1 to 4,097 queries (past a ring block's query cap), the design the row's
+width picks, tables and queries off a 16-byte boundary, and the euclid
+estimate's sign at counts 0 and 32 W.
 """
 
 import numpy as np
@@ -1199,6 +1204,203 @@ def test_sig_counts_kernel_is_bitwise_its_plain_version(dev, kind, h):
     want = tl.sig_counts_ref(kind, *cpu, h)
     assert got.dtype == want.dtype
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+_COUNT_TABLES = {}
+
+
+def _count_inputs(kind, h, rows, nq, seed):
+    """A seeded signature table [rows, W] (minhash words in 0..4, so rows
+    match queries often), nq queries drawn from it (rows 0 and 1: the
+    first word flipped) and norms, as numpy; the table kept for the
+    other query counts."""
+    key = (kind, h, rows, seed)
+    if key not in _COUNT_TABLES:
+        _COUNT_TABLES.clear()
+        rng = np.random.default_rng(seed)
+        w = tl.sig_width(kind, h)
+        tab = rng.integers(0, 2 ** 32, (rows, w), dtype=np.uint32)
+        if kind == "minhash":
+            tab %= 5
+        norms = (rng.random(rows) * 4).astype(np.float32)
+        _COUNT_TABLES[key] = (tab, norms)
+    tab, norms = _COUNT_TABLES[key]
+    rng = np.random.default_rng(seed + nq)
+    qs = tab[rng.integers(0, rows, nq)].copy()
+    qs[: min(nq, 2), 0] ^= 3
+    qn = (rng.random(nq) * 4).astype(np.float32)
+    return tab, qs, norms, qn
+
+
+def _counts_both(dev, kind, h, tab, qs, norms, qn):
+    """K5 on the card (one launch, by the wrapper's count) and its plain
+    version on the same card tensors."""
+    g = [torch.from_numpy(x).to(dev) for x in (tab.view(np.int32),
+                                               qs.view(np.int32), norms, qn)]
+    n0 = tl.sig_counts.launches
+    got = tl.sig_counts(kind, *g, h)
+    assert tl.sig_counts.launches == n0 + 1
+    want = tl.sig_counts_ref(kind, *g, h)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return got, want
+
+
+@pytest.mark.parametrize("kind,h", [
+    ("lsh", 64), ("lsh", 128), ("lsh", 512), ("minhash", 64),
+    ("minhash", 128), ("minhash", 256), ("minhash", 512),
+    ("euclid_lsh", 64), ("euclid_lsh", 128), ("euclid_lsh", 512)])
+@pytest.mark.parametrize("rows", [1, 31, 255, 257, 16384, 100003])
+@pytest.mark.parametrize("nq", [1, 7, 64])
+def test_sig_counts_kernel_every_width_rows_and_queries(dev, kind, h, rows,
+                                                        nq):
+    """Both designs' shapes (2 to 512 words a row: a lane a row up to 16
+    words, 2 to 32 lanes above), tables of one row to more tiles than the
+    card's SMs, the last tile partial, and one, a few and many queries
+    (minhash H 512 at 64 queries runs 4 query groups)."""
+    got, want = _counts_both(dev, kind, h,
+                             *_count_inputs(kind, h, rows, nq, 7))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,h", [("lsh", 64), ("lsh", 128),
+                                    ("lsh", 512), ("minhash", 8),
+                                    ("minhash", 64), ("euclid_lsh", 64),
+                                    ("euclid_lsh", 96)])
+@pytest.mark.parametrize("rows", [1, 257, 100003])
+@pytest.mark.parametrize("nq", [1, 64])
+def test_sig_counts_design_follows_the_row_width(dev, kind, h, rows, nq):
+    """The row's width picks the design: the direct design up to 16
+    words a row (W 2, 3, 4, 8 and 16 here), the ring above; either
+    bitwise its plain version."""
+    w = tl.sig_width(kind, h)
+    assert tl.sig_counts_plan(kind, rows, h, nq)["design"] == int(w > 16)
+    got, want = _counts_both(dev, kind, h,
+                             *_count_inputs(kind, h, rows, nq, 8))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,h", [
+    ("euclid_lsh", 1024), ("minhash", 64), ("lsh", 1024), ("minhash", 512),
+    ("lsh", 64)])
+def test_sig_counts_beyond_the_query_cap_launches_once(dev, kind, h):
+    """One more query than a ring block's group holds (the cap: SC_QSMEM
+    bytes of query words): two groups in the one launch, the table read
+    twice.  The direct design (lsh H 64) keeps no query in shared memory:
+    one group at any count (4,097 queries here)."""
+    plan = tl.sig_counts_plan(kind, 257, h, 65535)
+    direct = plan["design"] == 0
+    assert direct == (tl.sig_width(kind, h) <= 16)
+    cap = plan["queries_a_group"]
+    if direct:
+        assert cap == 65535
+        cap = 4096
+    plan = tl.sig_counts_plan(kind, 257, h, cap + 1)
+    if direct:
+        assert plan["queries_a_group"] == cap + 1 and plan["groups"] == 1
+    else:
+        assert plan["queries_a_group"] == cap and plan["groups"] == 2
+    got, want = _counts_both(dev, kind, h,
+                             *_count_inputs(kind, h, 257, cap + 1, 9))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,h", [("minhash", 1000), ("minhash", 1024),
+                                    ("lsh", 20000), ("euclid_lsh", 20000)])
+@pytest.mark.parametrize("rows,nq", [(257, 1), (257, 7), (16384, 3)])
+def test_sig_counts_rows_in_slabs(dev, kind, h, rows, nq):
+    """Rows of more than 512 words go through the ring in slabs of 512,
+    the slabs' counts added in shared memory (W 1000, 1024, 625: a last
+    slab of 488, 512 and 113 words; W 625 copies 4 bytes at a time)."""
+    got, want = _counts_both(dev, kind, h,
+                             *_count_inputs(kind, h, rows, nq, 10))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,h", [
+    ("lsh", 64), ("minhash", 64), ("euclid_lsh", 96), ("lsh", 512),
+    ("lsh", 1024)])
+def test_sig_counts_reads_a_table_off_a_16_byte_boundary(dev, kind, h):
+    """A table and queries that start 4 bytes into their storage: rows
+    read by 4-byte words (direct) or copied 4 bytes at a time (ring), the
+    queries word by word, never refused."""
+    tab, qs, norms, qn = _count_inputs(kind, h, 3001, 5, 11)
+
+    def off(a):
+        flat = torch.zeros(a.size + 1, dtype=torch.int32, device=dev)
+        flat[1:] = torch.from_numpy(a.view(np.int32).reshape(-1)).to(dev)
+        return flat[1:].view(a.shape)
+    t = off(tab)
+    plan = tl.sig_counts_plan(kind, 3001, h, 5, t.data_ptr())
+    assert plan["copy_bytes"] in (0, 4)
+    g = [off(qs)] + [torch.from_numpy(x).to(dev) for x in (norms, qn)]
+    n0 = tl.sig_counts.launches
+    got = tl.sig_counts(kind, t, g[0], g[1], g[2], h)
+    assert tl.sig_counts.launches == n0 + 1
+    want = tl.sig_counts_ref(kind, t, g[0], g[1], g[2], h)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("h", [64, 96, 512, 1024])
+def test_sig_counts_euclid_estimate_sign_and_flush(dev, h):
+    """The euclid estimate at counts 0 (a row equal to the query: cos 1,
+    d2 = (qn - n)^2 up to rounding) and 32 W (its complement: cos of
+    pi 32 W / H = -1), at norms of 0, subnormals, squares that fall below
+    float32's normal range and plain ones: bitwise the plain version (no
+    step flushed to zero: the kernel is built without -ftz, as the plain
+    version's float32 steps round), never a negative zero or a NaN
+    (max(d2, 0) before the sqrt), and +0 at equal norms whose squares are
+    normal."""
+    w = tl.sig_width("euclid_lsh", h)
+    vals = np.array([0.0, 1e-45, 1e-40, 1e-30, 1e-20, 1e-19, 0.5, 1.0, 3.0,
+                     3.0000002], np.float32)
+    rng = np.random.default_rng(h)
+    q = rng.integers(0, 2 ** 32, (1, w), dtype=np.uint32)
+    tab = np.concatenate([np.repeat(q, len(vals), 0),
+                          np.repeat(~q, len(vals), 0)])
+    norms = np.concatenate([vals, vals])
+    qs = np.repeat(q, len(vals), 0)
+    g = [torch.from_numpy(x).to(dev) for x in (tab.view(np.int32),
+                                               qs.view(np.int32), norms,
+                                               vals)]
+    got = tl.sig_counts("euclid_lsh", *g, h)
+    want = tl.sig_counts_ref("euclid_lsh", *g, h)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    bits = got.view(torch.int32)
+    assert bool((bits >= 0).all()) and not bool(torch.isnan(got).any())
+    normal = torch.from_numpy((vals == 0) | (vals >= 0.5)).to(dev)
+    eq = got[:, : len(vals)].diagonal()
+    assert bool((eq.view(torch.int32)[normal] == 0).all())
+
+
+def test_sig_counts_plan_shapes(dev):
+    """The rule's designs and their geometry: the direct design up to 16
+    words a row, a block a tile of 256 rows (the served LOF sweep: 16,384
+    rows, W 2, one query; lsh H 512 at 10^6 rows, 64 queries), tiles of
+    32 rows with 8 threads a row where 16,384 rows meet 64 queries; the
+    ring above, 2 to 32 lanes a row, every SM a tile where the table
+    allows it."""
+    p = tl.sig_counts_plan("euclid_lsh", 16384, 64, 1)
+    assert p["design"] == 0 and p["groups"] == 1 and p["smem_bytes"] == 0
+    assert p["tile_rows"] == 256 and p["blocks"] == 64
+    p = tl.sig_counts_plan("euclid_lsh", 16384, 64, 64)
+    assert p["design"] == 0 and p["lanes_a_row"] == 8
+    assert p["tile_rows"] == 32 and p["blocks"] == 512
+    p = tl.sig_counts_plan("lsh", 10 ** 6, 512, 64)
+    assert p["design"] == 0 and p["lanes_a_row"] == 1
+    assert p["copy_bytes"] == 16 and p["blocks"] == -(-10 ** 6 // 256)
+    for kind, h, lanes, wr in (("minhash", 32, 2, 16), ("minhash", 64, 4, 16),
+                               ("minhash", 128, 8, 16),
+                               ("minhash", 512, 32, 16), ("lsh", 1024, 2, 16)):
+        p = tl.sig_counts_plan(kind, 10 ** 6, h, 64)
+        assert p["design"] == 1 and p["lanes_a_row"] == lanes
+        assert p["words_a_lane"] == wr and p["stages"] >= 3
+        assert p["queries_a_group"] * tl.sig_width(kind, h) * 4 <= 32 * 1024 \
+            or p["queries_a_group"] == 1
+        assert p["copy_bytes"] == 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = tl.sig_counts_plan("minhash", 16384, 64, 1)
+    assert p["blocks"] >= min(sms, -(-16384 // p["tile_rows"]))
+    assert -(-16384 // p["tile_rows"]) >= sms or p["tile_rows"] == 16
 
 
 @pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])

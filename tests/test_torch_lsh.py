@@ -605,22 +605,34 @@ def test_dense_dots_are_bitwise_chunk_dots(kr):
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
-@pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])
-@pytest.mark.parametrize("hash_num", [64, 128])
-def test_table_similarities_batch_is_bitwise_jax(kind, hash_num):
+# K5's widths (lsh and euclid_lsh up to H 512, minhash H 256) at 6
+# queries (the first cases, ids unchanged) and 1, 7 and 64
+_SIM_CASES = [(k, h, nq) for nq in (6, 1, 7, 64)
+              for h in (64, 128, 256, 512)
+              for k in ("lsh", "minhash", "euclid_lsh")
+              if (h == 256) == (k == "minhash") or h < 256]
+
+
+@pytest.mark.parametrize(
+    "kind,hash_num,nq", _SIM_CASES,
+    ids=[f"{h}-{k}" if nq == 6 else f"{h}-{k}-nq{nq}"
+         for k, h, nq in _SIM_CASES])
+def test_table_similarities_batch_is_bitwise_jax(kind, hash_num, nq):
     """Over a table of 512 rows (XLA's scalar tail of a row count no
     multiple of 16 fuses euclid_lsh's estimate in another order: the
-    stores' capacities are multiples of 128)."""
+    stores' capacities are multiples of 128), at K5's widths (2 to 256
+    words a row) and query counts (one add's sweep, a refresh's batch, a
+    read lane's)."""
     rng = np.random.default_rng(hash_num)
     w, rows = tlsh.sig_width(kind, hash_num), 512
     tab = rng.integers(0, 2 ** 32, (rows, w), dtype=np.uint64).astype(
         np.uint32)
     if kind == "minhash":
         tab %= 5
-    qs = tab[rng.integers(0, rows, 6)].copy()
+    qs = tab[rng.integers(0, rows, nq)].copy()
     qs[:, 0] ^= 9
     norms = (rng.random(rows) * 4).astype(np.float32)
-    qn = (rng.random(6) * 4).astype(np.float32)
+    qn = (rng.random(nq) * 4).astype(np.float32)
     want = jlsh.table_similarities_batch(kind, jnp.asarray(tab), qs,
                                          hash_num, jnp.asarray(norms), qn)
     got = tlsh.table_similarities_batch(

@@ -180,7 +180,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 (masked) on both; inverted_index at 10^6 rows, 1%
                 dropped, 32 reads each one K4 launch, four against the
                 plain version.  (c) Anomaly: bench.py's lof over
-                euclid_lsh H 64 on a port server, 16,384 adds over the
+                euclid_lsh H 64 on a port server, 8,192 adds over the
                 wire (the in-process driver's add overlapping each after
                 the first 512, which are timed alone) and 64 calc_score
                 reads, every score bitwise the driver's, each sweep one
@@ -189,8 +189,31 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 H 64, k 128) on bench.py's converter: 4 trains of 2048 and
                 32 classifies of 8 to a server and an in-process driver,
                 bitwise, each classify one K3 launch
- 12. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 11; counters are zeroed just before each path, and a
+ 12. index    — the sublinear query index (csrc/candidates.cu K6
+                sig_probe and K7 ivf_probe): (a) nearest_neighbor lsh H 64
+                at 10^6 rows (bench.py:1240-1258's table: 4096 prototype
+                signatures, each row one of them with a bit flipped,
+                written in one store write), --index lsh_probe at 4 probes
+                built through its lazy rebuild (host seconds printed), 64
+                similar_row_from_id and 64 similar_row_from_datum reads,
+                one K6 launch each (K1 too for a datum), each read's K6
+                result bitwise the plain version on the same card tensors
+                and its answer that result's, the tie-aware recall at k 10
+                against the full sweep, the candidates a query, K6's ms
+                beside K3's full sweep of the table; (b) the recommender's
+                inverted_index (bench.py:1287-1313: Kr 32, 4096 columns,
+                prototypes of 16 features) at 250,000 rows with --index
+                ivf, the same reads through K7 against its plain version
+                and K4's full sweep; (c) over the wire, a nearest_neighbor
+                server with --index lsh_probe --index_probes 4 and a
+                recommender inverted_index server with --index ivf, 16,384
+                writes each (above min_rows), 64 reads each bitwise an
+                in-process driver's, one K6 (K7) launch a read on both
+                sides, and the get_status index keys; (d) anomaly lof over
+                euclid_lsh H 64 with "index": {"min_rows": 0}, 2,048 adds,
+                64 calc_score reads through K6, bitwise its plain version
+ 13. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 12; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -246,7 +269,9 @@ EXTRA_KEYS = ("us_per_datum", "ring", "shared_column_ms", "device_ms",
               "device_method", "call_ms", "plain_call_ms",
               "library_device_ms", "library_device_method", "library_call_ms",
               "whole_table", "plan", "cycles_per_datum", "bytes_bound_ms",
-              "in_band", "design", "variants")
+              "in_band", "design", "variants", "candidates_mean",
+              "full_sweep_ms", "recall", "build_s", "cap", "probes",
+              "centroids", "datum_ms", "read_ms", "fallbacks")
 
 
 def log(*a):
@@ -3297,7 +3322,10 @@ RECO_ROWS = 8192        # update_row calls over the wire
 RECO_EXACT_ROWS = 10 ** 6
 RECO_DROPS = 64         # clear_row calls: holes in the store's mask
 RECO_READS = 64         # similar_row_from_datum calls
-ANOM_ADDS = 16384       # add calls over the wire
+ANOM_ADDS = 8192        # add calls over the wire (16,384 before phase
+#                         12: the whole smoke then ran past 800 s, with
+#                         those adds taking 130-185 s of it)
+LOF_ROWS = 16384        # rows of K5's LOF-table shapes (phase 11a)
 ANOM_TIMED = 512        # of them sent alone, their wire time kept
 ANOM_EXACT_ADDS = 1024  # adds of the exact LOF in process (K4 dense_dots)
 ANOM_READS = 64         # calc_score calls
@@ -3469,7 +3497,7 @@ def phase_row_kernels(torch, np, device="cuda"):
     the exact LOF's sweep (its table after ANOM_EXACT_ADDS adds: Kr 32, D
     2^16, one query), at a 64-row LOF table and at 10^6 rows (K4 one
     launch a call, by the wrappers' counts), K5 sig_counts at the LOF table's
-    sweep (euclid_lsh H 64, ANOM_ADDS rows, one query) and at ANOM_ADDS
+    sweep (euclid_lsh H 64, LOF_ROWS rows, one query) and at LOF_ROWS
     and 10^6 rows of euclid_lsh and lsh H 64, lsh H 512 and minhash H 64
     at one and 64 queries (one launch a call), and K3 with a mask at the
     recommender's
@@ -3577,7 +3605,7 @@ def phase_row_kernels(torch, np, device="cuda"):
     variants = [row
                 for kind, h in (("euclid_lsh", 64), ("lsh", 64), ("lsh", 512),
                                 ("minhash", 64))
-                for r3 in (ANOM_ADDS, RECO_EXACT_ROWS)
+                for r3 in (LOF_ROWS, RECO_EXACT_ROWS)
                 for row in counts_rows(torch, np, L, dev, device, kind, h,
                                        r3, (1, 64))]
     log(f"rows: sig_counts's {len(variants)} shapes checked and timed in "
@@ -3948,6 +3976,572 @@ def phase_nn_classifier(torch, np, card, device="cuda"):
             {"lsh_signature": [k1], "sig_topk": [k3]})
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sublinear query index (K6 sig_probe, K7 ivf_probe)
+# ---------------------------------------------------------------------------
+
+INDEX_ROWS = 10 ** 6       # bench.py:1199's 10^6-row tables
+# the ivf table cut to a quarter, as phase 10's: at 10^6 rows its fill and
+# host build alone pass the phase's share of the time limit
+# (scripts/torch_probe_split.py --ivf-rows 1000000 times that build)
+INDEX_IVF_ROWS = 250_000
+INDEX_WINDOW = 32          # wire writes in flight at once
+INDEX_PROTOS = 4096        # bench.py:1243's prototypes
+INDEX_READS = 64           # reads of each route
+INDEX_PROBES = 4           # bench.py's probes
+INDEX_WIRE_ROWS = 16384    # writes to each server: above min_rows 8,192
+INDEX_ANOM_ADDS = 2048
+INDEX_ANOM_CONFIG = dict(LOF_CONFIG, index={"min_rows": 0})
+IVF_CONFIG = {             # bench.py:1226: inverted_index on 4096 columns
+    "method": "inverted_index", "parameter": {},
+    "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                  "hash_max_size": 4096},
+}
+
+
+def probe_bound(kind, w, slots, n_cand, nq, kb):
+    """K6's least time in ms by class for this run's data: the bytes it
+    must move (the probed groups' and the delta's candidate ids, each
+    valid candidate's signature (and norm for euclid_lsh), the queries,
+    the results) and the valid candidates' popcounts, integer operations
+    and euclid estimate, each class at its own rate.  The selection's
+    compares are not counted (as K3's)."""
+    norms = 4 if kind == "euclid_lsh" else 0
+    nbytes = (slots * 4 + n_cand * (w * 4 + norms) + nq * (w * 4 + 4)
+              + nq * (2 * kb + 1) * 8)
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "int32": n_cand * 2 * w / INT32_OPS_PER_S * 1e3,
+            "popc": (0 if kind == "minhash" else n_cand * w) / POPC_PER_S
+            * 1e3,
+            "f32": (n_cand * 8 if kind == "euclid_lsh" else 0)
+            / F32_OPS_PER_S * 1e3,
+            "sfu": (n_cand if kind == "euclid_lsh" else 0) / SFU_PER_S * 1e3}
+
+
+def ivf_bound(c, e, k, d, kr, slots, n_cand, kb):
+    """K7's least time in ms by class: the bytes (the centroids, the
+    query's sparse and dense forms, the candidate ids, each valid
+    candidate's Kr indices, values and norm, the result) and the float32
+    operations (the C centroid dots and squares, 4 E each; a candidate's
+    Kr multiply-adds and its tail) and the tails' division or sqrt."""
+    nbytes = (c * e * 4 + k * 8 + d * 4 + slots * 4 + n_cand * (kr * 8 + 4)
+              + (2 * kb + 1) * 8)
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "f32": (c * e * 4 + n_cand * (kr * 2 + 4)) / F32_OPS_PER_S * 1e3,
+            "sfu": n_cand / SFU_PER_S * 1e3}
+
+
+def cand_slots(csr, groups):
+    """Candidate ids the probe reads: the probed groups' lengths (at most
+    cap) plus the delta's width."""
+    flat, offsets, lens, delta, cap = csr
+    return int(lens[groups].clamp_max(cap).sum()) + int(delta.shape[0])
+
+
+def index_answers(drv, reads, full):
+    """Each read's answer with the index, then with the full sweep (the
+    index set aside): (pruned, full) lists."""
+    pruned = [read() for read in reads]
+    saved, drv.index = drv.index, None
+    try:
+        whole = [read() for read in full]
+    finally:
+        drv.index = saved
+    return pruned, whole
+
+
+def recall_of(pruned, whole):
+    from jubatus_tpu_torch.index import tie_aware_recall
+    return sum(tie_aware_recall(f, p, NN_SIZE)
+               for p, f in zip(pruned, whole)) / len(pruned)
+
+
+def phase_index_nn(torch, np, device="cuda"):
+    """Phase 12a: nearest_neighbor lsh H 64 (bench.py:1240-1258) at
+    INDEX_ROWS rows: INDEX_PROTOS prototype datums signed by K1, every row
+    one prototype's signature with one bit flipped, written to the store
+    in one write (bench.py injects the table: a 10^6-row set_row build
+    would measure the converter), --index lsh_probe at INDEX_PROBES
+    probes built through its real lazy rebuild (host seconds printed).
+    INDEX_READS similar_row_from_id and INDEX_READS similar_row_from_datum
+    reads (prototype datums, jittered): one K6 launch a read, plus K1 for
+    a datum; each read's K6 result (keys, rows, n_cand) bitwise the plain
+    version's on the same card tensors and its answer the plain version's
+    decoded; the tie-aware recall at k 10 against the full sweep (K3), the
+    candidates a query; K6's device ms beside K3's full sweep of the same
+    table.  Returns (launches, K6's row)."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import candidates as C
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(61)
+    drv = create_driver("nearest_neighbor", NN_CONFIG, device=device)
+    if not drv.configure_index("lsh_probe", probes=INDEX_PROBES):
+        raise AssertionError("index nn: lsh_probe declined")
+    protos = nn_datums(np, rng, INDEX_PROTOS)
+    batch = drv.converter.convert_batch([nn_datum(Datum, d) for d in protos],
+                                        update_weights=False)
+    psig, _ = drv._signature(batch)
+    n = INDEX_ROWS
+    t0 = time.perf_counter()
+    sigs = psig[rng.integers(0, INDEX_PROTOS, n)]
+    sigs[np.arange(n), rng.integers(0, 2, n)] ^= \
+        np.uint32(1) << rng.integers(0, 32, n, dtype=np.uint32)
+    slots = drv._rows([f"r{i}" for i in range(n)])
+    drv.pages.write(slots, {"sig": sigs, "norms": np.ones(n, np.float32)})
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = drv._index_for_query()           # the lazy rebuild
+    csr = idx.device_csr()                 # its pack and upload
+    build_s = time.perf_counter() - t0
+    if idx is None or idx.needs_rebuild:
+        raise AssertionError("index nn: the index did not build")
+    q_ids = [f"r{i}" for i in rng.integers(0, n, INDEX_READS)]
+    q_dat = []
+    for p in rng.integers(0, INDEX_PROTOS, INDEX_READS):
+        names, vals = protos[p]
+        q_dat.append((names, (np.asarray(vals) + 0.05 * rng.standard_normal(
+            NN_NNZ)).tolist()))
+    reads = ([lambda i=i: drv.similar_row_from_id(i, NN_SIZE) for i in q_ids]
+             + [lambda d=d: drv.similar_row_from_datum(nn_datum(Datum, d),
+                                                       NN_SIZE)
+                for d in q_dat])
+    fb0 = float(metrics_snapshot().get("index_fallback_total", "0"))
+    before = launch_counts()
+    t0 = time.perf_counter()
+    pruned = [read() for read in reads]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(reads)
+    delta = launch_delta(before, launch_counts())
+    fallbacks = float(metrics_snapshot().get("index_fallback_total", "0")) \
+        - fb0
+    if device == "cuda":
+        check_reads("index nn", delta, 2 * INDEX_READS, "sig_probe")
+        check_reads("index nn (K1 of the datum reads)", delta, INDEX_READS,
+                    "lsh_signature")
+        check_reads("index nn (fallbacks)", delta, int(fallbacks),
+                    "sig_topk")
+    _, whole = index_answers(drv, [], reads)
+    recall = recall_of(pruned, whole)
+    # each read's K6 result against the plain version on the same card
+    # tensors: the by-row reads in one launch of 64 queries, the datum
+    # reads' signatures signed as the reads sign them (B 1)
+    table, norms = drv.sig, drv.norms
+    dev = table.device
+    kb = C._kb(NN_SIZE, idx.plan, csr[4], csr[3])
+    nv = drv.pages.n_rows
+    q_rows = torch.tensor([drv.ids[i] for i in q_ids], device=dev)
+    qsig = []
+    for d in q_dat:
+        b = drv.converter.convert_batch([nn_datum(Datum, d)],
+                                        update_weights=False)
+        qsig.append(L.signature(drv.key, L._host(b.indices, np.int32, dev),
+                                L._host(b.values, np.float32, dev), 64,
+                                "lsh"))
+    qsig = torch.cat(qsig)
+    qn = torch.ones(len(q_dat), dtype=torch.float32, device=dev)
+    args = ("lsh", table, norms, nv, None, csr, idx.plan, idx.bits, 64, kb)
+    outs = [C.sig_probe(*args, q_rows=q_rows),
+            C.sig_probe(*args, q_sigs=qsig, qnorms=qn)]
+    refs = [C.sig_probe_ref("lsh", table, norms, nv, None, table[q_rows],
+                            norms[q_rows], *csr[:4], csr[4], idx.plan,
+                            idx.bits, 64, kb),
+            C.sig_probe_ref("lsh", table, norms, nv, None, qsig, qn,
+                            *csr[:4], csr[4], idx.plan, idx.bits, 64, kb)]
+    n_cand = []
+    for out, ref, answers in zip(outs, refs, (pruned[:INDEX_READS],
+                                              pruned[INDEX_READS:])):
+        if not torch.equal(out, ref):
+            raise AssertionError("index nn: K6 differs from its plain "
+                                 "version")
+        rows, scores, nc = C.probe_result(ref, kb)
+        n_cand += nc.tolist()
+        for i, ans in enumerate(answers):
+            r, s = C.dedupe_topk(rows[i], scores[i], NN_SIZE)
+            if drv._to_results(r, s, NN_SIZE, True) != ans:
+                raise AssertionError("index nn: a read's answer is not its "
+                                     "K6 result's")
+    # K6 at one by-row read beside K3's full sweep over the same table
+    one = q_rows[:1].contiguous()
+    groups = C.probe_groups_ref("lsh", table[one], idx.plan, idx.bits)
+    slots = cand_slots(csr, groups[0])
+    width = C._cand_width(idx.plan, csr[4], csr[3])
+    scores = torch.from_numpy(rng.random((1, width), dtype=np.float32)
+                              ).to(dev)
+    row = kernel_row(
+        torch, lambda: C.sig_probe(*args, q_rows=one),
+        lambda: C.sig_probe_ref("lsh", table, norms, nv, None, table[one],
+                                norms[one], *csr[:4], csr[4], idx.plan,
+                                idx.bits, 64, kb),
+        device, 3, lib=lambda: torch.topk(scores, kb),
+        classes=probe_bound("lsh", table.shape[1], slots, n_cand[0], 1, kb),
+        shape=[n, table.shape[1], 1, width, kb], err=0.0)
+    sweep_ms = nn_times(torch, lambda: L.sig_topk(
+        "lsh", table, norms, nv, q_rows=one, hash_num=64, kb=NN_KB),
+        device, 20)[0]
+    dat_ms = nn_times(torch, lambda: C.sig_probe(
+        *args, q_sigs=qsig[:1], qnorms=qn[:1]), device, 20)[0]
+    row.update(kind="lsh", hash_num=64, probes=INDEX_PROBES,
+               cap=int(csr[4]), candidates_mean=float(np.mean(n_cand)),
+               datum_ms=dat_ms, full_sweep_ms=sweep_ms, recall=recall,
+               build_s=build_s, read_ms=read_ms, fallbacks=fallbacks,
+               route="by row")
+    log(f"index nn: lsh H 64 at {n} rows (filled in {fill_s:.1f} s), "
+        f"lsh_probe P {INDEX_PROBES} built in {build_s:.2f} s (host), cap "
+        f"{csr[4]}, width {width}, kb {kb}; {2 * INDEX_READS} reads, "
+        f"{read_ms:.3f} ms a read, {fallbacks:.0f} fallbacks, candidates a "
+        f"query {np.mean(n_cand):.0f}, recall@10 {recall:.4f}; K6 "
+        f"{row['ms']} ms by row, {dat_ms} ms by signature (plain "
+        f"{row['plain_ms']}, topk {row['library_ms']}, bound "
+        f"{row['bound_ms']:.4g}), K3's full sweep {sweep_ms} ms; bitwise")
+    return {"sig_probe": delta.get("sig_probe", 0),
+            "lsh_signature": delta.get("lsh_signature", 0),
+            "sig_topk": delta.get("sig_topk", 0)}, row
+
+
+def ivf_rows(np, rng, drv, n, protos):
+    """bench.py:1293-1313's table through the port's converter: each row
+    one prototype datum's features (16 of 4096 columns) with its values
+    jittered by 0.05; (host rows {id: {col: value}}, prototype rows)."""
+    from jubatus_tpu_torch.fv import Datum
+    prows = [drv.converter.convert_row(nn_datum(Datum, d)) for d in protos]
+    if any(len(r) != NN_NNZ for r in prows):
+        raise AssertionError("index ivf: two features of a prototype share "
+                             "a column")
+    pidx = [list(r.keys()) for r in prows]
+    pval = np.array([list(r.values()) for r in prows])
+    asn = rng.integers(0, len(protos), n)
+    vals = (pval[asn] + 0.05 * rng.standard_normal(
+        (n, pval.shape[1]))).astype(np.float32).tolist()
+    return {f"e{j}": dict(zip(pidx[a], v))
+            for j, (a, v) in enumerate(zip(asn.tolist(), vals))}
+
+
+def phase_index_ivf(torch, np, device="cuda"):
+    """Phase 12b: the recommender's inverted_index (bench.py:1287-1313:
+    4096 columns, Kr 32, prototypes of 16 features) at INDEX_IVF_ROWS
+    rows, filled as phase 11 fills its exact table (host rows, one store
+    write), --index ivf at INDEX_PROBES probes built through its lazy
+    rebuild (train and assign; host seconds printed); INDEX_READS
+    similar_row_from_id and INDEX_READS similar_row_from_datum reads: one
+    K7 launch a read, each bitwise the plain version and its answer the
+    plain version's decoded; the recall at k 10 against the full sweep
+    (K4); K7's device ms beside K4's full sweep.  Returns (launches, K7's
+    row)."""
+    from jubatus_tpu_torch.fv import Datum, SparseBatch
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import candidates as C
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(71)
+    drv = create_driver("recommender", IVF_CONFIG, device=device)
+    if not drv.configure_index("ivf", probes=INDEX_PROBES):
+        raise AssertionError("index ivf: ivf declined")
+    # prototypes whose 16 features land in 16 distinct columns
+    protos = [d for d in nn_datums(np, rng, 2 * INDEX_PROTOS)
+              if len(drv.converter.convert_row(nn_datum(Datum, d)))
+              == NN_NNZ][:INDEX_PROTOS]
+    n = INDEX_IVF_ROWS
+    t0 = time.perf_counter()
+    rows = ivf_rows(np, rng, drv, n, protos)
+    ids = list(rows)
+    slots = drv.pages.alloc_seq(n).tolist()
+    drv.ids = dict(zip(ids, slots))
+    drv.row_ids = list(ids)
+    drv.rows = rows
+    drv._dirty = dict.fromkeys(ids, True)
+    drv._sync()
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = drv._index_for_query()           # train, assign, pack
+    csr = idx.device_csr()
+    cent = idx.device_centroids()
+    build_s = time.perf_counter() - t0
+    if idx is None or idx.needs_rebuild:
+        raise AssertionError("index ivf: the index did not build")
+    q_ids = [f"e{i}" for i in rng.integers(0, n, INDEX_READS)]
+    q_dat = []
+    for p in rng.integers(0, INDEX_PROTOS, INDEX_READS):
+        names, vals = protos[p]
+        q_dat.append((names, (np.asarray(vals) + 0.05 * rng.standard_normal(
+            NN_NNZ)).tolist()))
+    reads = ([lambda i=i: drv.similar_row_from_id(i, NN_SIZE) for i in q_ids]
+             + [lambda d=d: drv.similar_row_from_datum(nn_datum(Datum, d),
+                                                       NN_SIZE)
+                for d in q_dat])
+    fb0 = float(metrics_snapshot().get("index_fallback_total", "0"))
+    before = launch_counts()
+    t0 = time.perf_counter()
+    pruned = [read() for read in reads]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(reads)
+    delta = launch_delta(before, launch_counts())
+    fallbacks = float(metrics_snapshot().get("index_fallback_total", "0")) \
+        - fb0
+    if device == "cuda":
+        check_reads("index ivf", delta, 2 * INDEX_READS, "ivf_probe")
+        check_reads("index ivf (fallbacks)", delta, int(fallbacks),
+                    "dense_topk")
+    _, whole = index_answers(drv, [], reads)
+    recall = recall_of(pruned, whole)
+    t = drv._sync()
+    dev = t["norms"].device
+    probes = min(INDEX_PROBES, cent.shape[0])
+    kb = C._ivf_kb(NN_SIZE, probes, csr[4], csr[3])
+    n_cand = []
+    first = None
+    for q, ans in zip([drv.rows[i] for i in q_ids]
+                      + [drv.converter.convert_row(nn_datum(Datum, d))
+                         for d in q_dat], pruned):
+        b = SparseBatch.from_rows([q])
+        qd, _ = drv._query_row(q)
+        qn = float(np.sqrt(sum(v * v for v in q.values())))
+        qargs = (L._host(b.indices[0], np.int32, dev),
+                 L._host(b.values[0], np.float32, dev),
+                 L._host(qd, np.float32, dev))
+        out = C.ivf_probe("cosine", *qargs, qn, cent, t["indices"],
+                          t["values"], t["norms"], t["rows"], t["mask"], csr,
+                          probes, idx.embed_dim, kb)
+        ref = C.ivf_probe_ref("cosine", *qargs, torch.tensor(
+            np.float32(qn), device=dev), cent, t["indices"], t["values"],
+            t["norms"], t["rows"], t["mask"], *csr[:4], csr[4], probes,
+            idx.embed_dim, kb)
+        if not torch.equal(out, ref):
+            raise AssertionError("index ivf: K7 differs from its plain "
+                                 "version")
+        r, s, nc = C.probe_result(ref, kb)
+        n_cand.append(int(nc[0]))
+        r, s = C.dedupe_topk(r[0], s[0], NN_SIZE)
+        if drv._trim_results(r, s, NN_SIZE) != ans:
+            raise AssertionError("index ivf: a read's answer is not its K7 "
+                                 "result's")
+        if first is None:
+            first = (qargs, qn, q)
+    qargs, qn, q = first
+    e_q = C.cs_embed_ref(qargs[0], qargs[1], idx.embed_dim)
+    top = torch.topk(L.scores_to_keys(C.centroid_scores_ref(cent, e_q)),
+                     probes).values
+    top_c = L.MASK32 - (top & L.MASK32)
+    slots = cand_slots(csr, torch.cat([top_c, top_c + cent.shape[0]]))
+    width = 2 * probes * csr[4] + csr[3].shape[0]
+    scores = torch.from_numpy(rng.random((1, width), dtype=np.float32)
+                              ).to(dev)
+
+    def k7():
+        return C.ivf_probe("cosine", *qargs, qn, cent, t["indices"],
+                           t["values"], t["norms"], t["rows"], t["mask"],
+                           csr, probes, idx.embed_dim, kb)
+
+    row = kernel_row(
+        torch, k7, lambda: C.ivf_probe_ref(
+            "cosine", *qargs, torch.tensor(np.float32(qn), device=dev),
+            cent, t["indices"], t["values"], t["norms"], t["rows"],
+            t["mask"], *csr[:4], csr[4], probes, idx.embed_dim, kb),
+        device, 2, lib=lambda: torch.topk(scores, kb),
+        classes=ivf_bound(cent.shape[0], idx.embed_dim, qargs[0].shape[0],
+                          qargs[2].shape[0], t["indices"].shape[1], slots,
+                          n_cand[0], kb),
+        shape=[n, t["indices"].shape[1], int(cent.shape[0]), width, kb],
+        err=0.0)
+    qd_t = qargs[2][None]
+    qn_t = torch.tensor([qn], dtype=torch.float32, device=dev)
+    sweep_ms = nn_times(torch, lambda: L.dense_topk(
+        "cosine", t["indices"], t["values"], t["norms"], t["rows"],
+        t["mask"], qd_t, qn_t, L._kb(NN_SIZE, t["rows"])), device, 20)[0]
+    row.update(metric="cosine", probes=probes, cap=int(csr[4]),
+               centroids=int(cent.shape[0]), rows=n,
+               candidates_mean=float(np.mean(n_cand)), full_sweep_ms=sweep_ms,
+               recall=recall, build_s=build_s, read_ms=read_ms,
+               fallbacks=fallbacks, route="by row")
+    log(f"index ivf: inverted_index at {n} rows (filled in {fill_s:.1f} s), "
+        f"ivf C {cent.shape[0]} P {probes} built in {build_s:.2f} s (host), "
+        f"cap {csr[4]}, width {width}, kb {kb}; {2 * INDEX_READS} reads, "
+        f"{read_ms:.3f} ms a read, {fallbacks:.0f} fallbacks, candidates a "
+        f"query {np.mean(n_cand):.0f}, recall@10 {recall:.4f}; K7 "
+        f"{row['ms']} ms (plain {row['plain_ms']}, topk "
+        f"{row['library_ms']}, bound {row['bound_ms']:.4g}), K4's full "
+        f"sweep {sweep_ms} ms; bitwise")
+    return {"ivf_probe": delta.get("ivf_probe", 0),
+            "dense_topk": delta.get("dense_topk", 0)}, row
+
+
+def metrics_snapshot():
+    from jubatus_tpu_torch.utils.metrics import GLOBAL
+    return GLOBAL.snapshot()
+
+
+def phase_index_wire(torch, np, device="cuda"):
+    """Phase 12c: over the wire, a nearest_neighbor server (lsh H 64)
+    with --index lsh_probe --index_probes 4 and a recommender
+    inverted_index server with --index ivf, INDEX_WIRE_ROWS writes each
+    (above the default min_rows), then INDEX_READS reads each (datum and
+    by id), every answer equal to an in-process port driver's with the
+    same index fed the same writes, as phase 11 checks; each read one K6
+    (K7) launch on both sides; the get_status index keys.  Returns the
+    server processes' launches."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    rng = np.random.default_rng(81)
+    served = {}
+    for service, cfg, kind, write, kern in (
+            ("nearest_neighbor", NN_CONFIG, "lsh_probe", "set_row",
+             "sig_probe"),
+            ("recommender", IVF_CONFIG, "ivf", "update_row", "ivf_probe")):
+        drv = create_driver(service, cfg, device=device)
+        if not drv.configure_index(kind, probes=INDEX_PROBES):
+            raise AssertionError(f"index wire: {kind} declined")
+        protos = nn_datums(np, rng, 256)
+        data = []
+        for p in rng.integers(0, len(protos), INDEX_WIRE_ROWS
+                              + INDEX_READS):
+            names, vals = protos[p]
+            data.append((names, (np.asarray(vals) + 0.05
+                                 * rng.standard_normal(NN_NNZ)).tolist()))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            cfg_path = os.path.join(tmp, "index.json")
+            with open(cfg_path, "w") as f:
+                json.dump(cfg, f)
+            child, t0 = start_server(service, cfg_path, tmp, "--index",
+                                     kind, "--index_probes",
+                                     str(INDEX_PROBES), device=device)
+            try:
+                port, _ = server_ready(child, t0)
+                cli = WireClient(port)
+                t0 = time.perf_counter()
+                # INDEX_WINDOW writes in flight while the in-process
+                # driver takes the same ones; the server answers in order
+                for w0 in range(0, INDEX_WIRE_ROWS, INDEX_WINDOW):
+                    win = range(w0, min(w0 + INDEX_WINDOW, INDEX_WIRE_ROWS))
+                    cli.sock.sendall(b"".join(
+                        cli.frame(write, f"w{i}", nn_wire(data[i]))
+                        for i in win))
+                    for i in win:
+                        getattr(drv, write)(f"w{i}", nn_datum(Datum, data[i]))
+                    for _ in win:
+                        if cli.receive() is not True:
+                            raise AssertionError(f"index wire: {write} "
+                                                 "failed")
+                write_s = time.perf_counter() - t0
+                s0 = launches_of(status_of(cli))
+                before = launch_counts()
+                t0 = time.perf_counter()
+                for j, d in enumerate(data[INDEX_WIRE_ROWS:]):
+                    if j % 2:
+                        rid = f"w{int(rng.integers(0, INDEX_WIRE_ROWS))}"
+                        a = cli.call("similar_row_from_id", rid, NN_SIZE)
+                        b = drv.similar_row_from_id(rid, NN_SIZE)
+                    else:
+                        a = cli.call("similar_row_from_datum", nn_wire(d),
+                                     NN_SIZE)
+                        b = drv.similar_row_from_datum(nn_datum(Datum, d),
+                                                       NN_SIZE)
+                    if [tuple(x) for x in a] != [tuple(x) for x in b]:
+                        raise AssertionError(f"index wire: a {service} read "
+                                             "differs from the in-process "
+                                             "driver's")
+                read_s = time.perf_counter() - t0
+                delta = launch_delta(before, launch_counts())
+                st = status_of(cli)
+                sdelta = launch_delta(s0, launches_of(st))
+                if device == "cuda":
+                    check_reads(f"index wire {service} (in process)", delta,
+                                INDEX_READS, kern)
+                    check_reads(f"index wire {service} (server)", sdelta,
+                                INDEX_READS, kern)
+                want = {"index": kind, "index_probes": str(INDEX_PROBES),
+                        "index_live_rows": str(INDEX_WIRE_ROWS),
+                        "index_needs_rebuild": "0"}
+                if any(st.get(k) != v for k, v in want.items()) or \
+                        float(st.get("index_probe_total", 0)) < INDEX_READS \
+                        or float(st.get("index_rebuild_total", 0)) < 1:
+                    raise AssertionError(f"index wire: {service} get_status "
+                                         f"index keys {st}")
+                for k, v in launches_of(st).items():
+                    served[k] = served.get(k, 0) + v
+            finally:
+                child.stop()
+        log(f"index wire: {service} --index {kind}: {INDEX_WIRE_ROWS} "
+            f"{write}s in {write_s:.1f} s (both sides), {INDEX_READS} reads "
+            f"in {read_s:.2f} s, bitwise the in-process driver; status "
+            + ", ".join(f"{k}={st[k]}" for k in sorted(st)
+                        if k.startswith("index")))
+    return served
+
+
+def phase_index_anomaly(torch, np, device="cuda"):
+    """Phase 12d: anomaly lof over euclid_lsh H 64 (bench.py:824-831) with
+    the config's "index": {"min_rows": 0} in process: INDEX_ANOM_ADDS adds
+    (the write path's exact sweeps, K5), then INDEX_READS calc_score reads
+    with the index engaged, one K6 launch each (K5 where a read falls
+    back); each read's K6 result bitwise the plain version; the share of
+    scores equal to the full sweep's.  Returns the launches."""
+    from jubatus_tpu_torch.fv import Datum, SparseBatch
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import candidates as C
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(91)
+    drv = create_driver("anomaly", INDEX_ANOM_CONFIG, device=device)
+    if not drv.configure_index("lsh_probe", probes=INDEX_PROBES) or \
+            drv.index.spec.min_rows != 0:
+        raise AssertionError("index anomaly: the index did not configure")
+    protos = nn_datums(np, rng, 64)
+    data = []
+    for p in rng.integers(0, len(protos), INDEX_ANOM_ADDS + INDEX_READS):
+        names, vals = protos[p]
+        data.append((names, (np.asarray(vals) + 0.05
+                             * rng.standard_normal(NN_NNZ)).tolist()))
+    t0 = time.perf_counter()
+    for i, d in enumerate(data[:INDEX_ANOM_ADDS]):
+        drv.add(f"a{i}", nn_datum(Datum, d))
+    add_s = time.perf_counter() - t0
+    qs = [nn_datum(Datum, d) for d in data[INDEX_ANOM_ADDS:]]
+    fb0 = float(metrics_snapshot().get("index_fallback_total", "0"))
+    before = launch_counts()
+    scores = [drv.calc_score(q) for q in qs]
+    delta = launch_delta(before, launch_counts())
+    fallbacks = float(metrics_snapshot().get("index_fallback_total", "0")) \
+        - fb0
+    if device == "cuda":
+        check_reads("index anomaly", delta, INDEX_READS, "sig_probe")
+        check_reads("index anomaly (fallbacks)", delta, int(fallbacks),
+                    "sig_counts")
+    if any(np.isnan(s) for s in scores):
+        raise AssertionError("index anomaly: a score is NaN")
+    saved, drv.index = drv.index, None
+    full = [drv.calc_score(q) for q in qs]
+    drv.index = saved
+    same = sum(a == b for a, b in zip(scores, full)) / len(qs)
+    idx = drv.index
+    csr = idx.device_csr()
+    p = drv.pages
+    dev = p.device("sig").device
+    kb = C._kb(drv.nn_num, idx.plan, csr[4], csr[3])
+    rows = [drv.converter.convert_row(q) for q in qs]
+    qsig = []
+    for r in rows:              # signed one at a time, as calc_score signs
+        b = SparseBatch.from_rows([r])
+        qsig.append(L.signature(drv.key, L._host(b.indices, np.int32, dev),
+                                L._host(b.values, np.float32, dev), 64,
+                                "euclid_lsh"))
+    qsig = torch.cat(qsig)
+    qn = torch.tensor([float(np.sqrt(sum(v * v for v in r.values())))
+                       for r in rows], dtype=torch.float32, device=dev)
+    args = ("euclid_lsh", p.device("sig"), p.device("norms"), p.capacity,
+            p.mask_dev(), csr, idx.plan, idx.bits, 64, kb)
+    out = C.sig_probe(*args, q_sigs=qsig, qnorms=qn)
+    ref = C.sig_probe_ref("euclid_lsh", p.device("sig"), p.device("norms"),
+                          p.capacity, p.mask_dev(), qsig, qn, *csr[:4],
+                          csr[4], idx.plan, idx.bits, 64, kb)
+    if not torch.equal(out, ref):
+        raise AssertionError("index anomaly: K6 differs from its plain "
+                             "version")
+    log(f"index anomaly: lof euclid_lsh H 64, {INDEX_ANOM_ADDS} adds in "
+        f"{add_s:.1f} s, {INDEX_READS} calc_score reads through K6 "
+        f"({fallbacks:.0f} fallbacks), {same:.3f} of the scores equal to "
+        f"the full sweep's; K6 bitwise at {len(qs)} queries")
+    return {"sig_probe": delta.get("sig_probe", 0)}
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
@@ -4023,6 +4617,15 @@ def main() -> int:
     for extra in row_extra:
         rows["lsh_signature"]["variants"] += extra.get("lsh_signature", [])
         rows["sig_topk_variants"] += extra.get("sig_topk", [])
+    # 12. the sublinear query index: K6 and K7 at 10^6 rows, over the wire
+    # and in anomaly's reads
+    t12 = time.perf_counter()
+    nn_index_counts, rows["sig_probe"] = phase_index_nn(torch, np)
+    ivf_counts, rows["ivf_probe"] = phase_index_ivf(torch, np)
+    index_counts = [nn_index_counts, ivf_counts,
+                    phase_index_wire(torch, np),
+                    phase_index_anomaly(torch, np)]
+    log(f"index: phase 12 in {time.perf_counter() - t12:.1f} s")
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
@@ -4041,13 +4644,17 @@ def main() -> int:
     def row_served(kern):
         return sum(c.get(kern, 0) for c in row_counts)
 
-    # 12. report: the quantizer pair's launches are the v3 rounds' (both
+    def index_served(kern):
+        return sum(c.get(kern, 0) for c in index_counts)
+
+    # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
     # server processes' of phases 7-9 and the recovered servers' replays;
     # the LSH kernels' are phase 10's (the in-process build, its server
     # processes and the clusters', the restarted servers' replays too) and
-    # phase 11's (the row engines' servers; K4's in process)
+    # phase 11's (the row engines' servers; K4's in process); K6 and
+    # K7's are phase 12's (in process, its servers' and anomaly's)
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
@@ -4087,6 +4694,14 @@ def main() -> int:
         "sig_counts": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/ops/lsh.py:106",
                        row_served("sig_counts")),
+        # phase 12: the index's reads in process, the servers' and
+        # anomaly's
+        "sig_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
+                      "jubatus_tpu/ops/candidates.py:227",
+                      index_served("sig_probe")),
+        "ivf_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
+                      "jubatus_tpu/ops/candidates.py:367",
+                      index_served("ivf_probe")),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():

@@ -6,7 +6,8 @@
         [--name CLUSTER --coordinator HOST:PORT [--mixer linear_mixer] \
          [--interval_sec 16 --interval_count 512] [--mix_quantize]] \
         [--journal DIR [--journal_fsync batch] [--journal_segment_bytes N] \
-         [--snapshot_interval 60]] [--read_batch_window_us W]
+         [--snapshot_interval 60]] [--read_batch_window_us W] \
+        [--index off|lsh_probe|ivf [--index_probes 4]]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
@@ -28,8 +29,12 @@ its mixer's and the recovered MIX round, healing missed rounds as a
 straggler.  The JAX server's --model_file is not in the port yet.  With
 --read_batch_window_us W > 0 concurrent classify (estimate) calls are
 served as fused sweeps (framework/dispatch.py ReadDispatcher), and so
-are concurrent nearest_neighbor *_from_datum reads.  --index takes only
-"off": the sublinear index is not ported (ROADMAP Queue 1 item 5.3).
+are concurrent nearest_neighbor *_from_datum reads.  --index lsh_probe
+(the signature methods of nearest_neighbor, recommender and anomaly) or
+ivf (the recommender's exact methods) serves the row engines' reads
+through the sublinear candidate index (jubatus_tpu_torch/index/), probing
+--index_probes buckets or centroids a query; a kind that does not fit the
+engine's method is declined with a warning (get_status index=off).
 
 Like the JAX server's CLI it logs `... listening on host:port` and then
 prints the machine-readable line `jubatus ready rpc_port=N metrics_port=0
@@ -104,8 +109,17 @@ def _parser() -> argparse.ArgumentParser:
                         "sweep under one read-lock hold; 0 (default) "
                         "builds no read lane")
     p.add_argument("--index", default="off",
+                   choices=("off", "lsh_probe", "ivf"),
                    help="sublinear candidate index of the row-store "
-                        "engines; only 'off' (the full sweep) is served")
+                        "engines' reads: lsh_probe buckets the signature "
+                        "methods' signatures by band, ivf a count-sketch "
+                        "k-means quantizer for the exact methods; scores "
+                        "stay exact, recall is approximate, and a read "
+                        "that under-fills falls back to the full sweep.  "
+                        "off (default) keeps every full sweep")
+    p.add_argument("--index_probes", type=int, default=4,
+                   help="buckets (ivf: centroids) probed a query: the "
+                        "recall knob")
     return p
 
 
@@ -122,9 +136,8 @@ def serve(argv: Optional[Sequence[str]] = None
         parser.error(str(e))
     if not ns.configpath and not ns.coordinator:
         parser.error("--configpath is required without --coordinator")
-    if ns.index != "off":
-        from jubatus_tpu_torch.models.nearest_neighbor import INDEX_REFUSAL
-        parser.error(f"--index {ns.index}: {INDEX_REFUSAL}")
+    if ns.index_probes <= 0:
+        parser.error("--index_probes must be > 0")
     args = ServerArgs(type=ns.type, name=ns.name, rpc_port=ns.rpc_port,
                       bind_address=ns.listen_addr, datadir=ns.datadir,
                       configpath=ns.configpath, eth=ns.eth, device=ns.device,
@@ -136,7 +149,8 @@ def serve(argv: Optional[Sequence[str]] = None
                       journal_fsync=ns.journal_fsync,
                       journal_segment_bytes=ns.journal_segment_bytes,
                       snapshot_interval_sec=ns.snapshot_interval,
-                      read_batch_window_us=ns.read_batch_window_us)
+                      read_batch_window_us=ns.read_batch_window_us,
+                      index=ns.index, index_probes=ns.index_probes)
     membership = None
     config = None
     if args.coordinator:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import fcntl
 import json
+import logging
 import os
 import threading
 import time
@@ -38,6 +39,7 @@ from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
 from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
+from jubatus_tpu_torch.ops.candidates import ivf_probe, sig_probe
 from jubatus_tpu_torch.ops.lsh import (dense_dots, dense_topk,
                                        lsh_signature, minhash_signature,
                                        sig_counts, sig_topk)
@@ -60,6 +62,8 @@ KERNEL_WRAPPERS = {
     "dense_topk": dense_topk,
     "dense_dots": dense_dots,
     "sig_counts": sig_counts,
+    "sig_probe": sig_probe,
+    "ivf_probe": ivf_probe,
 }
 
 
@@ -102,6 +106,11 @@ class ServerArgs:
     snapshot_interval_sec: float = 60.0
     # the read lane's window (0: no lane)
     read_batch_window_us: float = 0.0
+    # the sublinear query index of the row-store engines (index/):
+    # off | lsh_probe (signature methods) | ivf (exact methods), and the
+    # buckets (centroids) a query probes
+    index: str = "off"
+    index_probes: int = 4
 
 
 class JubatusServer:
@@ -113,6 +122,14 @@ class JubatusServer:
         self.config_str = config
         self.driver = create_driver(args.type, json.loads(config),
                                     device=args.device)
+        if args.index != "off" and not self.driver.configure_index(
+                args.index, probes=int(args.index_probes)):
+            # a kind that does not fit the engine's method declines:
+            # get_status shows index=off, the full sweep serves
+            # (for ivf: also an "index" embed_dim K7 does not take)
+            logging.getLogger("jubatus_tpu_torch.server").warning(
+                "--index %s does not fit %s/%s; serving full sweeps",
+                args.index, args.type, getattr(self.driver, "method", "?"))
         # readers (classify, get_labels, save) share; updates and the
         # dispatch thread's fused steps are exclusive
         self.model_lock = RWLock()
@@ -299,6 +316,11 @@ class JubatusServer:
             # durability: the flag always; the journal's, snapshotter's
             # and recovery's keys below when it is on
             "journal_enabled": str(int(self.journal is not None)),
+            # the index knobs; a driver with a live index overrides
+            # "index" with its kind and adds its index_* detail, so "off"
+            # with no detail means declined or never asked
+            "index": "off",
+            "index_probes": str(self.args.index_probes),
         }
         if self.dispatcher is not None:
             st["ingest_windows"] = str(self.dispatcher.windows)

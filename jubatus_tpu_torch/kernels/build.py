@@ -38,7 +38,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
-KERNELS = ("quantize", "train_scan", "regression_scan", "lsh")
+KERNELS = ("quantize", "train_scan", "regression_scan", "lsh",
+           "candidates")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # flags of one kernel beyond NVCC_FLAGS

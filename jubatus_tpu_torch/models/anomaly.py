@@ -31,9 +31,18 @@ driver:
 calc_score(q) = mean(lrd of q's k neighbors) / lrd(q): 1.0 for an empty or
 degenerate model; a pile of duplicates gives +inf unless
 ignore_kth_same_point (then 1.0).  MIX is the row union with tombstones
-and the weight diff; put_diff and unpack rebuild every kNN list.  Not
-ported, each refused where a caller could ask for it: the sublinear index
-(item 5.3), the spill tier (item 5.4), the partition plane (item 5.5).
+and the weight diff; put_diff and unpack rebuild every kNN list.
+
+With --index lsh_probe (signature methods only) calc_score and
+calc_score_many find a query's k neighbours through the sublinear
+candidate index (index/lsh_probe.py: K1/K2, then one K6 launch), falling
+back to the full sweep where the candidates under-fill k, as the JAX
+driver does; the write path keeps its exact full-table kNN (an
+approximate kNN there would corrupt kdist and lrd for every later
+query).  The index is derived state: the dirty-row write notes it, a
+removed row is invalidated in it, unpack marks it for a lazy rebuild.
+Not ported, each refused where a caller could ask for it: the spill tier
+(item 5.4), the partition plane (item 5.5).
 """
 
 from __future__ import annotations
@@ -47,8 +56,10 @@ import torch
 from jubatus_tpu_torch.device import device_context, resolve_device
 from jubatus_tpu_torch.fv import Datum, SparseBatch
 from jubatus_tpu_torch.fv.weight_manager import WeightManager
+from jubatus_tpu_torch.index import IndexSpec, SigProbeIndex
 from jubatus_tpu_torch.models.base import Driver, register_driver
 from jubatus_tpu_torch.models.recommender import SparseRowTable, _to_str
+from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
 
 METHODS = ("lof", "light_lof")
@@ -100,6 +111,48 @@ class AnomalyDriver(SparseRowTable, Driver):
                         hash_num, keep_revert=False)
         self._victim_rows: List[int] = []   # slots freed with refresh=False
 
+    # -- sublinear query index (jubatus_tpu_torch/index/) ---------------------
+    # The read side only (calc_score*): the LOF write path keeps its exact
+    # full-table kNN.  Exact LOF (dense nn methods) keeps the full sweep.
+
+    def configure_index(self, kind: str, probes: int = 4, **kw) -> bool:
+        if kind != "lsh_probe" or not self.hash_num:
+            self.index = None
+            return False
+        spec = IndexSpec(kind="lsh_probe", probes=int(probes),
+                         **self._index_spec_kwargs(kw))
+        self.index = SigProbeIndex(self.nn_method, self.hash_num, spec,
+                                   put=self._index_put)
+        return True
+
+    def _index_rebuild(self) -> None:
+        self._index_sig_rebuild(np.array(
+            [r for r, i in enumerate(self.row_ids) if i], np.int64))
+
+    def _index_neighbors(self, idx, q: Dict[int, float]
+                         ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The query's approximate kNN through the index (K1/K2, one K6
+        launch), its similarities turned back into LOF distances; None when
+        the candidates under-fill k (the caller sweeps the table)."""
+        self._sync()
+        batch = SparseBatch.from_rows([q])
+        qn = float(np.sqrt(sum(v * v for v in q.values())))
+        p = self.pages
+        with device_context(self.device):
+            rows, sims, n = candops.sig_probe_query(
+                self.nn_method, self.key, batch.indices, batch.values,
+                p.device("sig"), qn, p.device("norms"), p.capacity,
+                p.mask_dev(), idx.device_csr(), self.hash_num, self.nn_num,
+                idx.plan, idx.bits)
+        fin = np.isfinite(sims)
+        rows, sims = rows[fin][: self.nn_num], sims[fin][: self.nn_num]
+        if len(rows) < min(self.nn_num, len(self.ids)):
+            idx.note_query(n, len(self.ids), fallback=True)
+            return None
+        idx.note_query(n, len(self.ids))
+        dists = -sims if self.nn_method == "euclid_lsh" else 1.0 - sims
+        return rows.astype(np.int64), dists.astype(np.float64)
+
     def _new_lof_tables(self, cap: int) -> None:
         self.kdist = np.zeros((cap,), np.float64)
         self.lrd = np.zeros((cap,), np.float64)
@@ -146,6 +199,8 @@ class AnomalyDriver(SparseRowTable, Driver):
         self.lrd[row] = 0.0
         self.knn_rows[row] = -1
         self.knn_dists[row] = np.inf
+        if self.index is not None:
+            self.index.store.invalidate_rows([row])
         if id_ in self._lru:
             self._lru.remove(id_)
         if record_tombstone:
@@ -363,16 +418,31 @@ class AnomalyDriver(SparseRowTable, Driver):
     def calc_score(self, datum: Datum) -> float:
         if not self.ids:
             return 1.0
-        dists = self._distances([self.converter.convert_row(datum)])[0]
-        return self._score(dists)
+        q = self.converter.convert_row(datum)
+        idx = self._index_for_query()
+        if idx is not None:
+            nb = self._index_neighbors(idx, q)
+            if nb is not None:
+                return self._score_from_neighbors(*nb)
+        return self._score(self._distances([q])[0])
 
     def calc_score_many(self, datums: Sequence[Datum]) -> List[float]:
         """The read lane's entry: one sweep for all N queries, scored per
-        caller with the per-row math of N calc_score calls."""
+        caller with the per-row math of N calc_score calls; with an engaged
+        index each query takes its own probe (one K6 launch), as in the
+        JAX driver."""
         if not self.ids:
             return [1.0] * len(datums)
-        dists = self._distances([self.converter.convert_row(d)
-                                 for d in datums])
+        qs = [self.converter.convert_row(d) for d in datums]
+        idx = self._index_for_query()
+        if idx is not None:
+            out: List[float] = []
+            for q in qs:
+                nb = self._index_neighbors(idx, q)
+                out.append(self._score(self._distances([q])[0])
+                           if nb is None else self._score_from_neighbors(*nb))
+            return out
+        dists = self._distances(qs)
         return [self._score(dists[i]) for i in range(len(datums))]
 
     def clear(self) -> None:
@@ -430,10 +500,16 @@ class AnomalyDriver(SparseRowTable, Driver):
         self._lru = [_to_str(i) for i in obj.get("lru", [])]
         self._refresh_rows([r for r, i in enumerate(self.row_ids) if i])
         self._pending.clear()
+        if self.index is not None:
+            # model files carry no index state: rebuild lazily from the
+            # restored signature table
+            self.index.mark_rebuild()
 
     def get_status(self) -> Dict[str, str]:
         st = {"method": self.method, "num_rows": str(len(self.ids)),
               "nn_method": self.nn_method,
               "query_tier": self.query_tier_status()}
         st.update(self.pages.get_status())
+        if self.index is not None:
+            st.update(self.index.get_status())
         return st

@@ -125,6 +125,59 @@ class Driver:
     def get_status(self) -> Dict[str, str]:
         return {}
 
+    # -- sublinear query index (jubatus_tpu_torch/index/) ---------------------
+    # The row-store engines override configure_index; every other driver
+    # declines (returns False), so --index on a classifier is a visible
+    # no-op, not a crash.
+    index = None
+
+    def configure_index(self, kind: str, probes: int = 4, **kw) -> bool:
+        return False
+
+    def _index_spec_kwargs(self, kw: Dict[str, Any]) -> Dict[str, Any]:
+        """Config-level index tuning: the engine config's optional "index"
+        object supplies the IndexSpec fields the CLI does not expose
+        (min_rows, bits, delta_cap, embed_dim, centroids; e.g.
+        `"index": {"min_rows": 0}` for a small table); explicit kwargs
+        win."""
+        cfg = {k: int(v) for k, v in
+               dict(self.config.get("index") or {}).items()
+               if k in ("min_rows", "bits", "delta_cap", "embed_dim",
+                        "centroids")}
+        cfg.update(kw)
+        return cfg
+
+    def _index_put(self, a: np.ndarray) -> torch.Tensor:
+        """A host CSR or centroid array on the driver's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _index_for_query(self):
+        """The engaged, built index, or None when the full sweep serves
+        (no index, or the table below min_rows).  Needs the row-store
+        shape (self.ids and _index_rebuild); re-derived under the index's
+        rebuild lock, checked twice, so one query thread rebuilds after a
+        wholesale table change or an IVF 2x-growth retrain.  Callers whose
+        host rows reach the device lazily (recommender, anomaly _sync)
+        sync first: the rebuild reads the device tables.  The port has no
+        spill tier, so the JAX driver's spill branch has no counterpart."""
+        idx = self.index
+        if idx is None or not idx.engaged(len(self.ids)):
+            return None
+        if idx.stale(len(self.ids)):
+            with idx.rebuild_lock:
+                if idx.stale(len(self.ids)):
+                    self._index_rebuild()
+        return idx if idx.ready else None
+
+    def _index_rebuild(self) -> None:   # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def take_index_sweep_stats(self):
+        """(candidates, rows, fallback) of this thread's last indexed
+        sweep, or None when no index ran."""
+        idx = self.index
+        return idx.take_stats() if idx is not None else None
+
     def query_tier_status(self) -> str:
         """Where the row engines' query tables live: the driver's device
         (the JAX package may mirror them to a host tier,

@@ -13,6 +13,16 @@ signature launch and one launch of K3, which sweeps the whole table and
 keeps each query's top keys (unique, in jax.lax.top_k's order): only
 those leave the card, in one copy.
 
+With --index lsh_probe (configure_index) a table of at least min_rows
+rows serves its reads through the sublinear candidate index
+(index/lsh_probe.py): a datum read is a signature launch and one launch of
+K6 (ops/candidates.py sig_probe: the probed buckets' rows and the delta,
+rescored exactly, their top keys), a by-row read one K6 launch; a read
+whose candidates under-fill its answer falls back to the full sweep (K3),
+as in the JAX driver.  The index is derived state: noted on every write
+(set_row, set_row_many, put_diff), rebuilt lazily from the signature table
+after unpack, never journaled, packed or mixed.
+
 Score conventions (the reference engines'):
   neighbor_row_*  -> ascending distance (lsh: hamming/H; minhash:
                      1 - jaccard; euclid_lsh: LSH-estimated euclidean)
@@ -24,10 +34,10 @@ MIX: a table union.  The diff is the rows written since the last round
 mix is a dict union, the later side winning an id; put_diff upserts.
 
 Not ported, each refused where a caller could ask for it, with the
-ROADMAP item that brings it: the sublinear index (the CLI's --index,
-item 5.3), the spill tier (pages.resident_pages > 0, item 5.4) and the
-partition plane (the service table's partition_* and *_sig_partial
-methods, item 5.5).  The JAX driver's query tier has no
+ROADMAP item that brings it: the spill tier (pages.resident_pages > 0,
+item 5.4) and the partition plane (the service table's partition_* and
+*_sig_partial methods, item 5.5, with the index's raw-signature route
+sig_probe_query_sig).  The JAX driver's query tier has no
 counterpart: the table lives on the driver's device, which get_status
 reports as query_tier.
 """
@@ -42,16 +52,15 @@ from jubatus_tpu_torch.batching.bucketing import round_b
 from jubatus_tpu_torch.device import device_context, resolve_device
 from jubatus_tpu_torch.fv import ConverterConfig, Datum, DatumToFVConverter
 from jubatus_tpu_torch.fv.weight_manager import WeightManager
+from jubatus_tpu_torch.index import IndexSpec, SigProbeIndex
 from jubatus_tpu_torch.models.base import Driver, register_driver
 from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
+from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
 
 METHODS = ("lsh", "minhash", "euclid_lsh")
 DEFAULT_SEED = 0x1EAF
 
-INDEX_REFUSAL = ("the sublinear query index (--index lsh_probe|ivf, "
-                 "jubatus_tpu/index/ and ops/candidates.py) is not in the "
-                 "port yet: ROADMAP Queue 1 item 5.3")
 PARTITION_REFUSAL = ("the partition plane (framework/partition.py and the "
                      "nearest_neighbor partition_* methods) is not in the "
                      "port yet: ROADMAP Queue 1 item 5.5")
@@ -89,6 +98,7 @@ class NearestNeighborDriver(Driver):
         self._alloc()
         self._pending: Dict[str, Dict[str, Any]] = {}   # rows since last mix
         self._diff_rows = None
+        self.index = None   # sublinear query index (configure_index)
 
     @property
     def _sig_width(self) -> int:
@@ -128,6 +138,44 @@ class NearestNeighborDriver(Driver):
                 self.row_ids[s] = i
         return np.fromiter((self.ids[i] for i in ids), np.int64, len(ids))
 
+    # -- sublinear query index (jubatus_tpu_torch/index/) ---------------------
+    # Derived state: noted wherever a row's signature is written (set_row,
+    # _scatter_rows, _bulk_store have the host signature in hand), rebuilt
+    # lazily from the signature table after unpack.
+
+    def configure_index(self, kind: str, probes: int = 4, **kw) -> bool:
+        """--index: every method is signature-based, so only lsh_probe
+        fits; another kind leaves the full sweep and returns False."""
+        if kind != "lsh_probe":
+            self.index = None
+            return False
+        spec = IndexSpec(kind="lsh_probe", probes=int(probes),
+                         **self._index_spec_kwargs(kw))
+        self.index = SigProbeIndex(self.method, self.hash_num, spec,
+                                   put=self._index_put)
+        return True
+
+    def _index_note(self, slots, sigs) -> None:
+        if self.index is not None:
+            self.index.note_sigs(np.asarray(slots, np.int64),
+                                 np.asarray(sigs))
+
+    def _index_rebuild(self) -> None:
+        slots = np.array([r for r, i in enumerate(self.row_ids) if i],
+                         np.int64)
+        self.index.rebuild_from(slots, self.pages.read("sig", slots))
+
+    def _index_results(self, idx, rows, sims, n_cand: int, size: int,
+                       similarity: bool):
+        """Candidate-pruned results, or None to fall back to the full
+        sweep (too few candidates must not shrink the answer)."""
+        out = self._to_results(rows, sims, size, similarity)
+        if len(out) >= min(int(size), len(self.ids)):
+            idx.note_query(n_cand, len(self.ids))
+            return out
+        idx.note_query(n_cand, len(self.ids), fallback=True)
+        return None
+
     # -- signatures ---------------------------------------------------------
 
     def _signature(self, batch, padded_b: Optional[int] = None
@@ -155,6 +203,7 @@ class NearestNeighborDriver(Driver):
         row = self._row(id_)
         self.pages.write([row], {"sig": sig[None],
                                  "norms": np.array([norm], np.float32)})
+        self._index_note([row], sig[None])
         self._pending[id_] = {"sig": sig.tobytes(), "norm": norm}
         return True
 
@@ -180,6 +229,7 @@ class NearestNeighborDriver(Driver):
         idx = self._rows(ids)
         self.pages.write(idx, {"sig": np.asarray(sigs),
                                "norms": np.asarray(norms, np.float32)})
+        self._index_note(idx, sigs)
 
     def _to_results(self, rows, sims, size: int, similarity: bool):
         """Top rows + similarities -> wire results, stopping at the first
@@ -201,7 +251,18 @@ class NearestNeighborDriver(Driver):
             return []
         batch = self.converter.convert_batch([datum], update_weights=False)
         qnorm = float(np.sqrt((batch.values * batch.values).sum(axis=1)[0]))
+        idx = self._index_for_query()
         with device_context(self.device):
+            if idx is not None:
+                rows, sims, n = candops.sig_probe_query(
+                    self.method, self.key, batch.indices, batch.values,
+                    self.sig, qnorm, self.norms, self.pages.n_rows, None,
+                    idx.device_csr(), self.hash_num, int(size), idx.plan,
+                    idx.bits)
+                out = self._index_results(idx, rows, sims, n, size,
+                                          similarity)
+                if out is not None:
+                    return out
             rows, sims = lshops.fused_sig_query(
                 self.method, self.key, batch.indices, batch.values,
                 self.sig, self.norms, self.pages.n_rows, self.hash_num,
@@ -213,7 +274,17 @@ class NearestNeighborDriver(Driver):
             raise KeyError(f"no such row: {id_}")
         if size <= 0:
             return []
+        idx = self._index_for_query()
         with device_context(self.device):
+            if idx is not None:
+                rows, sims, n = candops.sig_probe_query_row(
+                    self.method, self.sig, self.ids[id_], self.norms,
+                    self.pages.n_rows, None, idx.device_csr(),
+                    self.hash_num, int(size), idx.plan, idx.bits)
+                out = self._index_results(idx, rows, sims, n, size,
+                                          similarity)
+                if out is not None:
+                    return out
             rows, sims = lshops.fused_sig_query_row(
                 self.method, self.sig, self.ids[id_], self.norms,
                 self.pages.n_rows, self.hash_num, int(size))
@@ -234,13 +305,40 @@ class NearestNeighborDriver(Driver):
         batch = self.converter.convert_batch([d for d, _ in pairs],
                                              update_weights=False)
         qnorms = np.sqrt((batch.values * batch.values).sum(axis=1))
+        idx = self._index_for_query()
         with device_context(self.device):
+            if idx is not None:
+                out = self._index_many(idx, batch, qnorms, sizes, kmax,
+                                       similarity)
+                if out is not None:
+                    return out
             rows_b, sims_b = lshops.fused_sig_query_batch(
                 self.method, self.key, batch.indices, batch.values,
                 self.sig, self.norms, self.pages.n_rows, self.hash_num,
                 qnorms, kmax, round_b(len(pairs)))
         return [self._to_results(rows_b[i], sims_b[i], sizes[i], similarity)
                 for i in range(len(pairs))]
+
+    def _index_many(self, idx, batch, qnorms, sizes, kmax: int,
+                    similarity: bool):
+        """The batch through the index (one signature launch signed as a
+        batch of round_b, one K6 launch), or None when any query
+        under-fills: then the whole batch falls back to the full sweep,
+        as in the JAX driver."""
+        rows_b, sims_b, n_b = candops.sig_probe_query_batch(
+            self.method, self.key, batch.indices, batch.values, self.sig,
+            qnorms, self.norms, self.pages.n_rows, None, idx.device_csr(),
+            self.hash_num, kmax, idx.plan, idx.bits,
+            round_b(len(sizes)))
+        out = [self._to_results(rows_b[i], sims_b[i], s, similarity)
+               for i, s in enumerate(sizes)]
+        if all(len(o) >= min(s, len(self.ids)) for o, s in zip(out, sizes)):
+            for i in range(len(sizes)):
+                idx.note_query(int(n_b[i]), len(self.ids))
+            return out
+        idx.note_query(int(n_b.max(initial=0)), len(self.ids),
+                       fallback=True)
+        return None
 
     def neighbor_row_from_id(self, id_: str, size: int):
         return self._query_id(id_, size, similarity=False)
@@ -269,6 +367,8 @@ class NearestNeighborDriver(Driver):
         self.pages.clear(self.INITIAL_ROWS)
         self.converter.weights.clear()
         self._pending.clear()
+        if self.index is not None:
+            self.index.store.clear()
 
     # -- MIX (row-table union) ----------------------------------------------
 
@@ -296,6 +396,7 @@ class NearestNeighborDriver(Driver):
         norms = np.array([float(r["norm"]) for r in rows.values()],
                          np.float32)
         self.pages.write(idx, {"sig": sigs, "norms": norms})
+        self._index_note(idx, sigs)
 
     def _retire_pending(self) -> None:
         snap = self._diff_rows
@@ -356,10 +457,16 @@ class NearestNeighborDriver(Driver):
         self.converter.weights.unpack(obj["weights"])
         self._pending.clear()
         self._diff_rows = None
+        if self.index is not None:
+            # model files carry no index state: rebuild lazily from the
+            # restored table
+            self.index.mark_rebuild()
 
     def get_status(self) -> Dict[str, str]:
         st = {"method": self.method, "num_rows": str(len(self.ids)),
               "hash_num": str(self.hash_num),
               "query_tier": self.query_tier_status()}
         st.update(self.pages.get_status())
+        if self.index is not None:
+            st.update(self.index.get_status())
         return st

@@ -25,14 +25,25 @@ through K1/K2 and K3 sig_topk with the validity mask; only [Nq, kb] keys
 leave the card.  The read lane's similar_row_from_datum_many signs all its
 signature queries as one batch padded to round_b, as the JAX driver does.
 
+With --index (configure_index) a table of at least min_rows rows serves
+similar_row_from_* through the sublinear candidate index: lsh_probe for
+the signature methods (index/lsh_probe.py; a datum read is K1/K2 and one
+K6 launch, the read lane's batch one K6 launch), ivf for the exact methods
+(index/ivf.py; one K7 launch: the query's count-sketch embedding, its top
+centroids, their lists and the delta rescored exactly).  A read whose
+candidates under-fill its answer falls back to the full sweep (K3 or K4),
+as in the JAX driver.  The index is derived state: the dirty-row write
+notes it, a removed row is invalidated in it, unpack marks it for a lazy
+rebuild; it is never journaled, packed or mixed.
+
 MIX: a row-table union with tombstones (clear_row travels as None), the
 revert table, and the converter's weight diff.  Model files (pack) cross
 packages unchanged.
 
 Not ported, each refused where a caller could ask for it, with the ROADMAP
-item that brings it: the sublinear index (--index, item 5.3), the spill
-tier (pages.resident_pages > 0, item 5.4) and the partition plane (the
-service table's partition_* methods, item 5.5).  The JAX driver's query
+item that brings it: the spill tier (pages.resident_pages > 0, item 5.4)
+and the partition plane (the service table's partition_* methods, item
+5.5).  The JAX driver's query
 tier has no counterpart: get_status reports the driver's device.
 """
 
@@ -48,8 +59,10 @@ from jubatus_tpu_torch.device import device_context, resolve_device
 from jubatus_tpu_torch.fv import (ConverterConfig, Datum, DatumToFVConverter,
                                   SparseBatch)
 from jubatus_tpu_torch.fv.weight_manager import WeightManager
+from jubatus_tpu_torch.index import IndexSpec, IvfIndex, SigProbeIndex
 from jubatus_tpu_torch.models.base import Driver, register_driver
 from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
+from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
 
 EXACT_METHODS = ("inverted_index", "inverted_index_euclid")
@@ -97,6 +110,7 @@ class SparseRowTable:
         self._dirty: Dict[str, bool] = {}
         self._pending: Dict[str, Optional[Dict]] = {}
         self._diff_rows = None
+        self.index = None   # sublinear query index (configure_index)
         # reads run under the model's read lock, concurrently, and a read
         # writes the dirty rows: one at a time
         self._sync_lock = threading.Lock()
@@ -186,11 +200,18 @@ class SparseRowTable:
                     self.key, idx_np, val_np, self.hash_num,
                     self.sig_method, self.device)
             cols["sig"] = sig[:n]
+            if self.index is not None:
+                self.index.note_sigs(rows_np[:n], sig[:n])
+        elif self.index is not None:
+            self.index.note_rows(rows_np[:n], idx_np[:n], val_np[:n])
         self.pages.write(rows_np[:n], cols)
         return rows_np[:n], norms[:n]
 
     def get_all_rows(self) -> List[str]:
         return [i for i in self.row_ids if i]
+
+    def _index_sig_rebuild(self, slots: np.ndarray) -> None:
+        self.index.rebuild_from(slots, self.pages.read("sig", slots))
 
     def _clear_rows(self) -> None:
         self.ids.clear()
@@ -202,6 +223,8 @@ class SparseRowTable:
         self._dirty.clear()
         self._pending.clear()
         self.converter.weights.clear()
+        if self.index is not None:
+            self.index.store.clear()
 
     def _retire_pending(self) -> None:
         """put_diff retires exactly the rows its round's get_diff took:
@@ -255,6 +278,39 @@ class RecommenderDriver(SparseRowTable, Driver):
             raise ValueError(f"unknown unlearner: {self.unlearner}")
         self._init_rows(config, sig_method, hash_num, keep_revert=True)
 
+    # -- sublinear query index (jubatus_tpu_torch/index/) ---------------------
+
+    def configure_index(self, kind: str, probes: int = 4, **kw) -> bool:
+        """--index: the signature methods (and nearest_neighbor_
+        recommender's embedded one) take lsh_probe, the exact methods ivf;
+        a kind that does not fit, or an ivf `embed_dim` K7 does not take
+        (candops.IVF_EMBED_DIMS), returns False and keeps the full
+        sweep."""
+        self.index = None
+        if kind == "lsh_probe" and self.sig_method is not None:
+            spec = IndexSpec(kind="lsh_probe", probes=int(probes),
+                             **self._index_spec_kwargs(kw))
+            self.index = SigProbeIndex(self.sig_method, self.hash_num, spec,
+                                       put=self._index_put)
+            return True
+        if kind == "ivf" and self.sig_method is None:
+            spec = IndexSpec(kind="ivf", probes=int(probes),
+                             **self._index_spec_kwargs(kw))
+            if spec.embed_dim not in candops.IVF_EMBED_DIMS:
+                return False
+            self.index = IvfIndex(self._metric(), spec, put=self._index_put)
+            return True
+        return False
+
+    def _index_rebuild(self) -> None:
+        """Lazy rebuild from the (synced) device table, slots in order."""
+        slots = np.array(sorted(self.ids.values()), np.int64)
+        if self.sig_method is not None:
+            self._index_sig_rebuild(slots)
+        else:
+            self.index.rebuild_from(slots, self.pages.read("indices", slots),
+                                    self.pages.read("values", slots))
+
     # -- rows ---------------------------------------------------------------
 
     def _touch(self, id_: str) -> None:
@@ -274,6 +330,8 @@ class RecommenderDriver(SparseRowTable, Driver):
         self._dirty.pop(id_, None)
         self.row_ids[row] = ""
         self.pages.free([row])
+        if self.index is not None:
+            self.index.store.invalidate_rows([row])
         if id_ in self._lru:
             self._lru.remove(id_)
         if record_tombstone:
@@ -310,7 +368,15 @@ class RecommenderDriver(SparseRowTable, Driver):
         if not self.ids or size <= 0:
             return []
         t = self._sync()
+        idx = self._index_for_query()
         with device_context(self.device):
+            if idx is not None:
+                rows, sc, n = self._similar_pruned(idx, q, t, size)
+                out = self._trim_results(rows, sc, size)
+                if len(out) >= min(int(size), len(self.ids)):
+                    idx.note_query(n, len(self.ids))
+                    return out
+                idx.note_query(n, len(self.ids), fallback=True)
             if self.sig_method is None:
                 qd, qn = self._query_row(q)
                 rows, sc = lshops.fused_dense_query(
@@ -324,6 +390,24 @@ class RecommenderDriver(SparseRowTable, Driver):
                     t["sig"], t["norms"], t["rows"], self.hash_num, qn,
                     int(size), mask=t["mask"])
         return self._trim_results(rows, sc, size)
+
+    def _similar_pruned(self, idx, q: Dict[int, float], t, size: int):
+        """Candidate-pruned top-k: one K6 launch (after K1/K2) or one K7
+        launch -> (rows, scores, n_cand)."""
+        batch = SparseBatch.from_rows([q])
+        qn = float(np.sqrt(sum(v * v for v in q.values())))
+        if self.sig_method is not None:
+            return candops.sig_probe_query(
+                self.sig_method, self.key, batch.indices, batch.values,
+                t["sig"], qn, t["norms"], t["rows"], t["mask"],
+                idx.device_csr(), self.hash_num, int(size), idx.plan,
+                idx.bits)
+        qd, _ = self._query_row(q)
+        return candops.ivf_probe_query(
+            self._metric(), batch.indices, batch.values, qd, qn,
+            idx.device_centroids(), t["indices"], t["values"], t["norms"],
+            t["rows"], t["mask"], idx.device_csr(), int(size),
+            idx.spec.probes, idx.embed_dim)
 
     def _trim_results(self, rows, sc, size: int) -> List[Tuple[str, float]]:
         out: List[Tuple[str, float]] = []
@@ -411,7 +495,24 @@ class RecommenderDriver(SparseRowTable, Driver):
         batch = SparseBatch.from_rows(qs)
         qnorms = np.array([np.sqrt(sum(v * v for v in q.values()))
                            for q in qs], np.float32)
+        idx = self._index_for_query()
         with device_context(self.device):
+            if idx is not None:
+                rows_b, sims_b, n_b = candops.sig_probe_query_batch(
+                    self.sig_method, self.key, batch.indices, batch.values,
+                    t["sig"], qnorms, t["norms"], t["rows"], t["mask"],
+                    idx.device_csr(), self.hash_num, max(sizes), idx.plan,
+                    idx.bits, round_b(len(qs)))
+                out = [self._trim_results(rows_b[i], sims_b[i], s)
+                       for i, s in enumerate(sizes)]
+                if all(len(o) >= min(s, len(self.ids))
+                       for o, s in zip(out, sizes)):
+                    for i in range(len(qs)):
+                        idx.note_query(int(n_b[i]), len(self.ids))
+                    return out
+                # an under-filled caller falls the whole batch back
+                idx.note_query(int(n_b.max(initial=0)), len(self.ids),
+                               fallback=True)
             rows_b, sims_b = lshops.fused_sig_query_batch(
                 self.sig_method, self.key, batch.indices, batch.values,
                 t["sig"], t["norms"], t["rows"], self.hash_num, qnorms,
@@ -492,9 +593,15 @@ class RecommenderDriver(SparseRowTable, Driver):
             self._dirty[id_] = True
         self._lru = [_to_str(i) for i in obj.get("lru", [])]
         self._pending.clear()
+        if self.index is not None:
+            # model files carry no index state: rebuild lazily from the
+            # restored table (ivf re-derives its quantizer too)
+            self.index.mark_rebuild()
 
     def get_status(self) -> Dict[str, str]:
         st = {"method": self.method, "num_rows": str(len(self.ids)),
               "query_tier": self.query_tier_status()}
         st.update(self.pages.get_status())
+        if self.index is not None:
+            st.update(self.index.get_status())
         return st

@@ -1498,3 +1498,222 @@ def test_nn_classifier_on_the_card_matches_the_cpu(dev, monkeypatch):
         d.train(data[:280])
     a, b = (d.classify([x for _, x in data[280:]]) for d in drivers)
     assert a == b
+
+
+# ---------------------------------------------------------------------------
+# K6 (sig_probe) and K7 (ivf_probe): bitwise their plain versions on the
+# same card tensors, one launch a call
+# ---------------------------------------------------------------------------
+
+from jubatus_tpu_torch.index.ivf import IvfIndex  # noqa: E402
+from jubatus_tpu_torch.index.base import IndexSpec  # noqa: E402
+from jubatus_tpu_torch.ops import candidates as tcand  # noqa: E402
+from torch_index_inputs import (clustered_sigs, sig_index,  # noqa: E402
+                                      sparse_rows)
+
+
+def _probe_csr(store, dev):
+    flat, off, ln, dl, cap = store.packed()
+    return tuple(torch.from_numpy(x).to(dev) for x in (flat, off, ln, dl)) \
+        + (cap,)
+
+
+@pytest.mark.parametrize("kind,h", [("lsh", 64), ("minhash", 64),
+                                    ("euclid_lsh", 64), ("lsh", 512),
+                                    ("euclid_lsh", 512), ("minhash", 256)])
+@pytest.mark.parametrize("route", ["sig", "row"])
+@pytest.mark.parametrize("valid", ["count", "mask"])
+@pytest.mark.parametrize("k,fresh", [(10, 10), (10, 0), (200, 16)])
+def test_sig_probe_is_bitwise_the_plain_version(dev, kind, h, route, valid,
+                                                k, fresh):
+    n = 3000
+    sig, norms = clustered_sigs(kind, h, n, seed=h + len(kind))
+    store, plan, bits = sig_index(kind, h, sig, probes=4, fresh=fresh)
+    csr = _probe_csr(store, dev)
+    table = torch.from_numpy(sig.view(np.int32)).to(dev)
+    tn = torch.from_numpy(norms).to(dev)
+    rng = np.random.default_rng(3)
+    mask = None
+    n_valid = n - 7
+    if valid == "mask":
+        mask = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+        n_valid = n
+    kb = tcand._kb(k, plan, csr[4], csr[3])
+    qr = torch.from_numpy(rng.integers(0, n, 5)).to(dev)
+    qs, qn = table[qr], tn[qr]
+    before = tcand.sig_probe.launches
+    if route == "row":
+        got = tcand.sig_probe(kind, table, tn, n_valid, mask, csr, plan,
+                              bits, h, kb, q_rows=qr)
+    else:
+        got = tcand.sig_probe(kind, table, tn, n_valid, mask, csr, plan,
+                              bits, h, kb, q_sigs=qs.contiguous(),
+                              qnorms=qn.contiguous())
+    assert tcand.sig_probe.launches == before + 1
+    want = tcand.sig_probe_ref(kind, table, tn, n_valid, mask, qs, qn,
+                               *csr[:4], csr[4], plan, bits, h, kb)
+    assert torch.equal(got, want)
+    if k == 200:
+        assert kb > 1024
+
+
+@pytest.mark.parametrize("probes", [4, 8])
+def test_sig_probe_fat_buckets_and_the_workspace(dev, probes):
+    # 40,000 rows of 20 prototypes: buckets of thousands, so the candidate
+    # buffer passes shared memory (the workspace path)
+    sig, norms = clustered_sigs("lsh", 64, 40000, seed=11)
+    store, plan, bits = sig_index("lsh", 64, sig, probes=probes,
+                                  delta_cap=2048, fresh=300)
+    csr = _probe_csr(store, dev)
+    width = tcand._cand_width(plan, csr[4], csr[3])
+    assert tcand._pow2(width) * 8 > tcand.PROBE_SMEM_KEYS
+    table = torch.from_numpy(sig.view(np.int32)).to(dev)
+    tn = torch.from_numpy(norms).to(dev)
+    qr = torch.arange(0, 40000, 997, device=dev)
+    for kb in (16, 80, 2048, width):
+        got = tcand.sig_probe("lsh", table, tn, 40000, None, csr, plan,
+                              bits, 64, kb, q_rows=qr)
+        want = tcand.sig_probe_ref("lsh", table, tn, 40000, None, table[qr],
+                                   tn[qr], *csr[:4], csr[4], plan, bits, 64,
+                                   kb)
+        assert torch.equal(got, want), kb
+
+
+def _ivf_inputs(dev, metric, probes, seed, n=4000, d=512, embed_dim=64,
+                centroids=0):
+    idx, val = sparse_rows(n, 32, d, seed, centers=40)
+    ix = IvfIndex(metric, IndexSpec(kind="ivf", probes=probes, min_rows=0,
+                                    embed_dim=embed_dim,
+                                    centroids=centroids))
+    ix.rebuild_from(np.arange(n), idx, val)
+    norms = np.sqrt((val * val).sum(1)).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (idx, val, norms)]
+    return ix, t, idx, val
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+@pytest.mark.parametrize("probes", [1, 4, 8])
+@pytest.mark.parametrize("valid", ["count", "mask"])
+@pytest.mark.parametrize("embed_dim", [64, 16])
+def test_ivf_probe_is_bitwise_the_plain_version(dev, metric, probes, valid,
+                                                embed_dim):
+    n = 4000
+    ix, (ti, tv, tn), idx, val = _ivf_inputs(dev, metric, probes, seed=probes,
+                                             embed_dim=embed_dim)
+    csr = _probe_csr(ix.store, dev)
+    cent = torch.from_numpy(ix.centroids).to(dev)
+    rng = np.random.default_rng(probes)
+    mask, n_valid = None, n - 5
+    if valid == "mask":
+        mask = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+        n_valid = n
+    for q in rng.integers(0, n, 6):
+        qi = torch.from_numpy(idx[q]).to(dev)
+        qv = torch.from_numpy(val[q] * np.float32(1.25)).to(dev)
+        qd = torch.zeros(512, dtype=torch.float32, device=dev)
+        qd[qi.long()] = qv
+        qn = float(np.sqrt((val[q] * val[q] * np.float32(1.5625)).sum()))
+        kb = tcand._ivf_kb(10, probes, csr[4], csr[3])
+        before = tcand.ivf_probe.launches
+        got = tcand.ivf_probe(metric, qi, qv, qd, qn, cent, ti, tv, tn,
+                              n_valid, mask, csr, probes, embed_dim, kb)
+        assert tcand.ivf_probe.launches == before + 1
+        want = tcand.ivf_probe_ref(
+            metric, qi, qv, qd, torch.tensor(np.float32(qn), device=dev),
+            cent, ti, tv, tn, n_valid, mask, *csr[:4], csr[4], probes,
+            embed_dim, kb)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kb", [1, 48, 1500, 4096])
+def test_ivf_probe_at_every_kb_and_1024_centroids(dev, kb):
+    ix, (ti, tv, tn), idx, val = _ivf_inputs(dev, "cosine", 8, seed=9,
+                                             n=6000, centroids=1024)
+    csr = _probe_csr(ix.store, dev)
+    cent = torch.from_numpy(ix.centroids).to(dev)
+    assert cent.shape[0] == 1024
+    width = 16 * csr[4] + csr[3].shape[0]
+    kb = min(kb, width)
+    qi = torch.from_numpy(idx[17]).to(dev)
+    qv = torch.from_numpy(val[17]).to(dev)
+    qd = torch.zeros(512, dtype=torch.float32, device=dev)
+    qd[qi.long()] = qv
+    qn = float(np.sqrt((val[17] * val[17]).sum()))
+    got = tcand.ivf_probe("cosine", qi, qv, qd, qn, cent, ti, tv, tn, 6000,
+                          None, csr, 8, 64, kb)
+    want = tcand.ivf_probe_ref(
+        "cosine", qi, qv, qd, torch.tensor(np.float32(qn), device=dev),
+        cent, ti, tv, tn, 6000, None, *csr[:4], csr[4], 8, 64, kb)
+    assert torch.equal(got, want)
+
+
+def test_probe_wrappers_refuse_bad_inputs(dev):
+    sig, norms = clustered_sigs("lsh", 64, 100, seed=1)
+    store, plan, bits = sig_index("lsh", 64, sig, probes=4)
+    csr = _probe_csr(store, dev)
+    table = torch.from_numpy(sig.view(np.int32)).to(dev)
+    tn = torch.from_numpy(norms).to(dev)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    width = tcand._cand_width(plan, csr[4], csr[3])
+    for kb in (0, width + 1):
+        with pytest.raises(ValueError):
+            tcand.sig_probe("lsh", table, tn, 100, None, csr, plan, bits,
+                            64, kb, q_rows=one)
+    with pytest.raises(ValueError):
+        tcand.sig_probe("lsh", table, tn, 100, None, csr, plan, bits, 128,
+                        8, q_rows=one)
+    with pytest.raises(IndexError):
+        tcand.sig_probe_query_row("lsh", table, 100, tn, 100, None, csr, 64,
+                                  8, plan, bits)
+    with pytest.raises(ValueError):
+        tcand.sig_probe("lsh", table.float(), tn, 100, None, csr, plan,
+                        bits, 64, 8, q_rows=one)
+    ix, (ti, tv, tn2), idx, val = _ivf_inputs(dev, "cosine", 4, seed=2,
+                                              n=300)
+    cent = torch.from_numpy(ix.centroids).to(dev)
+    icsr = _probe_csr(ix.store, dev)
+    qi = torch.from_numpy(idx[0]).to(dev)
+    qv = torch.from_numpy(val[0]).to(dev)
+    qd = torch.zeros(512, device=dev)
+    with pytest.raises(ValueError):
+        tcand.ivf_probe("cosine", qi, qv, qd, 1.0, cent, ti, tv, tn2, 300,
+                        None, icsr, cent.shape[0] + 1, 64, 8)
+    with pytest.raises(ValueError):
+        tcand.ivf_probe("cosine", qi, qv, qd, 1.0, cent, ti, tv, tn2, 300,
+                        None, icsr, 4, 32, 8)
+
+
+@pytest.mark.parametrize("service,method,kind", [
+    ("nearest_neighbor", "lsh", "lsh_probe"),
+    ("nearest_neighbor", "euclid_lsh", "lsh_probe"),
+    ("recommender", "minhash", "lsh_probe"),
+    ("recommender", "inverted_index", "ivf"),
+    ("recommender", "inverted_index_euclid", "ivf")])
+def test_index_drivers_on_the_card_match_the_cpu(dev, service, method, kind):
+    """A driver with the index engaged answers every read on the card as
+    on the CPU, each read one K6 (K7) launch on the card."""
+    cfg = {"method": method, "parameter": {"hash_num": 64},
+           "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                         "hash_max_size": 4096},
+           "index": {"min_rows": 0}}
+    from jubatus_tpu_torch.models import create_driver
+    drivers = [create_driver(service, cfg, device=d) for d in (dev, "cpu")]
+    for d in drivers:
+        assert d.configure_index(kind, probes=4)
+    rng = np.random.default_rng(12)
+    protos = [[(f"f{j}", float(rng.standard_normal()))
+               for j in rng.choice(300, 8, replace=False)] for _ in range(20)]
+    data = [Datum([], [(k, v + 0.05 * float(rng.standard_normal()))
+                       for k, v in protos[i % 20]]) for i in range(260)]
+    write = "update_row" if service == "recommender" else "set_row"
+    for d in drivers:
+        for i, x in enumerate(data[:250]):
+            getattr(d, write)(f"r{i}", x)
+    kern = tcand.ivf_probe if kind == "ivf" else tcand.sig_probe
+    before = kern.launches
+    for q in data[250:]:
+        a, b = (d.similar_row_from_datum(q, 10) for d in drivers)
+        assert a == b and len(a) == 10
+    a, b = (d.similar_row_from_id("r7", 5) for d in drivers)
+    assert a == b
+    assert kern.launches == before + 11

@@ -349,12 +349,25 @@ def test_the_spill_tier_is_refused_with_its_item():
 
 
 def test_the_index_is_refused_with_its_item(tmp_path, capsys):
+    """The sublinear index (Queue 1 item 5.3) is served now: --index
+    lsh_probe starts a server with the index engaged, and the CLI refuses
+    only a kind it does not know, naming the kinds it has."""
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(config("lsh")))
+    args = ["--type", "nearest_neighbor", "--configpath", str(path),
+            "--rpc-port", "0", "--listen_addr", "127.0.0.1", "--device",
+            "cpu", "--index"]
     with pytest.raises(SystemExit):
-        serve(["--type", "nearest_neighbor", "--configpath", str(path),
-               "--rpc-port", "0", "--device", "cpu", "--index", "lsh_probe"])
-    assert "Queue 1 item 5.3" in capsys.readouterr().err
+        serve(args + ["sublinear"])
+    err = capsys.readouterr().err
+    assert "invalid choice: 'sublinear'" in err
+    assert all(k in err for k in ("off", "lsh_probe", "ivf"))
+    srv, rpc = serve(args + ["lsh_probe"])
+    try:
+        assert next(iter(srv.get_status().values()))["index"] == "lsh_probe"
+    finally:
+        rpc.stop()
+        srv.stop()
 
 
 @pytest.mark.parametrize("name", NN_PARTITION_METHODS)

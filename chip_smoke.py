@@ -3997,6 +3997,10 @@ IVF_CONFIG = {             # bench.py:1226: inverted_index on 4096 columns
     "converter": {"num_rules": [{"key": "*", "type": "num"}],
                   "hash_max_size": 4096},
 }
+# phase 12c's third server: ivf at a count-sketch width past 1,024 (the
+# squares' windows windowed again), engaged from its first write
+IVF_WIDE_CONFIG = dict(IVF_CONFIG, index={"min_rows": 0, "embed_dim": 2048})
+INDEX_WIDE_ROWS = 4096
 
 
 def probe_bound(kind, w, slots, n_cand, nq, kb):
@@ -4375,26 +4379,30 @@ def phase_index_wire(torch, np, device="cuda"):
     """Phase 12c: over the wire, a nearest_neighbor server (lsh H 64)
     with --index lsh_probe --index_probes 4 and a recommender
     inverted_index server with --index ivf, INDEX_WIRE_ROWS writes each
-    (above the default min_rows), then INDEX_READS reads each (datum and
-    by id), every answer equal to an in-process port driver's with the
-    same index fed the same writes, as phase 11 checks; each read one K6
-    (K7) launch on both sides; the get_status index keys.  Returns the
-    server processes' launches."""
+    (above the default min_rows), and an inverted_index server with
+    --index ivf at embed_dim 2048 (IVF_WIDE_CONFIG), INDEX_WIDE_ROWS
+    writes; then INDEX_READS reads each (datum and by id), every answer
+    equal to an in-process port driver's with the same index fed the same
+    writes, as phase 11 checks; each read one K6 (K7) call on both sides;
+    the get_status index keys.  Returns the server processes'
+    launches."""
     from jubatus_tpu_torch.fv import Datum
     from jubatus_tpu_torch.models import create_driver
     rng = np.random.default_rng(81)
     served = {}
-    for service, cfg, kind, write, kern in (
+    for service, cfg, kind, write, kern, n_writes in (
             ("nearest_neighbor", NN_CONFIG, "lsh_probe", "set_row",
-             "sig_probe"),
-            ("recommender", IVF_CONFIG, "ivf", "update_row", "ivf_probe")):
+             "sig_probe", INDEX_WIRE_ROWS),
+            ("recommender", IVF_CONFIG, "ivf", "update_row", "ivf_probe",
+             INDEX_WIRE_ROWS),
+            ("recommender", IVF_WIDE_CONFIG, "ivf", "update_row",
+             "ivf_probe", INDEX_WIDE_ROWS)):
         drv = create_driver(service, cfg, device=device)
         if not drv.configure_index(kind, probes=INDEX_PROBES):
             raise AssertionError(f"index wire: {kind} declined")
         protos = nn_datums(np, rng, 256)
         data = []
-        for p in rng.integers(0, len(protos), INDEX_WIRE_ROWS
-                              + INDEX_READS):
+        for p in rng.integers(0, len(protos), n_writes + INDEX_READS):
             names, vals = protos[p]
             data.append((names, (np.asarray(vals) + 0.05
                                  * rng.standard_normal(NN_NNZ)).tolist()))
@@ -4411,8 +4419,8 @@ def phase_index_wire(torch, np, device="cuda"):
                 t0 = time.perf_counter()
                 # INDEX_WINDOW writes in flight while the in-process
                 # driver takes the same ones; the server answers in order
-                for w0 in range(0, INDEX_WIRE_ROWS, INDEX_WINDOW):
-                    win = range(w0, min(w0 + INDEX_WINDOW, INDEX_WIRE_ROWS))
+                for w0 in range(0, n_writes, INDEX_WINDOW):
+                    win = range(w0, min(w0 + INDEX_WINDOW, n_writes))
                     cli.sock.sendall(b"".join(
                         cli.frame(write, f"w{i}", nn_wire(data[i]))
                         for i in win))
@@ -4426,9 +4434,9 @@ def phase_index_wire(torch, np, device="cuda"):
                 s0 = launches_of(status_of(cli))
                 before = launch_counts()
                 t0 = time.perf_counter()
-                for j, d in enumerate(data[INDEX_WIRE_ROWS:]):
+                for j, d in enumerate(data[n_writes:]):
                     if j % 2:
-                        rid = f"w{int(rng.integers(0, INDEX_WIRE_ROWS))}"
+                        rid = f"w{int(rng.integers(0, n_writes))}"
                         a = cli.call("similar_row_from_id", rid, NN_SIZE)
                         b = drv.similar_row_from_id(rid, NN_SIZE)
                     else:
@@ -4450,7 +4458,7 @@ def phase_index_wire(torch, np, device="cuda"):
                     check_reads(f"index wire {service} (server)", sdelta,
                                 INDEX_READS, kern)
                 want = {"index": kind, "index_probes": str(INDEX_PROBES),
-                        "index_live_rows": str(INDEX_WIRE_ROWS),
+                        "index_live_rows": str(n_writes),
                         "index_needs_rebuild": "0"}
                 if any(st.get(k) != v for k, v in want.items()) or \
                         float(st.get("index_probe_total", 0)) < INDEX_READS \
@@ -4461,7 +4469,7 @@ def phase_index_wire(torch, np, device="cuda"):
                     served[k] = served.get(k, 0) + v
             finally:
                 child.stop()
-        log(f"index wire: {service} --index {kind}: {INDEX_WIRE_ROWS} "
+        log(f"index wire: {service} --index {kind}: {n_writes} "
             f"{write}s in {write_s:.1f} s (both sides), {INDEX_READS} reads "
             f"in {read_s:.2f} s, bitwise the in-process driver; status "
             + ", ".join(f"{k}={st[k]}" for k in sorted(st)

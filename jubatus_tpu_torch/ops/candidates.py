@@ -30,9 +30,10 @@ go to the lower candidate position, not the lower row.  A candidate's key
 is K3's (ops/lsh.py scores_to_keys): the score's ordered bits in the high
 word and 0xFFFFFFFF - position in the low word.
 
-Two hand kernels in csrc/candidates.cu do a query's work on the card in
-one launch each, and their wrappers below launch them for CUDA tensors
-(raising where they cannot) and run the plain PyTorch versions (the *_ref
+Two hand kernels in csrc/candidates.cu do a query's work on the card, one
+wrapper call a read (K6 two launches, K7 four or five, on the caller's
+stream), and their wrappers below launch them for CUDA tensors (raising
+where they cannot) and run the plain PyTorch versions (the *_ref
 functions) for CPU tensors:
   K6 sig_probe  <- _sig_probe_from_datum/_from_row/_batch: the probe
                    groups, the CSR gather with the delta, the signature
@@ -295,15 +296,22 @@ def cs_embed_ref(q_indices: torch.Tensor, q_values: torch.Tensor,
 
 def gemv_rows_ref(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """m [C, E] @ v [E] as XLA's CPU row-major gemv computes it (read off
-    its dump: row_major_gemv, tiles of 8 rows, 8-wide vectors): 8 lanes a
-    row, lane j a chain of fused multiply-adds over the columns k = j mod
-    8 in k order from +0, then ((l0 + l1) + (l2 + l3)) + ((l4 + l5) +
-    (l6 + l7)), then + 0; the rows past the last whole tile of 8 sum
-    their lanes by halving, ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 +
-    l7)); every input and step flushed.  E a multiple of 8."""
+    its dump: row_major_gemv, tiles of 8 rows, 8-wide vectors): at E 8
+    and up, 8 lanes a row, lane j a chain of fused multiply-adds over the
+    columns k = j mod 8 in k order from +0, then ((l0 + l1) + (l2 + l3))
+    + ((l4 + l5) + (l6 + l7)), then + 0; the rows past the last whole
+    tile of 8 sum their lanes by halving, ((l0 + l4) + (l2 + l6)) + ((l1
+    + l5) + (l3 + l7)).  Below E 8 (no whole vector of columns) every row
+    is one chain of fused multiply-adds in k order from +0, then + 0.
+    Every input and step flushed.  E a power of two."""
     m = ftz(m.float())
     v = ftz(v.float())
     c, e = m.shape
+    if e < 8:
+        acc = torch.zeros(c, dtype=torch.float32, device=m.device)
+        for k in range(e):
+            acc = ftz(_fma(m[:, k], v[k].expand(c), acc))
+        return acc + 0.0
     lanes = torch.zeros((c, 8), dtype=torch.float32, device=m.device)
     for k in range(0, e, 8):
         lanes = ftz(_fma(m[:, k:k + 8], v[None, k:k + 8].expand(c, 8),
@@ -322,7 +330,7 @@ def gemv_rows_ref(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def centroid_scores_ref(centroids: torch.Tensor,
                         e_q: torch.Tensor) -> torch.Tensor:
     """centroids @ e_q - 0.5 * sum(centroids ** 2, 1) [C] as XLA's CPU
-    code computes it in _ivf_probe_query (E a multiple of 8): the gemv
+    code computes it in _ivf_probe_query (E a power of two): the gemv
     (gemv_rows_ref), the squares' sum as XLA's reduce of that program
     orders it (_ssq_ref), then dot - 0.5 * sum."""
     dot = gemv_rows_ref(centroids, e_q)
@@ -330,17 +338,19 @@ def centroid_scores_ref(centroids: torch.Tensor,
 
 
 def _ssq_ref(m: torch.Tensor) -> torch.Tensor:
-    """sum(m * m, 1) in XLA's order for a row of E (read at E 8 to 512):
-    E 8 a chain of rounded products and adds in k order from +0; E 16 and
-    32 a chain of fused multiply-adds from +0; E 64 and up jnp.sum's tree
-    rewrite (ops.sparse.xla_dot_rows "sum")."""
+    """sum(m * m, 1) in XLA's order for a row of E (read at E 2 to
+    16,384): E 8 a chain of rounded products and adds in k order from +0;
+    E 2, 4, 16 and 32 a chain of fused multiply-adds from +0; E 64 and up
+    jnp.sum's tree rewrite (ops.sparse.xla_dot_rows "sum": windows of 32
+    rounded products, each summed in k order from +0, the window sums
+    windowed again while more than 32 are left, then summed in order)."""
     e = m.shape[1]
     if e >= 64:
         return xla_dot_rows(m, m, "sum")
     m = ftz(m.float())
     acc = torch.zeros(m.shape[0], dtype=torch.float32, device=m.device)
     for k in range(e):
-        acc = ftz(_fma(m[:, k], m[:, k], acc) if e > 8
+        acc = ftz(_fma(m[:, k], m[:, k], acc) if e != 8
                   else acc + ftz(m[:, k] * m[:, k]))
     return acc
 
@@ -402,14 +412,20 @@ def probe_result(out: torch.Tensor, kb: int
 # the K6 and K7 wrappers
 # ---------------------------------------------------------------------------
 
-# keys a query's buffer may hold in shared memory (bytes): csrc/candidates.cu
-# PROBE_SMEM_KEYS; a wider buffer takes a workspace in device memory
-PROBE_SMEM_KEYS = 128 * 1024
+# csrc/candidates.cu's shapes, mirrored for the tests: candidate positions
+# a stage-1 block; the chunks' lists that stage 2 holds in shared memory
+# (keys); the pow2(kb) keys it sorts there; the widest embedding a
+# centroid block builds in shared memory; the most probes K7 takes
+PROBE_CHUNK = 1024
+PROBE_LIST_SMEM_KEYS = 12288
+PROBE_SORT_SMEM_KEYS = 4096
+IVF_EMBED_SMEM_DIMS = 16384
+IVF_MAX_PROBES = 8192
 IVF_METRICS = ("cosine", "euclid")
 # the count-sketch widths K7 takes: the powers of two whose XLA gemv and
 # reduce order it reproduces (IndexSpec accepts any power of two; a
 # recommender declines ivf at configure time outside this range)
-IVF_EMBED_DIMS = tuple(1 << b for b in range(3, 11))
+IVF_EMBED_DIMS = tuple(1 << b for b in range(1, 17))
 
 
 def _pow2(n: int) -> int:
@@ -437,6 +453,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [p, p, i, p, ctypes.c_float, p, i, i, i, p, p, p, ll, i, ll, p, p,
          ll, p, p, p, i, i, i, i, i, i, p, p, p])
     lib.ivf_probe_launch.restype = i
+    lib.sig_probe_workspace_bytes.argtypes = [ll, i, i, i]
+    lib.sig_probe_workspace_bytes.restype = ll
+    lib.ivf_probe_workspace_bytes.argtypes = [ll, i, i, i, i]
+    lib.ivf_probe_workspace_bytes.restype = ll
     return lib
 
 
@@ -462,10 +482,10 @@ def _csr_args(csr, dev, what: str):
     return flat, offsets, lens, delta, int(cap)
 
 
-def _workspace(nq: int, npad: int, dev) -> Optional[torch.Tensor]:
-    if npad * 8 <= PROBE_SMEM_KEYS:
-        return None
-    return torch.empty((nq, npad), dtype=torch.int64, device=dev)
+def _workspace(nbytes: int, dev) -> torch.Tensor:
+    """A kernel's scratch in device memory, of the size its library
+    reports (*_workspace_bytes)."""
+    return torch.empty(int(nbytes), dtype=torch.uint8, device=dev)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -486,8 +506,8 @@ def sig_probe(kind: str, table: torch.Tensor, norms: torch.Tensor,
     are signatures q_sigs [Nq, W] with qnorms [Nq], or stored rows q_rows
     [Nq] int64, each in [0, R) (the kernel reads their signatures and
     norms; the routes check the row on the host).  1 <= kb <=
-    the candidate width.  CUDA tensors: one launch of K6
-    (csrc/candidates.cu); CPU: the plain version."""
+    the candidate width.  CUDA tensors: K6 (csrc/candidates.cu, two
+    launches); CPU: the plain version."""
     if kind not in SIG_KINDS:
         raise ValueError(f"unknown signature kind: {kind}")
     if (q_rows is None) == (q_sigs is None):
@@ -529,18 +549,19 @@ def sig_probe(kind: str, table: torch.Tensor, norms: torch.Tensor,
     out = torch.empty((nq, 2 * kb + 1), dtype=torch.int64, device=dev)
     if nq == 0:
         return out
-    npad = _pow2(width)
-    ws = _workspace(nq, npad, dev)
+    lib = _lib()
+    ws = _workspace(lib.sig_probe_workspace_bytes(width, len(plan), kb, nq),
+                    dev)
     pl = _plan_dev(tuple(plan), dev)
     tab = lshops._count_table_dev(kind, hash_num, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().sig_probe_launch(
+    err = lib.sig_probe_launch(
         table.data_ptr(), norms.data_ptr(), r, w, int(n_valid), _ptr(mask),
         _ptr(q_sigs), _ptr(qnorms), _ptr(q_rows), nq, flat.data_ptr(),
         flat.shape[0], offsets.data_ptr(), lens.data_ptr(), _ptr(delta),
         0 if delta is None else delta.shape[0], pl.data_ptr(), len(plan),
-        int(bits), cap, SIG_KINDS.index(kind), tab.data_ptr(), kb, npad,
-        _ptr(ws), out.data_ptr(), stream)
+        int(bits), cap, SIG_KINDS.index(kind), tab.data_ptr(), kb,
+        _pow2(width), ws.data_ptr(), out.data_ptr(), stream)
     sig_probe.launches += 1
     build.check(err, "sig_probe launch")
     return out
@@ -560,17 +581,19 @@ def ivf_probe(metric: str, q_indices: torch.Tensor, q_values: torch.Tensor,
     embedding, its dense form q_dense [D] and norm for the rescore; the
     centroids [C, E]; the row table (indices / values [R, Kr], norms [R])
     with the rows below n_valid that the mask keeps valid; csr as in
-    sig_probe, two bands of C groups.  1 <= probes <= C, E = embed_dim a
-    power of two from 8 to 1024.  CUDA tensors: one launch of K7
-    (csrc/candidates.cu); CPU: the plain version."""
+    sig_probe, two bands of C groups.  1 <= probes <= min(C,
+    IVF_MAX_PROBES), E = embed_dim a power of two in IVF_EMBED_DIMS.
+    CUDA tensors: K7 (csrc/candidates.cu, four launches, five above
+    IVF_EMBED_SMEM_DIMS); CPU: the plain version."""
     if metric not in IVF_METRICS:
         raise ValueError(f"unknown ivf metric {metric!r}")
     c, e = centroids.shape
     if e != int(embed_dim) or e not in IVF_EMBED_DIMS:
         raise ValueError(f"ivf_probe: centroids [{c}, {e}] at embed_dim "
-                         f"{embed_dim}: E must be a power of two from 8 to "
-                         f"1024 (XLA's order is known there)")
-    if not 1 <= int(probes) <= c:
+                         f"{embed_dim}: E must be a power of two from 2 to "
+                         f"{IVF_EMBED_DIMS[-1]} (XLA's order is known "
+                         f"there)")
+    if not 1 <= int(probes) <= min(c, IVF_MAX_PROBES):
         raise ValueError(f"ivf_probe: {probes} probes of {c} centroids")
     r = norms.shape[0]
     if not 0 <= int(n_valid) <= r:
@@ -602,18 +625,19 @@ def ivf_probe(metric: str, q_indices: torch.Tensor, q_values: torch.Tensor,
         raise ValueError("ivf_probe: query or table shapes do not fit")
     kb = int(kb)
     out = torch.empty((1, 2 * kb + 1), dtype=torch.int64, device=dev)
-    npad, cpad = _pow2(width), _pow2(c)
-    ws = _workspace(1, max(npad, cpad), dev)
+    lib = _lib()
+    ws = _workspace(lib.ivf_probe_workspace_bytes(width, int(probes), kb, c,
+                                                  e), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().ivf_probe_launch(
+    err = lib.ivf_probe_launch(
         q_indices.data_ptr(), q_values.data_ptr(), q_indices.shape[0],
         q_dense.data_ptr(), float(np.float32(qnorm)), centroids.data_ptr(),
         c, e, int(probes), indices.data_ptr(), values.data_ptr(),
         norms.data_ptr(), r, indices.shape[1], int(n_valid), _ptr(mask),
         flat.data_ptr(), flat.shape[0], offsets.data_ptr(), lens.data_ptr(),
         _ptr(delta), 0 if delta is None else delta.shape[0], cap,
-        IVF_METRICS.index(metric), kb, npad, cpad, _ptr(ws), out.data_ptr(),
-        stream)
+        IVF_METRICS.index(metric), kb, _pow2(width), _pow2(c), ws.data_ptr(),
+        out.data_ptr(), stream)
     ivf_probe.launches += 1
     build.check(err, "ivf_probe launch")
     return out
@@ -640,7 +664,7 @@ def sig_probe_query_batch(kind: str, key, q_indices: np.ndarray,
                           k: int, plan, bits: int,
                           padded_b: Optional[int] = None):
     """[Nq] datum queries through the index: signatures (K1/K2, signed as
-    in a batch of padded_b), then one K6 launch -> (rows_list,
+    in a batch of padded_b), then one K6 call -> (rows_list,
     scores_list, n_cand [Nq]), each query's rows and scores deduped to k
     (ragged lists)."""
     dev = table.device
@@ -668,7 +692,7 @@ def sig_probe_query(kind: str, key, q_indices, q_values, table, qnorm: float,
 def sig_probe_query_row(kind: str, table: torch.Tensor, row: int, norms,
                         n_valid: int, mask, csr, hash_num: int, k: int, plan,
                         bits: int):
-    """Query by a stored row -> (rows, scores, n_cand): one K6 launch,
+    """Query by a stored row -> (rows, scores, n_cand): one K6 call,
     which reads the row's signature and norm on the device."""
     if not 0 <= int(row) < table.shape[0]:
         raise IndexError(f"row {row} outside the table's {table.shape[0]}")
@@ -687,7 +711,7 @@ def ivf_probe_query(metric: str, q_indices: np.ndarray,
                     mask, csr, k: int, probes: int, embed_dim: int):
     """One query (its sparse batch row [K] and dense form [D], host
     arrays) through the IVF index -> (rows, scores, n_cand): one K7
-    launch."""
+    call."""
     dev = indices.device
     probes = max(1, min(int(probes), int(centroids.shape[0])))
     kb = _ivf_kb(k, probes, csr[4], csr[3])

@@ -17,7 +17,8 @@ index/store.py), on seeded numpy inputs, on the CPU.
 - K7's plain version (ivf_probe_ref) bitwise _ivf_probe_query for cosine
   and euclid at probes 1 to 8, with colliding count-sketch coordinates,
   and with centroids whose scores tie or lie an ulp apart at the probe
-  boundary; its stages (cs_embed_ref, centroid_scores_ref) bitwise XLA's.
+  boundary, and at every embed_dim from 2 to 8,192; its stages
+  (cs_embed_ref, centroid_scores_ref) bitwise XLA's at E 2 to 65,536.
 Every comparison is ==: no tolerance.
 """
 
@@ -77,8 +78,23 @@ def test_plans_and_bucket_assignment_equal_jax(kind):
 
 def test_count_sketch_equals_jax():
     idx, val = sparse_rows(300, 32, 1 << 20, seed=2)
-    for e in (8, 64, 1024):
+    for e in (2, 4, 8, 64, 1024, 2048, 16384, 65536):
         assert _same(tc.cs_embed_np(idx, val, e), jc.cs_embed_np(idx, val, e))
+
+
+@pytest.mark.parametrize("e", [1 << b for b in range(1, 17)])
+def test_query_count_sketch_equals_xla(e):
+    """The query's embedding (cs_embed_ref) bitwise XLA's scatter at every
+    width K7 takes, with features that share a coordinate and values of
+    wide range."""
+    rng = np.random.default_rng(e)
+    qi = rng.integers(0, 1 << 20, (1, 200)).astype(np.int32)
+    qi[0, 100:] = qi[0, :100]             # every coordinate hit twice
+    qv = (rng.standard_normal((1, 200))
+          * np.exp(3 * rng.standard_normal((1, 200)))).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b: jc._cs_embed_traced(a, b, e))(
+        qi, qv))[0]
+    assert _same(tc.cs_embed_ref(_t(qi[0]), _t(qv[0]), e).numpy(), want)
 
 
 def _store_sequence(cls):
@@ -267,9 +283,10 @@ def test_boundary_datum_signs_differently_by_route():
 # K7's plain version against _ivf_probe_query
 # ---------------------------------------------------------------------------
 
-def _ivf_case(metric, probes, seed, n=3000, d=512):
+def _ivf_case(metric, probes, seed, n=3000, d=512, embed_dim=64):
     idx, val = sparse_rows(n, 32, d, seed, centers=30)
-    ix = JIvf(metric, JSpec(kind="ivf", probes=probes, min_rows=0))
+    ix = JIvf(metric, JSpec(kind="ivf", probes=probes, min_rows=0,
+                            embed_dim=embed_dim))
     ix.rebuild_from(np.arange(n), idx, val)
     norms = np.sqrt((val * val).sum(1)).astype(np.float32)
     flat, off, ln, dl, cap = ix.store.packed()
@@ -278,11 +295,13 @@ def _ivf_case(metric, probes, seed, n=3000, d=512):
 
 
 def _colliding_query(rng, d, e=64):
-    """A query of 12 features, three of them hashed to one coordinate."""
+    """A query of 12 features, three of them hashed to one coordinate (as
+    many as share column 7's where fewer do)."""
     cols = np.arange(d, dtype=np.uint32)
     h = (cols * np.uint32(0x9E3779B1)) >> np.uint32(32 - int(np.log2(e)))
     same = np.flatnonzero(h == h[7])[:3]
-    rest = rng.choice(np.setdiff1d(np.arange(d), same), 9, replace=False)
+    rest = rng.choice(np.setdiff1d(np.arange(d), same), 12 - len(same),
+                      replace=False)
     qi = np.zeros((1, 16), np.int32)
     qv = np.zeros((1, 16), np.float32)
     qi[0, :12] = np.concatenate([same, rest])
@@ -291,7 +310,7 @@ def _colliding_query(rng, d, e=64):
 
 
 def _ivf_both(metric, qi, qv, d, cent, idx, val, norms, valid, csr, probes,
-              k=10):
+              k=10, embed_dim=64):
     flat, off, ln, dl, cap = csr
     qd = np.zeros(d, np.float32)
     qd[qi[0]] += qv[0]
@@ -300,11 +319,11 @@ def _ivf_both(metric, qi, qv, d, cent, idx, val, norms, valid, csr, probes,
     jvalid, n_valid, mask = valid
     r, s, c = jc._ivf_probe_query(metric, qi, qv, qd, qn, cent, idx, val,
                                   norms, jvalid, flat, off, ln, dl, kb,
-                                  probes, cap, 64)
+                                  probes, cap, embed_dim)
     out = tc.ivf_probe_ref(metric, _t(qi[0]), _t(qv[0]), _t(qd), _t(qn),
                            _t(cent), _t(idx), _t(val), _t(norms), n_valid,
                            mask, *[_t(x) for x in (flat, off, ln, dl)], cap,
-                           probes, 64, kb)
+                           probes, embed_dim, kb)
     rr, ss, cc = tc.probe_result(out, kb)
     assert _same(rr[0], np.asarray(r).astype(np.int64))
     assert _same(ss[0], np.asarray(s))
@@ -328,6 +347,24 @@ def test_ivf_probe_ref_equals_jax(metric, probes):
     qv = np.zeros((1, 32), np.float32)
     qi[0], qv[0] = idx[11], val[11]
     _ivf_both(metric, qi, qv, d, cent, idx, val, norms, valid, csr, probes)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+@pytest.mark.parametrize("embed_dim", [1 << b for b in range(1, 14)])
+def test_ivf_probe_ref_equals_jax_at_every_embed_dim(metric, embed_dim):
+    """K7's plain version bitwise _ivf_probe_query at every count-sketch
+    width from 2 to 8,192: below 8 the gemv's epilogue chain and the fused
+    squares' sum, from 2,048 up the squares' windows windowed again."""
+    n, d = 1200, 512
+    idx, val, norms, cent, csr = _ivf_case(metric, 4, seed=embed_dim, n=n,
+                                           d=d, embed_dim=embed_dim)
+    assert cent.shape[1] == embed_dim
+    rng = np.random.default_rng(embed_dim + 1)
+    valid = _valid("mask" if embed_dim % 3 else "count", n, embed_dim)
+    for _ in range(3):
+        qi, qv = _colliding_query(rng, d, e=max(embed_dim, 2))
+        _ivf_both(metric, qi, qv, d, cent, idx, val, norms, valid, csr, 4,
+                  embed_dim=embed_dim)
 
 
 def _centroid_scores_jax(cent, e_q):
@@ -381,7 +418,10 @@ def test_ivf_probe_boundary_centroids_equal_jax(metric, gap):
 
 
 @pytest.mark.parametrize("c,e", [(1024, 64), (37, 64), (5, 64), (64, 32),
-                                 (16, 8), (16, 16), (8, 512)])
+                                 (16, 8), (16, 16), (8, 512), (37, 2),
+                                 (1024, 2), (5, 4), (64, 4), (37, 2048),
+                                 (5, 4096), (16, 8192), (13, 16384),
+                                 (8, 32768), (3, 65536)])
 def test_centroid_scores_equal_xla(c, e):
     rng = np.random.default_rng(c * e)
     cent = rng.standard_normal((c, e)).astype(np.float32)

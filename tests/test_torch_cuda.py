@@ -1566,7 +1566,8 @@ def test_sig_probe_fat_buckets_and_the_workspace(dev, probes):
                                   delta_cap=2048, fresh=300)
     csr = _probe_csr(store, dev)
     width = tcand._cand_width(plan, csr[4], csr[3])
-    assert tcand._pow2(width) * 8 > tcand.PROBE_SMEM_KEYS
+    # kb = width sorts its keys in device memory
+    assert width > tcand.PROBE_SORT_SMEM_KEYS
     table = torch.from_numpy(sig.view(np.int32)).to(dev)
     tn = torch.from_numpy(norms).to(dev)
     qr = torch.arange(0, 40000, 997, device=dev)
@@ -1717,3 +1718,220 @@ def test_index_drivers_on_the_card_match_the_cpu(dev, service, method, kind):
     a, b = (d.similar_row_from_id("r7", 5) for d in drivers)
     assert a == b
     assert kern.launches == before + 11
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7 at the edges of their stages: chunks of PROBE_CHUNK positions
+# a stage-1 block, the chunks' lists in shared or device memory, the kb
+# sorted in shared or device memory, the embedding in shared or device
+# memory, the centroid pick's keys in shared or device memory
+# ---------------------------------------------------------------------------
+
+def _synthetic_csr(dev, n_rows, n_groups, cap, dcap, seed):
+    """A CSR of n_groups groups over a flat list of rows (each row listed
+    about twice: duplicates), group lengths 0 to cap, and a delta of dcap
+    rows (-1 padded past its first half)."""
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, n_rows, 3 * n_groups + cap).astype(np.int32)
+    flat[-cap:] = -1
+    off = rng.integers(0, flat.shape[0] - cap, n_groups).astype(np.int32)
+    ln = rng.integers(0, cap + 1, n_groups).astype(np.int32)
+    ln[rng.random(n_groups) < 0.5] = cap
+    delta = np.full(dcap, -1, np.int32)
+    delta[:dcap // 2 + 1] = rng.integers(0, n_rows, dcap // 2 + 1)
+    return tuple(torch.from_numpy(x).to(dev) for x in (flat, off, ln,
+                                                       delta)) + (cap,)
+
+
+# (probes, cap, delta): a width below one chunk, of exactly one, and of
+# several, chunk boundaries inside groups and inside the delta
+PROBE_WIDTHS = [(2, 300, 100), (4, 200, 224), (4, 700, 1500)]
+
+
+@pytest.mark.parametrize("kind,h", [("lsh", 64), ("minhash", 64),
+                                    ("euclid_lsh", 64), ("lsh", 96)])
+@pytest.mark.parametrize("shape", PROBE_WIDTHS)
+@pytest.mark.parametrize("valid", ["count", "mask", "none"])
+def test_sig_probe_chunk_edges(dev, kind, h, shape, valid):
+    """Rows of 2 and 64 words (read two words a load) and of 3 (one)."""
+    probes, cap, dcap = shape
+    n = 5000
+    sig, norms = clustered_sigs(kind, h, n, seed=len(kind) + cap)
+    bits = 8
+    plan = tcand.band_plan(kind, h, bits, probes)
+    nb = tcand.n_bands_for(kind, h, bits)
+    csr = _synthetic_csr(dev, n, nb << bits, cap, dcap, seed=cap + dcap)
+    width = tcand._cand_width(plan, cap, csr[3])
+    assert width == probes * cap + dcap
+    table = torch.from_numpy(sig.view(np.int32)).to(dev)
+    tn = torch.from_numpy(norms).to(dev)
+    mask, n_valid = None, n - 11
+    if valid == "mask":
+        mask = torch.from_numpy(np.random.default_rng(1).random(n) > 0.3) \
+            .to(dev)
+        n_valid = n
+    elif valid == "none":
+        n_valid = 0
+    qr = torch.tensor([3, 777, 4999], device=dev)
+    for kb in sorted({1, min(80, width), width}):
+        before = tcand.sig_probe.launches
+        got = tcand.sig_probe(kind, table, tn, n_valid, mask, csr, plan,
+                              bits, h, kb, q_rows=qr)
+        assert tcand.sig_probe.launches == before + 1
+        want = tcand.sig_probe_ref(kind, table, tn, n_valid, mask, table[qr],
+                                   tn[qr], *csr[:4], cap, plan, bits, h, kb)
+        assert torch.equal(got, want), kb
+        if valid == "none":
+            assert int(got[:, 2 * kb].abs().sum()) == 0
+            _, sc, _ = tcand.probe_result(got, kb)
+            assert np.all(np.isneginf(sc))
+
+
+@pytest.mark.parametrize("nq", [1, 64])
+@pytest.mark.parametrize("kb", [1, 48, 700, 4500])
+def test_sig_probe_batch_route_and_kb_past_shared_memory(dev, nq, kb):
+    """The batch route's Nq queries a call: at kb 1 and 48 stage 2 ranks
+    the few keys above its bound, at 700 more are left (the select over
+    the lists in shared memory), at 4500 the lists and the sort pass
+    shared memory."""
+    n = 20000
+    sig, norms = clustered_sigs("lsh", 64, n, seed=5)
+    plan = tcand.band_plan("lsh", 64, 8, 8)
+    csr = _synthetic_csr(dev, n, 8 << 8, 1500, 2048, seed=6)
+    width = tcand._cand_width(plan, 1500, csr[3])
+    n_chunks = -(-width // tcand.PROBE_CHUNK)
+    assert n_chunks * min(4500, tcand.PROBE_CHUNK) > \
+        tcand.PROBE_LIST_SMEM_KEYS
+    assert tcand._pow2(4500) > tcand.PROBE_SORT_SMEM_KEYS
+    table = torch.from_numpy(sig.view(np.int32)).to(dev)
+    tn = torch.from_numpy(norms).to(dev)
+    qr = torch.from_numpy(np.random.default_rng(nq).integers(0, n, nq)) \
+        .to(dev)
+    qs, qn = table[qr].contiguous(), tn[qr].contiguous()
+    before = tcand.sig_probe.launches
+    got = tcand.sig_probe("lsh", table, tn, n, None, csr, plan, 8, 64, kb,
+                          q_sigs=qs, qnorms=qn)
+    assert tcand.sig_probe.launches == before + 1
+    want = tcand.sig_probe_ref("lsh", table, tn, n, None, qs, qn, *csr[:4],
+                               1500, plan, 8, 64, kb)
+    assert torch.equal(got, want)
+
+
+def _ivf_synthetic(dev, e, c, n=3000, kr=32, d=512, seed=0, misalign=False):
+    """Random centroids [c, e] and rows (kr entries of d columns), and a
+    dense query with colliding count-sketch coordinates; misalign: the
+    row tables start 4 bytes past a 16-byte boundary (the scalar reads)."""
+    rng = np.random.default_rng(seed)
+    cent = rng.standard_normal((c, e)).astype(np.float32)
+    idx, val = sparse_rows(n, kr, d, seed, centers=40)
+    norms = np.sqrt((val * val).sum(1)).astype(np.float32)
+
+    def put(x):
+        if not misalign:
+            return torch.from_numpy(x).to(dev)
+        buf = torch.empty(x.size + 1, dtype=torch.from_numpy(x).dtype,
+                          device=dev)
+        out = buf[1:].view(x.shape)
+        out.copy_(torch.from_numpy(x))
+        return out
+
+    ti, tv = put(idx), put(val)
+    qi = torch.from_numpy(np.concatenate([idx[9, :12], idx[9, :4]])).to(dev)
+    qv = torch.from_numpy(rng.standard_normal(16).astype(np.float32)).to(dev)
+    qd = torch.zeros(d, dtype=torch.float32, device=dev)
+    qd.index_put_((qi.long(),), qv, accumulate=True)
+    qn = float(torch.sqrt((qd * qd).sum()).cpu())
+    return (torch.from_numpy(cent).to(dev), ti, tv,
+            torch.from_numpy(norms).to(dev), qi, qv, qd, qn)
+
+
+def _ivf_check(dev, metric, inputs, csr, n_valid, mask, probes, e, kb):
+    cent, ti, tv, tn, qi, qv, qd, qn = inputs
+    before = tcand.ivf_probe.launches
+    got = tcand.ivf_probe(metric, qi, qv, qd, qn, cent, ti, tv, tn, n_valid,
+                          mask, csr, probes, e, kb)
+    assert tcand.ivf_probe.launches == before + 1
+    want = tcand.ivf_probe_ref(
+        metric, qi, qv, qd, torch.tensor(np.float32(qn), device=dev), cent,
+        ti, tv, tn, n_valid, mask, *csr[:4], csr[4], probes, e, kb)
+    assert torch.equal(got, want), kb
+    return got
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+@pytest.mark.parametrize("embed_dim", [2, 4, 8, 2048, 16384, 32768])
+def test_ivf_probe_at_new_embed_dims(dev, metric, embed_dim):
+    """K7 at the widths below 8 (one gemv chain a centroid), above 1,024
+    (the squares' windows windowed again) and above the shared-memory
+    embedding (built in device memory first), 37 centroids (rows past
+    the gemv's last tile of 8); 20 probes pick their centroids by the
+    select, fewer one at a time."""
+    inputs = _ivf_synthetic(dev, embed_dim, 37, seed=embed_dim)
+    csr = _synthetic_csr(dev, 3000, 74, 700, 1500, seed=3)
+    for probes in (1, 3, 20):
+        kb = tcand._ivf_kb(10, probes, 700, csr[3])
+        _ivf_check(dev, metric, inputs, csr, 2990, None, probes, embed_dim,
+                   kb)
+
+
+@pytest.mark.parametrize("shape", PROBE_WIDTHS)
+@pytest.mark.parametrize("valid", ["count", "mask", "none"])
+def test_ivf_probe_chunk_edges(dev, shape, valid):
+    probes, cap, dcap = shape
+    probes = max(1, probes // 2)           # two bands a probe
+    inputs = _ivf_synthetic(dev, 64, 40, seed=cap)
+    csr = _synthetic_csr(dev, 3000, 80, cap, dcap, seed=dcap)
+    width = 2 * probes * cap + dcap
+    mask, n_valid = None, 2900
+    if valid == "mask":
+        mask = torch.from_numpy(np.random.default_rng(2).random(3000) > 0.4) \
+            .to(dev)
+        n_valid = 3000
+    elif valid == "none":
+        n_valid = 0
+    for kb in sorted({1, min(48, width), width}):
+        got = _ivf_check(dev, "cosine", inputs, csr, n_valid, mask, probes,
+                         64, kb)
+        if valid == "none":
+            assert int(got[0, 2 * kb]) == 0
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+def test_ivf_probe_scalar_reads_many_centroids_and_a_wide_kb(dev, metric):
+    """Rows of 30 entries and rows off a 16-byte boundary (the scalar
+    gather-dot), 9,000 centroids (the pick reads its keys from device
+    memory) and a kb whose sort and list pass shared memory."""
+    csr = _synthetic_csr(dev, 3000, 18000, 1500, 2048, seed=8)
+    for kr, mis in ((30, False), (32, True)):
+        inputs = _ivf_synthetic(dev, 8, 9000, kr=kr, seed=kr, misalign=mis)
+        for kb in (30, 4500):
+            _ivf_check(dev, metric, inputs, csr, 3000, None, 8, 8, kb)
+
+
+def test_sig_probe_ties_spread_thinly_over_chunks(dev):
+    """chip_smoke.py phase 12a's table shape: rows copied from
+    prototypes with one bit flipped, so a stored row's prototype copies
+    tie on one score and spread a few a chunk over every probed group:
+    stage 2's bound stays below the tie and several hundred keys remain
+    (its sort path), each query bitwise the plain version."""
+    rng = np.random.default_rng(31)
+    n, protos = 500_000, 2048
+    proto = rng.integers(0, 2 ** 32, (protos, 2), dtype=np.uint64) \
+        .astype(np.uint32)
+    sig = proto[rng.integers(0, protos, n)]
+    sig[np.arange(n), rng.integers(0, 2, n)] ^= \
+        np.uint32(1) << rng.integers(0, 32, n, dtype=np.uint32)
+    store, plan, bits = sig_index("lsh", 64, sig, probes=4, fresh=0,
+                                  delta_cap=2048)
+    csr = _probe_csr(store, dev)
+    table = torch.from_numpy(sig.view(np.int32)).to(dev)
+    tn = torch.ones(n, dtype=torch.float32, device=dev)
+    kb = tcand._kb(10, plan, csr[4], csr[3])
+    for q in rng.integers(0, n, 8):
+        qr = torch.tensor([int(q)], device=dev)
+        got = tcand.sig_probe("lsh", table, tn, n, None, csr, plan, bits, 64,
+                              kb, q_rows=qr)
+        want = tcand.sig_probe_ref("lsh", table, tn, n, None, table[qr],
+                                   tn[qr], *csr[:4], csr[4], plan, bits, 64,
+                                   kb)
+        assert torch.equal(got, want), int(q)

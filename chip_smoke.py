@@ -180,7 +180,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 (masked) on both; inverted_index at 10^6 rows, 1%
                 dropped, 32 reads each one K4 launch, four against the
                 plain version.  (c) Anomaly: bench.py's lof over
-                euclid_lsh H 64 on a port server, 8,192 adds over the
+                euclid_lsh H 64 on a port server, 4,096 adds over the
                 wire (the in-process driver's add overlapping each after
                 the first 512, which are timed alone) and 64 calc_score
                 reads, every score bitwise the driver's, each sweep one
@@ -212,8 +212,35 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 sides, and the get_status index keys; (d) anomaly lof over
                 euclid_lsh H 64 with "index": {"min_rows": 0}, 2,048 adds,
                 64 calc_score reads through K6, bitwise its plain version
- 13. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 12; counters are zeroed just before each path, and a
+ 13. spill    — the spill tier (pages.resident_pages > 0: the master on
+                the host in pinned memory, a pool of resident pages on the
+                card, reads sweeping the pool and streaming the absent
+                pages, ops/paged.py): K5's scores mode (sig_scores) at a
+                chunk of 65,536 rows, 1 and 64 queries, and at (b)'s
+                pool, K4 dense_dots at (c)'s chunk and pool, each bitwise
+                its plain version and timed; (a) nearest_neighbor lsh H 64 at
+                bench.py:1067-1077's 65,536 rows, page_rows 128,
+                resident_pages 128, written through the store, and (b) at
+                bench_paged_rows' 10^6 rows, resident_pages 1,953: 64
+                similar_row_from_id and 64 similar_row_from_datum reads,
+                each tie-aware its resident twin's, every K5 scores launch
+                (the pool's and each chunk's) bitwise its plain version;
+                (c) the recommender's inverted_index of phase 12b at
+                250,000 rows, resident_pages 488, the same through K4
+                dense_dots; each with the reads' p50/p99 (host clock), a
+                read's split (pool sweep, chunks' copies and sweeps, the
+                scores' copy back, host top-k), the bytes streamed and the
+                link rate beside a plain pinned copy_ of the same bytes,
+                the twin's read ms, device bytes spilled and resident, the
+                spill counters (`spill_nn` and `spill_reco` lines); (d)
+                anomaly lof over euclid_lsh H 64 with a quarter of its
+                pages resident, 2,048 adds and 64 calc_scores, bitwise a
+                CPU driver's; (e) a nearest_neighbor server with a spill
+                config, 16,384 set_rows and 64 reads over the wire,
+                bitwise an in-process driver's, get_status's page keys and
+                spill counters
+ 14. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 13; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -3322,9 +3349,10 @@ RECO_ROWS = 8192        # update_row calls over the wire
 RECO_EXACT_ROWS = 10 ** 6
 RECO_DROPS = 64         # clear_row calls: holes in the store's mask
 RECO_READS = 64         # similar_row_from_datum calls
-ANOM_ADDS = 8192        # add calls over the wire (16,384 before phase
+ANOM_ADDS = 4096        # add calls over the wire (16,384 before phase
 #                         12: the whole smoke then ran past 800 s, with
-#                         those adds taking 130-185 s of it)
+#                         those adds taking 130-185 s of it; 8,192 until
+#                         phase 13 came, 67 s of the smoke's 836)
 LOF_ROWS = 16384        # rows of K5's LOF-table shapes (phase 11a)
 ANOM_TIMED = 512        # of them sent alone, their wire time kept
 ANOM_EXACT_ADDS = 1024  # adds of the exact LOF in process (K4 dense_dots)
@@ -4551,6 +4579,575 @@ def phase_index_anomaly(torch, np, device="cuda"):
     return {"sig_probe": delta.get("sig_probe", 0)}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the spill tier (pages.resident_pages > 0)
+# ---------------------------------------------------------------------------
+
+SPILL_PAGE_ROWS = 128
+# (cell, rows, resident pages): bench.py:1067-1077's spill cell (4x its
+# budget), then bench_paged_rows' 10^6 rows at a quarter resident
+SPILL_NN_CELLS = (("a", 65_536, 128), ("b", 10 ** 6, 1953))
+SPILL_RECO_ROWS = 250_000
+SPILL_RECO_BUDGET = 488
+SPILL_READS = 64           # reads of each route, checked and timed
+SPILL_SPLITS = 8           # reads split by stage
+SPILL_ANOM_ADDS = 2048
+SPILL_ANOM_READS = 64
+SPILL_WIRE_ROWS = 16_384
+SPILL_WIRE_BUDGET = 32     # a quarter of the wire table's 128 pages
+SPILL_WIRE_READS = 64
+
+
+class _CheckedWrapper:
+    """Stands in for a kernel's wrapper: calls it, then holds a card
+    launch's output against the plain version.  It keeps no count of its
+    own: `launches` reads and writes the wrapper's, so each launch is
+    counted once on the wrapper whichever name the wrapper counts by."""
+
+    def __init__(self, check, orig):
+        self._check, self._orig = check, orig
+        self.__name__ = orig.__name__
+
+    def __call__(self, *args, **kw):
+        out = self._orig(*args, **kw)
+        self._check(out, args)
+        return out
+
+    @property
+    def launches(self):
+        return self._orig.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._orig.launches = n
+
+
+class Checked:
+    """Within the block every call of the wrapper L.<name> (the kernel's
+    launch on the card, counted by the wrapper) is held against its plain
+    version on the same card tensors, bitwise, right after the launch and
+    before the sweep reuses the buffer; the checks launch nothing."""
+
+    def __init__(self, torch, L, name, ref, nargs):
+        self.torch, self.L, self.name, self.ref = torch, L, name, ref
+        self.nargs = nargs
+        self.calls = 0
+
+    def _check(self, out, args):
+        if out.device.type != "cuda":
+            return
+        want = self.ref(*args[: self.nargs])
+        if not self.torch.equal(out.view(self.torch.int32),
+                                want.view(self.torch.int32)):
+            raise AssertionError(f"spill: a {self.name} launch differs "
+                                 "from its plain version")
+        self.calls += 1
+
+    def __enter__(self):
+        self.orig = getattr(self.L, self.name)
+        setattr(self.L, self.name, _CheckedWrapper(self._check, self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.L, self.name, self.orig)
+
+
+def tie_eq(a, b, tol=0.0):
+    """Tie-aware equality (tests/test_paged.py's): the scores equal
+    position by position (within tol, absolute, where given: the exact
+    methods' spilled score is the host's arithmetic on K4 dense_dots'
+    sums, not the fused sweep's einsum order), and every row scoring
+    above the k-th score by more than twice tol in one answer named in
+    the other (a tie at the boundary may name other rows)."""
+    sa = [float(s) for _, s in a]
+    sb = [float(s) for _, s in b]
+    if len(sa) != len(sb) or any(abs(x - y) > tol
+                                 for x, y in zip(sa, sb)):
+        return False
+    if not sa:
+        return True
+    ia, ib = {i for i, _ in a}, {i for i, _ in b}
+    return ({i for i, s in a if s > sa[-1] + 2 * tol} <= ib
+            and {i for i, s in b if s > sb[-1] + 2 * tol} <= ia)
+
+
+def pinned_rate(torch, nbytes, reps=10):
+    """GB/s of a plain pinned host-to-card copy_ of nbytes (CUDA events):
+    the link's yardstick."""
+    h = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    d.copy_(h, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        d.copy_(h, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del h, d
+    return ms, nbytes / ms / 1e6
+
+
+def spill_counters():
+    snap = metrics_snapshot()
+    return tuple(float(snap.get(k, 0)) for k in ("page_spill_in_total",
+                                                "page_spill_out_total"))
+
+
+def spill_split(torch, np, P, store, sweep_one, reads, device):
+    """The split of `reads` spilled reads' score sweeps (ms each, the
+    mean): the pool sweep, the chunks' copies, the chunks' sweeps, the
+    scores' copy back (device events), the host top-k (host clock), the
+    bytes streamed and the link rate the copies reach."""
+    keys = ("pool_ms", "copy_ms", "chunk_ms", "back_ms")
+    acc = {k: 0.0 for k in keys + ("topk_ms",)}
+    t = {}
+    for q in reads:
+        t = {}
+        scores = sweep_one(q, t)
+        t0 = time.perf_counter()
+        P.topk(scores, store.mask_host(), NN_SIZE)
+        acc["topk_ms"] += (time.perf_counter() - t0) * 1e3
+        for k in keys:
+            acc[k] += t[k]
+    out = {k: v / len(reads) for k, v in acc.items()}
+    out["streamed_bytes"] = t["streamed_bytes"]
+    out["streamed_pages"] = t["streamed_pages"]
+    out["copy_gb_s"] = t["streamed_bytes"] / max(out["copy_ms"], 1e-9) / 1e6
+    if device == "cuda":
+        ms, rate = pinned_rate(torch, t["streamed_bytes"])
+        out.update(pinned_copy_ms=ms, pinned_gb_s=rate)
+    return out
+
+
+def timed_reads(np, reads):
+    lat = []
+    for read in reads:
+        t0 = time.perf_counter()
+        read()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def spill_nn_cell(torch, np, name, rows, budget, device="cuda"):
+    """Phase 13a/b: nearest_neighbor lsh H 64 (NN_CONFIG) at `rows` rows
+    of random signatures (bench.py:1068's table), written through the
+    spilled store in one write (it faults the pages in windows of the
+    budget) and into a resident twin; SPILL_READS similar_row_from_id and
+    SPILL_READS similar_row_from_datum reads on each, every spilled answer
+    tie-aware the twin's and every K5 scores launch bitwise its plain
+    version, one launch for the pool and one a chunk; then the same reads
+    timed (host clock) and a read's split."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    from jubatus_tpu_torch.ops import paged as P
+    cfg = dict(NN_CONFIG, pages={"page_rows": SPILL_PAGE_ROWS,
+                                 "resident_pages": budget})
+    spill = create_driver("nearest_neighbor", cfg, device=device)
+    twin = create_driver("nearest_neighbor", NN_CONFIG, device=device)
+    rng = np.random.default_rng(rows)
+    sigs = rng.integers(0, 2 ** 32, (rows, 2), dtype=np.uint64) \
+        .astype(np.uint32)
+    norms = np.ones(rows, np.float32)
+    ids = [f"s{i}" for i in range(rows)]
+    c0 = spill_counters()
+    t0 = time.perf_counter()
+    for d in (spill, twin):
+        d.pages.write(d._rows(ids), {"sig": sigs, "norms": norms})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    c1 = spill_counters()
+    q_ids = [f"s{i}" for i in rng.integers(0, rows, SPILL_READS)]
+    q_dat = nn_datums(np, rng, SPILL_READS)
+    routes = [(lambda d, i=i: d.similar_row_from_id(i, NN_SIZE))
+              for i in q_ids] + \
+        [(lambda d, q=q: d.similar_row_from_datum(nn_datum(Datum, q),
+                                                  NN_SIZE)) for q in q_dat]
+    occupied = int((spill.pages._page_occ_vec() > 0).sum())
+    per_read = 1 + -(-(occupied - budget)
+                     // max(1, P.SPILL_CHUNK_ROWS // SPILL_PAGE_ROWS))
+    before = launch_counts()
+    with Checked(torch, L, "sig_scores", L.sig_scores_ref, 6) as chk:
+        for read in routes:
+            a, b = read(spill), read(twin)
+            if not tie_eq(a, b):
+                raise AssertionError(f"spill {name}: a read differs from "
+                                     f"the resident twin's: {a} {b}")
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda":
+        check_reads(f"spill {name}", delta, len(routes) * per_read,
+                    "sig_scores")
+        if chk.calls != len(routes) * per_read:
+            raise AssertionError(f"spill {name}: {chk.calls} launches "
+                                 "checked")
+    c2 = spill_counters()
+    lat = timed_reads(np, [lambda r=r: r(spill) for r in routes])
+    twin_lat = timed_reads(np, [lambda r=r: r(twin) for r in routes])
+    q_sig = spill.pages.read("sig", [0])
+    split = spill_split(torch, np, P, spill.pages,
+                        lambda q, t: P.sig_scores(spill.pages, "lsh", 64,
+                                                  q_sig, [1.0],
+                                                  timing=t)[0],
+                        range(SPILL_SPLITS), device)
+    out = {"cell": name, "rows": rows, "page_rows": SPILL_PAGE_ROWS,
+           "resident_pages": budget, "fill_s": fill_s,
+           "read_ms_p50": pct(np, lat, 50), "read_ms_p99": pct(np, lat, 99),
+           "twin_read_ms_p50": pct(np, twin_lat, 50),
+           "twin_read_ms_p99": pct(np, twin_lat, 99),
+           "launches_a_read": per_read, "split_ms": split,
+           "device_bytes": spill.pages.device_bytes(),
+           "twin_device_bytes": twin.pages.device_bytes(),
+           "page_spill_in_total": {"fill": c1[0] - c0[0],
+                                   "reads": c2[0] - c1[0]},
+           "page_spill_out_total": {"fill": c1[1] - c0[1],
+                                    "reads": c2[1] - c1[1]},
+           "pages_resident": spill.get_status()["pages_resident"]}
+    log("spill_nn " + json.dumps(out))
+    del spill, twin
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return delta, out
+
+
+def spill_reco_cell(torch, np, device="cuda"):
+    """Phase 13c: the recommender's inverted_index of phase 12b (IVF_CONFIG:
+    Kr 32, 4,096 columns) at SPILL_RECO_ROWS rows, SPILL_RECO_BUDGET pages
+    resident, filled as phase 12b fills it (host rows, one store write),
+    and its resident twin; SPILL_READS reads of each route, every answer
+    the twin's within rtol 1e-6 (the spilled score is the JAX driver's
+    host arithmetic on the dots) and every K4 dense_dots launch, on the
+    pool and on each chunk, bitwise its plain version; then timed, and a
+    read's split."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    from jubatus_tpu_torch.ops import paged as P
+    rng = np.random.default_rng(91)
+    cfg = dict(IVF_CONFIG, pages={"page_rows": SPILL_PAGE_ROWS,
+                                  "resident_pages": SPILL_RECO_BUDGET})
+    spill = create_driver("recommender", cfg, device=device)
+    twin = create_driver("recommender", IVF_CONFIG, device=device)
+    protos = [d for d in nn_datums(np, rng, 2 * INDEX_PROTOS)
+              if len(spill.converter.convert_row(nn_datum(Datum, d)))
+              == NN_NNZ][:INDEX_PROTOS]
+    rows = ivf_rows(np, rng, spill, SPILL_RECO_ROWS, protos)
+    ids = list(rows)
+    c0 = spill_counters()
+    t0 = time.perf_counter()
+    for d in (spill, twin):
+        slots = d.pages.alloc_seq(len(ids)).tolist()
+        d.ids = dict(zip(ids, slots))
+        d.row_ids = list(ids)
+        d.rows = dict(rows)
+        d._dirty = dict.fromkeys(ids, True)
+        d._sync()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    c1 = spill_counters()
+    q_ids = [f"e{i}" for i in rng.integers(0, SPILL_RECO_ROWS, SPILL_READS)]
+    q_dat = []
+    for p in rng.integers(0, len(protos), SPILL_READS):
+        names, vals = protos[p]
+        q_dat.append((names, (np.asarray(vals) + 0.05 * rng.standard_normal(
+            NN_NNZ)).tolist()))
+    routes = [(lambda d, i=i: d.similar_row_from_id(i, NN_SIZE))
+              for i in q_ids] + \
+        [(lambda d, q=q: d.similar_row_from_datum(nn_datum(Datum, q),
+                                                  NN_SIZE)) for q in q_dat]
+    occupied = int((spill.pages._page_occ_vec() > 0).sum())
+    per_read = 1 + -(-(occupied - SPILL_RECO_BUDGET)
+                     // max(1, P.SPILL_CHUNK_ROWS // SPILL_PAGE_ROWS))
+    before = launch_counts()
+    with Checked(torch, L, "dense_dots", L.dense_dots_ref, 3) as chk:
+        for read in routes:
+            a, b = read(spill), read(twin)
+            if not tie_eq(a, b, tol=1e-6):
+                raise AssertionError("spill c: a recommender read differs "
+                                     f"from the resident twin's: {a} {b}")
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda":
+        check_reads("spill c", delta, len(routes) * per_read, "dense_dots")
+        if chk.calls != len(routes) * per_read:
+            raise AssertionError(f"spill c: {chk.calls} launches checked")
+    c2 = spill_counters()
+    lat = timed_reads(np, [lambda r=r: r(spill) for r in routes])
+    twin_lat = timed_reads(np, [lambda r=r: r(twin) for r in routes])
+    qs = [spill._query_row(spill.rows[i]) for i in q_ids[:SPILL_SPLITS]]
+    split = spill_split(torch, np, P, spill.pages,
+                        lambda q, t: P.dense_scores(spill.pages, "cosine",
+                                                    q[0], q[1], timing=t),
+                        qs, device)
+    out = {"cell": "c", "rows": SPILL_RECO_ROWS,
+           "page_rows": SPILL_PAGE_ROWS,
+           "resident_pages": SPILL_RECO_BUDGET, "kr": spill.kr,
+           "fill_s": fill_s, "read_ms_p50": pct(np, lat, 50),
+           "read_ms_p99": pct(np, lat, 99),
+           "twin_read_ms_p50": pct(np, twin_lat, 50),
+           "twin_read_ms_p99": pct(np, twin_lat, 99),
+           "launches_a_read": per_read, "split_ms": split,
+           "device_bytes": spill.pages.device_bytes(),
+           "twin_device_bytes": twin.pages.device_bytes(),
+           "page_spill_in_total": {"fill": c1[0] - c0[0],
+                                   "reads": c2[0] - c1[0]},
+           "page_spill_out_total": {"fill": c1[1] - c0[1],
+                                    "reads": c2[1] - c1[1]}}
+    log("spill_reco " + json.dumps(out))
+    del spill, twin
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return delta, out
+
+
+def spill_anomaly(torch, np, device="cuda"):
+    """Phase 13d: anomaly lof over euclid_lsh H 64 (LOF_CONFIG) with a
+    quarter of its pages resident, SPILL_ANOM_ADDS adds and
+    SPILL_ANOM_READS calc_score reads on the card, every score bitwise a
+    CPU driver's fed the same datums (its signatures from K1 on the card,
+    bitwise the plain version's, phases 10-11: the plain K1 takes about 30
+    ms a datum on the host); every K5 scores launch bitwise its plain
+    version."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    pages = -(-SPILL_ANOM_ADDS // SPILL_PAGE_ROWS)
+    cfg = dict(LOF_CONFIG, pages={"page_rows": SPILL_PAGE_ROWS,
+                                  "resident_pages": max(1, pages // 4)})
+    card = create_driver("anomaly", cfg, device=device)
+    cpu = create_driver("anomaly", cfg, device="cpu")
+    rng = np.random.default_rng(101)
+    data = row_datums(np, rng, SPILL_ANOM_ADDS + SPILL_ANOM_READS, 1024)
+    orig = L.signature
+
+    def card_signature(key, idx, val, h, kind, padded_b=None):
+        if idx.device.type == "cpu" and device == "cuda":
+            return orig(key, idx.cuda(), val.cuda(), h, kind,
+                        padded_b).cpu()
+        return orig(key, idx, val, h, kind, padded_b)
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    L.signature = card_signature
+    try:
+        with Checked(torch, L, "sig_scores", L.sig_scores_ref, 6) as chk:
+            for i, d in enumerate(data[:SPILL_ANOM_ADDS]):
+                a = card.add(f"a{i}", nn_datum(Datum, d))
+                b = cpu.add(f"a{i}", nn_datum(Datum, d))
+                if a != b:
+                    raise AssertionError(f"spill d: add {i} scores {a} on "
+                                         f"the card, {b} on the CPU")
+            for d in data[SPILL_ANOM_ADDS:]:
+                if card.calc_score(nn_datum(Datum, d)) != \
+                        cpu.calc_score(nn_datum(Datum, d)):
+                    raise AssertionError("spill d: a calc_score differs")
+    finally:
+        L.signature = orig
+    add_s = time.perf_counter() - t0
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda" and (delta.get("sig_scores", 0) < SPILL_ANOM_ADDS
+                             or chk.calls != delta["sig_scores"]):
+        raise AssertionError(f"spill d: {delta.get('sig_scores')} K5 scores "
+                             f"launches, {chk.calls} checked")
+    st = card.get_status()
+    log(f"spill_anomaly: lof euclid_lsh H 64, {SPILL_ANOM_ADDS} adds and "
+        f"{SPILL_ANOM_READS} calc_scores in {add_s:.1f} s (both drivers), "
+        f"every score bitwise the CPU driver's; pages {st['pages']}, "
+        f"resident {st['pages_resident']} of "
+        f"{st['resident_budget_pages']}; K5 scores launches "
+        f"{delta.get('sig_scores', 0)}, each bitwise its plain version")
+    return delta
+
+
+def spill_wire(torch, np, device="cuda"):
+    """Phase 13e: over the wire, a nearest_neighbor server (NN_CONFIG) with
+    a spill config (SPILL_WIRE_BUDGET pages of 128 resident, a quarter of
+    the table): SPILL_WIRE_ROWS set_rows (INDEX_WINDOW in flight while an
+    in-process driver of the same config takes them), then
+    SPILL_WIRE_READS reads, every answer bitwise the in-process driver's;
+    get_status's page keys and the spill counters.  Returns the server's
+    launches."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    cfg = dict(NN_CONFIG, pages={"page_rows": SPILL_PAGE_ROWS,
+                                 "resident_pages": SPILL_WIRE_BUDGET})
+    drv = create_driver("nearest_neighbor", cfg, device=device)
+    rng = np.random.default_rng(111)
+    data = nn_datums(np, rng, SPILL_WIRE_ROWS + SPILL_WIRE_READS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "spill.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        child, t0 = start_server("nearest_neighbor", cfg_path, tmp,
+                                 device=device)
+        try:
+            port, _ = server_ready(child, t0)
+            cli = WireClient(port)
+            t0 = time.perf_counter()
+            for w0 in range(0, SPILL_WIRE_ROWS, INDEX_WINDOW):
+                win = range(w0, min(w0 + INDEX_WINDOW, SPILL_WIRE_ROWS))
+                cli.sock.sendall(b"".join(
+                    cli.frame("set_row", f"w{i}", nn_wire(data[i]))
+                    for i in win))
+                for i in win:
+                    drv.set_row(f"w{i}", nn_datum(Datum, data[i]))
+                for _ in win:
+                    if cli.receive() is not True:
+                        raise AssertionError("spill wire: set_row failed")
+            write_s = time.perf_counter() - t0
+            s0 = launches_of(status_of(cli))
+            t0 = time.perf_counter()
+            for j, d in enumerate(data[SPILL_WIRE_ROWS:]):
+                if j % 2:
+                    rid = f"w{int(rng.integers(0, SPILL_WIRE_ROWS))}"
+                    a = cli.call("similar_row_from_id", rid, NN_SIZE)
+                    b = drv.similar_row_from_id(rid, NN_SIZE)
+                else:
+                    a = cli.call("similar_row_from_datum", nn_wire(d),
+                                 NN_SIZE)
+                    b = drv.similar_row_from_datum(nn_datum(Datum, d),
+                                                   NN_SIZE)
+                if [tuple(x) for x in a] != [tuple(x) for x in b]:
+                    raise AssertionError("spill wire: a read differs from "
+                                         "the in-process driver's")
+            read_s = time.perf_counter() - t0
+            st = status_of(cli)
+            sdelta = launch_delta(s0, launches_of(st))
+            if device == "cuda" and sdelta.get("sig_scores", 0) < \
+                    2 * SPILL_WIRE_READS:
+                raise AssertionError(f"spill wire: the server's reads "
+                                     f"launched K5 scores "
+                                     f"{sdelta.get('sig_scores')} times")
+            want = {"resident_budget_pages": str(SPILL_WIRE_BUDGET),
+                    "pages_resident": str(SPILL_WIRE_BUDGET),
+                    "page_rows": str(SPILL_PAGE_ROWS)}
+            if any(st.get(k) != v for k, v in want.items()) or \
+                    float(st.get("page_spill_in_total", 0)) <= 0 or \
+                    float(st.get("page_spill_out_total", 0)) <= 0:
+                raise AssertionError(f"spill wire: get_status page keys {st}")
+            served = launches_of(st)
+        finally:
+            child.stop()
+    log(f"spill wire: nearest_neighbor resident_pages {SPILL_WIRE_BUDGET}: "
+        f"{SPILL_WIRE_ROWS} set_rows in {write_s:.1f} s (both sides), "
+        f"{SPILL_WIRE_READS} reads in {read_s:.2f} s, bitwise the in-process "
+        "driver; status " + ", ".join(
+            f"{k}={st[k]}" for k in ("pages", "pages_resident",
+                                     "resident_budget_pages",
+                                     "page_spill_in_total",
+                                     "page_spill_out_total")))
+    return served
+
+
+def sig_scores_row(torch, np, device="cuda"):
+    """K5's scores mode at a streamed chunk's shape (lsh H 64, a chunk of
+    SPILL_CHUNK_ROWS rows) at 1 and 64 queries and at cell (b)'s pool
+    (1,953 pages of 128 rows, 1 query): bitwise its plain version, timed
+    beside it, torch.cdist(p=0) and the bound by class (K5's: the bytes
+    of its counts, the scores being as wide)."""
+    from jubatus_tpu_torch.ops import lsh as L
+    from jubatus_tpu_torch.ops import paged as P
+    dev = torch.device(device)
+    h, kind = 64, "lsh"
+    w = L.sig_width(kind, h)
+    rg = np.random.default_rng(7)
+    rows = []
+    for r, nq in ((P.SPILL_CHUNK_ROWS, 1), (P.SPILL_CHUNK_ROWS, 64),
+                  (SPILL_NN_CELLS[1][2] * SPILL_PAGE_ROWS, 1)):
+        tab = torch.from_numpy(rg.integers(0, 2 ** 32, (r, w),
+                                           dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(dev)
+        norms = torch.ones(r, device=dev)
+        xr = cdist_layout(torch, kind, h, tab) if device == "cuda" else None
+        qs = tab[torch.from_numpy(rg.integers(0, r, nq)).to(dev)].clone()
+        qs[:, 0] ^= 3
+        qn = torch.ones(nq, device=dev)
+        got = one_launch(L.sig_scores, kind, tab, qs, norms, qn, h)
+        if not torch.equal(got.view(torch.int32), L.sig_scores_ref(
+                kind, tab, qs, norms, qn, h).view(torch.int32)):
+            raise AssertionError("spill: sig_scores differs from its plain "
+                                 "version")
+        lib = None
+        if device == "cuda":
+            xq = cdist_layout(torch, kind, h, qs)
+
+            def lib(xq=xq, xr=xr):
+                return torch.cdist(xq, xr, p=0)
+        row = kernel_row(
+            torch, lambda: L.sig_scores(kind, tab, qs, norms, qn, h),
+            lambda: L.sig_scores_ref(kind, tab, qs, norms, qn, h), device, 2,
+            lib=lib, lib_calls=2, classes=counts_bound(kind, r, w, nq),
+            shape=[r, w, nq], err=0.0)
+        row.update(kind=kind, hash_num=h, library="torch.cdist(p=0)")
+        rows.append(row)
+        del tab, norms, xr
+    return dict(rows[0], variants=rows[1:])
+
+
+def spill_dots_rows(torch, np, device="cuda"):
+    """K4 dense_dots at cell (c)'s shapes (Kr 32, D 4096, one query): a
+    streamed chunk of SPILL_CHUNK_ROWS rows and the pool's 488 pages of
+    128 rows, bitwise its plain version, timed beside it, torch.sparse.mm
+    and the bytes bound (as phase 11's rows)."""
+    from jubatus_tpu_torch.ops import lsh as L
+    from jubatus_tpu_torch.ops import paged as P
+    dev = torch.device(device)
+    kr, d = 32, 4096
+    out = []
+    for r in (P.SPILL_CHUNK_ROWS, SPILL_RECO_BUDGET * SPILL_PAGE_ROWS):
+        i2, v2, _ = sparse_rows(torch, np, dev, r, kr, d, 29)
+        q2 = torch.from_numpy(np.random.default_rng(r).standard_normal(
+            (1, d)).astype(np.float32)).to(dev)
+        got = one_launch(L.dense_dots, i2, v2, q2)
+        if not torch.equal(got.view(torch.int32),
+                           L.dense_dots_ref(i2, v2, q2).view(torch.int32)):
+            raise AssertionError("spill: dense_dots differs from its plain "
+                                 "version")
+        lib = None
+        if device == "cuda":
+            crow = torch.arange(0, r * kr + 1, kr, device=dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")       # CSR's beta notice
+                csr = torch.sparse_csr_tensor(crow, i2.reshape(-1).long(),
+                                              v2.reshape(-1), (r, d),
+                                              check_invariants=False)
+            qt = q2.T.contiguous()
+
+            def lib(csr=csr, qt=qt):
+                return torch.sparse.mm(csr, qt)
+        nbytes = r * kr * 8 + gathered_query_bytes(torch, i2, 1) + r * 4
+        out.append(dict(kernel_row(
+            torch, lambda: L.dense_dots(i2, v2, q2),
+            lambda: L.dense_dots_ref(i2, v2, q2), device, 1, lib=lib,
+            classes={"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "f32": r * kr * 2 / F32_OPS_PER_S * 1e3},
+            shape=[r, kr, d, 1], err=0.0), route="spill"))
+    return out
+
+
+def phase_spill(torch, np, device="cuda"):
+    """Phase 13: the spill tier.  Returns (the paths' launches, K5 scores
+    mode's row, the cells' lines)."""
+    t13 = time.perf_counter()
+    row = sig_scores_row(torch, np, device)
+    row["dots_variants"] = spill_dots_rows(torch, np, device)
+    counts, cells = [], []
+    for name, rows, budget in SPILL_NN_CELLS:
+        delta, out = spill_nn_cell(torch, np, name, rows, budget, device)
+        counts.append(delta)
+        cells.append(out)
+    delta, out = spill_reco_cell(torch, np, device)
+    counts.append(delta)
+    cells.append(out)
+    counts.append(spill_anomaly(torch, np, device))
+    counts.append(spill_wire(torch, np, device))
+    log(f"spill: phase 13 in {time.perf_counter() - t13:.1f} s")
+    return counts, row, cells
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -4634,6 +5231,10 @@ def main() -> int:
                     phase_index_wire(torch, np),
                     phase_index_anomaly(torch, np)]
     log(f"index: phase 12 in {time.perf_counter() - t12:.1f} s")
+    # 13. the spill tier
+    spill_counts, rows["sig_scores"], _ = phase_spill(torch, np)
+    rows["dense_dots"]["variants"] += rows["sig_scores"].pop(
+        "dots_variants")
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
@@ -4655,6 +5256,9 @@ def main() -> int:
     def index_served(kern):
         return sum(c.get(kern, 0) for c in index_counts)
 
+    def spill_served(kern):
+        return sum(c.get(kern, 0) for c in spill_counts)
+
     # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
@@ -4662,7 +5266,8 @@ def main() -> int:
     # the LSH kernels' are phase 10's (the in-process build, its server
     # processes and the clusters', the restarted servers' replays too) and
     # phase 11's (the row engines' servers; K4's in process); K6 and
-    # K7's are phase 12's (in process, its servers' and anomaly's)
+    # K7's are phase 12's (in process, its servers' and anomaly's); K5's
+    # scores mode and K4 dense_dots on a spilled table are phase 13's
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
@@ -4698,7 +5303,7 @@ def main() -> int:
                        row_served("dense_topk")),
         "dense_dots": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/models/anomaly.py:83",
-                       row_served("dense_dots")),
+                       row_served("dense_dots") + spill_served("dense_dots")),
         "sig_counts": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/ops/lsh.py:106",
                        row_served("sig_counts")),
@@ -4710,6 +5315,10 @@ def main() -> int:
         "ivf_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
                       "jubatus_tpu/ops/candidates.py:367",
                       index_served("ivf_probe")),
+        # phase 13: the spilled reads' sweeps (pool and streamed chunks)
+        "sig_scores": ("jubatus_tpu_torch/csrc/lsh.cu",
+                       "jubatus_tpu/ops/paged.py:33",
+                       spill_served("sig_scores")),
     }
     kernels = []
     for name, (src, replaces, launches) in meta.items():

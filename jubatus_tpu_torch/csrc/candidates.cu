@@ -27,12 +27,13 @@
 //
 // K7, in XLA's CPU order of _ivf_probe_query (read off its dumps,
 // XLA_FLAGS=--xla_dump_to, the *ir-with-opt.ll and objdump -d of the
-// object files, at E 2 to 16,384; the same orders hold bitwise at 32,768
-// and 65,536 in tests/test_torch_candidates.py):
+// object files, at E 1 to 16,384 and 2^17 to 2^20; the same orders hold
+// bitwise at 32,768 and 65,536 in tests/test_torch_candidates.py):
 //   * the query's count-sketch embedding e [E]: coordinate (i * 0x9E3779B1)
-//     >> (32 - log2 E), sign bit (i * 0x85EBCA77) >> 31; the signed values
-//     added one at a time in k order into their coordinates from +0 (XLA's
-//     scatter loop, at every E);
+//     >> (32 - log2 E) (0 at E 1, where the shift is 32), sign bit
+//     (i * 0x85EBCA77) >> 31; the signed values added one at a time in k
+//     order into their coordinates from +0 (XLA's scatter loop, at every
+//     E);
 //   * centroid c's score dot - 0.5 ssq.  The dot is XLA's row-major gemv
 //     (row_major_gemv_F32_8_8_C_E: tiles of 8 rows, 8-wide vectors; at E
 //     16,384 and up the rows are split between two tasks, which leaves a
@@ -43,11 +44,15 @@
 //     E 2 and 4: no whole vector of columns, so every row is the gemv's
 //     epilogue loop alone, one chain of fused multiply-adds in k order
 //     from +0, then + 0.  ssq as XLA's reduce orders it at E: 8, rounded
-//     products added in k order from +0; 2, 4, 16 and 32, a chain of fused
-//     multiply-adds from +0; 64 and up, reduce-windows of 32 (each window's
-//     rounded products summed in k order from +0), windowed again by 32
-//     while more than 32 sums are left (one level at 2,048 to 32,768, two
-//     at 65,536), and the last sums added in order from +0;
+//     products added in k order from +0 on the rows LLVM's vectorized
+//     loop takes (ssq_vector_rows), a chain of fused multiply-adds from +0
+//     on its scalar loop's; 2, 4, 16 and 32, a chain of fused
+//     multiply-adds from +0; 64 and up, reduce-windows of 32 (each
+//     window's rounded products summed in k order from +0), windowed
+//     again by 32 while more than 32 sums are left (one level at 2,048 to
+//     32,768, two at 65,536 to 2^20, three from 2^21), and the last sums
+//     added in order from +0.  E 1: XLA folds the dot into the fusion,
+//     one fused multiply-add fma(c, e, -(0.5 c c));
 //   * the top `probes` centroids by the same keys (ties: lower index);
 //     groups c and c + C for each (the rank-2 assignment's two bands, all
 //     first bands first);
@@ -156,7 +161,8 @@ constexpr int MAX_PROBES = 8192;
 constexpr int PICK_EXTRACT = 16;
 // the embedding in shared memory up to E * 4 bytes
 constexpr long long EMB_SMEM = 64 * 1024;
-constexpr int MAX_E = 65536;
+// the widest embedding: a centroid's coordinates are 32-bit ints
+constexpr int MAX_E = 1 << 30;
 constexpr long long KEY_MIN = (long long)0x8000000000000000ULL;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr uint32_t CS_H = 0x9E3779B1u;
@@ -889,7 +895,8 @@ __device__ void build_embedding(float* e, const int* __restrict__ q_idx,
       int h = -1 - lane;
       if (k < K) {
         const uint32_t i = (uint32_t)__ldg(q_idx + k);
-        h = (int)((i * CS_H) >> (32 - log2e));
+        // E 1: a shift by 32, which XLA and numpy define as 0
+        h = log2e == 0 ? 0 : (int)((i * CS_H) >> (32 - log2e));
         const float v = __ldg(q_val + k);
         ubuf[lane] = (i * CS_S) >> 31 ? -v : v;
       }
@@ -930,6 +937,43 @@ __device__ __forceinline__ float ssq_unit(const float* __restrict__ row,
   return tot;
 }
 
+// a unit of 32^L rounded products above E 65,536: windows of 32 in k
+// order from +0, each level's 32 sums added in order from +0 (acc[lvl]
+// holds the open sum of level lvl + 1)
+__device__ float ssq_tree(const float* __restrict__ row, int L) {
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float out = 0.0f;
+  const long long windows = 1LL << (5 * L - 5);
+  for (long long w = 0; w < windows; ++w) {
+    float v = 0.0f;
+    for (int t = 0; t < 32; ++t) {
+      const float x = __ldg(row + w * 32 + t);
+      v = add_ftz(v, mul_ftz(x, x));
+    }
+    int lvl = 1;
+    long long ww = w + 1;
+    while (lvl < L) {
+      acc[lvl] = add_ftz(acc[lvl], v);
+      if (ww & 31) break;
+      v = acc[lvl];
+      acc[lvl] = 0.0f;
+      ww >>= 5;
+      ++lvl;
+    }
+    if (lvl == L) out = v;
+  }
+  return out;
+}
+
+// E 8: the leading rows whose squares' sum XLA's vectorized loop takes
+// (rounded products); the others are its scalar loop's fused chain
+// (ops/candidates.py ssq_vector_rows)
+__device__ __forceinline__ int ssq_vector_rows(int C) {
+  if (C < 16) return C == 2 || C == 4 || C == 8 ? C : 0;
+  const int n = 8 * (C / 8);
+  return C < 64 && C % 8 >= 4 ? n + 4 : n;
+}
+
 // a block of CPB centroids, 8 lanes each -> their keys (score dot - 0.5
 // ssq, position c) in ckeys; e_glob: the embedding built by ivf_embed, or
 // null to build it here in shared memory
@@ -956,7 +1000,19 @@ ivf_centroids(const int* __restrict__ q_idx, const float* __restrict__ q_val,
   for (int x = 0; x < 8; ++x) lx[x] = __shfl_sync(FULL, l, lead + x);
   // ssq: units of U products, lane j units j, j + 8, ...
   float ssq = 0.0f;
-  if (E >= 64) {
+  if (E > 65536) {  // units of 32^L, at most 32 of them, in order
+    int L = 3;
+    long long U = 32768;
+    while (E / U > 32) {
+      U <<= 5;
+      ++L;
+    }
+    const int nu = (int)(E / U);
+    float slot[4];
+    for (int u = j; u < nu; u += 8) slot[u >> 3] = ssq_tree(row + u * U, L);
+    for (int u = 0; u < nu; ++u)
+      ssq = add_ftz(ssq, __shfl_sync(FULL, slot[u >> 3], lead + (u & 7)));
+  } else if (E >= 64) {
     const int U = E <= 1024 ? 32 : 1024, nu = E / U;
     float slot[8];
     for (int u = j; u < nu; u += 8) slot[u >> 3] = ssq_unit(row + u * U, U);
@@ -988,12 +1044,17 @@ ivf_centroids(const int* __restrict__ q_idx, const float* __restrict__ q_val,
   }
   dot = add_ftz(dot, 0.0f);
   if (E < 64) {
+    const bool rounded = E == 8 && c < ssq_vector_rows(C);
     for (int k = 0; k < E; ++k) {
       const float x = __ldg(row + k);
-      ssq = E == 8 ? add_ftz(ssq, mul_ftz(x, x)) : fma_ftz(x, x, ssq);
+      ssq = rounded ? add_ftz(ssq, mul_ftz(x, x)) : fma_ftz(x, x, ssq);
     }
   }
-  const float s = sub_ftz(dot, mul_ftz(0.5f, ssq));
+  float s = sub_ftz(dot, mul_ftz(0.5f, ssq));
+  if (E == 1) {  // XLA fuses the one product: fma(c, e, -(0.5 c c))
+    const float x = __ldg(row);
+    s = fma_ftz(x, e[0], -mul_ftz(0.5f, mul_ftz(x, x)));
+  }
   ckeys[c] = make_key(s, (uint32_t)c);
 }
 
@@ -1296,7 +1357,7 @@ extern "C" int ivf_probe_launch(
     const void* delta, int dcap, int cap, int metric, int kb, int npad,
     int cpad, void* ws, void* out, void* stream) {
   const long long width = 2LL * probes * cap + dcap;
-  if (K <= 0 || C <= 0 || !pow2(E) || E < 2 || E > MAX_E || probes < 1 ||
+  if (K <= 0 || C <= 0 || !pow2(E) || E > MAX_E || probes < 1 ||
       probes > C || probes > MAX_PROBES || Kr <= 0 || cap <= 0 ||
       metric < 0 || metric > 1 || kb < 1 || kb > width || !pow2(npad) ||
       npad < width || !pow2(cpad) || cpad < C || flat_len < cap ||

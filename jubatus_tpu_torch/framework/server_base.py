@@ -42,7 +42,7 @@ from jubatus_tpu_torch.models.regression import \
 from jubatus_tpu_torch.ops.candidates import ivf_probe, sig_probe
 from jubatus_tpu_torch.ops.lsh import (dense_dots, dense_topk,
                                        lsh_signature, minhash_signature,
-                                       sig_counts, sig_topk)
+                                       sig_counts, sig_scores, sig_topk)
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -62,6 +62,7 @@ KERNEL_WRAPPERS = {
     "dense_topk": dense_topk,
     "dense_dots": dense_dots,
     "sig_counts": sig_counts,
+    "sig_scores": sig_scores,
     "sig_probe": sig_probe,
     "ivf_probe": ivf_probe,
 }
@@ -126,10 +127,13 @@ class JubatusServer:
                 args.index, probes=int(args.index_probes)):
             # a kind that does not fit the engine's method declines:
             # get_status shows index=off, the full sweep serves
-            # (for ivf: also an "index" embed_dim K7 does not take)
+            # (for ivf: also an "index" embed_dim K7 does not take, whose
+            # reason the driver names)
+            why = getattr(self.driver, "index_decline_reason", None)
             logging.getLogger("jubatus_tpu_torch.server").warning(
-                "--index %s does not fit %s/%s; serving full sweeps",
-                args.index, args.type, getattr(self.driver, "method", "?"))
+                "--index %s does not fit %s/%s%s; serving full sweeps",
+                args.index, args.type, getattr(self.driver, "method", "?"),
+                f" ({why})" if why else "")
         # readers (classify, get_labels, save) share; updates and the
         # dispatch thread's fused steps are exclusive
         self.model_lock = RWLock()

@@ -27,6 +27,12 @@ driver:
     own copy of what it wrote, so no second copy);
   * signature methods: K1/K2 for the queries, then K5 sig_counts (hamming
     or equal counts, or euclid_lsh's estimates) against every row.
+With a spill config (pages.resident_pages > 0) the table's master stays
+on the host and the card keeps a pool of resident pages: the sweep is
+ops/paged.py's, the pool in one launch and the absent pages streamed
+(exact: K4 dense_dots with the host's norms; signatures: K5's
+scores mode, non-finite scores set to 0, then -sims for euclid_lsh and
+1 - sims otherwise in float64), as the JAX driver's spilled arms do.
 
 calc_score(q) = mean(lrd of q's k neighbors) / lrd(q): 1.0 for an empty or
 degenerate model; a pile of duplicates gives +inf unless
@@ -40,9 +46,9 @@ back to the full sweep where the candidates under-fill k, as the JAX
 driver does; the write path keeps its exact full-table kNN (an
 approximate kNN there would corrupt kdist and lrd for every later
 query).  The index is derived state: the dirty-row write notes it, a
-removed row is invalidated in it, unpack marks it for a lazy rebuild.
-Not ported, each refused where a caller could ask for it: the spill tier
-(item 5.4), the partition plane (item 5.5).
+removed row is invalidated in it, unpack marks it for a lazy rebuild; a
+spilled table bypasses it.  Not ported, refused where a caller could ask
+for it: the partition plane (item 5.5).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from jubatus_tpu_torch.models.base import Driver, register_driver
 from jubatus_tpu_torch.models.recommender import SparseRowTable, _to_str
 from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
+from jubatus_tpu_torch.ops import paged as pagedops
 
 METHODS = ("lof", "light_lof")
 EXACT_NN_METHODS = ("inverted_index", "inverted_index_euclid", "euclid")
@@ -236,9 +243,12 @@ class AnomalyDriver(SparseRowTable, Driver):
         copy of its result each."""
         self._sync()
         p = self.pages
+        spilled = p.spill_mode
         out = np.zeros((len(qrows), p.capacity), np.float64)
         with device_context(self.device):
             if self.hash_num == 0:
+                # the host's copy of the norms the store holds (the
+                # master's bytes under spill)
                 norms = self._norms[: p.capacity].astype(np.float64)
                 for c0 in range(0, len(qrows), _CHUNK):
                     chunk = qrows[c0: c0 + _CHUNK]
@@ -249,10 +259,13 @@ class AnomalyDriver(SparseRowTable, Driver):
                             qd[j, np.fromiter(q.keys(), np.int64, len(q))] = \
                                 np.fromiter(q.values(), np.float32, len(q))
                         qn[j] = math.sqrt(sum(v * v for v in q.values()))
-                    dots = lshops.dense_dots(
-                        p.device("indices"), p.device("values"),
-                        torch.from_numpy(qd).to(self.device)
-                    ).cpu().numpy().astype(np.float64)
+                    if spilled:
+                        dots = pagedops.dense_dots(p, qd).astype(np.float64)
+                    else:
+                        dots = lshops.dense_dots(
+                            p.device("indices"), p.device("values"),
+                            torch.from_numpy(qd).to(self.device)
+                        ).cpu().numpy().astype(np.float64)
                     d2 = np.maximum(qn[:, None] ** 2 + norms[None, :] ** 2
                                     - 2.0 * dots, 0.0)
                     out[c0: c0 + len(chunk)] = np.sqrt(d2)
@@ -264,9 +277,18 @@ class AnomalyDriver(SparseRowTable, Driver):
                 self.hash_num, self.nn_method)
             qns = np.array([math.sqrt(sum(v * v for v in q.values()))
                             for q in qrows], np.float32)
-            sims = lshops.table_similarities_batch(
-                self.nn_method, p.device("sig"), sigs[: len(qrows)],
-                self.hash_num, p.device("norms"), qns)
+            if spilled:
+                sims = pagedops.sig_scores(
+                    p, self.nn_method, self.hash_num,
+                    sigs[: len(qrows)].cpu().numpy().view(np.uint32),
+                    qns).astype(np.float64)
+                # invalid slots score -inf there: the LOF bookkeeping masks
+                # by validity itself and must see finite distances
+                sims[~np.isfinite(sims)] = 0.0
+            else:
+                sims = lshops.table_similarities_batch(
+                    self.nn_method, p.device("sig"), sigs[: len(qrows)],
+                    self.hash_num, p.device("norms"), qns)
         if self.nn_method == "euclid_lsh":
             out[:] = -sims
         else:

@@ -158,10 +158,15 @@ class Driver:
         rebuild lock, checked twice, so one query thread rebuilds after a
         wholesale table change or an IVF 2x-growth retrain.  Callers whose
         host rows reach the device lazily (recommender, anomaly _sync)
-        sync first: the rebuild reads the device tables.  The port has no
-        spill tier, so the JAX driver's spill branch has no counterpart."""
+        sync first: the rebuild reads the device tables.  A spilled table
+        has no whole-table device view for the candidate gather, so it
+        bypasses the index: its reads sweep exactly (ops/paged.py), as the
+        JAX driver's do."""
         idx = self.index
         if idx is None or not idx.engaged(len(self.ids)):
+            return None
+        pages = getattr(self, "pages", None)
+        if pages is not None and pages.spill_mode:
             return None
         if idx.stale(len(self.ids)):
             with idx.rebuild_lock:

@@ -33,13 +33,20 @@ MIX: a table union.  The diff is the rows written since the last round
 (ids -> {"sig": bytes, "norm": float}) plus the converter's weight diff;
 mix is a dict union, the later side winning an id; put_diff upserts.
 
-Not ported, each refused where a caller could ask for it, with the
-ROADMAP item that brings it: the spill tier (pages.resident_pages > 0,
-item 5.4) and the partition plane (the service table's partition_* and
-*_sig_partial methods, item 5.5, with the index's raw-signature route
-sig_probe_query_sig).  The JAX driver's query tier has no
-counterpart: the table lives on the driver's device, which get_status
-reports as query_tier.
+With a spill config (pages.resident_pages > 0) the table's master copy
+stays on the host and the card keeps a pool of resident pages
+(models/pages.py); set_row writes the master and faults its page in, and
+every read goes through ops/paged.py: the query's signature (K1/K2, or
+the stored row's from the master), K5's scores mode over the pool and
+over each streamed chunk of absent pages, the top-k on the host, as the
+JAX driver's _spill_query does; an engaged index is bypassed.
+
+Not ported, refused where a caller could ask for it, with the ROADMAP
+item that brings it: the partition plane (the service table's
+partition_* and *_sig_partial methods, item 5.5, with the index's
+raw-signature route sig_probe_query_sig).  The JAX driver's query tier
+has no counterpart: the table lives on the driver's device, which
+get_status reports as query_tier.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from jubatus_tpu_torch.models.base import Driver, register_driver
 from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
 from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
+from jubatus_tpu_torch.ops import paged as pagedops
 
 METHODS = ("lsh", "minhash", "euclid_lsh")
 DEFAULT_SEED = 0x1EAF
@@ -251,6 +259,9 @@ class NearestNeighborDriver(Driver):
             return []
         batch = self.converter.convert_batch([datum], update_weights=False)
         qnorm = float(np.sqrt((batch.values * batch.values).sum(axis=1)[0]))
+        if self.pages.spill_mode:
+            q_sig, _ = self._signature(batch)
+            return self._spill_query(q_sig[0], qnorm, size, similarity)
         idx = self._index_for_query()
         with device_context(self.device):
             if idx is not None:
@@ -269,11 +280,26 @@ class NearestNeighborDriver(Driver):
                 qnorm, int(size))
         return self._to_results(rows, sims, size, similarity)
 
+    def _spill_query(self, q_sig, qnorm: float, size: int,
+                     similarity: bool):
+        """A spilled table's read: K5's scores over the pool and the
+        streamed pages (ops/paged.py), the top-k on the host."""
+        with device_context(self.device):
+            scores = pagedops.sig_scores(self.pages, self.method,
+                                         self.hash_num, [q_sig], [qnorm])[0]
+        rows, sims = pagedops.topk(scores, self.pages.mask_host(), int(size))
+        return self._to_results(rows, sims, size, similarity)
+
     def _query_id(self, id_: str, size: int, similarity: bool):
         if id_ not in self.ids:
             raise KeyError(f"no such row: {id_}")
         if size <= 0:
             return []
+        if self.pages.spill_mode:
+            loc = self.ids[id_]
+            return self._spill_query(
+                self.pages.read("sig", [loc])[0],
+                float(self.pages.read("norms", [loc])[0]), size, similarity)
         idx = self._index_for_query()
         with device_context(self.device):
             if idx is not None:
@@ -305,6 +331,17 @@ class NearestNeighborDriver(Driver):
         batch = self.converter.convert_batch([d for d, _ in pairs],
                                              update_weights=False)
         qnorms = np.sqrt((batch.values * batch.values).sum(axis=1))
+        if self.pages.spill_mode:
+            q_sigs, _ = self._signature(batch, round_b(len(pairs)))
+            with device_context(self.device):
+                scores = pagedops.sig_scores(self.pages, self.method,
+                                             self.hash_num, q_sigs, qnorms)
+            out = []
+            for i, size in enumerate(sizes):
+                rows, sims = pagedops.topk(scores[i], self.pages.mask_host(),
+                                           size)
+                out.append(self._to_results(rows, sims, size, similarity))
+            return out
         idx = self._index_for_query()
         with device_context(self.device):
             if idx is not None:

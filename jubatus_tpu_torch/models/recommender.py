@@ -36,15 +36,23 @@ as in the JAX driver.  The index is derived state: the dirty-row write
 notes it, a removed row is invalidated in it, unpack marks it for a lazy
 rebuild; it is never journaled, packed or mixed.
 
+With a spill config (pages.resident_pages > 0) the store keeps its master
+on the host and a pool of resident pages on the card (models/pages.py):
+the dirty rows' write faults their pages in, and a read sweeps the pool
+and streams the absent pages (ops/paged.py): the exact methods through K4
+dense_dots, then the JAX driver's numpy float32 score on the host; the
+signature methods through K1/K2 and K5's scores mode; the top-k on the
+host.  The read lane's batch reads each query so; an engaged index is
+bypassed.
+
 MIX: a row-table union with tombstones (clear_row travels as None), the
 revert table, and the converter's weight diff.  Model files (pack) cross
 packages unchanged.
 
-Not ported, each refused where a caller could ask for it, with the ROADMAP
-item that brings it: the spill tier (pages.resident_pages > 0, item 5.4)
-and the partition plane (the service table's partition_* methods, item
-5.5).  The JAX driver's query
-tier has no counterpart: get_status reports the driver's device.
+Not ported, refused where a caller could ask for it, with the ROADMAP
+item that brings it: the partition plane (the service table's
+partition_* methods, item 5.5).  The JAX driver's query tier has no
+counterpart: get_status reports the driver's device.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from jubatus_tpu_torch.models.base import Driver, register_driver
 from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
 from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
+from jubatus_tpu_torch.ops import paged as pagedops
 
 EXACT_METHODS = ("inverted_index", "inverted_index_euclid")
 APPROX_METHODS = ("lsh", "minhash", "euclid_lsh")
@@ -284,9 +293,10 @@ class RecommenderDriver(SparseRowTable, Driver):
         """--index: the signature methods (and nearest_neighbor_
         recommender's embedded one) take lsh_probe, the exact methods ivf;
         a kind that does not fit, or an ivf `embed_dim` K7 does not take
-        (candops.IVF_EMBED_DIMS), returns False and keeps the full
-        sweep."""
+        (candops.IVF_EMBED_DIMS: above 2^30), returns False, keeps the
+        full sweep and names the reason in index_decline_reason."""
         self.index = None
+        self.index_decline_reason = None
         if kind == "lsh_probe" and self.sig_method is not None:
             spec = IndexSpec(kind="lsh_probe", probes=int(probes),
                              **self._index_spec_kwargs(kw))
@@ -297,6 +307,7 @@ class RecommenderDriver(SparseRowTable, Driver):
             spec = IndexSpec(kind="ivf", probes=int(probes),
                              **self._index_spec_kwargs(kw))
             if spec.embed_dim not in candops.IVF_EMBED_DIMS:
+                self.index_decline_reason = candops.IVF_WIDE_REFUSAL
                 return False
             self.index = IvfIndex(self._metric(), spec, put=self._index_put)
             return True
@@ -338,12 +349,15 @@ class RecommenderDriver(SparseRowTable, Driver):
             self._pending[id_] = None
         return True
 
-    def _sync(self) -> Dict[str, Any]:
+    def _sync(self) -> Optional[Dict[str, Any]]:
         """Write the dirty rows and return a consistent snapshot of the
-        device table (a concurrent read's write may widen its columns)."""
+        device table (a concurrent read's write may widen its columns);
+        None under spill, where reads go through ops/paged.py."""
         with self._sync_lock:
             self._write_dirty()
             p = self.pages
+            if p.spill_mode:
+                return None
             snap = {n: p.device(n) for n in self._store_columns()}
             snap["mask"] = p.mask_dev()
             snap["rows"] = p.capacity
@@ -368,6 +382,8 @@ class RecommenderDriver(SparseRowTable, Driver):
         if not self.ids or size <= 0:
             return []
         t = self._sync()
+        if t is None:
+            return self._similar_spill(q, size)
         idx = self._index_for_query()
         with device_context(self.device):
             if idx is not None:
@@ -389,6 +405,27 @@ class RecommenderDriver(SparseRowTable, Driver):
                     self.sig_method, self.key, batch.indices, batch.values,
                     t["sig"], t["norms"], t["rows"], self.hash_num, qn,
                     int(size), mask=t["mask"])
+        return self._trim_results(rows, sc, size)
+
+    def _similar_spill(self, q: Dict[int, float], size: int
+                       ) -> List[Tuple[str, float]]:
+        """A spilled table's read (ops/paged.py): the exact methods' dots
+        through K4 with the host's numpy score, the signature methods'
+        scores through K5; the top-k on the host."""
+        with device_context(self.device):
+            if self.sig_method is None:
+                qd, qn = self._query_row(q)
+                scores = pagedops.dense_scores(self.pages, self._metric(),
+                                               qd, qn)
+            else:
+                batch = SparseBatch.from_rows([q])
+                qn = float(np.sqrt(sum(v * v for v in q.values())))
+                q_sig = lshops.host_signature(
+                    self.key, batch.indices, batch.values, self.hash_num,
+                    self.sig_method, self.device)[0]
+                scores = pagedops.sig_scores(self.pages, self.sig_method,
+                                             self.hash_num, [q_sig], [qn])[0]
+        rows, sc = pagedops.topk(scores, self.pages.mask_host(), int(size))
         return self._trim_results(rows, sc, size)
 
     def _similar_pruned(self, idx, q: Dict[int, float], t, size: int):
@@ -489,7 +526,8 @@ class RecommenderDriver(SparseRowTable, Driver):
         too), under the caller's one read-lock hold."""
         qs = [self.converter.convert_row(d) for d, _ in pairs]
         sizes = [int(s) for _, s in pairs]
-        if self.sig_method is None or not self.ids or max(sizes) <= 0:
+        if (self.sig_method is None or not self.ids or max(sizes) <= 0
+                or self.pages.spill_mode):
             return [self._similar(q, s) for q, s in zip(qs, sizes)]
         t = self._sync()
         batch = SparseBatch.from_rows(qs)

@@ -303,7 +303,9 @@ def gemv_rows_ref(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     tile of 8 sum their lanes by halving, ((l0 + l4) + (l2 + l6)) + ((l1
     + l5) + (l3 + l7)).  Below E 8 (no whole vector of columns) every row
     is one chain of fused multiply-adds in k order from +0, then + 0.
-    Every input and step flushed.  E a power of two."""
+    Every input and step flushed.  E a power of two, C at least 2 (the
+    index trains 2 centroids at least; XLA turns a single row into a
+    vector dot of another order)."""
     m = ftz(m.float())
     v = ftz(v.float())
     c, e = m.shape
@@ -332,26 +334,56 @@ def centroid_scores_ref(centroids: torch.Tensor,
     """centroids @ e_q - 0.5 * sum(centroids ** 2, 1) [C] as XLA's CPU
     code computes it in _ivf_probe_query (E a power of two): the gemv
     (gemv_rows_ref), the squares' sum as XLA's reduce of that program
-    orders it (_ssq_ref), then dot - 0.5 * sum."""
+    orders it (_ssq_ref), then dot - 0.5 * sum.  At E 1 XLA folds the
+    dot into the fusion as one product, so the score is one fused
+    multiply-add, fma(c, e, -(0.5 * c * c)), the square rounded."""
+    if centroids.shape[1] == 1:
+        m = ftz(centroids.float()[:, 0])
+        half = ftz(0.5 * ftz(m * m))
+        return ftz(_fma(m, ftz(e_q.float()[0]).expand_as(m), -half))
     dot = gemv_rows_ref(centroids, e_q)
     return ftz(dot - ftz(0.5 * _ssq_ref(centroids)))
 
 
+def ssq_vector_rows(c: int) -> int:
+    """At E 8, the leading rows of [C, 8] whose squares' sum XLA's
+    vectorized loop computes (rounded products added in k order from
+    +0); the rows after them are its scalar loop's, a chain of fused
+    multiply-adds from +0 (read off objdump -d of the fusion, and held
+    row by row at C 1 to 4,111).  Below 16 rows LLVM vectorizes only a
+    trip count that its vector width divides (2, 4, 8); from 16 the body
+    takes 8 rows a step, and below 64 rows an epilogue of 4 rows takes 4
+    more where at least 4 are left."""
+    if c < 16:
+        return c if c in (2, 4, 8) else 0
+    n = 8 * (c // 8)
+    if c < 64 and c % 8 >= 4:
+        n += 4
+    return n
+
+
 def _ssq_ref(m: torch.Tensor) -> torch.Tensor:
     """sum(m * m, 1) in XLA's order for a row of E (read at E 2 to
-    16,384): E 8 a chain of rounded products and adds in k order from +0;
-    E 2, 4, 16 and 32 a chain of fused multiply-adds from +0; E 64 and up
-    jnp.sum's tree rewrite (ops.sparse.xla_dot_rows "sum": windows of 32
-    rounded products, each summed in k order from +0, the window sums
-    windowed again while more than 32 are left, then summed in order)."""
+    16,384; held up to 2^20): E 8 rounded products added in k order from
+    +0 on the rows ssq_vector_rows names, a chain of fused multiply-adds
+    from +0 on the others; E 2, 4, 16 and 32 a chain of fused
+    multiply-adds from +0; E 64 and up jnp.sum's tree rewrite
+    (ops.sparse.xla_dot_rows "sum": windows of 32 rounded products, each
+    summed in k order from +0, the window sums windowed again while more
+    than 32 are left, then summed in order)."""
     e = m.shape[1]
     if e >= 64:
         return xla_dot_rows(m, m, "sum")
     m = ftz(m.float())
     acc = torch.zeros(m.shape[0], dtype=torch.float32, device=m.device)
     for k in range(e):
-        acc = ftz(_fma(m[:, k], m[:, k], acc) if e != 8
-                  else acc + ftz(m[:, k] * m[:, k]))
+        acc = ftz(_fma(m[:, k], m[:, k], acc))
+    if e == 8:
+        nv = ssq_vector_rows(m.shape[0])
+        rnd = torch.zeros(nv, dtype=torch.float32, device=m.device)
+        for k in range(e):
+            rnd = ftz(rnd + ftz(m[:nv, k] * m[:nv, k]))
+        acc[:nv] = rnd
     return acc
 
 
@@ -422,10 +454,16 @@ PROBE_SORT_SMEM_KEYS = 4096
 IVF_EMBED_SMEM_DIMS = 16384
 IVF_MAX_PROBES = 8192
 IVF_METRICS = ("cosine", "euclid")
-# the count-sketch widths K7 takes: the powers of two whose XLA gemv and
-# reduce order it reproduces (IndexSpec accepts any power of two; a
-# recommender declines ivf at configure time outside this range)
-IVF_EMBED_DIMS = tuple(1 << b for b in range(1, 17))
+# the count-sketch widths K7 takes: every power of two up to 2^30, whose
+# XLA gemv and reduce order it reproduces.  IndexSpec accepts any power of
+# two; above 2^30 a centroid's coordinates pass K7's 32-bit indices (8 GiB
+# a centroid), and a recommender declines ivf at configure time with
+# IVF_WIDE_REFUSAL: the JAX driver's own rebuild embeds its rows as a dense
+# float64 [rows, E] (16 GiB a row there), which no host of it holds either
+IVF_EMBED_DIMS = tuple(1 << b for b in range(0, 31))
+IVF_WIDE_REFUSAL = ("an embed_dim above 2^30 passes K7's 32-bit coordinate "
+                    "indices (8 GiB a centroid), and the JAX driver's "
+                    "rebuild would take 16 GiB of float64 a row")
 
 
 def _pow2(n: int) -> int:
@@ -590,9 +628,8 @@ def ivf_probe(metric: str, q_indices: torch.Tensor, q_values: torch.Tensor,
     c, e = centroids.shape
     if e != int(embed_dim) or e not in IVF_EMBED_DIMS:
         raise ValueError(f"ivf_probe: centroids [{c}, {e}] at embed_dim "
-                         f"{embed_dim}: E must be a power of two from 2 to "
-                         f"{IVF_EMBED_DIMS[-1]} (XLA's order is known "
-                         f"there)")
+                         f"{embed_dim}: E must be a power of two from 1 to "
+                         f"{IVF_EMBED_DIMS[-1]}: {IVF_WIDE_REFUSAL}")
     if not 1 <= int(probes) <= min(c, IVF_MAX_PROBES):
         raise ValueError(f"ivf_probe: {probes} probes of {c} centroids")
     r = norms.shape[0]

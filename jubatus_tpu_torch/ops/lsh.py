@@ -443,12 +443,13 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 2)
     lib.dense_dots_launch.restype = ctypes.c_int
-    # K5: (table, q_sigs, norms, qnorms, tab, R, W, NQ, kind, out, stream);
-    # its plan (R, W, NQ, kind, table, out int32[13])
-    lib.sig_counts_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p] * 2)
-    lib.sig_counts_launch.restype = ctypes.c_int
+    # K5 and its scores mode: (table, q_sigs, norms, qnorms, tab, R, W,
+    # NQ, kind, out, stream); its plan (R, W, NQ, kind, table,
+    # out int32[13])
+    for fn in (lib.sig_counts_launch, lib.sig_scores_launch):
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
     lib.sig_counts_plan.argtypes = (
         [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
     lib.sig_counts_plan.restype = ctypes.c_int
@@ -1140,6 +1141,39 @@ def sig_counts_plan(kind: str, rows: int, hash_num: int, nq: int,
     return dict(zip(SIG_COUNTS_PLAN_KEYS, list(out)))
 
 
+def _sig_counts_args(kind, table, q_sigs, norms, qnorms, hash_num, what):
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check(table, torch.int32, dev, f"{what} table")
+    _check(q_sigs, torch.int32, dev, f"{what} q_sigs")
+    _check(norms, torch.float32, dev, f"{what} norms")
+    _check(qnorms, torch.float32, dev, f"{what} qnorms")
+    r, w = table.shape
+    nq = q_sigs.shape[0]
+    if (w != sig_width(kind, hash_num) or q_sigs.shape != (nq, w)
+            or norms.shape != (r,) or qnorms.shape != (nq,)):
+        raise ValueError(f"{what}: shapes do not fit the table")
+
+
+def _k5_launch(wrapper, kind, table, q_sigs, norms, qnorms, tab, scores,
+               out) -> torch.Tensor:
+    """One K5 launch into out [Nq, R], counted on `wrapper`."""
+    r, w = table.shape
+    nq = q_sigs.shape[0]
+    if nq == 0 or r == 0:
+        return out
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    launch = _lib().sig_scores_launch if scores else _lib().sig_counts_launch
+    err = launch(
+        table.data_ptr(), q_sigs.data_ptr(), norms.data_ptr(),
+        qnorms.data_ptr(), tab.data_ptr(), r, w, nq, SIG_KINDS.index(kind),
+        out.data_ptr(), stream)
+    wrapper.launches += 1
+    build.check(err, f"{wrapper.__name__} launch")
+    return out
+
+
 def sig_counts(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
                norms: torch.Tensor, qnorms: torch.Tensor,
                hash_num: int) -> torch.Tensor:
@@ -1151,35 +1185,58 @@ def sig_counts(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
         raise ValueError(f"unknown signature kind: {kind}")
     if table.device.type == "cpu":
         return sig_counts_ref(kind, table, q_sigs, norms, qnorms, hash_num)
+    _sig_counts_args(kind, table, q_sigs, norms, qnorms, hash_num,
+                     "sig_counts")
     dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    _check(table, torch.int32, dev, "sig_counts table")
-    _check(q_sigs, torch.int32, dev, "sig_counts q_sigs")
-    _check(norms, torch.float32, dev, "sig_counts norms")
-    _check(qnorms, torch.float32, dev, "sig_counts qnorms")
-    r, w = table.shape
-    nq = q_sigs.shape[0]
-    if (w != sig_width(kind, hash_num) or q_sigs.shape != (nq, w)
-            or norms.shape != (r,) or qnorms.shape != (nq,)):
-        raise ValueError("sig_counts: shapes do not fit the table")
     euclid = kind == "euclid_lsh"
-    out = torch.empty((nq, r), dtype=torch.float32 if euclid else torch.int32,
+    out = torch.empty((q_sigs.shape[0], table.shape[0]),
+                      dtype=torch.float32 if euclid else torch.int32,
                       device=dev)
-    if nq == 0 or r == 0:
-        return out
     tab = _euclid_cos_dev(hash_num, dev) if euclid else norms
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().sig_counts_launch(
-        table.data_ptr(), q_sigs.data_ptr(), norms.data_ptr(),
-        qnorms.data_ptr(), tab.data_ptr(), r, w, nq, SIG_KINDS.index(kind),
-        out.data_ptr(), stream)
-    sig_counts.launches += 1
-    build.check(err, "sig_counts launch")
-    return out
+    return _k5_launch(sig_counts, kind, table, q_sigs, norms, qnorms, tab,
+                      False, out)
 
 
 sig_counts.launches = 0
+
+
+def sig_scores_ref(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
+                   norms: torch.Tensor, qnorms: torch.Tensor,
+                   hash_num: int) -> torch.Tensor:
+    """Plain version of K5's scores mode: float32 [Nq, R], row q the
+    similarities_ref of query q (q_sigs [Nq, W], qnorms [Nq]) against
+    every row of table [R, W] (_sig_similarities as XLA computes it)."""
+    rows = [similarities_ref(kind, table, q_sigs[q], norms, qnorms[q],
+                             hash_num) for q in range(q_sigs.shape[0])]
+    if not rows:
+        return torch.empty((0, table.shape[0]), dtype=torch.float32,
+                           device=table.device)
+    return torch.stack(rows)
+
+
+def sig_scores(kind: str, table: torch.Tensor, q_sigs: torch.Tensor,
+               norms: torch.Tensor, qnorms: torch.Tensor,
+               hash_num: int) -> torch.Tensor:
+    """[Nq, R] float32 _sig_similarities scores (higher is closer: lsh
+    1 - d/H, minhash m/H, euclid_lsh minus the estimate) of every query
+    signature against every row.  CUDA tensors: one launch of K5 in its
+    scores mode (csrc/lsh.cu: K5's counts, then K3's score() from K3's
+    count table, so the bits are the fused sweep's); CPU: the plain
+    version."""
+    if kind not in SIG_KINDS:
+        raise ValueError(f"unknown signature kind: {kind}")
+    if table.device.type == "cpu":
+        return sig_scores_ref(kind, table, q_sigs, norms, qnorms, hash_num)
+    _sig_counts_args(kind, table, q_sigs, norms, qnorms, hash_num,
+                     "sig_scores")
+    dev = table.device
+    out = torch.empty((q_sigs.shape[0], table.shape[0]),
+                      dtype=torch.float32, device=dev)
+    return _k5_launch(sig_scores, kind, table, q_sigs, norms, qnorms,
+                      _count_table_dev(kind, hash_num, dev), True, out)
+
+
+sig_scores.launches = 0
 
 
 def table_similarities_batch(kind: str, table: torch.Tensor, q_sigs,

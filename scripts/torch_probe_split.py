@@ -30,7 +30,11 @@ inverted_index rows of Kr 32 over 4096 columns, 250,000 rows (or each
 under ivf at 4 probes (index/ivf.py), its host build (k-means and
 assignment, `rebuild_from`) timed as `build_s`.  The queries are stored
 rows (K6 by row, K7 a row's own features; K6 also 64 rows a call, the
-batch route's shape, `device_ms_64`).  `*_ms` are device ms: 10
+batch route's shape, `device_ms_64`, with torch.topk over [64, width] as
+`topk_ms_64`).  `bound_ms` (and K6's `bound_ms_64`) are the least times
+of this run's data by class (chip_smoke.probe_bound, ivf_bound: the
+probed groups' ids up to the cap, the delta, the valid candidates' rows,
+the results).  `*_ms` are device ms: 10
 calls captured in a CUDA graph and replayed between CUDA events
 (chip_smoke.time_device).  Each kernel's result is checked bitwise
 against its plain version and the earlier kernel's.  Prints one
@@ -217,8 +221,22 @@ def main() -> int:
     equal &= same
     scores = torch.from_numpy(rng.random((1, width), dtype=np.float32)
                               ).to(dev)
+    scores64 = torch.from_numpy(rng.random((64, width), dtype=np.float32)
+                                ).to(dev)
+    # the bounds of this run's data (chip_smoke.probe_bound): a query's
+    # probed groups' ids read up to the cap, the delta, its valid
+    # candidates
+    groups = C.probe_groups_ref("lsh", table[q_rows], six.plan, six.bits)
+    groups64 = C.probe_groups_ref("lsh", table[q64], six.plan, six.bits)
+    slots64 = sum(smoke.cand_slots(csr, g) for g in groups64)
     k6_row = {"rows": NN_ROWS, "cap": int(csr[4]), "kb": kb, "width": width,
               "n_cand": int(ref[0, 2 * kb]), "equal": same,
+              "bound_ms": smoke.probe_bound(
+                  "lsh", 2, smoke.cand_slots(csr, groups[0]),
+                  int(ref[0, 2 * kb]), 1, kb),
+              "bound_ms_64": smoke.probe_bound(
+                  "lsh", 2, slots64, int(ref64[:, 2 * kb].sum()), 64, kb),
+              "topk_ms_64": graph_ms(lambda: torch.topk(scores64, kb)),
               "device_ms": ab(k6, k6_old), "split": split(k6, False),
               "device_ms_64": ab(lambda: k6(q64), lambda: k6_old(q64)),
               "full_sweep_ms": graph_ms(lambda: L.sig_topk(
@@ -296,9 +314,17 @@ def main() -> int:
         qn_t = torch.tensor([qn], dtype=torch.float32, device=dev)
         scores = torch.from_numpy(rng.random((1, width7), dtype=np.float32)
                                   ).to(dev)
+        e_q = C.cs_embed_ref(qi, qv, 64)
+        top = torch.topk(L.scores_to_keys(C.centroid_scores_ref(cent, e_q)),
+                         probes).values
+        top_c = L.MASK32 - (top & L.MASK32)
+        slots7 = smoke.cand_slots(csr, torch.cat([top_c, top_c + c]))
         row = {"rows": ivf_rows, "build_s": ivf_build_s, "centroids": c,
                "cap": int(csr[4]), "kb": kb7, "width": width7,
                "n_cand": int(ref[0, 2 * kb7]), "equal": same,
+               "bound_ms": smoke.ivf_bound(c, 64, qi.shape[0], 4096, 32,
+                                           slots7, int(ref[0, 2 * kb7]),
+                                           kb7),
                "device_ms": ab(k7, k7_old), "split": split(k7, True),
                "full_sweep_ms": graph_ms(lambda: L.dense_topk(
                    "cosine", ti, tv, tn, ivf_rows, None, qd_t, qn_t,

@@ -78,15 +78,16 @@ def test_plans_and_bucket_assignment_equal_jax(kind):
 
 def test_count_sketch_equals_jax():
     idx, val = sparse_rows(300, 32, 1 << 20, seed=2)
-    for e in (2, 4, 8, 64, 1024, 2048, 16384, 65536):
+    for e in (1, 2, 4, 8, 64, 1024, 2048, 16384, 65536, 131072):
         assert _same(tc.cs_embed_np(idx, val, e), jc.cs_embed_np(idx, val, e))
 
 
-@pytest.mark.parametrize("e", [1 << b for b in range(1, 17)])
+@pytest.mark.parametrize("e", [1 << b for b in range(0, 18)])
 def test_query_count_sketch_equals_xla(e):
-    """The query's embedding (cs_embed_ref) bitwise XLA's scatter at every
-    width K7 takes, with features that share a coordinate and values of
-    wide range."""
+    """The query's embedding (cs_embed_ref) bitwise XLA's scatter at the
+    widths K7 takes from 1 (a shift by 32: every feature at coordinate 0)
+    to 2^17, with features that share a coordinate and values of wide
+    range."""
     rng = np.random.default_rng(e)
     qi = rng.integers(0, 1 << 20, (1, 200)).astype(np.int32)
     qi[0, 100:] = qi[0, :100]             # every coordinate hit twice
@@ -350,11 +351,12 @@ def test_ivf_probe_ref_equals_jax(metric, probes):
 
 
 @pytest.mark.parametrize("metric", ["cosine", "euclid"])
-@pytest.mark.parametrize("embed_dim", [1 << b for b in range(1, 14)])
+@pytest.mark.parametrize("embed_dim", [1 << b for b in range(0, 14)])
 def test_ivf_probe_ref_equals_jax_at_every_embed_dim(metric, embed_dim):
     """K7's plain version bitwise _ivf_probe_query at every count-sketch
-    width from 2 to 8,192: below 8 the gemv's epilogue chain and the fused
-    squares' sum, from 2,048 up the squares' windows windowed again."""
+    width from 1 to 8,192: at 1 one fused multiply-add a centroid, below 8
+    the gemv's epilogue chain and the fused squares' sum, from 2,048 up the
+    squares' windows windowed again."""
     n, d = 1200, 512
     idx, val, norms, cent, csr = _ivf_case(metric, 4, seed=embed_dim, n=n,
                                            d=d, embed_dim=embed_dim)
@@ -421,8 +423,15 @@ def test_ivf_probe_boundary_centroids_equal_jax(metric, gap):
                                  (16, 8), (16, 16), (8, 512), (37, 2),
                                  (1024, 2), (5, 4), (64, 4), (37, 2048),
                                  (5, 4096), (16, 8192), (13, 16384),
-                                 (8, 32768), (3, 65536)])
+                                 (8, 32768), (3, 65536), (5, 8), (13, 8),
+                                 (37, 8), (1024, 8), (20, 8), (68, 8),
+                                 (2, 1), (37, 1), (1024, 1), (3, 131072),
+                                 (2, 1 << 20)])
 def test_centroid_scores_equal_xla(c, e):
+    """At E 8 a configured centroid count leaves some rows to the
+    squares' scalar loop (5, 13, 37: ssq_vector_rows); E 1 is one fused
+    multiply-add; E 2^17 and 2^20 window the squares' sums three levels
+    deep."""
     rng = np.random.default_rng(c * e)
     cent = rng.standard_normal((c, e)).astype(np.float32)
     e_q = rng.standard_normal(e).astype(np.float32)

@@ -1874,6 +1874,25 @@ def test_ivf_probe_at_new_embed_dims(dev, metric, embed_dim):
                    kb)
 
 
+@pytest.mark.parametrize("metric", ["cosine", "euclid"])
+@pytest.mark.parametrize("c,embed_dim", [(5, 8), (13, 8), (37, 8),
+                                         (1024, 8), (20, 8), (2, 1),
+                                         (37, 1), (1024, 1), (3, 131072),
+                                         (2, 1 << 20)])
+def test_ivf_probe_at_every_width_and_centroid_count(dev, metric, c,
+                                                     embed_dim):
+    """K7 at E 8 with configured centroid counts whose squares' sums
+    XLA splits between its vectorized and scalar loops, at E 1 (the
+    shift by 32, one fused multiply-add a centroid) and above 65,536 (the
+    squares' windows three levels deep), bitwise its plain version."""
+    inputs = _ivf_synthetic(dev, embed_dim, c, seed=c + embed_dim)
+    csr = _synthetic_csr(dev, 3000, 2 * c, 700, 1500, seed=c)
+    for probes in sorted({1, min(3, c)}):
+        kb = tcand._ivf_kb(10, probes, 700, csr[3])
+        _ivf_check(dev, metric, inputs, csr, 2990, None, probes, embed_dim,
+                   kb)
+
+
 @pytest.mark.parametrize("shape", PROBE_WIDTHS)
 @pytest.mark.parametrize("valid", ["count", "mask", "none"])
 def test_ivf_probe_chunk_edges(dev, shape, valid):
@@ -1935,3 +1954,126 @@ def test_sig_probe_ties_spread_thinly_over_chunks(dev):
                                    tn[qr], *csr[:4], csr[4], plan, bits, 64,
                                    kb)
         assert torch.equal(got, want), int(q)
+
+
+# ---------------------------------------------------------------------------
+# the spill tier: K5's scores mode, and a spilled store's sweeps on the card
+# ---------------------------------------------------------------------------
+
+from jubatus_tpu_torch.models.pages import PagedRowStore  # noqa: E402
+from jubatus_tpu_torch.models.pages import PageSpec  # noqa: E402
+from jubatus_tpu_torch.ops import paged as tpaged  # noqa: E402
+
+
+@pytest.mark.parametrize("kind,h", [("lsh", 64), ("lsh", 512),
+                                    ("minhash", 64), ("euclid_lsh", 64),
+                                    ("euclid_lsh", 128)])
+@pytest.mark.parametrize("rows", [48, 2048, 16384, 65536, 250000])
+@pytest.mark.parametrize("nq", [1, 3, 64])
+def test_sig_scores_mode_is_bitwise_its_plain_version(dev, kind, h, rows,
+                                                      nq):
+    """K5's scores mode (one launch by the wrapper's count) at the spill
+    tier's pool and chunk shapes, both designs, against sig_scores_ref on
+    the same card tensors."""
+    tab, qs, norms, qn = _count_inputs(kind, h, rows, nq, 11)
+    g = [torch.from_numpy(x).to(dev) for x in (tab.view(np.int32),
+                                               qs.view(np.int32), norms, qn)]
+    n0 = tl.sig_scores.launches
+    got = tl.sig_scores(kind, *g, h)
+    assert tl.sig_scores.launches == n0 + 1
+    want = tl.sig_scores_ref(kind, *g, h)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _spilled_pair(dev, columns, gen, n, holes, seed, page_rows=16,
+                  budget=5):
+    """A spilled store on the card and one on the CPU after the same
+    history (batches of writes, drops, refills)."""
+    rng = np.random.default_rng(seed)
+    out = [PagedRowStore(columns, capacity=page_rows, device=d,
+                         spec=PageSpec(page_rows, budget))
+           for d in (dev, torch.device("cpu"))]
+    done = 0
+    while done < n:
+        b = int(min(n - done, rng.integers(50, 900)))
+        vals = gen(rng, b)
+        for st in out:
+            st.write(st.alloc(b), vals)
+        done += b
+    if holes:
+        drop = rng.choice(n, holes, replace=False)
+        for st in out:
+            st.free(drop)
+        vals = gen(rng, holes // 2)
+        for st in out:
+            st.write(st.alloc(holes // 2), vals)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["lsh", "minhash", "euclid_lsh"])
+@pytest.mark.parametrize("chunk_rows,run_bytes_min", [(65536, 0), (256, 0),
+                                                      (256, 1 << 62)])
+def test_spilled_sig_scores_on_the_card_equal_the_cpu(dev, monkeypatch, kind,
+                                                      chunk_rows,
+                                                      run_bytes_min):
+    """A spilled store's sig_scores on the card (K5's scores mode on the
+    pool and on each streamed chunk: one chunk; many, the last partial;
+    many gathered into pinned staging) against the same store on the CPU,
+    bitwise, with the kernel launched once a chunk and once for the
+    pool."""
+    monkeypatch.setattr(tpaged, "SPILL_CHUNK_ROWS", chunk_rows)
+    monkeypatch.setattr(tpaged, "RUN_BYTES_MIN", run_bytes_min)
+    w = tl.sig_width(kind, 64)
+
+    def gen(rng, b):
+        sig = rng.integers(0, 2 ** 32, (b, w), dtype=np.uint64) \
+            .astype(np.uint32)
+        if kind == "minhash":
+            sig %= 5
+        return {"sig": sig,
+                "norms": (rng.random(b) * 4).astype(np.float32)}
+    card, cpu = _spilled_pair(dev, {"sig": ((w,), np.uint32),
+                                    "norms": ((), np.float32)},
+                              gen, 5000, 300, seed=len(kind))
+    rng = np.random.default_rng(2)
+    q = rng.integers(0, 2 ** 32, (3, w), dtype=np.uint64).astype(np.uint32)
+    if kind == "minhash":
+        q %= 5
+    qn = (rng.random(3) * 4).astype(np.float32)
+    n0 = tl.sig_scores.launches
+    timing = {}
+    got = tpaged.sig_scores(card, kind, 64, q, qn, timing=timing)
+    absent = timing["streamed_pages"]
+    chunk_pages = chunk_rows // 16
+    assert tl.sig_scores.launches - n0 == 1 + -(-absent // chunk_pages)
+    want = tpaged.sig_scores(cpu, kind, 64, q, qn)
+    assert got.tobytes() == want.tobytes()
+    assert absent > 0 and timing["copy_ms"] >= 0
+
+
+@pytest.mark.parametrize("kr", [32, 64])
+@pytest.mark.parametrize("chunk_rows", [65536, 512])
+def test_spilled_dense_dots_on_the_card_equal_the_cpu(dev, monkeypatch, kr,
+                                                      chunk_rows):
+    monkeypatch.setattr(tpaged, "SPILL_CHUNK_ROWS", chunk_rows)
+
+    def gen(rng, b):
+        idx = rng.integers(0, 4096, (b, kr)).astype(np.int32)
+        val = rng.standard_normal((b, kr)).astype(np.float32)
+        val[:, kr // 2:] = 0.0
+        return {"indices": idx, "values": val,
+                "norms": np.sqrt((val * val).sum(1)).astype(np.float32)}
+    card, cpu = _spilled_pair(dev, {"indices": ((kr,), np.int32),
+                                    "values": ((kr,), np.float32),
+                                    "norms": ((), np.float32)},
+                              gen, 4000, 200, seed=kr)
+    qd = np.random.default_rng(3).standard_normal((8, 4096)) \
+        .astype(np.float32)
+    n0 = tl.dense_dots.launches
+    got = tpaged.dense_dots(card, qd)
+    assert tl.dense_dots.launches - n0 >= 2
+    assert got.tobytes() == tpaged.dense_dots(cpu, qd).tobytes()
+    for metric in ("cosine", "euclid"):
+        assert tpaged.dense_scores(card, metric, qd[0], 3.0).tobytes() == \
+            tpaged.dense_scores(cpu, metric, qd[0], 3.0).tobytes()

@@ -73,17 +73,18 @@ def test_the_server_configures_the_index_at_boot(caplog):
 
 
 @pytest.mark.parametrize("embed_dim,engaged", [
-    (1, False), (2, True), (4, True), (8, True), (16, True), (32, True),
+    (1, True), (2, True), (4, True), (8, True), (16, True), (32, True),
     (64, True), (128, True), (256, True), (512, True), (1024, True),
-    (2048, True), (4096, True), (8192, True), (131072, False)])
-def test_ivf_outside_the_kernels_widths_is_declined_at_boot(
+    (2048, True), (4096, True), (8192, True), (131072, True),
+    (1 << 31, False)])
+def test_ivf_engages_at_every_embed_dim_k7_holds(
         tmp_path, caplog, embed_dim, engaged):
-    """Every "index" embed_dim K7 takes (a power of two from 2 to
-    65,536) engages ivf when the server boots, and its reads equal a JAX
-    driver's with the index engaged, bitwise.  A width that IndexSpec
-    accepts but K7 does not (1, or above 65,536) declines ivf, with the
-    warning and index=off, and the reads serve the full sweep, equal to a
-    JAX driver's without the index; it never fails at read time."""
+    """Every "index" embed_dim K7 takes (a power of two from 1 to 2^30)
+    engages ivf when the server boots, and its reads equal a JAX driver's
+    with the index engaged, bitwise.  A wider one (2^31) declines ivf with
+    the warning, which names the memory reason, and index=off; its reads
+    serve the full sweep, equal to a JAX driver's without the index, and
+    never fail at read time."""
     from jubatus_tpu_torch.cli.server import serve
     from tests.test_wire_golden import GoldenConn, datum_wire
     cfg = _cfg("inverted_index", min_rows=0, embed_dim=embed_dim)
@@ -101,6 +102,8 @@ def test_ivf_outside_the_kernels_widths_is_declined_at_boot(
         st = next(iter(srv.get_status().values()))
         assert st["index"] == ("ivf" if engaged else "off")
         assert any("does not fit" in r.getMessage()
+                   for r in caplog.records) != engaged
+        assert any("16 GiB of float64 a row" in r.getMessage()
                    for r in caplog.records) != engaged
         rng = np.random.default_rng(23)
         centers, data = _clustered(rng, n=40)

@@ -342,10 +342,33 @@ def test_store_write_wants_unique_slots():
 # refusals
 # ---------------------------------------------------------------------------
 
-def test_the_spill_tier_is_refused_with_its_item():
+def test_the_spill_tier_boots_and_reads_as_jax():
+    """The spill tier (Queue 1 item 5.4) is served now: the config the
+    port refused boots, and with four times its budget written its reads
+    on every route equal the JAX spilled driver's, bitwise."""
     cfg = dict(config("lsh"), pages={"page_rows": 32, "resident_pages": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.4"):
-        TNN(cfg, device="cpu")
+    j, t = JNN(cfg), TNN(cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    for i in range(256):
+        v = rng.standard_normal(6)
+        jd, td = JDatum(), TDatum()
+        for k, x in enumerate(v):
+            jd.add_number(f"f{k}", float(x))
+            td.add_number(f"f{k}", float(x))
+        j.set_row(f"r{i}", jd)
+        t.set_row(f"r{i}", td)
+    assert t.pages.resident_pages_now == 2
+    for i in ("r0", "r100", "r255"):
+        assert j.similar_row_from_id(i, 8) == t.similar_row_from_id(i, 8)
+        assert j.neighbor_row_from_id(i, 8) == t.neighbor_row_from_id(i, 8)
+    q = rng.standard_normal(6)
+    jd, td = JDatum(), TDatum()
+    for k, x in enumerate(q):
+        jd.add_number(f"f{k}", float(x))
+        td.add_number(f"f{k}", float(x))
+    assert j.similar_row_from_datum(jd, 8) == t.similar_row_from_datum(td, 8)
+    assert j.neighbor_row_from_datum_many([(jd, 5), (jd, 9)]) == \
+        t.neighbor_row_from_datum_many([(td, 5), (td, 9)])
 
 
 def test_the_index_is_refused_with_its_item(tmp_path, capsys):

@@ -226,8 +226,17 @@ def test_the_store_reuses_freed_slots_in_the_jax_order():
 
 
 def test_refusals_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="5.4"):
-        TReco(dict(config("lsh"), pages={"resident_pages": 2}),
-              device="cpu")
+    """The spill tier (Queue 1 item 5.4) is served now: a config with
+    pages.resident_pages boots, and after the seeded history its reads
+    equal the JAX spilled driver's, bitwise.  An unknown method is still
+    refused."""
+    cfg = dict(config("lsh"), pages={"resident_pages": 2, "page_rows": 8})
+    j, t = JReco(cfg), TReco(cfg, device="cpu")
+    for step in range(60):
+        a, b = both(step)
+        assert j.update_row(f"r{step % 40}", a) == \
+            t.update_row(f"r{step % 40}", b)
+    assert t.get_status()["resident_budget_pages"] == "2"
+    assert_same_reads(j, t, seed=9)
     with pytest.raises(ValueError):
         TReco(config("nope"), device="cpu")

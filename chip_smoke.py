@@ -239,8 +239,37 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 config, 16,384 set_rows and 64 reads over the wire,
                 bitwise an in-process driver's, get_status's page keys and
                 spill counters
- 14. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 13; counters are zeroed just before each path, and a
+ 14. partition — the partition plane (--routing partition): (a) in
+                process on phase 12's tables, 64 stored rows' payloads
+                (partition_query_sig, partition_query_fv) read back
+                through similar_row_from_sig_partial on the 10^6-row lsh
+                H 64 table with lsh_probe (K6 with q_sigs) and with the
+                index set aside (K3 with q_sigs), and through
+                similar_row_from_fv_partial on the 250,000-row ivf
+                recommender (K7) and its full sweep (K4), each equal to
+                similar_row_from_id of the same row and to its plain
+                version's decoded answer, every launch's result bitwise
+                the plain version on the same card tensors; (b) over the
+                wire on the card, the port's coordinator, 2 then 3
+                nearest_neighbor servers (NN_CONFIG) behind the port's
+                proxy (cli/proxy.py --routing partition): 16,384 set_rows
+                through it, 256 reads of each of the four read forms at 2
+                partitions, a third server's join and the journal-less
+                handoff until the partitions are disjoint and sum to the
+                total, the reads again at 3; a 2-server recommender
+                (bench.py:914-919's inverted_index, 1,024 columns, 16
+                entries a row) with 16,384 update_rows and 256 reads of
+                each form; every answer equal to the plain version's over
+                a full table holding the same rows, scores exact and ids
+                tie-aware; (c) anomaly lof over euclid_lsh H 64 in process
+                over 2 ring partitions: the merged kNN's ids and distances
+                the full table's, one partition's merge bitwise
+                calc_score, every K5 launch bitwise its plain version.
+                A `partition {...}` line: the reads' p50/p99 through the
+                proxy at 2 and 3 partitions, the merge's ms, the
+                handoff's rows/s and bytes, the phase's seconds
+ 15. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 14; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -457,18 +486,23 @@ class WireClient:
     """msgpack-RPC over one TCP connection (new-spec requests, like
     bench.py's client)."""
 
-    def __init__(self, port):
+    def __init__(self, port, name=""):
         import msgpack
         self._msgpack = msgpack
+        self.name = name            # the cluster name, every call's arg 0
         self.sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+        # binary answered as the old spec's raw (a signature's bytes)
+        # decodes with surrogate escapes and is sent back as the bytes
         self.unpacker = msgpack.Unpacker(raw=False, strict_map_key=False,
+                                         unicode_errors="surrogateescape",
                                          max_buffer_size=1 << 30)
         self.msgid = 0
 
     def frame(self, method, *args) -> bytes:
         self.msgid += 1
-        return self._msgpack.packb([0, self.msgid, method, ["", *args]],
-                                   use_bin_type=True)
+        return self._msgpack.packb([0, self.msgid, method,
+                                    [self.name, *args]], use_bin_type=True,
+                                   unicode_errors="surrogateescape")
 
     def send(self, frame: bytes, method: str = "?"):
         """Send one pre-encoded request and return its result.  The msgid
@@ -4229,7 +4263,7 @@ def phase_index_nn(torch, np, device="cuda"):
         f"{row['bound_ms']:.4g}), K3's full sweep {sweep_ms} ms; bitwise")
     return {"sig_probe": delta.get("sig_probe", 0),
             "lsh_signature": delta.get("lsh_signature", 0),
-            "sig_topk": delta.get("sig_topk", 0)}, row
+            "sig_topk": delta.get("sig_topk", 0)}, row, drv
 
 
 def ivf_rows(np, rng, drv, n, protos):
@@ -4395,7 +4429,7 @@ def phase_index_ivf(torch, np, device="cuda"):
         f"{row['library_ms']}, bound {row['bound_ms']:.4g}), K4's full "
         f"sweep {sweep_ms} ms; bitwise")
     return {"ivf_probe": delta.get("ivf_probe", 0),
-            "dense_topk": delta.get("dense_topk", 0)}, row
+            "dense_topk": delta.get("dense_topk", 0)}, row, drv
 
 
 def metrics_snapshot():
@@ -5128,6 +5162,695 @@ def spill_dots_rows(torch, np, device="cuda"):
     return out
 
 
+# phase 14: the partition plane
+PART_QUERIES = 64          # stored rows read back through their payloads
+PART_WIRE_ROWS = 16384     # set_row / update_row calls through the proxy
+PART_CONNS = 16            # client connections writing at once (the proxy
+PART_WINDOW = 16           # serves a connection's requests in order), each
+#                            with this many requests in flight
+PART_READS = 256           # reads of each form through the proxy
+PART_ANOM_ROWS = 256       # anomaly rows over 2 ring partitions
+PART_ANOM_READS = 64       # calc_score_partial queries
+PART_GRACE = "1.5"         # --partition_handoff_grace of the servers
+PART_RECO_CONFIG = {       # bench.py:914-919: 1,024 columns
+    "method": "inverted_index", "parameter": {},
+    "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                  "hash_max_size": 1024},
+}
+
+
+def tie_equal(got, want, ascending=False):
+    """Scores equal in order; ids equal away from the k-th score (where a
+    tie may name another member: the merge breaks ties by id, one sweep
+    by row slot)."""
+    got = [(str(i), float(s)) for i, s in got]
+    want = [(str(i), float(s)) for i, s in want]
+    if [s for _, s in got] != [s for _, s in want]:
+        return False
+    if not want:
+        return True
+    kth = want[-1][1]
+    inner = (lambda s: s < kth) if ascending else (lambda s: s > kth)
+    return sorted(t for t in got if inner(t[1])) == \
+        sorted(t for t in want if inner(t[1]))
+
+
+def phase_partition_local(torch, np, nn_drv, ivf_drv, device="cuda"):
+    """Phase 14a: the *_partial legs in process on phase 12's tables (no
+    new build).  PART_QUERIES stored rows of the 10^6-row lsh H 64 table:
+    each row's payload (partition_query_sig: its signature's bytes and
+    norm) through similar_row_from_sig_partial, once with lsh_probe (one
+    K6 launch with q_sigs a read) and once with the index set aside (one
+    K3 launch with q_sigs a read), each answer similar_row_from_id's of
+    the same row; then PART_QUERIES rows of the 250,000-row inverted_index
+    table, each row's partition_query_fv through
+    similar_row_from_fv_partial with ivf (K7) and with the full sweep
+    (K4), as bench.py:1265-1329 reads.  Every read's answer is its plain
+    version's decoded, and the kernels' results (the reads' queries in one
+    comparison launch for K3, K4 and K6, one a query for K7) bitwise the
+    plain versions on the same card tensors.  Returns the partial reads'
+    launches."""
+    from jubatus_tpu_torch.fv import SparseBatch
+    from jubatus_tpu_torch.ops import candidates as C
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(141)
+    counts = {}
+    out = {}
+
+    def partial_reads(drv, what, reads, kern, fb_kern):
+        """Run the reads with the driver's index, then with it set aside:
+        {route: (answers, ms a read)}, the launches checked and kept."""
+        res = {}
+        for route in ("index", "full"):
+            saved = drv.index
+            if route == "full":
+                drv.index = None
+            try:
+                fb0 = float(metrics_snapshot().get("index_fallback_total",
+                                                   "0"))
+                before = launch_counts()
+                t0 = time.perf_counter()
+                got = [read() for read in reads]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / len(reads)
+                delta = launch_delta(before, launch_counts())
+                fb = int(float(metrics_snapshot().get(
+                    "index_fallback_total", "0")) - fb0)
+            finally:
+                drv.index = saved
+            if device == "cuda":
+                if route == "index":
+                    check_reads(f"{what} (index)", delta, len(reads), kern)
+                    check_reads(f"{what} (fallbacks)", delta, fb, fb_kern)
+                else:
+                    check_reads(f"{what} (full)", delta, len(reads),
+                                fb_kern)
+            for k, v in delta.items():
+                counts[k] = counts.get(k, 0) + v
+            res[route] = (got, ms, fb)
+        return res
+
+    # nearest_neighbor: K6 and K3 with q_sigs
+    q_ids = [f"r{i}" for i in rng.integers(0, len(nn_drv.ids),
+                                           PART_QUERIES)]
+    payloads = [nn_drv.partition_query_sig(i) for i in q_ids]
+    res = partial_reads(
+        nn_drv, "partition nn",
+        [lambda p=p: nn_drv.similar_row_from_sig_partial(p[0], p[1],
+                                                         NN_SIZE)
+         for p in payloads], "sig_probe", "sig_topk")
+    idx = nn_drv._index_for_query()
+    want = {"index": [nn_drv.similar_row_from_id(i, NN_SIZE)
+                      for i in q_ids]}
+    saved, nn_drv.index = nn_drv.index, None
+    try:
+        want["full"] = [nn_drv.similar_row_from_id(i, NN_SIZE)
+                        for i in q_ids]
+    finally:
+        nn_drv.index = saved
+    for route in ("index", "full"):
+        if res[route][0] != want[route]:
+            raise AssertionError(f"partition nn: a {route} partial read "
+                                 "differs from similar_row_from_id")
+    table, norms = nn_drv.sig, nn_drv.norms
+    dev = table.device
+    nv, mask = nn_drv._valid()
+    q_sigs = torch.cat([L.sig_query_args(np.frombuffer(p[0], np.uint32),
+                                         p[1], dev)[0] for p in payloads])
+    qn = torch.tensor([np.float32(p[1]) for p in payloads],
+                      dtype=torch.float32, device=dev)
+    csr = idx.device_csr()
+    kb6 = C._kb(NN_SIZE, idx.plan, csr[4], csr[3])
+    k6 = C.sig_probe("lsh", table, norms, nv, mask, csr, idx.plan, idx.bits,
+                     64, kb6, q_sigs=q_sigs, qnorms=qn)
+    k6_ref = C.sig_probe_ref("lsh", table, norms, nv, mask, q_sigs, qn,
+                             *csr[:4], csr[4], idx.plan, idx.bits, 64, kb6)
+    k3 = L.sig_topk("lsh", table, norms, nv, q_sigs=q_sigs, qnorms=qn,
+                    hash_num=64, kb=NN_KB, mask=mask)
+    k3_ref = L.sig_topk_ref("lsh", table, norms, nv, q_sigs, qn, 64, NN_KB,
+                            mask)
+    if not (torch.equal(k6, k6_ref) and torch.equal(k3, k3_ref)):
+        raise AssertionError("partition nn: K6 or K3 with q_sigs differs "
+                             "from its plain version")
+    rows3, scores3 = L.keys_to_host(k3_ref)
+    rows6, scores6, _ = C.probe_result(k6_ref, kb6)
+    for i, (a_idx, a_full) in enumerate(zip(res["index"][0],
+                                            res["full"][0])):
+        plain_full = nn_drv._to_results(rows3[i], scores3[i], NN_SIZE, True)
+        r, sc = C.dedupe_topk(rows6[i], scores6[i], NN_SIZE)
+        plain_idx = nn_drv._to_results(r, sc, NN_SIZE, True)
+        if len(plain_idx) < min(NN_SIZE, len(nn_drv.ids)):
+            plain_idx = plain_full          # an under-filled probe falls back
+        if a_full != plain_full or a_idx != plain_idx:
+            raise AssertionError("partition nn: a partial read is not its "
+                                 "plain version's answer")
+    out["nn"] = {"k6_ms": res["index"][1], "k3_ms": res["full"][1],
+                 "fallbacks": res["index"][2]}
+    # the recommender: K7 and K4 with the stored row as the query
+    q_ids = [f"e{i}" for i in rng.integers(0, len(ivf_drv.ids),
+                                           PART_QUERIES)]
+    fvs = [ivf_drv.partition_query_fv(i) for i in q_ids]
+    res = partial_reads(
+        ivf_drv, "partition ivf",
+        [lambda fv=fv: ivf_drv.similar_row_from_fv_partial(fv, NN_SIZE)
+         for fv in fvs], "ivf_probe", "dense_topk")
+    want = {"index": [ivf_drv.similar_row_from_id(i, NN_SIZE)
+                      for i in q_ids]}
+    saved, ivf_drv.index = ivf_drv.index, None
+    try:
+        want["full"] = [ivf_drv.similar_row_from_id(i, NN_SIZE)
+                        for i in q_ids]
+    finally:
+        ivf_drv.index = saved
+    for route in ("index", "full"):
+        if res[route][0] != want[route]:
+            raise AssertionError(f"partition ivf: a {route} partial read "
+                                 "differs from similar_row_from_id")
+    idx = ivf_drv._index_for_query()
+    t = ivf_drv._sync()
+    csr, cent = idx.device_csr(), idx.device_centroids()
+    probes = min(INDEX_PROBES, cent.shape[0])
+    kb7 = C._ivf_kb(NN_SIZE, probes, csr[4], csr[3])
+    qs = [{int(i): float(v) for i, v in fv} for fv in fvs]
+    dense = np.stack([ivf_drv._query_row(q)[0] for q in qs])
+    qns = [ivf_drv._query_row(q)[1] for q in qs]
+    qd_t = L._host(dense, np.float32, t["norms"].device)
+    qn_t = L._host(qns, np.float32, t["norms"].device)
+    kb4 = L._kb(NN_SIZE, t["rows"])
+    k4 = L.dense_topk("cosine", t["indices"], t["values"], t["norms"],
+                      t["rows"], t["mask"], qd_t, qn_t, kb4)
+    k4_ref = L.dense_topk_ref("cosine", t["indices"], t["values"],
+                              t["norms"], t["rows"], t["mask"], qd_t, qn_t,
+                              kb4)
+    if not torch.equal(k4, k4_ref):
+        raise AssertionError("partition ivf: K4 differs from its plain "
+                             "version")
+    rows4, scores4 = L.keys_to_host(k4_ref)
+    for i, q in enumerate(qs):
+        b = SparseBatch.from_rows([q])
+        dev = t["norms"].device
+        qargs = (L._host(b.indices[0], np.int32, dev),
+                 L._host(b.values[0], np.float32, dev), qd_t[i])
+        # the pruned route's norm: the host's float64 sum (_similar_pruned)
+        qn7 = float(np.sqrt(sum(v * v for v in q.values())))
+        k7 = C.ivf_probe("cosine", *qargs, qn7, cent, t["indices"],
+                         t["values"], t["norms"], t["rows"], t["mask"], csr,
+                         probes, idx.embed_dim, kb7)
+        k7_ref = C.ivf_probe_ref(
+            "cosine", *qargs, torch.tensor(np.float32(qn7), device=dev),
+            cent, t["indices"], t["values"], t["norms"], t["rows"],
+            t["mask"], *csr[:4], csr[4], probes, idx.embed_dim, kb7)
+        if not torch.equal(k7, k7_ref):
+            raise AssertionError("partition ivf: K7 differs from its plain "
+                                 "version")
+        r, sc, _ = C.probe_result(k7_ref, kb7)
+        r, sc = C.dedupe_topk(r[0], sc[0], NN_SIZE)
+        plain_full = ivf_drv._trim_results(rows4[i], scores4[i], NN_SIZE)
+        plain_idx = ivf_drv._trim_results(r, sc, NN_SIZE)
+        if len(plain_idx) < min(NN_SIZE, len(ivf_drv.ids)):
+            plain_idx = plain_full
+        if res["full"][0][i] != plain_full or res["index"][0][i] != plain_idx:
+            raise AssertionError("partition ivf: a partial read is not its "
+                                 "plain version's answer")
+    out["reco"] = {"k7_ms": res["index"][1], "k4_ms": res["full"][1],
+                   "fallbacks": res["index"][2]}
+    log(f"partition local: {PART_QUERIES} payload reads a route; nn lsh "
+        f"H 64 at {len(nn_drv.ids)} rows: K6 (q_sigs) {out['nn']['k6_ms']:.3f}"
+        f" ms a read ({out['nn']['fallbacks']} fallbacks), K3 (q_sigs) "
+        f"{out['nn']['k3_ms']:.3f} ms; inverted_index at {len(ivf_drv.ids)} "
+        f"rows: K7 {out['reco']['k7_ms']:.3f} ms a read "
+        f"({out['reco']['fallbacks']} fallbacks), K4 "
+        f"{out['reco']['k4_ms']:.3f} ms; each equal to similar_row_from_id, "
+        "bitwise the plain versions")
+    return counts
+
+
+def part_children(service, cfg, tmp, addr, name, n, device):
+    """n partition servers of `service` and a port proxy over them, all
+    started at once: (servers, proxy, their start time)."""
+    cfg_path = os.path.join(tmp, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    servers = [part_server(service, cfg_path, tmp, addr, name, device)
+               for _ in range(n)]
+    proxy = Child(["jubatus_tpu_torch.cli.proxy", "--type", service,
+                   "--coordinator", addr, "--rpc-port", "0",
+                   "--listen_addr", "127.0.0.1", "--routing", "partition",
+                   "--thread", "16"])
+    return servers, proxy, t0, cfg_path
+
+
+def part_server(service, cfg_path, tmp, addr, name, device):
+    return start_server(service, cfg_path, tmp, "--name", name,
+                        "--coordinator", addr, "--routing", "partition",
+                        "--interval_sec", "100000", "--interval_count",
+                        "100000000", "--partition_handoff_interval", "0.2",
+                        "--partition_handoff_grace", PART_GRACE,
+                        device=device)[0]
+
+
+def part_write(port, name, write, data, ids, side):
+    """Every write through the proxy at `port`: PART_CONNS connections on
+    threads, PART_WINDOW requests in flight on each; `side()` runs on
+    this thread meanwhile (the in-process table's own writes).  -> the
+    wire writes' seconds."""
+    import threading
+    errs = []
+    done = {}
+
+    def run(k):
+        cli = WireClient(port, name)
+        try:
+            step = PART_CONNS * PART_WINDOW
+            for w0 in range(k * PART_WINDOW, len(ids), step):
+                win = range(w0, min(w0 + PART_WINDOW, len(ids)))
+                cli.sock.sendall(b"".join(
+                    cli.frame(write, ids[i], nn_wire(data[i])) for i in win))
+                for _ in win:
+                    if cli.receive() is not True:
+                        raise AssertionError(f"partition wire: a {write} "
+                                             "failed")
+            done[k] = time.perf_counter()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+        finally:
+            cli.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(PART_CONNS)]
+    for t in threads:
+        t.start()
+    side()
+    for t in threads:
+        t.join(timeout=600)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("partition wire: a writer thread hung")
+    return max(done.values()) - t0
+
+
+def part_reads(cli, forms):
+    """forms: {name: [(method, *args), ...]} -> {name: (answers, [ms])},
+    each read timed alone on the host clock."""
+    out = {}
+    for name, calls in forms.items():
+        answers, lat = [], []
+        for call in calls:
+            t0 = time.perf_counter()
+            answers.append(cli.call(*call))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (answers, lat)
+    return out
+
+
+def p50_p99(np, lat):
+    return [round(pct(np, lat, q), 3) for q in (50, 99)]
+
+
+def phase_partition_wire(torch, np, device="cuda"):
+    """Phase 14b: over the wire on the card, the port's coordinator and a
+    nearest_neighbor cluster (NN_CONFIG: lsh H 64, 4,096 columns) and a
+    recommender cluster (PART_RECO_CONFIG) of --routing partition servers,
+    each behind its own port proxy (cli/proxy.py --routing partition),
+    started at once.  nearest_neighbor: PART_WIRE_ROWS set_rows through
+    the proxy (each on its one ring owner: the servers' rows disjoint,
+    summing to the total), PART_READS reads of each of the four read forms
+    at 2 partitions, then a third server joins and the handoff runs (rows
+    shipped a batch to their new owner, journal-less) until the
+    partitions are disjoint and sum to the total, and the reads again at 3
+    partitions.  The recommender: PART_WIRE_ROWS update_rows and
+    PART_READS reads of similar_row_from_id and similar_row_from_datum.
+    Every answer is the plain version's (sig_topk_ref, dense_topk_ref)
+    over an in-process table that holds the same rows (written as the
+    servers write them), scores exact and ids tie-aware.  Returns the
+    server processes' launches."""
+    from jubatus_tpu_torch.framework.partition import merge_topk
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(151)
+    served = {}
+    stats = {}
+    children = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        try:
+            coord = Child(["jubatus_tpu_torch.cluster.coordinator",
+                           "--rpc-port", "0", "--listen_addr", "127.0.0.1"])
+            children.append(coord)
+            addr = coord.wait_line("jubacoordinator", 120).split()[-1]
+            clusters = {}
+            for service, cfg, name in (
+                    ("nearest_neighbor", NN_CONFIG, "part_nn"),
+                    ("recommender", PART_RECO_CONFIG, "part_reco")):
+                servers, proxy, t0, cfg_path = part_children(
+                    service, cfg, tmp, addr, name, 2, device)
+                children.extend(servers + [proxy])
+                clusters[service] = (servers, proxy, t0, cfg_path, name)
+            for service, (servers, proxy, t0, _, name) in clusters.items():
+                for child in servers:
+                    server_ready(child, t0)
+                pport = int(proxy.wait_line("jubatus ready", 300).split()[2]
+                            .split("=")[1])
+                cli = WireClient(pport, name)
+                cli.port = pport
+                clusters[service] += (cli,)
+            # nearest_neighbor: writes, reads at 2, the join, reads at 3
+            servers, proxy, _, cfg_path, name, cli = \
+                clusters["nearest_neighbor"]
+            ref = create_driver("nearest_neighbor", NN_CONFIG, device=device)
+            data = nn_datums(np, rng, PART_WIRE_ROWS + PART_READS)
+            ids = [f"w{i}" for i in range(PART_WIRE_ROWS)]
+
+            def ref_writes():
+                for i in range(PART_WIRE_ROWS):
+                    ref.set_row(ids[i], nn_datum(Datum, data[i]))
+            write_s = part_write(cli.port, name,
+                                 "set_row", data, ids, ref_writes)
+            held = part_held(cli, servers, name)
+            check_cover("partition nn (2)", held, ids)
+            q_ids = [ids[i] for i in rng.integers(0, PART_WIRE_ROWS,
+                                                  PART_READS)]
+            q_dat = data[PART_WIRE_ROWS:]
+            forms = nn_forms(q_ids, q_dat)
+            want = nn_plain(torch, np, L, Datum, ref, q_ids, q_dat)
+            got2 = part_reads(cli, forms)
+            check_forms("partition nn (2)", got2, want)
+            # the merge's host time: 2 servers' legs for one read
+            legs = part_legs(part_ports(cli), name, q_ids[0])
+            reps = 2000
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                merge_topk(legs, NN_SIZE, False)
+            merge_ms = (time.perf_counter() - t0) * 1e3 / reps
+            if [list(x) for x in merge_topk(legs, NN_SIZE, False)] != \
+                    [list(x) for x in got2["similar_row_from_id"][0][0]]:
+                raise AssertionError("partition nn: the proxy's merge is "
+                                     "not the legs' merge")
+            # the join
+            third = part_server("nearest_neighbor", cfg_path, tmp, addr,
+                                name, device)
+            children.append(third)
+            t_join = time.perf_counter()
+            server_ready(third, t_join)
+            ready_s = time.perf_counter() - t_join
+
+            def converged():
+                st = cli.call("get_status")
+                rows = [int(v.get("partition_rows", 0)) for v in st.values()]
+                return (len(rows) == 3 and sum(rows) == PART_WIRE_ROWS
+                        and all(rows)), st
+            deadline = time.monotonic() + 120
+            while True:
+                ok, st = converged()
+                if ok:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"partition nn: the handoff did not "
+                                         f"converge: {st}")
+                time.sleep(0.1)
+            handoff_s = time.perf_counter() - t_join - ready_s
+            held = part_held(cli, servers + [third], name)
+            check_cover("partition nn (3)", held, ids)
+            moved = sum(float(v.get("partition_handoff_rows_total", 0))
+                        for v in st.values())
+            moved_bytes = sum(float(v.get("partition_handoff_bytes_total",
+                                          0)) for v in st.values())
+            got3 = part_reads(cli, forms)
+            check_forms("partition nn (3)", got3, want)
+            for k, v in launches_of_all(cli.call("get_status")).items():
+                served[k] = served.get(k, 0) + v
+            stats["nn"] = {
+                "rows": PART_WIRE_ROWS, "write_s": round(write_s, 3),
+                "p2": {f: p50_p99(np, got2[f][1]) for f in forms},
+                "p3": {f: p50_p99(np, got3[f][1]) for f in forms},
+                "merge_ms": round(merge_ms, 4),
+                "join_ready_s": round(ready_s, 3),
+                "handoff_s": round(handoff_s, 3),
+                "handoff_rows": moved, "handoff_bytes": moved_bytes,
+                "handoff_rows_per_s": round(moved / max(handoff_s, 1e-9),
+                                            1),
+                "partition_rows": [len(h) for h in held]}
+            # the recommender: writes and reads at 2 partitions
+            servers, proxy, _, _, name, cli = clusters["recommender"]
+            ref = create_driver("recommender", PART_RECO_CONFIG,
+                                device=device)
+            data = reco_datums(np, rng, PART_WIRE_ROWS + PART_READS)
+            ids = [f"u{i}" for i in range(PART_WIRE_ROWS)]
+
+            def ref_updates():
+                for i in range(PART_WIRE_ROWS):
+                    ref.update_row(ids[i], nn_datum(Datum, data[i]))
+            write_s = part_write(cli.port, name,
+                                 "update_row", data, ids, ref_updates)
+            check_cover("partition reco", part_held(cli, servers, name), ids)
+            q_ids = [ids[i] for i in rng.integers(0, PART_WIRE_ROWS,
+                                                  PART_READS)]
+            q_dat = data[PART_WIRE_ROWS:]
+            forms = {"similar_row_from_id": [
+                ("similar_row_from_id", i, NN_SIZE) for i in q_ids],
+                "similar_row_from_datum": [
+                ("similar_row_from_datum", nn_wire(d), NN_SIZE)
+                for d in q_dat]}
+            want = reco_plain(torch, np, L, Datum, ref, q_ids, q_dat)
+            got = part_reads(cli, forms)
+            check_forms("partition reco", got, want)
+            for k, v in launches_of_all(cli.call("get_status")).items():
+                served[k] = served.get(k, 0) + v
+            stats["reco"] = {"rows": PART_WIRE_ROWS,
+                             "write_s": round(write_s, 3),
+                             "p2": {f: p50_p99(np, got[f][1]) for f in forms}}
+        finally:
+            for child in reversed(children):
+                child.stop()
+    if device == "cuda":
+        for kern in ("lsh_signature", "sig_topk", "dense_topk"):
+            if served.get(kern, 0) <= 0:
+                raise AssertionError(f"partition wire: the servers never "
+                                     f"launched {kern}")
+    log(f"partition wire: {json.dumps(stats)}")
+    return served
+
+
+def part_legs(ports, name, id_):
+    """similar_row_from_id's legs, asked of each member as the proxy asks
+    them: the payload from the member that holds the row, then every
+    member's similar_row_from_sig_partial with it."""
+    clis = [WireClient(p, name) for p in ports]
+    try:
+        payload = None
+        for c in clis:
+            try:
+                payload = c.call("partition_query_sig", id_)
+                break
+            except RuntimeError:            # not this member's row
+                continue
+        if payload is None:
+            raise AssertionError(f"partition: no member holds {id_}")
+        return [(i, c.call("similar_row_from_sig_partial", payload, NN_SIZE))
+                for i, c in enumerate(clis)]
+    finally:
+        for c in clis:
+            c.close()
+
+
+def part_ports(cli):
+    return [int(sid.rsplit("_", 1)[1]) for sid in cli.call("get_status")]
+
+
+def part_held(cli, servers, name):
+    """Each member's resident rows, asked of the member itself."""
+    out = []
+    for port in part_ports(cli):
+        c = WireClient(port, name)
+        try:
+            out.append(set(c.call("get_all_rows")))
+        finally:
+            c.close()
+    if len(out) != len(servers):
+        raise AssertionError(f"partition: {len(out)} members answer, "
+                             f"{len(servers)} started")
+    return out
+
+
+def check_cover(what, held, ids):
+    seen = set()
+    for rows in held:
+        if not rows or not seen.isdisjoint(rows):
+            raise AssertionError(f"{what}: a partition is empty or shares "
+                                 "a row")
+        seen |= rows
+    if seen != set(ids):
+        raise AssertionError(f"{what}: {len(set(ids) - seen)} rows lost")
+
+
+def launches_of_all(statuses):
+    out = {}
+    for st in statuses.values():
+        for k, v in launches_of(st).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def nn_forms(q_ids, q_dat):
+    return {
+        "neighbor_row_from_id": [("neighbor_row_from_id", i, NN_SIZE)
+                                 for i in q_ids],
+        "similar_row_from_id": [("similar_row_from_id", i, NN_SIZE)
+                                for i in q_ids],
+        "neighbor_row_from_datum": [("neighbor_row_from_datum", nn_wire(d),
+                                     NN_SIZE) for d in q_dat],
+        "similar_row_from_datum": [("similar_row_from_datum", nn_wire(d),
+                                    NN_SIZE) for d in q_dat]}
+
+
+def nn_plain(torch, np, L, Datum, ref, q_ids, q_dat):
+    """Each read form's answers by the plain version (sig_topk_ref) over
+    the reference table: {form: (answers, ascending)}."""
+    table, norms = ref.sig, ref.norms
+    nv, mask = ref._valid()
+    dev = table.device
+    rows_q = torch.tensor([ref.ids[i] for i in q_ids], device=dev)
+    batch = ref.converter.convert_batch([nn_datum(Datum, d) for d in q_dat],
+                                        update_weights=False)
+    sigs = [ref._signature(ref.converter.convert_batch(
+        [nn_datum(Datum, d)], update_weights=False))[0][0] for d in q_dat]
+    q_sigs = L._host(np.stack(sigs).view(np.int32), np.int32, dev)
+    qn = L._host(np.sqrt((batch.values * batch.values).sum(axis=1)),
+                 np.float32, dev)
+    out = {}
+    for src, qs, qnorms in (("id", table[rows_q], norms[rows_q]),
+                            ("datum", q_sigs, qn)):
+        keys = L.sig_topk_ref("lsh", table, norms, nv, qs, qnorms, 64, NN_KB,
+                              mask)
+        rows, scores = L.keys_to_host(keys)
+        for sim, asc in ((True, False), (False, True)):
+            kind = "similar" if sim else "neighbor"
+            out[f"{kind}_row_from_{src}"] = (
+                [ref._to_results(rows[i], scores[i], NN_SIZE, sim)
+                 for i in range(len(rows))], asc)
+    return out
+
+
+def reco_datums(np, rng, n):
+    """bench.py:914-919's rows: 16 of 1,024 columns, standard normal
+    values."""
+    keys = rng.integers(0, 1024, (n, 16))
+    vals = rng.standard_normal((n, 16))
+    return [([f"c{k}" for k in ks], vs)
+            for ks, vs in zip(keys.tolist(), vals.tolist())]
+
+
+def reco_plain(torch, np, L, Datum, ref, q_ids, q_dat):
+    t = ref._sync()
+    dev = t["norms"].device
+    out = {}
+    for form, qs in (("similar_row_from_id", [ref.rows[i] for i in q_ids]),
+                     ("similar_row_from_datum",
+                      [ref.converter.convert_row(nn_datum(Datum, d))
+                       for d in q_dat])):
+        dense = np.stack([ref._query_row(q)[0] for q in qs])
+        qn = [ref._query_row(q)[1] for q in qs]
+        keys = L.dense_topk_ref("cosine", t["indices"], t["values"],
+                                t["norms"], t["rows"], t["mask"],
+                                L._host(dense, np.float32, dev),
+                                L._host(qn, np.float32, dev),
+                                L._kb(NN_SIZE, t["rows"]))
+        rows, scores = L.keys_to_host(keys)
+        out[form] = ([ref._trim_results(rows[i], scores[i], NN_SIZE)
+                      for i in range(len(qs))], False)
+    return out
+
+
+def check_forms(what, got, want):
+    for form, (answers, _lat) in got.items():
+        plain, asc = want[form]
+        for a, b in zip(answers, plain):
+            if not tie_equal(a, b, asc):
+                raise AssertionError(f"{what}: a {form} read through the "
+                                     f"proxy is not the plain version's "
+                                     f"answer over the whole table: {a} vs "
+                                     f"{b}")
+
+
+def phase_partition_anomaly(torch, np, device="cuda"):
+    """Phase 14c: anomaly lof over euclid_lsh H 64 (LOF_CONFIG) in process
+    over 2 ring partitions (a CHT ring of two nodes' 8 virtual points
+    each; each row on its key's owner) and one driver that holds every
+    row: PART_ANOM_ROWS rows, then PART_ANOM_READS queries' calc_score
+    _partial legs (K1, then one K5 sig_counts launch a leg).  The merged
+    kNN's ids and distances are the full table's; one partition's merge
+    (the full driver's own leg) is bitwise its calc_score; each
+    partition's K5 counts for all the queries bitwise the plain
+    version's.  Returns the legs' launches."""
+    from jubatus_tpu_torch.cluster.cht import CHT, NUM_VSERV, make_hash
+    from jubatus_tpu_torch.framework.partition import merge_anomaly_score
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.ops import lsh as L
+    rng = np.random.default_rng(161)
+    t_start = time.perf_counter()
+    nodes = [("127.0.0.1", 9301), ("127.0.0.1", 9302)]
+    ring = sorted((make_hash(f"{h}_{p}_{i}"), (h, p)) for h, p in nodes
+                  for i in range(NUM_VSERV))
+    parts = [create_driver("anomaly", LOF_CONFIG, device=device)
+             for _ in nodes]
+    full = create_driver("anomaly", LOF_CONFIG, device=device)
+    data = nn_datums(np, rng, PART_ANOM_ROWS + PART_ANOM_READS)
+    for i in range(PART_ANOM_ROWS):
+        id_ = f"a{i}"
+        owner = CHT._walk(ring, id_, 1)[0]
+        parts[nodes.index(owner)].update(id_, nn_datum(Datum, data[i]))
+        full.update(id_, nn_datum(Datum, data[i]))
+    if not all(p.ids for p in parts):
+        raise AssertionError("partition anomaly: an empty ring partition")
+    queries = [nn_datum(Datum, d) for d in data[PART_ANOM_ROWS:]]
+    before = launch_counts()
+    legs = [[(j, p.calc_score_partial(q)) for j, p in enumerate(parts)]
+            for q in queries]
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda":
+        check_reads("partition anomaly", delta, 2 * len(queries),
+                    "sig_counts")
+    for q, leg in zip(queries, legs):
+        one = full.calc_score_partial(q)
+        if merge_anomaly_score([(0, one)]) != full.calc_score(q):
+            raise AssertionError("partition anomaly: one partition's merge "
+                                 "is not calc_score")
+        merged = sorted((it for _, lg in leg for it in lg[2]),
+                        key=lambda t: (t[1], t[0]))[:one[0]]
+        if [c[1] for c in merged] != [c[1] for c in one[2]]:
+            raise AssertionError("partition anomaly: the merged kNN's "
+                                 "distances are not the full table's")
+        merge_anomaly_score(leg)
+    # K5 per partition, every query at once, against its plain version
+    for p in parts:
+        p._sync()
+        table = p.pages.device("sig")
+        norms = p.pages.device("norms")
+        batch = p.converter.convert_batch(queries, update_weights=False)
+        dev = table.device
+        q_sigs = L.signature(p.key, L._host(batch.indices, np.int32, dev),
+                             L._host(batch.values, np.float32, dev), 64,
+                             "euclid_lsh")
+        qn = L._host(np.sqrt((batch.values * batch.values).sum(axis=1)),
+                     np.float32, dev)
+        got = L.sig_counts("euclid_lsh", table, q_sigs, norms, qn, 64)
+        ref = L.sig_counts_ref("euclid_lsh", table, q_sigs, norms, qn, 64)
+        if not torch.equal(got, ref):
+            raise AssertionError("partition anomaly: K5 differs from its "
+                                 "plain version")
+    log(f"partition anomaly: lof euclid_lsh H 64, {PART_ANOM_ROWS} rows over "
+        f"2 ring partitions ({len(parts[0].ids)} + {len(parts[1].ids)}), "
+        f"{len(queries)} calc_score_partial legs a partition: the merged "
+        "kNN the full table's, one partition's merge bitwise calc_score, "
+        f"K5 bitwise its plain version; {time.perf_counter() - t_start:.1f} s")
+    return {k: delta.get(k, 0) for k in ("sig_counts", "lsh_signature")}
+
+
 def phase_spill(torch, np, device="cuda"):
     """Phase 13: the spill tier.  Returns (the paths' launches, K5 scores
     mode's row, the cells' lines)."""
@@ -5225,8 +5948,9 @@ def main() -> int:
     # 12. the sublinear query index: K6 and K7 at 10^6 rows, over the wire
     # and in anomaly's reads
     t12 = time.perf_counter()
-    nn_index_counts, rows["sig_probe"] = phase_index_nn(torch, np)
-    ivf_counts, rows["ivf_probe"] = phase_index_ivf(torch, np)
+    nn_index_counts, rows["sig_probe"], nn_index_drv = phase_index_nn(
+        torch, np)
+    ivf_counts, rows["ivf_probe"], ivf_index_drv = phase_index_ivf(torch, np)
     index_counts = [nn_index_counts, ivf_counts,
                     phase_index_wire(torch, np),
                     phase_index_anomaly(torch, np)]
@@ -5235,6 +5959,15 @@ def main() -> int:
     spill_counts, rows["sig_scores"], _ = phase_spill(torch, np)
     rows["dense_dots"]["variants"] += rows["sig_scores"].pop(
         "dots_variants")
+    # 14. the partition plane: in process on phase 12's tables, then over
+    # the wire behind the port's proxy, then anomaly's legs
+    t14 = time.perf_counter()
+    partition_counts = [
+        phase_partition_local(torch, np, nn_index_drv, ivf_index_drv)]
+    del nn_index_drv, ivf_index_drv
+    partition_counts += [phase_partition_wire(torch, np),
+                         phase_partition_anomaly(torch, np)]
+    log(f"partition: phase 14 in {time.perf_counter() - t14:.1f} s")
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
@@ -5259,6 +5992,9 @@ def main() -> int:
     def spill_served(kern):
         return sum(c.get(kern, 0) for c in spill_counts)
 
+    def partition_served(kern):
+        return sum(c.get(kern, 0) for c in partition_counts)
+
     # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
@@ -5267,7 +6003,9 @@ def main() -> int:
     # processes and the clusters', the restarted servers' replays too) and
     # phase 11's (the row engines' servers; K4's in process); K6 and
     # K7's are phase 12's (in process, its servers' and anomaly's); K5's
-    # scores mode and K4 dense_dots on a spilled table are phase 13's
+    # scores mode and K4 dense_dots on a spilled table are phase 13's;
+    # phase 14 adds the partition plane's: its in-process partial reads,
+    # its server processes' and anomaly's legs
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
@@ -5289,32 +6027,38 @@ def main() -> int:
         "lsh_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                           "jubatus_tpu/ops/lsh.py:51",
                           nn_served("lsh_signature")
-                          + row_served("lsh_signature")),
+                          + row_served("lsh_signature")
+                          + partition_served("lsh_signature")),
         "minhash_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                               "jubatus_tpu/ops/lsh.py:67",
                               nn_served("minhash_signature")),
         "sig_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
                      "jubatus_tpu/ops/lsh.py:189",
-                     nn_served("sig_topk") + row_served("sig_topk")),
+                     nn_served("sig_topk") + row_served("sig_topk")
+                     + partition_served("sig_topk")),
         # phase 11: K4 and K5 (K3's launches above count the recommender's
         # masked reads and the NN classifier's classifies too)
         "dense_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/ops/lsh.py:327",
-                       row_served("dense_topk")),
+                       row_served("dense_topk")
+                       + partition_served("dense_topk")),
         "dense_dots": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/models/anomaly.py:83",
                        row_served("dense_dots") + spill_served("dense_dots")),
         "sig_counts": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/ops/lsh.py:106",
-                       row_served("sig_counts")),
+                       row_served("sig_counts")
+                       + partition_served("sig_counts")),
         # phase 12: the index's reads in process, the servers' and
         # anomaly's
         "sig_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
                       "jubatus_tpu/ops/candidates.py:227",
-                      index_served("sig_probe")),
+                      index_served("sig_probe")
+                      + partition_served("sig_probe")),
         "ivf_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
                       "jubatus_tpu/ops/candidates.py:367",
-                      index_served("ivf_probe")),
+                      index_served("ivf_probe")
+                      + partition_served("ivf_probe")),
         # phase 13: the spilled reads' sweeps (pool and streamed chunks)
         "sig_scores": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/ops/paged.py:33",

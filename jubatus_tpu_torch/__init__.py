@@ -10,9 +10,11 @@ What it holds: the classifier and regression servers with their wire
 train loops (native raw-frame ingest into pinned arenas) and read RPCs,
 the nearest_neighbor server (lsh, minhash, euclid_lsh over a paged
 signature table, jax's threefry draws bit for bit),
-standalone or in a cluster (coordinator, membership, MIX rounds between
-processes, JAX servers included), the driver-level MIX diff algebra and
-the blockwise-int8 (v3) MIX wire.
+the recommender and anomaly servers, standalone or in a cluster
+(coordinator, membership, MIX rounds between processes, JAX servers
+included), the partition plane of the row engines (--routing partition)
+behind the port's own proxy, the driver-level MIX diff algebra and the
+blockwise-int8 (v3) MIX wire.
 Model state lives on one torch device (CUDA unless the caller asks for
 the CPU); the hot loops are hand-written CUDA kernels (csrc/), each with
 a plain PyTorch version beside its wrapper.
@@ -31,8 +33,9 @@ a plain PyTorch version beside its wrapper.
   mix/       msgpack diff codec, the v3 wire encode, the mixers
   rpc/       lean asyncio msgpack-RPC server (old-spec wire) and client
   cluster/   coordinator, lock-service client, membership
-  framework/ service tables, server object, ingest pipeline, model files
-  cli/       `python -m jubatus_tpu_torch.cli.server`
+  framework/ service tables, server object, ingest pipeline, model files,
+             the partition plane and the proxy
+  cli/       `python -m jubatus_tpu_torch.cli.server`, `... .cli.proxy`
 """
 
 __version__ = "0.9.2"  # tracks the reference wire/model-format version

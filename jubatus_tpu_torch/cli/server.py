@@ -7,7 +7,9 @@
          [--interval_sec 16 --interval_count 512] [--mix_quantize]] \
         [--journal DIR [--journal_fsync batch] [--journal_segment_bytes N] \
          [--snapshot_interval 60]] [--read_batch_window_us W] \
-        [--index off|lsh_probe|ivf [--index_probes 4]]
+        [--index off|lsh_probe|ivf [--index_probes 4]] \
+        [--routing replicate|partition [--partition_handoff_batch 256] \
+         [--partition_handoff_interval 1] [--partition_handoff_grace 2]]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
@@ -35,6 +37,16 @@ ivf (the recommender's exact methods) serves the row engines' reads
 through the sublinear candidate index (jubatus_tpu_torch/index/), probing
 --index_probes buckets or centroids a query; a kind that does not fit the
 engine's method is declined with a warning (get_status index=off).
+
+--routing partition (the row engines, in a cluster; set it on every
+server and proxy of the cluster) makes the CHT ring row ownership
+(framework/partition.py): the server owns one hash range, the proxy
+sends point ops to the one owner and scatters top-k reads, put_diff
+keeps only owned or resident rows, and a PartitionManager thread hands
+the rows whose owner moved off to their new owner through the journal,
+--partition_handoff_batch rows an RPC, polling the ring every
+--partition_handoff_interval seconds once it has been stable for
+--partition_handoff_grace seconds.
 
 Like the JAX server's CLI it logs `... listening on host:port` and then
 prints the machine-readable line `jubatus ready rpc_port=N metrics_port=0
@@ -120,6 +132,27 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--index_probes", type=int, default=4,
                    help="buckets (ivf: centroids) probed a query: the "
                         "recall knob")
+    p.add_argument("--routing", default="replicate",
+                   choices=("replicate", "partition"),
+                   help="row placement of the row engines (recommender, "
+                        "nearest_neighbor, anomaly): 'partition' makes "
+                        "the CHT ring ownership (this server owns one "
+                        "hash range, point ops land on their owner, the "
+                        "proxy serves top-k reads scatter-gather, a "
+                        "membership change hands moved ranges off "
+                        "through the journal).  Set it cluster-wide, on "
+                        "servers and proxies.  'replicate' (default) "
+                        "keeps the reference behaviour")
+    p.add_argument("--partition_handoff_batch", type=int, default=256,
+                   help="rows shipped a partition_accept_rows RPC during "
+                        "a range handoff (one journaled write at the "
+                        "owner)")
+    p.add_argument("--partition_handoff_interval", type=float, default=1.0,
+                   help="seconds between partition-reconciler passes")
+    p.add_argument("--partition_handoff_grace", type=float, default=2.0,
+                   help="rows move only after the ring has been stable "
+                        "this many seconds; keep it above the proxies' "
+                        "membership TTL (1 s)")
     return p
 
 
@@ -150,7 +183,12 @@ def serve(argv: Optional[Sequence[str]] = None
                       journal_segment_bytes=ns.journal_segment_bytes,
                       snapshot_interval_sec=ns.snapshot_interval,
                       read_batch_window_us=ns.read_batch_window_us,
-                      index=ns.index, index_probes=ns.index_probes)
+                      index=ns.index, index_probes=ns.index_probes,
+                      routing=ns.routing,
+                      partition_handoff_batch=ns.partition_handoff_batch,
+                      partition_handoff_interval_sec=(
+                          ns.partition_handoff_interval),
+                      partition_handoff_grace_sec=ns.partition_handoff_grace)
     membership = None
     config = None
     if args.coordinator:
@@ -166,6 +204,12 @@ def serve(argv: Optional[Sequence[str]] = None
     server = None
     try:
         server = JubatusServer(args, config=config)
+        if (membership is not None and args.routing == "partition"
+                and not hasattr(server.driver, "partition_ids")):
+            raise ValueError(
+                f"--routing partition supports the row-store engines "
+                f"(recommender, nearest_neighbor, anomaly), not "
+                f"{args.type!r}")
         # crash recovery BEFORE anything can route to us: snapshot
         # restore and journal replay run on the unstarted server
         recovery = server.init_durability()
@@ -235,6 +279,17 @@ def _join_cluster(server: JubatusServer, membership, port: int,
     cht = CHT(membership.ls, server.args.type, server.args.name)
     cht.register_node(server.ip, port)
     server.cht = cht
+    if server.args.routing == "partition":
+        # ownership: MIX must never re-replicate a row across partitions,
+        # and rows out of this server's range hand off through the journal
+        from jubatus_tpu_torch.framework.partition import PartitionManager
+        manager = PartitionManager(
+            server, interval=server.args.partition_handoff_interval_sec,
+            batch=server.args.partition_handoff_batch,
+            grace=server.args.partition_handoff_grace_sec)
+        server.partition_manager = manager
+        server.driver.partition_owned = manager.owns
+        manager.start()
     membership.register_actor(server.ip, port)
     server.mixer.start()
     server.mixer.register_active(server.ip, port)

@@ -9,10 +9,12 @@ coordinator, so a node is routable exactly while its ephemeral points
 live, and a JAX server and a port server in one cluster put each key on
 the same owners.  Ring reads are cached by the listing's cversion.
 
-The ring's other readers and its withdrawal (find_cached, version,
-arcs_for, belongs_to, nodes, unregister_node) come with their callers:
-the partition plane, burst and tenancy (ROADMAP Queue 1 items 5.5, 7
-and 3.5).
+The partition plane (framework/partition.py) reads the ring three more
+ways: find_cached (no coordinator round trip, safe under the model write
+lock), version (the ring's cversion, refreshing the cache) and arcs_for
+(a node's virtual points).  The ring's other readers and its withdrawal
+(belongs_to, nodes, unregister_node) come with their callers: burst and
+tenancy (ROADMAP Queue 1 items 7 and 3.5).
 """
 
 from __future__ import annotations
@@ -103,3 +105,27 @@ class CHT:
 
     def find(self, key: str, n: int = 2) -> List[Tuple[str, int]]:
         return self._walk(self._refresh(), key, n)
+
+    def find_cached(self, key: str, n: int = 1) -> List[Tuple[str, int]]:
+        """find() over the last refreshed ring, with no coordinator round
+        trip: the ownership check made under the model write lock (the
+        partition plane's put_diff filter).  The partition manager
+        refreshes the ring from its own thread (version())."""
+        with self._lock:
+            ring = list(self._ring)
+        return self._walk(ring, key, n)
+
+    def version(self) -> int:
+        """The ring's version (the coordinator's cversion of the cht
+        directory).  Refreshes the cached ring, so find_cached sees a
+        changed version at once."""
+        self._refresh()
+        with self._lock:
+            return self._ring_version
+
+    def arcs_for(self, ip: str, port: int) -> List[str]:
+        """The virtual-point hashes of (ip, port): the ends of its arcs of
+        the ring (get_status's partition_range)."""
+        loc = (ip, port)
+        with self._lock:
+            return [h for h, node in self._ring if node == loc]

@@ -24,6 +24,7 @@ log = logging.getLogger("jubatus_tpu_torch.membership")
 
 JUBATUS_BASE = "/jubatus"
 ACTOR_BASE = JUBATUS_BASE + "/actors"
+PROXY_BASE = JUBATUS_BASE + "/jubaproxies"   # proxies' ephemeral entries
 CONFIG_BASE = JUBATUS_BASE + "/config"
 
 MEMBERS_TTL_S = 1.0     # how long get_all_nodes may answer from its cache

@@ -112,6 +112,18 @@ class ServerArgs:
     # buckets (centroids) a query probes
     index: str = "off"
     index_probes: int = 4
+    # the partition plane (framework/partition.py): "partition" makes the
+    # CHT row ownership of the row engines (each server owns one hash
+    # range, point ops go to the one owner, reads scatter-gather through
+    # the proxy, a membership change hands the moved ranges off through
+    # the journal); "replicate" keeps the reference behaviour
+    routing: str = "replicate"
+    # the handoff: rows shipped a partition_accept_rows RPC, the
+    # reconciler's ring poll period, and how long the ring must have been
+    # stable before rows move (above the proxies' membership TTL, 1 s)
+    partition_handoff_batch: int = 256
+    partition_handoff_interval_sec: float = 1.0
+    partition_handoff_grace_sec: float = 2.0
 
 
 class JubatusServer:
@@ -152,6 +164,8 @@ class JubatusServer:
         self.membership = None
         self.mixer = None
         self.cht = None         # the CHT ring, registered at cluster join
+        # --routing partition's range reconciler (cli/server.py)
+        self.partition_manager = None
         self._local_id = 0      # idgen's counter when standalone
         self._id_lock = threading.Lock()
         # the advertised address: --eth, else the bind address (a
@@ -271,12 +285,14 @@ class JubatusServer:
         return True
 
     def stop(self) -> None:
-        """Stop the mixer, the snapshotter, the raw-train dispatcher's
-        and the read lane's threads (queued requests fail with "server
-        stopping"), close the journal (flush + fsync) and leave the
-        cluster.  The snapshotter stops before the dispatcher: a
+        """Stop the partition manager, the mixer, the snapshotter, the
+        raw-train dispatcher's and the read lane's threads (queued
+        requests fail with "server stopping"), close the journal (flush +
+        fsync) and leave the cluster.  The snapshotter stops before the dispatcher: a
         snapshot flushes the dispatcher, which a stopped one never
         answers."""
+        if self.partition_manager is not None:
+            self.partition_manager.stop()
         if self.mixer is not None:
             self.mixer.stop()
         if self.snapshotter is not None:
@@ -325,6 +341,9 @@ class JubatusServer:
             # with no detail means declined or never asked
             "index": "off",
             "index_probes": str(self.args.index_probes),
+            # the partition plane: the routing mode always; the manager's
+            # ring version, epoch, range and resident rows when it runs
+            "routing": self.args.routing,
         }
         if self.dispatcher is not None:
             st["ingest_windows"] = str(self.dispatcher.windows)
@@ -339,6 +358,9 @@ class JubatusServer:
             st["arena_pool_hit_total"] = str(pool.hits)
             st["arena_pool_miss_total"] = str(pool.misses)
         st.update(self.driver.get_status())
+        if self.partition_manager is not None:
+            st.update(self.partition_manager.get_status())
+            st["partition_rows"] = str(len(self.driver.partition_ids()))
         # the MIX counters (mix_bytes_*_total, mix_compression_ratio,
         # retries and breakers) and the mixer's own status
         st.update(metrics.snapshot())

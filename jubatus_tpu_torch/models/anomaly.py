@@ -47,8 +47,17 @@ driver does; the write path keeps its exact full-table kNN (an
 approximate kNN there would corrupt kdist and lrd for every later
 query).  The index is derived state: the dirty-row write notes it, a
 removed row is invalidated in it, unpack marks it for a lazy rebuild; a
-spilled table bypasses it.  Not ported, refused where a caller could ask
-for it: the partition plane (item 5.5).
+spilled table bypasses it.
+
+The partition plane (framework/partition.py, --routing partition):
+calc_score_partial is one partition's leg of a scattered calc_score, its
+nn_num nearest resident rows as [id, dist, lrd, kdist] (through the index
+when engaged, else the full sweep, K4 dense_dots or K5 sig_counts), which
+the proxy merges and scores (merge_anomaly_score); partition_pack_rows,
+partition_apply_rows (resident ids skipped, one batched kNN refresh) and
+partition_drop_rows (one store free, one refresh of the rows that
+referenced the dropped ones) carry the handoff, and put_diff keeps only
+the rows this server owns or holds.
 """
 
 from __future__ import annotations
@@ -194,14 +203,19 @@ class AnomalyDriver(SparseRowTable, Driver):
             self._refresh_referencing(set(self._victim_rows))
 
     def _remove_row(self, id_: str, record_tombstone: bool = True,
-                    refresh: bool = True) -> bool:
+                    refresh: bool = True, free_slot: bool = True) -> bool:
+        """Drop a row (a hole in the store's occupancy mask) and refresh
+        the rows whose lists referenced it, or leave that to the caller's
+        batched refresh; a batch dropper (partition_drop_rows) frees the
+        slots itself, in one store free."""
         row = self.ids.pop(id_, None)
         if row is None:
             return False
         self.rows.pop(id_, None)
         self._dirty.pop(id_, None)
         self.row_ids[row] = ""
-        self.pages.free([row])
+        if free_slot:
+            self.pages.free([row])
         self.kdist[row] = 0.0
         self.lrd[row] = 0.0
         self.knn_rows[row] = -1
@@ -467,6 +481,80 @@ class AnomalyDriver(SparseRowTable, Driver):
         dists = self._distances(qs)
         return [self._score(dists[i]) for i in range(len(datums))]
 
+    # -- partition plane (framework/partition.py) ----------------------------
+    # set by the server's PartitionManager: put_diff keeps only the rows
+    # this server owns or holds
+    partition_owned = None
+
+    def partition_ids(self) -> List[str]:
+        return list(self.rows)
+
+    def calc_score_partial(self, datum: Datum):
+        """One partition's leg of a scattered calc_score: [nn_num,
+        ignore_kth, [[id, dist, lrd, kdist], ...]], the nn_num nearest
+        resident rows with their LOF bookkeeping (exact for this
+        partition's rows; the whole table's with one partition)."""
+        items: List[List[Any]] = []
+        if self.ids:
+            q = self.converter.convert_row(datum)
+            rows = sc = None
+            idx = self._index_for_query()
+            if idx is not None:
+                nb = self._index_neighbors(idx, q)
+                if nb is not None:
+                    rows, sc = nb
+            if rows is None:
+                dists = self._distances([q])[0]
+                rows, sc = self._neighbors(dists, self._valid_mask())
+            for r, d in zip(rows, sc):
+                r = int(r)
+                items.append([self.row_ids[r], float(d),
+                              float(self.lrd[r]), float(self.kdist[r])])
+        return [int(self.nn_num), bool(self.ignore_kth), items]
+
+    def partition_pack_rows(self, ids) -> Dict[str, Any]:
+        return {"rows": {i: dict(self.rows[i]) for i in ids
+                         if i in self.rows}}
+
+    def partition_apply_rows(self, payload) -> int:
+        """The handoff's upsert at the owner, resident ids skipped (a late
+        or retried ship must never clobber a newer write), then one
+        batched rebuild of every kNN list, as put_diff does."""
+        applied = 0
+        for id_, row in (payload.get("rows") or {}).items():
+            id_ = _to_str(id_)
+            if id_ in self.rows:
+                continue
+            self._row(id_)
+            self.rows[id_] = {int(i): float(v) for i, v in row.items()}
+            self._dirty[id_] = True
+            self._touch(id_)
+            applied += 1
+        if applied:
+            self._victim_rows = []
+            self._refresh_rows([r for r, i in enumerate(self.row_ids) if i])
+        return applied
+
+    def partition_drop_rows(self, ids) -> int:
+        """The handoff's drop at the losing server: one store free for the
+        batch, then one refresh of the rows that referenced a dropped
+        one."""
+        dropped = 0
+        victims: List[int] = []
+        for id_ in ids:
+            id_ = _to_str(id_)
+            row = self.ids.get(id_)
+            if row is None:
+                continue
+            self._remove_row(id_, record_tombstone=False, refresh=False,
+                             free_slot=False)
+            victims.append(row)
+            dropped += 1
+        if victims:
+            self.pages.free(victims)
+            self._refresh_referencing(set(victims))
+        return dropped
+
     def clear(self) -> None:
         self._clear_rows()
         self._new_lof_tables(self.capacity)
@@ -486,8 +574,14 @@ class AnomalyDriver(SparseRowTable, Driver):
                 "weights": WeightManager.mix(lhs["weights"], rhs["weights"])}
 
     def put_diff(self, diff) -> bool:
+        owned = self.partition_owned
         for id_, row in diff["rows"].items():
             id_ = _to_str(id_)
+            if owned is not None and id_ not in self.rows \
+                    and not owned(id_):
+                # partition mode: never re-replicate another partition's
+                # rows
+                continue
             if row is None:
                 # the rebuild below resets every list anyway
                 self._remove_row(id_, record_tombstone=False, refresh=False)

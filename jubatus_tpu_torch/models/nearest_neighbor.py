@@ -41,11 +41,17 @@ the stored row's from the master), K5's scores mode over the pool and
 over each streamed chunk of absent pages, the top-k on the host, as the
 JAX driver's _spill_query does; an engaged index is bypassed.
 
-Not ported, refused where a caller could ask for it, with the ROADMAP
-item that brings it: the partition plane (the service table's
-partition_* and *_sig_partial methods, item 5.5, with the index's
-raw-signature route sig_probe_query_sig).  The JAX driver's query tier
-has no counterpart: the table lives on the driver's device, which
+The partition plane (framework/partition.py, --routing partition):
+partition_query_sig resolves a row id at its owner to the stored
+signature's bytes and norm, and the *_sig_partial legs sweep this
+server's rows with them, one launch of K3 with that signature (or of K6
+with an engaged index, or K5 over a spilled table); partition_pack_rows,
+partition_apply_rows (resident ids skipped) and partition_drop_rows
+(holes in the store, the index's slots invalidated) carry the handoff,
+and put_diff keeps only the rows this server owns or holds.  Once a drop
+has punched holes, every sweep reads the store's occupancy mask, as the
+JAX driver's _valid does.  The JAX driver's sharded layout and query
+tier have no counterpart: the table lives on the driver's device, which
 get_status reports as query_tier.
 """
 
@@ -65,21 +71,11 @@ from jubatus_tpu_torch.models.pages import PagedRowStore, PageSpec
 from jubatus_tpu_torch.ops import candidates as candops
 from jubatus_tpu_torch.ops import lsh as lshops
 from jubatus_tpu_torch.ops import paged as pagedops
+from jubatus_tpu_torch.utils import to_bytes as _to_bytes
+from jubatus_tpu_torch.utils import to_str as _to_str
 
 METHODS = ("lsh", "minhash", "euclid_lsh")
 DEFAULT_SEED = 0x1EAF
-
-PARTITION_REFUSAL = ("the partition plane (framework/partition.py and the "
-                     "nearest_neighbor partition_* methods) is not in the "
-                     "port yet: ROADMAP Queue 1 item 5.5")
-
-
-def _to_str(x) -> str:
-    return x.decode() if isinstance(x, bytes) else x
-
-
-def _to_bytes(x) -> bytes:
-    return x.encode("latin-1") if isinstance(x, str) else bytes(x)
 
 
 @register_driver("nearest_neighbor")
@@ -239,6 +235,14 @@ class NearestNeighborDriver(Driver):
                                "norms": np.asarray(norms, np.float32)})
         self._index_note(idx, sigs)
 
+    def _valid(self) -> Tuple[int, Optional[Any]]:
+        """(n_valid, mask) of a sweep: the live rows' count while they are
+        a prefix of the store, its device occupancy mask once a drop has
+        punched holes (the JAX driver's _valid)."""
+        if self.pages.has_holes:
+            return self.pages.capacity, self.pages.mask_dev()
+        return len(self.ids), None
+
     def _to_results(self, rows, sims, size: int, similarity: bool):
         """Top rows + similarities -> wire results, stopping at the first
         non-finite score; neighbor_* maps similarity to distance (lsh,
@@ -262,12 +266,13 @@ class NearestNeighborDriver(Driver):
         if self.pages.spill_mode:
             q_sig, _ = self._signature(batch)
             return self._spill_query(q_sig[0], qnorm, size, similarity)
+        n_valid, mask = self._valid()
         idx = self._index_for_query()
         with device_context(self.device):
             if idx is not None:
                 rows, sims, n = candops.sig_probe_query(
                     self.method, self.key, batch.indices, batch.values,
-                    self.sig, qnorm, self.norms, self.pages.n_rows, None,
+                    self.sig, qnorm, self.norms, n_valid, mask,
                     idx.device_csr(), self.hash_num, int(size), idx.plan,
                     idx.bits)
                 out = self._index_results(idx, rows, sims, n, size,
@@ -276,8 +281,8 @@ class NearestNeighborDriver(Driver):
                     return out
             rows, sims = lshops.fused_sig_query(
                 self.method, self.key, batch.indices, batch.values,
-                self.sig, self.norms, self.pages.n_rows, self.hash_num,
-                qnorm, int(size))
+                self.sig, self.norms, n_valid, self.hash_num, qnorm,
+                int(size), mask=mask)
         return self._to_results(rows, sims, size, similarity)
 
     def _spill_query(self, q_sig, qnorm: float, size: int,
@@ -300,20 +305,21 @@ class NearestNeighborDriver(Driver):
             return self._spill_query(
                 self.pages.read("sig", [loc])[0],
                 float(self.pages.read("norms", [loc])[0]), size, similarity)
+        n_valid, mask = self._valid()
         idx = self._index_for_query()
         with device_context(self.device):
             if idx is not None:
                 rows, sims, n = candops.sig_probe_query_row(
                     self.method, self.sig, self.ids[id_], self.norms,
-                    self.pages.n_rows, None, idx.device_csr(),
-                    self.hash_num, int(size), idx.plan, idx.bits)
+                    n_valid, mask, idx.device_csr(), self.hash_num,
+                    int(size), idx.plan, idx.bits)
                 out = self._index_results(idx, rows, sims, n, size,
                                           similarity)
                 if out is not None:
                     return out
             rows, sims = lshops.fused_sig_query_row(
-                self.method, self.sig, self.ids[id_], self.norms,
-                self.pages.n_rows, self.hash_num, int(size))
+                self.method, self.sig, self.ids[id_], self.norms, n_valid,
+                self.hash_num, int(size), mask=mask)
         return self._to_results(rows, sims, size, similarity)
 
     def _query_datum_many(self, pairs: Sequence[Tuple[Datum, int]],
@@ -349,10 +355,11 @@ class NearestNeighborDriver(Driver):
                                        similarity)
                 if out is not None:
                     return out
+            n_valid, mask = self._valid()
             rows_b, sims_b = lshops.fused_sig_query_batch(
                 self.method, self.key, batch.indices, batch.values,
-                self.sig, self.norms, self.pages.n_rows, self.hash_num,
-                qnorms, kmax, round_b(len(pairs)))
+                self.sig, self.norms, n_valid, self.hash_num, qnorms, kmax,
+                round_b(len(pairs)), mask=mask)
         return [self._to_results(rows_b[i], sims_b[i], sizes[i], similarity)
                 for i in range(len(pairs))]
 
@@ -362,9 +369,10 @@ class NearestNeighborDriver(Driver):
         batch of round_b, one K6 launch), or None when any query
         under-fills: then the whole batch falls back to the full sweep,
         as in the JAX driver."""
+        n_valid, mask = self._valid()
         rows_b, sims_b, n_b = candops.sig_probe_query_batch(
             self.method, self.key, batch.indices, batch.values, self.sig,
-            qnorms, self.norms, self.pages.n_rows, None, idx.device_csr(),
+            qnorms, self.norms, n_valid, mask, idx.device_csr(),
             self.hash_num, kmax, idx.plan, idx.bits,
             round_b(len(sizes)))
         out = [self._to_results(rows_b[i], sims_b[i], s, similarity)
@@ -397,6 +405,113 @@ class NearestNeighborDriver(Driver):
 
     def get_all_rows(self) -> List[str]:
         return [i for i in self.row_ids if i]
+
+    # -- partition plane (framework/partition.py) ----------------------------
+    # set by the server's PartitionManager: put_diff keeps only the rows
+    # this server owns or holds
+    partition_owned = None
+
+    def partition_ids(self) -> List[str]:
+        return list(self.ids)
+
+    def partition_query_sig(self, id_: str):
+        """A row id -> [its stored signature's bytes, its norm], the
+        scatter legs' query payload, resolved at the id's ring owner;
+        raises as _query_id does for a missing row."""
+        if id_ not in self.ids:
+            raise KeyError(f"no such row: {id_}")
+        loc = self.ids[id_]
+        return [self.pages.read("sig", [loc])[0].tobytes(),
+                float(self.pages.read("norms", [loc])[0])]
+
+    def _partial_query_sig(self, sig_bytes, norm: float, size: int,
+                           similarity: bool):
+        """This partition's sweep with a raw query signature (uint32 on
+        the wire, int32 bit patterns on the card): K5 over a spilled
+        table, K6 with an engaged index (falling back as every indexed
+        read does), else K3."""
+        if not self.ids or int(size) <= 0:
+            return []
+        q_sig = np.frombuffer(_to_bytes(sig_bytes), np.uint32)
+        if self.pages.spill_mode:
+            return self._spill_query(q_sig, float(norm), size, similarity)
+        n_valid, mask = self._valid()
+        idx = self._index_for_query()
+        with device_context(self.device):
+            if idx is not None:
+                rows, sims, n = candops.sig_probe_query_sig(
+                    self.method, self.sig, q_sig, float(norm), self.norms,
+                    n_valid, mask, idx.device_csr(), self.hash_num,
+                    int(size), idx.plan, idx.bits)
+                out = self._index_results(idx, rows, sims, n, size,
+                                          similarity)
+                if out is not None:
+                    return out
+            rows, sims = lshops.fused_sig_query_sig(
+                self.method, self.sig, q_sig, float(norm), self.norms,
+                n_valid, self.hash_num, int(size), mask=mask)
+        return self._to_results(rows, sims, size, similarity)
+
+    def neighbor_row_from_sig_partial(self, sig_bytes, norm, size):
+        return self._partial_query_sig(sig_bytes, norm, size,
+                                       similarity=False)
+
+    def similar_row_from_sig_partial(self, sig_bytes, norm, size):
+        return self._partial_query_sig(sig_bytes, norm, size,
+                                       similarity=True)
+
+    def _row_payloads(self, ids) -> Dict[str, Dict[str, Any]]:
+        """The handoff's rows, gathered through the store (a spilled
+        page reads from the host master).  The JAX driver's other arm,
+        tuple locs into its sharded [S, cap, W] stack, comes with the
+        sharded layout (ROADMAP Queue 1 item 6): the port's locs are flat
+        slots."""
+        present = [(i, self.ids[i]) for i in ids if i in self.ids]
+        out: Dict[str, Dict[str, Any]] = {}
+        if not present:
+            return out
+        slots = np.array([loc for _, loc in present], np.int64)
+        sigs = self.pages.read("sig", slots)
+        norms = self.pages.read("norms", slots)
+        for j, (i, _loc) in enumerate(present):
+            out[i] = {"sig": sigs[j].tobytes(), "norm": float(norms[j])}
+        return out
+
+    def partition_pack_rows(self, ids) -> Dict[str, Any]:
+        return {"rows": {i: [r["sig"], r["norm"]] for i, r in
+                         self._row_payloads(ids).items()}}
+
+    def partition_apply_rows(self, payload) -> int:
+        """The handoff's upsert at the owner.  Resident ids are skipped:
+        a client write routed here may already supersede the shipped
+        copy, and a late or retried ship must never clobber it."""
+        rows = {_to_str(i): {"sig": _to_bytes(rec[0]),
+                             "norm": float(rec[1])}
+                for i, rec in (payload.get("rows") or {}).items()}
+        rows = {i: rec for i, rec in rows.items() if i not in self.ids}
+        self._bulk_store(rows)
+        return len(rows)
+
+    def partition_drop_rows(self, ids) -> int:
+        """The handoff's drop at the losing server: holes in the store's
+        occupancy and its free list (surviving rows keep their slots), the
+        dropped slots invalidated in the index.  The ids go in the JAX
+        driver's order, so both free lists, and the slots they hand out
+        next, agree."""
+        drop = {_to_str(i) for i in ids}
+        drop &= set(self.ids)
+        if not drop:
+            return 0
+        slots = []
+        for i in drop:
+            slot = self.ids.pop(i)
+            self.row_ids[slot] = ""
+            slots.append(slot)
+            self._pending.pop(i, None)
+        self.pages.free(slots)
+        if self.index is not None:
+            self.index.store.invalidate_rows(slots)
+        return len(drop)
 
     def clear(self) -> None:
         self.ids.clear()
@@ -445,6 +560,11 @@ class NearestNeighborDriver(Driver):
 
     def put_diff(self, diff: Dict[str, Any]) -> bool:
         rows = {_to_str(i): rec for i, rec in diff["rows"].items()}
+        owned = self.partition_owned
+        if owned is not None:
+            # partition mode: never re-replicate another partition's rows
+            rows = {i: rec for i, rec in rows.items()
+                    if i in self.ids or owned(i)}
         self._bulk_store(rows)
         self.converter.weights.put_diff(diff["weights"])
         self._retire_pending()

@@ -49,10 +49,18 @@ MIX: a row-table union with tombstones (clear_row travels as None), the
 revert table, and the converter's weight diff.  Model files (pack) cross
 packages unchanged.
 
-Not ported, refused where a caller could ask for it, with the ROADMAP
-item that brings it: the partition plane (the service table's
-partition_* methods, item 5.5).  The JAX driver's query tier has no
-counterpart: get_status reports the driver's device.
+The partition plane (framework/partition.py, --routing partition): a
+server's resident rows are its hash range, so its ordinary sweep is the
+range-restricted leg.  partition_query_fv resolves a row id at its
+owner to the stored sparse row, and similar_row_from_fv_partial sweeps
+this server's rows with it through _similar (K4 dense_topk, K7 with ivf
+engaged, K4 dense_dots over a spilled table; K1/K2 then K3, K6 or K5 for
+the signature methods); partition_pack_rows (rows and their revert
+entries), partition_apply_rows (resident ids skipped, nothing gossiped)
+and partition_drop_rows (no tombstones, one store free) carry the
+handoff, and put_diff keeps only the rows this server owns or holds.
+The JAX driver's query tier has no counterpart: get_status reports the
+driver's device.
 """
 
 from __future__ import annotations
@@ -333,14 +341,19 @@ class RecommenderDriver(SparseRowTable, Driver):
         while len(self.ids) > self.max_size:
             self._remove_row(self._lru.pop(0), record_tombstone=False)
 
-    def _remove_row(self, id_: str, record_tombstone: bool = True) -> bool:
+    def _remove_row(self, id_: str, record_tombstone: bool = True,
+                    free_slot: bool = True) -> bool:
+        """Drop a row: a hole in the store's occupancy mask.  A batch
+        dropper (partition_drop_rows) frees the slots itself, in one
+        store free."""
         row = self.ids.pop(id_, None)
         if row is None:
             return False
         self.rows.pop(id_, None)
         self._dirty.pop(id_, None)
         self.row_ids[row] = ""
-        self.pages.free([row])
+        if free_slot:
+            self.pages.free([row])
         if self.index is not None:
             self.index.store.invalidate_rows([row])
         if id_ in self._lru:
@@ -558,6 +571,76 @@ class RecommenderDriver(SparseRowTable, Driver):
         return [self._trim_results(rows_b[i], sims_b[i], s)
                 for i, s in enumerate(sizes)]
 
+    # -- partition plane (framework/partition.py) ----------------------------
+    # set by the server's PartitionManager: put_diff keeps only the rows
+    # this server owns or holds
+    partition_owned = None
+
+    def partition_ids(self) -> List[str]:
+        return list(self.rows)
+
+    def partition_query_fv(self, id_: str):
+        """A row id -> its stored row [[index, value], ...] (the scatter
+        legs' query payload) at the id's owner; None when absent, as
+        similar_row_from_id answers [] for it."""
+        row = self.rows.get(id_)
+        if row is None:
+            return None
+        return [[int(i), float(v)] for i, v in sorted(row.items())]
+
+    def similar_row_from_fv_partial(self, fv, size: int):
+        """A scatter leg: this server's sweep with a stored row as the
+        query, the kernels and scores of similar_row_from_id."""
+        q = {int(i): float(v) for i, v in (fv or [])}
+        return self._similar(q, int(size))
+
+    def partition_pack_rows(self, ids: Sequence[str]) -> Dict[str, Any]:
+        rows = {i: dict(self.rows[i]) for i in ids if i in self.rows}
+        revert = {}
+        for row in rows.values():
+            for idx in row:
+                rev = self.converter.revert_dict.get(idx)
+                if rev is not None:
+                    revert[idx] = rev
+        return {"rows": rows, "revert": revert}
+
+    def partition_apply_rows(self, payload) -> int:
+        """The handoff's upsert at the owner.  Resident ids are skipped (a
+        client write routed here may supersede the shipped copy, and a
+        late or retried ship must never clobber it); _pending is left
+        alone: in partition mode rows move by handoff, not by MIX."""
+        for idx, name in (payload.get("revert") or {}).items():
+            self.converter.revert_dict.setdefault(int(idx), _to_str(name))
+        applied = 0
+        for id_, row in (payload.get("rows") or {}).items():
+            id_ = _to_str(id_)
+            if id_ in self.rows:
+                continue
+            self._row(id_)
+            self.rows[id_] = {int(i): float(v) for i, v in row.items()}
+            self._dirty[id_] = True
+            self._touch(id_)
+            applied += 1
+        return applied
+
+    def partition_drop_rows(self, ids: Sequence[str]) -> int:
+        """The handoff's drop at the losing server, one store free for the
+        batch and no tombstones (the rows live on at their owner, where a
+        tombstone riding the next MIX round would delete them)."""
+        dropped = 0
+        victims: List[int] = []
+        for id_ in ids:
+            id_ = _to_str(id_)
+            row = self.ids.get(id_)
+            if row is None:
+                continue
+            self._remove_row(id_, record_tombstone=False, free_slot=False)
+            victims.append(row)
+            dropped += 1
+        if victims:
+            self.pages.free(victims)
+        return dropped
+
     def calc_similarity(self, lhs: Datum, rhs: Datum) -> float:
         a = self.converter.convert_row(lhs)
         b = self.converter.convert_row(rhs)
@@ -596,8 +679,15 @@ class RecommenderDriver(SparseRowTable, Driver):
     def put_diff(self, diff) -> bool:
         for idx, name in (diff.get("revert") or {}).items():
             self.converter.revert_dict.setdefault(int(idx), _to_str(name))
+        owned = self.partition_owned
         for id_, row in diff["rows"].items():
             id_ = _to_str(id_)
+            if owned is not None and id_ not in self.rows \
+                    and not owned(id_):
+                # partition mode: MIX must not re-replicate another
+                # partition's rows (a resident row's tombstone still
+                # applies)
+                continue
             if row is None:
                 self._remove_row(id_, record_tombstone=False)
                 continue

@@ -726,6 +726,20 @@ def sig_probe_query(kind: str, key, q_indices, q_values, table, qnorm: float,
     return rows[0], scores[0], int(n[0])
 
 
+def sig_probe_query_sig(kind: str, table: torch.Tensor, q_sig, qnorm: float,
+                        norms, n_valid: int, mask, csr, hash_num: int,
+                        k: int, plan, bits: int):
+    """Query by a raw signature (the partition plane's from_id legs) ->
+    (rows, scores, n_cand): one K6 call with q_sigs [1, W] and qnorms
+    [1]."""
+    kb = _kb(k, plan, csr[4], csr[3])
+    q_sigs, qnorms = lshops.sig_query_args(q_sig, qnorm, table.device)
+    out = sig_probe(kind, table, norms, n_valid, mask, csr, plan, bits,
+                    hash_num, kb, q_sigs=q_sigs, qnorms=qnorms)
+    rows, scores, n = _deduped(out, kb, k)
+    return rows[0], scores[0], int(n[0])
+
+
 def sig_probe_query_row(kind: str, table: torch.Tensor, row: int, norms,
                         n_valid: int, mask, csr, hash_num: int, k: int, plan,
                         bits: int):

@@ -872,7 +872,8 @@ def fused_sig_query(kind: str, key, q_indices, q_values, table, norms,
 
 def fused_sig_query_row(kind: str, table: torch.Tensor, row: int,
                         norms: torch.Tensor, n_valid: int, hash_num: int,
-                        k: int) -> Tuple[np.ndarray, np.ndarray]:
+                        k: int, mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Query by a stored row: the kernel gathers its signature and norm
     on the device (no host readback before the sweep)."""
     if not 0 <= int(row) < table.shape[0]:
@@ -880,7 +881,37 @@ def fused_sig_query_row(kind: str, table: torch.Tensor, row: int,
     q_rows = torch.tensor([int(row)], dtype=torch.int64, device=table.device)
     rows, scores = keys_to_host(sig_topk(
         kind, table, norms, n_valid, q_rows=q_rows, hash_num=hash_num,
-        kb=_kb(k, table.shape[0])))
+        kb=_kb(k, table.shape[0]), mask=mask))
+    return rows[0], scores[0]
+
+
+def sig_query_args(q_sig, qnorm: float, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A raw query signature [W] (uint32 or int32, as it crossed the wire)
+    and its norm -> (q_sigs [1, W] int32 bit patterns, qnorms [1] float32)
+    on `device`: the norm rounds to float32 as the JAX route's
+    np.float32(qnorm) does."""
+    sig = np.ascontiguousarray(q_sig).reshape(1, -1)
+    if sig.dtype.itemsize != 4 or sig.dtype.kind not in "iu":
+        raise ValueError(f"a query signature is 32-bit words, got "
+                         f"{sig.dtype}")
+    return (_host(sig.view(np.int32), np.int32, device),
+            _host([np.float32(qnorm)], np.float32, device))
+
+
+def fused_sig_query_sig(kind: str, table: torch.Tensor, q_sig, qnorm: float,
+                        norms: torch.Tensor, n_valid: int, hash_num: int,
+                        k: int, mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Query by a raw signature (the partition plane's from_id legs: the
+    id's owner resolved it to its stored signature and norm, and every
+    partition sweeps its own rows with them): one K3 launch with q_sigs
+    [1, W] and qnorms [1], the rows below n_valid that the mask keeps
+    valid, kb = min(_round_k(k), R) -> (rows [kb], scores [kb])."""
+    q_sigs, qnorms = sig_query_args(q_sig, qnorm, table.device)
+    rows, scores = keys_to_host(sig_topk(
+        kind, table, norms, n_valid, q_sigs=q_sigs, qnorms=qnorms,
+        hash_num=hash_num, kb=_kb(k, table.shape[0]), mask=mask))
     return rows[0], scores[0]
 
 

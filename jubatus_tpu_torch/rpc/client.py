@@ -124,6 +124,13 @@ class Client:
             self._sock.settimeout(timeout)
         return self._sock
 
+    def settimeout(self, timeout: float) -> None:
+        """Set the call budget, a live socket's too (the proxy shrinks a
+        pooled connection's to what a routing deadline has left)."""
+        self.timeout = timeout
+        if self._sock is not None:
+            self._sock.settimeout(timeout)
+
     def close(self) -> None:
         if self._sock is not None:
             try:

@@ -21,6 +21,11 @@ PeerHealth
     exactly one probe call is admitted; success closes the breaker,
     failure re-arms the cooldown.  Transitions and skips are counted in
     the metrics registry (utils/metrics.py), which get_status reads.
+
+Partial-failure policies (STRICT, QUORUM, BEST_EFFORT)
+    How many members a proxy's broadcast or scatter READ needs before it
+    serves the members that answered (framework/proxy.py); updates are
+    always strict.
 """
 
 from __future__ import annotations
@@ -122,7 +127,7 @@ class _PeerState:
 
 class PeerHealth:
     """Per-peer consecutive-failure circuit breaker, shared by every
-    fan-out of one mixer."""
+    fan-out of one process's mixer or proxy."""
 
     def __init__(self, fail_threshold: int = 3, cooldown: float = 5.0,
                  clock: Callable[[], float] = time.monotonic,
@@ -158,6 +163,11 @@ class PeerHealth:
         self._metrics.inc("breaker_skip_total" if skip
                           else "breaker_probe_total")
         return not skip
+
+    def is_open(self, peer: Peer) -> bool:
+        with self._lock:
+            st = self._peers.get((peer[0], int(peer[1])))
+            return st is not None and st.opened_at is not None
 
     def record_success(self, peer: Peer) -> None:
         with self._lock:
@@ -207,5 +217,13 @@ class PeerHealth:
         }
 
 
-# the policy of server-to-server (MIX) traffic
+# the policy of server-to-server (MIX) traffic; the proxy forwards its
+# reads with a 2-attempt policy (framework/proxy.py)
 DEFAULT_RETRY = RetryPolicy()
+
+# the proxy's partial-failure policies of broadcast and scatter READS
+# (updates are always strict)
+STRICT = "strict"            # any member error fails the call
+QUORUM = "quorum"            # a majority of the members must answer
+BEST_EFFORT = "best_effort"  # any one answer is served, the shortfall logged
+PARTIAL_FAILURE_POLICIES = (STRICT, QUORUM, BEST_EFFORT)

@@ -63,7 +63,9 @@ class RpcServer:
     # peer's leg each hold one while raw trains keep the other pool
     CALL_WORKERS = 4
 
-    def __init__(self):
+    def __init__(self, call_workers: int = 0):
+        """call_workers: the call pool's size (0: CALL_WORKERS); a proxy
+        runs every request there, so it sets its --thread count."""
         self._methods: Dict[str, Tuple[Callable[..., Any],
                                        Optional[inspect.Signature]]] = {}
         self._raw_methods: Dict[str, Callable[[bytes, int], Any]] = {}
@@ -71,8 +73,9 @@ class RpcServer:
         self._splitter = None             # native FrameSplitter type
         self._pool = ThreadPoolExecutor(max_workers=self.WORKERS,
                                         thread_name_prefix="rpc-worker")
-        self._call_pool = ThreadPoolExecutor(max_workers=self.CALL_WORKERS,
-                                             thread_name_prefix="rpc-call")
+        self._call_pool = ThreadPoolExecutor(
+            max_workers=call_workers or self.CALL_WORKERS,
+            thread_name_prefix="rpc-call")
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.base_events.Server] = None
         self._thread: Optional[threading.Thread] = None

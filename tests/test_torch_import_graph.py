@@ -67,6 +67,21 @@ def test_the_checks_cover_the_nearest_neighbor_slice():
     assert "lsh" in build.KERNELS and build.flags("lsh") == build.NVCC_FLAGS
 
 
+def test_the_checks_cover_the_partition_plane_and_the_proxy():
+    """The walk and the per-source check include the partition plane, the
+    proxy and its entry point, and importing the proxy's entry point
+    pulls in neither JAX nor the JAX package."""
+    names = {str(p.relative_to(PKG)) for p in SOURCES if PKG in p.parents}
+    assert {"framework/partition.py", "framework/proxy.py",
+            "cli/proxy.py"} <= names
+    r = _run("import sys, jubatus_tpu_torch.cli.proxy\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             f"{FORBIDDEN!r})\n"
+             "print(bad)\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
     p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):

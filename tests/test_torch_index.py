@@ -9,9 +9,11 @@ parity where the index declines or is below min_rows, maintenance (the
 delta, unpack's lazy rebuild, clear_row, the ivf retrain on 2x growth,
 the fall back of an under-filled read) and observability (counters and
 status).  Anomaly's indexed reads and the server are in
-tests/test_torch_index_serving.py.  The partitioned and sharded classes
-wait for the partition plane and the sharded layout (ROADMAP Queue 1
-items 5.5, 6).
+tests/test_torch_index_serving.py.  The partitioned class holds the
+merge of indexed partitions (the partition plane's *_partial legs)
+against one indexed driver and against the JAX package's legs, and an
+indexed table after a handoff's drop; the sharded class waits for the
+sharded layout (ROADMAP Queue 1 item 6).
 """
 
 import msgpack
@@ -405,3 +407,91 @@ def test_counters_and_status():
     stats = t.take_index_sweep_stats()
     assert stats is not None and stats[1] == 200
     assert t.take_index_sweep_stats() is None
+
+
+# ---------------------------------------------------------------------------
+# the partition plane over indexed partitions (tests/test_index.py
+# TestPartitionedIndexedGolden): the merged legs equal one indexed driver,
+# tie-aware, and every leg is the JAX package's, bitwise
+# ---------------------------------------------------------------------------
+
+def _canon6(items):
+    return sorted(((i, round(float(s), 6)) for i, s in items),
+                  key=lambda kv: (-kv[1], kv[0]))
+
+
+def test_recommender_partitioned_merge_golden():
+    from jubatus_tpu.framework.partition import merge_topk as jmerge
+    from jubatus_tpu_torch.framework.partition import merge_topk
+    rng = np.random.default_rng(21)
+    cfg = _cfg("lsh")
+    single = tcreate("recommender", cfg, device="cpu")
+    pairs = [_pair("recommender", cfg, "lsh_probe", min_rows=0)
+             for _ in range(2)]
+    assert single.configure_index("lsh_probe", probes=4, min_rows=0)
+    _, data = _clustered(rng, n=300, jitter=0.1)
+    for i, d in enumerate(data):
+        single.update_row(f"r{i}", TDatum([], d))
+        pairs[i % 2][0].update_row(f"r{i}", JDatum([], d))
+        pairs[i % 2][1].update_row(f"r{i}", TDatum([], d))
+    for qi in (5, 17, 42):
+        fv = single.partition_query_fv(f"r{qi}")
+        jlegs = [(p, [[i, s] for i, s in j.similar_row_from_fv_partial(fv, K)])
+                 for p, (j, _) in enumerate(pairs)]
+        tlegs = [(p, [[i, s] for i, s in t.similar_row_from_fv_partial(fv, K)])
+                 for p, (_, t) in enumerate(pairs)]
+        assert tlegs == jlegs
+        merged = merge_topk(tlegs, K, ascending=False)
+        assert merged == jmerge(jlegs, K, ascending=False)
+        assert _canon6(merged) == _canon6(single.similar_row_from_id(
+            f"r{qi}", K))
+
+
+def test_nn_partitioned_merge_golden():
+    from jubatus_tpu.framework.partition import merge_topk as jmerge
+    from jubatus_tpu_torch.framework.partition import merge_topk
+    rng = np.random.default_rng(22)
+    cfg = _cfg("euclid_lsh")
+    single = tcreate("nearest_neighbor", cfg, device="cpu")
+    pairs = [_pair("nearest_neighbor", cfg, "lsh_probe", min_rows=0)
+             for _ in range(3)]
+    assert single.configure_index("lsh_probe", probes=4, min_rows=0)
+    _, data = _clustered(rng, n=300, jitter=0.1)
+    for i, d in enumerate(data):
+        single.set_row(f"r{i}", TDatum([], d))
+        pairs[i % 3][0].set_row(f"r{i}", JDatum([], d))
+        pairs[i % 3][1].set_row(f"r{i}", TDatum([], d))
+    for qi in (3, 99):
+        sig, norm = single.partition_query_sig(f"r{qi}")
+        jlegs = [(p, [[i, s] for i, s in
+                      j.similar_row_from_sig_partial(sig, norm, K)])
+                 for p, (j, _) in enumerate(pairs)]
+        tlegs = [(p, [[i, s] for i, s in
+                      t.similar_row_from_sig_partial(sig, norm, K)])
+                 for p, (_, t) in enumerate(pairs)]
+        assert tlegs == jlegs
+        merged = merge_topk(tlegs, K, ascending=False)
+        assert merged == jmerge(jlegs, K, ascending=False)
+        assert _canon6(merged) == _canon6(single.similar_row_from_id(
+            f"r{qi}", K))
+
+
+def test_handoff_drop_keeps_the_index_consistent():
+    """tests/test_index.py's drop: the dropped half never answers, and
+    every read after the drop is the JAX driver's."""
+    rng = np.random.default_rng(12)
+    j, t = _pair("nearest_neighbor", _cfg("lsh"), "lsh_probe", min_rows=0)
+    _, data = _clustered(rng, n=200)
+    for i, d in enumerate(data):
+        j.set_row(f"r{i}", JDatum([], d))
+        t.set_row(f"r{i}", TDatum([], d))
+    t.similar_row_from_datum(TDatum([], data[0]), 5)
+    j.similar_row_from_datum(JDatum([], data[0]), 5)
+    drop = [f"r{i}" for i in range(100)]
+    assert t.partition_drop_rows(drop) == j.partition_drop_rows(drop) == 100
+    for qi in (150, 7):
+        out = t.similar_row_from_datum(TDatum([], data[qi]), 5)
+        assert out == j.similar_row_from_datum(JDatum([], data[qi]), 5)
+        assert out and all(int(i[1:]) >= 100 for i, _ in out)
+        rid = f"r{qi % 100 + 100}"
+        assert t.similar_row_from_id(rid, 5) == j.similar_row_from_id(rid, 5)

@@ -29,15 +29,12 @@ import numpy as np
 import pytest
 import torch
 
-from jubatus_tpu.framework.service import SERVICES as JSERVICES
 from jubatus_tpu.fv import Datum as JDatum
 from jubatus_tpu.models.nearest_neighbor import \
     NearestNeighborDriver as JNN
 from jubatus_tpu.models.pages import PagedRowStore as JStore
 from jubatus_tpu.models.pages import PageSpec as JSpec
 from jubatus_tpu_torch.cli.server import serve
-from jubatus_tpu_torch.framework.service import (NN_PARTITION_METHODS,
-                                                 SERVICES)
 from jubatus_tpu_torch.fv import Datum as TDatum
 from jubatus_tpu_torch.models.nearest_neighbor import \
     NearestNeighborDriver as TNN
@@ -45,7 +42,7 @@ from jubatus_tpu_torch.models.pages import PagedRowStore as TStore
 from jubatus_tpu_torch.models.pages import PageSpec as TSpec
 from tests import test_torch_durability as tdur
 from tests.test_torch_lsh import ATOL, RTOL
-from tests.test_torch_server import _pair, _spawn_port
+from tests.test_torch_server import _pair
 from tests.test_wire_golden import GoldenConn, datum_wire
 
 METHODS = ("lsh", "minhash", "euclid_lsh")
@@ -389,29 +386,6 @@ def test_the_index_is_refused_with_its_item(tmp_path, capsys):
     try:
         assert next(iter(srv.get_status().values()))["index"] == "lsh_probe"
     finally:
-        rpc.stop()
-        srv.stop()
-
-
-@pytest.mark.parametrize("name", NN_PARTITION_METHODS)
-def test_the_partition_plane_is_refused_with_its_item(name):
-    """The JAX service table's partition methods are in the port's table
-    and refuse with their item."""
-    assert name in JSERVICES["nearest_neighbor"].methods
-    method = SERVICES["nearest_neighbor"].methods[name]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.5"):
-        method.fn(None, ["x"], 10)
-
-
-def test_a_partition_call_on_the_wire_names_its_item(tmp_path):
-    srv, rpc, port = _spawn_port(config("lsh"), tmp_path, "nearest_neighbor")
-    conn = GoldenConn(port)
-    try:
-        with pytest.raises(AssertionError, match="Queue 1 item 5.5"):
-            conn.call("partition_query_sig", "x")
-        assert conn.call("get_all_rows") == []
-    finally:
-        conn.close()
         rpc.stop()
         srv.stop()
 

@@ -3,15 +3,15 @@ disk (--device cpu), against the JAX package's:
 
 - a JAX server and a port server take the same requests and answer them
   alike, bitwise: update_row / clear_row and every recommender read;
-  anomaly's add (server-minted ids), update, overwrite, clear_row and
-  calc_score; a model saved by either loads in the other;
+  anomaly's add (server-minted ids), update, overwrite, clear_row,
+  calc_score and its partition leg calc_score_partial; a model saved by
+  either loads in the other;
 - the read lane (--read_batch_window_us) answers each fused read as the
   read sent alone;
 - an anomaly server's journal (its `drv` add records) recovers bitwise
   after SIGKILL, either package recovers the other's directory, and a
   recovered standalone server mints its next id above every recovered
-  id, which it does not without the id watermark;
-- the partition-plane methods refuse on the wire naming ROADMAP item 5.5.
+  id, which it does not without the id watermark.
 """
 
 import json
@@ -118,10 +118,8 @@ def test_anomaly_wire_answers_as_jax(tmp_path, cfg):
             both(conns, "calc_score", q)
         assert both(conns, "get_all_rows") == \
             [i for i in ids if i != "5"]
-        for name in ("calc_score_partial", "partition_accept_rows",
-                     "partition_drop_rows"):
-            with pytest.raises(Exception, match="5.5"):
-                conns[1].call(name, "x")
+        for q in datums(8, 5):
+            both(conns, "calc_score_partial", q)
     finally:
         next(gen, None)
 

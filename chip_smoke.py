@@ -159,7 +159,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 1, sig_topk, the copy out, the whole call).  (c) MIX
                 and recovery, for lsh and for minhash at once: per method
                 the port's coordinator's cluster of two journaled servers,
-                4096 set_row each, do_mix, both tables bitwise the union
+                2048 set_row each (4096 before phase 15 came), do_mix, both tables bitwise the union
                 applied in the master's order, a second do_mix changing
                 nothing, server 1 SIGKILLed and recovered bitwise through
                 its signature kernel.  Lines `nn_service` and `nn_cluster`
@@ -180,7 +180,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 (masked) on both; inverted_index at 10^6 rows, 1%
                 dropped, 32 reads each one K4 launch, four against the
                 plain version.  (c) Anomaly: bench.py's lof over
-                euclid_lsh H 64 on a port server, 4,096 adds over the
+                euclid_lsh H 64 on a port server, 2,048 adds over the
                 wire (the in-process driver's add overlapping each after
                 the first 512, which are timed alone) and 64 calc_score
                 reads, every score bitwise the driver's, each sweep one
@@ -206,7 +206,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 ivf, the same reads through K7 against its plain version
                 and K4's full sweep; (c) over the wire, a nearest_neighbor
                 server with --index lsh_probe --index_probes 4 and a
-                recommender inverted_index server with --index ivf, 16,384
+                recommender inverted_index server with --index ivf, 10,240
                 writes each (above min_rows), 64 reads each bitwise an
                 in-process driver's, one K6 (K7) launch a read on both
                 sides, and the get_status index keys; (d) anomaly lof over
@@ -234,9 +234,9 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the twin's read ms, device bytes spilled and resident, the
                 spill counters (`spill_nn` and `spill_reco` lines); (d)
                 anomaly lof over euclid_lsh H 64 with a quarter of its
-                pages resident, 2,048 adds and 64 calc_scores, bitwise a
+                pages resident, 1,024 adds and 64 calc_scores, bitwise a
                 CPU driver's; (e) a nearest_neighbor server with a spill
-                config, 16,384 set_rows and 64 reads over the wire,
+                config, 8,192 set_rows and 64 reads over the wire,
                 bitwise an in-process driver's, get_status's page keys and
                 spill counters
  14. partition — the partition plane (--routing partition): (a) in
@@ -252,13 +252,13 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the plain version on the same card tensors; (b) over the
                 wire on the card, the port's coordinator, 2 then 3
                 nearest_neighbor servers (NN_CONFIG) behind the port's
-                proxy (cli/proxy.py --routing partition): 16,384 set_rows
-                through it, 256 reads of each of the four read forms at 2
+                proxy (cli/proxy.py --routing partition): 8,192 set_rows
+                through it (16,384 before phase 15 came), 128 reads of each of the four read forms at 2
                 partitions, a third server's join and the journal-less
                 handoff until the partitions are disjoint and sum to the
                 total, the reads again at 3; a 2-server recommender
                 (bench.py:914-919's inverted_index, 1,024 columns, 16
-                entries a row) with 16,384 update_rows and 256 reads of
+                entries a row) with 8,192 update_rows and 128 reads of
                 each form; every answer equal to the plain version's over
                 a full table holding the same rows, scores exact and ids
                 tie-aware; (c) anomaly lof over euclid_lsh H 64 in process
@@ -268,8 +268,36 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 A `partition {...}` line: the reads' p50/p99 through the
                 proxy at 2 and 3 partitions, the merge's ms, the
                 handoff's rows/s and bytes, the phase's seconds
- 15. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 14; counters are zeroed just before each path, and a
+ 15. operating — the operating plane (ROADMAP Queue 1 items 3.3, 3.4),
+                its servers subprocesses started at once: (a) the four
+                train modes at bench_ingest_pipeline's shape (64 clients x
+                25 requests x 4 rows, --thread 64) on the sequential AROW
+                config: per-request (--batch_max 1 --batch_window_us 0
+                --ingest_depth 0), batched (--ingest_depth 0), pipelined
+                (the defaults) and inline (--dispatch inline), each with
+                its samples/s, get_status stage totals and train_scan
+                launches; then each cleared and trained by one client on
+                the same requests in wire order, every model (and a fifth
+                server's with the tracer on) bitwise equal; (b) classify
+                qps at bench_tracing_overhead's 16 clients x 25 requests
+                without and with --trace_ring 4096 --slow_op_ms 10000, in
+                turns; (c) a traced two-server --mix_quantize round: the
+                applied mix.round span beside the smoke's wall time, its
+                mix.get_diff.leg / mix.put_diff.leg records, mix_bytes_*,
+                both quantizer kernels launched; (d) a traced
+                similar_row_from_datum through the port's proxy at 2
+                partitions (2,048 rows), its p50 split into the proxy's
+                rpc span, proxy.forward, the members' rpc spans and
+                proxy.partition_merge; (e) the exporter's /metrics keys
+                equal to get_metrics' (the launch and train counters
+                equal), /metrics.json, /traces.json, /livez; (f) a
+                --torch_profile server: 8 trains of 1,024 and 32
+                classifies, SIGTERM, its Chrome trace naming train_scan,
+                the trace's bytes and the trains' ms beside the pipelined
+                server's.  Lines `operating_modes {...}` and
+                `operating {...}`
+ 16. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 15; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -529,6 +557,12 @@ class WireClient:
 
     def call(self, method, *args):
         return self.send(self.frame(method, *args), method)
+
+    def call_bare(self, method, *args):
+        """A call without the cluster name (the proxy's own RPCs)."""
+        self.msgid += 1
+        return self.send(self._msgpack.packb(
+            [0, self.msgid, method, list(args)], use_bin_type=True), method)
 
     def receive(self):
         """The result of the one request sent by hand (sock.sendall of a
@@ -2464,7 +2498,8 @@ NN_NNZ = 16                # features a datum
 NN_NEW = 1024              # set_row calls over the wire
 NN_READS = 256             # calls of each read method over the wire
 NN_SIZE = 10               # their result size
-NN_CLUSTER_ROWS = 4096     # set_row calls to each cluster server
+NN_CLUSTER_ROWS = 2048     # set_row calls to each cluster server (4,096
+                           # before phase 15 came)
 NN_SWEEP_ROWS = 10 ** 6    # rows of the sweep kernel's tables
 NN_SIG_B = 1024            # datums of the signature kernels' batches
 NN_RTOL = NN_ATOL = 1e-6   # euclid_lsh scores
@@ -3383,10 +3418,11 @@ RECO_ROWS = 8192        # update_row calls over the wire
 RECO_EXACT_ROWS = 10 ** 6
 RECO_DROPS = 64         # clear_row calls: holes in the store's mask
 RECO_READS = 64         # similar_row_from_datum calls
-ANOM_ADDS = 4096        # add calls over the wire (16,384 before phase
+ANOM_ADDS = 2048        # add calls over the wire (16,384 before phase
 #                         12: the whole smoke then ran past 800 s, with
 #                         those adds taking 130-185 s of it; 8,192 until
-#                         phase 13 came, 67 s of the smoke's 836)
+#                         phase 13 came, 67 s of the smoke's 836; 4,096
+#                         until phase 15 came)
 LOF_ROWS = 16384        # rows of K5's LOF-table shapes (phase 11a)
 ANOM_TIMED = 512        # of them sent alone, their wire time kept
 ANOM_EXACT_ADDS = 1024  # adds of the exact LOF in process (K4 dense_dots)
@@ -4051,7 +4087,8 @@ INDEX_WINDOW = 32          # wire writes in flight at once
 INDEX_PROTOS = 4096        # bench.py:1243's prototypes
 INDEX_READS = 64           # reads of each route
 INDEX_PROBES = 4           # bench.py's probes
-INDEX_WIRE_ROWS = 16384    # writes to each server: above min_rows 8,192
+INDEX_WIRE_ROWS = 10240    # writes to each server: above min_rows 8,192
+                           # (16,384 before phase 15 came)
 INDEX_ANOM_ADDS = 2048
 INDEX_ANOM_CONFIG = dict(LOF_CONFIG, index={"min_rows": 0})
 IVF_CONFIG = {             # bench.py:1226: inverted_index on 4096 columns
@@ -4625,10 +4662,10 @@ SPILL_RECO_ROWS = 250_000
 SPILL_RECO_BUDGET = 488
 SPILL_READS = 64           # reads of each route, checked and timed
 SPILL_SPLITS = 8           # reads split by stage
-SPILL_ANOM_ADDS = 2048
+SPILL_ANOM_ADDS = 1024     # 2,048 before phase 15 came
 SPILL_ANOM_READS = 64
-SPILL_WIRE_ROWS = 16_384
-SPILL_WIRE_BUDGET = 32     # a quarter of the wire table's 128 pages
+SPILL_WIRE_ROWS = 8_192    # 16,384 before phase 15 came
+SPILL_WIRE_BUDGET = 16     # a quarter of the wire table's 64 pages
 SPILL_WIRE_READS = 64
 
 
@@ -5164,11 +5201,13 @@ def spill_dots_rows(torch, np, device="cuda"):
 
 # phase 14: the partition plane
 PART_QUERIES = 64          # stored rows read back through their payloads
-PART_WIRE_ROWS = 16384     # set_row / update_row calls through the proxy
+PART_WIRE_ROWS = 8192      # set_row / update_row calls through the proxy
+                           # (16,384 before phase 15 came)
 PART_CONNS = 16            # client connections writing at once (the proxy
 PART_WINDOW = 16           # serves a connection's requests in order), each
 #                            with this many requests in flight
-PART_READS = 256           # reads of each form through the proxy
+PART_READS = 128           # reads of each form through the proxy (256
+                           # before phase 15 came)
 PART_ANOM_ROWS = 256       # anomaly rows over 2 ring partitions
 PART_ANOM_READS = 64       # calc_score_partial queries
 PART_GRACE = "1.5"         # --partition_handoff_grace of the servers
@@ -5561,8 +5600,15 @@ def phase_partition_wire(torch, np, device="cuda"):
             def converged():
                 st = cli.call("get_status")
                 rows = [int(v.get("partition_rows", 0)) for v in st.values()]
-                return (len(rows) == 3 and sum(rows) == PART_WIRE_ROWS
-                        and all(rows)), st
+                if not (len(rows) == 3 and sum(rows) == PART_WIRE_ROWS
+                        and all(rows)):
+                    return False, st
+                # the members answer get_status one after another, so
+                # the sum can match mid-handoff (a row counted at neither
+                # end, another at both): the layout itself must be done
+                held = part_held(cli, servers + [third], name)
+                return (all(held) and sum(map(len, held))
+                        == len(set().union(*held)) == PART_WIRE_ROWS), st
             deadline = time.monotonic() + 120
             while True:
                 ok, st = converged()
@@ -5871,6 +5917,509 @@ def phase_spill(torch, np, device="cuda"):
     return counts, row, cells
 
 
+# ---------------------------------------------------------------------------
+# 15. the operating plane: the train modes, the tracer, the exporter, the
+# traced MIX round and proxy read, --torch_profile
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_ingest_pipeline (bench.py:484-536) and
+# bench_tracing_overhead (:539-552) shapes
+OP_CLIENTS = 64
+OP_REQS = 25               # train requests of each client
+OP_ROWS = 4                # single-token datums a request
+OP_READ_CLIENTS = 16
+OP_READ_REQS = 25
+OP_WINDOW = 32             # requests in flight on the sequential client
+OP_MODES = {
+    "per_request": ("--batch_max", "1", "--batch_window_us", "0",
+                    "--ingest_depth", "0"),
+    "batched": ("--ingest_depth", "0"),
+    "pipelined": (),
+    "inline": ("--dispatch", "inline"),
+}
+OP_TRACE = ("--trace_ring", "4096", "--slow_op_ms", "10000")
+OP_STAGE_KEYS = ("rpc.train_total_sec", "convert_lock_wait_total_sec",
+                 "ingest.convert_total_sec", "batch.train.step_total_sec",
+                 "batch.train.size_mean", "ingest_pipeline_stall_total",
+                 "ingest_pipeline", "dispatch_mode")
+OP_PART_ROWS = 2048        # set_rows through the proxy at 2 partitions
+OP_PART_READS = 64
+OP_PROFILE_TRAINS = 8
+OP_PROFILE_B = 1024
+OP_PROFILE_READS = 32
+
+
+def op_train_request(tid, r):
+    """bench.py's _train_clients datums: OP_ROWS single-token datums,
+    distinct per (client, request)."""
+    return [[f"l{i % 8}", [[["w", f"t{tid}_{r}_{i}"]], [], []]]
+            for i in range(OP_ROWS)]
+
+
+def op_train_load(port):
+    """OP_CLIENTS connections on threads, each a warm request, then
+    OP_REQS train requests one at a time; the window closes with a
+    classify (bench.py's fence).  -> samples/s."""
+    import threading
+    barrier = threading.Barrier(OP_CLIENTS + 1, timeout=600)
+    errs = []
+
+    def worker(tid):
+        cli = WireClient(port)
+        try:
+            cli.call("train", op_train_request(tid, "warm"))
+            barrier.wait()
+            for r in range(OP_REQS):
+                if cli.call("train", op_train_request(tid, r)) != OP_ROWS:
+                    raise AssertionError("operating: a train was not acked")
+            barrier.wait()
+        except threading.BrokenBarrierError:
+            pass
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+            barrier.abort()
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(OP_CLIENTS)]
+    for t in threads:
+        t.start()
+    fence = WireClient(port)
+    try:
+        barrier.wait()
+        t0 = time.perf_counter()
+        barrier.wait()
+        fence.call("classify", [[[["w", "t0_0_0"]], [], []]])
+        dt = time.perf_counter() - t0
+    except threading.BrokenBarrierError:
+        dt = None
+    finally:
+        fence.close()
+    for t in threads:
+        t.join(timeout=120)
+    if errs:
+        raise errs[0]
+    return OP_CLIENTS * OP_REQS * OP_ROWS / dt
+
+
+def op_sequential(port):
+    """clear, then the load's requests (client-major) from ONE client in
+    wire order, OP_WINDOW in flight."""
+    cli = WireClient(port)
+    try:
+        if cli.call("clear") is not True:
+            raise AssertionError("operating: clear failed")
+        frames = [cli.frame("train", op_train_request(t, r))
+                  for t in range(OP_CLIENTS) for r in range(OP_REQS)]
+        for w0 in range(0, len(frames), OP_WINDOW):
+            win = frames[w0:w0 + OP_WINDOW]
+            cli.sock.sendall(b"".join(win))
+            for _ in win:
+                if cli.receive() != OP_ROWS:
+                    raise AssertionError("operating: a sequential train "
+                                         "was not acked")
+        return cli.call("get_labels")
+    finally:
+        cli.close()
+
+
+def op_classify_qps(np, port, datums):
+    """OP_READ_CLIENTS connections, OP_READ_REQS one-datum classifies
+    each, one at a time -> (qps, p50 ms)."""
+    import threading
+    lat, errs = [], []
+
+    def worker(k):
+        cli = WireClient(port)
+        try:
+            for r in range(OP_READ_REQS):
+                d = datums[k * OP_READ_REQS + r]
+                t0 = time.perf_counter()
+                cli.call("classify", [d])
+                lat.append((time.perf_counter() - t0) * 1e3)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(OP_READ_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    dt = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return OP_READ_CLIENTS * OP_READ_REQS / dt, pct(np, lat, 50)
+
+
+def op_scrape(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def op_spans(spans, name):
+    return [s for s in spans if s["name"] == name]
+
+
+def phase_operating(torch, np, card, device="cuda"):
+    """Phase 15: the operating plane on the card, its servers as
+    subprocesses started at once.  (a) The four train modes
+    (per-request, batched, pipelined, inline) at bench_ingest_pipeline's
+    shape (OP_CLIENTS clients x OP_REQS requests x OP_ROWS rows,
+    --thread 64), the smoke's sequential AROW config, so every mode
+    launches train_scan: samples/s, the stage totals of get_status and
+    the launches; then each server cleared and trained by one client on
+    the same requests in wire order, and every model (a fifth server
+    with the tracer on too) bitwise equal.  (b) Classify qps at
+    bench_tracing_overhead's OP_READ_CLIENTS x OP_READ_REQS without and
+    with `--trace_ring 4096 --slow_op_ms 10000`, in turns.  (c) A traced
+    two-server --mix_quantize round: the applied mix.round span beside
+    the smoke's wall time, its leg records, mix_bytes_* and the
+    quantizer launches.  (d) A traced read through the port's proxy at 2
+    partitions, split into proxy.forward, the members' rpc.* spans and
+    proxy.partition_merge.  (e) The exporter's /metrics against
+    get_metrics.  (f) A --torch_profile server: OP_PROFILE_TRAINS trains
+    and OP_PROFILE_READS classifies, the trace naming train_scan, the
+    trains' ms beside a server without the profiler.  On the CPU (a
+    rehearsal) the launch and kernel-name checks are skipped.  -> the
+    servers' kernel launches, summed."""
+    from collections import Counter
+    from contextlib import closing
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    launches = Counter()
+    children = []
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "classifier.json")
+        with open(cfg_path, "w") as f:
+            json.dump(SERVER_CONFIG, f)
+        nn_path = os.path.join(tmp, "nn.json")
+        with open(nn_path, "w") as f:
+            json.dump(NN_CONFIG, f)
+        prof_dir = os.path.join(tmp, "profile")
+        try:
+            t0 = time.perf_counter()
+            coord = Child(["jubatus_tpu_torch.cluster.coordinator",
+                           "--rpc-port", "0", "--listen_addr", "127.0.0.1"])
+            children.append(coord)
+            modes = {m: start_server("classifier", cfg_path, tmp, "--thread",
+                                     str(OP_CLIENTS), *flags,
+                                     device=device)[0]
+                     for m, flags in OP_MODES.items() if m != "pipelined"}
+            prof = start_server("classifier", cfg_path, tmp,
+                                "--torch_profile", prof_dir,
+                                device=device)[0]
+            children.extend([*modes.values(), prof])
+            addr = coord.wait_line("jubacoordinator", 120).split()[-1]
+            # the pipelined server and the traced one (its flags and
+            # the exporter beside the pipelined defaults) are also (c)'s
+            # two-member v3 cluster; the trigger stays out of reach
+            mix_flags = ("--name", "op_mix", "--coordinator", addr,
+                         "--mix_quantize", "--interval_sec", "100000",
+                         "--interval_count", "100000000")
+            modes["pipelined"] = start_server(
+                "classifier", cfg_path, tmp, "--thread", str(OP_CLIENTS),
+                *mix_flags, device=device)[0]
+            traced = start_server(
+                "classifier", cfg_path, tmp, "--thread", str(OP_CLIENTS),
+                *OP_TRACE, "--metrics_port", "-1", *mix_flags,
+                device=device)[0]
+            children.extend([modes["pipelined"], traced])
+            parts = [start_server(
+                "nearest_neighbor", nn_path, tmp, "--name", "op_part",
+                "--coordinator", addr, "--routing", "partition",
+                "--trace_ring", "8192", "--interval_sec", "100000",
+                "--interval_count", "100000000", device=device)[0]
+                for _ in range(2)]
+            children.extend(parts)
+            ready = {}
+            for name, child in [*modes.items(), ("traced", traced),
+                                ("profile", prof)] \
+                    + [(f"part{i}", c) for i, c in enumerate(parts)]:
+                line = child.wait_line("jubatus ready", 300).split()
+                ready[name] = (int(line[2].split("=")[1]),
+                               int(line[3].split("=")[1]))
+            # the proxy after its members, with the tracer on
+            proxy = Child(["jubatus_tpu_torch.cli.proxy", "--type",
+                           "nearest_neighbor", "--coordinator", addr,
+                           "--rpc-port", "0", "--listen_addr", "127.0.0.1",
+                           "--routing", "partition", "--thread", "16",
+                           "--trace_ring", "8192"])
+            children.append(proxy)
+            pport = int(proxy.wait_line("jubatus ready", 300).split()[2]
+                        .split("=")[1])
+            startup_s = time.perf_counter() - t0
+
+            # (a) the four train modes
+            modes_out = {}
+            for mode in OP_MODES:
+                port = ready[mode][0]
+                sps = op_train_load(port)
+                with closing(WireClient(port)) as cli:
+                    st = status_of(cli)
+                modes_out[mode] = {
+                    "samples_per_s": round(sps, 1),
+                    **{k: st.get(k) for k in OP_STAGE_KEYS},
+                    "train_scan": launches_of(st).get("train_scan", 0)}
+                if on_card and modes_out[mode]["train_scan"] <= 0:
+                    raise AssertionError(f"operating: {mode} never launched "
+                                         "train_scan")
+            want_mode = {"per_request": ("threaded", "0"),
+                         "batched": ("threaded", "0"),
+                         "pipelined": ("threaded", "1"),
+                         "inline": ("inline", "0")}
+            for mode, (dm, ip) in want_mode.items():
+                got = (modes_out[mode]["dispatch_mode"],
+                       modes_out[mode]["ingest_pipeline"])
+                if got != (dm, ip):
+                    raise AssertionError(f"operating: {mode} reports "
+                                         f"{got}, not {(dm, ip)}")
+            labels = {}
+            tables = {}
+            for mode in [*OP_MODES, "traced"]:
+                port = ready[mode][0]
+                labels[mode] = op_sequential(port)
+                if mode in OP_MODES:     # the traced one: (b)'s model
+                    with closing(WireClient(port)) as cli:
+                        tables[mode] = saved_tables(np, cli, "classifier",
+                                                    SERVER_CONFIG)
+            ref = tables["per_request"]
+            diffs = {m: [k for k in ref if not np.array_equal(ref[k], t[k])]
+                     for m, t in tables.items()}
+            for m in labels:
+                t = tables.get(m, ref)
+                if sorted(t) != sorted(ref) or diffs.get(m) \
+                        or labels[m] != labels["per_request"]:
+                    raise AssertionError(
+                        f"operating: the {m} model differs from the "
+                        f"per-request one at {diffs[m][:4]}")
+            log("operating_modes " + json.dumps({
+                "card": card, "clients": OP_CLIENTS, "reqs": OP_REQS,
+                "rows": OP_ROWS, "modes": modes_out,
+                "sequential_bitwise_equal": True,
+                "labels": sum(labels["per_request"].values())}))
+            out["modes"] = modes_out
+
+            # (b) tracing overhead: classify qps off / on, in turns
+            datums = [[[["w", f"tok{i}"]], [["x", float(rng.random())]], []]
+                      for i in range(OP_READ_CLIENTS * OP_READ_REQS)]
+            qps = {"off": [], "on": []}
+            p50 = {"off": [], "on": []}
+            for which in ("pipelined", "traced"):     # first reads apart
+                with closing(WireClient(ready[which][0])) as cli:
+                    cli.call("classify", datums[:1])
+            for which in ("off", "on", "on", "off"):
+                port = ready["pipelined" if which == "off" else "traced"][0]
+                q, p = op_classify_qps(np, port, datums)
+                qps[which].append(round(q, 1))
+                p50[which].append(round(p, 3))
+            with closing(WireClient(ready["traced"][0])) as cli:
+                (spans,) = cli.call("get_traces").values()
+                tst = status_of(cli)
+            if tst["tracing_enabled"] != "1" or not op_spans(
+                    spans, "rpc.classify"):
+                raise AssertionError("operating: the traced server kept "
+                                     "no rpc.classify span")
+            out["tracing"] = {"qps_off": qps["off"], "qps_on": qps["on"],
+                              "p50_ms_off": p50["off"],
+                              "p50_ms_on": p50["on"],
+                              "spans_kept": len(spans)}
+
+            # (e) the exporter against get_metrics at the same moment
+            mport = ready["traced"][1]
+            with closing(WireClient(ready["traced"][0])) as cli:
+                cli.call("get_metrics")         # its own series exist
+                code, text = op_scrape(mport, "/metrics")
+                (met,) = cli.call("get_metrics").values()
+            prom = {}
+            for line in text.splitlines():
+                name, value = line.rsplit(" ", 1)
+                prom[name] = float(value)
+            import re as _re
+            want = {}
+            for k, v in met.items():
+                try:
+                    want["jubatus_" + _re.sub(r"[^a-zA-Z0-9_:]", "_", k)] = \
+                        float(v)
+                except ValueError:
+                    pass
+            frozen = [k for k in want if "kernel_launches" in k
+                      or k.startswith("jubatus_rpc_train")]
+            if code != 200 or set(prom) != set(want) or any(
+                    prom[k] != want[k] for k in frozen):
+                raise AssertionError(
+                    "operating: /metrics differs from get_metrics: "
+                    f"{sorted(set(prom) ^ set(want))[:6]}")
+            for path in ("/metrics.json", "/traces.json", "/livez"):
+                if op_scrape(mport, path)[0] != 200:
+                    raise AssertionError(f"operating: {path} failed")
+            out["exporter"] = {"keys": len(prom), "frozen_equal": len(frozen)}
+
+            # (c) a traced --mix_quantize round, mastered by the traced
+            # server
+            mcli = [WireClient(ready[m][0], "op_mix")
+                    for m in ("traced", "pipelined")]
+            try:
+                for i, c in enumerate(mcli):
+                    if c.call("train", bench_batch(rng, REQ_B,
+                                                   label_offset=i)) != REQ_B:
+                        raise AssertionError("operating: a mix train failed")
+                t_mix = time.perf_counter()
+                if mcli[0].call("do_mix") is not True:
+                    raise AssertionError("operating: do_mix failed")
+                mix_wall = (time.perf_counter() - t_mix) * 1e3
+                (mspans,) = mcli[0].call("get_traces").values()
+                mst = [status_of(c) for c in mcli]
+            finally:
+                for c in mcli:
+                    c.close()
+            rounds = [s for s in op_spans(mspans, "mix.round")
+                      if "applied" in s["tags"]]
+            if len(rounds) != 1 or rounds[0]["tags"]["applied"] != 2:
+                raise AssertionError(f"operating: mix.round spans {rounds}")
+            legs = {m: [{"peer": s["tags"]["peer"], "ok": s["tags"]["ok"],
+                         "round": s["tags"]["round"],
+                         "ms": round(s["duration_s"] * 1e3, 3)}
+                        for s in op_spans(mspans, f"mix.{m}.leg")]
+                    for m in ("get_diff", "put_diff")}
+            if [len(v) for v in legs.values()] != [2, 2] or not all(
+                    leg["ok"] for v in legs.values() for leg in v):
+                raise AssertionError(f"operating: mix legs {legs}")
+            q = [launches_of(s) for s in mst]
+            for k in ("quantize_int8", "dequantize_int8"):
+                if on_card and any(x.get(k, 0) <= 0 for x in q):
+                    raise AssertionError(f"operating: {k} not launched in "
+                                         "a traced round's server")
+            out["mix"] = {
+                "round_span_ms": round(rounds[0]["duration_s"] * 1e3, 3),
+                "smoke_wall_ms": round(mix_wall, 3),
+                "tags": rounds[0]["tags"], "legs": legs,
+                **{k: mst[0].get(k) for k in (
+                    "mix_bytes_sent_total", "mix_bytes_received_total",
+                    "mix_bytes_total", "mix_compression_ratio")},
+                "quantize_int8": sum(x.get("quantize_int8", 0) for x in q),
+                "dequantize_int8": sum(x.get("dequantize_int8", 0)
+                                       for x in q)}
+
+            # (d) a traced read through the proxy at 2 partitions
+            pcli = WireClient(pport, "op_part")
+            try:
+                data = nn_datums(np, rng, OP_PART_ROWS + OP_PART_READS)
+                for i in range(OP_PART_ROWS):
+                    if pcli.call("set_row", f"p{i}",
+                                 nn_wire(data[i])) is not True:
+                        raise AssertionError("operating: a set_row failed")
+                lat = []
+                for d in data[OP_PART_ROWS:]:
+                    t1 = time.perf_counter()
+                    got = pcli.call("similar_row_from_datum", nn_wire(d),
+                                    NN_SIZE)
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    if len(got) != NN_SIZE:
+                        raise AssertionError("operating: a short read")
+                pspans = pcli.call_bare("get_proxy_traces")
+                members = pcli.call("get_traces")
+                pst = []
+                for i in range(2):
+                    with closing(WireClient(ready[f"part{i}"][0])) as cli:
+                        pst.append(status_of(cli))
+            finally:
+                pcli.close()
+            read = "similar_row_from_datum"
+
+            def ms(spans, name, **tags):
+                return [s["duration_s"] * 1e3 for s in spans
+                        if s["name"] == name and all(
+                            s["tags"].get(k) == v for k, v in tags.items())]
+            member_spans = [s for v in members.values() for s in v]
+            split = {
+                "client_ms": lat,
+                "proxy_rpc_ms": ms(pspans, f"rpc.{read}"),
+                "forward_ms": ms(pspans, "proxy.forward", method=read),
+                "member_rpc_ms": ms(member_spans, f"rpc.{read}"),
+                "merge_ms": ms(pspans, "proxy.partition_merge",
+                               method=read)}
+            if len(split["forward_ms"]) < 2 * OP_PART_READS or len(
+                    split["merge_ms"]) != OP_PART_READS or len(
+                    split["member_rpc_ms"]) < 2 * OP_PART_READS:
+                counts = {k: len(v) for k, v in split.items()}
+                raise AssertionError("operating: the proxy's read spans "
+                                     f"are missing: {counts}")
+            rows = sum(int(s["partition_rows"]) for s in pst)
+            if rows != OP_PART_ROWS:
+                raise AssertionError(f"operating: partitions hold {rows} "
+                                     f"rows, not {OP_PART_ROWS}")
+            for s in pst:
+                launches.update(launches_of(s))
+            out["proxy_split"] = {
+                "partitions": 2, "rows": OP_PART_ROWS,
+                **{k.replace("_ms", "_p50_ms"): round(pct(np, v, 50), 4)
+                   for k, v in split.items()},
+                "client_p99_ms": round(pct(np, lat, 99), 4)}
+
+            # (f) --torch_profile: trains with and without the profiler
+            batches = [bench_batch(rng, OP_PROFILE_B)
+                       for _ in range(OP_PROFILE_TRAINS)]
+            twin = WireClient(ready["pipelined"][0])
+            pc = WireClient(ready["profile"][0])
+            t_prof, t_twin = [], []
+            try:
+                for b in batches:
+                    for cli, acc in ((pc, t_prof), (twin, t_twin)):
+                        t1 = time.perf_counter()
+                        if cli.call("train", b) != OP_PROFILE_B:
+                            raise AssertionError("operating: a profiled "
+                                                 "train failed")
+                        acc.append((time.perf_counter() - t1) * 1e3)
+                for d in datums[:OP_PROFILE_READS]:
+                    pc.call("classify", [d])
+                prof_launches = launches_of(status_of(pc))
+            finally:
+                pc.close()
+                twin.close()
+            prof.p.terminate()     # SIGTERM: the trace is written then
+            prof.p.wait(timeout=300)
+            if prof.p.returncode != 0:
+                raise AssertionError("operating: the profiled server "
+                                     f"exited {prof.p.returncode}:\n"
+                                     + "".join(prof.tail))
+            import glob
+            (trace,) = glob.glob(os.path.join(prof_dir, "torch_trace_*"))
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+            if on_card and not any("train_scan" in k for k in kernels):
+                raise AssertionError("operating: the profiler's trace names "
+                                     f"no train_scan: {sorted(kernels)[:8]}")
+            launches.update(prof_launches)
+            out["profile"] = {
+                "trace_bytes": os.path.getsize(trace),
+                "kernel_names": len(kernels),
+                "train_ms_profiled": [round(x, 3) for x in t_prof],
+                "train_ms_plain": [round(x, 3) for x in t_twin],
+                "train_p50_ms_profiled": round(pct(np, t_prof, 50), 3),
+                "train_p50_ms_plain": round(pct(np, t_twin, 50), 3)}
+            for mode in [*OP_MODES, "traced"]:
+                with closing(WireClient(ready[mode][0])) as cli:
+                    launches.update(launches_of(status_of(cli)))
+            out["startup_s"] = round(startup_s, 3)
+        finally:
+            for c in reversed(children):
+                c.stop()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    out["card"] = card
+    log("operating " + json.dumps(out))
+    return dict(launches)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -5968,6 +6517,11 @@ def main() -> int:
     partition_counts += [phase_partition_wire(torch, np),
                          phase_partition_anomaly(torch, np)]
     log(f"partition: phase 14 in {time.perf_counter() - t14:.1f} s")
+    # 15. the operating plane: the train modes, the tracer, the exporter,
+    # a traced MIX round and proxy read, --torch_profile
+    t15 = time.perf_counter()
+    operating_counts = phase_operating(torch, np, card)
+    log(f"operating: phase 15 in {time.perf_counter() - t15:.1f} s")
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
@@ -5995,6 +6549,9 @@ def main() -> int:
     def partition_served(kern):
         return sum(c.get(kern, 0) for c in partition_counts)
 
+    def operating_served(kern):
+        return operating_counts.get(kern, 0)
+
     # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
@@ -6005,21 +6562,26 @@ def main() -> int:
     # K7's are phase 12's (in process, its servers' and anomaly's); K5's
     # scores mode and K4 dense_dots on a spilled table are phase 13's;
     # phase 14 adds the partition plane's: its in-process partial reads,
-    # its server processes' and anomaly's legs
+    # its server processes' and anomaly's legs; phase 15 its servers' (the
+    # train modes', the traced round's, the proxy's members', the
+    # profiled server's)
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
                           mix_counts["quantize_int8"]
                           + reg_mix_counts["quantize_int8"]
-                          + served("quantize_int8")),
+                          + served("quantize_int8")
+                          + operating_served("quantize_int8")),
         "dequantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                             "jubatus_tpu/parallel/quantized.py:88",
                             mix_counts["dequantize_int8"]
                             + reg_mix_counts["dequantize_int8"]
-                            + served("dequantize_int8")),
+                            + served("dequantize_int8")
+                            + operating_served("dequantize_int8")),
         "train_scan": ("jubatus_tpu_torch/csrc/train_scan.cu",
                        "jubatus_tpu/models/classifier.py:59",
-                       server_counts["train_scan"] + served("train_scan")),
+                       server_counts["train_scan"] + served("train_scan")
+                       + operating_served("train_scan")),
         "regression_train_scan": ("jubatus_tpu_torch/csrc/regression_scan.cu",
                                   "jubatus_tpu/models/regression.py:32",
                                   reg_counts["regression_train_scan"]
@@ -6028,14 +6590,16 @@ def main() -> int:
                           "jubatus_tpu/ops/lsh.py:51",
                           nn_served("lsh_signature")
                           + row_served("lsh_signature")
-                          + partition_served("lsh_signature")),
+                          + partition_served("lsh_signature")
+                          + operating_served("lsh_signature")),
         "minhash_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                               "jubatus_tpu/ops/lsh.py:67",
                               nn_served("minhash_signature")),
         "sig_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
                      "jubatus_tpu/ops/lsh.py:189",
                      nn_served("sig_topk") + row_served("sig_topk")
-                     + partition_served("sig_topk")),
+                     + partition_served("sig_topk")
+                     + operating_served("sig_topk")),
         # phase 11: K4 and K5 (K3's launches above count the recommender's
         # masked reads and the NN classifier's classifies too)
         "dense_topk": ("jubatus_tpu_torch/csrc/lsh.cu",

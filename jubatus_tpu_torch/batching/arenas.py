@@ -15,7 +15,8 @@ the CPU they are plain 64-byte-aligned numpy buffers (pinning needs CUDA).
 acquire() hands the C side a writable numpy view; for a pinned arena the
 view's base is the pinned tensor, which pinned_tensor() returns for the
 copy.  Each driver owns one pool (models/classifier.py) of
-MAX_PER_SIZE arenas a size class, the JAX server's --arena_pool default.
+MAX_PER_SIZE arenas a size class, the JAX server's --arena_pool default;
+the server's --arena_pool resizes it (configure).
 
 Recycling rule: the copy of a pinned arena runs asynchronously, and on the
 CPU the device step aliases the arena zero-copy, so an arena must not be
@@ -27,11 +28,12 @@ batches releases at its periodic sync points
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from jubatus_tpu_torch.analysis.lockgraph import MonitoredLock
 
 _ALIGN = 64
 _SIZE_QUANTUM = 4096
@@ -62,7 +64,12 @@ class ArenaPool:
         self.hits = 0
         self.misses = 0
         self._free: Dict[int, List[np.ndarray]] = {}
-        self._lock = threading.Lock()
+        self._lock = MonitoredLock("pool")
+
+    def configure(self, max_per_size: int) -> None:
+        """Resize the per-class bound (0 keeps no arena); a free list
+        already above it takes no more releases."""
+        self.max_per_size = max(0, int(max_per_size))
 
     def acquire(self, nbytes: int) -> np.ndarray:
         size = _size_class(nbytes)

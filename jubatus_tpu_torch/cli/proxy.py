@@ -7,20 +7,25 @@
         [--partial_failure strict|quorum|best_effort] \
         [--thread 4] [--timeout 10] [--session_pool_expire 60] \
         [--rpc_retry_max 2] [--rpc_retry_backoff_ms 50] \
-        [--breaker_threshold 3] [--breaker_cooldown 5] [--eth ADDR]
+        [--breaker_threshold 3] [--breaker_cooldown 5] [--eth ADDR] \
+        [--query_cache_entries N] [--query_cache_bytes B] \
+        [--trace_ring N] [--slow_op_ms MS] [--metrics_port P] \
+        [--loglevel info] [--log_format plain|json]
 
 It routes every client request to the servers of the cluster <type>/<name>
 that the request names (framework/proxy.py); with --routing partition
 (set it on every server and proxy of the cluster) point ops go to the
 key's one ring owner and top-k reads scatter-gather.  The proxy holds no
-model and touches no card.  Like the JAX proxy's CLI it logs `... proxy
-listening on host:port` and then prints `jubatus ready rpc_port=N
-metrics_port=0 state=ready` on stdout; SIGTERM or SIGINT stops it.
+model and touches no card.  --query_cache_* turn on its epoch-keyed read
+cache, --trace_ring / --slow_op_ms its tracer (get_proxy_traces), and
+--metrics_port its exporter (/metrics, /metrics.json, /traces.json,
+/livez; negative: an ephemeral port).  Like the JAX proxy's CLI it logs
+`... proxy listening on host:port` and then prints `jubatus ready
+rpc_port=N metrics_port=M state=ready` on stdout; SIGTERM or SIGINT
+stops it.
 
-The JAX proxy's flags of later ROADMAP Queue 1 items are accepted at
-their defaults and refused otherwise, naming the item: the query cache,
-the tracer and the exporter (3.4), logging (3.3), and the autopilot
-(7).
+The JAX proxy's autopilot flags (ROADMAP Queue 1 item 7) are accepted at
+their defaults and refused otherwise, naming the item.
 """
 
 from __future__ import annotations
@@ -34,18 +39,13 @@ from typing import Optional, Sequence, Tuple
 
 from jubatus_tpu_torch.framework.proxy import Proxy, later_refusal
 from jubatus_tpu_torch.framework.service import SERVICES
+from jubatus_tpu_torch.obs.trace import TRACER
 from jubatus_tpu_torch.rpc.resilience import (PARTIAL_FAILURE_POLICIES,
                                               RetryPolicy)
+from jubatus_tpu_torch.utils import logger
 
 # (flag, its argparse keywords, the ROADMAP Queue 1 item that brings it)
 LATER_FLAGS = (
-    ("--query_cache_entries", {"type": int, "default": 0}, "3.4"),
-    ("--query_cache_bytes", {"type": int, "default": 0}, "3.4"),
-    ("--trace_ring", {"type": int, "default": 0}, "3.4"),
-    ("--slow_op_ms", {"type": float, "default": 0.0}, "3.4"),
-    ("--metrics_port", {"type": int, "default": 0}, "3.4"),
-    ("--log_format", {"default": "plain"}, "3.3"),
-    ("--loglevel", {"default": "info"}, "3.3"),
     ("--autopilot", {"action": "store_true"}, "7"),
     ("--autopilot_placement", {"type": int, "default": 1}, "7"),
     ("--autopilot_shed", {"type": int, "default": 1}, "7"),
@@ -98,6 +98,32 @@ def make_argparser() -> argparse.ArgumentParser:
                    help="seconds an open circuit waits before one "
                         "half-open probe call")
     p.add_argument("--eth", default="", help="advertised address override")
+    p.add_argument("--query_cache_entries", type=int, default=0,
+                   help="max entries of the epoch-keyed cache of CHT-routed, "
+                        "broadcast and partition-scatter reads (keyed on "
+                        "the target set; the epoch bumps on every "
+                        "mutating forward through THIS proxy and on a "
+                        "ring change); 0 with --query_cache_bytes 0: off")
+    p.add_argument("--query_cache_bytes", type=int, default=0,
+                   help="max total bytes of cached encoded answers (0: "
+                        "unbounded on this axis)")
+    p.add_argument("--trace_ring", type=int, default=0,
+                   help="finished spans kept in the ring (proxy.forward "
+                        "and proxy.partition_merge records, the "
+                        "requests' rpc.* spans; get_proxy_traces and "
+                        "/traces.json); 0 (default): no spans")
+    p.add_argument("--slow_op_ms", type=float, default=0.0,
+                   help="log one structured line a proxied request slower "
+                        "than this many ms; 0 (default): off")
+    p.add_argument("--metrics_port", type=int, default=0,
+                   help="serve /metrics, /metrics.json, /traces.json and "
+                        "/livez over HTTP on this port (get_proxy_status "
+                        "reports it); 0 (default): off; negative: an "
+                        "ephemeral port")
+    p.add_argument("--log_format", default="plain", choices=("plain", "json"),
+                   help="'json': one JSON object a log record, with the "
+                        "active trace and span ids")
+    p.add_argument("--loglevel", default="info")
     for flag, kw, item in LATER_FLAGS:
         p.add_argument(flag, help=later_refusal(flag, item) + "; only "
                        "the default is accepted", **kw)
@@ -122,21 +148,30 @@ def build(argv: Optional[Sequence[str]] = None
                  partial_failure=ns.partial_failure, retry=retry,
                  breaker_threshold=ns.breaker_threshold,
                  breaker_cooldown=ns.breaker_cooldown,
-                 routing=ns.routing), ns
+                 routing=ns.routing,
+                 query_cache_entries=ns.query_cache_entries,
+                 query_cache_bytes=ns.query_cache_bytes), ns
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     proxy, ns = build(argv)
+    logger.configure(level=ns.loglevel, fmt=ns.log_format)
+    TRACER.configure(ring=ns.trace_ring, slow_op_ms=ns.slow_op_ms)
     # the advertised address: --eth, else the listen address (a wildcard
     # listen advertises loopback), as the port's server does
     ip = ns.eth or (ns.listen_addr if ns.listen_addr not in ("", "0.0.0.0")
                     else "127.0.0.1")
     port = proxy.start(ns.rpc_port, host=ns.listen_addr, advertised_ip=ip)
+    if ns.metrics_port:
+        from jubatus_tpu_torch.obs.exporter import MetricsExporter
+        proxy.metrics_exporter = MetricsExporter(
+            collect=proxy.metrics_snapshot, ident=f"{ns.type}_proxy:{port}",
+            host=ns.listen_addr)
+        proxy.metrics_exporter.start(max(ns.metrics_port, 0))
     logging.info("jubatus_tpu_torch %s proxy listening on %s:%d",
                  ns.type, ns.listen_addr, port)
-    print(f"jubatus ready rpc_port={port} metrics_port=0 state=ready",
+    mp = proxy.metrics_exporter.port if proxy.metrics_exporter else 0
+    print(f"jubatus ready rpc_port={port} metrics_port={mp} state=ready",
           flush=True)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

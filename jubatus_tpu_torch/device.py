@@ -1,4 +1,4 @@
-"""Device resolution, fences and telemetry.
+"""Device resolution and fences.
 
 Every entry point of the port takes an explicit device.  The default is
 CUDA; the CPU is used only when the caller names it.  Asking for CUDA on a
@@ -9,7 +9,7 @@ reports device numbers really ran on the device.
 from __future__ import annotations
 
 import contextlib
-from typing import ContextManager, Dict, Optional, Union
+from typing import ContextManager, Optional, Union
 
 import torch
 
@@ -45,17 +45,3 @@ def device_sync(device: Optional[torch.device]) -> None:
     of jax.block_until_ready on a model leaf, models/base.py:281-298)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def device_telemetry(device: Optional[torch.device]) -> Dict[str, float]:
-    """Allocator gauges for get_status (counterpart of
-    jubatus_tpu/utils/metrics.py device_telemetry); empty on the CPU."""
-    if device is None or device.type != "cuda":
-        return {}
-    st = torch.cuda.memory_stats(device)
-    return {
-        "device_count": float(torch.cuda.device_count()),
-        "device_bytes_in_use": float(st.get("allocated_bytes.all.current", 0)),
-        "device_peak_bytes_in_use": float(st.get("allocated_bytes.all.peak", 0)),
-        "device_bytes_reserved": float(st.get("reserved_bytes.all.current", 0)),
-    }

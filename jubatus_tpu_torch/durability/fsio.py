@@ -48,6 +48,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import BinaryIO, List, Optional
 
+from jubatus_tpu_torch.analysis.lockgraph import MONITOR as _lock_monitor
 from jubatus_tpu_torch.utils import metrics as _metrics
 
 log = logging.getLogger("jubatus_tpu_torch.durability")
@@ -211,7 +212,7 @@ def _raise(f: FsFault, op: str, path: str) -> None:
 # -- primitives --------------------------------------------------------------
 # These are the ONLY call sites of os.fsync / os.replace in the port.
 # They deliberately do nothing clever: wrap the syscall, consult the
-# injector.
+# injector, report the blocking call to the lock-order detector.
 
 def fsync_file(fp: BinaryIO, *, path: str = "") -> None:
     """Flush Python buffers and force the file's bytes to stable
@@ -219,6 +220,7 @@ def fsync_file(fp: BinaryIO, *, path: str = "") -> None:
     after a failed fsync the kernel may have dropped the dirty pages and
     cleared the error — a retry "succeeds" while the data is gone, so
     the caller must fail-stop, never loop (journal.py stall semantics)."""
+    _lock_monitor.note_blocking("fsync_file")   # never under the write lock
     fp.flush()
     p = path or getattr(fp, "name", "") or ""
     f = _check("fsync", p)
@@ -230,6 +232,7 @@ def fsync_file(fp: BinaryIO, *, path: str = "") -> None:
 def fsync_dir(path: str) -> None:
     """fsync a DIRECTORY so a rename/create inside it survives a host
     crash (os.replace alone only orders the data, not the dir entry)."""
+    _lock_monitor.note_blocking("fsync_dir")
     f = _check("fsync", path)
     if f is not None:
         _raise(f, "fsync", path)

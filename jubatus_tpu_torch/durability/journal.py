@@ -45,9 +45,10 @@ the torn tail back to the last good frame boundary, and resumes —
 read-only degradation in between.
 
 Left out of the JAX module: the chaos crash points (crash_at=
-journal_append), the obs.health readiness conditions of a stall and the
-lock-order monitor (MonitoredLock, note_blocking); the locks here are
-plain threading locks.
+journal_append) and the obs.health readiness conditions of a stall
+(ROADMAP Queue 1 item 7).  Its two locks are named for the lock-order
+detector (analysis/lockgraph.py), and every fsync reports itself as a
+blocking operation (durability/fsio.py).
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from zlib import crc32
 
 import msgpack
 
+from jubatus_tpu_torch.analysis.lockgraph import MonitoredLock
 from jubatus_tpu_torch.durability import fsio
 from jubatus_tpu_torch.durability.fsio import fsync_dir, fsync_file
 from jubatus_tpu_torch.utils import metrics as _metrics
@@ -231,12 +233,13 @@ class Journal:
         self._closed_segments: List[SegmentInfo] = list(retained or [])
         self._registry = registry if registry is not None else _metrics.GLOBAL
         # fp/position/pending state; appenders take it under the model
-        # write lock, so the order is model_lock -> journal -> state
-        self._lock = threading.Lock()
+        # write lock, so the order is model_lock -> journal -> state (the
+        # names are the lock-order detector's, analysis/lockgraph.py)
+        self._lock = MonitoredLock("journal.state")
         # serializes sync/rotate/close so the fsync itself can run
         # OUTSIDE _lock: append() (called under the model write lock)
         # must never wait on storage.  Order: _sync_mutex -> _lock.
-        self._sync_mutex = threading.Lock()
+        self._sync_mutex = MonitoredLock("journal")
         self._fp = None
         self._lock_fp = lock_fp     # dir claim (lock_dir); released in close
         self._seg_start = start_position

@@ -40,6 +40,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from jubatus_tpu_torch.analysis.lockgraph import MonitoredLock
 from jubatus_tpu_torch.durability import fsync_dir, write_file_durably
 from jubatus_tpu_torch.utils import metrics as _metrics
 from jubatus_tpu_torch.utils.rwlock import LockDisciplineError
@@ -116,7 +117,7 @@ class Snapshotter:
         self._registry = registry if registry is not None else _metrics.GLOBAL
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._snap_lock = threading.Lock()   # one publish at a time
+        self._snap_lock = MonitoredLock("snapshot")  # one publish at a time
         self.snapshot_count = 0
         self.last_snapshot_id = -1
         self.last_snapshot_time = 0.0

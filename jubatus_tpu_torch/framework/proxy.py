@@ -21,12 +21,21 @@ Forward connections come from a session pool with idle expiry, and a
 pooled connection that died idle gets one reconnect.  The proxy registers
 itself under /jubatus/jubaproxies.
 
+The query cache (`query_cache_entries` / `query_cache_bytes`, off by
+default) holds broadcast, CHT-routed and partition-scatter READS, keyed
+on the target set and a per-cluster epoch that every mutating forward
+through this proxy bumps, and any change of the CHT ring too
+(_check_ring_epoch); a degraded partial-failure answer is served but
+never cached.  With the tracer on, every attempted forward is one
+`proxy.forward` record (peer, method, ok) and every partition merge one
+`proxy.partition_merge` record (method, partitions, candidates).
+get_metrics and get_traces broadcast to the members and merge;
+get_proxy_metrics and get_proxy_traces answer the proxy's own.
+
 Not in the port yet, registered to refuse with their ROADMAP Queue 1
-item: the query cache and the tracer (get_metrics, get_traces,
-get_proxy_metrics, get_proxy_traces; 3.4), the quota gate and the tenancy
-RPCs (create_model, drop_model, list_models; 3.5), and the autopilot's
-placement and shedding with the fleet and health snapshots
-(get_fleet_snapshot; 7).
+item: the quota gate and the tenancy RPCs (create_model, drop_model,
+list_models; 3.5), and the autopilot's placement and shedding with the
+fleet and health snapshots (get_fleet_snapshot; 7).
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ from jubatus_tpu_torch.cluster.membership import (
 from jubatus_tpu_torch.framework.partition import (ROUTING_MODES,
                                                    merge_anomaly_score,
                                                    merge_topk)
+from jubatus_tpu_torch.framework.query_cache import (create_query_cache,
+                                                     serve_cached)
 from jubatus_tpu_torch.framework.service import (
     AGG_ADD, AGG_ALL_AND, AGG_ALL_OR, AGG_CONCAT, AGG_MERGE, AGG_PASS,
     BROADCAST, CHT as CHT_ROUTING, INTERNAL, RANDOM, SERVICES, Method)
@@ -58,6 +69,7 @@ from jubatus_tpu_torch.rpc.client import (
 from jubatus_tpu_torch.rpc.resilience import (
     PARTIAL_FAILURE_POLICIES, QUORUM, STRICT, PeerHealth, RetryPolicy,
     call_with_retry)
+from jubatus_tpu_torch.obs.trace import TRACER as _tracer
 from jubatus_tpu_torch.rpc.server import RpcServer
 from jubatus_tpu_torch.utils import to_str
 from jubatus_tpu_torch.utils.metrics import GLOBAL as _metrics
@@ -66,8 +78,6 @@ log = logging.getLogger("jubatus_tpu_torch.proxy")
 
 # the JAX proxy's RPCs of later items, each refused with its item
 LATER_RPCS = {
-    "get_metrics": "3.4", "get_traces": "3.4",
-    "get_proxy_metrics": "3.4", "get_proxy_traces": "3.4",
     "create_model": "3.5", "drop_model": "3.5", "list_models": "3.5",
     "get_fleet_snapshot": "7",
 }
@@ -166,7 +176,9 @@ class Proxy:
                  retry: Optional[RetryPolicy] = RetryPolicy(max_attempts=2),
                  breaker_threshold: int = 3,
                  breaker_cooldown: float = 5.0,
-                 routing: str = "replicate"):
+                 routing: str = "replicate",
+                 query_cache_entries: int = 0,
+                 query_cache_bytes: int = 0):
         if partial_failure not in PARTIAL_FAILURE_POLICIES:
             raise ValueError(f"unknown partial-failure policy "
                              f"{partial_failure!r} "
@@ -208,7 +220,49 @@ class Proxy:
         self.request_count = 0
         self.forward_count = 0
         self._rng = random.Random()
+        # the read cache, keyed also on the target set; the epoch is per
+        # cluster name and bumps on every mutating forward THROUGH THIS
+        # PROXY (an update through another proxy or a direct client
+        # invalidates only at the next local one, which is why it is off
+        # by default) and on every ring change (_check_ring_epoch)
+        self.query_cache = create_query_cache(query_cache_entries,
+                                              query_cache_bytes)
+        self._epochs: Dict[str, int] = {}
+        self._ring_versions: Dict[str, int] = {}
+        self._epoch_lock = threading.Lock()
+        # set by _scatter_results when a partial-failure policy served a
+        # degraded answer; the read handler (per handler thread) then
+        # vetoes the cache fill
+        self._degraded = threading.local()
+        # the HTTP exporter, started by the CLI with --metrics_port
+        self.metrics_exporter = None
         self._register_all()
+
+    # -- the cache's epochs ---------------------------------------------------
+
+    def _epoch(self, name: str) -> int:
+        with self._epoch_lock:
+            return self._epochs.get(name, 0)
+
+    def _bump_epoch(self, name: str) -> None:
+        with self._epoch_lock:
+            self._epochs[name] = self._epochs.get(name, 0) + 1
+
+    def _check_ring_epoch(self, name: str) -> None:
+        """Bump the cluster's epoch when its CHT ring changed.  The key's
+        target set cannot see every change (a node re-registering at the
+        same address, a re-shuffle that flips which of two owners is the
+        primary, rows moving mid-handoff), so any ring change
+        invalidates every cached read of the name."""
+        ver = self._cht(name).version()
+        with self._epoch_lock:
+            known = self._ring_versions.get(name)
+            if known is None:
+                self._ring_versions[name] = ver
+            elif known != ver:
+                self._ring_versions[name] = ver
+                self._epochs[name] = self._epochs.get(name, 0) + 1
+                _metrics.inc("proxy_ring_epoch_bump_total")
 
     # -- membership ----------------------------------------------------------
 
@@ -264,6 +318,26 @@ class Proxy:
                      params: Tuple[Any, ...],
                      timeout: Optional[float] = None,
                      update: bool = True) -> Any:
+        """One `proxy.forward` record a forward attempt (peer, method,
+        ok) with the tracer on; off, one attribute check."""
+        if not _tracer.enabled:
+            return self._forward_one_inner(host, port, method, params,
+                                           timeout=timeout, update=update)
+        t0 = time.monotonic()
+        ok = False
+        try:
+            out = self._forward_one_inner(host, port, method, params,
+                                          timeout=timeout, update=update)
+            ok = True
+            return out
+        finally:
+            _tracer.record("proxy.forward", time.monotonic() - t0,
+                           peer=f"{host}:{port}", method=method, ok=ok)
+
+    def _forward_one_inner(self, host: str, port: int, method: str,
+                           params: Tuple[Any, ...],
+                           timeout: Optional[float] = None,
+                           update: bool = True) -> Any:
         """Forward through the session pool; `timeout` shrinks the
         connection's budget to a routing deadline's remainder.  A pooled
         connection's first RpcIOError earns one reconnect, for an update
@@ -338,6 +412,7 @@ class Proxy:
                     f"{method}: {len(errors)}/{total} member(s) failed "
                     f"(policy={policy}, need {need}): {detail}", method)
             _metrics.inc("proxy_degraded_total")
+            self._degraded.flag = True
             log.warning("%s degraded (%s): serving %d/%d members; %s",
                         method, policy, len(results), total, detail)
         return results
@@ -393,17 +468,20 @@ class Proxy:
         raise last
 
     def _handle_broadcast(self, method: str, agg: str, name: str, params,
-                          update: bool = True) -> Any:
-        results = self._scatter_results(self._get_members(name), method,
-                                        (name, *params), update=update)
+                          update: bool = True, hosts=None) -> Any:
+        """`hosts`: the target set the cache keyed the read on."""
+        results = self._scatter_results(
+            hosts if hosts is not None else self._get_members(name),
+            method, (name, *params), update=update)
         return aggregate(agg, [r for _, r in results])
 
     def _handle_cht(self, method: str, agg: str, replicas: int,
                     first_success: bool, name: str, params,
-                    update: bool = True) -> Any:
+                    update: bool = True, owners=None) -> Any:
         if not params:
             raise RpcError(f"{method}: cht routing requires a key argument")
-        owners = self._cht(name).find(str(to_str(params[0])), replicas)
+        if owners is None:
+            owners = self._cht(name).find(str(to_str(params[0])), replicas)
         if not owners:
             raise RpcError(f"no server found for {self.engine_type}/{name}")
         if first_success:
@@ -421,7 +499,8 @@ class Proxy:
                                         update=update)
         return aggregate(agg, [r for _, r in results])
 
-    def _handle_partition_read(self, m: Method, name: str, params) -> Any:
+    def _handle_partition_read(self, m: Method, name: str, params,
+                               hosts=None) -> Any:
         """Partition-mode scatter-gather (framework/partition.py): every
         member sweeps its own range and the proxy merges.  A from_id read
         resolves its query payload at the id's ring owner first, then at
@@ -430,7 +509,7 @@ class Proxy:
         answers [] (the recommender's).  A lost partition follows the
         partial-failure policy as a broadcast read does."""
         spec = m.partition
-        members = self._get_members(name)
+        members = hosts if hosts is not None else self._get_members(name)
         _metrics.inc("partition_scatter_total")
         scatter_params = params
         method = spec.scatter or m.name
@@ -469,6 +548,7 @@ class Proxy:
             owners = cht.find_cached(id_, 1)
             return tuple(owners[0]) if owners else None
 
+        t0 = time.monotonic()
         n_cand = sum(len(r[2] if spec.merge == "anomaly" and r else r or [])
                      for _, r in parts)
         if spec.merge == "anomaly":
@@ -477,6 +557,10 @@ class Proxy:
             k = int(params[-1]) if len(params) > 1 else 0
             merged = merge_topk(parts, k, spec.ascending, owner_of=owner_of)
         _metrics.observe_value("partition_merge_size", float(n_cand))
+        if _tracer.enabled:
+            _tracer.record("proxy.partition_merge", time.monotonic() - t0,
+                           method=m.name, partitions=len(parts),
+                           candidates=n_cand)
         return merged
 
     # -- registration --------------------------------------------------------
@@ -496,11 +580,18 @@ class Proxy:
         for mname, agg, upd in (("save", AGG_MERGE, True),
                                 ("load", AGG_ALL_AND, True),
                                 ("clear", AGG_ALL_AND, True),
-                                ("get_status", AGG_MERGE, False)):
+                                ("get_status", AGG_MERGE, False),
+                                # the members' metrics maps and span
+                                # rings, merged as get_status is
+                                ("get_metrics", AGG_MERGE, False),
+                                ("get_traces", AGG_MERGE, False)):
             self.rpc.add(mname, self._make_handler(
                 Method(mname, None, routing=BROADCAST, aggregator=agg,
                        update=upd)), threaded=True)
         self.rpc.add("get_proxy_status", lambda: self.get_proxy_status())
+        # the proxy's OWN process metrics and spans
+        self.rpc.add("get_proxy_metrics", lambda: self.metrics_snapshot())
+        self.rpc.add("get_proxy_traces", lambda: _tracer.snapshot())
         for mname, item in LATER_RPCS.items():
             self.rpc.add(mname, self._refuse(mname, item))
 
@@ -510,37 +601,102 @@ class Proxy:
             raise NotImplementedError(later_refusal(mname, item))
         return handler
 
-    def _route(self, m: Method, name: str, params) -> Any:
+    # reads whose answers are volatile by design (operator counters),
+    # never cached even where the routing qualifies
+    _NO_CACHE = frozenset({"get_status", "get_metrics", "get_traces"})
+
+    def _route(self, m: Method, name: str, params, hosts=None) -> Any:
         if self.routing == "partition":
             if m.partition is not None and not m.update:
-                return self._handle_partition_read(m, name, params)
+                return self._handle_partition_read(m, name, params,
+                                                   hosts=hosts)
             if m.routing == CHT_ROUTING:
                 # ownership, not replication: every point op goes to the
                 # key's one ring owner
                 return self._handle_cht(m.name, m.aggregator, 1,
                                         not m.update, name, params,
-                                        update=m.update)
+                                        update=m.update, owners=hosts)
         if m.routing == RANDOM:
             return self._handle_random(m.name, name, params,
                                        update=m.update)
         if m.routing == BROADCAST:
             return self._handle_broadcast(m.name, m.aggregator, name,
-                                          params, update=m.update)
+                                          params, update=m.update,
+                                          hosts=hosts)
         if m.routing == CHT_ROUTING:
             first_success = not m.update and m.aggregator == AGG_PASS
             return self._handle_cht(m.name, m.aggregator, m.cht_replicas,
                                     first_success, name, params,
-                                    update=m.update)
+                                    update=m.update, owners=hosts)
         raise RpcError(f"unroutable method {m.name}")
 
     def _make_handler(self, m: Method):
+        # a nolock method (anomaly's add) mutates the members as an
+        # update does: both bump the cluster's epoch
+        mutating = m.update or m.nolock
+
         def handler(name, *params):
             with self._stat_lock:
                 self.request_count += 1
-            return self._route(m, to_str(name), params)
+            name = to_str(name)
+            if mutating:
+                try:
+                    return self._route(m, name, params)
+                finally:
+                    # even when the forward FAILED: a partial broadcast
+                    # or CHT write may have applied on some members
+                    self._bump_epoch(name)
+            cache = self.query_cache
+            partition_read = (self.routing == "partition"
+                              and m.partition is not None)
+            if (cache is None or m.name in self._NO_CACHE
+                    or (m.routing not in (BROADCAST, CHT_ROUTING)
+                        and not partition_read)):
+                return self._route(m, name, params)
+            # the target set is part of the key (the answer aggregates
+            # exactly these members; a membership change re-keys for
+            # free); a ring change the set cannot express bumps the epoch
+            self._check_ring_epoch(name)
+            if m.routing == BROADCAST or partition_read:
+                hosts = self._get_members(name)
+            else:
+                if not params:
+                    raise RpcError(
+                        f"{m.name}: cht routing requires a key argument")
+                hosts = self._cht(name).find(
+                    str(to_str(params[0])),
+                    1 if self.routing == "partition" else m.cht_replicas)
+            extra = (name + "|" + ";".join(
+                f"{h}:{p}" for h, p in sorted(tuple(hp) for hp in hosts))
+            ).encode()
+            key = cache.key(m.name, params, self._epoch(name), extra=extra)
+
+            def compute():
+                self._degraded.flag = False
+                return self._route(m, name, params, hosts=hosts)
+            # a degraded answer is served once, never replayed
+            return serve_cached(
+                cache, key, compute,
+                fill_ok=lambda: not getattr(self._degraded, "flag", False))
         return handler
 
     # -- status --------------------------------------------------------------
+
+    def metrics_snapshot(self) -> Dict[str, str]:
+        """The proxy's flat counter map: what the exporter serves,
+        get_proxy_metrics answers and get_proxy_status merges."""
+        with self._stat_lock:
+            _metrics.set_gauge("proxy_request_count",
+                               float(self.request_count))
+            _metrics.set_gauge("proxy_forward_count",
+                               float(self.forward_count))
+        out: Dict[str, str] = {}
+        if self.query_cache is not None:
+            out.update(self.query_cache.get_status())
+        out.update(self.health.snapshot())       # the breakers
+        # retry, failover, degrade, partition and rpc counters
+        out.update(_metrics.snapshot())
+        return out
 
     def get_proxy_status(self) -> Dict[str, Dict[str, str]]:
         loc = build_loc_str(self.ip, self.port) if self.port else "unbound"
@@ -558,10 +714,12 @@ class Proxy:
                                       if self.retry else 1),
             "pid": str(os.getpid()),
             "version": jubatus_tpu_torch.__version__,
+            "query_cache_enabled": str(int(self.query_cache is not None)),
+            "tracing_enabled": str(int(_tracer.enabled)),
+            "metrics_port": str(self.metrics_exporter.port
+                                if self.metrics_exporter is not None else 0),
         }
-        st.update(self.health.snapshot())       # the breakers
-        # retry, failover, degrade and partition counters
-        st.update(_metrics.snapshot())
+        st.update(self.metrics_snapshot())
         return {loc: st}
 
     # -- lifecycle -----------------------------------------------------------
@@ -578,6 +736,8 @@ class Proxy:
 
     def stop(self) -> None:
         self.rpc.stop()
+        if self.metrics_exporter is not None:
+            self.metrics_exporter.stop()
         self._fanout.shutdown(wait=False)
         self.pool.close()
         if self._own_ls:

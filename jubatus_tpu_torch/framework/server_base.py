@@ -4,7 +4,8 @@ jubatus_tpu/framework/server_base.py, one model per process).
 It builds the engine's driver on its device, holds the model lock, the
 raw-train dispatcher and the read lane (the JAX server's default model
 slot), counts updates, and answers the common RPCs: get_config, save,
-load, clear, get_status and do_mix.  In a cluster (--coordinator) it also
+load, clear, get_status, get_metrics, get_traces and do_mix.  In a
+cluster (--coordinator) it also
 holds the membership client, the mixer and an id generator drawing from
 the coordinator's create_id; standalone it has none of them.  With
 --journal it holds the durability plane (durability/): init_durability
@@ -14,7 +15,19 @@ snapshotter writes the model in the background.  Model files use the
 reference format (framework/save_load.py) with the JAX package's naming
 and user-data version, so a file saved by either package loads in the
 other; `save` publishes through tmp + fsync + rename + directory fsync
-under a flock on the file.
+under a flock on the file, and --model_file loads one at boot
+(load_file).
+
+The query plane: `model_epoch` counts every model mutation (an update,
+a clear, a load, a MIX fold, a catch-up, a recovery), and the epoch-keyed
+query cache (--query_cache_entries / --query_cache_bytes,
+framework/query_cache.py) never serves an answer across one.  The
+observability plane: metrics_snapshot() is the one flat counter map that
+get_status merges, get_metrics returns and the exporter serves; the
+tracer (--trace_ring, --slow_op_ms) and the lock-order detector
+(--debug_locks) are process-wide.  The JAX server's heat, SLO and health
+sections (ROADMAP Queue 1 item 7) and its secondary model slots (3.5)
+are not in the port yet.
 """
 
 from __future__ import annotations
@@ -29,11 +42,10 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import jubatus_tpu_torch
-from jubatus_tpu_torch.batching.arenas import ArenaPool
-from jubatus_tpu_torch.device import device_telemetry
+from jubatus_tpu_torch.analysis.lockgraph import MONITOR as _lock_monitor
 from jubatus_tpu_torch.durability import write_file_durably
 from jubatus_tpu_torch.durability.journal import check_writable
-from jubatus_tpu_torch.framework.dispatch import IngestPipeline
+from jubatus_tpu_torch.framework.query_cache import create_query_cache
 from jubatus_tpu_torch.framework.save_load import load_model, save_model
 from jubatus_tpu_torch.models import create_driver
 from jubatus_tpu_torch.models.classifier import train_scan
@@ -43,10 +55,12 @@ from jubatus_tpu_torch.ops.candidates import ivf_probe, sig_probe
 from jubatus_tpu_torch.ops.lsh import (dense_dots, dense_topk,
                                        lsh_signature, minhash_signature,
                                        sig_counts, sig_scores, sig_topk)
+from jubatus_tpu_torch.obs.trace import TRACER
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
-from jubatus_tpu_torch.utils.rwlock import RWLock
+from jubatus_tpu_torch.utils.metrics import device_telemetry
+from jubatus_tpu_torch.utils.rwlock import create_rwlock
 
 USER_DATA_VERSION = 1
 
@@ -85,8 +99,11 @@ class ServerArgs:
     name: str = ""
     rpc_port: int = 9199
     bind_address: str = "127.0.0.1"
+    thread: int = 2
+    timeout: float = 10.0
     datadir: str = "/tmp"
     configpath: str = ""
+    model_file: str = ""
     eth: str = ""                # advertised address override
     device: str = "cuda"
     # MIX: the mixer's name (mix/mixer_factory.py), its trigger, the
@@ -105,8 +122,21 @@ class ServerArgs:
     journal_fsync: str = "batch"
     journal_segment_bytes: int = 64 << 20
     snapshot_interval_sec: float = 60.0
-    # the read lane's window (0: no lane)
+    # the train routes: fused-step width bound, adaptive linger ceiling
+    # (0: no linger), the ingest pipeline's convert->dispatch depth (0:
+    # the per-request TrainDispatcher) and the recycled arenas kept per
+    # size class (0: none); dispatch "inline" runs the raw train path on
+    # the event loop (cli/server.py resolves --dispatch auto)
+    batch_max: int = 16
+    batch_window_us: float = 2000.0
+    ingest_depth: int = 2
+    arena_pool: int = 4
+    dispatch: str = "threaded"
+    # the read lane's window (0: no lane) and the epoch-keyed query cache
+    # (both bounds 0: off)
     read_batch_window_us: float = 0.0
+    query_cache_entries: int = 0
+    query_cache_bytes: int = 0
     # the sublinear query index of the row-store engines (index/):
     # off | lsh_probe (signature methods) | ivf (exact methods), and the
     # buckets (centroids) a query probes
@@ -124,6 +154,13 @@ class ServerArgs:
     partition_handoff_batch: int = 256
     partition_handoff_interval_sec: float = 1.0
     partition_handoff_grace_sec: float = 2.0
+    # observability, all off by default: spans kept in the ring, the
+    # slow-op log's threshold, the exporter's port (negative: ephemeral),
+    # the lock-order detector
+    trace_ring: int = 0
+    slow_op_ms: float = 0.0
+    metrics_port: int = 0
+    debug_locks: bool = False
 
 
 class JubatusServer:
@@ -146,9 +183,30 @@ class JubatusServer:
                 "--index %s does not fit %s/%s%s; serving full sweeps",
                 args.index, args.type, getattr(self.driver, "method", "?"),
                 f" ({why})" if why else "")
+        if args.debug_locks:
+            # before the first model-lock acquisition, so boot work
+            # (recovery replay, bootstrap) is monitored too
+            _lock_monitor.enable()
         # readers (classify, get_labels, save) share; updates and the
         # dispatch thread's fused steps are exclusive
-        self.model_lock = RWLock()
+        self.model_lock = create_rwlock()
+        # bumped by every model mutation; the query cache keys on it
+        self.model_epoch = 0
+        self.query_cache = create_query_cache(args.query_cache_entries,
+                                              args.query_cache_bytes)
+        # "inline" or "threaded", as bound (framework/service.py)
+        self.dispatch_mode = "threaded"
+        # the HTTP exporter, started by the CLI once the RPC port is bound
+        self.metrics_exporter = None
+        pool = getattr(self.driver, "arena_pool", None)
+        if pool is not None:
+            pool.configure(args.arena_pool)
+        if args.trace_ring > 0 or args.slow_op_ms > 0:
+            # enable-only: a second server in one process must not turn
+            # off the tracing a sibling turned on
+            TRACER.configure(ring=max(args.trace_ring, TRACER.ring_size),
+                             slow_op_ms=args.slow_op_ms
+                             or TRACER.slow_op_s * 1e3)
         # raw-train dispatcher and read lane
         # (framework/service.setup_slot_pipelines)
         self.dispatcher = None
@@ -189,8 +247,16 @@ class JubatusServer:
 
     def event_model_updated(self) -> None:
         self.update_count += 1
+        self.model_epoch += 1
         if self.mixer is not None:
             self.mixer.updated()
+
+    def note_model_mutated(self) -> None:
+        """Bump the query epoch without counting an update toward the MIX
+        trigger: for the mutations that are not client updates (a MIX
+        fold, a catch-up or bootstrap, a recovery, --model_file).  Call
+        it after the mutation, under the write lock where one is held."""
+        self.model_epoch += 1
 
     def do_mix(self) -> bool:
         """One MIX round now (the caller flushes the ingest pipeline
@@ -211,7 +277,11 @@ class JubatusServer:
         from jubatus_tpu_torch.durability import init_durability
         from jubatus_tpu_torch.tenancy.layout import prepare_root
         prepare_root(self.args.journal_dir)
-        return init_durability(self)
+        result = init_durability(self)
+        # recovery may have restored or replayed state: nothing keyed to
+        # the process's earlier life may be served
+        self.note_model_mutated()
+        return result
 
     def current_mix_round(self) -> int:
         """The MIX round journal records and snapshots are labelled
@@ -272,6 +342,18 @@ class JubatusServer:
         self.checkpoint_after_restore()
         return True
 
+    def load_file(self, path: str) -> None:
+        """--model_file: the boot load of a model file either package
+        saved (it must carry this server's type and config)."""
+        with open(path, "rb") as fp:
+            data = load_model(fp, server_type=self.args.type,
+                              expected_config=self.config_str,
+                              user_data_version=USER_DATA_VERSION)
+        with self.model_lock.write():
+            self.driver.unpack(data)
+            self.note_model_mutated()
+        self.checkpoint_after_restore()
+
     def clear(self) -> bool:
         journal = self.journal
         check_writable(journal)    # refused before the model mutates
@@ -303,71 +385,112 @@ class JubatusServer:
             self.read_dispatch.stop()
         if self.journal is not None:
             self.journal.close()
+        if self.metrics_exporter is not None:
+            self.metrics_exporter.stop()
         if self.membership is not None:
             # closing the session withdraws our ephemeral registrations
             self.membership.close()
 
+    def metrics_snapshot(self) -> Dict[str, str]:
+        """The one flat counter map: the metrics registry and the
+        subsystems' counters.  get_status merges it, get_metrics returns
+        it and the exporter renders it, so a counter cannot appear in
+        one surface and not the others."""
+        out: Dict[str, str] = {}
+        if self.query_cache is not None:
+            out.update(self.query_cache.get_status())
+        metrics.set_gauge("model_epoch", float(self.model_epoch))
+        metrics.set_gauge("update_count", float(self.update_count))
+        metrics.set_gauge("uptime_sec", time.time() - self.start_time)
+        for k, v in device_telemetry().items():
+            metrics.set_gauge(k, v)
+        # the rpc, ingest, batch, read, mix and durability series
+        out.update(metrics.snapshot())
+        for name, n in kernel_launches().items():
+            out[f"kernel_launches.{name}"] = str(n)
+        pool = getattr(self.driver, "arena_pool", None)
+        if pool is not None:
+            out["arena_pool_hit_total"] = str(pool.hits)
+            out["arena_pool_miss_total"] = str(pool.misses)
+        # after the registry: the journal reports journal_stalled as its
+        # stall REASON, which wins over the registry's 0/1 gauge
+        for plane in (self.journal, self.snapshotter, self.recovery_info):
+            if plane is not None:
+                out.update(plane.get_status())
+        out.update(self.driver.get_status())
+        if self.mixer is not None:
+            out.update(self.mixer.get_status())
+        return out
+
+    def get_metrics(self) -> Dict[str, Dict[str, str]]:
+        """The exporter's map over RPC, keyed by server id like
+        get_status (a proxy broadcast-merges both alike)."""
+        return {self.server_id: self.metrics_snapshot()}
+
+    def get_traces(self) -> Dict[str, list]:
+        """The span ring over RPC ([] until --trace_ring > 0)."""
+        return {self.server_id: TRACER.snapshot()}
+
     def get_status(self) -> Dict[str, Dict[str, str]]:
+        args = self.args
+        dispatcher = self.dispatcher
         st: Dict[str, str] = {
-            "type": self.args.type,
-            "name": self.args.name,
-            "datadir": self.args.datadir,
+            "type": args.type,
+            "name": args.name,
+            "timeout": str(args.timeout),
+            "threadnum": str(args.thread),
+            "datadir": args.datadir,
             "update_count": str(self.update_count),
             "uptime": str(int(time.time() - self.start_time)),
             "pid": str(os.getpid()),
+            "user": os.environ.get("USER", ""),
             "version": jubatus_tpu_torch.__version__,
             "is_standalone": str(int(self.membership is None)),
             "device": str(self.driver.device),
             # whether the native wire converter covers this config
             "fast_path": str(getattr(self.driver, "_fast", None) is not None),
-            # the one dispatch mode the port has (the JAX server's default)
-            "dispatch_mode": "threaded",
+            # the raw train path's mode: "inline" (on the event loop) or
+            # "threaded" (the pipeline or the per-request dispatcher)
+            "dispatch_mode": self.dispatch_mode,
             # whether raw train frames go through the IngestPipeline
-            "ingest_pipeline": str(int(self.dispatcher is not None)),
-            # its fixed settings, the JAX server's defaults
-            "batch_max": str(IngestPipeline.MAX_COALESCE),
-            "batch_window_us": str(IngestPipeline.MAX_WAIT_S * 1e6),
-            "ingest_depth": str(IngestPipeline.DEPTH),
-            "arena_pool": str(ArenaPool.MAX_PER_SIZE),
+            "ingest_pipeline": str(int(getattr(
+                dispatcher, "accepts_raw_frames", False))),
+            "batch_max": str(args.batch_max),
+            "batch_window_us": str(args.batch_window_us),
+            "ingest_depth": str(args.ingest_depth),
+            "arena_pool": str(args.arena_pool),
+            "debug_locks": str(int(_lock_monitor.enabled)),
+            "model_epoch": str(self.model_epoch),
             # the read lane's window, 0 when there is no lane
             "read_batch_window_us": str(
                 self.read_dispatch.window_s * 1e6
                 if self.read_dispatch is not None else 0),
+            "query_cache_enabled": str(int(self.query_cache is not None)),
+            "mix_quantize": str(int(args.mix_quantize)),
             # durability: the flag always; the journal's, snapshotter's
-            # and recovery's keys below when it is on
+            # and recovery's keys in metrics_snapshot when it is on
             "journal_enabled": str(int(self.journal is not None)),
             # the index knobs; a driver with a live index overrides
             # "index" with its kind and adds its index_* detail, so "off"
             # with no detail means declined or never asked
             "index": "off",
-            "index_probes": str(self.args.index_probes),
+            "index_probes": str(args.index_probes),
             # the partition plane: the routing mode always; the manager's
             # ring version, epoch, range and resident rows when it runs
-            "routing": self.args.routing,
+            "routing": args.routing,
+            # the tracing plane's knobs and the exporter's bound port
+            "trace_ring": str(TRACER.ring_size),
+            "slow_op_ms": str(round(TRACER.slow_op_s * 1e3, 3)),
+            "tracing_enabled": str(int(TRACER.enabled)),
+            "metrics_port": str(self.metrics_exporter.port
+                                if self.metrics_exporter is not None else 0),
         }
-        if self.dispatcher is not None:
-            st["ingest_windows"] = str(self.dispatcher.windows)
-            st["ingest_frames"] = str(self.dispatcher.frames)
-            st["ingest_stalls"] = str(self.dispatcher.stalls)
-        for name, n in kernel_launches().items():
-            st[f"kernel_launches.{name}"] = str(n)
-        for k, v in device_telemetry(self.driver.device).items():
-            st[k] = str(v)
-        pool = getattr(self.driver, "arena_pool", None)
-        if pool is not None:
-            st["arena_pool_hit_total"] = str(pool.hits)
-            st["arena_pool_miss_total"] = str(pool.misses)
-        st.update(self.driver.get_status())
+        if getattr(dispatcher, "accepts_raw_frames", False):
+            st["ingest_windows"] = str(dispatcher.windows)
+            st["ingest_frames"] = str(dispatcher.frames)
+            st["ingest_stalls"] = str(dispatcher.stalls)
         if self.partition_manager is not None:
             st.update(self.partition_manager.get_status())
             st["partition_rows"] = str(len(self.driver.partition_ids()))
-        # the MIX counters (mix_bytes_*_total, mix_compression_ratio,
-        # retries and breakers) and the mixer's own status
-        st.update(metrics.snapshot())
-        # after the registry: the journal reports journal_stalled as its
-        # stall REASON, which wins over the registry's 0/1 gauge
-        for plane in (self.journal, self.snapshotter, self.recovery_info,
-                      self.mixer):
-            if plane is not None:
-                st.update(plane.get_status())
+        st.update(self.metrics_snapshot())
         return {self.server_id: st}

@@ -15,8 +15,16 @@ journal is stalled, appended under the write lock after it applied, and
 committed after the lock, before the ack.  Decoded handlers run on the
 RPC event loop.  Wire `train` frames take the raw route (raw_train):
 with an eligible converter config they go to the IngestPipeline
-(framework/dispatch.py) without being decoded in Python; otherwise they
-are decoded and trained like any update.  do_mix runs on the RPC
+(framework/dispatch.py) without being decoded in Python, or with
+--ingest_depth 0 are converted on their RPC worker and coalesced by the
+TrainDispatcher; under inline dispatch (--dispatch inline) a read burst's
+frames are one fused step on the event loop (raw_train_batch).  A config
+the native converter does not cover is decoded and trained like any
+update.  Reads go through the epoch-keyed query cache first when it is
+on (--query_cache_entries / --query_cache_bytes): a hit answers the
+pre-encoded body.  With the tracer on, handlers tag the request's root
+span with their stages (flush, lock wait, dispatch or device, journal,
+convert).  do_mix runs on the RPC
 server's call pool (threaded): it flushes the ingest pipeline, then the
 mixer fans get_diff and put_diff out to every member, this server
 included.  Anomaly's add is the one handler that takes its own locks
@@ -33,21 +41,30 @@ replica count, and the partition-mode ScatterRead
 (framework/partition.py).  The partition plane's internal methods
 (partition_query_*, the *_partial legs, partition_accept_rows and
 partition_drop_rows) are server-to-server and proxy-internal: the proxy
-does not register them.  Tenancy, quotas, the query cache and the
-observability planes are later work.
+does not register them.  get_metrics and get_traces answer the metrics
+map and the span ring (framework/server_base.py).  Tenancy and quotas
+(ROADMAP Queue 1 item 3.5) and the heat and SLO accounting (item 7) are
+later work.
 """
 
 from __future__ import annotations
 
 import logging
+import time
+from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
 import msgpack
 
 from jubatus_tpu_torch.durability.journal import check_writable
+from jubatus_tpu_torch.framework.dispatch import TrainDispatcher
 from jubatus_tpu_torch.framework.partition import ScatterRead
+from jubatus_tpu_torch.framework.query_cache import pack_wire
 from jubatus_tpu_torch.fv import Datum
+from jubatus_tpu_torch.obs.trace import TRACER as _tracer
+from jubatus_tpu_torch.rpc.server import PreEncoded
+from jubatus_tpu_torch.utils.metrics import GLOBAL as _metrics
 
 log = logging.getLogger("jubatus_tpu_torch.service")
 
@@ -111,29 +128,77 @@ def _datum(obj) -> Datum:
     return Datum.from_msgpack(obj)
 
 
+def _build_train_dispatcher(server):
+    """The threaded raw-train dispatcher: the IngestPipeline at
+    --ingest_depth > 0, else the per-request TrainDispatcher, both with
+    --batch_max and --batch_window_us."""
+    from jubatus_tpu_torch.framework.dispatch import IngestPipeline
+    args = server.args
+    max_wait = args.batch_window_us / 1e6
+    if args.ingest_depth > 0:
+        return IngestPipeline(server, max_batch=args.batch_max,
+                              max_wait_s=max_wait, depth=args.ingest_depth)
+    return TrainDispatcher(server, max_batch=args.batch_max,
+                           max_wait_s=max_wait)
+
+
 def setup_slot_pipelines(server) -> None:
     """The read lane and the raw-train dispatcher of the server's one
-    model slot.  The lane exists when --read_batch_window_us > 0.  The
-    dispatcher is the IngestPipeline when the native converter covers the
-    config; otherwise there is none and train frames take the decoded
-    route."""
-    from jubatus_tpu_torch.framework.dispatch import (IngestPipeline,
-                                                      ReadDispatcher)
+    model slot, threaded dispatch only: inline dispatch runs all device
+    work on the event loop, with nothing to coalesce on other threads.
+    The lane exists when --read_batch_window_us > 0.  The dispatcher
+    exists when the native converter covers the config; otherwise train
+    frames take the decoded route."""
+    from jubatus_tpu_torch.framework.dispatch import ReadDispatcher
+    inline = server.dispatch_mode == "inline"
     window_us = server.args.read_batch_window_us
-    if window_us > 0 and server.read_dispatch is None:
+    if window_us > 0 and not inline and server.read_dispatch is None:
         server.read_dispatch = ReadDispatcher(server, window_us)
     sd = SERVICES.get(server.args.type)
-    if (sd is not None and "train" in sd.methods
+    if (sd is not None and "train" in sd.methods and not inline
             and server.dispatcher is None
             and getattr(server.driver, "_fast", None) is not None):
-        server.dispatcher = IngestPipeline(server)
+        server.dispatcher = _build_train_dispatcher(server)
+
+
+def _cache_fill(cache, key, result):
+    """The fill half of query_cache.serve_cached, for an answer the read
+    handler computed after its own probe missed: pack it once, store it
+    and answer the packed body (an answer that does not pack bypasses)."""
+    try:
+        body = pack_wire(result)
+    except Exception:  # noqa: BLE001 - served direct, counted
+        cache.bypass()
+        return result
+    cache.put(key, body)
+    return PreEncoded(body)
+
+
+def _cache_fill_when_done(cache, key, fut: Future) -> Future:
+    """_cache_fill for a read queued on the lane, once it answered."""
+    out: Future = Future()
+
+    def done(f: Future) -> None:
+        try:
+            out.set_result(_cache_fill(cache, key, f.result()))
+        except BaseException as e:  # noqa: BLE001 - to this caller
+            out.set_exception(e)
+
+    fut.add_done_callback(done)
+    return out
 
 
 def bind_service(server, rpc_server) -> None:
     """Attach the server's service methods, its raw train route and the
     common RPCs."""
     sd = SERVICES[server.args.type]
+    # a threaded handler's local device mutation runs where the process's
+    # device work runs (the event loop in inline mode; _locked_update)
+    server.device_call = rpc_server.device_call
+    inline = bool(rpc_server.inline_raw)
+    server.dispatch_mode = "inline" if inline else "threaded"
     setup_slot_pipelines(server)
+    model = server.args.name
 
     def _flush():
         # order acked raw trains before any other model change; never
@@ -144,24 +209,75 @@ def bind_service(server, rpc_server) -> None:
     def wrap(m: Method):
         if m.nolock:
             def handler(_name, *args, _m=m):
+                if _tracer.enabled:
+                    _tracer.tag_current("model", model)
                 return _m.fn(server, *args)
         elif m.update:
             def handler(_name, *args, _m=m):
                 # fail-stop gate: a stalled journal refuses the write
                 # before the model mutates; reads go on being served
                 check_writable(server.journal)
+                # stage tags on the request's root span (rpc/server.py);
+                # `tr is None`, the default, skips every clock read
+                tr = _tracer if _tracer.enabled else None
+                if tr is None:
+                    _flush()
+                    return _locked_update(
+                        server, lambda: _m.fn(server, *args),
+                        {"k": "u", "m": _m.name, "a": list(args)})
+                tr.tag_current("model", model)
+                t0 = time.monotonic()
                 _flush()
+                tr.tag_current("stage.flush_s",
+                               round(time.monotonic() - t0, 6))
                 return _locked_update(
                     server, lambda: _m.fn(server, *args),
-                    {"k": "u", "m": _m.name, "a": list(args)})
+                    {"k": "u", "m": _m.name, "a": list(args)}, tracer=tr)
         else:
+            # the read path: (1) the epoch-keyed cache, whose hit is the
+            # pre-encoded body, with no lock, sweep or encode; the epoch
+            # is read BEFORE the compute, so an answer computed beside an
+            # update is stored under the pre-update epoch and never
+            # served to a reader that saw the update's ack; (2) the read
+            # lane's fused sweep; (3) the read lock
             def handler(_name, *args, _m=m):
+                cache = server.query_cache
+                key = cache.key(_m.name, args, server.model_epoch) \
+                    if cache is not None else None
+                if key is not None:
+                    body = cache.get(key)
+                    if body is not None:
+                        return PreEncoded(body)
+                tr = _tracer if _tracer.enabled else None
+                if tr is not None:
+                    tr.tag_current("model", model)
+                    if cache is not None:
+                        tr.tag_current("cache", "miss")
                 rd = server.read_dispatch
                 if rd is not None:
-                    # a Future: the RPC loop awaits the fused sweep
-                    return rd.submit(_m, args)
-                with server.model_lock.read():
-                    return _m.fn(server, *args)
+                    # a Future: the RPC loop awaits the fused sweep, whose
+                    # own span (read.sweep.<method>) splits lock and device
+                    fut = rd.submit(_m, args)
+                    return fut if key is None \
+                        else _cache_fill_when_done(cache, key, fut)
+
+                def compute():
+                    if tr is None:
+                        with server.model_lock.read():
+                            return _m.fn(server, *args)
+                    t0 = time.monotonic()
+                    with server.model_lock.read():
+                        t1 = time.monotonic()
+                        tr.tag_current("stage.lock_wait_s",
+                                       round(t1 - t0, 6))
+                        out = _m.fn(server, *args)
+                    # read answers are host values: device + readback
+                    tr.tag_current("stage.device_s",
+                                   round(time.monotonic() - t1, 6))
+                    return out
+
+                return _cache_fill(cache, key, compute()) \
+                    if key is not None else compute()
         return handler
 
     for m in sd.methods.values():
@@ -169,11 +285,12 @@ def bind_service(server, rpc_server) -> None:
 
     if "train" in sd.methods and hasattr(server.driver, "train_raw"):
         _plain_train = wrap(sd.methods["train"])
+        drv = server.driver
 
         def raw_train(msg: bytes, params_off: int):
             """Runs on an RPC worker thread.  Returns the result, or a
             Future the RPC layer awaits before the ack."""
-            if server.dispatcher is None:
+            if getattr(drv, "_fast", None) is None:
                 # the config needs the Python converter: decode and train
                 # like any update (the reference's routing)
                 params = msgpack.unpackb(msg, raw=False,
@@ -181,11 +298,70 @@ def bind_service(server, rpc_server) -> None:
                                          unicode_errors="surrogateescape")[3]
                 return _plain_train(*params)
             check_writable(server.journal)
-            # the frame goes straight to the pipeline's convert stage;
-            # frames arrive in wire order and its queues are FIFO
-            return server.dispatcher.submit(msg, params_off)
+            tr = _tracer if _tracer.enabled else None
+            if tr is not None:
+                tr.tag_current("model", model)
+            dispatcher = server.dispatcher
+            if dispatcher.accepts_raw_frames:
+                # the frame goes straight to the pipeline's convert stage;
+                # frames arrive in wire order and its queues are FIFO
+                return dispatcher.submit(msg, params_off)
+            # the per-request route: stage 1 here, without the model
+            # lock, overlapping earlier requests' steps; submitted under
+            # convert_lock, so conversion order is queue order
+            t0 = time.monotonic()
+            with drv.convert_lock:
+                _metrics.observe("convert_lock_wait", time.monotonic() - t0)
+                conv = drv.convert_raw_request(msg, params_off)
+                if tr is not None:
+                    tr.tag_current("stage.convert_s",
+                                   round(time.monotonic() - t0, 6))
+                return dispatcher.submit((conv, msg, params_off))
 
-        rpc_server.add_raw("train", raw_train)
+        def raw_train_batch(frames):
+            """Inline dispatch: a read burst's frames as one convert pass
+            and ONE fused device step, on the event loop."""
+            if getattr(drv, "_fast", None) is None:
+                return [raw_train(m, o) for m, o in frames]
+            journal = server.journal
+            check_writable(journal)
+            t0 = time.monotonic()
+            with drv.convert_lock:
+                _metrics.observe("convert_lock_wait", time.monotonic() - t0)
+                rb = drv.convert_raw_batch(frames)
+            try:
+                with server.model_lock.write():
+                    ns = drv.train_converted_batch(rb)
+                    for _ in frames:
+                        server.event_model_updated()
+                    if journal is not None:
+                        # one record a fused batch, as the dispatchers do
+                        journal.append(
+                            {"k": "train",
+                             "f": [[bytes(m), int(o)] for m, o in frames]},
+                            server.current_mix_round())
+                if journal is not None:
+                    journal.commit()
+            finally:
+                if rb.arena is not None:
+                    inline_state["arenas"].append(rb.arena)
+                    rb.arena = None
+            # the periodic sync bounds the device backlog and is the fence
+            # after which the consumed arenas go back to the pool
+            inline_state["ops"] += 1
+            if inline_state["ops"] % TrainDispatcher.SYNC_EVERY == 0:
+                with _metrics.time("device_step"):
+                    drv.device_sync()
+                spent, inline_state["arenas"] = inline_state["arenas"], []
+                for arena in spent:
+                    drv.arena_pool.release(arena)
+            return ns
+
+        inline_state = {"ops": 0, "arenas": []}
+        if inline:
+            # the same fused-step bound as the threaded routes
+            rpc_server.inline_batch_max = server.args.batch_max
+        rpc_server.add_raw("train", raw_train, batch_fn=raw_train_batch)
 
     def _save(_n, mid):
         _flush()
@@ -212,6 +388,10 @@ def bind_service(server, rpc_server) -> None:
     # do_mix's fan-out includes a self-call: on the loop it would wait on
     # itself, so it runs on the call pool
     rpc_server.add("do_mix", _do_mix, threaded=True)
+    # the exporter's /metrics.json and /traces.json over RPC, shaped as
+    # get_status, so a proxy broadcast-merges them alike
+    rpc_server.add("get_metrics", lambda _n=None: server.get_metrics())
+    rpc_server.add("get_traces", lambda _n=None: server.get_traces())
     if server.mixer is not None:
         # the mixer's peer RPCs (get_diff / put_diff / get_model, or the
         # gossip mixers' pull / push)
@@ -421,22 +601,44 @@ def _peer_call(s, host: str, port: int, method: str, *args):
         return c.call_raw(method, s.args.name, *args)
 
 
-def _locked_update(s, fn, record):
+def _locked_update(s, fn, record, tracer=None):
     """A model mutation under the write lock, journaled as `record` (its
     server-generated id already in it, or replay would mint another) and
-    committed before the ack; refused while the journal is stalled."""
+    committed before the ack; refused while the journal is stalled.  It
+    runs through the server's device_call, so a threaded handler's local
+    mutation runs on the event loop under inline dispatch.  With
+    `tracer`, the stage tags of the request's root span: lock wait,
+    dispatch (the kernels are enqueued, not finished: obs/trace.py) and
+    journal commit."""
     journal = s.journal
     check_writable(journal)
-    with s.model_lock.write():
-        result = fn()
-        s.event_model_updated()
-        # after the apply (a failed update must not replay), under the
-        # lock (a snapshot's position matches its pack); durable before
-        # the ack, outside the lock
-        if journal is not None:
-            journal.append(record, s.current_mix_round())
+
+    def locked():
+        t0 = time.monotonic() if tracer is not None else 0.0
+        with s.model_lock.write():
+            if tracer is not None:
+                t1 = time.monotonic()
+                tracer.tag_current("stage.lock_wait_s", round(t1 - t0, 6))
+            result = fn()
+            s.event_model_updated()
+            if tracer is not None:
+                tracer.tag_current("stage.dispatch_s",
+                                   round(time.monotonic() - t1, 6))
+            # after the apply (a failed update must not replay), under
+            # the lock (a snapshot's position matches its pack)
+            if journal is not None:
+                journal.append(record, s.current_mix_round())
+        return result
+
+    device_call = getattr(s, "device_call", None)
+    result = locked() if device_call is None else device_call(locked)
     if journal is not None:
+        # durable before the ack, outside the lock
+        t3 = time.monotonic() if tracer is not None else 0.0
         journal.commit()
+        if tracer is not None:
+            tracer.tag_current("stage.journal_s",
+                               round(time.monotonic() - t3, 6))
     return result
 
 

@@ -32,10 +32,20 @@ catch-up and a joiner's bootstrap replace the model, so each snapshots
 at once (checkpoint_after_restore): no earlier record replays onto the
 adopted model.
 
-Not in the port yet: the tracer's spans, the per-slot (tenancy) routing
-of frames, and the in-mesh fold of a data-parallel driver
-(_device_fold): the port's server has no device_mix, so a round has no
-in-mesh replicas to reconcile.
+Every fold, catch-up and bootstrap bumps the server's query epoch
+(note_model_mutated), so a cached read never outlives it.  Tracing: a
+master's round is one `mix.round` span (its round, members, diffs,
+`applied` puts and bytes), every attempted leg one `mix.<method>.leg`
+record tagged (round, peer, ok) beside the `mix_leg.<method>` histogram,
+and the peers' get_diff and put_diff handlers tag their request span
+with the round, so one round can be stitched across nodes from each
+node's get_traces.  The retry policy and the PeerHealth breaker are the
+server's --rpc_retry_* and --breaker_* flags (mix/mixer_factory.py).
+
+Not in the port yet: the per-slot (tenancy) routing of frames (ROADMAP
+Queue 1 item 3.5), and the in-mesh fold of a data-parallel driver
+(_device_fold, item 4): the port's server has no device_mix, so a round
+has no in-mesh replicas to reconcile.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from jubatus_tpu_torch.device import DeviceLike
 from jubatus_tpu_torch.mix import codec
+from jubatus_tpu_torch.obs.trace import TRACER as _tracer
 from jubatus_tpu_torch.rpc.client import Client, MClient
 from jubatus_tpu_torch.rpc.resilience import (DEFAULT_RETRY, PeerHealth,
                                               RetryPolicy)
@@ -224,6 +235,8 @@ class LinearMixer(TriggeredMixer):
 
     def __init__(self, server, membership, interval_sec: float = 16.0,
                  interval_count: int = 512, rpc_timeout: float = 10.0,
+                 retry: Optional[RetryPolicy] = DEFAULT_RETRY,
+                 health: Optional[PeerHealth] = None,
                  quantize: bool = False):
         super().__init__(interval_sec, interval_count)
         self.server = server
@@ -232,11 +245,12 @@ class LinearMixer(TriggeredMixer):
         self.quantize = bool(quantize)
         self.wire_version = (MIX_PROTOCOL_VERSION_QUANT if quantize
                              else MIX_PROTOCOL_VERSION)
-        # transient transport faults retry within the rpc_timeout budget;
-        # a peer that keeps failing circuit-breaks, and the round ids heal
-        # it as a straggler once its probe re-admits it
-        self.retry = DEFAULT_RETRY
-        self.health = PeerHealth()
+        # transient transport faults retry within the rpc_timeout budget
+        # (None: no retries); a peer that keeps failing circuit-breaks,
+        # and the round ids heal it as a straggler once its probe
+        # re-admits it
+        self.retry = retry
+        self.health = health if health is not None else PeerHealth()
         self.mix_count = 0
         self.last_mix_bytes = 0      # one scatter frame
         self.last_mix_sec = 0.0
@@ -284,6 +298,12 @@ class LinearMixer(TriggeredMixer):
             # snapshot: a put_diff landing during the encode below must
             # not relabel the pre-fold snapshot with the post-fold round
             snap_round = self.round
+        if _tracer.enabled:
+            # our round on this handler's span; the master's rides the
+            # frame (a dict argument; old callers send the ignored 0)
+            _tracer.tag_current("mix_round", snap_round)
+            if isinstance(_arg, dict) and "r" in _arg:
+                _tracer.tag_current("master_round", int(_arg["r"]))
         t1 = time.monotonic()
         diff = drv.encode_diff(snap)
         t2 = time.monotonic()
@@ -309,6 +329,14 @@ class LinearMixer(TriggeredMixer):
             self._update_active(False)
             return False
         rnd = obj.get("round")
+        if _tracer.enabled and rnd is not None:
+            # the (round, master) key off the frame: this scatter leg's
+            # span joins the master's mix.put_diff.leg record on it
+            _tracer.tag_current("mix_round", int(rnd))
+            m = obj.get("master")
+            if m:
+                _tracer.tag_current("master",
+                                    f"{_addr_str(m[0])}:{int(m[1])}")
         behind_from = None
         journal = self.server.journal
         journaled = False
@@ -327,10 +355,13 @@ class LinearMixer(TriggeredMixer):
                     fresh = False
                 else:
                     fresh = self.server.driver.put_diff(obj["diff"])
+                    # the fold changed read answers: a new query epoch
+                    getattr(self.server, "note_model_mutated", lambda: None)()
                     self.round = rnd
                     journaled = self._journal_diff(journal, packed)
             else:
                 fresh = self.server.driver.put_diff(obj["diff"])
+                getattr(self.server, "note_model_mutated", lambda: None)()
                 journaled = self._journal_diff(journal, packed)
         if journaled:
             journal.commit()
@@ -385,6 +416,7 @@ class LinearMixer(TriggeredMixer):
             return False
         with self.server.model_lock.write():
             self.server.driver.unpack(out["model"])
+            getattr(self.server, "note_model_mutated", lambda: None)()
             peer_round = out.get("round")
             if peer_round is not None:
                 self.round = max(self.round, int(peer_round))
@@ -450,11 +482,30 @@ class LinearMixer(TriggeredMixer):
         return MClient(members, timeout=self.rpc_timeout, retry=self.retry,
                        health=self.health)
 
+    @staticmethod
+    def _leg_observer(method: str, args):
+        """Every attempted leg: its time in the `mix_leg.<method>`
+        histogram and, with the tracer on, a `mix.<method>.leg` record
+        tagged (round, peer, ok); the round is read off the argument (the
+        gather's "r", the scatter payload's "round")."""
+        round_tag = None
+        if args and isinstance(args[0], dict):
+            round_tag = args[0].get("r", args[0].get("round"))
+
+        def observer(hp, dt, err):
+            metrics.observe(f"mix_leg.{method}", dt)
+            if _tracer.enabled:
+                _tracer.record(f"mix.{method}.leg", dt,
+                               peer=f"{hp[0]}:{hp[1]}", round=round_tag,
+                               ok=err is None)
+        return observer
+
     def _fanout(self, members, method: str,
                 *args) -> List[Tuple[Tuple[str, int], Any]]:
         """Concurrent per-host call; [(host, result)] of the successes in
         member order.  Breaker-open peers are skipped."""
-        paired, errors = self._mclient(members).call_each(method, *args)
+        paired, errors = self._mclient(members).call_each(
+            method, *args, observer=self._leg_observer(method, args))
         for hp, err in errors.items():
             log.warning("%s to %s:%d failed: %s", method, hp[0], hp[1], err)
         return paired
@@ -462,7 +513,7 @@ class LinearMixer(TriggeredMixer):
     def _fanout_iter(self, members, method: str, *args):
         """_fanout in COMPLETION order, as each leg lands."""
         for hp, result, err in self._mclient(members).call_each_iter(
-                method, *args):
+                method, *args, observer=self._leg_observer(method, args)):
             if err is not None:
                 log.warning("%s to %s:%d failed: %s",
                             method, hp[0], hp[1], err)
@@ -471,13 +522,18 @@ class LinearMixer(TriggeredMixer):
 
     def mix(self, lock=None) -> bool:
         """One master round; False only when standing down because the
-        master lock vanished mid-round."""
+        master lock vanished mid-round.  One `mix.round` span."""
+        with _tracer.span("mix.round") as mix_sp:
+            return self._mix_locked(lock, mix_sp)
+
+    def _mix_locked(self, lock, mix_sp) -> bool:
         t0 = time.monotonic()
         # the list as the coordinator holds it now, not the cached one: a
         # member that joined within the cache's TTL and is left out would
         # see its diff dropped as a straggler's next round, and its trains
         # lost to the catch-up
         members = self.membership.get_all_nodes(force=True)
+        mix_sp.tag("round", self.round).tag("members", len(members))
         if not members:
             return True
         driver_cls = type(self.server.driver)
@@ -517,7 +573,11 @@ class LinearMixer(TriggeredMixer):
                 fold_s += time.monotonic() - t_f
                 n_folded += 1
 
-        for (host, port), out in self._fanout_iter(members, "get_diff", 0):
+        # the round rides the gather frame when tracing, so the peers tag
+        # their handler spans with it (old peers ignore the argument)
+        gather_arg = {"r": own_round} if _tracer.enabled else 0
+        for (host, port), out in self._fanout_iter(members, "get_diff",
+                                                   gather_arg):
             bytes_wire += note_mix_bytes("received", out)
             t_d = time.monotonic()
             obj = codec.decode(out, dev)
@@ -620,6 +680,14 @@ class LinearMixer(TriggeredMixer):
                             "fold": fold_s, "encode": t_s - t_e,
                             "scatter": t_end - t_s}
         metrics.inc("mix_bytes_total", self.last_mix_bytes)
+        metrics.observe("mix_round", self.last_mix_sec)
+        mix_sp.tag("scatter_round", packed.get("round")) \
+              .tag("diffs", n_folded).tag("applied", sent) \
+              .tag("bytes", self.last_mix_bytes) \
+              .tag("bytes_raw", bytes_raw).tag("bytes_wire", bytes_wire) \
+              .tag("compression", round(compression, 3)) \
+              .tag("serialize_s", round(decode_s + t_s - t_e, 6)) \
+              .tag("apply_s", round(fold_s, 6))
         log.info("mix round %d: %d diffs gathered, %d applied, %d wire "
                  "bytes (%.2fx compression), %.3fs",
                  self.mix_count, n_folded, sent, bytes_wire, compression,
@@ -681,6 +749,7 @@ def bootstrap_from_peer(server, host: str, port: int,
     peer_round = out.get("round")
     with server.model_lock.write():
         server.driver.unpack(out["model"])
+        getattr(server, "note_model_mutated", lambda: None)()
         if mixer is not None and peer_round is not None \
                 and hasattr(mixer, "round"):
             mixer.round = max(mixer.round, int(peer_round))

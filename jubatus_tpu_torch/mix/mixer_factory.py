@@ -1,18 +1,26 @@
 """create_mixer: the --mixer name to a mixer (the port's copy of
 jubatus_tpu/mix/mixer_factory.py).  A process without a coordinator gets
-DummyMixer.  Every peer RPC of a mixer retries with DEFAULT_RETRY, and
-its fan-outs share one PeerHealth breaker at its defaults (the JAX CLI's
---rpc_retry_* and --breaker_* flags are not ported).
+DummyMixer.  The fault-tolerance knobs (rpc/resilience.py) are plumbed
+here, from the server's flags: `retry` is the RetryPolicy every peer RPC
+of the mixer rides (--rpc_retry_max, --rpc_retry_backoff_ms; None
+disables retries), and `breaker_threshold` / `breaker_cooldown`
+(--breaker_threshold, --breaker_cooldown) parameterize the PeerHealth
+breaker its fan-outs share.
 
 collective_mixer is refused: it needs the data-parallel tier (the
-in-mesh collective fold), which the port does not have yet.
+in-mesh collective fold, ROADMAP Queue 1 item 4), which the port does
+not have yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 from jubatus_tpu_torch.mix.linear_mixer import (DummyMixer, LinearMixer,
                                                 MixerBase)
 from jubatus_tpu_torch.mix.push_mixer import PushMixer
+from jubatus_tpu_torch.rpc.resilience import (DEFAULT_RETRY, PeerHealth,
+                                              RetryPolicy)
 
 MIXERS = ("linear_mixer", "random_mixer", "broadcast_mixer", "skip_mixer",
           "dummy_mixer")
@@ -23,8 +31,8 @@ def check_mixer(name: str) -> None:
     if name == "collective_mixer":
         raise ValueError(
             "collective_mixer needs the data-parallel tier (the in-mesh "
-            "collective fold), which jubatus_tpu_torch does not have yet; "
-            f"use one of {', '.join(MIXERS)}")
+            "collective fold), which is not in the port yet: ROADMAP "
+            f"Queue 1 item 4; use one of {', '.join(MIXERS)}")
     if name not in MIXERS:
         raise ValueError(f"unknown mixer: {name} (have {', '.join(MIXERS)})")
 
@@ -32,16 +40,23 @@ def check_mixer(name: str) -> None:
 def create_mixer(name: str, server, membership=None, *,
                  interval_sec: float = 16.0, interval_count: int = 512,
                  rpc_timeout: float = 10.0,
+                 retry: Optional[RetryPolicy] = DEFAULT_RETRY,
+                 breaker_threshold: int = 3,
+                 breaker_cooldown: float = 5.0,
                  quantize: bool = False) -> MixerBase:
     """`quantize` (--mix_quantize) puts the mixer's diff bodies on the
     blockwise-int8 v3 wire; flip it cluster-wide."""
     check_mixer(name)
     if membership is None or name == "dummy_mixer":
         return DummyMixer()
+    health = PeerHealth(fail_threshold=breaker_threshold,
+                        cooldown=breaker_cooldown)
     if name == "linear_mixer":
         return LinearMixer(server, membership, interval_sec=interval_sec,
                            interval_count=interval_count,
-                           rpc_timeout=rpc_timeout, quantize=quantize)
+                           rpc_timeout=rpc_timeout, retry=retry,
+                           health=health, quantize=quantize)
     return PushMixer(server, membership, strategy=name.replace("_mixer", ""),
                      interval_sec=interval_sec, interval_count=interval_count,
-                     rpc_timeout=rpc_timeout, quantize=quantize)
+                     rpc_timeout=rpc_timeout, retry=retry, health=health,
+                     quantize=quantize)

@@ -19,21 +19,26 @@ With a journal every fold is journaled as a `diff` record, as the JAX
 package journals it: an acked push fold on the peer side, and the pulled
 peer delta of this node's own gossip round (inside the lock hold that
 applies it, committed after).  Neither carries a round id, so recovery's
-round guard folds both on replay.
+round guard folds both on replay.  Every fold bumps the server's query
+epoch; with the tracer on each pairwise exchange is one
+`mix.gossip.exchange` record (peer, ok, strategy).
 """
 
 from __future__ import annotations
 
 import logging
 import random
-from typing import Any, Dict, List, Tuple
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 from jubatus_tpu_torch.mix import codec
 from jubatus_tpu_torch.mix.linear_mixer import (
     MIX_PROTOCOL_VERSION, MIX_PROTOCOL_VERSION_QUANT, TriggeredMixer,
     encode_wire_diff, note_mix_bytes)
+from jubatus_tpu_torch.obs.trace import TRACER as _tracer
 from jubatus_tpu_torch.rpc.client import TRANSPORT_ERRORS, Client
-from jubatus_tpu_torch.rpc.resilience import DEFAULT_RETRY, PeerHealth
+from jubatus_tpu_torch.rpc.resilience import (DEFAULT_RETRY, PeerHealth,
+                                              RetryPolicy)
 
 log = logging.getLogger("jubatus_tpu_torch.mix.push")
 
@@ -71,7 +76,10 @@ class PushMixer(TriggeredMixer):
 
     def __init__(self, server, membership, strategy: str = "random",
                  interval_sec: float = 16.0, interval_count: int = 512,
-                 rpc_timeout: float = 10.0, quantize: bool = False):
+                 rpc_timeout: float = 10.0,
+                 retry: Optional[RetryPolicy] = DEFAULT_RETRY,
+                 health: Optional[PeerHealth] = None,
+                 quantize: bool = False):
         super().__init__(interval_sec, interval_count)
         self.server = server
         self.membership = membership
@@ -81,8 +89,8 @@ class PushMixer(TriggeredMixer):
         self.quantize = bool(quantize)
         self.wire_version = (MIX_PROTOCOL_VERSION_QUANT if quantize
                              else MIX_PROTOCOL_VERSION)
-        self.retry = DEFAULT_RETRY
-        self.health = PeerHealth()
+        self.retry = retry
+        self.health = health if health is not None else PeerHealth()
         self.rng = random.Random()
         self.mix_count = 0
         self.me: Tuple[str, int] = ("", 0)
@@ -118,9 +126,15 @@ class PushMixer(TriggeredMixer):
         obj = codec.decode(packed, self._device)
         if obj.get("protocol_version") != self.wire_version:
             return False
+        if _tracer.enabled:
+            # gossip has no round ids; the durable round label is the
+            # closest correlation key this tier owns
+            _tracer.tag_current("mix_round", self.server.current_mix_round())
         journal = self.server.journal
         with self.server.model_lock.write():
             self.server.driver.put_diff(obj["diff"])
+            # the fold changed read answers: a new query epoch
+            getattr(self.server, "note_model_mutated", lambda: None)()
             if journal is not None:
                 # an acked push fold must survive a crash: the pusher's
                 # diff base is already consumed, so nothing re-delivers
@@ -158,6 +172,8 @@ class PushMixer(TriggeredMixer):
         for host, port in peers:
             if not self.health.allow((host, port)):
                 continue
+            t_leg = time.monotonic()
+            leg_ok = False
             try:
                 with Client(host, port, timeout=self.rpc_timeout,
                             retry=self.retry) as c:
@@ -175,6 +191,7 @@ class PushMixer(TriggeredMixer):
                         my_diff = self.server.driver.get_diff()
                         merged = driver_cls.mix(my_diff, peer_out["diff"])
                         self.server.driver.put_diff(merged)
+                        getattr(self.server, "note_model_mutated", lambda: None)()
                         if journal is not None:
                             # the pulled peer delta is folded now: nothing
                             # re-delivers it, so it is journaled like any
@@ -198,7 +215,7 @@ class PushMixer(TriggeredMixer):
                                                  self._device)}
                     note_mix_bytes("sent", push_payload)
                     c.call_raw("push", push_payload)
-                ok = True
+                ok = leg_ok = True
                 self.health.record_success((host, port))
             except TRANSPORT_ERRORS as e:
                 self.health.record_failure((host, port))
@@ -206,6 +223,13 @@ class PushMixer(TriggeredMixer):
             except Exception as e:  # noqa: BLE001 - the peer answered
                 self.health.record_success((host, port))
                 log.warning("gossip with %s:%d failed: %s", host, port, e)
+            finally:
+                if _tracer.enabled:
+                    # one record a pairwise exchange (pull, merge, push)
+                    _tracer.record("mix.gossip.exchange",
+                                   time.monotonic() - t_leg,
+                                   peer=f"{host}:{port}", ok=leg_ok,
+                                   strategy=self.strategy)
         if ok:
             self.mix_count += 1
         return ok

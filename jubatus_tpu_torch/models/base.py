@@ -12,6 +12,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from jubatus_tpu_torch.analysis.lockgraph import MONITOR as _lock_monitor
+
 DRIVERS: Dict[str, Callable[..., "Driver"]] = {}
 
 
@@ -194,6 +196,7 @@ class Driver:
         executed (the JAX driver blocks on one model leaf).  The ingest
         pipeline calls it every few fused steps: it bounds the queued
         backlog and fences the host arenas those steps copied from."""
+        _lock_monitor.note_blocking("device_sync")  # never under the write lock
         dev = self.device
         if dev is not None and dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()

@@ -17,11 +17,18 @@ The JAX client's fault-injection and lock-order hooks are later work.
 
 from __future__ import annotations
 
+import logging
 import socket
+import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import msgpack
+
+from jubatus_tpu_torch.analysis.lockgraph import MONITOR as _lock_monitor
+from jubatus_tpu_torch.utils.metrics import GLOBAL as _metrics
+
+log = logging.getLogger("jubatus_tpu_torch.rpc.client")
 
 REQUEST = 0
 RESPONSE = 1
@@ -157,6 +164,10 @@ class Client:
 
     def _call_once(self, method: str, params: Tuple[Any, ...],
                    timeout: float) -> Any:
+        # a synchronous wire round trip: the lock-order detector flags a
+        # caller still holding the model write lock (--debug_locks)
+        if _lock_monitor.enabled:
+            _lock_monitor.note_blocking(f"rpc.{method}")
         self._msgid += 1
         msgid = self._msgid
         sent = False
@@ -215,13 +226,18 @@ class MClient:
         self.retry = retry
         self.health = health
 
-    def call_each(self, method: str, *params: Any
+    def call_each(self, method: str, *params: Any,
+                  observer: Optional[Callable] = None
                   ) -> Tuple[List[Tuple[Peer, Any]], Dict[Peer, str]]:
         """-> ([(host, result)] of the successes in HOST-LIST order, the
-        fold order MIX depends on; {host: error} of the failures)."""
+        fold order MIX depends on; {host: error} of the failures).
+        `observer(host, seconds, exc_or_None)` is called once for every
+        ATTEMPTED host with the leg's wall time (the MIX legs' records);
+        breaker-skipped hosts are not observed."""
         by_host: Dict[Peer, Any] = {}
         errors: Dict[Peer, str] = {}
-        for hp, result, err in self.call_each_iter(method, *params):
+        for hp, result, err in self.call_each_iter(method, *params,
+                                                   observer=observer):
             if err is None:
                 by_host[hp] = result
             else:
@@ -230,11 +246,32 @@ class MClient:
                   if hp in by_host]
         return paired, errors
 
-    def call_each_iter(self, method: str, *params: Any):
+    def call_each_iter(self, method: str, *params: Any,
+                       observer: Optional[Callable] = None):
         """Yields (host, result, error_or_None) in COMPLETION order, one
         per host, as each leg lands: the pipelined MIX gather decodes and
         folds diff N while diff N+1 is still in flight.  Breaker-skipped
         hosts yield their circuit-open error first."""
+
+        def one(hp: Peer):
+            t0 = time.monotonic() if observer is not None else 0.0
+            err: Optional[BaseException] = None
+            try:
+                return self._call_one_host(hp, method, params)
+            except BaseException as e:  # noqa: BLE001 - relayed via future
+                err = e
+                raise
+            finally:
+                if observer is not None:
+                    try:
+                        observer(hp, time.monotonic() - t0, err)
+                    except Exception as oe:  # noqa: BLE001 - never fail
+                        # the fan-out for an observer, never silently
+                        _metrics.inc_keyed("rpc_swallowed_error_total",
+                                           "observer")
+                        log.debug("fan-out observer failed: %s", oe,
+                                  exc_info=True)
+
         if not self.hosts:
             return
         if self.health is not None:
@@ -246,8 +283,8 @@ class MClient:
         if not attempt:
             return
         with ThreadPoolExecutor(max_workers=min(len(attempt), 32)) as pool:
-            futures = {pool.submit(self._call_one_host, tuple(hp), method,
-                                   params): tuple(hp) for hp in attempt}
+            futures = {pool.submit(one, tuple(hp)): tuple(hp)
+                       for hp in attempt}
             for fut in as_completed(futures):
                 hp = futures[fut]
                 try:

@@ -2077,3 +2077,65 @@ def test_spilled_dense_dots_on_the_card_equal_the_cpu(dev, monkeypatch, kr,
     for metric in ("cosine", "euclid"):
         assert tpaged.dense_scores(card, metric, qd[0], 3.0).tobytes() == \
             tpaged.dense_scores(cpu, metric, qd[0], 3.0).tobytes()
+
+
+# -- --torch_profile: the server's trace names the card's kernels --------------
+
+def profiled_server_trace(tmp_path, device, n_requests=4):
+    """A classifier server (the CLI, in a subprocess) with --torch_profile
+    takes `n_requests` raw train requests and is stopped with SIGTERM;
+    the exported Chrome trace's events."""
+    import json
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+
+    import msgpack
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps({
+        "method": "AROW", "parameter": {"regularization_weight": 1.0},
+        "converter": {"string_rules": [{"key": "*", "type": "str",
+                                        "sample_weight": "bin",
+                                        "global_weight": "bin"}],
+                      "hash_max_size": 1 << 12}}))
+    out = tmp_path / "prof"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jubatus_tpu_torch.cli.server", "--type",
+         "classifier", "--configpath", str(cfg), "--rpc-port", "0",
+         "--listen_addr", "127.0.0.1", "--device", device,
+         "--torch_profile", str(out)],
+        cwd=tmp_path, env={**os.environ, "PYTHONPATH": repo},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("jubatus ready"), proc.stderr.read()
+        port = int(line.split()[2].split("=")[1])
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+            unp = msgpack.Unpacker(raw=False)
+            for i in range(n_requests):
+                data = [[f"l{j % 3}", [[[f"k{j}", f"v{i}"]], [], []]]
+                        for j in range(16)]
+                s.sendall(msgpack.packb([0, i, "train", ["", data]]))
+                while True:
+                    unp.feed(s.recv(1 << 16))
+                    msgs = list(unp)
+                    if msgs:
+                        assert msgs[0][2] is None, msgs[0]
+                        break
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=300) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    (trace,) = out.glob("torch_trace_*.json")
+    return json.loads(trace.read_text())["traceEvents"]
+
+
+def test_torch_profile_trace_names_the_train_scan_kernel(dev, tmp_path):
+    events = profiled_server_trace(tmp_path, "cuda")
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("train_scan" in k for k in kernels), sorted(set(kernels))

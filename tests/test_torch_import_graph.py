@@ -82,6 +82,27 @@ def test_the_checks_cover_the_partition_plane_and_the_proxy():
     assert r.stdout.strip() == "[]"
 
 
+def test_the_checks_cover_the_operating_plane():
+    """The walk and the per-source check include the tracer, the
+    exporter, the logger, the signal actions, the query cache and the
+    lock-order detector, and importing them pulls in neither JAX nor the
+    JAX package."""
+    names = {str(p.relative_to(PKG)) for p in SOURCES if PKG in p.parents}
+    mods = {"obs/__init__.py", "obs/trace.py", "obs/exporter.py",
+            "utils/logger.py", "utils/signals.py", "utils/metrics.py",
+            "framework/query_cache.py", "analysis/__init__.py",
+            "analysis/lockgraph.py"}
+    assert mods <= names
+    dotted = ", ".join("jubatus_tpu_torch." + m[:-3].replace("/", ".")
+                       .replace(".__init__", "") for m in sorted(mods))
+    r = _run(f"import sys, {dotted}\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             f"{FORBIDDEN!r})\n"
+             "print(bad)\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
     p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):
@@ -137,7 +158,10 @@ def test_cpu_and_unsupported_devices():
     with pytest.raises(ValueError):
         tdevice.resolve_device("meta")
     tdevice.device_sync(torch.device("cpu"))
-    assert tdevice.device_telemetry(torch.device("cpu")) == {}
+    # the allocator gauges (utils/metrics.py): no HBM keys without a card
+    from jubatus_tpu_torch.utils.metrics import device_telemetry
+    if not torch.cuda.is_available():
+        assert device_telemetry() == {"device_count": 0.0}
 
 
 # -- kernel build rule ------------------------------------------------------------

@@ -441,3 +441,43 @@ def test_the_port_proxy_over_a_jax_and_a_port_server(coord, tmp_path):
         c.close()
         jsrv[1].stop()
         jls.close()
+
+
+def test_proxy_metrics_traces_and_forward_records(coord, tmp_path):
+    """The proxy's own get_proxy_metrics / get_proxy_traces, its
+    proxy.forward and proxy.partition_merge records, and get_metrics /
+    get_traces broadcast to the members and merged by server id."""
+    from jubatus_tpu_torch.obs.trace import TRACER
+    TRACER.clear()
+    TRACER.configure(ring=4096)
+    c = Cluster(coord, "recommender", reco_cfg("inverted_index"), tmp_path)
+    try:
+        for i, v in enumerate(vecs(8, 31)):
+            c.client.call("update_row", f"r{i}", wire(v))
+        c.client.call("similar_row_from_datum", wire(vecs(1, 32)[0]), K)
+        spans = c.client.call_raw("get_proxy_traces")
+        fwd = [s for s in spans if s["name"] == "proxy.forward"]
+        members = {f"127.0.0.1:{s.args.rpc_port}" for s, _ in c.servers}
+        assert {s["tags"]["peer"] for s in fwd} == members
+        assert {"update_row", "similar_row_from_datum"} <= \
+            {s["tags"]["method"] for s in fwd}
+        assert all(s["tags"]["ok"] for s in fwd)
+        (merge,) = [s for s in spans if s["name"] == "proxy.partition_merge"]
+        assert merge["tags"]["partitions"] == 2
+        assert merge["tags"]["method"] == "similar_row_from_datum"
+        pm = c.client.call_raw("get_proxy_metrics")
+        assert int(pm["proxy_request_count"]) >= 9
+        assert int(pm["partition_scatter_total"]) >= 1
+        assert int(pm["rpc.similar_row_from_datum_count"]) >= 1
+        (pst,) = c.client.call_raw("get_proxy_status").values()
+        assert pst["tracing_enabled"] == "1"
+        sids = {f"127.0.0.1_{s.args.rpc_port}" for s, _ in c.servers}
+        assert set(as_str(c.client.call("get_metrics"))) == sids
+        traces = as_str(c.client.call("get_traces"))
+        assert set(traces) == sids
+        assert all(any(s["name"] == "rpc.update_row" for s in t)
+                   for t in traces.values())
+    finally:
+        c.close()
+        TRACER.configure(ring=0, slow_op_ms=0)
+        TRACER.clear()

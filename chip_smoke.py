@@ -180,7 +180,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 (masked) on both; inverted_index at 10^6 rows, 1%
                 dropped, 32 reads each one K4 launch, four against the
                 plain version.  (c) Anomaly: bench.py's lof over
-                euclid_lsh H 64 on a port server, 2,048 adds over the
+                euclid_lsh H 64 on a port server, 1,024 adds over the
                 wire (the in-process driver's add overlapping each after
                 the first 512, which are timed alone) and 64 calc_score
                 reads, every score bitwise the driver's, each sweep one
@@ -206,7 +206,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 ivf, the same reads through K7 against its plain version
                 and K4's full sweep; (c) over the wire, a nearest_neighbor
                 server with --index lsh_probe --index_probes 4 and a
-                recommender inverted_index server with --index ivf, 10,240
+                recommender inverted_index server with --index ivf, 9,216
                 writes each (above min_rows), 64 reads each bitwise an
                 in-process driver's, one K6 (K7) launch a read on both
                 sides, and the get_status index keys; (d) anomaly lof over
@@ -252,13 +252,13 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the plain version on the same card tensors; (b) over the
                 wire on the card, the port's coordinator, 2 then 3
                 nearest_neighbor servers (NN_CONFIG) behind the port's
-                proxy (cli/proxy.py --routing partition): 8,192 set_rows
-                through it (16,384 before phase 15 came), 128 reads of each of the four read forms at 2
+                proxy (cli/proxy.py --routing partition): 4,096 set_rows
+                through it (16,384 before phase 15 came, 8,192 before 16), 64 reads of each of the four read forms at 2
                 partitions, a third server's join and the journal-less
                 handoff until the partitions are disjoint and sum to the
                 total, the reads again at 3; a 2-server recommender
                 (bench.py:914-919's inverted_index, 1,024 columns, 16
-                entries a row) with 8,192 update_rows and 128 reads of
+                entries a row) with 4,096 update_rows and 64 reads of
                 each form; every answer equal to the plain version's over
                 a full table holding the same rows, scores exact and ids
                 tie-aware; (c) anomaly lof over euclid_lsh H 64 in process
@@ -296,8 +296,31 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the trace's bytes and the trains' ms beside the pipelined
                 server's.  Lines `operating_modes {...}` and
                 `operating {...}`
- 16. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 15; counters are zeroed just before each path, and a
+ 16. tenancy  — many model slots in one server (tenancy/), the smoke's
+                AROW config at 2^20 columns (256 MiB of w and cov a slot):
+                (a) a --tenant t0 --quota_max_slots 4 server admits m1-m3
+                by create_model, each slot trained on its own 16 requests
+                of 8,192 datums routed by argument 0 ends bitwise equal
+                to a one-slot server fed the same requests and classifies
+                alike (each slot's request ms and train_scan launches
+                beside the one-slot server's), a fifth slot is refused by
+                the cap; (b) a slot with quota.train_rps 50 gets 200
+                requests at once, directly and through the port's proxy
+                (refused at the edge), the other slots' answers unchanged;
+                (e) a slot converting through the simple_splitter C
+                plugin ("method": "dynamic", built at first use) trains
+                and classifies within rtol 1e-5 / atol 1e-6 of a CPU
+                driver; every slot dropped, torch.cuda.memory_allocated()
+                back at its value before the creates; (c) two
+                --mix_quantize servers with a coordinator, two slots each:
+                a do_mix of slot qa leaves its replicas bitwise equal and
+                the other slot bitwise unchanged, the quantizer pair
+                launched; (d) a journaled two-slot server process
+                SIGKILLed and restarted: both slots bitwise, its
+                boot-to-routable ms and the replay's scan launches.  A
+                `tenancy {...}` line
+ 17. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 16; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -3418,11 +3441,11 @@ RECO_ROWS = 8192        # update_row calls over the wire
 RECO_EXACT_ROWS = 10 ** 6
 RECO_DROPS = 64         # clear_row calls: holes in the store's mask
 RECO_READS = 64         # similar_row_from_datum calls
-ANOM_ADDS = 2048        # add calls over the wire (16,384 before phase
+ANOM_ADDS = 1024        # add calls over the wire (16,384 before phase
 #                         12: the whole smoke then ran past 800 s, with
 #                         those adds taking 130-185 s of it; 8,192 until
 #                         phase 13 came, 67 s of the smoke's 836; 4,096
-#                         until phase 15 came)
+#                         until phase 15 came, 2,048 until phase 16)
 LOF_ROWS = 16384        # rows of K5's LOF-table shapes (phase 11a)
 ANOM_TIMED = 512        # of them sent alone, their wire time kept
 ANOM_EXACT_ADDS = 1024  # adds of the exact LOF in process (K4 dense_dots)
@@ -4087,8 +4110,9 @@ INDEX_WINDOW = 32          # wire writes in flight at once
 INDEX_PROTOS = 4096        # bench.py:1243's prototypes
 INDEX_READS = 64           # reads of each route
 INDEX_PROBES = 4           # bench.py's probes
-INDEX_WIRE_ROWS = 10240    # writes to each server: above min_rows 8,192
-                           # (16,384 before phase 15 came)
+INDEX_WIRE_ROWS = 9216     # writes to each server: above min_rows 8,192
+                           # (16,384 before phase 15 came, 10,240 before
+                           # phase 16)
 INDEX_ANOM_ADDS = 2048
 INDEX_ANOM_CONFIG = dict(LOF_CONFIG, index={"min_rows": 0})
 IVF_CONFIG = {             # bench.py:1226: inverted_index on 4096 columns
@@ -5201,13 +5225,14 @@ def spill_dots_rows(torch, np, device="cuda"):
 
 # phase 14: the partition plane
 PART_QUERIES = 64          # stored rows read back through their payloads
-PART_WIRE_ROWS = 8192      # set_row / update_row calls through the proxy
-                           # (16,384 before phase 15 came)
+PART_WIRE_ROWS = 4096      # set_row / update_row calls through the proxy
+                           # (16,384 before phase 15 came, 8,192 before
+                           # phase 16)
 PART_CONNS = 16            # client connections writing at once (the proxy
 PART_WINDOW = 16           # serves a connection's requests in order), each
 #                            with this many requests in flight
-PART_READS = 128           # reads of each form through the proxy (256
-                           # before phase 15 came)
+PART_READS = 64            # reads of each form through the proxy (256
+                           # before phase 15 came, 128 before phase 16)
 PART_ANOM_ROWS = 256       # anomaly rows over 2 ring partitions
 PART_ANOM_READS = 64       # calc_score_partial queries
 PART_GRACE = "1.5"         # --partition_handoff_grace of the servers
@@ -6420,6 +6445,506 @@ def phase_operating(torch, np, card, device="cuda"):
     return dict(launches)
 
 
+# phase 16: many model slots in one server
+TEN_SLOTS = ("m1", "m2", "m3")
+TEN_REQS = 16              # train requests of REQ_B datums to each slot
+TEN_MAX_SLOTS = 4          # --quota_max_slots of the phase's server
+TEN_RPS = 50               # the rate-limited slot's quota.train_rps
+TEN_FLOOD = 200            # its requests sent at once, directly and again
+TEN_FLOOD_B = 16           # through the proxy; datums a request
+TEN_FLOOD_THREADS = 8
+TEN_MIX_REQS = 2           # train requests of each slot on each MIX server
+TEN_DUR_REQS = 2           # the journaled server's requests of each slot
+TEN_DUR_LABELS = 8         # over 8 labels: 8 rows a slot (64 MiB of w and
+                           # cov), which its get_model calls carry
+TEN_PLUGIN_REQS = 4        # train requests to the plugin slot
+TEN_PLUGIN_B = 1024
+# the smoke's AROW configuration with a dynamic C splitter: the converter
+# builds native/plugins/simple_splitter.c with cc at first use
+PLUGIN_CONFIG = dict(SERVER_CONFIG, converter={
+    "string_types": {"ws": {
+        "method": "dynamic", "function": "create",
+        "path": os.path.join(HERE, "jubatus_tpu_torch", "native", "plugins",
+                             "simple_splitter.c")}},
+    "string_rules": [{"key": "*", "type": "ws", "sample_weight": "tf",
+                      "global_weight": "bin"}],
+    "num_rules": [{"key": "*", "type": "num"}],
+    "hash_max_size": 1 << 20})
+
+
+_TEN_FEATS = []
+
+
+def ten_batch(rng, n, label_offset=0, labels=N_LABELS):
+    """bench_batch's datums (8 string features w{t%4}=tok{t}, t < 2^16,
+    and one number) over `labels` labels, drawn in two calls, the
+    features shared from one table, for the phase's many requests."""
+    if not _TEN_FEATS:
+        _TEN_FEATS.extend([f"w{t % 4}", f"tok{t}"] for t in range(1 << 16))
+    get = _TEN_FEATS.__getitem__
+    toks = rng.integers(0, 1 << 16, size=(n, 8)).tolist()
+    xs = rng.random(n).tolist()
+    names = [f"class{k}" for k in range(labels)]
+    return [[names[(i + label_offset) % labels],
+             [list(map(get, row)), [["x", x]], []]]
+            for i, (row, x) in enumerate(zip(toks, xs))]
+
+
+def plugin_batch(rng, n, label_offset=0):
+    """n wire datums of one text field, 8 words of a 2^16 vocabulary
+    joined by spaces, plus one number."""
+    return [[f"class{(i + label_offset) % N_LABELS}",
+             [[["text", " ".join(f"tok{t}" for t in
+                                 rng.integers(0, 1 << 16, size=8))]],
+              [["x", float(rng.random())]], []]] for i in range(n)]
+
+
+def slot_state(torch, slot):
+    """A slot's classifier tables, flushed and on the card, by name."""
+    if slot.dispatcher is not None:
+        slot.dispatcher.flush()
+    torch.cuda.synchronize() if slot.driver.device.type == "cuda" else None
+    d = slot.driver
+    return {"w": d.w, "cov": d.cov, "counts": d.counts, "active": d.active,
+            "labels": dict(d.labels)}
+
+
+def same_state(torch, a, b):
+    return a["labels"] == b["labels"] and all(
+        torch.equal(a[k], b[k]) for k in ("w", "cov", "counts", "active"))
+
+
+def ten_frames(rng, name, n, b, make=None, label_offset=0):
+    """n train request frames to slot `name` of b datums each (`make`:
+    ten_batch), kept as bytes only (a full collection over millions of
+    datum objects would cost seconds at every drop), and the first 8
+    datums."""
+    import msgpack
+    frames, first = [], None
+    for i in range(n):
+        batch = (make or ten_batch)(rng, b, label_offset)
+        first = first or [d for _, d in batch[:8]]
+        frames.append(msgpack.packb([0, i + 1, "train", [name, batch]],
+                                    use_bin_type=True))
+    return frames, first
+
+
+def ten_train(cli, frames, b, query, warm=None):
+    """`warm` (a small request: a slot's first window on its dispatch
+    thread) and then every frame in turn, each awaiting its ack, then a
+    classify that reads scores back (the card's fence): ms a request."""
+    if warm is not None:
+        cli.call("train", warm)
+        cli.call("classify", [warm[0][1]])
+    t0 = time.perf_counter()
+    for f in frames:
+        if cli.send(f, "train") != b:
+            raise AssertionError("train acknowledged another datum count")
+    cli.call("classify", query[:1])
+    return (time.perf_counter() - t0) * 1e3 / len(frames)
+
+
+def ten_flood(port, name, batch, n, threads):
+    """n train requests to `name` from `threads` clients at once ->
+    (admitted, refused at the member, refused at the proxy's edge)."""
+    import threading
+    tally = {"ok": 0, "member": 0, "edge": 0}
+    lock = threading.Lock()
+    go = threading.Barrier(threads)
+
+    def client(k):
+        cli = WireClient(port, name=name)
+        frame_list = [cli.frame("train", batch) for _ in range(n // threads)]
+        go.wait()
+        for f in frame_list:
+            try:
+                cli.send(f, "train")
+                what = "ok"
+            except RuntimeError as e:
+                if "quota_exceeded" not in str(e):
+                    raise
+                what = "edge" if "(proxy)" in str(e) else "member"
+            with lock:
+                tally[what] += 1
+        cli.close()
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    if sum(tally.values()) != n:
+        raise AssertionError(f"flood: {tally} of {n} requests answered")
+    return tally
+
+
+def phase_tenancy(torch, np, card, device="cuda"):
+    """Phase 16: many model slots in one server on the card, the smoke's
+    AROW config at 2^20 columns (each slot's w and cov 256 MiB), so every
+    slot launches train_scan.  (a) A server with --tenant t0
+    --quota_max_slots 4 admits m1-m3 by create_model; each slot trained
+    on its own TEN_REQS requests of REQ_B datums routed by argument 0
+    ends bitwise equal to a one-slot server fed the same requests, and
+    classifies alike; the fifth slot is refused by the cap.  (b) A slot
+    with quota.train_rps TEN_RPS gets TEN_FLOOD requests at once,
+    directly and then through the port's proxy (whose gate refuses at
+    the edge once its view of the slot has landed); the other slots'
+    answers are unchanged.  (e) A slot whose converter takes the
+    simple_splitter C plugin ("method": "dynamic", built at first use)
+    trains and classifies within rtol 1e-5 / atol 1e-6 of a CPU driver
+    fed the same datums.  Then every slot is dropped and
+    torch.cuda.memory_allocated() must be back at its value before the
+    creates.  (c) Two --mix_quantize servers with a coordinator, two
+    slots each: one do_mix of slot qa leaves its replicas bitwise equal,
+    the other slot bitwise unchanged, launches the quantizer pair, and
+    its mix bytes are qa's alone.  (d) A journaled two-slot server
+    process, SIGKILLed and restarted: both slots' tables bitwise as
+    before the kill, the boot-to-routable ms and the replay's scan
+    launches.  -> the phase's kernel launches."""
+    import gc
+
+    from jubatus_tpu_torch.cli.server import serve
+    from jubatus_tpu_torch.cluster.coordinator import CoordinatorServer
+    from jubatus_tpu_torch.framework.proxy import Proxy
+    from jubatus_tpu_torch.framework.server_base import kernel_launches
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    out = {"card": card}
+    launches = {"train_scan": 0, "quantize_int8": 0, "dequantize_int8": 0}
+    parts = {}
+
+    def count(before):
+        after = kernel_launches()
+        for k in launches:
+            launches[k] += after[k] - before[k]
+        return {k: after[k] - before[k] for k in launches}
+
+    def allocated():
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def slot_tables(port, name):
+        """A slot's tables through the MIX wire's get_model (the model
+        field names a secondary slot; j is the default slot)."""
+        from jubatus_tpu_torch.mix import codec
+        from jubatus_tpu_torch.rpc.client import Client
+        with Client("127.0.0.1", port, timeout=600) as c:
+            got = c.call_raw("get_model",
+                             0 if name == "j" else {"model": name})
+        return model_tables(np, codec.decode(got, device)["model"],
+                            "classifier")
+
+    def start(*extra):
+        return serve(["--type", "classifier", "--configpath", cfg_path,
+                      "--rpc-port", "0", "--listen_addr", "127.0.0.1",
+                      "--eth", "127.0.0.1", "--datadir", tmp,
+                      "--interval_sec", "100000",
+                      "--interval_count", "1000000", "--device", device,
+                      *extra])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "classifier.json")
+        with open(cfg_path, "w") as f:
+            json.dump(SERVER_CONFIG, f)
+        coord = CoordinatorServer()
+        addr = f"127.0.0.1:{coord.start(0, '127.0.0.1')}"
+        # (d)'s journaled server process boots while (a)-(c) run; in a
+        # cluster, so its slots' tables come out through get_model
+        dur_args = ("--name", "j", "--journal", os.path.join(tmp, "wal"),
+                    "--snapshot_interval", "0", "--coordinator", addr,
+                    "--interval_sec", "100000", "--interval_count",
+                    "1000000")
+        dur, t_dur = start_server("classifier", cfg_path, tmp, *dur_args,
+                                  device=device)
+        running = []
+        proxy = None
+        try:
+            # (a) three slots in one server
+            t_part = time.perf_counter()
+            server, rpc = start("--name", "c", "--coordinator", addr,
+                                "--tenant", "t0", "--quota_max_slots",
+                                str(TEN_MAX_SLOTS))
+            running.append((server, rpc))
+            port = server.args.rpc_port
+            cli = WireClient(port, name="c")
+            mem = {"before_creates": allocated()}
+            for name in TEN_SLOTS:
+                if cli.call("create_model", {"name": name,
+                                             "tenant": "t0"}) is not True:
+                    raise AssertionError(f"create_model {name} failed")
+            mem["after_creates"] = allocated()
+            try:
+                cli.call("create_model", {"name": "m4", "tenant": "t0"})
+                raise AssertionError("a fifth slot passed the slot cap")
+            except RuntimeError as e:
+                if "slot limit" not in str(e):
+                    raise
+            reqs, queries = {}, {}
+            for n in TEN_SLOTS:
+                reqs[n], queries[n] = ten_frames(rng, n, TEN_REQS, REQ_B)
+            warm = ten_batch(rng, 64)
+            parts["a.frames"] = time.perf_counter() - t_part
+            parts["a.twins"] = 0.0
+            slots = {}
+            answers = {}
+            for name in TEN_SLOTS:
+                scli = WireClient(port, name=name)
+                before = kernel_launches()
+                ms = ten_train(scli, reqs[name], REQ_B, queries[name], warm)
+                state = slot_state(torch, server.slot_for(name))
+                scans = count(before)["train_scan"]
+                answers[name] = scli.call("classify", queries[name])
+                scli.close()
+                # a one-slot server on the same requests
+                t_twin = time.perf_counter()
+                one, one_rpc = start("--name", name)
+                try:
+                    ocli = WireClient(one.args.rpc_port, name=name)
+                    before = kernel_launches()
+                    one_ms = ten_train(ocli, reqs[name], REQ_B,
+                                       queries[name], warm)
+                    one_scans = count(before)["train_scan"]
+                    same = same_state(torch, state, slot_state(torch, one))
+                    alike = ocli.call("classify", queries[name]) == \
+                        answers[name]
+                    ocli.close()
+                finally:
+                    one_rpc.stop()
+                    one.stop()
+                del one, one_rpc, state
+                parts["a.twins"] += time.perf_counter() - t_twin
+                if not (same and alike):
+                    raise AssertionError(
+                        f"tenancy: slot {name} differs from a one-slot "
+                        f"server (tables equal {same}, answers {alike})")
+                if on_card and scans <= 0:
+                    raise AssertionError(f"slot {name}: no train_scan")
+                slots[name] = {"request_ms": round(ms, 3),
+                               "one_slot_request_ms": round(one_ms, 3),
+                               "train_scan": scans,
+                               "one_slot_train_scan": one_scans}
+            out["a"] = {"slots": slots, "bitwise": True}
+            parts["a"] = time.perf_counter() - t_part
+            log(f"tenancy (a): {json.dumps(slots)}")
+
+            # (b) quotas, at the member and at the proxy's edge
+            t_part = time.perf_counter()
+            cli.call("create_model", {"name": "lim", "tenant": "t1",
+                                      "quota": {"train_rps": TEN_RPS}})
+            small = ten_batch(rng, TEN_FLOOD_B)
+            before = kernel_launches()
+            direct = ten_flood(port, "lim", small, TEN_FLOOD,
+                               TEN_FLOOD_THREADS)
+            proxy = Proxy(addr, "classifier", membership_ttl=0.0)
+            pport = proxy.start(0, host="127.0.0.1")
+            deadline = time.monotonic() + 30
+            while proxy.quota_gate.info_of("lim") is None:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the proxy's tenancy view of lim "
+                                         "never landed")
+                time.sleep(0.05)
+            time.sleep(1.0)          # the buckets refill a second's burst
+            edge = ten_flood(pport, "lim", small, TEN_FLOOD,
+                             TEN_FLOOD_THREADS)
+            count(before)
+            st = status_of(cli)
+            rejected = st.get("tenant_quota_rejected_total.t1")
+            for name in TEN_SLOTS:
+                scli = WireClient(port, name=name)
+                if scli.call("classify", queries[name]) != answers[name]:
+                    raise AssertionError(f"slot {name} changed under the "
+                                         "flood")
+                scli.close()
+            if not (direct["member"] > 0 and edge["edge"] > 0
+                    and direct["ok"] < TEN_FLOOD):
+                raise AssertionError(f"quotas: direct {direct}, through "
+                                     f"the proxy {edge}")
+            out["b"] = {"direct": direct, "proxy": edge,
+                        "tenant_quota_rejected_total.t1": rejected}
+            log(f"tenancy (b): {json.dumps(out['b'])}")
+            parts["b"] = time.perf_counter() - t_part
+            t_part = time.perf_counter()
+
+            # (e) a C plugin on the card
+            spec = {"name": "plug", "tenant": "t2",
+                    "config": json.dumps(PLUGIN_CONFIG)}
+            if cli.call("create_model", spec) is not True:
+                raise AssertionError("create_model plug failed")
+            prng = np.random.default_rng(20)
+            pframes, pquery = ten_frames(prng, "plug", TEN_PLUGIN_REQS,
+                                         TEN_PLUGIN_B, plugin_batch)
+            pcli = WireClient(port, name="plug")
+            before = kernel_launches()
+            pms = ten_train(pcli, pframes, TEN_PLUGIN_B, pquery)
+            pscans = count(before)["train_scan"]
+            got = pcli.call("classify", pquery)
+            pcli.close()
+            # a driver in this process on the same device, fed the same
+            # datums through its own decoded train (the plugin's spans,
+            # the Python converter, the scan): the wire slot's answers
+            # bitwise; the CPU parity is tests/test_torch_plugin.py's
+            # (a copy: the loader keeps its plugin object in the type-def)
+            ref = create_driver("classifier",
+                                json.loads(json.dumps(PLUGIN_CONFIG)),
+                                device=device)
+            prng = np.random.default_rng(20)
+            for _ in range(TEN_PLUGIN_REQS):
+                ref.train([(lbl, Datum.from_msgpack(d)) for lbl, d in
+                           plugin_batch(prng, TEN_PLUGIN_B)])
+            want = ref.classify([Datum.from_msgpack(d) for d in pquery])
+            del ref
+            if got != [[[lbl, sc] for lbl, sc in row] for row in want]:
+                raise AssertionError("plugin slot: classify differs from "
+                                     "an in-process driver's")
+            if on_card and pscans <= 0:
+                raise AssertionError("plugin slot: no train_scan launch")
+            out["e"] = {"request_ms": round(pms, 3), "train_scan": pscans,
+                        "bitwise": True}
+            log(f"tenancy (e): {json.dumps(out['e'])}")
+            parts["e"] = time.perf_counter() - t_part
+
+            # every slot dropped: the card's memory comes back
+            for name in TEN_SLOTS + ("lim", "plug"):
+                if cli.call("drop_model", name) is not True:
+                    raise AssertionError(f"drop_model {name} failed")
+            mem["after_drops"] = allocated()
+            out["memory_allocated"] = mem
+            log(f"tenancy: memory_allocated {json.dumps(mem)}")
+            if mem["after_drops"] != mem["before_creates"]:
+                raise AssertionError(f"the drops left memory allocated: "
+                                     f"{mem}")
+            cli.close()
+            proxy.stop()
+            proxy = None
+            rpc.stop()
+            server.stop()
+            running.clear()
+            del server, rpc
+
+            # (c) per-slot MIX on the v3 wire
+            t_part = time.perf_counter()
+            pair = [start("--name", "q", "--coordinator", addr,
+                          "--mix_quantize") for _ in range(2)]
+            running += pair
+            for s, _ in pair:
+                s.create_model({"name": "qa", "tenant": "t3"})
+            for (s, _), half in zip(pair, range(2)):
+                for name in ("qa", "q"):
+                    mcli = WireClient(s.args.rpc_port, name=name)
+                    frames, q = ten_frames(rng, name, TEN_MIX_REQS, REQ_B,
+                                           label_offset=half)
+                    ten_train(mcli, frames, REQ_B, q)
+                    mcli.close()
+            b_before = [{k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in slot_state(torch, s).items()}
+                        for s, _ in pair]
+            for s, _ in pair:
+                slot_state(torch, s.slot_for("qa"))
+            before = kernel_launches()
+            mcli = WireClient(pair[0][0].args.rpc_port, name="qa")
+            t0 = time.perf_counter()
+            if mcli.call("do_mix") is not True:
+                raise AssertionError("do_mix of qa failed")
+            mix_ms = (time.perf_counter() - t0) * 1e3
+            mst = status_of(mcli)
+            mcli.close()
+            quant = count(before)
+            # rows are numbered per process: the replicas' tables by label
+            qa = [model_tables(np, s.slot_for("qa").driver.pack(),
+                               "classifier") for s, _ in pair]
+            if not same_tables(np, qa[0], qa[1]):
+                raise AssertionError("qa's replicas differ after its round")
+            if not all(same_state(torch, b, slot_state(torch, s))
+                       for b, (s, _) in zip(b_before, pair)):
+                raise AssertionError("qa's round moved slot q")
+            if on_card and not (quant["quantize_int8"] > 0
+                                and quant["dequantize_int8"] > 0):
+                raise AssertionError(f"qa's round: quantizers {quant}")
+            out["c"] = {
+                "do_mix_ms": round(mix_ms, 3),
+                "quantize_int8": quant["quantize_int8"],
+                "dequantize_int8": quant["dequantize_int8"],
+                "mix_round.qa": mst.get("mix_round.qa"),
+                "mix_round.q": mst.get("mix_round"),
+                "last_mix_wire_bytes.qa": mst.get("last_mix_wire_bytes.qa"),
+                "last_mix_wire_bytes.q": mst.get("last_mix_wire_bytes"),
+                "mix_bytes_sent_total": mst.get("mix_bytes_sent_total")}
+            log(f"tenancy (c): {json.dumps(out['c'])}")
+            if out["c"]["mix_round.qa"] != "1" or \
+                    out["c"]["mix_round.q"] != "0":
+                raise AssertionError(f"mix rounds: {out['c']}")
+            for s, r in pair:
+                r.stop()
+                s.stop()
+            running.clear()
+            del pair, b_before, qa
+            parts["c"] = time.perf_counter() - t_part
+
+            # (d) recovery of every slot of a journaled server process
+            t_part = time.perf_counter()
+            dport, _ = server_ready(dur, t_dur)
+            parts["d.first_boot_wait"] = time.perf_counter() - t_part
+            dcli = WireClient(dport, name="j")
+            if dcli.call("create_model", {"name": "j1"}) is not True:
+                raise AssertionError("create_model j1 failed")
+            before_kill = {}
+            for name in ("j", "j1"):
+                jcli = WireClient(dport, name=name)
+                frames, q = ten_frames(
+                    rng, name, TEN_DUR_REQS, REQ_B,
+                    lambda r, b, off: ten_batch(r, b, off, TEN_DUR_LABELS))
+                ten_train(jcli, frames, REQ_B, q)
+                jcli.close()
+                t_tab = time.perf_counter()
+                before_kill[name] = slot_tables(dport, name)
+                parts["d.tables"] = parts.get("d.tables", 0.0) + \
+                    time.perf_counter() - t_tab
+            dcli.close()
+            dur.kill()
+            dur, t_dur = start_server("classifier", cfg_path, tmp,
+                                      *dur_args, device=device)
+            dport, reboot_ms = server_ready(dur, t_dur)
+            dcli = WireClient(dport, name="j")
+            st = status_of(dcli)
+            replay = launches_of(st)
+            same = {name: same_tables(np, before_kill[name],
+                                      slot_tables(dport, name))
+                    for name in ("j", "j1")}
+            dcli.close()
+            launches["train_scan"] += replay["train_scan"]
+            out["d"] = {"bitwise": same, "boot_to_routable_ms": round(
+                reboot_ms, 1), "replay_train_scan": replay["train_scan"],
+                "recovery_replayed": st.get("recovery_replayed"),
+                "recovery_replayed.j1": st.get("recovery_replayed.j1")}
+            log(f"tenancy (d): {json.dumps(out['d'])}")
+            if not all(same.values()):
+                raise AssertionError(f"recovery: tables differ {same}")
+            if on_card and replay["train_scan"] < 2 * TEN_DUR_REQS:
+                raise AssertionError(f"recovery replayed "
+                                     f"{replay['train_scan']} scans")
+            parts["d"] = time.perf_counter() - t_part
+        finally:
+            if proxy is not None:
+                proxy.stop()
+            for s, r in running:
+                r.stop()
+                s.stop()
+            dur.stop()
+            coord.stop()
+    out["launches"] = launches
+    out["part_s"] = {k: round(v, 1) for k, v in parts.items()}
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("tenancy " + json.dumps(out))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -6522,6 +7047,11 @@ def main() -> int:
     t15 = time.perf_counter()
     operating_counts = phase_operating(torch, np, card)
     log(f"operating: phase 15 in {time.perf_counter() - t15:.1f} s")
+    # 16. many model slots in one server: routing, quotas, per-slot MIX
+    # and recovery, a C plugin, the card's memory back after the drops
+    t16 = time.perf_counter()
+    tenancy_counts = phase_tenancy(torch, np, card)
+    log(f"tenancy: phase 16 in {time.perf_counter() - t16:.1f} s")
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
@@ -6550,7 +7080,7 @@ def main() -> int:
         return sum(c.get(kern, 0) for c in partition_counts)
 
     def operating_served(kern):
-        return operating_counts.get(kern, 0)
+        return operating_counts.get(kern, 0) + tenancy_counts.get(kern, 0)
 
     # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
@@ -6564,7 +7094,9 @@ def main() -> int:
     # phase 14 adds the partition plane's: its in-process partial reads,
     # its server processes' and anomaly's legs; phase 15 its servers' (the
     # train modes', the traced round's, the proxy's members', the
-    # profiled server's)
+    # profiled server's); phase 16 its slots' (each slot's and its
+    # one-slot twin's scans, the flood's, the plugin slot's, qa's v3
+    # round, the journaled server's replay), counted with phase 15's
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",

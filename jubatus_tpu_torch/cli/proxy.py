@@ -15,8 +15,12 @@
 It routes every client request to the servers of the cluster <type>/<name>
 that the request names (framework/proxy.py); with --routing partition
 (set it on every server and proxy of the cluster) point ops go to the
-key's one ring owner and top-k reads scatter-gather.  The proxy holds no
-model and touches no card.  --query_cache_* turn on its epoch-keyed read
+key's one ring owner and top-k reads scatter-gather.  A model slot of
+the servers (create_model) is a cluster of its own name, routed the
+same way; create_model and drop_model reach every member, list_models
+merges theirs, and the tenant quota gate refuses an over-rate tenant's
+call before it is forwarded.  The proxy holds no model and touches no
+card.  --query_cache_* turn on its epoch-keyed read
 cache, --trace_ring / --slow_op_ms its tracer (get_proxy_traces), and
 --metrics_port its exporter (/metrics, /metrics.json, /traces.json,
 /livez; negative: an ephemeral port).  Like the JAX proxy's CLI it logs

@@ -18,7 +18,9 @@
         [--routing replicate|partition [--partition_handoff_batch 256] \
          [--partition_handoff_interval 1] [--partition_handoff_grace 2]] \
         [--trace_ring N] [--slow_op_ms MS] [--metrics_port P] \
-        [--debug_locks] [--torch_profile DIR]
+        [--debug_locks] [--torch_profile DIR] \
+        [--tenant T] [--quota_max_slots N] [--quota_max_rows N] \
+        [--quota_train_rps R] [--quota_query_rps R]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
@@ -89,6 +91,22 @@ inside that window (the build is host work).  --logfile writes the log
 to a file that SIGHUP reopens; --log_format json puts the trace ids on
 each record.
 
+Many models in one process (tenancy/): the create_model RPC admits a
+named model slot ({name, tenant?, config?, quota?}: the host's config
+when none is given), with its own driver and tensors on --device, lock,
+journal namespace (--journal DIR/slots/<name>), query cache, read lane,
+raw-train dispatcher and, in a cluster, its own MIX group, CHT ring and
+membership under its name; argument 0 of every RPC (the cluster name)
+picks the slot, any other name the default one.  drop_model retires a
+slot (its namespace deleted, its card memory freed), list_models lists
+them; the catalog (DIR/MODELS.json) brings every slot back at boot.
+--tenant names the default slot's tenant; --quota_max_slots caps a
+tenant's slots, and --quota_max_rows (row engines), --quota_train_rps
+and --quota_query_rps (token buckets, a second of burst) are the host's
+default quotas of a slot, which a create_model quota replaces; 0 is
+unlimited.  A rejected call answers `quota_exceeded: ...` and counts
+tenant_quota_rejected_total.<tenant>.
+
 The JAX server's flags of later ROADMAP Queue 1 items are accepted at
 their defaults and refused otherwise, naming the item (LATER_FLAGS).
 
@@ -115,6 +133,7 @@ from jubatus_tpu_torch.mix.mixer_factory import check_mixer, create_mixer
 from jubatus_tpu_torch.obs.trace import TRACER
 from jubatus_tpu_torch.rpc.resilience import RetryPolicy
 from jubatus_tpu_torch.rpc.server import RpcServer
+from jubatus_tpu_torch.tenancy.registry import ClusterContext
 
 log = logging.getLogger("jubatus_tpu_torch.server")
 
@@ -124,11 +143,6 @@ LATER_FLAGS = (
     ("--dp_replicas", {"type": int, "default": 1}, "4"),
     ("--mix_topk", {"type": int, "default": 0}, "4"),
     ("--shard_devices", {"type": int, "default": 1}, "6"),
-    ("--tenant", {"default": ""}, "3.5"),
-    ("--quota_max_slots", {"type": int, "default": 0}, "3.5"),
-    ("--quota_max_rows", {"type": int, "default": 0}, "3.5"),
-    ("--quota_train_rps", {"type": float, "default": 0.0}, "3.5"),
-    ("--quota_query_rps", {"type": float, "default": 0.0}, "3.5"),
     ("--chaos_ctl", {"action": "store_true"}, "7"),
     ("--heat_window", {"type": float, "default": 60.0}, "7"),
     ("--slo", {"default": ""}, "7"),
@@ -305,6 +319,27 @@ def _parser() -> argparse.ArgumentParser:
                         "routable until SIGTERM, then write it into this "
                         "directory as a Chrome trace; empty (default): "
                         "off")
+    p.add_argument("--tenant", default="",
+                   help="the default slot's tenant (create_model names each "
+                        "admitted slot's own); quotas and "
+                        "tenant_quota_rejected_total key on it")
+    p.add_argument("--quota_max_slots", type=int, default=0,
+                   help="a tenant's model slots at most (create_model "
+                        "refuses past it); 0: unlimited")
+    p.add_argument("--quota_max_rows", type=int, default=0,
+                   help="the host's default cap on a tenant's resident "
+                        "rows over all its slots (row-store engines), "
+                        "checked at train/update admission; a "
+                        "create_model quota.max_rows replaces it; 0: "
+                        "unlimited")
+    p.add_argument("--quota_train_rps", type=float, default=0.0,
+                   help="the host's default token-bucket rate of a "
+                        "tenant's train/update RPCs (a second of burst), "
+                        "enforced here and early at the proxy; 0: "
+                        "unlimited")
+    p.add_argument("--quota_query_rps", type=float, default=0.0,
+                   help="the host's default token-bucket rate of a "
+                        "tenant's read RPCs; 0: unlimited")
     p.add_argument("--log_format", default="plain", choices=("plain", "json"),
                    help="'json': one JSON object a log record, with the "
                         "active trace and span ids")
@@ -376,7 +411,11 @@ def serve(argv: Optional[Sequence[str]] = None
                       partition_handoff_grace_sec=ns.partition_handoff_grace,
                       trace_ring=ns.trace_ring, slow_op_ms=ns.slow_op_ms,
                       metrics_port=ns.metrics_port,
-                      debug_locks=ns.debug_locks)
+                      debug_locks=ns.debug_locks, tenant=ns.tenant,
+                      quota_max_slots=ns.quota_max_slots,
+                      quota_max_rows=ns.quota_max_rows,
+                      quota_train_rps=ns.quota_train_rps,
+                      quota_query_rps=ns.quota_query_rps)
     membership = None
     config = None
     if args.coordinator:
@@ -426,6 +465,19 @@ def serve(argv: Optional[Sequence[str]] = None
             breaker_threshold=ns.breaker_threshold,
             breaker_cooldown=ns.breaker_cooldown,
             quantize=args.mix_quantize)
+        # what an admitted slot joins the cluster with, under its own
+        # name (tenancy/registry.py join_slot_cluster)
+        server.cluster_ctx = ClusterContext(
+            ls=membership.ls, mixer_kind=args.mixer,
+            interval_sec=args.interval_sec,
+            interval_count=args.interval_count,
+            rpc_timeout=args.interconnect_timeout, retry=retry,
+            breaker_threshold=ns.breaker_threshold,
+            breaker_cooldown=ns.breaker_cooldown,
+            quantize=args.mix_quantize, routing=args.routing,
+            partition_interval=args.partition_handoff_interval_sec,
+            partition_batch=args.partition_handoff_batch,
+            partition_grace=args.partition_handoff_grace_sec)
         if (recovery is not None and not args.model_file
                 and hasattr(server.mixer, "round")):
             # resume at the recovered round: the first scatter that
@@ -503,6 +555,9 @@ def _join_cluster(server: JubatusServer, membership, port: int,
     membership.register_actor(server.ip, port)
     server.mixer.start()
     server.mixer.register_active(server.ip, port)
+    # the slots restored from the catalog join THEIR MIX groups and rings
+    # now that the session and the bound port exist
+    server.slots.join_cluster_all()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

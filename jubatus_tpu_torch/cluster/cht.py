@@ -12,9 +12,9 @@ the same owners.  Ring reads are cached by the listing's cversion.
 The partition plane (framework/partition.py) reads the ring three more
 ways: find_cached (no coordinator round trip, safe under the model write
 lock), version (the ring's cversion, refreshing the cache) and arcs_for
-(a node's virtual points).  The ring's other readers and its withdrawal
-(belongs_to, nodes, unregister_node) come with their callers: burst and
-tenancy (ROADMAP Queue 1 items 7 and 3.5).
+(a node's virtual points).  A dropped model slot withdraws its node from
+its ring (unregister_node).  The ring's other readers (belongs_to, nodes)
+come with their caller, burst (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -58,6 +58,15 @@ class CHT:
             path = f"{self.dir}/{make_hash(f'{loc}_{i}')}"
             if not create_or_replace_ephemeral(self.ls, path, loc.encode()):
                 raise RuntimeError(f"cannot register cht point {path}")
+
+    def unregister_node(self, ip: str, port: int) -> None:
+        """Explicit withdrawal of this node's virtual points (a dropped
+        model slot): they are ephemerals of the still-alive process
+        session, so without this the dropped slot's ring would route here
+        until the process dies."""
+        loc = build_loc_str(ip, port)
+        for i in range(NUM_VSERV):
+            self.ls.remove(f"{self.dir}/{make_hash(f'{loc}_{i}')}")
 
     def _refresh(self, force: bool = False
                  ) -> List[Tuple[str, Tuple[str, int]]]:

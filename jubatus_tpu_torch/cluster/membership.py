@@ -95,6 +95,13 @@ class MembershipClient:
         self.ls.remove(f"{actor_active_dir(self.engine_type, self.name)}/"
                        f"{build_loc_str(ip, port)}")
 
+    def unregister_actor(self, ip: str, port: int) -> None:
+        """Explicit withdrawal (a dropped model slot): the registration is
+        an ephemeral of the still-alive process session, so it must be
+        removed, not abandoned."""
+        self.ls.remove(f"{actor_node_dir(self.engine_type, self.name)}/"
+                       f"{build_loc_str(ip, port)}")
+
     # -- queries ------------------------------------------------------------
 
     def get_all_nodes(self, force: bool = False) -> List[Tuple[str, int]]:

@@ -42,7 +42,9 @@ copied to the host, so `device_s` covers the card's work.
 `convert_lock_wait`, `ingest_pipeline_stall_total`,
 `ingest_pipeline_depth`, `device_step` (the periodic sync), and the read
 lane's `read_batch_size`, `read_lock_wait`, `read_coalesced_total`.
-Heat accounting and tenant quotas are ROADMAP Queue 1 items 7 and 3.5.
+Each model slot has its own dispatcher and read lane (the server passes
+the slot); a raw frame's tenant quota is charged before it is submitted
+(framework/service.py).  Heat accounting is ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations

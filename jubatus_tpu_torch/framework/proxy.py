@@ -32,10 +32,19 @@ never cached.  With the tracer on, every attempted forward is one
 get_metrics and get_traces broadcast to the members and merge;
 get_proxy_metrics and get_proxy_traces answer the proxy's own.
 
-Not in the port yet, registered to refuse with their ROADMAP Queue 1
-item: the quota gate and the tenancy RPCs (create_model, drop_model,
-list_models; 3.5), and the autopilot's placement and shedding with the
-fleet and health snapshots (get_fleet_snapshot; 7).
+Model slots (tenancy/): the wire name is a slot's name, and a slot joins
+the cluster under it, so the per-name membership, ring, epoch and cache
+key route slots with no more code.  create_model and drop_model
+broadcast to every member of the named cluster as updates (strict: a
+partial admission would fork the slot set) and list_models merges the
+members' maps.  The quota gate (tenancy/quotas.py ProxyQuotaGate)
+rejects an engine call over its tenant's rate before any forward, from a
+tenancy view that list_models refreshes in the background; the members'
+check stays authoritative.
+
+Not in the port yet, refused with their ROADMAP Queue 1 item 7: a
+create_model placement directive and the autopilot's shedding, and the
+fleet and health snapshots (get_fleet_snapshot).
 """
 
 from __future__ import annotations
@@ -71,16 +80,16 @@ from jubatus_tpu_torch.rpc.resilience import (
     call_with_retry)
 from jubatus_tpu_torch.obs.trace import TRACER as _tracer
 from jubatus_tpu_torch.rpc.server import RpcServer
+from jubatus_tpu_torch.tenancy.quotas import QUERY as _Q_QUERY
+from jubatus_tpu_torch.tenancy.quotas import TRAIN as _Q_TRAIN
+from jubatus_tpu_torch.tenancy.quotas import ProxyQuotaGate
 from jubatus_tpu_torch.utils import to_str
 from jubatus_tpu_torch.utils.metrics import GLOBAL as _metrics
 
 log = logging.getLogger("jubatus_tpu_torch.proxy")
 
 # the JAX proxy's RPCs of later items, each refused with its item
-LATER_RPCS = {
-    "create_model": "3.5", "drop_model": "3.5", "list_models": "3.5",
-    "get_fleet_snapshot": "7",
-}
+LATER_RPCS = {"get_fleet_snapshot": "7"}
 
 
 def later_refusal(what: str, item: str) -> str:
@@ -236,7 +245,16 @@ class Proxy:
         self._degraded = threading.local()
         # the HTTP exporter, started by the CLI with --metrics_port
         self.metrics_exporter = None
+        # per-tenant early rejection at the edge: the (model -> tenant,
+        # quota) view refreshes in the background through the cluster's
+        # list_models, so the request path reads only the cached view
+        self.quota_gate = ProxyQuotaGate(self._fetch_tenancy,
+                                         submit=self._fanout.submit)
         self._register_all()
+
+    def _fetch_tenancy(self, name: str) -> Dict[str, Any]:
+        """One list_models fetch for the gate's background refresh."""
+        return self._handle_random("list_models", name, (), update=False)
 
     # -- the cache's epochs ---------------------------------------------------
 
@@ -584,10 +602,17 @@ class Proxy:
                                 # the members' metrics maps and span
                                 # rings, merged as get_status is
                                 ("get_metrics", AGG_MERGE, False),
-                                ("get_traces", AGG_MERGE, False)):
+                                ("get_traces", AGG_MERGE, False),
+                                # the admission plane: a drop reaches
+                                # every member of the named cluster (an
+                                # update: a partial drop would fork the
+                                # slot set); the listing merges theirs
+                                ("drop_model", AGG_ALL_AND, True),
+                                ("list_models", AGG_MERGE, False)):
             self.rpc.add(mname, self._make_handler(
                 Method(mname, None, routing=BROADCAST, aggregator=agg,
                        update=upd)), threaded=True)
+        self.rpc.add("create_model", self._create_model, threaded=True)
         self.rpc.add("get_proxy_status", lambda: self.get_proxy_status())
         # the proxy's OWN process metrics and spans
         self.rpc.add("get_proxy_metrics", lambda: self.metrics_snapshot())
@@ -601,9 +626,29 @@ class Proxy:
             raise NotImplementedError(later_refusal(mname, item))
         return handler
 
-    # reads whose answers are volatile by design (operator counters),
-    # never cached even where the routing qualifies
-    _NO_CACHE = frozenset({"get_status", "get_metrics", "get_traces"})
+    def _create_model(self, name, spec=None, *rest):
+        """create_model, broadcast to every member of the named cluster
+        as an update (AGG_ALL_AND).  The epoch bumps even when it failed:
+        a partial admission may have landed on some members."""
+        with self._stat_lock:
+            self.request_count += 1
+        name = to_str(name)
+        spec = dict(spec or {})
+        if spec.get("placement", spec.get(b"placement")):
+            raise NotImplementedError(later_refusal(
+                "a create_model placement directive", "7"))
+        spec.pop("placement", None)
+        spec.pop(b"placement", None)
+        try:
+            return self._handle_broadcast("create_model", AGG_ALL_AND, name,
+                                          (spec, *rest), update=True)
+        finally:
+            self._bump_epoch(name)
+
+    # reads whose answers are volatile by design (operator counters, the
+    # live slot registry), never cached even where the routing qualifies
+    _NO_CACHE = frozenset({"get_status", "get_metrics", "get_traces",
+                           "list_models"})
 
     def _route(self, m: Method, name: str, params, hosts=None) -> Any:
         if self.routing == "partition":
@@ -639,6 +684,12 @@ class Proxy:
             with self._stat_lock:
                 self.request_count += 1
             name = to_str(name)
+            if m.fn is not None:
+                # engine traffic (the common and admission RPCs carry no
+                # fn): the tenant's token bucket, keyed on (model name,
+                # kind), rejects before any forward
+                self.quota_gate.admit(name, _Q_TRAIN if mutating
+                                      else _Q_QUERY)
             if mutating:
                 try:
                     return self._route(m, name, params)

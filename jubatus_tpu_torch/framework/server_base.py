@@ -1,54 +1,57 @@
 """The port's per-process model host (counterpart of
-jubatus_tpu/framework/server_base.py, one model per process).
+jubatus_tpu/framework/server_base.py).
 
-It builds the engine's driver on its device, holds the model lock, the
-raw-train dispatcher and the read lane (the JAX server's default model
-slot), counts updates, and answers the common RPCs: get_config, save,
-load, clear, get_status, get_metrics, get_traces and do_mix.  In a
-cluster (--coordinator) it also
-holds the membership client, the mixer and an id generator drawing from
-the coordinator's create_id; standalone it has none of them.  With
---journal it holds the durability plane (durability/): init_durability
-recovers the model from the journal directory before the server is
-routable, then the journal takes every applied update and the
-snapshotter writes the model in the background.  Model files use the
-reference format (framework/save_load.py) with the JAX package's naming
-and user-data version, so a file saved by either package loads in the
-other; `save` publishes through tmp + fsync + rename + directory fsync
-under a flock on the file, and --model_file loads one at boot
-(load_file).
+JubatusServer is the process's host and its default model slot: it
+inherits the per-model state and its RPCs from SlotState
+(tenancy/registry.py): the engine's driver on the host's device, the
+model lock, the raw-train dispatcher and the read lane, the update count
+and the query epoch, the durability plane, the mixer, get_config, save,
+load and clear.  It hosts the slot registry too: create_model admits
+more named models, each a SlotState of its own with its own driver,
+tensors, lock, journal namespace, query cache and MIX group, addressed by
+wire argument 0 (the cluster name the reference carries), with the
+default slot for any other name; drop_model retires one and list_models
+lists them.  --tenant names the default slot's tenant and the four
+--quota_* flags set the host's default quotas (tenancy/quotas.py).  In a
+cluster (--coordinator) it also holds the membership client, the mixer,
+an id generator drawing from the coordinator's create_id and the
+ClusterContext that admitted slots join the cluster with; standalone it
+has none of them.  With --journal it holds the durability plane
+(durability/): init_durability stamps the root's layout, recovers the
+default slot from the root and every cataloged slot from its own
+namespace before the server is routable; then each slot's journal takes
+its applied updates and its snapshotter writes it in the background.
+Model files use the reference format (framework/save_load.py) with the
+JAX package's naming and user-data version, so a file saved by either
+package loads in the other.
 
-The query plane: `model_epoch` counts every model mutation (an update,
-a clear, a load, a MIX fold, a catch-up, a recovery), and the epoch-keyed
-query cache (--query_cache_entries / --query_cache_bytes,
-framework/query_cache.py) never serves an answer across one.  The
-observability plane: metrics_snapshot() is the one flat counter map that
-get_status merges, get_metrics returns and the exporter serves; the
+The query plane: `model_epoch` counts every mutation of a slot (an
+update, a clear, a load, a MIX fold, a catch-up, a recovery), and the
+slot's epoch-keyed query cache (--query_cache_entries /
+--query_cache_bytes, framework/query_cache.py) never serves an answer
+across one.  The observability plane: metrics_snapshot() is the one flat
+counter map that get_status merges, get_metrics returns and the exporter
+serves, with each secondary slot's series under `<key>.<slot>`; the
 tracer (--trace_ring, --slow_op_ms) and the lock-order detector
 (--debug_locks) are process-wide.  The JAX server's heat, SLO and health
-sections (ROADMAP Queue 1 item 7) and its secondary model slots (3.5)
-are not in the port yet.
+sections are ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
 
-import fcntl
 import json
 import logging
 import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import jubatus_tpu_torch
 from jubatus_tpu_torch.analysis.lockgraph import MONITOR as _lock_monitor
-from jubatus_tpu_torch.durability import write_file_durably
-from jubatus_tpu_torch.durability.journal import check_writable
-from jubatus_tpu_torch.framework.query_cache import create_query_cache
-from jubatus_tpu_torch.framework.save_load import load_model, save_model
+from jubatus_tpu_torch.kernels import build
 from jubatus_tpu_torch.models import create_driver
-from jubatus_tpu_torch.models.classifier import train_scan
+from jubatus_tpu_torch.models.classifier import NNClassifierDriver, train_scan
 from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
 from jubatus_tpu_torch.ops.candidates import ivf_probe, sig_probe
@@ -58,11 +61,14 @@ from jubatus_tpu_torch.ops.lsh import (dense_dots, dense_topk,
 from jubatus_tpu_torch.obs.trace import TRACER
 from jubatus_tpu_torch.parallel.quantized import (dequantize_int8,
                                                   quantize_int8)
+from jubatus_tpu_torch.tenancy.layout import prepare_root
+from jubatus_tpu_torch.tenancy.quotas import QuotaSpec, TenantQuotas
+# USER_DATA_VERSION: the model files' user-data version, imported from
+# here by the file's readers
+from jubatus_tpu_torch.tenancy.registry import (USER_DATA_VERSION,
+                                                SlotRegistry, SlotState)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as metrics
 from jubatus_tpu_torch.utils.metrics import device_telemetry
-from jubatus_tpu_torch.utils.rwlock import create_rwlock
-
-USER_DATA_VERSION = 1
 
 # every kernel wrapper of the port, by the name get_status reports
 KERNEL_WRAPPERS = {
@@ -90,6 +96,18 @@ def kernel_launches() -> Dict[str, int]:
 def reset_kernel_launches() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+
+
+# the kernel libraries (kernels/build.py) a slot of each engine launches;
+# a new slot loads them before it is routable (the quantizer's too with
+# --mix_quantize)
+ENGINE_KERNELS = {
+    "classifier": ("train_scan",),
+    "regression": ("regression_scan",),
+    "nearest_neighbor": ("lsh", "candidates"),
+    "recommender": ("lsh", "candidates"),
+    "anomaly": ("lsh", "candidates"),
+}
 
 
 @dataclass
@@ -161,69 +179,52 @@ class ServerArgs:
     slow_op_ms: float = 0.0
     metrics_port: int = 0
     debug_locks: bool = False
+    # the tenancy plane (tenancy/): the default slot's tenant and the
+    # host's default per-tenant quotas, every axis 0 unlimited (no quota
+    # object, one attribute check a request); create_model may set its
+    # own, and quota_max_slots caps a tenant's slots at admission
+    tenant: str = ""
+    quota_max_slots: int = 0
+    quota_max_rows: int = 0
+    quota_train_rps: float = 0.0
+    quota_query_rps: float = 0.0
 
 
-class JubatusServer:
+class JubatusServer(SlotState):
+    """The process host AND its default model slot: the per-model state
+    and its RPCs are SlotState's (tenancy/registry.py); this class adds
+    the process's identity, ids, the slot registry and admission, and the
+    aggregate status and metrics surfaces."""
+
     def __init__(self, args: ServerArgs, config: Optional[str] = None):
         if config is None:
             with open(args.configpath) as f:
                 config = f.read()
-        self.args = args
-        self.config_str = config
-        self.driver = create_driver(args.type, json.loads(config),
-                                    device=args.device)
-        if args.index != "off" and not self.driver.configure_index(
-                args.index, probes=int(args.index_probes)):
-            # a kind that does not fit the engine's method declines:
-            # get_status shows index=off, the full sweep serves
-            # (for ivf: also an "index" embed_dim K7 does not take, whose
-            # reason the driver names)
-            why = getattr(self.driver, "index_decline_reason", None)
-            logging.getLogger("jubatus_tpu_torch.server").warning(
-                "--index %s does not fit %s/%s%s; serving full sweeps",
-                args.index, args.type, getattr(self.driver, "method", "?"),
-                f" ({why})" if why else "")
+        driver = self._create_driver(args, json.loads(config))
         if args.debug_locks:
             # before the first model-lock acquisition, so boot work
             # (recovery replay, bootstrap) is monitored too
             _lock_monitor.enable()
-        # readers (classify, get_labels, save) share; updates and the
-        # dispatch thread's fused steps are exclusive
-        self.model_lock = create_rwlock()
-        # bumped by every model mutation; the query cache keys on it
-        self.model_epoch = 0
-        self.query_cache = create_query_cache(args.query_cache_entries,
-                                              args.query_cache_bytes)
+        # the tenancy identity first: SlotState.admit reads host, tenant
+        # and quota
+        self.host = self
+        self.slot_name = args.name or ""
+        self.tenant = args.tenant or ""
+        self.quota = self.default_slot_quota(args)
+        self.tenant_quotas = TenantQuotas(args.quota_max_slots)
+        self.tenant_quotas.configure(self.tenant, self.quota)
+        self._init_slot_state(args, config, driver)
         # "inline" or "threaded", as bound (framework/service.py)
         self.dispatch_mode = "threaded"
         # the HTTP exporter, started by the CLI once the RPC port is bound
         self.metrics_exporter = None
-        pool = getattr(self.driver, "arena_pool", None)
-        if pool is not None:
-            pool.configure(args.arena_pool)
         if args.trace_ring > 0 or args.slow_op_ms > 0:
             # enable-only: a second server in one process must not turn
             # off the tracing a sibling turned on
             TRACER.configure(ring=max(args.trace_ring, TRACER.ring_size),
                              slow_op_ms=args.slow_op_ms
                              or TRACER.slow_op_s * 1e3)
-        # raw-train dispatcher and read lane
-        # (framework/service.setup_slot_pipelines)
-        self.dispatcher = None
-        self.read_dispatch = None
-        # durability plane (init_durability); None while it is off
-        self.journal = None
-        self.snapshotter = None
-        self.recovery_info = None
-        self._recovered_round = 0
-        self.update_count = 0
         self.start_time = time.time()
-        # cluster: set by cli/server.py when --coordinator is given
-        self.membership = None
-        self.mixer = None
-        self.cht = None         # the CHT ring, registered at cluster join
-        # --routing partition's range reconciler (cli/server.py)
-        self.partition_manager = None
         self._local_id = 0      # idgen's counter when standalone
         self._id_lock = threading.Lock()
         # the advertised address: --eth, else the bind address (a
@@ -231,6 +232,58 @@ class JubatusServer:
         self.ip = args.eth or (args.bind_address
                                if args.bind_address not in ("", "0.0.0.0")
                                else "127.0.0.1")
+        # the slot registry: the default slot under the cluster name;
+        # create_model admits more
+        self.slots = SlotRegistry(self)
+        # what an admitted slot needs to join the cluster under its own
+        # name (cli/server.py sets it with --coordinator); None: the
+        # slots run standalone
+        self.cluster_ctx = None
+
+    @staticmethod
+    def default_slot_quota(args: ServerArgs) -> Optional[QuotaSpec]:
+        """The host's default QuotaSpec from the --quota_* flags (None
+        when every axis is 0, the unlimited path)."""
+        spec = QuotaSpec(max_rows=int(args.quota_max_rows or 0),
+                         train_rps=float(args.quota_train_rps or 0),
+                         query_rps=float(args.quota_query_rps or 0))
+        return spec if (spec.max_rows or spec.train_rps or spec.query_rps) \
+            else None
+
+    @staticmethod
+    def _create_driver(args: ServerArgs, config: Dict[str, Any]):
+        """A slot's driver on the host's device, with the --index and
+        --arena_pool knobs applied."""
+        driver = create_driver(args.type, config, device=args.device)
+        if args.index != "off" and not driver.configure_index(
+                args.index, probes=int(args.index_probes)):
+            # a kind that does not fit the engine's method declines:
+            # get_status shows index=off, the full sweep serves
+            # (for ivf: also an "index" embed_dim K7 does not take, whose
+            # reason the driver names)
+            why = getattr(driver, "index_decline_reason", None)
+            logging.getLogger("jubatus_tpu_torch.server").warning(
+                "--index %s does not fit %s/%s%s; serving full sweeps",
+                args.index, args.type, getattr(driver, "method", "?"),
+                f" ({why})" if why else "")
+        pool = getattr(driver, "arena_pool", None)
+        if pool is not None:
+            pool.configure(args.arena_pool)
+        return driver
+
+    def _warm_kernels(self, driver) -> None:
+        """Build (the first time) and load the kernels a slot of this
+        engine launches, so a new slot's first request builds nothing
+        under its model lock."""
+        if driver.device.type != "cuda":
+            return
+        names = (("lsh",) if isinstance(driver, NNClassifierDriver)
+                 else ENGINE_KERNELS[self.args.type])
+        if self.args.mix_quantize:
+            names += ("quantize",)
+        build.build_all(names)
+        for name in names:
+            build.load(name)
 
     @property
     def server_id(self) -> str:
@@ -245,134 +298,56 @@ class JubatusServer:
             self._local_id += 1
             return self._local_id
 
-    def event_model_updated(self) -> None:
-        self.update_count += 1
-        self.model_epoch += 1
-        if self.mixer is not None:
-            self.mixer.updated()
+    # -- the slot registry ----------------------------------------------------
 
-    def note_model_mutated(self) -> None:
-        """Bump the query epoch without counting an update toward the MIX
-        trigger: for the mutations that are not client updates (a MIX
-        fold, a catch-up or bootstrap, a recovery, --model_file).  Call
-        it after the mutation, under the write lock where one is held."""
-        self.model_epoch += 1
+    def slot_for(self, name=None) -> SlotState:
+        """Wire argument 0 -> slot: a registered model name routes to its
+        slot, anything else to the default slot.  One attribute check in
+        a process with one slot."""
+        return self.slots.resolve(name)
 
-    def do_mix(self) -> bool:
-        """One MIX round now (the caller flushes the ingest pipeline
-        first); False standalone or when another master holds the lock."""
-        if self.mixer is None:
+    def create_model(self, spec: Any) -> bool:
+        return self.slots.create_model(spec)
+
+    def drop_model(self, name: str) -> bool:
+        return self.slots.drop_model(name)
+
+    def list_models(self) -> Dict[str, Any]:
+        return self.slots.list_models()
+
+    def do_mix(self, name=None) -> bool:
+        """One MIX round of the named slot now (the caller flushes its
+        ingest pipeline first); False standalone or when another master
+        holds the lock."""
+        mixer = self.slots.resolve(name).mixer
+        if mixer is None:
             return False
-        return self.mixer.mix_now()
+        return mixer.mix_now()
 
     # -- durability plane ----------------------------------------------------
 
     def init_durability(self):
-        """Bring the WAL root to layout v2, recover the model from it and
-        open the journal and the snapshotter.  Call BEFORE the server is
-        routable (replay mutates the driver with no lock held).  Returns
-        the RecoveryResult, or None when durability is off."""
+        """Bring the WAL root to layout v2 (adopting a legacy single-model
+        dir as the default slot's namespace), recover the default slot,
+        then every cataloged slot from its own namespace.  Call BEFORE
+        the server is routable.  Returns the default slot's
+        RecoveryResult, or None when durability is off."""
         if not self.args.journal_dir:
             return None
-        from jubatus_tpu_torch.durability import init_durability
-        from jubatus_tpu_torch.tenancy.layout import prepare_root
         prepare_root(self.args.journal_dir)
-        result = init_durability(self)
-        # recovery may have restored or replayed state: nothing keyed to
-        # the process's earlier life may be served
-        self.note_model_mutated()
+        result = SlotState.init_durability(self)
+        self.slots.restore_from_catalog()
         return result
-
-    def current_mix_round(self) -> int:
-        """The MIX round journal records and snapshots are labelled
-        with: the live mixer's round when it keeps one, else the round
-        recovery restored."""
-        r = getattr(self.mixer, "round", None)
-        return int(self._recovered_round if r is None else r)
-
-    def checkpoint_after_restore(self) -> None:
-        """A full-model overwrite (operator load, straggler catch-up, a
-        joiner's bootstrap) supersedes every earlier journal record:
-        snapshot NOW so a crash never replays them onto the restored
-        model.  It also lifts the truncation floor an errored replay
-        pinned and resumes the background snapshots.  Call with no model
-        lock held."""
-        if self.snapshotter is not None:
-            self.snapshotter.snapshot_now()
-            self.journal.truncate_floor = None
-            self.snapshotter.start()
-
-    def get_config(self) -> str:
-        return self.config_str
-
-    def _model_path(self, model_id: str) -> str:
-        return os.path.join(
-            self.args.datadir,
-            f"{self.server_id}_jubatus_{self.args.type}_"
-            f"{self.args.name}_{model_id}.jubatus")
-
-    def save(self, model_id: str) -> Dict[str, str]:
-        if not model_id or "/" in model_id:
-            raise ValueError(f"invalid model id: {model_id!r}")
-        path = self._model_path(model_id)
-        with self.model_lock.read():
-            data = self.driver.pack()
-        # the flock keeps two concurrent saves of one id from interleaving
-        # in one tmp file (the reference locks the model file too); tmp +
-        # fsync + rename + directory fsync, or a host crash after the
-        # rename can surface a missing or torn file
-        with open(path + ".lock", "w") as lock_fp:
-            fcntl.flock(lock_fp, fcntl.LOCK_EX)
-            write_file_durably(path, lambda fp: save_model(
-                fp, server_type=self.args.type, model_id=model_id,
-                config=self.config_str, user_data_version=USER_DATA_VERSION,
-                driver_data=data))
-        return {self.server_id: path}
-
-    def load(self, model_id: str) -> bool:
-        if not model_id or "/" in model_id:
-            raise ValueError(f"invalid model id: {model_id!r}")
-        with open(self._model_path(model_id), "rb") as fp:
-            data = load_model(fp, server_type=self.args.type,
-                              expected_config=self.config_str,
-                              user_data_version=USER_DATA_VERSION)
-        with self.model_lock.write():
-            self.driver.unpack(data)
-            self.event_model_updated()
-        self.checkpoint_after_restore()
-        return True
-
-    def load_file(self, path: str) -> None:
-        """--model_file: the boot load of a model file either package
-        saved (it must carry this server's type and config)."""
-        with open(path, "rb") as fp:
-            data = load_model(fp, server_type=self.args.type,
-                              expected_config=self.config_str,
-                              user_data_version=USER_DATA_VERSION)
-        with self.model_lock.write():
-            self.driver.unpack(data)
-            self.note_model_mutated()
-        self.checkpoint_after_restore()
-
-    def clear(self) -> bool:
-        journal = self.journal
-        check_writable(journal)    # refused before the model mutates
-        with self.model_lock.write():
-            self.driver.clear()
-            self.event_model_updated()
-            if journal is not None:
-                journal.append({"k": "clear"}, self.current_mix_round())
-        if journal is not None:
-            journal.commit()
-        return True
 
     def stop(self) -> None:
         """Stop the partition manager, the mixer, the snapshotter, the
         raw-train dispatcher's and the read lane's threads (queued
         requests fail with "server stopping"), close the journal (flush +
-        fsync) and leave the cluster.  The snapshotter stops before the dispatcher: a
+        fsync) and leave the cluster.  The snapshotter stops before the
+        dispatcher: a
         snapshot flushes the dispatcher, which a stopped one never
-        answers."""
+        answers.  The secondary slots stop first, each the same way."""
+        self.slots.shutdown_all()
         if self.partition_manager is not None:
             self.partition_manager.stop()
         if self.mixer is not None:
@@ -395,13 +370,16 @@ class JubatusServer:
         """The one flat counter map: the metrics registry and the
         subsystems' counters.  get_status merges it, get_metrics returns
         it and the exporter renders it, so a counter cannot appear in
-        one surface and not the others."""
+        one surface and not the others.  Each secondary slot adds its
+        series under `<key>.<slot>` (its epoch, update count, query
+        cache, journal, snapshotter, recovery, mixer and driver)."""
         out: Dict[str, str] = {}
         if self.query_cache is not None:
             out.update(self.query_cache.get_status())
         metrics.set_gauge("model_epoch", float(self.model_epoch))
         metrics.set_gauge("update_count", float(self.update_count))
         metrics.set_gauge("uptime_sec", time.time() - self.start_time)
+        metrics.set_gauge("tenant_slots", float(len(self.slots)))
         for k, v in device_telemetry().items():
             metrics.set_gauge(k, v)
         # the rpc, ingest, batch, read, mix and durability series
@@ -420,6 +398,17 @@ class JubatusServer:
         out.update(self.driver.get_status())
         if self.mixer is not None:
             out.update(self.mixer.get_status())
+        for slot in self.slots.secondary():
+            sfx = slot.slot_name
+            out[f"model_epoch.{sfx}"] = str(slot.model_epoch)
+            out[f"update_count.{sfx}"] = str(slot.update_count)
+            for sub in (slot.query_cache, slot.journal, slot.snapshotter,
+                        slot.recovery_info, slot.mixer):
+                if sub is not None:
+                    out.update({f"{k}.{sfx}": v
+                                for k, v in sub.get_status().items()})
+            out.update({f"{k}.{sfx}": v
+                        for k, v in slot.driver.get_status().items()})
         return out
 
     def get_metrics(self) -> Dict[str, Dict[str, str]]:
@@ -470,6 +459,10 @@ class JubatusServer:
             # durability: the flag always; the journal's, snapshotter's
             # and recovery's keys in metrics_snapshot when it is on
             "journal_enabled": str(int(self.journal is not None)),
+            # the tenancy plane: the slot count and the default slot's
+            # tenant; each slot's slot.<name>.* section follows
+            "tenant": self.tenant,
+            "tenant_slots": str(len(self.slots)),
             # the index knobs; a driver with a live index overrides
             # "index" with its kind and adds its index_* detail, so "off"
             # with no detail means declined or never asked
@@ -492,5 +485,7 @@ class JubatusServer:
         if self.partition_manager is not None:
             st.update(self.partition_manager.get_status())
             st["partition_rows"] = str(len(self.driver.partition_ids()))
+        for slot in self.slots.all():
+            st.update(slot.slot_status())
         st.update(self.metrics_snapshot())
         return {self.server_id: st}

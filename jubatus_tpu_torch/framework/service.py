@@ -3,8 +3,14 @@ jubatus_tpu/framework/service.py: the classifier, regression,
 nearest_neighbor, recommender and anomaly tables and the common RPCs).
 
 Each service is a table of Method specs bound to driver callables.  Every
-method takes the cluster `name` as wire argument 0 (dropped server-side),
-and datum/result shapes follow the reference IDL.
+method takes the cluster `name` as wire argument 0, and datum/result
+shapes follow the reference IDL.  Argument 0 is the model-slot key
+(tenancy/registry.py): a registered slot's name routes the call to that
+slot (its driver, model lock, journal, query cache, read lane, raw-train
+dispatcher and quota), any other name to the default slot; a raw train
+frame in a process with several slots is routed by peeking its name.
+Each call but a server-to-server one is first admitted against its
+slot's tenant quota (TRAIN for updates, QUERY for reads).
 
 Locking follows the reference's JRLOCK_/JWLOCK_: read handlers hold the
 model read lock (or ride the read lane, one hold per fused sweep, with
@@ -42,9 +48,10 @@ replica count, and the partition-mode ScatterRead
 (partition_query_*, the *_partial legs, partition_accept_rows and
 partition_drop_rows) are server-to-server and proxy-internal: the proxy
 does not register them.  get_metrics and get_traces answer the metrics
-map and the span ring (framework/server_base.py).  Tenancy and quotas
-(ROADMAP Queue 1 item 3.5) and the heat and SLO accounting (item 7) are
-later work.
+map and the span ring (framework/server_base.py); create_model,
+drop_model and list_models manage the slot registry (activate_model, the
+autopilot's slot migration, is refused: ROADMAP Queue 1 item 7, with the
+heat and SLO accounting).
 """
 
 from __future__ import annotations
@@ -62,8 +69,13 @@ from jubatus_tpu_torch.framework.dispatch import TrainDispatcher
 from jubatus_tpu_torch.framework.partition import ScatterRead
 from jubatus_tpu_torch.framework.query_cache import pack_wire
 from jubatus_tpu_torch.fv import Datum
+from jubatus_tpu_torch.mix.linear_mixer import LinearMixer
 from jubatus_tpu_torch.obs.trace import TRACER as _tracer
 from jubatus_tpu_torch.rpc.server import PreEncoded
+from jubatus_tpu_torch.tenancy.quotas import QUERY, TRAIN
+from jubatus_tpu_torch.tenancy.registry import (SlotMixRouter,
+                                                later_slot_refusal,
+                                                peek_frame_model)
 from jubatus_tpu_torch.utils.metrics import GLOBAL as _metrics
 
 log = logging.getLogger("jubatus_tpu_torch.service")
@@ -128,37 +140,38 @@ def _datum(obj) -> Datum:
     return Datum.from_msgpack(obj)
 
 
-def _build_train_dispatcher(server):
-    """The threaded raw-train dispatcher: the IngestPipeline at
+def _build_train_dispatcher(slot):
+    """One slot's threaded raw-train dispatcher: the IngestPipeline at
     --ingest_depth > 0, else the per-request TrainDispatcher, both with
     --batch_max and --batch_window_us."""
     from jubatus_tpu_torch.framework.dispatch import IngestPipeline
-    args = server.args
+    args = slot.args
     max_wait = args.batch_window_us / 1e6
     if args.ingest_depth > 0:
-        return IngestPipeline(server, max_batch=args.batch_max,
+        return IngestPipeline(slot, max_batch=args.batch_max,
                               max_wait_s=max_wait, depth=args.ingest_depth)
-    return TrainDispatcher(server, max_batch=args.batch_max,
+    return TrainDispatcher(slot, max_batch=args.batch_max,
                            max_wait_s=max_wait)
 
 
-def setup_slot_pipelines(server) -> None:
-    """The read lane and the raw-train dispatcher of the server's one
-    model slot, threaded dispatch only: inline dispatch runs all device
-    work on the event loop, with nothing to coalesce on other threads.
-    The lane exists when --read_batch_window_us > 0.  The dispatcher
-    exists when the native converter covers the config; otherwise train
-    frames take the decoded route."""
+def setup_slot_pipelines(slot) -> None:
+    """One model slot's read lane and raw-train dispatcher (the server
+    itself is its default slot), threaded dispatch only: inline dispatch runs all device work on the event loop, with
+    nothing to coalesce on other threads.  The lane exists when
+    --read_batch_window_us > 0.  The dispatcher exists when the native
+    converter covers the slot's config; otherwise its train frames take
+    the decoded route.  The default slot gets them at bind_service, an
+    admitted slot at create_model (tenancy/registry.py)."""
     from jubatus_tpu_torch.framework.dispatch import ReadDispatcher
-    inline = server.dispatch_mode == "inline"
-    window_us = server.args.read_batch_window_us
-    if window_us > 0 and not inline and server.read_dispatch is None:
-        server.read_dispatch = ReadDispatcher(server, window_us)
-    sd = SERVICES.get(server.args.type)
+    inline = slot.dispatch_mode == "inline"
+    window_us = slot.args.read_batch_window_us
+    if window_us > 0 and not inline and slot.read_dispatch is None:
+        slot.read_dispatch = ReadDispatcher(slot, window_us)
+    sd = SERVICES.get(slot.args.type)
     if (sd is not None and "train" in sd.methods and not inline
-            and server.dispatcher is None
-            and getattr(server.driver, "_fast", None) is not None):
-        server.dispatcher = _build_train_dispatcher(server)
+            and slot.dispatcher is None
+            and getattr(slot.driver, "_fast", None) is not None):
+        slot.dispatcher = _build_train_dispatcher(slot)
 
 
 def _cache_fill(cache, key, result):
@@ -189,60 +202,82 @@ def _cache_fill_when_done(cache, key, fut: Future) -> Future:
 
 
 def bind_service(server, rpc_server) -> None:
-    """Attach the server's service methods, its raw train route and the
-    common RPCs."""
+    """Attach the server's service methods, its raw train route, the
+    common RPCs and the tenancy RPCs.  Argument 0 of every call resolves
+    to a model slot (server.slot_for): the slot's own lock, journal,
+    query cache, read lane, dispatcher and quota serve it."""
     sd = SERVICES[server.args.type]
     # a threaded handler's local device mutation runs where the process's
     # device work runs (the event loop in inline mode; _locked_update)
     server.device_call = rpc_server.device_call
     inline = bool(rpc_server.inline_raw)
     server.dispatch_mode = "inline" if inline else "threaded"
-    setup_slot_pipelines(server)
-    model = server.args.name
+    # the default slot's pipelines now, and those of slots restored from
+    # the catalog before the bind; a slot admitted later gets its own at
+    # create_model (tenancy/registry.py calls the factory)
+    server._pipeline_factory = setup_slot_pipelines
+    for slot in server.slots.all():
+        setup_slot_pipelines(slot)
+    slots = server.slots
+    default = slots.default
+    _slot = slots.resolve
 
-    def _flush():
+    def _flush(s):
         # order acked raw trains before any other model change; never
         # under the model lock (framework/dispatch.py)
-        if server.dispatcher is not None:
-            server.dispatcher.flush()
+        if s.dispatcher is not None:
+            s.dispatcher.flush()
 
     def wrap(m: Method):
+        # server-to-server methods (the partition plane's legs and
+        # handoff) never burn a tenant's quota
+        quota_kind = None if m.routing == INTERNAL \
+            else (TRAIN if (m.update or m.nolock) else QUERY)
         if m.nolock:
-            def handler(_name, *args, _m=m):
+            def handler(_name, *args, _m=m, _qk=quota_kind):
+                s = _slot(_name)
+                if _qk is not None:
+                    s.admit(_qk)
                 if _tracer.enabled:
-                    _tracer.tag_current("model", model)
-                return _m.fn(server, *args)
+                    _tracer.tag_current("model", s.slot_name)
+                return _m.fn(s, *args)
         elif m.update:
-            def handler(_name, *args, _m=m):
+            def handler(_name, *args, _m=m, _qk=quota_kind):
+                s = _slot(_name)
+                if _qk is not None:
+                    s.admit(_qk)
                 # fail-stop gate: a stalled journal refuses the write
                 # before the model mutates; reads go on being served
-                check_writable(server.journal)
+                check_writable(s.journal)
                 # stage tags on the request's root span (rpc/server.py);
                 # `tr is None`, the default, skips every clock read
                 tr = _tracer if _tracer.enabled else None
                 if tr is None:
-                    _flush()
+                    _flush(s)
                     return _locked_update(
-                        server, lambda: _m.fn(server, *args),
+                        s, lambda: _m.fn(s, *args),
                         {"k": "u", "m": _m.name, "a": list(args)})
-                tr.tag_current("model", model)
+                tr.tag_current("model", s.slot_name)
                 t0 = time.monotonic()
-                _flush()
+                _flush(s)
                 tr.tag_current("stage.flush_s",
                                round(time.monotonic() - t0, 6))
                 return _locked_update(
-                    server, lambda: _m.fn(server, *args),
+                    s, lambda: _m.fn(s, *args),
                     {"k": "u", "m": _m.name, "a": list(args)}, tracer=tr)
         else:
-            # the read path: (1) the epoch-keyed cache, whose hit is the
-            # pre-encoded body, with no lock, sweep or encode; the epoch
-            # is read BEFORE the compute, so an answer computed beside an
-            # update is stored under the pre-update epoch and never
-            # served to a reader that saw the update's ack; (2) the read
-            # lane's fused sweep; (3) the read lock
-            def handler(_name, *args, _m=m):
-                cache = server.query_cache
-                key = cache.key(_m.name, args, server.model_epoch) \
+            # the read path: (1) the slot's epoch-keyed cache, whose hit
+            # is the pre-encoded body, with no lock, sweep or encode; the
+            # epoch is read BEFORE the compute, so an answer computed
+            # beside an update is stored under the pre-update epoch and
+            # never served to a reader that saw the update's ack; (2) the
+            # slot's read lane's fused sweep; (3) the slot's read lock
+            def handler(_name, *args, _m=m, _qk=quota_kind):
+                s = _slot(_name)
+                if _qk is not None:
+                    s.admit(_qk)
+                cache = s.query_cache
+                key = cache.key(_m.name, args, s.model_epoch) \
                     if cache is not None else None
                 if key is not None:
                     body = cache.get(key)
@@ -250,10 +285,10 @@ def bind_service(server, rpc_server) -> None:
                         return PreEncoded(body)
                 tr = _tracer if _tracer.enabled else None
                 if tr is not None:
-                    tr.tag_current("model", model)
+                    tr.tag_current("model", s.slot_name)
                     if cache is not None:
                         tr.tag_current("cache", "miss")
-                rd = server.read_dispatch
+                rd = s.read_dispatch
                 if rd is not None:
                     # a Future: the RPC loop awaits the fused sweep, whose
                     # own span (read.sweep.<method>) splits lock and device
@@ -263,14 +298,14 @@ def bind_service(server, rpc_server) -> None:
 
                 def compute():
                     if tr is None:
-                        with server.model_lock.read():
-                            return _m.fn(server, *args)
+                        with s.model_lock.read():
+                            return _m.fn(s, *args)
                     t0 = time.monotonic()
-                    with server.model_lock.read():
+                    with s.model_lock.read():
                         t1 = time.monotonic()
                         tr.tag_current("stage.lock_wait_s",
                                        round(t1 - t0, 6))
-                        out = _m.fn(server, *args)
+                        out = _m.fn(s, *args)
                     # read answers are host values: device + readback
                     tr.tag_current("stage.device_s",
                                    round(time.monotonic() - t1, 6))
@@ -283,13 +318,21 @@ def bind_service(server, rpc_server) -> None:
     for m in sd.methods.values():
         rpc_server.add(m.name, wrap(m), threaded=m.nolock)
 
-    if "train" in sd.methods and hasattr(server.driver, "train_raw"):
+    if "train" in sd.methods and hasattr(default.driver, "train_raw"):
         _plain_train = wrap(sd.methods["train"])
-        drv = server.driver
+
+        def _raw_slot(msg, params_off):
+            # one attribute check with one slot; a multi-slot process
+            # peeks the frame's model name (argument 0)
+            if not slots.multi:
+                return default
+            return slots.resolve(peek_frame_model(msg, params_off))
 
         def raw_train(msg: bytes, params_off: int):
             """Runs on an RPC worker thread.  Returns the result, or a
             Future the RPC layer awaits before the ack."""
+            s = _raw_slot(msg, params_off)
+            drv = s.driver
             if getattr(drv, "_fast", None) is None:
                 # the config needs the Python converter: decode and train
                 # like any update (the reference's routing)
@@ -297,11 +340,12 @@ def bind_service(server, rpc_server) -> None:
                                          strict_map_key=False,
                                          unicode_errors="surrogateescape")[3]
                 return _plain_train(*params)
-            check_writable(server.journal)
+            s.admit(TRAIN)
+            check_writable(s.journal)
             tr = _tracer if _tracer.enabled else None
             if tr is not None:
-                tr.tag_current("model", model)
-            dispatcher = server.dispatcher
+                tr.tag_current("model", s.slot_name)
+            dispatcher = s.dispatcher
             if dispatcher.accepts_raw_frames:
                 # the frame goes straight to the pipeline's convert stage;
                 # frames arrive in wire order and its queues are FIFO
@@ -318,69 +362,101 @@ def bind_service(server, rpc_server) -> None:
                                    round(time.monotonic() - t0, 6))
                 return dispatcher.submit((conv, msg, params_off))
 
-        def raw_train_batch(frames):
-            """Inline dispatch: a read burst's frames as one convert pass
-            and ONE fused device step, on the event loop."""
+        def _slot_train_batch(s, frames):
+            """Inline dispatch: one slot's frames of a read burst as one
+            convert pass and ONE fused device step, on the event loop."""
+            drv = s.driver
             if getattr(drv, "_fast", None) is None:
                 return [raw_train(m, o) for m, o in frames]
-            journal = server.journal
+            s.admit(TRAIN, n=len(frames))
+            journal = s.journal
             check_writable(journal)
             t0 = time.monotonic()
             with drv.convert_lock:
                 _metrics.observe("convert_lock_wait", time.monotonic() - t0)
                 rb = drv.convert_raw_batch(frames)
+            spent = s.__dict__.setdefault("_inline_arenas", [])
             try:
-                with server.model_lock.write():
+                with s.model_lock.write():
                     ns = drv.train_converted_batch(rb)
                     for _ in frames:
-                        server.event_model_updated()
+                        s.event_model_updated()
                     if journal is not None:
                         # one record a fused batch, as the dispatchers do
                         journal.append(
                             {"k": "train",
                              "f": [[bytes(m), int(o)] for m, o in frames]},
-                            server.current_mix_round())
+                            s.current_mix_round())
                 if journal is not None:
                     journal.commit()
             finally:
                 if rb.arena is not None:
-                    inline_state["arenas"].append(rb.arena)
+                    spent.append(rb.arena)
                     rb.arena = None
             # the periodic sync bounds the device backlog and is the fence
             # after which the consumed arenas go back to the pool
-            inline_state["ops"] += 1
-            if inline_state["ops"] % TrainDispatcher.SYNC_EVERY == 0:
+            s._inline_ops = getattr(s, "_inline_ops", 0) + 1
+            if s._inline_ops % TrainDispatcher.SYNC_EVERY == 0:
                 with _metrics.time("device_step"):
                     drv.device_sync()
-                spent, inline_state["arenas"] = inline_state["arenas"], []
+                s._inline_arenas = []
                 for arena in spent:
                     drv.arena_pool.release(arena)
             return ns
 
-        inline_state = {"ops": 0, "arenas": []}
+        def raw_train_batch(frames):
+            if not slots.multi:
+                return _slot_train_batch(default, frames)
+            # a burst may interleave slots: each slot's frames are one
+            # fused batch, the answers reassembled in frame order.  A
+            # failure (a quota rejection, a bad frame) faults only its
+            # slot's frames: the other groups were applied and journaled,
+            # and error-acking them would make their callers re-send
+            from jubatus_tpu_torch.rpc.server import InlineFault
+            out = [None] * len(frames)
+            groups = {}
+            for i, (m, o) in enumerate(frames):
+                s = _raw_slot(m, o)
+                groups.setdefault(id(s), (s, []))[1].append(i)
+            for s, idxs in groups.values():
+                try:
+                    rs = _slot_train_batch(s, [frames[i] for i in idxs])
+                except Exception as e:  # noqa: BLE001 - relayed per frame
+                    log.warning("inline train batch failed for model %s: "
+                                "%s", s.slot_name, e)
+                    rs = [InlineFault(str(e))] * len(idxs)
+                for i, r in zip(idxs, rs):
+                    out[i] = r
+            return out
+
         if inline:
             # the same fused-step bound as the threaded routes
             rpc_server.inline_batch_max = server.args.batch_max
         rpc_server.add_raw("train", raw_train, batch_fn=raw_train_batch)
 
+    # the common RPCs, per slot: save, load, clear and get_config act on
+    # the model the wire name addresses (files keyed by the slot's name)
     def _save(_n, mid):
-        _flush()
-        return server.save(_to_str(mid))
+        s = _slot(_n)
+        _flush(s)
+        return s.save(_to_str(mid))
 
     def _load(_n, mid):
-        _flush()
-        return server.load(_to_str(mid))
+        s = _slot(_n)
+        _flush(s)
+        return s.load(_to_str(mid))
 
     def _clear(_n):
-        _flush()
-        return server.clear()
+        s = _slot(_n)
+        _flush(s)
+        return s.clear()
 
     def _do_mix(_n):
         # every acked train lands before the round's snapshot
-        _flush()
-        return server.do_mix()
+        _flush(_slot(_n))
+        return server.do_mix(_n)
 
-    rpc_server.add("get_config", lambda _n: server.get_config())
+    rpc_server.add("get_config", lambda _n: _slot(_n).get_config())
     rpc_server.add("save", _save)
     rpc_server.add("load", _load)
     rpc_server.add("get_status", lambda _n: server.get_status())
@@ -392,10 +468,32 @@ def bind_service(server, rpc_server) -> None:
     # get_status, so a proxy broadcast-merges them alike
     rpc_server.add("get_metrics", lambda _n=None: server.get_metrics())
     rpc_server.add("get_traces", lambda _n=None: server.get_traces())
-    if server.mixer is not None:
-        # the mixer's peer RPCs (get_diff / put_diff / get_model, or the
-        # gossip mixers' pull / push)
-        server.mixer.register_api(rpc_server)
+    # the admission plane: registry mutations run off the event loop
+    # (driver construction, catalog IO and coordinator calls must not
+    # stall it) and never under a model lock (the registry's guard);
+    # list_models is host-dict work
+    rpc_server.add("create_model",
+                   lambda _n, spec: server.create_model(spec), threaded=True)
+    rpc_server.add("drop_model",
+                   lambda _n, mname: server.drop_model(_to_str(mname)),
+                   threaded=True)
+    rpc_server.add("list_models", lambda _n=None: server.list_models())
+    rpc_server.add("activate_model", _refuse_activate)
+    mixer = server.mixer
+    if isinstance(mixer, LinearMixer):
+        # the name-routed MIX wire: one get_diff / put_diff / get_model
+        # registration that dispatches on the frame's model field to the
+        # slots' mixers; a frame without one is the default slot's, byte
+        # for byte the single-model wire
+        SlotMixRouter(server).register_api(rpc_server)
+    elif mixer is not None:
+        # the gossip mixers keep their own wire (pull / push), the default
+        # slot's only: admitted slots run unmixed under them
+        mixer.register_api(rpc_server)
+
+
+def _refuse_activate(*_args):
+    raise NotImplementedError(later_slot_refusal("activate_model"))
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,8 @@ from jubatus_tpu_torch.fv.weight_manager import WeightManager
 # K (padded nnz per datum) is bucketed like the JAX package's batches.
 _K_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
-# plugin registries (python callables registered by name); the port's
-# plugin loader is later work, so they stay empty unless a caller fills
-# them
+# plugin registries (python callables registered by name); fv/plugin.py
+# installs the "dynamic" method, the loader of Python and C plugins
 STRING_FEATURE_PLUGINS: Dict[str, Callable[[Dict, str], List[Tuple[str, int]]]] = {}
 NUM_FEATURE_PLUGINS: Dict[str, Callable[[Dict, str, float], List[Tuple[str, float]]]] = {}
 STRING_FILTER_PLUGINS: Dict[str, Callable[[Dict, str], str]] = {}

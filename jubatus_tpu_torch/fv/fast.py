@@ -5,9 +5,10 @@ The C FastConverter (native/_fastconv.c) covers the common converter
 configs: plain key matchers, str/space/ngram splitters, bin/tf/log_tf
 sample weights, bin global weights, num/log/str numeric features.
 Anything outside that (regex matchers, filters, idf/bm25 global weights,
-combination rules, binary rules, plugins) gets None and trains through
-the Python DatumToFVConverter, the semantics reference — the reference
-server's routing, as in the JAX package.
+combination rules, binary rules, and "dynamic" plugins, fv/plugin.py)
+gets None and trains through the Python DatumToFVConverter, the
+semantics reference — the reference server's routing, as in the JAX
+package.
 
 A compiled FastConverter exposes two wire entry points:
 

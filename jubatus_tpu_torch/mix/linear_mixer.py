@@ -42,10 +42,16 @@ with the round, so one round can be stitched across nodes from each
 node's get_traces.  The retry policy and the PeerHealth breaker are the
 server's --rpc_retry_* and --breaker_* flags (mix/mixer_factory.py).
 
-Not in the port yet: the per-slot (tenancy) routing of frames (ROADMAP
-Queue 1 item 3.5), and the in-mesh fold of a data-parallel driver
-(_device_fold, item 4): the port's server has no device_mix, so a round
-has no in-mesh replicas to reconcile.
+A model slot's mixer (tenancy/registry.py join_slot_cluster) names its
+slot on every frame of its MIX group (`model_name`): the gather argument
+carries "model", put_diff a second argument, get_model a {"model"} map,
+and each peer's SlotMixRouter hands the frame to that slot's mixer.  With
+`model_name` None (the default slot, a one-model server) the frames are
+the legacy wire byte for byte.
+
+Not in the port yet: the in-mesh fold of a data-parallel driver
+(_device_fold, ROADMAP Queue 1 item 4): the port's server has no
+device_mix, so a round has no in-mesh replicas to reconcile.
 """
 
 from __future__ import annotations
@@ -232,6 +238,9 @@ class LinearMixer(TriggeredMixer):
     # the stock v2 wire
     quantize = False
     wire_version = MIX_PROTOCOL_VERSION
+    # the slot this mixer's frames name (None: the legacy single-model
+    # wire, routed to a peer's default slot)
+    model_name = None
 
     def __init__(self, server, membership, interval_sec: float = 16.0,
                  interval_count: int = 512, rpc_timeout: float = 10.0,
@@ -407,7 +416,7 @@ class LinearMixer(TriggeredMixer):
         host, port = behind
         try:
             out = _fetch_model(host, port, timeout=self.rpc_timeout,
-                               retry=self.retry)
+                               retry=self.retry, model=self.model_name)
         except Exception:  # noqa: BLE001 - retried on the next mark
             log.warning("straggler catch-up from %s:%d failed (will "
                         "retry on re-mark)", host, port, exc_info=True)
@@ -574,8 +583,12 @@ class LinearMixer(TriggeredMixer):
                 n_folded += 1
 
         # the round rides the gather frame when tracing, so the peers tag
-        # their handler spans with it (old peers ignore the argument)
-        gather_arg = {"r": own_round} if _tracer.enabled else 0
+        # their handler spans with it (old peers ignore the argument); a
+        # slot's mixer always sends the map, whose model field routes it
+        gather_arg = {"r": own_round} \
+            if (_tracer.enabled or self.model_name) else 0
+        if self.model_name:
+            gather_arg["model"] = self.model_name
         for (host, port), out in self._fanout_iter(members, "get_diff",
                                                    gather_arg):
             bytes_wire += note_mix_bytes("received", out)
@@ -655,7 +668,11 @@ class LinearMixer(TriggeredMixer):
         t_s = time.monotonic()
         sent = 0
         scatter_legs = 0
-        for _hp, fresh in self._fanout(members, "put_diff", packed):
+        # a slot's mixer names its model as a second put_diff argument, so
+        # the peer's router never decodes the payload to route it
+        scatter_args = (packed, self.model_name) if self.model_name \
+            else (packed,)
+        for _hp, fresh in self._fanout(members, "put_diff", *scatter_args):
             scatter_legs += 1
             if fresh:
                 sent += 1
@@ -696,7 +713,8 @@ class LinearMixer(TriggeredMixer):
 
     def bootstrap(self, server, host: str, port: int,
                   timeout: float = 30.0) -> bool:
-        return bootstrap_from_peer(server, host, port, timeout=timeout)
+        return bootstrap_from_peer(server, host, port, timeout=timeout,
+                                   model=self.model_name)
 
     def get_status(self) -> Dict[str, str]:
         st = {
@@ -723,12 +741,16 @@ class LinearMixer(TriggeredMixer):
 
 
 def _fetch_model(host: str, port: int, timeout: float = 30.0,
-                 retry: Optional[RetryPolicy] = None) -> dict:
-    """get_model and its protocol check; `model` stays packed (the
-    driver's unpack consumes it).  Any known wire version is accepted:
-    model payloads are exact f32 under both."""
+                 retry: Optional[RetryPolicy] = None,
+                 model: Optional[str] = None) -> dict:
+    """get_model and its protocol check; the answer's `model` stays
+    packed (the driver's unpack consumes it).  Any known wire version is
+    accepted: model payloads are exact f32 under both.  `model` names
+    the slot on a multi-slot peer; the legacy 0 argument fetches its
+    default slot."""
+    arg = {"model": model} if model else 0
     with Client(host, port, timeout=timeout, retry=retry) as c:
-        out = codec.decode(c.call_raw("get_model", 0))
+        out = codec.decode(c.call_raw("get_model", arg))
     if out.get("protocol_version") not in MIX_WIRE_VERSIONS:
         raise MixProtocolMismatch(
             f"peer {host}:{port} speaks mix protocol "
@@ -738,13 +760,15 @@ def _fetch_model(host: str, port: int, timeout: float = 30.0,
 
 
 def bootstrap_from_peer(server, host: str, port: int,
-                        timeout: float = 30.0) -> bool:
+                        timeout: float = 30.0,
+                        model: Optional[str] = None) -> bool:
     """Fresh-joiner model transfer: get_model from a live peer, and its
     mix round adopted under the same lock as the unpack (never moving
     back), so a scatter folded meanwhile does not make the joiner look
     like a straggler.  Then a snapshot anchors durability on the adopted
-    model."""
-    out = _fetch_model(host, port, timeout=timeout)
+    model.  `server` is the slot that adopts it; `model` names the slot
+    on the peer."""
+    out = _fetch_model(host, port, timeout=timeout, model=model)
     mixer = getattr(server, "mixer", None)
     peer_round = out.get("round")
     with server.model_lock.write():

@@ -22,6 +22,11 @@ applies it, committed after).  Neither carries a round id, so recovery's
 round guard folds both on replay.  Every fold bumps the server's query
 epoch; with the tracer on each pairwise exchange is one
 `mix.gossip.exchange` record (peer, ok, strategy).
+
+The gossip wire (pull / push) names no model, as in the JAX package: a
+server under a gossip mixer mixes its default slot only, and a model
+slot admitted there runs unmixed (tenancy/registry.py join_slot_cluster
+gives it a DummyMixer and says so in the log).
 """
 
 from __future__ import annotations

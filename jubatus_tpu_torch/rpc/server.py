@@ -265,7 +265,7 @@ class RpcServer:
             except Exception as e:  # noqa: BLE001 - relayed to the client
                 err = e
                 log.warning("error in %s (dispatch): %s", name, e,
-                            exc_info=True)
+                            exc_info=getattr(e, "log_trace", True))
                 try:
                     await self._reply(writer, msgid, str(e), None)
                 except ConnectionError:
@@ -316,7 +316,7 @@ class RpcServer:
                     except Exception as e:  # noqa: BLE001 - to the client
                         sem.release()
                         log.warning("error in %s (raw): %s", name, e,
-                                    exc_info=True)
+                                    exc_info=getattr(e, "log_trace", True))
                         await drain_acks()
                         await self._reply(writer, msgid, str(e), None)
                         done(name, t0, root, e)
@@ -461,7 +461,10 @@ class RpcServer:
                              round(time.monotonic() - t_d, 6))
             await self._reply(writer, msgid, None, result, span=root)
         except Exception as e:  # noqa: BLE001 - relayed to the client
-            log.warning("error in %s: %s", method, e, exc_info=True)
+            # an expected refusal (a tenant's quota) logs without its
+            # stack: it is the client's, and counted where it is raised
+            log.warning("error in %s: %s", method, e,
+                        exc_info=getattr(e, "log_trace", True))
             _metrics.inc_keyed("rpc_error_total", method)
             if root is not None:
                 root.tag("error", str(e))

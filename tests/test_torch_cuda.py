@@ -2139,3 +2139,89 @@ def test_torch_profile_trace_names_the_train_scan_kernel(dev, tmp_path):
     events = profiled_server_trace(tmp_path, "cuda")
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("train_scan" in k for k in kernels), sorted(set(kernels))
+
+
+def test_two_slots_trained_at_once_equal_each_alone_and_drops_free_the_card(
+        dev, tmp_path):
+    """Two model slots of one cuda server, trained at once from two client
+    threads through their own ingest pipelines (the scan kernel on one
+    card and stream), end bitwise equal to one-slot servers trained on
+    the same requests alone; dropping them returns
+    torch.cuda.memory_allocated() to its value before the creates."""
+    import gc
+    import json
+    import threading
+
+    from jubatus_tpu_torch.cli.server import serve
+    from jubatus_tpu_torch.rpc.client import Client
+
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps({
+        "method": "AROW", "parameter": {"regularization_weight": 1.0},
+        "converter": {"string_rules": [
+            {"key": "*", "type": "str", "sample_weight": "bin",
+             "global_weight": "bin"}], "num_rules": [
+            {"key": "*", "type": "num"}], "hash_max_size": 1 << 16}}))
+
+    def requests(seed):
+        rng = np.random.default_rng(seed)
+        return [[[f"l{int(rng.integers(8))}",
+                  [[["w", f"t{int(t)}"] for t in rng.integers(0, 5000, 6)],
+                   [["x", float(rng.random())]], []]] for _ in range(256)]
+                for _ in range(16)]
+
+    def start(name):
+        return serve(["--type", "classifier", "--configpath", str(cfg),
+                      "--rpc-port", "0", "--listen_addr", "127.0.0.1",
+                      "--name", name, "--device", "cuda"])
+
+    def train(port, name, reqs):
+        with Client("127.0.0.1", port, timeout=120) as c:
+            for r in reqs:
+                c.call_raw("train", name, r)
+
+    def state(slot):
+        slot.dispatcher.flush()
+        torch.cuda.synchronize()
+        return {k: v.cpu().clone() for k, v in (("w", slot.driver.w),
+                                                ("cov", slot.driver.cov))}
+
+    reqs = {"m1": requests(1), "m2": requests(2)}
+    alone = {}
+    for name in ("m1", "m2"):
+        srv, rpc = start(name)
+        try:
+            train(rpc.port, name, reqs[name])
+            alone[name] = state(srv)
+        finally:
+            rpc.stop()
+            srv.stop()
+    srv, rpc = start("c")
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with Client("127.0.0.1", rpc.port, timeout=120) as c:
+            for name in ("m1", "m2"):
+                assert c.call_raw("create_model", "c", {"name": name})
+        threads = [threading.Thread(target=train,
+                                    args=(rpc.port, name, reqs[name]))
+                   for name in ("m1", "m2")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for name in ("m1", "m2"):
+            got = state(srv.slot_for(name))
+            for k in ("w", "cov"):
+                assert torch.equal(got[k], alone[name][k]), (name, k)
+        assert torch.cuda.memory_allocated() > base
+        with Client("127.0.0.1", rpc.port, timeout=120) as c:
+            for name in ("m1", "m2"):
+                assert c.call_raw("drop_model", "c", name) is True
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        rpc.stop()
+        srv.stop()

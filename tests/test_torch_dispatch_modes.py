@@ -49,8 +49,6 @@ LATER_KEYS = {
     r"^(VIRT|RSS|SHR|loadavg|.*_mem.*|cpu_.*|.*total_memory|"
     r"clock_time|start_time|logdir|progname|.*pid_.*)$":
         "7 (utils/system.py machine status)",
-    r"^(tenant|tenant_slots)$": "3.5 (tenancy)",
-    r"^slot\..*": "3.5 (tenancy slots)",
     r"^autopilot.*": "7 (autopilot)",
     r"^(mix_topk|mix_collective)$": "4 (data-parallel tier)",
     # the JAX package's XLA compile cache (batching/bucketing.py

@@ -765,6 +765,10 @@ def test_a_directory_recovers_in_the_other_package(tmp_path, service,
 
 
 def test_a_root_listing_secondary_slots_is_refused(tmp_path):
+    """The name is kept from when the port refused such a root; it now
+    boots with the listed slot restored from its own namespace, under
+    the host's config, and a catalog listing nothing boots with the
+    default slot alone."""
     root = tmp_path / "dur"
     root.mkdir()
     (root / "MODELS.json").write_text(json.dumps(
@@ -773,13 +777,27 @@ def test_a_root_listing_secondary_slots_is_refused(tmp_path):
                                    device="cpu", journal_dir=str(root))
     srv = tserver_base.JubatusServer(args,
                                      config=json.dumps(CONFIGS["classifier"]))
-    with pytest.raises(RuntimeError, match="Queue 1 item 3.5"):
-        srv.init_durability()
-    assert srv.journal is None
-    # a catalog listing nothing boots
-    (root / "MODELS.json").write_text(json.dumps({"version": 1,
-                                                  "models": []}))
     srv.init_durability()
+    try:
+        assert set(srv.list_models()) == {"t", "m1"}
+        m1 = srv.slot_for("m1")
+        assert m1 is not srv and m1.tenant == "acme"
+        assert m1.config_str == srv.config_str
+        assert m1.journal is not None and srv.journal is not None
+        assert (root / "slots" / "m1" / "LOCK").exists()
+    finally:
+        srv.stop()
+    # a catalog listing nothing boots
+    root2 = tmp_path / "dur2"
+    root2.mkdir()
+    (root2 / "MODELS.json").write_text(json.dumps({"version": 1,
+                                                   "models": []}))
+    srv = tserver_base.JubatusServer(
+        tserver_base.ServerArgs(type="classifier", name="t", device="cpu",
+                                journal_dir=str(root2)),
+        config=json.dumps(CONFIGS["classifier"]))
+    srv.init_durability()
+    assert set(srv.list_models()) == {"t"}
     srv.stop()
 
 

@@ -103,6 +103,27 @@ def test_the_checks_cover_the_operating_plane():
     assert r.stdout.strip() == "[]"
 
 
+def test_the_checks_cover_the_tenancy_plane_and_the_plugins():
+    """The walk and the per-source check include the slot registry, the
+    quotas, the layout, the plugin loader and its shipped plugins, and
+    importing them pulls in neither JAX nor the JAX package."""
+    names = {str(p.relative_to(PKG)) for p in SOURCES if PKG in p.parents}
+    mods = {"tenancy/__init__.py", "tenancy/registry.py",
+            "tenancy/quotas.py", "tenancy/layout.py", "fv/plugin.py",
+            "native/plugins/__init__.py"}
+    assert mods | {"fv/plugins/dict_splitter.py"} <= names
+    assert {"simple_splitter.c", "trie_splitter.c"} <= {
+        p.name for p in (PKG / "native" / "plugins").glob("*.c")}
+    dotted = ", ".join("jubatus_tpu_torch." + m[:-3].replace("/", ".")
+                       .replace(".__init__", "") for m in sorted(mods))
+    r = _run(f"import sys, {dotted}\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             f"{FORBIDDEN!r})\n"
+             "print(bad)\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
     p.relative_to(REPO)))
 def test_source_names_no_jax_import(path):

@@ -481,3 +481,74 @@ def test_proxy_metrics_traces_and_forward_records(coord, tmp_path):
         c.close()
         TRACER.configure(ring=0, slow_op_ms=0)
         TRACER.clear()
+
+
+TENANCY_CFG = {"method": "AROW", "parameter": {"regularization_weight": 1.0},
+               "converter": {"string_rules": [
+                   {"key": "*", "type": "str", "sample_weight": "bin",
+                    "global_weight": "bin"}], "hash_max_size": 1024}}
+
+
+def tenancy_train(i):
+    return [[f"l{i % 3}", datum_wire(strings=[("k", f"tok{i}")])]]
+
+
+def test_the_tenancy_rpcs_and_the_edge_quota_through_the_proxy(coord,
+                                                                tmp_path):
+    """create_model reaches every member of the cluster, a slot's traffic
+    reaches that slot only, list_models merges the members' maps, an
+    over-quota tenant is refused at the members and then at the proxy's
+    edge (its view warmed through list_models), drop_model reaches every
+    member, and a placement directive is refused, naming item 7."""
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps(TENANCY_CFG))
+    servers = [serve(["--type", "classifier", "--configpath", str(cfg),
+                      "--rpc-port", "0", "--listen_addr", "127.0.0.1",
+                      "--eth", "127.0.0.1", "--coordinator",
+                      f"127.0.0.1:{coord}", "--name", "c", "--device", "cpu",
+                      "--interval_sec", "100000",
+                      "--interval_count", "1000000"]) for _ in range(2)]
+    proxy = Proxy(f"127.0.0.1:{coord}", "classifier", membership_ttl=0.0)
+    pport = proxy.start(0, host="127.0.0.1")
+    try:
+        with Client("127.0.0.1", pport, timeout=30) as c:
+            assert c.call_raw("create_model", "c", {
+                "name": "m1", "tenant": "t1",
+                "quota": {"train_rps": 2}}) is True
+            assert all(set(s.list_models()) == {"c", "m1"}
+                       for s, _ in servers)
+            assert c.call_raw("train", "m1", tenancy_train(0)) == 1
+            for s, _ in servers:
+                s.slot_for("m1").dispatcher.flush()
+            assert sum(s.slot_for("m1").update_count
+                       for s, _ in servers) == 1
+            assert sum(s.update_count for s, _ in servers) == 0
+            listing = as_str(c.call_raw("list_models", "c"))
+            assert set(listing) == {"c", "m1"}
+            assert listing["m1"]["quota"]["train_rps"] == 2.0
+            with pytest.raises(RemoteError, match="Queue 1 item 7"):
+                c.call_raw("create_model", "c",
+                           {"name": "m2", "placement": "auto"})
+            assert all(set(s.list_models()) == {"c", "m1"}
+                       for s, _ in servers)
+            # a flood: refused by the members at once, and at the edge
+            # once the proxy's background view of m1 has landed
+            edge = 0
+            deadline = time.monotonic() + WAIT_S
+            while not edge and time.monotonic() < deadline:
+                try:
+                    c.call_raw("train", "m1", tenancy_train(1))
+                except RemoteError as e:
+                    assert "quota_exceeded" in str(e)
+                    edge += "(proxy)" in str(e)
+            assert edge
+            assert proxy.quota_gate.info_of("m1")["tenant"] == "t1"
+            assert c.call_raw("drop_model", "c", "m1") is True
+            assert all(set(s.list_models()) == {"c"} for s, _ in servers)
+            with pytest.raises(RemoteError, match="Queue 1 item 7"):
+                c.call_raw("get_fleet_snapshot", "c")
+    finally:
+        proxy.stop()
+        for s, rpc in servers:
+            rpc.stop()
+            s.stop()

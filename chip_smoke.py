@@ -105,7 +105,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 scatters through dequantize_int8 and its train windows
                 through the scan kernel in its new process
   8. durable  — for each service, two port servers on cuda, one with
-                --journal (fsync batch, a 15 s snapshot timer) and one
+                --journal (fsync batch, an 8 s snapshot timer) and one
                 without, get the same four 8192-datum train requests, timed
                 in turns; the journaled one's first snapshot is awaited
                 after the first two.  SIGKILL, restart on the directory:
@@ -159,7 +159,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 1, sig_topk, the copy out, the whole call).  (c) MIX
                 and recovery, for lsh and for minhash at once: per method
                 the port's coordinator's cluster of two journaled servers,
-                2048 set_row each (4096 before phase 15 came), do_mix, both tables bitwise the union
+                1024 set_row each (4096 before phase 15 came, 2048 before 17), do_mix, both tables bitwise the union
                 applied in the master's order, a second do_mix changing
                 nothing, server 1 SIGKILLed and recovered bitwise through
                 its signature kernel.  Lines `nn_service` and `nn_cluster`
@@ -210,7 +210,7 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 writes each (above min_rows), 64 reads each bitwise an
                 in-process driver's, one K6 (K7) launch a read on both
                 sides, and the get_status index keys; (d) anomaly lof over
-                euclid_lsh H 64 with "index": {"min_rows": 0}, 2,048 adds,
+                euclid_lsh H 64 with "index": {"min_rows": 0}, 1,024 adds,
                 64 calc_score reads through K6, bitwise its plain version
  13. spill    — the spill tier (pages.resident_pages > 0: the master on
                 the host in pinned memory, a pool of resident pages on the
@@ -234,9 +234,9 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 the twin's read ms, device bytes spilled and resident, the
                 spill counters (`spill_nn` and `spill_reco` lines); (d)
                 anomaly lof over euclid_lsh H 64 with a quarter of its
-                pages resident, 1,024 adds and 64 calc_scores, bitwise a
+                pages resident, 512 adds and 64 calc_scores, bitwise a
                 CPU driver's; (e) a nearest_neighbor server with a spill
-                config, 8,192 set_rows and 64 reads over the wire,
+                config, 4,096 set_rows and 64 reads over the wire,
                 bitwise an in-process driver's, get_status's page keys and
                 spill counters
  14. partition — the partition plane (--routing partition): (a) in
@@ -319,8 +319,31 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 SIGKILLed and restarted: both slots bitwise, its
                 boot-to-routable ms and the replay's scan launches.  A
                 `tenancy {...}` line
- 17. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 16; counters are zeroed just before each path, and a
+ 17. dp       — the data-parallel tier (parallel/dp.py), the smoke's AROW
+                config at 2^20 columns and the shipped PA regression:
+                (a) in process, both scans' replica grid (csrc/train_scan.cu,
+                csrc/regression_scan.cu) at ndp 1, 4 and 8 on one 8,192-datum
+                microbatch, each replica bitwise ndp one-block launches on
+                its slice, at ndp 8 integer state bitwise and tables within
+                rtol 1e-5 / atol 1e-6 of the plain per-replica loop, the
+                grid's ms beside one block over the whole batch (`dp:`
+                lines); a DP driver at ndp 8 and 32 labels, its card memory
+                against w, cov and their bases, and one fold with payload
+                f32 and int8: the int8 ring on quantize.cu bitwise the same
+                ring on the plain quantizer pair, 2n quantize and 2(2n - 1)
+                dequantize launches (w and cov), its ms and scratch bytes;
+                (b) a standalone --dp_replicas 4 classifier (mix_payload
+                int8) and regression server, two 8,192-datum requests
+                each and the count-triggered collective round after them, get_status's dp_replicas, mix_collective,
+                collective_round and bytes, each saved model bitwise an
+                in-process DP driver fed the same frames; (c) two
+                --mix_quantize --dp_replicas 2 cluster members, one at
+                --mix_topk, do_mix until both agree; (d) a journaled
+                --dp_replicas 4 server SIGKILLed after a collective round,
+                recovered bitwise with its cmix record replayed and
+                collective_round resumed.  A `dp_service {...}` line
+ 18. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 17; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -338,6 +361,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -378,7 +402,7 @@ EXTRA_KEYS = ("us_per_datum", "ring", "shared_column_ms", "device_ms",
               "whole_table", "plan", "cycles_per_datum", "bytes_bound_ms",
               "in_band", "design", "variants", "candidates_mean",
               "full_sweep_ms", "recall", "build_s", "cap", "probes",
-              "centroids", "datum_ms", "read_ms", "fallbacks")
+              "centroids", "datum_ms", "read_ms", "fallbacks", "fold")
 
 
 def log(*a):
@@ -387,28 +411,22 @@ def log(*a):
 
 def bench_batch(rng, n, label_offset=0):
     """n wire datums shaped like bench.py's train requests: 8 string
-    features w{t%4}=tok{t}, t < 2^16, plus one number."""
-    batch = []
-    for i in range(n):
-        d = [[], [["x", float(rng.random())]], []]
-        for t in rng.integers(0, 1 << 16, size=8):
-            d[0].append([f"w{t % 4}", f"tok{t}"])
-        batch.append([f"class{(i + label_offset) % N_LABELS}", d])
-    return batch
+    features w{t%4}=tok{t}, t < 2^16, plus one number, over N_LABELS
+    labels (ten_batch: drawn in two calls, features from one table)."""
+    return ten_batch(rng, n, label_offset, labels=N_LABELS)
 
 
 def reg_batch(rng, n):
     """n wire [score, datum] pairs shaped like bench_batch's datums; the
     score is 3x plus or minus 2 by the parity of the first token, plus
-    normal noise of 0.1."""
-    batch = []
-    for _ in range(n):
-        toks = rng.integers(0, 1 << 16, size=8)
-        x = float(rng.random())
-        y = 3.0 * x + (2.0 if toks[0] % 2 else -2.0) + float(rng.normal(0, .1))
-        batch.append([y, [[[f"w{t % 4}", f"tok{t}"] for t in toks],
-                          [["x", x]], []]])
-    return batch
+    normal noise of 0.1 (drawn in three calls, features from one
+    table)."""
+    get = feature_table().__getitem__
+    toks = rng.integers(0, 1 << 16, size=(n, 8))
+    xs = rng.random(n)
+    ys = 3.0 * xs + (toks[:, 0] % 2 * 4.0 - 2.0) + rng.normal(0, .1, n)
+    return [[y, [list(map(get, row)), [["x", x]], []]]
+            for y, row, x in zip(ys.tolist(), toks.tolist(), xs.tolist())]
 
 
 def time_cuda(torch, fn, reps):
@@ -1498,24 +1516,26 @@ REG_PRODUCER_STAGES = ("wait_free_slot", "hash", "lookup_gather",
 
 
 def reg_scan_cycles(torch, dev, w, batch, plan, eps):
-    """One PA launch of regression_scan_launch_profiled (clock64 sums by
-    stage) from a copy of w: cycles a datum of the consumer warp and of
-    the first producer thread.  Not counted as a launch of the path."""
+    """One PA launch of regression_scan_grid_launch_profiled at one block
+    (clock64 sums by stage) from a copy of w: cycles a datum of the
+    consumer warp and of the first producer thread.  Not counted as a
+    launch of the path."""
     import ctypes
     from jubatus_tpu_torch.models.regression import _scan_lib
-    fn = _scan_lib().regression_scan_launch_profiled
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    fn = _scan_lib().regression_scan_grid_launch_profiled
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     prof = torch.zeros(24, dtype=torch.int64, device=dev)
     b, k = batch[0].shape
-    err = fn(w.clone().data_ptr(), *[t.data_ptr() for t in batch], b, k, 0,
-             1.0, eps, *plan, torch.cuda.current_stream().cuda_stream,
-             prof.data_ptr())
+    err = fn(w.clone().data_ptr(), *[t.data_ptr() for t in batch], b, k,
+             w.shape[0], 1, 0, 1.0, eps, *plan,
+             torch.cuda.current_stream().cuda_stream, prof.data_ptr())
     if err != 0:
-        raise AssertionError(f"regression_scan_launch_profiled: CUDA error "
-                             f"{err}")
+        raise AssertionError(f"regression_scan_grid_launch_profiled: CUDA "
+                             f"error {err}")
     p = prof.cpu().tolist()
     return {"consumer": {n: v / b for n, v in zip(REG_CONSUMER_STAGES, p)},
             "producer": {n: v / b for n, v in zip(REG_PRODUCER_STAGES,
@@ -2196,7 +2216,8 @@ def phase_cluster(torch, np, card, service, device="cuda"):
 
 # seconds between a durable server's background snapshots: the first
 # fires after the phase's first two requests, the next after the kill
-SNAPSHOT_S = 15
+SNAPSHOT_S = 8          # the journaled server's snapshot timer (15 s
+#                         before phase 17 came)
 LANE_THREADS = 32
 LANE_CALLS = 64             # one-datum reads per client thread
 LANE_WINDOW_US = 200
@@ -2522,7 +2543,7 @@ NN_NEW = 1024              # set_row calls over the wire
 NN_READS = 256             # calls of each read method over the wire
 NN_SIZE = 10               # their result size
 NN_CLUSTER_ROWS = 2048     # set_row calls to each cluster server (4,096
-                           # before phase 15 came)
+                           # before phase 15 came; ROADMAP's floor)
 NN_SWEEP_ROWS = 10 ** 6    # rows of the sweep kernel's tables
 NN_SIG_B = 1024            # datums of the signature kernels' batches
 NN_RTOL = NN_ATOL = 1e-6   # euclid_lsh scores
@@ -4113,7 +4134,7 @@ INDEX_PROBES = 4           # bench.py's probes
 INDEX_WIRE_ROWS = 9216     # writes to each server: above min_rows 8,192
                            # (16,384 before phase 15 came, 10,240 before
                            # phase 16)
-INDEX_ANOM_ADDS = 2048
+INDEX_ANOM_ADDS = 2048     # ROADMAP's floor
 INDEX_ANOM_CONFIG = dict(LOF_CONFIG, index={"min_rows": 0})
 IVF_CONFIG = {             # bench.py:1226: inverted_index on 4096 columns
     "method": "inverted_index", "parameter": {},
@@ -4686,9 +4707,9 @@ SPILL_RECO_ROWS = 250_000
 SPILL_RECO_BUDGET = 488
 SPILL_READS = 64           # reads of each route, checked and timed
 SPILL_SPLITS = 8           # reads split by stage
-SPILL_ANOM_ADDS = 1024     # 2,048 before phase 15 came
+SPILL_ANOM_ADDS = 1024     # 2,048 before phase 15 came; ROADMAP's floor
 SPILL_ANOM_READS = 64
-SPILL_WIRE_ROWS = 8_192    # 16,384 before phase 15 came
+SPILL_WIRE_ROWS = 8_192    # 16,384 before phase 15 came; ROADMAP's floor
 SPILL_WIRE_BUDGET = 16     # a quarter of the wire table's 64 pages
 SPILL_WIRE_READS = 64
 
@@ -6475,13 +6496,19 @@ PLUGIN_CONFIG = dict(SERVER_CONFIG, converter={
 _TEN_FEATS = []
 
 
+def feature_table():
+    """The 2^16 string features [w{t%4}, tok{t}], built once and shared by
+    every batch (msgpack packs a shared list like any other)."""
+    if not _TEN_FEATS:
+        _TEN_FEATS.extend([f"w{t % 4}", f"tok{t}"] for t in range(1 << 16))
+    return _TEN_FEATS
+
+
 def ten_batch(rng, n, label_offset=0, labels=N_LABELS):
     """bench_batch's datums (8 string features w{t%4}=tok{t}, t < 2^16,
     and one number) over `labels` labels, drawn in two calls, the
     features shared from one table, for the phase's many requests."""
-    if not _TEN_FEATS:
-        _TEN_FEATS.extend([f"w{t % 4}", f"tok{t}"] for t in range(1 << 16))
-    get = _TEN_FEATS.__getitem__
+    get = feature_table().__getitem__
     toks = rng.integers(0, 1 << 16, size=(n, 8)).tolist()
     xs = rng.random(n).tolist()
     names = [f"class{k}" for k in range(labels)]
@@ -6945,6 +6972,490 @@ def phase_tenancy(torch, np, card, device="cuda"):
     return launches
 
 
+# -- phase 17: the data-parallel tier -----------------------------------------
+
+DP_NDPS = (1, 4, 8)       # replicas of the in-process grid launches
+DP_FOLD_NDP = 8           # replicas of the in-process fold
+DP_SERVER_NDP = 4         # replicas of the standalone and journaled servers
+DP_REQS = 4               # REQ_B-datum requests to each standalone server:
+#                           two count-triggered rounds, three warm requests
+DP_TOPK = 32768           # --mix_topk of one member of the (c) cluster
+DP_CONFIG = dict(SERVER_CONFIG, parameter=dict(
+    SERVER_CONFIG["parameter"], mix_payload="int8"))
+
+
+def dp_grid_row(torch, np, dev, kind):
+    """(a) The replica grid at ndp 1, 4 and 8 on one REQ_B-datum
+    microbatch (replica r its slice): every replica bitwise ndp one-block
+    launches on the slices, integer state bitwise and the tables within
+    rtol 1e-5 / atol 1e-6 of the plain per-replica loop at ndp 8 (the
+    scan kernel sums in another order than its plain version), and the
+    grid's device ms beside the one-block scan of the whole batch (the
+    grid at ndp 1: train_scan launches the same C entry at one block).
+    Returns the kernel row (ndp 8 its main shape)."""
+    from jubatus_tpu_torch.models import classifier as tc
+    from jubatus_tpu_torch.models import regression as tr
+    L, K = N_LABELS, 16
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+
+    def timed(fn, reps):
+        return time_cuda(torch, fn, reps) if card else None
+
+    if kind == "classifier":
+        fresh, batch = scan_inputs(torch, np, dev, REQ_B, 17)
+        D = fresh[0].shape[1]
+        grid_fn, one_fn, ref_fn = (tc.train_scan_grid, tc.train_scan,
+                                   tc.train_scan_grid_ref)
+        args = ("AROW", 1.0)
+
+        def stacked(ndp):
+            return [t.unsqueeze(0).expand((ndp,) + tuple(t.shape)).clone()
+                    for t in fresh]
+
+        def one(st, r, rows):
+            one_fn(*[t[r] for t in st], *[t[rows] for t in batch], *args)
+    else:
+        w0, batch = reg_scan_inputs(torch, np, dev, REQ_B, 17)
+        D = w0.shape[0]
+        grid_fn, one_fn, ref_fn = (tr.train_scan_grid, tr.train_scan,
+                                   tr.train_scan_grid_ref)
+        args = ("PA", 1.0, 0.1)
+
+        def stacked(ndp):
+            return [w0.unsqueeze(0).expand(ndp, D).clone()]
+
+        def one(st, r, rows):
+            one_fn(st[0][r], *[t[rows] for t in batch], *args)
+    if DP_NDPS[0] != 1:
+        raise AssertionError("dp: the grid's first ndp is the one-block "
+                             "scan it is timed beside")
+    variants, err, plain_ms = [], 0.0, None
+    for ndp in DP_NDPS:
+        per = REQ_B // ndp
+        grid = stacked(ndp)
+        base = [t.clone() for t in grid]
+        ones = [t.clone() for t in grid]
+        n0 = grid_fn.launches
+        grid_fn(*grid, *batch, *args)
+        if card and grid_fn.launches != n0 + 1:
+            raise AssertionError(f"{kind} grid: not one launch")
+        for r in range(ndp):
+            one(ones, r, slice(r * per, (r + 1) * per))
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(grid, ones)):
+            raise AssertionError(f"{kind} grid ndp {ndp}: not bitwise "
+                                 f"{ndp} one-block launches on the slices")
+        if ndp == DP_FOLD_NDP:
+            # the plain per-replica loop over the whole batch, from the
+            # same state: integers bitwise, tables within tolerance
+            plain = [t.clone() for t in base]
+            sync()
+            t0 = time.perf_counter()
+            ref_fn(*plain, *batch, *args)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            floats = [0, 1] if kind == "classifier" else [0]
+            for i, (a, b) in enumerate(zip(grid, plain)):
+                if i in floats:
+                    e = float((a - b).abs().max())
+                    err = max(err, e)
+                    if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
+                        raise AssertionError(f"{kind} grid ndp {ndp}: max "
+                                             f"|diff| {e} from the plain "
+                                             "loop")
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"{kind} grid ndp {ndp}: integer "
+                                         "state differs from the plain loop")
+            del plain
+        ms = timed(lambda: grid_fn(*grid, *batch, *args), 3)
+        if ndp == 1:
+            single_ms = ms
+        # bytes: the batch once; per replica the w entries of its distinct
+        # live columns (all labels for the classifier) read once; every
+        # entry the launch wrote (cov read and written); counts, active
+        live = batch[3] > 0
+        ucols = sum(int(torch.unique(batch[0][r * per:(r + 1) * per][
+            live[r * per:(r + 1) * per]]).numel()) for r in range(ndp))
+        written = [int((a != b).sum()) for a, b in zip(ones, base)]
+        if kind == "classifier":
+            nbytes = (REQ_B * (2 * K + 2) * 4 + 4 * L * ucols
+                      + 4 * (written[0] + 2 * written[1]) + ndp * 2 * L * 5)
+        else:
+            nbytes = REQ_B * (2 * K + 2) * 4 + 4 * ucols + 4 * written[0]
+        variants.append(dict(
+            ndp=ndp, ms=ms, single_block_ms=single_ms,
+            speedup=single_ms / ms if card else None,
+            us_per_datum=ms * 1e3 / REQ_B if card else None,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            state_bytes=sum(t.numel() * t.element_size() for t in grid)))
+        del grid, base, ones
+        if card:
+            torch.cuda.empty_cache()
+    for v in variants:
+        log(f"dp: {kind} grid ndp {v['ndp']}: {v['ms']} ms a {REQ_B}-datum "
+            f"launch ({v['us_per_datum']} us a datum) beside {single_ms} ms "
+            f"for one block over the whole batch ({v['speedup']}x), bound "
+            f"{v['bound_ms']:.5f} ms; bitwise {v['ndp']} one-block "
+            f"launches; state {v['state_bytes']} bytes")
+    main = variants[-1]
+    return dict(ms=main["ms"], plain_ms=plain_ms, library_ms=None,
+                max_abs_err=err, bound_ms=main["bound_ms"],
+                bound_by="bytes",
+                shape=([REQ_B, K, L, D, DP_FOLD_NDP] if kind == "classifier"
+                       else [REQ_B, K, D, DP_FOLD_NDP]),
+                us_per_datum=main["us_per_datum"], variants=variants)
+
+
+def dp_fold(torch, np, dev):
+    """(a) A DP driver at ndp 8 on the card (L 32, D 2^20), its memory
+    against the reckoning (w, cov and their device bases: 4 tables of
+    ndp * L * D floats), then one fold of its diverged replicas with
+    payload f32 and int8: the ring on the card bitwise the same ring on
+    the plain quantizer pair on the card, n quantize and 2n - 1 dequantize
+    launches a float leaf, the fold's device ms and scratch bytes."""
+    from unittest import mock
+
+    import msgpack
+
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.parallel import quantized as tq
+    from jubatus_tpu_torch.parallel.collective import make_tree_mix
+    from jubatus_tpu_torch.parallel.dp import DPClassifierDriver
+    from jubatus_tpu_torch.parallel.mesh import make_mesh
+    n, L = DP_FOLD_NDP, N_LABELS
+    card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+
+    def allocated():
+        sync()
+        return torch.cuda.memory_allocated() if card else 0
+
+    before = allocated()
+    drv = DPClassifierDriver(DP_CONFIG, make_mesh(dp=n, device=dev))
+    rng = np.random.default_rng(23)
+    frame = msgpack.packb([0, 1, "train", ["", bench_batch(rng, REQ_B)]],
+                          use_bin_type=True)
+    off = native.load().parse_envelope(frame, 0)[4]
+    drv.train_converted_batch(drv.convert_raw_batch([(frame, off)]))
+    D = drv.dim
+    held = allocated() - before
+    reckoned = 4 * n * drv.capacity * D * 4
+    if drv.capacity != L or (card and held < reckoned):
+        raise AssertionError(f"dp fold: capacity {drv.capacity}, "
+                             f"{held} bytes held for {reckoned} reckoned")
+    state = {"w": drv.w, "cov": drv.cov, "counts": drv.counts,
+             "active": drv.active}
+    base = {"w": drv.w_dbase, "cov": drv.cov_dbase,
+            "counts": drv.counts_dbase, "active": drv.active}
+    out = {"held_bytes": held, "reckoned_bytes": reckoned}
+    for payload in ("f32", "int8"):
+        tree = make_tree_mix(n, payload)
+        q0 = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+        base_mem = allocated()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        got = tree(state, base)
+        sync()
+        scratch = torch.cuda.max_memory_allocated() - base_mem if card \
+            else None
+        launches = (tq.quantize_int8.launches - q0[0],
+                    tq.dequantize_int8.launches - q0[1])
+        want_launches = (2 * n, 2 * (2 * n - 1)) if payload == "int8" \
+            else (0, 0)
+        if card and launches != want_launches:
+            raise AssertionError(f"dp fold {payload}: launches {launches}, "
+                                 f"want {want_launches}")
+        if payload == "int8":
+            with mock.patch.object(tq, "quantize_int8", tq._quantize_ref), \
+                    mock.patch.object(tq, "dequantize_int8",
+                                      tq._dequantize_ref):
+                plain = tree(state, base)
+            sync()
+            for k in got:
+                if not torch.equal(got[k], plain[k]):
+                    raise AssertionError(f"dp fold int8: {k} differs from "
+                                         "the ring on the plain quantizer")
+        for k in ("w", "cov"):
+            if not all(torch.equal(got[k][r], got[k][0]) for r in range(n)):
+                raise AssertionError(f"dp fold {payload}: replicas of {k} "
+                                     "differ after the fold")
+        del got
+        ms = time_cuda(torch, lambda: tree(state, base), 2) if card \
+            else None
+        out[payload] = dict(ms=ms, scratch_bytes=scratch,
+                            quantize_launches=launches[0],
+                            dequantize_launches=launches[1])
+    drv.device_mix()          # the driver's own path, int8
+    sync()
+    log(f"dp: fold at ndp {n}, L {L}, D {D}: {held} bytes held "
+        f"({reckoned} reckoned for w, cov and their bases); f32 "
+        f"{out['f32']['ms']} ms, scratch {out['f32']['scratch_bytes']} "
+        f"bytes; int8 {out['int8']['ms']} ms, scratch "
+        f"{out['int8']['scratch_bytes']} bytes, quantize "
+        f"{out['int8']['quantize_launches']} and dequantize "
+        f"{out['int8']['dequantize_launches']} launches a round, bitwise "
+        f"the ring on the plain quantizer pair")
+    del drv, state, base
+    if card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_twin(torch, service, cfg, frames, mix_after, device):
+    """An in-process DP driver on the card fed `frames` through its raw
+    entry, a device_mix after the frames at `mix_after`; its pack."""
+    from jubatus_tpu_torch import native
+    from jubatus_tpu_torch.parallel.dp import create_dp_driver
+    from jubatus_tpu_torch.parallel.mesh import make_mesh
+    drv = create_dp_driver(service, cfg,
+                           make_mesh(dp=DP_SERVER_NDP, device=device))
+    splitter = native.load()
+    for i, fr in enumerate(frames):
+        drv.train_converted_batch(drv.convert_raw_batch(
+            [(fr, splitter.parse_envelope(fr, 0)[4])]))
+        if i in mix_after:
+            drv.device_mix()
+    pack = drv.pack()
+    del drv
+    return pack
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def wait_status(cli, key, want, what, timeout=60):
+    deadline = time.monotonic() + timeout
+    while True:
+        st = status_of(cli)
+        if st.get(key) == want:
+            return st
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: {key} {st.get(key)!r}, want "
+                                 f"{want!r}")
+        time.sleep(0.1)
+
+
+def phase_dp_service(torch, np, card, device="cuda", meanwhile=None):
+    """(b) A standalone --dp_replicas 4 classifier server (its config's
+    mix_payload int8: the ring on quantize.cu) and regression server,
+    each with --interval_count 2: DP_REQS wire requests of REQ_B datums,
+    a count-triggered collective round after every second; get_status
+    reports dp_replicas, mix_collective, collective_round and the
+    collective bytes; each server's saved model bitwise an in-process DP
+    driver on the card fed the same frames.  (c) Two --mix_quantize
+    --dp_replicas 2 classifier servers under the linear mixer (the
+    hierarchical round: each get_diff folds its replicas), one at
+    --mix_topk DP_TOPK: do_mix until both models agree, with the rounds,
+    the wire bytes and each process's quantizer launches.  (d) A journaled
+    --dp_replicas 4 classifier server: a request, a do_mix (one cmix
+    record), one more request, its saved model, SIGKILL, restart on the
+    directory: it replays the cmix record, resumes collective_round and
+    saves the same model bitwise.  All servers start at once, and
+    `meanwhile()` (the in-process part) runs while they boot.  Returns
+    the server processes' kernel launches, summed."""
+    from collections import Counter
+
+    from jubatus_tpu_torch.cluster.membership import MembershipClient
+    from jubatus_tpu_torch.mix import codec
+    from jubatus_tpu_torch.rpc.client import Client
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(29)
+    children = []
+    launches = Counter()
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        cfgs = {"classifier": DP_CONFIG, "regression": REG_CONFIG,
+                "plain": SERVER_CONFIG}
+        paths = {}
+        for k, c in cfgs.items():
+            paths[k] = os.path.join(tmp, f"{k}.json")
+            with open(paths[k], "w") as f:
+                json.dump(c, f)
+        try:
+            coord = Child(["jubatus_tpu_torch.cluster.coordinator",
+                           "--rpc-port", "0", "--listen_addr", "127.0.0.1"])
+            children.append(coord)
+            ndp = str(DP_SERVER_NDP)
+            alone = {svc: start_server(svc, paths[svc], tmp, "--dp_replicas",
+                                       ndp, "--interval_count", "2",
+                                       "--interval_sec", "100000",
+                                       device=device)[0]
+                     for svc in ("classifier", "regression")}
+            dur_argv = ["--dp_replicas", ndp, "--journal",
+                        os.path.join(tmp, "dur"), "--journal_fsync", "batch",
+                        "--snapshot_interval", "0", "--interval_count",
+                        "1000000", "--interval_sec", "100000"]
+            durable = start_server("classifier", paths["classifier"], tmp,
+                                   *dur_argv, device=device)[0]
+            children += list(alone.values()) + [durable]
+            addr = coord.wait_line("jubacoordinator", 120).split()[-1]
+            members = [start_server(
+                "classifier", paths["plain"], tmp, "--name", "dp_hier",
+                "--coordinator", addr, "--mix_quantize", "--dp_replicas",
+                "2", "--interval_sec", "100000", "--interval_count",
+                "1000000", *(["--mix_topk", str(DP_TOPK)] if i else []),
+                device=device)[0] for i in range(2)]
+            children += members
+            if meanwhile is not None:
+                meanwhile()
+            ports = {svc: server_ready(c, time.perf_counter())[0]
+                     for svc, c in alone.items()}
+            # (b) the standalone servers: a round after every 2 requests
+            for svc, port in ports.items():
+                cli = WireClient(port)
+                make = bench_batch if svc == "classifier" else reg_batch
+                frames = [cli.frame("train", make(rng, REQ_B))
+                          for _ in range(DP_REQS)]
+                req_ms = []
+                for i, fr in enumerate(frames):
+                    t0 = time.perf_counter()
+                    if cli.send(fr, "train") != REQ_B:
+                        raise AssertionError(f"dp {svc}: a train request "
+                                             "was not acknowledged")
+                    req_ms.append((time.perf_counter() - t0) * 1e3)
+                    if i % 2 == 1:
+                        st = wait_status(cli, "collective_round",
+                                         str((i + 1) // 2),
+                                         f"dp {svc} count-triggered round")
+                if DP_REQS % 2:
+                    st = status_of(cli)
+                if (st["dp_replicas"], st["mix_collective"], st["mixer"]) \
+                        != (ndp, "1", "collective_mixer"):
+                    raise AssertionError(f"dp {svc}: get_status {st}")
+                sent = int(st.get("mix_bytes_sent_total", 0))
+                if sent <= 0:
+                    raise AssertionError(f"dp {svc}: no collective bytes")
+                served = saved_tables(np, cli, svc, cfgs[svc])
+                cli.close()
+                twin = model_tables(np, dp_twin(
+                    torch, svc, cfgs[svc], frames,
+                    set(range(1, DP_REQS, 2)), device), svc)
+                if not same_tables(np, served, twin):
+                    raise AssertionError(f"dp {svc}: the server's model is "
+                                         "not bitwise the in-process DP "
+                                         "driver's")
+                launches.update(launches_of(st))
+                report[svc] = dict(request_ms=req_ms,
+                                   collective_round=st["collective_round"],
+                                   last_collective_sec=float(
+                                       st["last_collective_sec"]),
+                                   mix_bytes_sent_total=sent,
+                                   launches=nonzero(launches_of(st)))
+            for c in alone.values():
+                c.stop()
+            # (c) the hierarchical cluster
+            mports = [server_ready(c, time.perf_counter())[0]
+                      for c in members]
+            membership = MembershipClient(addr, "classifier", "dp_hier")
+            deadline = time.monotonic() + 60
+            while set(membership.get_all_nodes()) != \
+                    {("127.0.0.1", p) for p in mports}:
+                if time.monotonic() > deadline:
+                    raise AssertionError("dp cluster: members never listed")
+                time.sleep(0.1)
+            membership.close()
+            mclis = [WireClient(p) for p in mports]
+            for i, c in enumerate(mclis):
+                if c.send(c.frame("train", bench_batch(
+                        rng, REQ_B, label_offset=i)), "train") != REQ_B:
+                    raise AssertionError("dp cluster: a train request was "
+                                         "not acknowledged")
+
+            def model_of(port):
+                with Client("127.0.0.1", port, timeout=600) as c:
+                    return model_tables(np, codec.decode(
+                        c.call_raw("get_model", 0))["model"], "classifier")
+
+            rounds, round_ms = 0, []
+            while True:
+                rounds += 1
+                t0 = time.perf_counter()
+                if mclis[0].call("do_mix") is not True:
+                    raise AssertionError("dp cluster: do_mix failed")
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                models = [model_of(p) for p in mports]
+                if same_tables(np, models[0], models[1]):
+                    break
+                if rounds == 4:
+                    raise AssertionError("dp cluster: the members still "
+                                         "differ after 4 rounds")
+            mst = [status_of(c) for c in mclis]
+            for c in mclis:
+                c.close()
+            for st in mst:
+                launches.update(launches_of(st))
+            report["cluster"] = dict(
+                rounds=rounds, round_ms=round_ms,
+                wire_bytes=int(mst[0]["last_mix_wire_bytes"]),
+                mix_topk=[st["mix_topk"] for st in mst],
+                launches=[nonzero(launches_of(st)) for st in mst])
+            for c in members:
+                c.stop()
+            # (d) the journaled server: a cmix record replayed
+            dport = server_ready(durable, time.perf_counter())[0]
+            cli = WireClient(dport)
+            for i in range(2):
+                if cli.send(cli.frame("train", bench_batch(rng, REQ_B)),
+                            "train") != REQ_B:
+                    raise AssertionError("dp durable: a train request was "
+                                         "not acknowledged")
+                if i == 0 and cli.call("do_mix") is not True:
+                    raise AssertionError("dp durable: do_mix failed")
+            before = saved_tables(np, cli, "classifier", DP_CONFIG)
+            launches.update(launches_of(status_of(cli)))
+            cli.close()
+            durable.kill()
+            t0 = time.perf_counter()
+            durable = start_server("classifier", paths["classifier"], tmp,
+                                   *dur_argv, device=device)[0]
+            children.append(durable)
+            dport, boot_ms = server_ready(durable, t0)
+            cli = WireClient(dport)
+            st = status_of(cli)
+            if (st["recovery_collective_round"], st["collective_round"],
+                    st["recovery_replayed"], st["recovery_errors"]) != \
+                    ("1", "1", "3", "0"):
+                raise AssertionError(f"dp durable: recovery {st}")
+            after = saved_tables(np, cli, "classifier", DP_CONFIG)
+            cli.close()
+            if not same_tables(np, before, after):
+                raise AssertionError("dp durable: the recovered model is not "
+                                     "bitwise the model before the kill")
+            launches.update(launches_of(st))
+            report["durable"] = dict(boot_ms=boot_ms,
+                                     replayed=int(st["recovery_replayed"]),
+                                     launches=nonzero(launches_of(st)))
+        finally:
+            for c in children:
+                c.stop()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("dp_service " + json.dumps(report))
+    return dict(launches)
+
+
+def phase_dp(torch, np, card, device="cuda"):
+    """Phase 17: the data-parallel tier.  (a) in process: the replica
+    grids of both scans at ndp 1, 4, 8 and the fold at ndp 8, while the
+    servers of (b)-(d) boot; then the served tier (phase_dp_service).
+    Returns (kernel rows, the main path's launches)."""
+    dev = torch.device(device)
+    rows = {}
+
+    def in_process():
+        t0 = time.perf_counter()
+        rows["train_scan_grid"] = dp_grid_row(torch, np, dev, "classifier")
+        rows["regression_train_scan_grid"] = dp_grid_row(torch, np, dev,
+                                                         "regression")
+        rows["train_scan_grid"]["fold"] = dp_fold(torch, np, dev)
+        log(f"dp: in-process part in {time.perf_counter() - t0:.1f} s")
+
+    counts = phase_dp_service(torch, np, card, device=device,
+                              meanwhile=in_process)
+    return rows, counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -6970,44 +7481,85 @@ def main() -> int:
     log(f"card: torch {torch.__version__} cuda {torch.version.cuda}, "
         f"device {kind}, count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: the kernels phases 3-9 launch first; lsh.cu and
+    # candidates.cu (a minute of nvcc) build on a thread meanwhile, joined
+    # before phase 10, their first user
     from jubatus_tpu_torch.kernels import build
-    t0 = time.perf_counter()
-    times = build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    early = ("quantize", "train_scan", "regression_scan")
+    late = tuple(k for k in build.KERNELS if k not in early)
+    t_build = time.perf_counter()
+    times = build.build_all(early)
+    late_build = {}
+
+    def build_late():
+        try:
+            late_build["times"] = build.build_all(late)
+        except BaseException as e:  # noqa: BLE001 - raised at the join
+            late_build["error"] = e
+        late_build["s"] = time.perf_counter() - t_build
+
+    late_thread = threading.Thread(target=build_late, daemon=True)
+    late_thread.start()
+
+    def log_build(names, times, elapsed):
+        log(f"build: {elapsed:.1f} s "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+        for name in names:
+            for line in build.build_log(name).splitlines():
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
+                    log(f"build: {name}: {line.strip()}")
+
+    log_build(early, times, time.perf_counter() - t_build)
     from jubatus_tpu_torch import native
     t0 = time.perf_counter()
     log(f"build: native converter {native.load().__file__} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in build.KERNELS:
-        for line in build.build_log(name).splitlines():
-            if ("registers" in line or "spill" in line
-                    or "entry function" in line):
-                log(f"build: {name}: {line.strip()}")
+
+    # each phase's seconds, for the smoke's time budget
+    phase_s = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
 
     # 3-5
     rows = phase_kernels(torch, np)
+    lap("3.kernels")
     server_counts = phase_server(torch, np, card)
+    lap("4.server")
     mix_counts, diff_shape = phase_mix(torch, np, card)
     rows.update(time_quantizer(torch, np, diff_shape))
+    lap("5.mix")
     # 6. regression
     rows["regression_train_scan"] = phase_reg_kernels(torch, np)
     reg_counts = phase_reg_server(torch, np, card)
     reg_mix_counts = phase_reg_mix(torch, np)
+    lap("6.regression")
     # 7. cluster: cross-process v3 rounds, one cluster per service
     cluster_counts = [phase_cluster(torch, np, card, svc)
                       for svc in ("classifier", "regression")]
+    lap("7.cluster")
     # 8. durable: SIGKILL and recovery, per service
     cluster_counts += [phase_durable(torch, np, card, svc)
                        for svc in ("classifier", "regression")]
+    lap("8.durable")
     # 9. read lane: fused reads, per service
     cluster_counts += [phase_read_lane(torch, np, card, svc)
                        for svc in ("classifier", "regression")]
+    lap("9.read_lane")
+    late_thread.join()
+    if "error" in late_build:
+        raise late_build["error"]
+    log_build(late, late_build["times"], late_build["s"])
+    lap("9.build_wait")
     # 10. nearest_neighbor: the LSH kernels, the service, MIX and recovery
     rows.update(phase_nn_kernels(torch, np))
     svc_counts, served_sweeps = phase_nn_service(torch, np, card)
     nn_counts = [svc_counts, phase_nn_cluster(torch, np, card)]
+    lap("10.nearest_neighbor")
     # K3's row: the served table's sweep with its selection at a one-datum
     # read; the by-row read and the 10^6-row tables of each kind at 1 and
     # 64 queries follow among its variants
@@ -7019,6 +7571,7 @@ def main() -> int:
     for extra in row_extra:
         rows["lsh_signature"]["variants"] += extra.get("lsh_signature", [])
         rows["sig_topk_variants"] += extra.get("sig_topk", [])
+    lap("11.row_engines")
     # 12. the sublinear query index: K6 and K7 at 10^6 rows, over the wire
     # and in anomaly's reads
     t12 = time.perf_counter()
@@ -7029,10 +7582,12 @@ def main() -> int:
                     phase_index_wire(torch, np),
                     phase_index_anomaly(torch, np)]
     log(f"index: phase 12 in {time.perf_counter() - t12:.1f} s")
+    lap("12.index")
     # 13. the spill tier
     spill_counts, rows["sig_scores"], _ = phase_spill(torch, np)
     rows["dense_dots"]["variants"] += rows["sig_scores"].pop(
         "dots_variants")
+    lap("13.spill")
     # 14. the partition plane: in process on phase 12's tables, then over
     # the wire behind the port's proxy, then anomaly's legs
     t14 = time.perf_counter()
@@ -7042,16 +7597,28 @@ def main() -> int:
     partition_counts += [phase_partition_wire(torch, np),
                          phase_partition_anomaly(torch, np)]
     log(f"partition: phase 14 in {time.perf_counter() - t14:.1f} s")
+    lap("14.partition")
     # 15. the operating plane: the train modes, the tracer, the exporter,
     # a traced MIX round and proxy read, --torch_profile
     t15 = time.perf_counter()
     operating_counts = phase_operating(torch, np, card)
     log(f"operating: phase 15 in {time.perf_counter() - t15:.1f} s")
+    lap("15.operating")
     # 16. many model slots in one server: routing, quotas, per-slot MIX
     # and recovery, a C plugin, the card's memory back after the drops
     t16 = time.perf_counter()
     tenancy_counts = phase_tenancy(torch, np, card)
     log(f"tenancy: phase 16 in {time.perf_counter() - t16:.1f} s")
+    lap("16.tenancy")
+    # 17. the data-parallel tier: the replica grids and the fold in
+    # process, then standalone DP servers, a hierarchical cluster and a
+    # journaled DP server's recovery
+    t17 = time.perf_counter()
+    dp_rows, dp_counts = phase_dp(torch, np, card)
+    rows.update(dp_rows)
+    log(f"dp: phase 17 in {time.perf_counter() - t17:.1f} s")
+    lap("17.dp")
+    log("phase_s " + json.dumps(phase_s))
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
         **{k: main_sweep[k] for k in (
@@ -7082,6 +7649,9 @@ def main() -> int:
     def operating_served(kern):
         return operating_counts.get(kern, 0) + tenancy_counts.get(kern, 0)
 
+    def dp_served(kern):
+        return dp_counts.get(kern, 0)
+
     # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
@@ -7103,13 +7673,15 @@ def main() -> int:
                           mix_counts["quantize_int8"]
                           + reg_mix_counts["quantize_int8"]
                           + served("quantize_int8")
-                          + operating_served("quantize_int8")),
+                          + operating_served("quantize_int8")
+                          + dp_served("quantize_int8")),
         "dequantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                             "jubatus_tpu/parallel/quantized.py:88",
                             mix_counts["dequantize_int8"]
                             + reg_mix_counts["dequantize_int8"]
                             + served("dequantize_int8")
-                            + operating_served("dequantize_int8")),
+                            + operating_served("dequantize_int8")
+                            + dp_served("dequantize_int8")),
         "train_scan": ("jubatus_tpu_torch/csrc/train_scan.cu",
                        "jubatus_tpu/models/classifier.py:59",
                        server_counts["train_scan"] + served("train_scan")
@@ -7118,6 +7690,16 @@ def main() -> int:
                                   "jubatus_tpu/models/regression.py:32",
                                   reg_counts["regression_train_scan"]
                                   + served("regression_train_scan")),
+        # phase 17: the DP servers' replica grids (the standalone
+        # servers', the hierarchical cluster's, the journaled server's and
+        # its replay); the ring's quantizer launches are counted above
+        "train_scan_grid": ("jubatus_tpu_torch/csrc/train_scan.cu",
+                            "jubatus_tpu/parallel/dp.py:65",
+                            dp_served("train_scan_grid")),
+        "regression_train_scan_grid": (
+            "jubatus_tpu_torch/csrc/regression_scan.cu",
+            "jubatus_tpu/parallel/dp.py:510",
+            dp_served("regression_train_scan_grid")),
         "lsh_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                           "jubatus_tpu/ops/lsh.py:51",
                           nn_served("lsh_signature")

@@ -7,6 +7,7 @@
         [--loglevel info] [--logfile FILE] [--log_format plain|json] \
         [--name CLUSTER --coordinator HOST:PORT [--mixer linear_mixer] \
          [--interval_sec 16 --interval_count 512] [--mix_quantize] \
+         [--mix_topk K] \
          [--rpc_retry_max 3] [--rpc_retry_backoff_ms 50] \
          [--breaker_threshold 3] [--breaker_cooldown 5]] \
         [--batch_max 16] [--batch_window_us 2000] [--ingest_depth 2] \
@@ -20,7 +21,7 @@
         [--trace_ring N] [--slow_op_ms MS] [--metrics_port P] \
         [--debug_locks] [--torch_profile DIR] \
         [--tenant T] [--quota_max_slots N] [--quota_max_rows N] \
-        [--quota_train_rps R] [--quota_query_rps R]
+        [--quota_train_rps R] [--quota_query_rps R] [--dp_replicas N]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
@@ -34,8 +35,19 @@ at once).  Its peer calls retry --rpc_retry_max attempts (<= 1: none)
 with a full-jitter backoff from --rpc_retry_backoff_ms, and a peer that
 fails --breaker_threshold times in a row is skipped for
 --breaker_cooldown seconds.  A coordinator it cannot reach fails the
-start, as does --mixer collective_mixer (the data-parallel tier, ROADMAP
-Queue 1 item 4).
+start.
+
+The data-parallel tier (parallel/dp.py): --dp_replicas N (classifier,
+regression) holds N model replicas on the one card, stacked, each
+training its slice of every request in one replica-grid launch of the
+scan; 0 is one replica a local card.  A standalone DP server mixes its
+replicas with a CollectiveMixer (mix/collective.py) on the count/tick
+trigger, the f32 fold or, with {"mix_payload": "int8"} in the config's
+parameter, the int8 ring, journaled as cmix records; in a cluster
+--mixer collective_mixer folds in process when every peer shares the
+node's mix group and over the wire otherwise, and the linear mixer's
+rounds fold each member's replicas first.  --mix_topk K ships only the K
+columns of largest delta of a linear diff a round.
 
 Train requests: by default their raw frames go through the ingest
 pipeline (convert and dispatch threads, --ingest_depth windows deep,
@@ -140,8 +152,6 @@ log = logging.getLogger("jubatus_tpu_torch.server")
 # (flag, its argparse keywords with the JAX server's default, the ROADMAP
 # Queue 1 item that brings it)
 LATER_FLAGS = (
-    ("--dp_replicas", {"type": int, "default": 1}, "4"),
-    ("--mix_topk", {"type": int, "default": 0}, "4"),
     ("--shard_devices", {"type": int, "default": 1}, "6"),
     ("--chaos_ctl", {"action": "store_true"}, "7"),
     ("--heat_window", {"type": float, "default": 60.0}, "7"),
@@ -209,6 +219,21 @@ def _parser() -> argparse.ArgumentParser:
                    help="ship MIX diff bodies as blockwise-int8 tensors + "
                         "f32 absmax scales (wire version 3); flip it "
                         "cluster-wide")
+    p.add_argument("--mix_topk", type=int, default=0,
+                   help="ship only the k largest-|delta| feature columns "
+                        "of the linear mixables (classifier/regression) "
+                        "per MIX round; dropped columns normally ship on "
+                        "a later round, but a column a PEER ships first "
+                        "adopts the cluster consensus and the local "
+                        "pending delta folds away (same rule as training "
+                        "that lands mid-round).  0 (default) = dense: "
+                        "every touched column ships.  Per-round bitwise "
+                        "replica convergence only holds at 0")
+    p.add_argument("--dp_replicas", type=int, default=1,
+                   help=">1: run the engine's data-parallel driver with "
+                        "that many replicas stacked on the device (0 = one "
+                        "a local device); the count/tick MIX trigger then "
+                        "drives the collective fold")
     p.add_argument("--batch_max", type=int, default=16,
                    help="train requests fused into one device step at most")
     p.add_argument("--batch_window_us", type=float, default=2000.0,
@@ -391,7 +416,8 @@ def serve(argv: Optional[Sequence[str]] = None
                       interval_count=ns.interval_count,
                       coordinator=ns.coordinator,
                       interconnect_timeout=ns.interconnect_timeout,
-                      mix_quantize=ns.mix_quantize, journal_dir=ns.journal,
+                      mix_quantize=ns.mix_quantize, mix_topk=ns.mix_topk,
+                      dp_replicas=ns.dp_replicas, journal_dir=ns.journal,
                       journal_fsync=ns.journal_fsync,
                       journal_segment_bytes=ns.journal_segment_bytes,
                       snapshot_interval_sec=ns.snapshot_interval,
@@ -484,6 +510,17 @@ def serve(argv: Optional[Sequence[str]] = None
             # out-rounds us marks us behind, and the catch-up heals the
             # rounds we slept through
             server.mixer.round = max(server.mixer.round, recovery.round)
+        _resume_collective(server, recovery, args)
+    elif hasattr(server.driver, "device_mix"):
+        # a standalone DP server: every MIX round is the collective fold
+        # of its replicas on the card, on the count/tick trigger
+        from jubatus_tpu_torch.mix.collective import CollectiveMixer
+        server.mixer = CollectiveMixer(server,
+                                       interval_sec=args.interval_sec,
+                                       interval_count=args.interval_count)
+        args.mix_collective = True   # the resolved tier, in get_status
+        _resume_collective(server, recovery, args)
+        server.mixer.start()
     rpc = RpcServer(threads=args.thread,
                     inline_raw=args.dispatch == "inline")
     bind_service(server, rpc)
@@ -515,6 +552,15 @@ def serve(argv: Optional[Sequence[str]] = None
     log.info("jubatus_tpu_torch %s server listening on %s:%d (device %s)",
              args.type, args.bind_address, port, server.driver.device)
     return server, rpc
+
+
+def _resume_collective(server: JubatusServer, recovery, args) -> None:
+    """Resume the journaled collective epoch ("cmix" records) after
+    recovery, unless --model_file replaced the recovered model."""
+    if (recovery is not None and not args.model_file
+            and hasattr(server.mixer, "collective_round")):
+        server.mixer.collective_round = max(server.mixer.collective_round,
+                                            recovery.collective_round)
 
 
 def _join_cluster(server: JubatusServer, membership, port: int,

@@ -4,6 +4,8 @@ servers see each other).
 
   /jubatus/actors/<type>/<name>/nodes/<ip>_<port>       (all actors)
   /jubatus/actors/<type>/<name>/actives/<ip>_<port>     (mix-fresh actors)
+  /jubatus/actors/<type>/<name>/mix_groups/<group>~<ip>_<port>
+                                                        (collective MIX groups)
   /jubatus/actors/<type>/<name>/master_lock             (MIX master election)
   /jubatus/config/<type>/<name>                         (cluster config)
 
@@ -63,6 +65,13 @@ def config_path(engine_type: str, name: str) -> str:
     return f"{CONFIG_BASE}/{engine_type}/{name}"
 
 
+def mix_group_dir(engine_type: str, name: str) -> str:
+    """The groups of the two-level MIX (mix/collective.py): each entry
+    `<group>~<ip>_<port>`; nodes sharing a group reconcile by the
+    collective fold, every other peer needs a wire (linear mixer) leg."""
+    return f"{ACTOR_BASE}/{engine_type}/{name}/mix_groups"
+
+
 class MembershipClient:
     """One server process's view of, and registration in, the cluster.
     `coordinator` is a lock service or a connect string."""
@@ -76,6 +85,8 @@ class MembershipClient:
         self.name = name
         self._nodes = CachedMembership(
             self.ls, actor_node_dir(engine_type, name), ttl=MEMBERS_TTL_S)
+        self._mix_groups = CachedMembership(
+            self.ls, mix_group_dir(engine_type, name), ttl=MEMBERS_TTL_S)
 
     # -- registration -------------------------------------------------------
 
@@ -102,12 +113,37 @@ class MembershipClient:
         self.ls.remove(f"{actor_node_dir(self.engine_type, self.name)}/"
                        f"{build_loc_str(ip, port)}")
 
+    def register_mix_group(self, group: str, ip: str, port: int) -> None:
+        """Advertise this node's collective MIX group (ephemeral, like
+        every actor registration).  `group` may not contain '~', which
+        separates it from the location in the entry's name."""
+        if "~" in group:
+            raise ValueError(f"mix group id may not contain '~': {group!r}")
+        self._register(f"{mix_group_dir(self.engine_type, self.name)}/"
+                       f"{group}~{build_loc_str(ip, port)}")
+
     # -- queries ------------------------------------------------------------
 
     def get_all_nodes(self, force: bool = False) -> List[Tuple[str, int]]:
         """Every registered actor; from a cache up to MEMBERS_TTL_S old
         unless `force` reads the coordinator now."""
         return decode_loc_strs(self._nodes.members(force=force), "nodes")
+
+    def get_mix_groups(self) -> dict:
+        """{group: [(ip, port), ...]} of every advertised node.  A node
+        that advertises none (a server without the collective tier) is
+        in no group, which sends a round over the wire."""
+        out: dict = {}
+        for m in self._mix_groups.members():
+            if "~" not in m:
+                log.warning("skipping undecodable mix_group entry %r", m)
+                continue
+            group, loc = m.split("~", 1)
+            try:
+                out.setdefault(group, []).append(revert_loc_str(loc))
+            except ValueError:
+                log.warning("skipping undecodable mix_group entry %r", m)
+        return out
 
     # -- cluster config -----------------------------------------------------
 

@@ -19,6 +19,15 @@
 // Duplicate columns within a datum accumulate (w.at[idx].add adds each
 // entry); padding entries (index 0, value 0) add a signed zero to w[0].
 //
+// The replica grid (regression_scan_grid_launch) replaces the JAX
+// package's data-parallel train, a shard_map of train_scan_impl over the
+// mesh's dp axis (jubatus_tpu/parallel/dp.py _dp_reg_train_fn): ndp
+// replicas of w stacked [ndp, D] and a batch of ndp * B datums, replica r
+// training rows [r * B, (r + 1) * B).  Block r of a grid of ndp blocks is
+// replica r: it offsets every pointer by r and runs the one-block body
+// unchanged, so each replica is bitwise one single-block launch on its
+// slice, and a one-block launch (r = 0) is the single-replica scan.
+//
 // What bounds it: datum i+1 reads what datum i wrote, so the B datums run
 // one after another.  Each reads K weights and writes at most K — a few
 // hundred bytes — so the kernel is bound by the latency of the per-datum
@@ -601,9 +610,19 @@ regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
                        const float* __restrict__ val,
                        const float* __restrict__ tgt,
                        const float* __restrict__ mask, int B, int K,
-                       float c, float eps, int T, int S, int P,
+                       long long D, float c, float eps, int T, int S, int P,
                        long long* prof) {
   extern __shared__ __align__(16) unsigned char smem[];
+  {
+    // block r is replica r of a replica grid (0 in a one-block launch)
+    const long long r = blockIdx.x;
+    w += r * D;
+    idx += r * B * K;
+    val += r * B * K;
+    tgt += r * B;
+    mask += r * B;
+    if (prof) prof += r * 24;
+  }
   const Plan pl = make_plan(T, S, K);
   uint64_t* full = (uint64_t*)smem;
   uint64_t* done = full + S;
@@ -633,34 +652,35 @@ regression_scan_kernel(float* w, const int32_t* __restrict__ idx,
 
 template <int METHOD, int KC>
 int launch(void* w, const void* indices, const void* values,
-           const void* targets, const void* mask, int B, int K, float c,
-           float eps, int T, int S, int P, size_t smem, cudaStream_t stream,
-           long long* prof) {
+           const void* targets, const void* mask, int B, int K, long long D,
+           int ndp, float c, float eps, int T, int S, int P, size_t smem,
+           cudaStream_t stream, long long* prof) {
   auto kernel = regression_scan_kernel<METHOD, KC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<1, 32 * (2 + P), smem, stream>>>(
+  kernel<<<ndp, 32 * (2 + P), smem, stream>>>(
       (float*)w, (const int32_t*)indices, (const float*)values,
-      (const float*)targets, (const float*)mask, B, K, c, eps, T, S, P, prof);
+      (const float*)targets, (const float*)mask, B, K, D, c, eps, T, S, P,
+      prof);
   return (int)cudaGetLastError();
 }
 
 template <int METHOD>
 int launch_k(void* w, const void* indices, const void* values,
-             const void* targets, const void* mask, int B, int K, float c,
-             float eps, int T, int S, int P, size_t smem,
-             cudaStream_t stream, long long* prof) {
+             const void* targets, const void* mask, int B, int K,
+             long long D, int ndp, float c, float eps, int T, int S, int P,
+             size_t smem, cudaStream_t stream, long long* prof) {
   if (K == 16)
-    return launch<METHOD, 16>(w, indices, values, targets, mask, B, K, c,
-                              eps, T, S, P, smem, stream, prof);
+    return launch<METHOD, 16>(w, indices, values, targets, mask, B, K, D,
+                              ndp, c, eps, T, S, P, smem, stream, prof);
   if (K == 32)
-    return launch<METHOD, 32>(w, indices, values, targets, mask, B, K, c,
-                              eps, T, S, P, smem, stream, prof);
-  return launch<METHOD, 0>(w, indices, values, targets, mask, B, K, c, eps,
-                           T, S, P, smem, stream, prof);
+    return launch<METHOD, 32>(w, indices, values, targets, mask, B, K, D,
+                              ndp, c, eps, T, S, P, smem, stream, prof);
+  return launch<METHOD, 0>(w, indices, values, targets, mask, B, K, D, ndp,
+                           c, eps, T, S, P, smem, stream, prof);
 }
 
 }  // namespace
@@ -672,19 +692,22 @@ extern "C" long long regression_scan_smem_bytes(int T, int S, int K) {
   return (long long)make_plan(T, S, K).total;
 }
 
-// The launch with cycle accounting: prof (long long[24], zeroed by the
-// caller) receives the consumer's cycles in 0-7 (wait for the block,
-// forwarding, table reads and products, reduction, step, group adds and
-// stores, __syncwarp, block commit), the first producer thread's in 8-12
-// (wait for a free slot, hash and numbering, lookups and gathers, per-datum
-// |x|^2 and links, commit) and the writeback warp's in 16-17 (wait,
-// stores).  A measurement hook: the service never passes it.
-extern "C" int regression_scan_launch_profiled(
+// The replica grid with cycle accounting: prof (long long[24] a replica,
+// zeroed by the caller) receives each block's consumer cycles in 0-7
+// (wait for the block, forwarding, table reads and products, reduction,
+// step, group adds and stores, __syncwarp, block commit), the first
+// producer thread's in 8-12 (wait for a free slot, hash and numbering,
+// lookups and gathers, per-datum |x|^2 and links, commit) and the
+// writeback warp's in 16-17 (wait, stores).  B is the datums of ONE
+// replica; ndp blocks run replica r on rows [r * B, (r + 1) * B) and on
+// w[r * D ..].  A measurement hook: the service never passes prof.
+extern "C" int regression_scan_grid_launch_profiled(
     void* w, const void* indices, const void* values, const void* targets,
-    const void* mask, int B, int K, int method, float c, float eps, int T,
-    int S, int P, void* stream, void* prof) {
+    const void* mask, int B, int K, long long D, int ndp, int method,
+    float c, float eps, int T, int S, int P, void* stream, void* prof) {
   if (B < 0 || K < 1 || method < PA || method > PA2 || T < 1 || S < 1 ||
-      S > MAX_RING || P < 1 || P > MAX_PRODUCERS ||
+      S > MAX_RING || P < 1 || P > MAX_PRODUCERS || ndp < 1 ||
+      ndp > 65535 || D < 1 ||
       (long long)B * K + K >= (1LL << 30) || (long long)T * K > (1 << 28))
     return (int)cudaErrorInvalidValue;
   const size_t smem = make_plan(T, S, K).total;
@@ -693,25 +716,26 @@ extern "C" int regression_scan_launch_profiled(
   const cudaStream_t st = (cudaStream_t)stream;
   long long* pr = (long long*)prof;
   if (method == PA)
-    return launch_k<PA>(w, indices, values, targets, mask, B, K, c, eps, T,
-                        S, P, smem, st, pr);
+    return launch_k<PA>(w, indices, values, targets, mask, B, K, D, ndp, c,
+                        eps, T, S, P, smem, st, pr);
   if (method == PA1)
-    return launch_k<PA1>(w, indices, values, targets, mask, B, K, c, eps, T,
-                         S, P, smem, st, pr);
-  return launch_k<PA2>(w, indices, values, targets, mask, B, K, c, eps, T, S,
-                       P, smem, st, pr);
+    return launch_k<PA1>(w, indices, values, targets, mask, B, K, D, ndp, c,
+                         eps, T, S, P, smem, st, pr);
+  return launch_k<PA2>(w, indices, values, targets, mask, B, K, D, ndp, c,
+                       eps, T, S, P, smem, st, pr);
 }
 
-// Plain C entry point: every pointer and the stream as void*; method 0-2
+// The replica grid, the one C entry of the scan (a single-replica scan is
+// the grid at ndp 1): every pointer and the stream as void*; method 0-2
 // (PA, PA1, PA2); block T, ring S and producer warps P as the wrapper
-// planned them.  Returns cudaGetLastError() after the launch, or
+// planned them; ndp blocks, block r replica r (B datums a replica, w
+// stacked [ndp, D]).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int regression_scan_launch(void* w, const void* indices,
-                                      const void* values, const void* targets,
-                                      const void* mask, int B, int K,
-                                      int method, float c, float eps, int T,
-                                      int S, int P, void* stream) {
-  return regression_scan_launch_profiled(w, indices, values, targets, mask,
-                                         B, K, method, c, eps, T, S, P,
-                                         stream, nullptr);
+extern "C" int regression_scan_grid_launch(
+    void* w, const void* indices, const void* values, const void* targets,
+    const void* mask, int B, int K, long long D, int ndp, int method,
+    float c, float eps, int T, int S, int P, void* stream) {
+  return regression_scan_grid_launch_profiled(w, indices, values, targets,
+                                              mask, B, K, D, ndp, method, c,
+                                              eps, T, S, P, stream, nullptr);
 }

@@ -99,6 +99,18 @@
 // Arithmetic is f32 throughout and follows the reference expressions term
 // by term; sums run in another order than XLA's, so results agree to a
 // tolerance, not bitwise.
+//
+// The replica grid (train_scan_grid_launch) replaces the JAX package's
+// data-parallel train, a shard_map of train_scan_impl over the mesh's dp
+// axis (jubatus_tpu/parallel/dp.py _dp_train_fn): ndp model replicas
+// stacked [ndp, L, D] (counts, active [ndp, L]), and a batch of ndp * B
+// datums of which replica r trains rows [r * B, (r + 1) * B).  Block r of
+// a grid of ndp blocks is replica r: it offsets every pointer by r and
+// runs the one-block body unchanged, so each replica is bitwise one
+// single-block launch on its slice, and a one-block launch (r = 0) is the
+// single-replica scan.  Replicas share nothing, so each block takes its
+// own SM (the 227 KB opt-in keeps one block an SM): the grid runs ndp
+// chains side by side where the single scan runs one.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -757,6 +769,19 @@ train_scan_kernel(float* w, float* cov, int32_t* counts, uint8_t* active,
                   long long* prof) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool DEFER = MODE == RING_ALL;
+  {
+    // block r is replica r of a replica grid (0 in a one-block launch)
+    const long long r = blockIdx.x, table = (long long)L * D;
+    w += r * table;
+    if (HAS_COV) cov += r * table;
+    counts += r * L;
+    active += r * L;
+    indices += r * B * K;
+    values += r * B * K;
+    labels += r * B;
+    mask += r * B;
+    if (prof) prof += r * 16;
+  }
   const Plan pl = make_plan(MODE, HAS_COV, W, L, K);
   uint64_t* full = (uint64_t*)smem;
   uint64_t* empty = full + W;
@@ -805,7 +830,8 @@ template <int MODE, bool HAS_COV>
 int launch(void* w, void* cov, void* counts, void* active,
            const void* indices, const void* values, const void* labels,
            const void* mask, int B, int K, int L, long long D, int method,
-           float c, int W, int P, long long* prof, cudaStream_t stream) {
+           float c, int W, int P, int ndp, long long* prof,
+           cudaStream_t stream) {
   const size_t smem = make_plan(MODE, HAS_COV, W, L, K).total;
   auto kernel = train_scan_kernel<MODE, HAS_COV>;
   if (smem > 48 * 1024) {
@@ -813,7 +839,7 @@ int launch(void* w, void* cov, void* counts, void* active,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<1, 32 * (2 + P), smem, stream>>>(
+  kernel<<<ndp, 32 * (2 + P), smem, stream>>>(
       (float*)w, (float*)cov, (int32_t*)counts, (uint8_t*)active,
       (const int32_t*)indices, (const float*)values, (const int32_t*)labels,
       (const float*)mask, B, K, L, D, method, c, W, prof);
@@ -829,28 +855,30 @@ extern "C" long long train_scan_smem_bytes(int mode, int has_cov, int ring,
   return (long long)make_plan(mode, has_cov != 0, ring, L, K).total;
 }
 
-// The launch with cycle accounting: prof (long long[16], zeroed by the
-// caller) receives the consumer's cycles in stages 0-5 (wait for the slot,
-// forwarding, scores and argmax, step sizes, updates, commit), the first
-// producer warp's in 8-10 (wait for a free slot, staging, gathers) and the
-// writeback warp's in 12-13 (wait, stores).  A measurement hook: the
-// service never passes it.
-extern "C" int train_scan_launch_profiled(
+// The launch with cycle accounting: prof (long long[16] a replica, zeroed
+// by the caller) receives each block's consumer cycles in stages 0-5 (wait
+// for the slot, forwarding, scores and argmax, step sizes, updates,
+// commit), the first producer warp's in 8-10 (wait for a free slot,
+// staging, gathers) and the writeback warp's in 12-13 (wait, stores).  B
+// is the datums of ONE replica; ndp blocks run replica r on rows
+// [r * B, (r + 1) * B) of the batch and tables r of the stacked state.  A
+// measurement hook: the service never passes prof.
+extern "C" int train_scan_grid_launch_profiled(
     void* w, void* cov, void* counts, void* active, const void* indices,
     const void* values, const void* labels, const void* mask, int B, int K,
     int L, long long D, int method, float c, int mode, int ring,
-    int producers, void* stream, void* prof) {
+    int producers, int ndp, void* stream, void* prof) {
   const bool has_cov = method >= CW;
   if (ring < 1 || ring > MAX_RING || producers < 1 ||
       producers > MAX_PRODUCERS ||
       producers > ring || mode < RING_ALL || mode > DIRECT ||
-      (mode == RING_W && !has_cov) ||
+      (mode == RING_W && !has_cov) || ndp < 1 || ndp > 65535 ||
       make_plan(mode, has_cov, ring, L, K).total > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define TS_LAUNCH(M, H)                                                    \
   launch<M, H>(w, cov, counts, active, indices, values, labels, mask, B, K, \
-               L, D, method, c, ring, producers, (long long*)prof, st)
+               L, D, method, c, ring, producers, ndp, (long long*)prof, st)
   if (has_cov) {
     if (mode == RING_ALL) return TS_LAUNCH(RING_ALL, true);
     if (mode == RING_W) return TS_LAUNCH(RING_W, true);
@@ -861,17 +889,22 @@ extern "C" int train_scan_launch_profiled(
 #undef TS_LAUNCH
 }
 
-// Plain C entry point: every pointer and the stream as void*; mode (Mode),
+// The replica grid, the one C entry of the scan (a single-replica scan is
+// the grid at ndp 1): every pointer and the stream as void*; mode (Mode),
 // ring depth 1 <= W <= 8 and producer warps 1 <= P <= W as the wrapper
-// chose them.  Returns cudaGetLastError() after the launch, or
+// chose them; ndp blocks, block r replica r (B datums a replica, state
+// stacked [ndp, L, D] / [ndp, L]; cov [ndp, L, D] for the CW family,
+// unread otherwise).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int train_scan_launch(void* w, void* cov, void* counts,
-                                 void* active, const void* indices,
-                                 const void* values, const void* labels,
-                                 const void* mask, int B, int K, int L,
-                                 long long D, int method, float c, int mode,
-                                 int ring, int producers, void* stream) {
-  return train_scan_launch_profiled(w, cov, counts, active, indices, values,
-                                    labels, mask, B, K, L, D, method, c, mode,
-                                    ring, producers, stream, nullptr);
+extern "C" int train_scan_grid_launch(void* w, void* cov, void* counts,
+                                      void* active, const void* indices,
+                                      const void* values, const void* labels,
+                                      const void* mask, int B, int K, int L,
+                                      long long D, int method, float c,
+                                      int mode, int ring, int producers,
+                                      int ndp, void* stream) {
+  return train_scan_grid_launch_profiled(w, cov, counts, active, indices,
+                                         values, labels, mask, B, K, L, D,
+                                         method, c, mode, ring, producers,
+                                         ndp, stream, nullptr);
 }

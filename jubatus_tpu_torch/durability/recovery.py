@@ -45,10 +45,12 @@ restored snapshot (its MANIFEST entry's local_id) and the journal (every
 drv or u record of an id-minting method, replayed or covered) hold: a
 recovered server never mints an id twice.
 
-The JAX package also writes `cmix` (an in-mesh collective round); the
-port has no such mixer, so that record counts as a replay error that
-names the ROADMAP item bringing it, under the usual errored-replay rules
-(truncation floor, snapshots suspended).
+A `cmix` record is a collective MIX round of a data-parallel server
+(mix/collective.py): replay re-runs the driver's device_mix at the same
+point of the replayed stream, through an epoch guard on its `cr` (a
+record at or below the snapshot's collective_round is not folded again),
+and the epoch resumes at the largest one recovered.  A driver without
+replicas only advances the epoch.
 
 No fallback to the CPU: a kernel that fails to build or launch during
 replay (kernels.build.KernelError) fails the boot.
@@ -69,13 +71,6 @@ from jubatus_tpu_torch.kernels.build import KernelError
 from jubatus_tpu_torch.utils import metrics as _metrics
 
 log = logging.getLogger("jubatus_tpu_torch.durability")
-
-# record kinds of the JAX package that need engines or mixers the port
-# lacks, and the ROADMAP Queue 1 item that brings each
-UNPORTED_KINDS = {
-    "cmix": "ROADMAP Queue 1 item 4 (the data-parallel tier)",
-}
-
 
 def _drv_add(slot, row_id, datum):
     from jubatus_tpu_torch.fv import Datum
@@ -121,6 +116,7 @@ class RecoveryResult:
     errors: int = 0               # records that failed to apply
     first_error_position: Optional[int] = None  # earliest errored record
     round: int = 0                # MIX round after recovery
+    collective_round: int = 0     # the collective epoch ("cmix")
     local_id: int = 0             # the id watermark (standalone idgen)
     position: int = 0             # journal position the writer resumes at
     next_seq: int = 0             # next free journal segment seq
@@ -137,6 +133,7 @@ class RecoveryResult:
             "recovery_fallback": str(self.fallback),
             "recovery_errors": str(self.errors),
             "recovery_round": str(self.round),
+            "recovery_collective_round": str(self.collective_round),
             "recovery_restore_ms": f"{self.restore_sec * 1e3:.3f}",
             "recovery_replay_ms": f"{self.replay_sec * 1e3:.3f}",
         }
@@ -171,6 +168,7 @@ def _load_snapshot(slot, dirpath: str, manifest: Manifest,
         result.source = ent.get("file", "")
         result.position = int(ent.get("covered_position", 0))
         result.round = int(ent.get("round", 0))
+        result.collective_round = int(ent.get("collective_round", 0))
         result.local_id = int(ent.get("local_id", 0))
         log.info("recovered snapshot %s: journal position %d, round %d",
                  result.source, result.position, result.round)
@@ -237,9 +235,18 @@ def _apply(slot, rec: Any, state: RecoveryResult) -> bool:
                              f"{slot.args.type} driver has no such mutation")
         DRIVER_REPLAY[m](slot, *rec.get("a", []))
         return True
-    if kind in UNPORTED_KINDS:
-        raise ValueError(f"journal record kind {kind!r} needs what the port "
-                         f"does not have yet: {UNPORTED_KINDS[kind]}")
+    if kind == "cmix":
+        # a collective round: the fold re-runs where it ran live; its
+        # epoch must survive the crash so the mixer resumes counting
+        cr = rec.get("cr")
+        if cr is not None and int(cr) <= state.collective_round:
+            return False          # epoch guard: never fold twice
+        dm = getattr(slot.driver, "device_mix", None)
+        if dm is not None:
+            dm()
+        if cr is not None:
+            state.collective_round = int(cr)
+        return True
     raise ValueError(f"unknown journal record kind {kind!r}")
 
 

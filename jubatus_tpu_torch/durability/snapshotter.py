@@ -14,8 +14,8 @@ MANIFEST (JSON, atomically replaced; the JAX package reads it too):
 
   {"version": 1,
    "snapshots": [{"file": "snapshot-00000007.jubatus",
-                  "covered_position": 1234, "round": 9, "local_id": 3,
-                  "time": ...},
+                  "covered_position": 1234, "round": 9,
+                  "collective_round": 2, "local_id": 3, "time": ...},
                  ...newest first, KEEP entries...]}
 
 Journal segments whose every record is covered by the OLDEST retained
@@ -26,9 +26,8 @@ Snapshot files use the exact save_model format an operator `save`
 produces.  Each snapshot's pack (read-lock wait and copy to the host),
 write and fsync times are kept for get_status
 (snapshot_last_{pack,write,sync}_ms).  Left out of the JAX
-module: the in-mesh collective epoch and the server-generated id
-watermark (no engine of the port has either), the crash points around
-the publish, and the single-device-thread routing of inline dispatch.
+module: the crash points around the publish, and the single-device-thread
+routing of inline dispatch.
 """
 
 from __future__ import annotations
@@ -194,6 +193,9 @@ class Snapshotter:
             data = slot.driver.pack()
             position = self.journal.position
             round_ = slot.current_mix_round()
+            # the collective epoch travels with the image, so recovery's
+            # cmix guard resumes from it after the journal is truncated
+            cround = slot.current_collective_round()
             # the standalone id sequence's watermark: ids minted after this
             # read have their records past `position`, so recovery's max of
             # the entry and the replayed ids covers them
@@ -201,15 +203,16 @@ class Snapshotter:
         pack_s = time.perf_counter() - t1
         with self._snap_lock:
             entry, covered_floor = self._publish(data, position, round_,
-                                                 local_id, t0, pack_s)
+                                                 cround, local_id, t0,
+                                                 pack_s)
         # journal truncation AFTER releasing _snap_lock (lock order
         # journal -> snapshot); a racing publish truncates with its own,
         # possibly smaller, floor and so only removes fewer segments
         self.journal.truncate_through(covered_floor)
         return entry
 
-    def _publish(self, data, position: int, round_: int, local_id: int,
-                 t0: float, pack_s: float):
+    def _publish(self, data, position: int, round_: int, cround: int,
+                 local_id: int, t0: float, pack_s: float):
         """Disk side of one snapshot (under _snap_lock).  Returns
         (manifest_entry, covered_floor)."""
         from jubatus_tpu_torch.framework.save_load import save_model
@@ -232,7 +235,8 @@ class Snapshotter:
 
         manifest = Manifest.load(self.dirpath)
         entry = {"file": fname, "covered_position": position,
-                 "round": round_, "local_id": local_id, "time": time.time()}
+                 "round": round_, "collective_round": cround,
+                 "local_id": local_id, "time": time.time()}
         # by coverage, not insertion: concurrent snapshot_nows may publish
         # out of pack order (the stable sort keeps the newer file first)
         entries = [entry] + manifest.snapshots

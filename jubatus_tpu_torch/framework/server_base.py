@@ -23,7 +23,9 @@ namespace before the server is routable; then each slot's journal takes
 its applied updates and its snapshotter writes it in the background.
 Model files use the reference format (framework/save_load.py) with the
 JAX package's naming and user-data version, so a file saved by either
-package loads in the other.
+package loads in the other.  With --dp_replicas other than 1 every
+slot's driver is the data-parallel one (parallel/dp.py: replicas stacked
+on the device); --mix_topk is set on every slot's driver.
 
 The query plane: `model_epoch` counts every mutation of a slot (an
 update, a clear, a load, a MIX fold, a catch-up, a recovery), and the
@@ -51,9 +53,12 @@ import jubatus_tpu_torch
 from jubatus_tpu_torch.analysis.lockgraph import MONITOR as _lock_monitor
 from jubatus_tpu_torch.kernels import build
 from jubatus_tpu_torch.models import create_driver
-from jubatus_tpu_torch.models.classifier import NNClassifierDriver, train_scan
+from jubatus_tpu_torch.models.classifier import (NNClassifierDriver,
+                                                train_scan, train_scan_grid)
 from jubatus_tpu_torch.models.regression import \
     train_scan as regression_train_scan
+from jubatus_tpu_torch.models.regression import \
+    train_scan_grid as regression_train_scan_grid
 from jubatus_tpu_torch.ops.candidates import ivf_probe, sig_probe
 from jubatus_tpu_torch.ops.lsh import (dense_dots, dense_topk,
                                        lsh_signature, minhash_signature,
@@ -73,7 +78,9 @@ from jubatus_tpu_torch.utils.metrics import device_telemetry
 # every kernel wrapper of the port, by the name get_status reports
 KERNEL_WRAPPERS = {
     "train_scan": train_scan,
+    "train_scan_grid": train_scan_grid,
     "regression_train_scan": regression_train_scan,
+    "regression_train_scan_grid": regression_train_scan_grid,
     "quantize_int8": quantize_int8,
     "dequantize_int8": dequantize_int8,
     "lsh_signature": lsh_signature,
@@ -133,6 +140,15 @@ class ServerArgs:
     coordinator: str = ""
     interconnect_timeout: float = 10.0
     mix_quantize: bool = False
+    # the data-parallel tier (parallel/dp.py): replicas stacked on the
+    # device (1: a plain driver; 0: one a local device), the columns a
+    # linear diff ships a round at most (0: every touched one), and the
+    # resolved tier of a standalone DP server's collective mixer, echoed
+    # in get_status; shard_devices > 1 is the sharded tier (item 6)
+    dp_replicas: int = 1
+    shard_devices: int = 1
+    mix_topk: int = 0
+    mix_collective: bool = False
     # durability: the journal directory (empty: off), its fsync policy
     # (always|batch|off), segment rotation size, and the background
     # snapshot period (0: no timer)
@@ -252,9 +268,30 @@ class JubatusServer(SlotState):
 
     @staticmethod
     def _create_driver(args: ServerArgs, config: Dict[str, Any]):
-        """A slot's driver on the host's device, with the --index and
-        --arena_pool knobs applied."""
-        driver = create_driver(args.type, config, device=args.device)
+        """A slot's driver on the host's device (with --dp_replicas other
+        than 1 the data-parallel driver, parallel/dp.py), with the
+        --index, --arena_pool and --mix_topk knobs applied."""
+        if args.dp_replicas != 1 and args.shard_devices != 1:
+            raise ValueError("--dp_replicas and --shard_devices are mutually "
+                             "exclusive (a 2-D (dp, shard) grid needs a "
+                             "driver that does both)")
+        if args.shard_devices != 1:
+            raise ValueError("--shard_devices is not in the port yet: "
+                             "ROADMAP Queue 1 item 6")
+        if args.dp_replicas != 1:
+            from jubatus_tpu_torch.parallel.dp import create_dp_driver
+            from jubatus_tpu_torch.parallel.mesh import (make_mesh,
+                                                         resolve_replicas)
+            n = resolve_replicas("dp_replicas", args.dp_replicas,
+                                 args.device)
+            driver = create_dp_driver(args.type, config,
+                                      make_mesh(dp=n, device=args.device))
+        else:
+            driver = create_driver(args.type, config, device=args.device)
+        if args.mix_topk:
+            # rides the driver's lock-free encode_diff (models/base.py
+            # _sparsify_topk); inert on engines without col-sparse diffs
+            driver.mix_topk = int(args.mix_topk)
         if args.index != "off" and not driver.configure_index(
                 args.index, probes=int(args.index_probes)):
             # a kind that does not fit the engine's method declines:
@@ -279,7 +316,8 @@ class JubatusServer(SlotState):
             return
         names = (("lsh",) if isinstance(driver, NNClassifierDriver)
                  else ENGINE_KERNELS[self.args.type])
-        if self.args.mix_quantize:
+        if self.args.mix_quantize or \
+                getattr(driver, "mix_payload", "f32") == "int8":
             names += ("quantize",)
         build.build_all(names)
         for name in names:
@@ -456,6 +494,8 @@ class JubatusServer(SlotState):
                 if self.read_dispatch is not None else 0),
             "query_cache_enabled": str(int(self.query_cache is not None)),
             "mix_quantize": str(int(args.mix_quantize)),
+            "mix_topk": str(args.mix_topk),
+            "mix_collective": str(int(args.mix_collective)),
             # durability: the flag always; the journal's, snapshotter's
             # and recovery's keys in metrics_snapshot when it is on
             "journal_enabled": str(int(self.journal is not None)),

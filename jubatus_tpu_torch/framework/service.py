@@ -480,11 +480,14 @@ def bind_service(server, rpc_server) -> None:
     rpc_server.add("list_models", lambda _n=None: server.list_models())
     rpc_server.add("activate_model", _refuse_activate)
     mixer = server.mixer
-    if isinstance(mixer, LinearMixer):
+    # a CollectiveMixer's wire is its inner LinearMixer (none standalone)
+    wire = getattr(mixer, "inner", mixer)
+    if isinstance(wire, LinearMixer):
         # the name-routed MIX wire: one get_diff / put_diff / get_model
         # registration that dispatches on the frame's model field to the
-        # slots' mixers; a frame without one is the default slot's, byte
-        # for byte the single-model wire
+        # slots' mixers (through a CollectiveMixer's delegates); a frame
+        # without one is the default slot's, byte for byte the
+        # single-model wire
         SlotMixRouter(server).register_api(rpc_server)
     elif mixer is not None:
         # the gossip mixers keep their own wire (pull / push), the default

@@ -49,9 +49,14 @@ and each peer's SlotMixRouter hands the frame to that slot's mixer.  With
 `model_name` None (the default slot, a one-model server) the frames are
 the legacy wire byte for byte.
 
-Not in the port yet: the in-mesh fold of a data-parallel driver
-(_device_fold, ROADMAP Queue 1 item 4): the port's server has no
-device_mix, so a round has no in-mesh replicas to reconcile.
+A data-parallel server (parallel/dp.py, --dp_replicas) nests two MIX
+levels: its get_diff and put_diff handlers fold its replicas first
+(device_mix) and ship one delta for the node, and a server that does not
+complete a round as master on a trigger folds its replicas itself
+(_device_fold), so the replicas reconcile on every trigger.  The
+collective tier's rounds (mix/collective.py) build no wire frame; their
+bytes land in the same mix_bytes_{sent,received}_total counters through
+note_collective_bytes.
 """
 
 from __future__ import annotations
@@ -223,6 +228,36 @@ def note_mix_bytes(direction: str, payload) -> int:
     n = codec.wire_size(payload)
     metrics.inc(f"mix_bytes_{direction}_total", n)
     return n
+
+
+def note_collective_bytes(float_elems: int, exact_elems: int, n: int,
+                          payload: str = "f32") -> int:
+    """Account one collective round (mix/collective.py) in the counters
+    note_mix_bytes feeds, so the bandwidth series never reads 0 when the
+    collective tier serves the rounds.  No frame exists; the bytes are the
+    JAX package's estimate from the payload's shape: a replica's int8 ring
+    ships its float elements plus 4 bytes of scale a 16,384-element block,
+    the f32 sum and the exact int/bool leaves 4 bytes an element, and a
+    ring all-reduce moves a replica's payload 2 (n - 1) times."""
+    if n <= 1:
+        return 0
+    if payload == "int8":
+        from jubatus_tpu_torch.parallel.quantized import _BLOCK
+        per = float_elems + 4 * ((float_elems + _BLOCK - 1) // _BLOCK)
+    else:
+        per = 4 * float_elems
+    per += 4 * exact_elems
+    total = 2 * (n - 1) * per
+    metrics.inc("mix_bytes_sent_total", total)
+    metrics.inc("mix_bytes_received_total", total)
+    return total
+
+
+def device_call(server, fn):
+    """fn() where the server runs its device work (rpc/server.py
+    device_call under inline dispatch; a plain call otherwise)."""
+    dc = getattr(server, "device_call", None)
+    return fn() if dc is None else dc(fn)
 
 
 class MixProtocolMismatch(RuntimeError):
@@ -467,12 +502,32 @@ class LinearMixer(TriggeredMixer):
 
     # -- mixer thread ---------------------------------------------------------
 
+    def _device_fold(self) -> None:
+        """The two-level MIX on a server that does not complete this
+        trigger's round as master: it folds its data-parallel replicas
+        itself (the master's own handlers fold them as part of the
+        round)."""
+        if hasattr(self.server.driver, "device_mix"):
+            try:
+                def fold():
+                    with self.server.model_lock.write():
+                        self.server.driver.device_mix()
+                        # the fold changed read answers: a new query epoch
+                        getattr(self.server, "note_model_mutated",
+                                lambda: None)()
+                device_call(self.server, fold)
+            except Exception:  # noqa: BLE001 - the mixer thread survives
+                log.exception("device mix failed")
+
     def try_mix(self) -> bool:
+        won = completed = False
         try:
             lock = self.membership.master_lock()
             if lock.try_lock():
+                won = True
                 try:
-                    return self.mix(lock=lock)
+                    completed = self.mix(lock=lock)
+                    return completed
                 finally:
                     try:
                         lock.unlock()
@@ -483,6 +538,11 @@ class LinearMixer(TriggeredMixer):
             log.exception("mix round failed")
             return False
         finally:
+            # the replicas reconcile on EVERY trigger: the completed round
+            # folded them (the master's handlers), or we do it here, also
+            # when we won the lock and the round raised
+            if not (won and completed):
+                self._device_fold()
             self._reset_trigger()
 
     # -- master side -----------------------------------------------------------

@@ -7,9 +7,10 @@ disables retries), and `breaker_threshold` / `breaker_cooldown`
 (--breaker_threshold, --breaker_cooldown) parameterize the PeerHealth
 breaker its fan-outs share.
 
-collective_mixer is refused: it needs the data-parallel tier (the
-in-mesh collective fold, ROADMAP Queue 1 item 4), which the port does
-not have yet.
+collective_mixer is the two-level tier (mix/collective.py): a
+CollectiveMixer owning the trigger, with a LinearMixer inside it for the
+peers outside this node's mix group.  A driver without replicas to fold
+takes the wire tier every round.
 """
 
 from __future__ import annotations
@@ -22,17 +23,12 @@ from jubatus_tpu_torch.mix.push_mixer import PushMixer
 from jubatus_tpu_torch.rpc.resilience import (DEFAULT_RETRY, PeerHealth,
                                               RetryPolicy)
 
-MIXERS = ("linear_mixer", "random_mixer", "broadcast_mixer", "skip_mixer",
-          "dummy_mixer")
+MIXERS = ("linear_mixer", "collective_mixer", "random_mixer",
+          "broadcast_mixer", "skip_mixer", "dummy_mixer")
 
 
 def check_mixer(name: str) -> None:
     """Raise ValueError, saying why, for a name the port cannot serve."""
-    if name == "collective_mixer":
-        raise ValueError(
-            "collective_mixer needs the data-parallel tier (the in-mesh "
-            "collective fold), which is not in the port yet: ROADMAP "
-            f"Queue 1 item 4; use one of {', '.join(MIXERS)}")
     if name not in MIXERS:
         raise ValueError(f"unknown mixer: {name} (have {', '.join(MIXERS)})")
 
@@ -51,11 +47,19 @@ def create_mixer(name: str, server, membership=None, *,
         return DummyMixer()
     health = PeerHealth(fail_threshold=breaker_threshold,
                         cooldown=breaker_cooldown)
-    if name == "linear_mixer":
-        return LinearMixer(server, membership, interval_sec=interval_sec,
-                           interval_count=interval_count,
-                           rpc_timeout=rpc_timeout, retry=retry,
-                           health=health, quantize=quantize)
+    if name in ("linear_mixer", "collective_mixer"):
+        inner = LinearMixer(server, membership, interval_sec=interval_sec,
+                            interval_count=interval_count,
+                            rpc_timeout=rpc_timeout, retry=retry,
+                            health=health, quantize=quantize)
+        if name == "linear_mixer":
+            return inner
+        # the collective tier owns the trigger; the LinearMixer rides in
+        # it for the peers outside this node's mix group
+        from jubatus_tpu_torch.mix.collective import CollectiveMixer
+        return CollectiveMixer(server, membership, inner=inner,
+                               interval_sec=interval_sec,
+                               interval_count=interval_count)
     return PushMixer(server, membership, strategy=name.replace("_mixer", ""),
                      interval_sec=interval_sec, interval_count=interval_count,
                      rpc_timeout=rpc_timeout, retry=retry, health=health,

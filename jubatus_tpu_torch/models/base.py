@@ -215,6 +215,41 @@ class Driver:
         self._unconfirmed_cols = J
         return J
 
+    # --mix_topk (the server sets it on each slot's driver): ship only the
+    # mix_topk columns of largest |w| delta of a col-sparse linear diff a
+    # round; 0 ships every touched column (the default)
+    mix_topk = 0
+
+    def _sparsify_topk(self, diff: Dict[str, Any],
+                       keys=("w", "cov")) -> Dict[str, Any]:
+        """Top-k delta sparsification (jubatus_tpu/models/base.py
+        _sparsify_topk): keep the mix_topk columns with the largest |w|
+        delta (over the rows); the rest stay in _unconfirmed_cols and ship
+        on a later round.  Best-effort deferral: a dropped column keeps its
+        local training until it ships, and a column a peer ships first
+        adopts the cluster's value (put_diff's rule).  Bitwise per-round
+        replica agreement holds only at 0."""
+        k = int(getattr(self, "mix_topk", 0) or 0)
+        cols = diff.get("cols") if isinstance(diff, dict) else None
+        if k <= 0 or cols is None:
+            return diff
+        cols = np.asarray(cols)
+        w = np.asarray(diff.get("w"), np.float32)
+        if cols.size <= k or not w.size:
+            return diff
+        score = np.abs(w).max(axis=0) if w.ndim == 2 else np.abs(w)
+        keep = np.sort(np.argpartition(score, -k)[-k:])
+        out = dict(diff)
+        out["cols"] = cols[keep]
+        for name in keys:
+            a = out.get(name)
+            if a is None:
+                continue
+            a = np.asarray(a)
+            if a.size:
+                out[name] = a[:, keep] if a.ndim == 2 else a[keep]
+        return out
+
     def _quantize_diff_payload(self, diff: Dict[str, Any],
                                keys=("w", "cov")) -> Dict[str, Any]:
         """Optional per-row int8 transport quantization

@@ -17,6 +17,12 @@ holds, with the tables as numpy arrays:
     weights     {"df": uint32 [D], "doc_count": int,
                  "user_weights": float32 [D]}   (arrays or raw bytes)
 
+A data-parallel driver (jubatus_tpu/parallel/dp.py DPClassifierDriver,
+DPRegressionDriver; the port's parallel/dp.py) carries its replicas
+stacked, so two packages can start from the same diverged replicas:
+w, cov [ndp, L, D] (regression w [ndp, D]), counts, active [ndp, L], and
+the device bases w_dbase, cov_dbase, counts_dbase of the same shapes.
+
 This module imports nothing of the JAX package: the caller reads the JAX
 driver's arrays (np.asarray) and passes them in.
 """
@@ -43,8 +49,44 @@ def _weights(weights) -> Dict[str, Any]:
             "user_weights": _raw(weights["user_weights"], np.float32)}
 
 
+def _load_stacked(driver, arrays: Dict[str, Any]) -> None:
+    """Install a data-parallel driver's stacked replicas and device bases
+    (the host-level state first, through the driver's unpack)."""
+    import torch
+    dev = driver.device
+
+    def put(name, dtype):
+        return torch.from_numpy(np.array(arrays[name], dtype,
+                                         copy=True)).to(dev)
+
+    w = np.asarray(arrays["w"], np.float32)
+    if w.shape[0] != driver.ndp:
+        raise ValueError(f"{w.shape[0]} replicas do not match the driver's "
+                         f"{driver.ndp}")
+    single = {k: (v[0] if k in ("w", "cov", "counts", "active") else v)
+              for k, v in arrays.items() if not k.endswith("_dbase")}
+    _load_plain(driver, single)
+    driver.w, driver.w_dbase = put("w", np.float32), put("w_dbase",
+                                                          np.float32)
+    if isinstance(driver, RegressionDriver):
+        return
+    driver.counts = put("counts", np.int32)
+    driver.counts_dbase = put("counts_dbase", np.int32)
+    driver.active = put("active", bool)
+    if _has_cov(driver.method):
+        driver.cov = put("cov", np.float32)
+        driver.cov_dbase = put("cov_dbase", np.float32)
+
+
 def load_reference_state(driver: Union[ClassifierDriver, RegressionDriver],
                          arrays: Dict[str, Any]) -> None:
+    if hasattr(driver, "ndp"):
+        _load_stacked(driver, arrays)
+    else:
+        _load_plain(driver, arrays)
+
+
+def _load_plain(driver, arrays: Dict[str, Any]) -> None:
     w = np.asarray(arrays["w"], np.float32)
     if isinstance(driver, RegressionDriver):
         if w.shape != (driver.dim,):
@@ -77,12 +119,19 @@ def export_reference_state(driver: Union[ClassifierDriver, RegressionDriver]
         "weights": {"df": wm.df.copy(), "doc_count": wm.doc_count,
                     "user_weights": wm.user_weights.copy()},
     }
+    stacked = hasattr(driver, "ndp")
+    if stacked:
+        out["w_dbase"] = driver.w_dbase.cpu().numpy()
     if isinstance(driver, RegressionDriver):
         out["num_trained"] = driver.num_trained
         return out
     out.update(counts=driver.counts.cpu().numpy(),
                active=driver.active.cpu().numpy(),
                labels=dict(driver.labels))
+    if stacked:
+        out["counts_dbase"] = driver.counts_dbase.cpu().numpy()
     if _has_cov(driver.method):
         out["cov"] = driver.cov.cpu().numpy()
+        if stacked:
+            out["cov_dbase"] = driver.cov_dbase.cpu().numpy()
     return out

@@ -226,61 +226,124 @@ def scan_plan(n_labels: int, k: int, has_cov: bool, ring: int = SCAN_RING,
 
 def _scan_lib() -> ctypes.CDLL:
     lib = build.load("train_scan")
-    lib.train_scan_launch.argtypes = (
+    lib.train_scan_grid_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.train_scan_launch.restype = ctypes.c_int
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.train_scan_grid_launch.restype = ctypes.c_int
     lib.train_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.train_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def train_scan(w, cov, counts, active, indices, values, labels, mask,
-               method: str, c: float) -> None:
-    """Sequential online updates over one microbatch, in place.  CUDA
-    tensors: one launch of csrc/train_scan.cu, planned by scan_plan at ring
-    depth SCAN_RING with SCAN_PRODUCERS producer warps (at most the
-    depth).  CPU tensors: the plain version.  Shapes as train_scan_ref;
-    indices/labels int32."""
-    if w.device.type == "cpu":
-        train_scan_ref(w, cov, counts, active, indices, values, labels,
-                       mask, method, c)
-        return
+def _launch_grid(name, w, cov, counts, active, indices, values, labels,
+                 mask, method: str, c: float):
+    """Checks stacked state (w [ndp, L, D], cov [ndp, L, D] in the CW
+    family, counts/active [ndp, L]) and a batch of ndp * B datums on one
+    CUDA device, then makes ONE launch of csrc/train_scan.cu's grid, ndp
+    blocks, replica r on rows [r * B, (r + 1) * B); planned by scan_plan
+    at ring depth SCAN_RING with SCAN_PRODUCERS producer warps (at most
+    the depth).  -> ((mode, depth, producers), the launch's CUDA error
+    code).  Raises before launching on a bad tensor."""
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
+    if w.dim() != 3:
+        raise ValueError(f"{name}: want w [ndp, L, D], got "
+                         f"{tuple(w.shape)}")
+    ndp, l, d = w.shape
     b, k = indices.shape
-    l, d = w.shape
+    if b % ndp:
+        raise ValueError(f"{name}: B={b} datums do not split into {ndp} "
+                         f"replicas")
     want = [(w, torch.float32), (counts, torch.int32), (active, torch.bool),
             (indices, torch.int32), (values, torch.float32),
             (labels, torch.int32), (mask, torch.float32)]
     if _has_cov(method):
         want.append((cov, torch.float32))
-        if tuple(cov.shape) != (l, d):
-            raise ValueError(f"cov shape {tuple(cov.shape)} != w {(l, d)}")
+        if tuple(cov.shape) != (ndp, l, d):
+            raise ValueError(f"cov shape {tuple(cov.shape)} != w "
+                             f"{(ndp, l, d)}")
     for t, dt in want:
         if t.dtype != dt or t.device != w.device or not t.is_contiguous():
-            raise ValueError(f"train_scan: want contiguous {dt} on "
-                             f"{w.device}, got {t.dtype} on {t.device}")
-    if tuple(values.shape) != (b, k) or labels.shape[0] != b \
-            or mask.shape[0] != b or counts.shape[0] != l \
-            or active.shape[0] != l:
-        raise ValueError("train_scan: inconsistent batch/state shapes")
+            raise ValueError(f"{name}: want contiguous {dt} on {w.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if tuple(values.shape) != (b, k) or tuple(labels.shape) != (b,) \
+            or tuple(mask.shape) != (b,) or tuple(counts.shape) != (ndp, l) \
+            or tuple(active.shape) != (ndp, l):
+        raise ValueError(f"{name}: inconsistent batch/state shapes")
     mode, depth = scan_plan(l, k, _has_cov(method), SCAN_RING)
     nprod = min(depth, SCAN_PRODUCERS)
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    err = _scan_lib().train_scan_launch(
+    err = _scan_lib().train_scan_grid_launch(
         w.data_ptr(), cov.data_ptr(), counts.data_ptr(), active.data_ptr(),
         indices.data_ptr(), values.data_ptr(), labels.data_ptr(),
-        mask.data_ptr(), b, k, l, d, _METHOD_ID[method], float(c), mode,
-        depth, nprod, stream)
+        mask.data_ptr(), b // ndp, k, l, d, _METHOD_ID[method], float(c),
+        mode, depth, nprod, ndp, stream)
+    return (mode, depth, nprod), err
+
+
+def train_scan(w, cov, counts, active, indices, values, labels, mask,
+               method: str, c: float) -> None:
+    """Sequential online updates over one microbatch, in place.  CUDA
+    tensors: one launch of csrc/train_scan.cu, the replica grid at one
+    block (_launch_grid).  CPU tensors: the plain version.  Shapes as
+    train_scan_ref; indices/labels int32."""
+    if w.device.type == "cpu":
+        train_scan_ref(w, cov, counts, active, indices, values, labels,
+                       mask, method, c)
+        return
+    plan, err = _launch_grid(
+        "train_scan", w.unsqueeze(0), cov.unsqueeze(0), counts.unsqueeze(0),
+        active.unsqueeze(0), indices, values, labels, mask, method, c)
     train_scan.launches += 1
-    train_scan.last_plan = (mode, depth, nprod)
+    train_scan.last_plan = plan
     build.check(err, "train_scan launch")
 
 
 train_scan.launches = 0
 train_scan.last_plan = None
+
+
+# ---------------------------------------------------------------------------
+# the replica grid: ndp replicas' scans in one launch (parallel/dp.py)
+# ---------------------------------------------------------------------------
+
+def train_scan_grid_ref(w, cov, counts, active, indices, values, labels,
+                        mask, method: str, c: float) -> None:
+    """Plain version of the replica grid: train_scan_ref of replica r on
+    rows [r * B/ndp, (r + 1) * B/ndp) of the batch, for each r in turn.
+    w, cov: [ndp, L, D] (cov [ndp, 1, 1] outside the CW family),
+    counts, active: [ndp, L]; the batch as train_scan_ref's, B a multiple
+    of ndp."""
+    ndp = w.shape[0]
+    per = indices.shape[0] // ndp
+    for r in range(ndp):
+        rows = slice(r * per, (r + 1) * per)
+        train_scan_ref(w[r], cov[r], counts[r], active[r], indices[rows],
+                       values[rows], labels[rows], mask[rows], method, c)
+
+
+def train_scan_grid(w, cov, counts, active, indices, values, labels, mask,
+                    method: str, c: float) -> None:
+    """ndp replicas' sequential updates in place, replica r on its slice
+    of the batch (the JAX package's shard_map of train_scan_impl over dp).
+    CUDA tensors: ONE launch of csrc/train_scan.cu's replica grid, ndp
+    blocks planned as one scan_plan launch (the plan depends on L and K,
+    not on the datums a block), counted apart from train_scan's.  CPU
+    tensors: the plain version.  Shapes as train_scan_grid_ref."""
+    if w.device.type == "cpu":
+        train_scan_grid_ref(w, cov, counts, active, indices, values, labels,
+                            mask, method, c)
+        return
+    plan, err = _launch_grid("train_scan_grid", w, cov, counts, active,
+                             indices, values, labels, mask, method, c)
+    train_scan_grid.launches += 1
+    train_scan_grid.last_plan = plan + (w.shape[0],)
+    build.check(err, "train_scan_grid launch")
+
+
+train_scan_grid.launches = 0
+train_scan_grid.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -877,6 +940,11 @@ class ClassifierDriver(Driver):
         confirmed round ship — O(touched), not O(L x D)."""
         return self._subtract_bases(self.get_diff_snapshot())
 
+    def _mix_tables(self):
+        """(w, cov, counts) the diff is read from: the model's tables (a
+        data-parallel driver's replica 0, parallel/dp.py)."""
+        return self.w, self.cov, self.counts
+
     def get_diff_snapshot(self) -> Dict[str, Any]:
         """The part of get_diff taken under the model write lock: the
         harvest, one device gather of the [rows x touched] block to the
@@ -887,7 +955,8 @@ class ClassifierDriver(Driver):
                       if r < self.capacity}
         labels = sorted(label_rows, key=label_rows.get)
         rows = np.array([label_rows[l] for l in labels], np.int64)
-        counts = self.counts.cpu().numpy()
+        w, cov, counts_t = self._mix_tables()
+        counts = counts_t.cpu().numpy()
         diff = {
             "labels": labels,
             "dim": self.dim,
@@ -897,10 +966,10 @@ class ClassifierDriver(Driver):
             "weights": self.converter.weights.get_diff(),
         }
         if len(rows) and J.size:
-            diff["w"] = self._gather(self.w, rows, J)
+            diff["w"] = self._gather(w, rows, J)
             diff["w_base"] = self._w_base[np.ix_(rows, J)]
             if _has_cov(self.method):
-                diff["cov"] = self._gather(self.cov, rows, J)
+                diff["cov"] = self._gather(cov, rows, J)
                 diff["cov_base"] = self._cov_base[np.ix_(rows, J)]
         else:
             diff["w"] = np.zeros((len(rows), J.size), np.float32)
@@ -909,9 +978,11 @@ class ClassifierDriver(Driver):
         return diff
 
     def encode_diff(self, snap: Dict[str, Any]) -> Dict[str, Any]:
-        """Outside the lock: a snapshot's subtraction, then the optional
-        per-row int8 transport quantization ({"dcn_payload": "int8"})."""
-        return self._quantize_diff_payload(self._subtract_bases(snap))
+        """Outside the lock: a snapshot's subtraction, the optional top-k
+        column sparsification (--mix_topk), then the optional per-row
+        int8 transport quantization ({"dcn_payload": "int8"})."""
+        return self._quantize_diff_payload(
+            self._sparsify_topk(self._subtract_bases(snap)))
 
     @staticmethod
     def _to_dense_diff(side: Dict[str, Any]) -> Dict[str, Any]:

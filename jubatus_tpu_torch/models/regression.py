@@ -152,57 +152,124 @@ def reg_scan_plan(k: int) -> Tuple[int, int, int]:
 
 def _scan_lib() -> ctypes.CDLL:
     lib = build.load("regression_scan")
-    lib.regression_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    lib.regression_scan_grid_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.regression_scan_launch.restype = ctypes.c_int
+    lib.regression_scan_grid_launch.restype = ctypes.c_int
     lib.regression_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.regression_scan_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def train_scan(w, indices, values, targets, mask, method: str, c: float,
-               eps: float) -> None:
-    """Sequential PA regression updates over one microbatch, in place.
-    CUDA tensors: one launch of csrc/regression_scan.cu, planned by
-    reg_scan_plan.  CPU tensors: the plain version.  Shapes as
-    train_scan_ref; indices int32, each in [0, D) (the converter hashes
-    into the model's width)."""
-    if w.device.type == "cpu":
-        train_scan_ref(w, indices, values, targets, mask, method, c, eps)
-        return
+def _launch_grid(name, w, indices, values, targets, mask, method: str,
+                 c: float, eps: float):
+    """Checks stacked weights w [ndp, D] and a batch of ndp * B datums on
+    one CUDA device, then makes ONE launch of csrc/regression_scan.cu's
+    grid, ndp blocks, replica r on rows [r * B, (r + 1) * B), planned by
+    reg_scan_plan (the plan depends on K, not on the datums a block).
+    -> (plan, err), or None with no launch when B is 0.  Raises before
+    launching on a bad tensor."""
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
     if method not in METHODS:
         raise ValueError(f"unknown regression method: {method}")
+    if w.dim() != 2:
+        raise ValueError(f"{name}: want w [ndp, D], got {tuple(w.shape)}")
+    ndp, d = w.shape
     b, k = indices.shape
+    if b % ndp:
+        raise ValueError(f"{name}: B={b} datums do not split into {ndp} "
+                         f"replicas")
     for t, dt in ((w, torch.float32), (indices, torch.int32),
                   (values, torch.float32), (targets, torch.float32),
                   (mask, torch.float32)):
         if t.dtype != dt or t.device != w.device or not t.is_contiguous():
-            raise ValueError(f"train_scan: want contiguous {dt} on "
-                             f"{w.device}, got {t.dtype} on {t.device}")
-    if w.dim() != 1 or tuple(values.shape) != (b, k) \
-            or tuple(targets.shape) != (b,) or tuple(mask.shape) != (b,):
-        raise ValueError("train_scan: inconsistent batch/state shapes")
-    if (b + 1) * k >= 1 << 30:
-        raise ValueError(f"train_scan: B={b} x K={k} entries is more than "
-                         f"the kernel takes in one launch")
-    if b == 0:
-        return                         # nothing to launch
+            raise ValueError(f"{name}: want contiguous {dt} on {w.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if tuple(values.shape) != (b, k) or tuple(targets.shape) != (b,) \
+            or tuple(mask.shape) != (b,):
+        raise ValueError(f"{name}: inconsistent batch/state shapes")
+    per = b // ndp
+    if (per + 1) * k >= 1 << 30:
+        raise ValueError(f"{name}: B={per} x K={k} entries a replica is "
+                         f"more than the kernel takes in one launch")
+    if per == 0:
+        return None                    # nothing to launch
     plan = reg_scan_plan(k)
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    err = _scan_lib().regression_scan_launch(
+    err = _scan_lib().regression_scan_grid_launch(
         w.data_ptr(), indices.data_ptr(), values.data_ptr(),
-        targets.data_ptr(), mask.data_ptr(), b, k, METHODS.index(method),
-        float(c), float(eps), *plan, stream)
+        targets.data_ptr(), mask.data_ptr(), per, k, d, ndp,
+        METHODS.index(method), float(c), float(eps), *plan, stream)
+    return plan, err
+
+
+def train_scan(w, indices, values, targets, mask, method: str, c: float,
+               eps: float) -> None:
+    """Sequential PA regression updates over one microbatch, in place.
+    CUDA tensors: one launch of csrc/regression_scan.cu, the replica grid
+    at one block (_launch_grid).  CPU tensors: the plain version.  Shapes
+    as train_scan_ref; indices int32, each in [0, D) (the converter hashes
+    into the model's width)."""
+    if w.device.type == "cpu":
+        train_scan_ref(w, indices, values, targets, mask, method, c, eps)
+        return
+    if w.dim() != 1:
+        raise ValueError("train_scan: inconsistent batch/state shapes")
+    launched = _launch_grid("train_scan", w.unsqueeze(0), indices, values,
+                            targets, mask, method, c, eps)
+    if launched is None:
+        return
     train_scan.launches += 1
-    train_scan.last_plan = plan
-    build.check(err, "regression_scan launch")
+    train_scan.last_plan = launched[0]
+    build.check(launched[1], "regression_scan launch")
 
 
 train_scan.launches = 0
 train_scan.last_plan = None
+
+
+# ---------------------------------------------------------------------------
+# the replica grid: ndp replicas' scans in one launch (parallel/dp.py)
+# ---------------------------------------------------------------------------
+
+def train_scan_grid_ref(w, indices, values, targets, mask, method: str,
+                        c: float, eps: float) -> None:
+    """Plain version of the replica grid: train_scan_ref of replica r
+    (w[r], w: [ndp, D]) on rows [r * B/ndp, (r + 1) * B/ndp) of the batch,
+    for each r in turn."""
+    ndp = w.shape[0]
+    per = indices.shape[0] // ndp
+    for r in range(ndp):
+        rows = slice(r * per, (r + 1) * per)
+        train_scan_ref(w[r], indices[rows], values[rows], targets[rows],
+                       mask[rows], method, c, eps)
+
+
+def train_scan_grid(w, indices, values, targets, mask, method: str,
+                    c: float, eps: float) -> None:
+    """ndp replicas' sequential PA updates in place, replica r on its
+    slice of the batch (the JAX package's shard_map of train_scan_impl
+    over dp).  CUDA tensors: ONE launch of csrc/regression_scan.cu's
+    replica grid (_launch_grid), counted apart from train_scan's.  CPU
+    tensors: the plain version.  w: [ndp, D]; the batch as
+    train_scan_ref's, B a multiple of ndp."""
+    if w.device.type == "cpu":
+        train_scan_grid_ref(w, indices, values, targets, mask, method, c,
+                            eps)
+        return
+    launched = _launch_grid("train_scan_grid", w, indices, values, targets,
+                            mask, method, c, eps)
+    if launched is None:
+        return
+    train_scan_grid.launches += 1
+    train_scan_grid.last_plan = launched[0] + (w.shape[0],)
+    build.check(launched[1], "regression_scan_grid launch")
+
+
+train_scan_grid.launches = 0
+train_scan_grid.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +449,11 @@ class RegressionDriver(Driver):
         confirmed round ship."""
         return self._subtract_bases(self.get_diff_snapshot())
 
+    def _mix_w(self) -> torch.Tensor:
+        """The weights the diff is read from (a data-parallel driver's
+        replica 0, parallel/dp.py)."""
+        return self.w
+
     def get_diff_snapshot(self) -> Dict[str, Any]:
         """The part of get_diff taken under the model write lock: the
         harvest, one device gather of the touched columns to the host and
@@ -391,17 +463,19 @@ class RegressionDriver(Driver):
         snap = {"cols": J, "dim": self.dim,
                 "w": np.zeros((0,), np.float32)}
         if J.size:
-            snap["w"] = self.w[self._cols(J)].cpu().numpy()
+            snap["w"] = self._mix_w()[self._cols(J)].cpu().numpy()
             snap["w_base"] = self._w_base[J]
         snap["k"] = 1
         snap["weights"] = self.converter.weights.get_diff()
         return snap
 
     def encode_diff(self, snap: Dict[str, Any]) -> Dict[str, Any]:
-        """Outside the lock: a snapshot's subtraction, then the optional
-        int8 transport quantization ({"dcn_payload": "int8"})."""
-        return self._quantize_diff_payload(self._subtract_bases(snap),
-                                           keys=("w",))
+        """Outside the lock: a snapshot's subtraction, the optional top-k
+        column sparsification (--mix_topk), then the optional int8
+        transport quantization ({"dcn_payload": "int8"})."""
+        return self._quantize_diff_payload(
+            self._sparsify_topk(self._subtract_bases(snap), keys=("w",)),
+            keys=("w",))
 
     @staticmethod
     def _to_dense_w(side) -> np.ndarray:

@@ -18,8 +18,10 @@ quantize_blockwise_np / dequantize_blockwise_np are numpy copies of the
 JAX package's host codec, kept for the tests and for chip_smoke.py's
 timing of the host codec.
 
-The in-mesh int8 ring all-reduce (ring_all_reduce_int8) is later work; it
-will reuse these kernels.
+ring_all_reduce_int8 is the JAX package's in-mesh int8 ring all-reduce
+for ranks that live in one process (the data-parallel replicas stacked on
+one card): every hop is a device copy along the rank axis, and each
+hop's quantize (dequantize) of all ranks is one kernel launch.
 """
 
 from __future__ import annotations
@@ -211,6 +213,94 @@ def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor,
     out = torch.empty(tuple(shape), dtype=torch.float32, device=q.device)
     _launch_dequantize(flat, sf, out, nblk * BLK_R, BLK_C, n)
     return out
+
+
+# -- ring all-reduce over ranks held in one process ---------------------------
+
+def rank_sum(x: torch.Tensor) -> torch.Tensor:
+    """The exact sum over axis 0 (the ranks) in rank order, x0 + x1 + ...,
+    as XLA's CPU all-reduce sums; every rank's copy."""
+    total = x[0].clone()
+    for r in range(1, x.shape[0]):
+        total += x[r]
+    return total.unsqueeze(0).expand_as(x).clone()
+
+
+def ring_all_reduce_int8(x: torch.Tensor, min_elems: int = -1
+                         ) -> torch.Tensor:
+    """x: [n, ...] f32, one delta a rank -> [n, ...]: every rank's value of
+    jubatus_tpu/parallel/quantized.py ring_all_reduce_int8 (≈ the sum over
+    ranks, with int8 hops), for n ranks held in one process.
+
+    The same chunked ring: chunk = 32 x 512 x ceil(size / (n * 16384))
+    elements a rank, the zero-padded delta cut into n chunks of
+    [chunk / 512, 512]; a reduce-scatter of n - 1 hops in which rank r
+    receives rank r - 1's quantized running sum and adds its own chunk
+    r - t - 1 (cur = dequant(recv) + chunk), so rank r ends holding the
+    sum of chunk r + 1; the owner stores dequant(quant(cur)), the value it
+    ships; n - 1 all-gather hops forward the once-quantized reduced chunks.
+    A hop is a roll by one along the rank axis.  Every chunk is a whole
+    number of 32 x 512 tiles, so one quantize_int8 launch over all ranks'
+    [n * R, 512] rows quantizes each rank's tiles as its own launch would
+    (no tile straddles two ranks); dequantize likewise.  A float leaf's
+    round on the card: n quantize and 2n - 1 dequantize launches.
+
+    One arithmetic on both devices, the written one: the kernels on the
+    card, their plain versions (_quantize_ref, _dequantize_ref) on the
+    CPU, as the JAX ring uses its plain pair off the TPU.  Inside the
+    JAX package's fold (parallel/collective.py make_tree_mix) XLA's CPU
+    code keeps that arithmetic and the two folds agree bitwise; the ring
+    jitted alone it rewrites (the scale's / 127.0 as a multiply by
+    float32(1 / 127), a hop's dequantize and add as one fused
+    multiply-add), and there the two agree within one quantization step
+    of the tile, bitwise where every scale is a whole number.
+
+    Size floor: below min_elems elements a rank (-1: (n * 16384) // 4, the
+    break-even point where the padded int8 ring ships more bytes than an
+    exact f32 sum), the result is the exact f32 sum in rank order (XLA's
+    CPU all-reduce order); 0 always rings.  n == 1 returns x."""
+    n = x.shape[0]
+    if n == 1:
+        return x
+    size = x[0].numel()
+    if min_elems < 0:
+        min_elems = (n * _BLOCK) // 4
+    if size < max(min_elems, 1):
+        return rank_sum(x)
+    flat = x.reshape(n, size).to(torch.float32)
+    chunk = _BLOCK * ((size + n * _BLOCK - 1) // (n * _BLOCK))
+    rows = chunk // BLK_C
+    padded = torch.zeros((n, n * chunk), dtype=torch.float32,
+                         device=x.device)
+    padded[:, :size] = flat
+    # chunks[r, j]: rank r's chunk j, [rows, 512]
+    chunks = padded.view(n, n, rows, BLK_C)
+    ranks = torch.arange(n, device=x.device)
+
+    def quant(cur):
+        q, s = quantize_int8(cur.reshape(n * rows, BLK_C))
+        return q.view(n, rows, BLK_C), s.view(n, rows // BLK_R, 1)
+
+    def dequant(q, s):
+        return dequantize_int8(q.reshape(n * rows, BLK_C),
+                               s.reshape(n * rows // BLK_R, 1)
+                               ).view(n, rows, BLK_C)
+
+    # reduce-scatter: after n - 1 hops rank r holds the sum of chunk r + 1
+    cur = chunks[ranks, ranks]
+    for t in range(n - 1):
+        q, s = quant(cur)
+        q, s = torch.roll(q, 1, 0), torch.roll(s, 1, 0)   # r gets r - 1's
+        cur = dequant(q, s) + chunks[ranks, (ranks - t - 1) % n]
+    # all-gather of the once-quantized reduced chunks; the owner keeps the
+    # value it ships, dequant(quant(cur)), or replicas would drift apart
+    out = torch.empty_like(chunks)
+    q, s = quant(cur)
+    out[ranks, (ranks + 1) % n] = dequant(q, s)
+    for t in range(n - 1):
+        q, s = torch.roll(q, 1, 0), torch.roll(s, 1, 0)
+        out[ranks, (ranks - t) % n] = dequant(q, s)
+    return out.view(n, n * chunk)[:, :size].reshape(x.shape)
 
 
 # -- numpy copies of the JAX package's host codec (test reference) ---------

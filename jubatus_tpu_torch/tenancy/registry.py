@@ -178,6 +178,15 @@ class SlotState:
         r = getattr(self.mixer, "round", None)
         return int(self._recovered_round if r is None else r)
 
+    def current_collective_round(self) -> int:
+        """The collective epoch ("cmix", mix/collective.py) snapshots are
+        labelled with: the live mixer's counter when it keeps one, else
+        the epoch recovery restored."""
+        cr = getattr(self.mixer, "collective_round", None)
+        if cr is None:
+            cr = getattr(self.recovery_info, "collective_round", 0)
+        return int(cr)
+
     def checkpoint_after_restore(self) -> None:
         """A full-model overwrite (operator load, straggler catch-up, a
         joiner's bootstrap) supersedes every earlier journal record:
@@ -421,7 +430,7 @@ def join_slot_cluster(host, slot: ModelSlot) -> None:
             log.warning("slot %s: config push failed", slot.slot_name,
                         exc_info=True)
     slot.membership = m
-    if ctx.mixer_kind == "linear_mixer":
+    if ctx.mixer_kind in ("linear_mixer", "collective_mixer"):
         from jubatus_tpu_torch.mix.linear_mixer import LinearMixer
         from jubatus_tpu_torch.rpc.resilience import PeerHealth
         mixer = LinearMixer(slot, m, interval_sec=ctx.interval_sec,
@@ -434,6 +443,13 @@ def join_slot_cluster(host, slot: ModelSlot) -> None:
         # every MIX frame of this group names the slot: each peer's
         # SlotMixRouter routes it to the slot's mixer
         mixer.model_name = slot.slot_name
+        if ctx.mixer_kind == "collective_mixer":
+            # the slot's two-level tier: the collective fold when every
+            # peer shares this node's mix group, the wire otherwise
+            from jubatus_tpu_torch.mix.collective import CollectiveMixer
+            mixer = CollectiveMixer(slot, m, inner=mixer,
+                                    interval_sec=ctx.interval_sec,
+                                    interval_count=ctx.interval_count)
     else:
         # the gossip mixers have no name-routed wire: the slot serves,
         # journals and saves, unmixed (as in the JAX package)
@@ -447,6 +463,10 @@ def join_slot_cluster(host, slot: ModelSlot) -> None:
     if slot._recovered_round and hasattr(mixer, "round"):
         # resume at the recovered MIX round, as the boot path does
         mixer.round = max(mixer.round, slot._recovered_round)
+    if slot.recovery_info is not None and hasattr(mixer, "collective_round"):
+        # and the journaled collective epoch ("cmix", mix/collective.py)
+        mixer.collective_round = max(mixer.collective_round,
+                                     slot.recovery_info.collective_round)
     port = host.args.rpc_port
     # a slot restored before the RPC server bound its port copied the
     # requested one; its peer calls locate it by the bound one

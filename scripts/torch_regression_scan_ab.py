@@ -10,9 +10,11 @@ DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists) whose
 jubatus_tpu_torch/csrc/regression_scan.cu has the one-warp C entry point
 regression_scan_launch(w, indices, values, targets, mask, B, K, method,
-c, eps, stream); where it also has regression_scan_launch_profiled (the
-same arguments, then a long long[5] of cycles), its stage split is
-printed too.  Both kernels are built with the current kernel's flags
+c, eps, stream), or the replica grid's regression_scan_grid_launch (run
+at one block and the current plan); where it also has
+regression_scan_launch_profiled (the one-warp arguments, then a long
+long[5] of cycles) or regression_scan_grid_launch_profiled, its stage
+split is printed too.  Both kernels are built with the current kernel's flags
 (flags("regression_scan") of jubatus_tpu_torch/kernels/build.py,
 -ftz=true included) and timed by CUDA events at the main path's shape
 (B 8192, K 16, D 2^20) for PA, PA1 and PA2 on chip_smoke.py's
@@ -48,7 +50,10 @@ PRODUCER = ("wait_free_slot", "hash", "lookup_gather", "per_datum",
 WRITEBACK = ("wait_done", "store")
 EARLIER_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-CURRENT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+# the replica grid's profiled entry, run at one block: B, K, D, ndp,
+# method, c, eps, T, S, P, stream, prof
+CURRENT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p] * 2)
 F32_OP = re.compile(r"^\s*(?:@!?%p\d+\s+)?((?:add|sub|mul|div|fma|setp|abs|"
@@ -96,15 +101,22 @@ def main() -> int:
     earlier = build.load_variant("regression_scan", os.path.join(
         args.earlier, "jubatus_tpu_torch", "csrc", "regression_scan.cu"),
         "earlier")
-    earlier.regression_scan_launch.argtypes = EARLIER_ARGS
-    earlier.regression_scan_launch.restype = ctypes.c_int
-    earlier_prof = getattr(earlier, "regression_scan_launch_profiled", None)
+    # a grid-era kernel: the grid entries at one block, the current plan
+    gridded = hasattr(earlier, "regression_scan_grid_launch")
+    earlier_launch = (earlier.regression_scan_grid_launch if gridded
+                      else earlier.regression_scan_launch)
+    earlier_launch.argtypes = CURRENT_ARGS[:-1] if gridded else EARLIER_ARGS
+    earlier_launch.restype = ctypes.c_int
+    earlier_prof = getattr(earlier, "regression_scan_grid_launch_profiled"
+                           if gridded else "regression_scan_launch_profiled",
+                           None)
     if earlier_prof is not None:
-        earlier_prof.argtypes = EARLIER_ARGS + [ctypes.c_void_p]
+        earlier_prof.argtypes = (CURRENT_ARGS if gridded
+                                 else EARLIER_ARGS + [ctypes.c_void_p])
         earlier_prof.restype = ctypes.c_int
     lib = build.load("regression_scan")
-    lib.regression_scan_launch_profiled.argtypes = CURRENT_ARGS
-    lib.regression_scan_launch_profiled.restype = ctypes.c_int
+    lib.regression_scan_grid_launch_profiled.argtypes = CURRENT_ARGS
+    lib.regression_scan_grid_launch_profiled.restype = ctypes.c_int
 
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
@@ -112,13 +124,15 @@ def main() -> int:
     def run_earlier(method, prof=None):
         def run(w, batch):
             ptrs = [t.data_ptr() for t in [w] + batch]
+            head = (B, K, D, 1) if gridded else (B, K)
+            tail = tr.reg_scan_plan(K) if gridded else ()
             mid = METHODS.index(method)
             if prof is None:
-                err = earlier.regression_scan_launch(
-                    *ptrs, B, K, mid, C, EPS, stream())
+                err = earlier_launch(*ptrs, *head, mid, C, EPS, *tail,
+                                     stream())
             else:
-                err = earlier_prof(*ptrs, B, K, mid, C, EPS, stream(),
-                                   prof.data_ptr())
+                err = earlier_prof(*ptrs, *head, mid, C, EPS, *tail,
+                                   stream(), prof.data_ptr())
             build.check(err, "earlier regression_scan launch")
         return run
 
@@ -126,8 +140,8 @@ def main() -> int:
         plan = plan or tr.reg_scan_plan(K)
 
         def run(w, batch):
-            build.check(lib.regression_scan_launch_profiled(
-                *[t.data_ptr() for t in [w] + batch], B, K,
+            build.check(lib.regression_scan_grid_launch_profiled(
+                *[t.data_ptr() for t in [w] + batch], B, K, D, 1,
                 METHODS.index(method), C, EPS, *plan, stream(),
                 None if prof is None else prof.data_ptr()),
                 "current regression_scan launch")
@@ -200,7 +214,8 @@ def main() -> int:
                                 2, WRITEBACK, 16)}
         if earlier_prof is not None:
             res["earlier_cycles_per_datum"] = cycles(
-                lambda pr: run_earlier("PA", pr), make, 5, EARLIER_STAGES)
+                lambda pr: run_earlier("PA", pr), make,
+                *((8, CONSUMER) if gridded else (5, EARLIER_STAGES)))
         result[name] = res
     result["bitwise_equal"] = bitwise_ok
     line = "regression_scan_ab " + json.dumps(result)

@@ -9,8 +9,9 @@ its ring depth and producer warps, and split its cycles by stage.
 DIR is the root of another checkout (for example a `git archive` of an
 earlier commit unpacked under build/, which .gitignore lists); its
 jubatus_tpu_torch/csrc/train_scan.cu has the slice-1 C entry point
-(train_scan_launch without mode, ring and producers) or the planned one
-(with them), which runs at the current plan.  Both kernels are built with
+(train_scan_launch without mode, ring and producers), the planned one
+(with them) or the replica grid's (train_scan_grid_launch, run at one
+block); the last two run at the current plan.  Both kernels are built with
 the current kernel's flags (flags("train_scan") of
 jubatus_tpu_torch/kernels/build.py, -ftz=true included), or the earlier
 one without -ftz=true under --earlier-flags base (an A/B of one source
@@ -20,8 +21,8 @@ microbatches:
 chip_smoke.py's random-column batch and its shared-column stream.  The
 earlier and current kernels run in turns (earlier, current, current,
 earlier), each from a fresh state.  The stage split comes from
-train_scan_launch_profiled (clock64 sums of the consumer warp and the
-first producer warp).  Prints one `scan_ab {...}` JSON line
+train_scan_grid_launch_profiled at one block (clock64 sums of the
+consumer warp and the first producer warp).  Prints one `scan_ab {...}` JSON line
 (with the card's name and power limit) and writes it to FILE when given.
 """
 
@@ -36,7 +37,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-# stages of train_scan_launch_profiled's cycle accounting
+# stages of train_scan_grid_launch_profiled's cycle accounting
 CONSUMER = ("wait_slot", "forward", "scores_argmax", "step_sizes", "updates",
             "commit")
 PRODUCER = ("wait_free_slot", "stage", "gather")
@@ -45,9 +46,11 @@ MARGIN = ("perceptron", "PA", "PA1", "PA2", "CW", "AROW", "NHERD")
 EARLIER_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p])
-CURRENT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+PLANNED_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+# the replica grid's entries: one more int, the replicas (blocks)
+CURRENT_ARGS = PLANNED_ARGS[:-2] + [ctypes.c_int] + PLANNED_ARGS[-2:]
 
 
 def main() -> int:
@@ -90,12 +93,17 @@ def main() -> int:
     # an earlier kernel with the planned entry point runs at the current
     # plan
     planned = hasattr(earlier, "train_scan_smem_bytes")
-    earlier.train_scan_launch.argtypes = (CURRENT_ARGS[:-1] if planned
-                                          else EARLIER_ARGS)
-    earlier.train_scan_launch.restype = ctypes.c_int
+    # a grid-era kernel: the grid entries at one block
+    gridded = hasattr(earlier, "train_scan_grid_launch")
+    earlier_launch = (earlier.train_scan_grid_launch if gridded
+                      else earlier.train_scan_launch)
+    earlier_launch.argtypes = (CURRENT_ARGS[:-1] if gridded
+                               else PLANNED_ARGS[:-1] if planned
+                               else EARLIER_ARGS)
+    earlier_launch.restype = ctypes.c_int
     lib = build.load("train_scan")
-    lib.train_scan_launch_profiled.argtypes = CURRENT_ARGS
-    lib.train_scan_launch_profiled.restype = ctypes.c_int
+    lib.train_scan_grid_launch_profiled.argtypes = CURRENT_ARGS
+    lib.train_scan_grid_launch_profiled.restype = ctypes.c_int
 
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
@@ -105,7 +113,8 @@ def main() -> int:
         if planned:
             mode, depth = tc.scan_plan(L, K, has_cov, tc.SCAN_RING)
             plan = (mode, depth, min(tc.SCAN_PRODUCERS, depth))
-        build.check(earlier.train_scan_launch(
+            plan += (1,) if gridded else ()
+        build.check(earlier_launch(
             *[t.data_ptr() for t in state + batch], B, K, L, D, aid, 1.0,
             *plan, stream()), "earlier train_scan launch")
 
@@ -114,11 +123,19 @@ def main() -> int:
         mode, depth = tc.scan_plan(L, K, has_cov, ring)
 
         def run(state, batch):
-            build.check((kernel or lib).train_scan_launch_profiled(
-                *[t.data_ptr() for t in state + batch], B, K, L, D, aid,
-                1.0, mode, depth, min(producers, depth), stream(),
-                None if prof is None else prof.data_ptr()),
-                "current train_scan launch")
+            nprod = min(producers, depth)
+            ptr = None if prof is None else prof.data_ptr()
+            head = [t.data_ptr() for t in state + batch]
+            if kernel is None or hasattr(kernel,
+                                         "train_scan_grid_launch_profiled"):
+                err = (kernel or lib).train_scan_grid_launch_profiled(
+                    *head, B, K, L, D, aid, 1.0, mode, depth, nprod, 1,
+                    stream(), ptr)
+            else:
+                err = kernel.train_scan_launch_profiled(
+                    *head, B, K, L, D, aid, 1.0, mode, depth, nprod,
+                    stream(), ptr)
+            build.check(err, "current train_scan launch")
         return run
 
     inputs = {
@@ -177,8 +194,10 @@ def main() -> int:
         split = [stages(make, ring, producers)
                  for ring, producers in ((1, 1), (2, 2), (3, 2), (4, 2))]
         if planned:
-            earlier.train_scan_launch_profiled.argtypes = CURRENT_ARGS
-            earlier.train_scan_launch_profiled.restype = ctypes.c_int
+            prof_fn = (earlier.train_scan_grid_launch_profiled if gridded
+                       else earlier.train_scan_launch_profiled)
+            prof_fn.argtypes = CURRENT_ARGS if gridded else PLANNED_ARGS
+            prof_fn.restype = ctypes.c_int
             result.setdefault("earlier_stages", {})[name] = stages(
                 make, tc.SCAN_RING, tc.SCAN_PRODUCERS, earlier)
         result[name] = {"turns_ms": turns, "sweep": sweep, "stages": split,

@@ -106,12 +106,48 @@ def test_later_item_flags_are_refused_with_their_item(mod, flag, value,
 
 
 def test_collective_mixer_names_its_item(capsys, tmp_path):
+    """collective_mixer is served since the data-parallel tier (Queue 1
+    item 4): a standalone --dp_replicas server gets its CollectiveMixer;
+    the sharded tier still names its item."""
     cfg = tmp_path / "c.json"
     cfg.write_text(json.dumps(CFG))
+    srv, rpc = tserver_cli.serve(
+        ["--type", "classifier", "--configpath", str(cfg), "--device", "cpu",
+         "--rpc-port", "0", "--listen_addr", "127.0.0.1", "--mixer",
+         "collective_mixer", "--dp_replicas", "2"])
+    try:
+        st = next(iter(srv.get_status().values()))
+        assert st["mixer"] == "collective_mixer"
+        assert (st["mix_collective"], st["dp_replicas"]) == ("1", "2")
+    finally:
+        rpc.stop()
+        srv.stop()
     with pytest.raises(SystemExit):
         tserver_cli.serve(["--type", "classifier", "--configpath", str(cfg),
-                           "--device", "cpu", "--mixer", "collective_mixer"])
-    assert "ROADMAP Queue 1 item 4" in capsys.readouterr().err
+                           "--device", "cpu", "--shard_devices", "2"])
+    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,value,key", [
+    ("--dp_replicas", "3", "dp_replicas"), ("--mix_topk", "7", "mix_topk")])
+def test_data_parallel_flags_are_served(tmp_path, flag, value, key):
+    """The JAX server's --dp_replicas and --mix_topk (Queue 1 item 4),
+    served at their JAX defaults and beyond, reported in get_status."""
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps(CFG))
+    srv, rpc = tserver_cli.serve(
+        ["--type", "classifier", "--configpath", str(cfg), "--device", "cpu",
+         "--rpc-port", "0", "--listen_addr", "127.0.0.1", flag, value])
+    try:
+        st = next(iter(srv.get_status().values()))
+        assert st[key] == value
+        if flag == "--mix_topk":
+            assert srv.driver.mix_topk == 7 and "dp_replicas" not in st
+        else:
+            assert srv.driver.ndp == 3 and st["mix_topk"] == "0"
+    finally:
+        rpc.stop()
+        srv.stop()
 
 
 def test_dispatch_auto_follows_the_cores_we_may_use(monkeypatch):

@@ -2,7 +2,8 @@
 the lock-service client (wire-compatible both ways), the gossip mixer's
 candidate filter, the in-process LinearMixer rounds of tests/test_mix.py
 on port servers (--device cpu), do_mix while raw trains are in flight,
-and the CLI's refusal of collective_mixer.
+and the CLI's mixer names (collective_mixer served, an unknown one
+refused).
 
 Every wait is bounded by its own timeout."""
 
@@ -484,19 +485,30 @@ def test_do_mix_returns_while_raw_trains_are_in_flight(cluster):
 
 
 def test_cli_refuses_collective_mixer(tmp_path):
+    """Since the data-parallel tier the CLI serves collective_mixer (a
+    CollectiveMixer around a LinearMixer in a cluster; standalone the
+    DummyMixer, as for any mixer name) and refuses only an unknown
+    name."""
     cfg = tmp_path / "c.json"
     cfg.write_text(json.dumps(CONFIG))
     r = subprocess.run(
         [sys.executable, "-m", "jubatus_tpu_torch.cli.server", "--type",
          "classifier", "--configpath", str(cfg), "--rpc-port", "0",
          "--listen_addr", "127.0.0.1", "--device", "cpu",
-         "--mixer", "collective_mixer"],
+         "--mixer", "bogus_mixer"],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert "jubatus ready" not in r.stdout
-    assert "collective_mixer needs the data-parallel tier" in r.stderr
-    with pytest.raises(ValueError, match="data-parallel tier"):
-        create_mixer("collective_mixer", None, object())
+    assert "unknown mixer: bogus_mixer" in r.stderr
+    with pytest.raises(ValueError, match="unknown mixer"):
+        create_mixer("bogus_mixer", None, object())
+    from jubatus_tpu_torch.mix.collective import CollectiveMixer
+    from jubatus_tpu_torch.mix.linear_mixer import DummyMixer, LinearMixer
+    assert isinstance(create_mixer("collective_mixer", None, None),
+                      DummyMixer)
+    mixer = create_mixer("collective_mixer", object(), object())
+    assert isinstance(mixer, CollectiveMixer)
+    assert isinstance(mixer.inner, LinearMixer)
 
 
 def test_cli_fails_without_a_reachable_coordinator(tmp_path):

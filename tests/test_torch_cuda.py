@@ -36,7 +36,13 @@ bitwise its plain version, one launch a call, for every kind at 2 to 625
 words a row (the ring's slabs past 512), tables of 1 to 100,003 rows,
 1 to 4,097 queries (past a ring block's query cap), the design the row's
 width picks, tables and queries off a 16-byte boundary, and the euclid
-estimate's sign at counts 0 and 32 W.
+estimate's sign at counts 0 and 32 W.  The data-parallel tier: both
+scans' replica grid at ndp 1, 3, 4 and 8, each replica bitwise a
+one-block launch on its slice (ndp 1 the one-block launch itself),
+integer state bitwise and tables within the scan's tolerance of the
+plain per-replica loop, and the refusals; the in-process int8 ring (one
+quantize and one dequantize launch a hop for all ranks) bitwise the same
+ring on the plain quantizer pair.
 """
 
 import numpy as np
@@ -2225,3 +2231,130 @@ def test_two_slots_trained_at_once_equal_each_alone_and_drops_free_the_card(
     finally:
         rpc.stop()
         srv.stop()
+
+
+# -- the data-parallel tier: the replica grids and the batched ring ----------
+
+def _grid_inputs(seed, ndp, method, L=8, D=4096, per=96, K=16):
+    """ndp diverged replicas and a batch of ndp * per datums whose slices
+    share columns with each other (every replica scans the same hazard
+    shape)."""
+    states, batches = [], []
+    for r in range(ndp):
+        state, batch = _hazard_inputs(seed * 31 + r, L=L, K=K, B=per, D=D)
+        states.append(state)
+        batches.append(batch)
+    state = [np.stack([s[i] for s in states]) for i in range(4)]
+    if method not in ("CW", "AROW", "NHERD"):
+        state[1] = np.zeros((ndp, 1, 1), np.float32)
+    batch = [np.concatenate([b[i] for b in batches]) for i in range(4)]
+    return state, batch
+
+
+@pytest.mark.parametrize("ndp", [1, 3, 4, 8])
+@pytest.mark.parametrize("method", MARGIN)
+def test_replica_grid_scan_is_bitwise_one_block_launches(dev, method, ndp):
+    """Each replica of ONE grid launch is bitwise a one-block launch on
+    its slice, integer state bitwise the plain per-replica loop and the
+    tables within the scan's tolerance of it; ndp 1 is the one-block
+    launch itself."""
+    state, batch = _grid_inputs(MARGIN.index(method), ndp, method)
+    grid = [torch.from_numpy(a.copy()).to(dev) for a in state]
+    one = [t.clone() for t in grid]
+    ref = [t.clone() for t in grid]
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    before = (tc.train_scan_grid.launches, tc.train_scan.launches)
+    tc.train_scan_grid(*grid, *bt, method, 0.5)
+    assert tc.train_scan_grid.launches == before[0] + 1
+    assert tc.train_scan.launches == before[1]
+    per = batch[0].shape[0] // ndp
+    for r in range(ndp):
+        rows = slice(r * per, (r + 1) * per)
+        tc.train_scan(one[0][r], one[1][r], one[2][r], one[3][r],
+                      *[t[rows] for t in bt], method, 0.5)
+    tc.train_scan_grid_ref(*ref, *bt, method, 0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(grid, one):
+        assert torch.equal(a, b)
+    assert torch.equal(grid[2], ref[2]) and torch.equal(grid[3], ref[3])
+    torch.testing.assert_close(grid[0], ref[0], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(grid[1], ref[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("ndp", [1, 3, 4, 8])
+@pytest.mark.parametrize("method", REG)
+def test_regression_replica_grid_is_bitwise_one_block_launches(dev, method,
+                                                               ndp):
+    ws, batches = [], []
+    for r in range(ndp):
+        w, batch = _reg_inputs(REG.index(method) * 13 + r, "shared", 384)
+        ws.append(w)
+        batches.append(batch)
+    w = np.stack(ws)
+    batch = [np.concatenate([b[i] for b in batches]) for i in range(4)]
+    grid = torch.from_numpy(w).to(dev)
+    one, ref = grid.clone(), grid.clone()
+    bt = [torch.from_numpy(a).to(dev) for a in batch]
+    before = (tr.train_scan_grid.launches, tr.train_scan.launches)
+    tr.train_scan_grid(grid, *bt, method, 0.5, 0.1)
+    assert tr.train_scan_grid.launches == before[0] + 1
+    assert tr.train_scan.launches == before[1]
+    for r in range(ndp):
+        rows = slice(r * 384, (r + 1) * 384)
+        tr.train_scan(one[r], *[t[rows] for t in bt], method, 0.5, 0.1)
+    tr.train_scan_grid_ref(ref, *bt, method, 0.5, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(grid, one)
+    torch.testing.assert_close(grid, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_replica_grids_refuse_what_they_do_not_take(dev):
+    w = torch.zeros((3, 8, 64), device=dev)
+    cov = torch.ones((3, 8, 64), device=dev)
+    counts = torch.zeros((3, 8), dtype=torch.int32, device=dev)
+    active = torch.zeros((3, 8), dtype=torch.bool, device=dev)
+    idx = torch.zeros((8, 16), dtype=torch.int32, device=dev)   # 8 % 3
+    val = torch.zeros((8, 16), device=dev)
+    lab = torch.zeros(8, dtype=torch.int32, device=dev)
+    mask = torch.ones(8, device=dev)
+    before = tc.train_scan_grid.launches
+    with pytest.raises(ValueError, match="do not split"):
+        tc.train_scan_grid(w, cov, counts, active, idx, val, lab, mask,
+                           "AROW", 1.0)
+    with pytest.raises(ValueError, match="want w"):
+        tc.train_scan_grid(w[0], cov, counts, active, idx[:6], val[:6],
+                           lab[:6], mask[:6], "AROW", 1.0)
+    with pytest.raises(ValueError, match="do not split"):
+        tr.train_scan_grid(torch.zeros((3, 64), device=dev), idx, val,
+                           mask, mask, "PA", 1.0, 0.1)
+    assert tc.train_scan_grid.launches == before
+
+
+@pytest.mark.parametrize("n,shape", [(2, (3, 5000)), (3, (7, 4099)),
+                                     (4, (1,)), (5, (33, 1000)),
+                                     (8, (32, 1 << 14))])
+def test_batched_ring_is_bitwise_the_plain_ring(dev, n, shape):
+    """The ring on the card (one quantize and one dequantize launch over
+    all ranks a hop) against the same ring on the plain quantizer pair on
+    the card: bitwise, n quantize and 2n - 1 dequantize launches."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.standard_normal((n,) + shape) * np.exp(
+        rng.uniform(-3, 3, (n,) + shape))).astype(np.float32)).to(dev)
+    before = (tq.quantize_int8.launches, tq.dequantize_int8.launches)
+    got = tq.ring_all_reduce_int8(x, min_elems=0)
+    assert (tq.quantize_int8.launches - before[0],
+            tq.dequantize_int8.launches - before[1]) == (n, 2 * n - 1)
+    want = ring_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for r in range(1, n):
+        assert torch.equal(got[r], got[0])
+
+
+def ring_plain(x):
+    """ring_all_reduce_int8 with the quantizer pair's plain versions (the
+    written arithmetic), on x's device."""
+    from unittest import mock
+    with mock.patch.object(tq, "quantize_int8", tq._quantize_ref), \
+            mock.patch.object(tq, "dequantize_int8", tq._dequantize_ref):
+        return tq.ring_all_reduce_int8(x, min_elems=0)

@@ -50,7 +50,6 @@ LATER_KEYS = {
     r"clock_time|start_time|logdir|progname|.*pid_.*)$":
         "7 (utils/system.py machine status)",
     r"^autopilot.*": "7 (autopilot)",
-    r"^(mix_topk|mix_collective)$": "4 (data-parallel tier)",
     # the JAX package's XLA compile cache (batching/bucketing.py
     # BucketCache: a miss is an XLA compile); the port builds each CUDA
     # kernel once (kernels/build.py) and has no shape compile to count

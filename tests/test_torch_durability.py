@@ -554,6 +554,43 @@ def test_clear_is_replayed(tmp_path):
     shut("port", srv2)
 
 
+@pytest.mark.parametrize("pkg", PKGS)
+def test_cmix_records_replay_through_the_epoch_guard(tmp_path, pkg):
+    """A collective round's cmix record (mix/collective.py) replays in
+    either package: the epoch resumes at the largest recovered, a record
+    at or below the snapshot's epoch is not applied again, and a driver
+    without replicas only counts the epoch."""
+    srv = make_server(pkg, "classifier", tmp_path / "dur")
+    train_u(pkg, srv, "classifier", [("A", "a1", 1.0)])
+    for cr in (1, 2):
+        with srv.model_lock.write():
+            srv.journal.append({"k": "cmix", "cr": cr})
+    srv.journal.commit()
+    shut(pkg, srv)
+    srv2 = make_server(pkg, "classifier", tmp_path / "dur")
+    try:
+        ri = srv2.recovery_info
+        assert (ri.replayed, ri.errors, ri.collective_round) == (3, 0, 2)
+        assert srv2.driver.get_labels() == {"A": 1}
+        # the boot's snapshot carries the epoch: a replayed duplicate
+        # (cr 2) is guarded, a later one (cr 3) advances it
+        assert Manifest.load(str(tmp_path / "dur")).snapshots[0][
+            "collective_round"] == 2
+        with srv2.model_lock.write():
+            srv2.journal.append({"k": "cmix", "cr": 2})
+            srv2.journal.append({"k": "cmix", "cr": 3})
+        srv2.journal.commit()
+    finally:
+        shut(pkg, srv2)
+    srv3 = make_server(pkg, "classifier", tmp_path / "dur")
+    try:
+        ri = srv3.recovery_info
+        assert (ri.replayed, ri.errors, ri.collective_round) == (2, 0, 3)
+        assert srv3.update_count == 1
+    finally:
+        shut(pkg, srv3)
+
+
 def test_journal_dir_is_exclusively_locked(tmp_path):
     srv = make_server("port", "classifier", tmp_path / "dur")
     with pytest.raises(tjournal.JournalError, match="locked by another"):
@@ -565,13 +602,13 @@ def test_journal_dir_is_exclusively_locked(tmp_path):
 @pytest.mark.parametrize("record, message", [
     ({"k": "u", "m": "no_such_method", "a": []}, "no_such_method"),
     ({"k": "drv", "m": "add", "a": ["1", {}]}, "has no such mutation"),
-    ({"k": "cmix", "cr": 1}, "Queue 1 item 4"),
+    ({"k": "cmix", "cr": "one"}, "invalid literal"),
 ], ids=["unknown_method", "drv", "cmix"])
 def test_errored_replay_pins_the_floor_and_suspends_snapshots(
         tmp_path, caplog, record, message):
-    """A record the port cannot replay (a JAX-only kind names the ROADMAP
-    item that brings it; a driver mutation the service's driver lacks,
-    here anomaly's add on a classifier, says so) counts as an error: the
+    """A record the port cannot replay (a driver mutation the service's
+    driver lacks, here anomaly's add on a classifier, says so; a cmix
+    record whose epoch is no integer) counts as an error: the
     truncation floor pins it, no snapshot publishes (one would mark it
     covered), and a full-model overwrite (checkpoint_after_restore)
     lifts both."""

@@ -342,8 +342,25 @@ of JAX or of the JAX package.  Phases, each of which fails the run:
                 --dp_replicas 4 server SIGKILLed after a collective round,
                 recovered bitwise with its cmix record replayed and
                 collective_round resumed.  A `dp_service {...}` line
- 18. report   — one JSON line {"kernels": [...]} (launch counts from phases
-                4 to 17; counters are zeroed just before each path, and a
+ 18. shard    — key sharding (parallel/sharded.py, sharded_rows.py) at
+                4 shards: (a) phase 12a's 10^6-row lsh_probe table into a
+                ShardedNearestNeighborDriver through pack() -> unpack()
+                (seconds printed), 64 full and 64 indexed reads by id and
+                by datum, each 4 K3 (or 4 K6) launches from the counters,
+                bitwise the plain per-shard path on the card, the full
+                reads equal to the unsharded driver's up to ties, the 4 K3
+                launches of a read timed beside one K3 over the whole
+                stack and the 4 K6 beside the unsharded K6; (b) a sharded
+                recommender loaded from its unsharded twin's 65,536 rows
+                and a sharded anomaly beside its twin (1,024 adds), each
+                held to the twin; (c) a --shard_devices 4 --journal
+                nearest_neighbor server, 2,048 wire set_rows and 64 reads,
+                its status keys, SIGKILL and restart (boot to routable
+                printed, reads bitwise) beside a plain server booting the
+                sharded server's saved model (answers equal up to ties).
+                `shard:` lines and a `shard {...}` line
+ 19. report   — one JSON line {"kernels": [...]} (launch counts from phases
+                4 to 18; counters are zeroed just before each path, and a
                 server process's start at 0 with its process; each kernel
                 must have launched), then the result line {"ok": true,
                 "device": {...}} last.
@@ -4238,6 +4255,7 @@ def phase_index_nn(torch, np, device="cuda"):
     slots = drv._rows([f"r{i}" for i in range(n)])
     drv.pages.write(slots, {"sig": sigs, "norms": np.ones(n, np.float32)})
     fill_s = time.perf_counter() - t0
+    drv.protos = protos        # phase 18's datum reads jitter them too
     t0 = time.perf_counter()
     idx = drv._index_for_query()           # the lazy rebuild
     csr = idx.device_csr()                 # its pack and upload
@@ -7114,6 +7132,7 @@ def dp_fold(torch, np, dev):
     payload f32 and int8: the ring on the card bitwise the same ring on
     the plain quantizer pair on the card, n quantize and 2n - 1 dequantize
     launches a float leaf, the fold's device ms and scratch bytes."""
+    import gc
     from unittest import mock
 
     import msgpack
@@ -7128,6 +7147,10 @@ def dp_fold(torch, np, dev):
     sync = torch.cuda.synchronize if card else (lambda: None)
 
     def allocated():
+        # collect first: garbage of earlier phases (a cycle holding a card
+        # tensor) freed by a collection the driver's build triggers would
+        # count against what the driver holds
+        gc.collect()
         sync()
         return torch.cuda.memory_allocated() if card else 0
 
@@ -7456,6 +7479,440 @@ def phase_dp(torch, np, card, device="cuda"):
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# 18. key sharding (--shard_devices): the sharded nearest_neighbor over
+#     phase 12a's table, a sharded recommender and anomaly beside their
+#     unsharded twins, a journaled --shard_devices server
+# ---------------------------------------------------------------------------
+
+SHARD_N = 4                # shards of every sharded driver and server
+SHARD_READS = 64           # full reads and indexed reads, half by datum
+SHARD_RECO_ROWS = 65_536   # the recommender twin's update_rows
+SHARD_ANOM_ADDS = 1_024    # adds to the sharded anomaly and its twin
+SHARD_ANOM_READS = 64
+SHARD_ANOM_RTOL = 1e-4     # tests/test_sharded_rows.py:144-145's
+SHARD_WIRE_ROWS = 2_048    # NN_CLUSTER_ROWS' floor
+SHARD_WIRE_READS = 64
+
+
+def shard_plain(torch, sdrv, q_sigs, qnorms, k, indexed):
+    """A sharded read's answer through the plain versions on the same card
+    tensors: sig_probe_ref a shard (with the index), else sig_topk_ref a
+    shard, then the driver's merge (similarities)."""
+    from jubatus_tpu_torch.ops import candidates as C
+    from jubatus_tpu_torch.ops import lsh as L
+    from jubatus_tpu_torch.parallel import sharded as SH
+    S, cap = sdrv.nshard, sdrv.capacity
+    h, m = sdrv.hash_num, sdrv.method
+    if indexed:
+        idx = sdrv.index
+        csr = idx.device_csr(squeeze=False)
+        kb = SH._k_bucket(k * (len(idx.plan) + 1),
+                          len(idx.plan) * csr[4] + int(csr[3].shape[1]))
+        out = torch.cat([C.sig_probe_ref(
+            m, sdrv.sig[s], sdrv.norms[s], cap, sdrv.valid[s], q_sigs,
+            qnorms, csr[0][s], csr[1][s], csr[2][s], csr[3][s], csr[4],
+            idx.plan, idx.bits, h, kb) for s in range(S)])
+        rows, vals, _ = C.probe_result(out, kb)
+        cand = SH.merge_candidates(vals, rows, sdrv.shard_row_ids, k,
+                                   dedupe=True)
+        if len(cand) >= k:
+            return cand
+    kb = SH._k_bucket(k, cap)
+    keys = torch.cat([L.sig_topk_ref(m, sdrv.sig[s], sdrv.norms[s], cap,
+                                     q_sigs, qnorms, h, kb, sdrv.valid[s])
+                      for s in range(S)])
+    rows, vals = L.keys_to_host(keys)
+    return SH.merge_candidates(vals, rows, sdrv.shard_row_ids, k)
+
+
+def shard_nn(torch, np, nn_drv, device="cuda"):
+    """Phase 18a: phase 12a's 10^6-row lsh H 64 table (nn_drv, its
+    lsh_probe index built) into a ShardedNearestNeighborDriver at SHARD_N
+    shards through pack() -> unpack() (seconds printed), lsh_probe built by
+    its first read.  SHARD_READS full reads (the index set aside) and
+    SHARD_READS indexed reads, half by stored id and half by datum (the
+    prototypes, jittered): a full read SHARD_N K3 launches, an indexed one
+    SHARD_N K6 launches (and SHARD_N K3 for a fall back), from the
+    counters; every answer bitwise the plain per-shard path's on the same
+    card tensors, and against the unsharded driver's full sweep equal
+    scores position by position with tie-aware ids (full reads) and the
+    tie-aware recall@10 (indexed).  Then SHARD_N K3 launches of a read
+    timed against one K3 over the whole stack, and SHARD_N K6 launches
+    against the unsharded driver's one.  -> (launches, its line)."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.ops import candidates as C
+    from jubatus_tpu_torch.ops import lsh as L
+    from jubatus_tpu_torch.parallel import sharded as SH
+    from jubatus_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(181)
+    t0 = time.perf_counter()
+    pack = nn_drv.pack()
+    pack_s = time.perf_counter() - t0
+    sdrv = SH.ShardedNearestNeighborDriver(
+        NN_CONFIG, make_mesh(shard=SHARD_N, device=device))
+    t0 = time.perf_counter()
+    sdrv.unpack(pack)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t0
+    del pack
+    n = len(sdrv.ids)
+    if n != len(nn_drv.ids):
+        raise AssertionError(f"shard nn: {n} rows after unpack of "
+                             f"{len(nn_drv.ids)}")
+    if not sdrv.configure_index("lsh_probe", probes=INDEX_PROBES):
+        raise AssertionError("shard nn: lsh_probe declined")
+    t0 = time.perf_counter()
+    idx = sdrv._index_for_query()          # the lazy rebuild, slab a shard
+    sdrv.index.device_csr(squeeze=False)
+    build_s = time.perf_counter() - t0
+    if idx is None:
+        raise AssertionError("shard nn: the index did not engage")
+    half = SHARD_READS // 2
+    q_ids = [f"r{i}" for i in rng.integers(0, n, half)]
+    protos = nn_drv.protos
+    q_dat = []
+    for p in rng.integers(0, len(protos), half):
+        names, vals = protos[p]
+        q_dat.append(nn_datum(Datum, (names, (np.asarray(vals) + 0.05 * rng
+                                              .standard_normal(NN_NNZ))
+                                      .tolist())))
+
+    def run(drv):
+        return ([drv.similar_row_from_id(i, NN_SIZE) for i in q_ids]
+                + [drv.similar_row_from_datum(d, NN_SIZE) for d in q_dat])
+
+    answers, deltas, read_ms = {}, {}, {}
+    fb0 = float(metrics_snapshot().get("index_fallback_total", "0"))
+    for mode in ("indexed", "full"):
+        saved = sdrv.index
+        if mode == "full":
+            sdrv.index = None
+        try:
+            before = launch_counts()
+            t0 = time.perf_counter()
+            answers[mode] = run(sdrv)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            read_ms[mode] = (time.perf_counter() - t0) * 1e3 / SHARD_READS
+            deltas[mode] = launch_delta(before, launch_counts())
+        finally:
+            sdrv.index = saved
+        if mode == "indexed":
+            fallbacks = float(metrics_snapshot().get(
+                "index_fallback_total", "0")) - fb0
+    if device == "cuda":
+        check_reads("shard nn (full reads)", deltas["full"],
+                    SHARD_N * SHARD_READS, "sig_topk")
+        check_reads("shard nn (indexed reads)", deltas["indexed"],
+                    SHARD_N * SHARD_READS, "sig_probe")
+        check_reads("shard nn (fall backs)", deltas["indexed"],
+                    SHARD_N * int(fallbacks), "sig_topk")
+        for mode in deltas:
+            check_reads(f"shard nn ({mode}: K1 of the datum reads)",
+                        deltas[mode], half, "lsh_signature")
+    # each answer against the plain per-shard path on the same card
+    # tensors (the datum reads' signatures signed again, as they sign)
+    queries = [(sdrv.sig[sdrv.ids[i][0], sdrv.ids[i][1]:sdrv.ids[i][1] + 1],
+                sdrv.norms[sdrv.ids[i][0],
+                           sdrv.ids[i][1]:sdrv.ids[i][1] + 1])
+               for i in q_ids] + [sdrv._datum_query(d) for d in q_dat]
+    for mode in answers:
+        for (qs, qn), ans in zip(queries, answers[mode]):
+            if shard_plain(torch, sdrv, qs, qn, min(NN_SIZE, n),
+                           mode == "indexed") != ans:
+                raise AssertionError(f"shard nn ({mode}): a read differs "
+                                     "from the plain per-shard path")
+    # against the unsharded driver's full sweep
+    saved, nn_drv.index = nn_drv.index, None
+    try:
+        whole = run(nn_drv)
+    finally:
+        nn_drv.index = saved
+    for a, b in zip(answers["full"], whole):
+        if not tie_eq(a, b):
+            raise AssertionError("shard nn: a full read differs from the "
+                                 "unsharded driver's beyond its ties")
+    recall = recall_of(answers["indexed"], whole)
+    # S launches of a read against one launch over the same stack / the
+    # unsharded table
+    q0, n0 = queries[half]
+    S, cap = SHARD_N, sdrv.capacity
+    kb3 = SH._k_bucket(min(NN_SIZE, n), cap)
+    csr = sdrv.index.device_csr(squeeze=False)
+    kb6 = SH._k_bucket(min(NN_SIZE, n) * (len(idx.plan) + 1),
+                       len(idx.plan) * csr[4] + int(csr[3].shape[1]))
+    flat_sig = sdrv.sig.view(S * cap, -1)
+    times = {
+        "k3_shards_ms": nn_times(torch, lambda: [L.sig_topk(
+            "lsh", sdrv.sig[s], sdrv.norms[s], cap, q_sigs=q0, qnorms=n0,
+            hash_num=64, kb=kb3, mask=sdrv.valid[s]) for s in range(S)],
+            device, 20)[0],
+        "k3_one_over_stack_ms": nn_times(torch, lambda: L.sig_topk(
+            "lsh", flat_sig, sdrv.norms.view(-1), S * cap, q_sigs=q0,
+            qnorms=n0, hash_num=64, kb=kb3, mask=sdrv.valid.view(-1)),
+            device, 20)[0],
+        "k6_shards_ms": nn_times(torch, lambda: [C.sig_probe(
+            "lsh", sdrv.sig[s], sdrv.norms[s], cap, sdrv.valid[s],
+            (csr[0][s], csr[1][s], csr[2][s], csr[3][s], csr[4]), idx.plan,
+            idx.bits, 64, kb6, q_sigs=q0, qnorms=n0) for s in range(S)],
+            device, 20)[0]}
+    uidx = nn_drv.index
+    ucsr = uidx.device_csr()
+    times["k6_unsharded_ms"] = nn_times(torch, lambda: C.sig_probe(
+        "lsh", nn_drv.sig, nn_drv.norms, len(nn_drv.ids), None, ucsr,
+        uidx.plan, uidx.bits, 64, C._kb(NN_SIZE, uidx.plan, ucsr[4],
+                                        ucsr[3]),
+        q_sigs=q0, qnorms=n0), device, 20)[0]
+    line = {"rows": n, "shards": S, "capacity": cap, "pack_s": pack_s,
+            "unpack_s": unpack_s, "index_build_s": build_s,
+            "rows_per_shard": sdrv.get_status()["rows_per_shard"],
+            "read_ms": read_ms, "fallbacks": fallbacks, "recall": recall,
+            "kb": {"k3": kb3, "k6": kb6}, **times}
+    log(f"shard: nn: {n} rows into {S} shards by pack/unpack in "
+        f"{pack_s:.1f} + {unpack_s:.1f} s, lsh_probe built in "
+        f"{build_s:.1f} s; {SHARD_READS} full reads ({read_ms['full']:.3f} "
+        f"ms a read) and {SHARD_READS} indexed ({read_ms['indexed']:.3f} ms, "
+        f"{fallbacks:.0f} fall backs, recall@10 {recall:.4f}), {S} launches "
+        "a read, bitwise the plain per-shard path; full reads equal the "
+        "unsharded driver's up to ties")
+    counts = {}
+    for d in deltas.values():
+        for k, v in d.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, line
+
+
+def shard_rows(np, rng, n):
+    """n datums of NN_NNZ distinct features of 2^16 names (an odd stride
+    from a random start), standard normal values."""
+    keys = 1 << 16
+    start = rng.integers(0, keys, n)[:, None]
+    stride = (2 * rng.integers(0, keys // 2, n) + 1)[:, None]
+    ks = (start + stride * np.arange(NN_NNZ)[None, :]) % keys
+    vals = rng.standard_normal((n, NN_NNZ))
+    return [([f"f{k}" for k in row], v)
+            for row, v in zip(ks.tolist(), vals.tolist())]
+
+
+def shard_row_engines(torch, np, device="cuda"):
+    """Phase 18b: a sharded recommender (RECO_CONFIG, lsh H 128) at
+    SHARD_N shards loaded from its unsharded twin's SHARD_RECO_ROWS rows
+    (update_row, then pack -> unpack), SHARD_READS reads each: scores
+    equal position by position, ids tie-aware, a read one K1 and one
+    masked K3 launch over the placed flat table; a sharded anomaly
+    (LOF_CONFIG) and its twin fed SHARD_ANOM_ADDS adds and
+    SHARD_ANOM_READS calc_score reads, within SHARD_ANOM_RTOL, an add or a
+    read one K5 launch.  -> (launches, its line)."""
+    from jubatus_tpu_torch.fv import Datum
+    from jubatus_tpu_torch.models import create_driver
+    from jubatus_tpu_torch.parallel.mesh import make_mesh
+    from jubatus_tpu_torch.parallel.sharded_rows import (
+        ShardedAnomalyDriver, ShardedRecommenderDriver)
+    rng = np.random.default_rng(182)
+    mesh = make_mesh(shard=SHARD_N, device=device)
+    out, counts = {}, {}
+
+    def add(d):
+        for k, v in d.items():
+            counts[k] = counts.get(k, 0) + v
+
+    twin = create_driver("recommender", RECO_CONFIG, device=device)
+    data = shard_rows(np, rng, SHARD_RECO_ROWS + SHARD_READS)
+    t0 = time.perf_counter()
+    for i, d in enumerate(data[:SHARD_RECO_ROWS]):
+        twin.update_row(f"u{i}", nn_datum(Datum, d))
+    fill_s = time.perf_counter() - t0
+    reco = ShardedRecommenderDriver(RECO_CONFIG, mesh)
+    t0 = time.perf_counter()
+    reco.unpack(twin.pack())
+    load_s = time.perf_counter() - t0
+    queries = [nn_datum(Datum, d) for d in data[SHARD_RECO_ROWS:]]
+    want = [twin.similar_row_from_datum(q, NN_SIZE) for q in queries]
+    reco.similar_row_from_datum(queries[0], NN_SIZE)   # the first sync
+    before = launch_counts()
+    t0 = time.perf_counter()
+    got = [reco.similar_row_from_datum(q, NN_SIZE) for q in queries]
+    reco_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda":
+        check_reads("shard reco", delta, len(queries), "sig_topk")
+        check_reads("shard reco (K1)", delta, len(queries), "lsh_signature")
+    add(delta)
+    for a, b in zip(got, want):
+        if not tie_eq(a, b):
+            raise AssertionError("shard reco: a read differs from the "
+                                 "unsharded twin's beyond its ties")
+    st = reco.get_status()
+    out["reco"] = {"rows": SHARD_RECO_ROWS, "twin_fill_s": fill_s,
+                   "load_s": load_s, "read_ms": reco_ms,
+                   "shard_capacity": int(st["shard_capacity"])}
+    del twin, reco
+    anom = ShardedAnomalyDriver(LOF_CONFIG, mesh)
+    atwin = create_driver("anomaly", LOF_CONFIG, device=device)
+    data = shard_rows(np, rng, SHARD_ANOM_ADDS + SHARD_ANOM_READS)
+    worst = 0.0
+    before = launch_counts()
+    t0 = time.perf_counter()
+    for i, d in enumerate(data[:SHARD_ANOM_ADDS]):
+        a = anom.add(f"a{i}", nn_datum(Datum, d))
+        b = atwin.add(f"a{i}", nn_datum(Datum, d))
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    add_s = time.perf_counter() - t0
+    for d in data[SHARD_ANOM_ADDS:]:
+        a = anom.calc_score(nn_datum(Datum, d))
+        b = atwin.calc_score(nn_datum(Datum, d))
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    delta = launch_delta(before, launch_counts())
+    if device == "cuda":
+        check_reads("shard anomaly", delta,
+                    2 * (SHARD_ANOM_ADDS + SHARD_ANOM_READS), "sig_counts")
+    if worst > SHARD_ANOM_RTOL:
+        raise AssertionError(f"shard anomaly: a score {worst:.3g} off its "
+                             f"twin's (rtol {SHARD_ANOM_RTOL})")
+    add(delta)
+    out["anomaly"] = {"adds": SHARD_ANOM_ADDS, "reads": SHARD_ANOM_READS,
+                      "both_drivers_s": add_s, "max_rel_diff": worst,
+                      "shard_capacity": anom.shard_cap}
+    log(f"shard: reco: {SHARD_RECO_ROWS} rows loaded into {SHARD_N} shards "
+        f"in {load_s:.1f} s, {len(queries)} reads {reco_ms:.3f} ms a read, "
+        f"equal to the twin's up to ties; anomaly: {SHARD_ANOM_ADDS} adds "
+        f"and {SHARD_ANOM_READS} reads beside the twin in {add_s:.1f} s, "
+        f"scores within {worst:.3g}")
+    return counts, out
+
+
+def shard_wire(torch, np, child, cfg_path, tmp, argv, device="cuda"):
+    """Phase 18c: the --shard_devices SHARD_N --journal nearest_neighbor
+    server `child` (booted during 18a-b): SHARD_WIRE_ROWS wire set_rows,
+    SHARD_WIRE_READS reads (datum and id), its status keys (shards,
+    rows_per_shard, SHARD_N K3 launches a read), a save; SIGKILL, then the
+    restart on its journal beside a plain server booting the saved model
+    (--model_file): the restart's reads bitwise, the plain server's equal
+    up to ties; boot to routable printed.  -> (launches, its line)."""
+    rng = np.random.default_rng(183)
+    port, boot_ms = server_ready(*child)
+    data = nn_datums(np, rng, SHARD_WIRE_ROWS + SHARD_WIRE_READS)
+    cli = WireClient(port)
+    t0 = time.perf_counter()
+    for i, d in enumerate(data[:SHARD_WIRE_ROWS]):
+        if cli.call("set_row", f"w{i}", nn_wire(d)) is not True:
+            raise AssertionError("shard wire: a set_row was not "
+                                 "acknowledged")
+    write_s = time.perf_counter() - t0
+    half = SHARD_WIRE_READS // 2
+    reads = ([("similar_row_from_datum", nn_wire(d))
+              for d in data[SHARD_WIRE_ROWS:SHARD_WIRE_ROWS + half]]
+             + [("similar_row_from_id", f"w{i}")
+                for i in rng.integers(0, SHARD_WIRE_ROWS, half)])
+
+    def ask(c):
+        return [c.call(m, a, NN_SIZE) for m, a in reads]
+
+    s0 = status_of(cli)
+    answers = ask(cli)
+    st = status_of(cli)
+    if (st["shards"], st["num_rows"]) != (str(SHARD_N),
+                                          str(SHARD_WIRE_ROWS)) or \
+            sum(int(x) for x in st["rows_per_shard"].split(",")) \
+            != SHARD_WIRE_ROWS:
+        raise AssertionError(f"shard wire: status shards {st['shards']}, "
+                             f"rows {st['num_rows']}, per shard "
+                             f"{st['rows_per_shard']}")
+    sdelta = launch_delta(launches_of(s0), launches_of(st))
+    if device == "cuda":
+        check_reads("shard wire", sdelta, SHARD_N * len(reads), "sig_topk")
+    saved = next(iter(cli.call("save", "shard18").values()))
+    cli.close()
+    child[0].kill()
+    restart = start_server("nearest_neighbor", cfg_path, tmp, *argv,
+                           device=device)
+    plain = start_server("nearest_neighbor", cfg_path, tmp, "--model_file",
+                         saved, device=device)
+    children = [restart[0], plain[0]]
+    try:
+        rport, reboot_ms = server_ready(*restart)
+        pport, _ = server_ready(*plain)
+        rcli, pcli = WireClient(rport), WireClient(pport)
+        rst = status_of(rcli)
+        again = ask(rcli)
+        loaded = ask(pcli)
+        pst = status_of(pcli)
+        rst2 = status_of(rcli)
+        rcli.close()
+        pcli.close()
+    finally:
+        for ch in children:
+            ch.stop()
+    if again != answers:
+        raise AssertionError("shard wire: the restarted server's reads "
+                             "differ from before the kill")
+    for a, b in zip(loaded, answers):
+        if not tie_eq(a, b):
+            raise AssertionError("shard wire: the plain server that loaded "
+                                 "the sharded model answers otherwise")
+    if rst["recovery_errors"] != "0" or \
+            int(rst["recovery_replayed"]) < SHARD_WIRE_ROWS or \
+            rst["shards"] != str(SHARD_N) or "shards" in pst:
+        raise AssertionError(f"shard wire: the restart replayed "
+                             f"{rst['recovery_replayed']} records with "
+                             f"{rst['recovery_errors']} errors")
+    counts = {}
+    for d in (launches_of(st), launches_of(rst2), launches_of(pst)):
+        for k, v in d.items():
+            counts[k] = counts.get(k, 0) + v
+    line = {"boot_ms": boot_ms, "write_s": write_s,
+            "rows": SHARD_WIRE_ROWS, "reads": len(reads),
+            "rows_per_shard": st["rows_per_shard"],
+            "restart": {"boot_to_routable_ms": reboot_ms,
+                        "recovery_replayed": int(rst["recovery_replayed"]),
+                        "recovery_replay_ms": float(
+                            rst["recovery_replay_ms"])},
+            "read_launches": {"sig_topk": sdelta.get("sig_topk", 0)}}
+    log(f"shard: wire: {SHARD_WIRE_ROWS} set_rows in {write_s:.1f} s and "
+        f"{len(reads)} reads on a --shard_devices {SHARD_N} server "
+        f"({SHARD_N} K3 launches a read); SIGKILL, back in "
+        f"{reboot_ms:.0f} ms replaying {rst['recovery_replayed']} records, "
+        "bitwise; a plain server on its saved model answers alike")
+    return counts, line
+
+
+def phase_shard(torch, np, card, nn_drv, device="cuda"):
+    """Phase 18: key sharding.  The journaled --shard_devices server of
+    18c boots while 18a and 18b run in process.  -> (launches, line)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = os.path.join(tmp, "nn_shard.json")
+        with open(cfg_path, "w") as f:
+            json.dump(NN_CONFIG, f)
+        argv = ("--shard_devices", str(SHARD_N), "--journal",
+                os.path.join(tmp, "dur"), "--journal_fsync", "batch",
+                "--snapshot_interval", "0")
+        child = start_server("nearest_neighbor", cfg_path, tmp, *argv,
+                             device=device)
+        try:
+            t0 = time.perf_counter()
+            nn_counts, nn_line = shard_nn(torch, np, nn_drv, device=device)
+            t_a = time.perf_counter() - t0
+            row_counts, row_line = shard_row_engines(torch, np,
+                                                     device=device)
+            t_b = time.perf_counter() - t0 - t_a
+            wire_counts, wire_line = shard_wire(torch, np, child, cfg_path,
+                                                tmp, argv, device=device)
+            t_c = time.perf_counter() - t0 - t_a - t_b
+        finally:
+            child[0].stop()
+    counts = {}
+    for d in (nn_counts, row_counts, wire_counts):
+        for k, v in d.items():
+            counts[k] = counts.get(k, 0) + v
+    line = {"nn": nn_line, **row_line, "wire": wire_line,
+            "part_s": {"a": round(t_a, 1), "b": round(t_b, 1),
+                       "c": round(t_c, 1)}, "card": card}
+    log("shard " + json.dumps(line))
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "jubatus_tpu_torch")):
         print("chip_smoke: the jubatus_tpu_torch package is not beside this "
@@ -7593,7 +8050,7 @@ def main() -> int:
     t14 = time.perf_counter()
     partition_counts = [
         phase_partition_local(torch, np, nn_index_drv, ivf_index_drv)]
-    del nn_index_drv, ivf_index_drv
+    del ivf_index_drv          # phase 18 shards the NN table
     partition_counts += [phase_partition_wire(torch, np),
                          phase_partition_anomaly(torch, np)]
     log(f"partition: phase 14 in {time.perf_counter() - t14:.1f} s")
@@ -7618,6 +8075,14 @@ def main() -> int:
     rows.update(dp_rows)
     log(f"dp: phase 17 in {time.perf_counter() - t17:.1f} s")
     lap("17.dp")
+    # 18. key sharding: phase 12a's table into 4 shards (K3 and K6 a
+    # shard a read), a sharded recommender and anomaly beside their
+    # twins, a journaled --shard_devices server killed and recovered
+    t18 = time.perf_counter()
+    shard_counts = phase_shard(torch, np, card, nn_index_drv)
+    del nn_index_drv
+    log(f"shard: phase 18 in {time.perf_counter() - t18:.1f} s")
+    lap("18.shard")
     log("phase_s " + json.dumps(phase_s))
     main_sweep = served_sweeps[0]
     rows["sig_topk"] = {
@@ -7652,6 +8117,9 @@ def main() -> int:
     def dp_served(kern):
         return dp_counts.get(kern, 0)
 
+    def shard_served(kern):
+        return shard_counts.get(kern, 0)
+
     # 13. report: the quantizer pair's launches are the v3 rounds' (both
     # in-process rounds, both clusters' server processes and the restarted
     # cluster server's replay); the scans' are the server sessions', the
@@ -7666,7 +8134,11 @@ def main() -> int:
     # train modes', the traced round's, the proxy's members', the
     # profiled server's); phase 16 its slots' (each slot's and its
     # one-slot twin's scans, the flood's, the plugin slot's, qa's v3
-    # round, the journaled server's replay), counted with phase 15's
+    # round, the journaled server's replay), counted with phase 15's;
+    # phase 18 its sharded reads' K3 and K6 (a launch a shard), K1 of
+    # their datums, the sharded row engines' K1, K3 and K5, and its
+    # servers' (the journaled sharded one before the kill and after the
+    # restart, the plain one on the saved model)
     meta = {
         "quantize_int8": ("jubatus_tpu_torch/csrc/quantize.cu",
                           "jubatus_tpu/parallel/quantized.py:67",
@@ -7705,7 +8177,8 @@ def main() -> int:
                           nn_served("lsh_signature")
                           + row_served("lsh_signature")
                           + partition_served("lsh_signature")
-                          + operating_served("lsh_signature")),
+                          + operating_served("lsh_signature")
+                          + shard_served("lsh_signature")),
         "minhash_signature": ("jubatus_tpu_torch/csrc/lsh.cu",
                               "jubatus_tpu/ops/lsh.py:67",
                               nn_served("minhash_signature")),
@@ -7713,7 +8186,8 @@ def main() -> int:
                      "jubatus_tpu/ops/lsh.py:189",
                      nn_served("sig_topk") + row_served("sig_topk")
                      + partition_served("sig_topk")
-                     + operating_served("sig_topk")),
+                     + operating_served("sig_topk")
+                     + shard_served("sig_topk")),
         # phase 11: K4 and K5 (K3's launches above count the recommender's
         # masked reads and the NN classifier's classifies too)
         "dense_topk": ("jubatus_tpu_torch/csrc/lsh.cu",
@@ -7726,13 +8200,15 @@ def main() -> int:
         "sig_counts": ("jubatus_tpu_torch/csrc/lsh.cu",
                        "jubatus_tpu/ops/lsh.py:106",
                        row_served("sig_counts")
-                       + partition_served("sig_counts")),
+                       + partition_served("sig_counts")
+                       + shard_served("sig_counts")),
         # phase 12: the index's reads in process, the servers' and
         # anomaly's
         "sig_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
                       "jubatus_tpu/ops/candidates.py:227",
                       index_served("sig_probe")
-                      + partition_served("sig_probe")),
+                      + partition_served("sig_probe")
+                      + shard_served("sig_probe")),
         "ivf_probe": ("jubatus_tpu_torch/csrc/candidates.cu",
                       "jubatus_tpu/ops/candidates.py:367",
                       index_served("ivf_probe")

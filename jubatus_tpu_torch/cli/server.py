@@ -21,7 +21,8 @@
         [--trace_ring N] [--slow_op_ms MS] [--metrics_port P] \
         [--debug_locks] [--torch_profile DIR] \
         [--tenant T] [--quota_max_slots N] [--quota_max_rows N] \
-        [--quota_train_rps R] [--quota_query_rps R] [--dp_replicas N]
+        [--quota_train_rps R] [--quota_query_rps R] [--dp_replicas N] \
+        [--shard_devices N]
 
 Model state lives on --device: cuda (the default) or cpu; asking for cuda
 on a machine without it fails at startup.  With --coordinator the
@@ -48,6 +49,16 @@ parameter, the int8 ring, journaled as cmix records; in a cluster
 node's mix group and over the wire otherwise, and the linear mixer's
 rounds fold each member's replicas first.  --mix_topk K ships only the K
 columns of largest delta of a linear diff a round.
+
+The key-sharded tier (parallel/sharded.py, sharded_rows.py):
+--shard_devices N (nearest_neighbor, recommender, anomaly) places every
+row id on one of N shards by a stable key hash, as the JAX server does;
+the shards are slabs of one stacked table on the card, a
+nearest_neighbor read is one K3 (or, with --index lsh_probe, one K6)
+launch a shard merged on the host, and the recommender and anomaly
+sweep their placed tables as they do unsharded.  0 is one shard a local
+card; another --type, or --dp_replicas beside it, is refused with the
+JAX server's message.
 
 Train requests: by default their raw frames go through the ingest
 pipeline (convert and dispatch threads, --ingest_depth windows deep,
@@ -152,7 +163,6 @@ log = logging.getLogger("jubatus_tpu_torch.server")
 # (flag, its argparse keywords with the JAX server's default, the ROADMAP
 # Queue 1 item that brings it)
 LATER_FLAGS = (
-    ("--shard_devices", {"type": int, "default": 1}, "6"),
     ("--chaos_ctl", {"action": "store_true"}, "7"),
     ("--heat_window", {"type": float, "default": 60.0}, "7"),
     ("--slo", {"default": ""}, "7"),
@@ -234,6 +244,10 @@ def _parser() -> argparse.ArgumentParser:
                         "that many replicas stacked on the device (0 = one "
                         "a local device); the count/tick MIX trigger then "
                         "drives the collective fold")
+    p.add_argument("--shard_devices", type=int, default=1,
+                   help=">1: key-shard the row table (nearest_neighbor, "
+                        "recommender, anomaly) over that many shards "
+                        "stacked on the device (0 = one a local device)")
     p.add_argument("--batch_max", type=int, default=16,
                    help="train requests fused into one device step at most")
     p.add_argument("--batch_window_us", type=float, default=2000.0,
@@ -417,7 +431,9 @@ def serve(argv: Optional[Sequence[str]] = None
                       coordinator=ns.coordinator,
                       interconnect_timeout=ns.interconnect_timeout,
                       mix_quantize=ns.mix_quantize, mix_topk=ns.mix_topk,
-                      dp_replicas=ns.dp_replicas, journal_dir=ns.journal,
+                      dp_replicas=ns.dp_replicas,
+                      shard_devices=ns.shard_devices,
+                      journal_dir=ns.journal,
                       journal_fsync=ns.journal_fsync,
                       journal_segment_bytes=ns.journal_segment_bytes,
                       snapshot_interval_sec=ns.snapshot_interval,

@@ -144,7 +144,8 @@ class ServerArgs:
     # device (1: a plain driver; 0: one a local device), the columns a
     # linear diff ships a round at most (0: every touched one), and the
     # resolved tier of a standalone DP server's collective mixer, echoed
-    # in get_status; shard_devices > 1 is the sharded tier (item 6)
+    # in get_status; the key-sharded tier (parallel/sharded.py): shards
+    # stacked on the device (1: a plain driver; 0: one a local device)
     dp_replicas: int = 1
     shard_devices: int = 1
     mix_topk: int = 0
@@ -269,16 +270,34 @@ class JubatusServer(SlotState):
     @staticmethod
     def _create_driver(args: ServerArgs, config: Dict[str, Any]):
         """A slot's driver on the host's device (with --dp_replicas other
-        than 1 the data-parallel driver, parallel/dp.py), with the
-        --index, --arena_pool and --mix_topk knobs applied."""
+        than 1 the data-parallel driver, parallel/dp.py; with
+        --shard_devices other than 1 the key-sharded driver,
+        parallel/sharded.py and sharded_rows.py), with the --index,
+        --arena_pool and --mix_topk knobs applied."""
+        from jubatus_tpu_torch.parallel.mesh import GRID_REFUSAL
         if args.dp_replicas != 1 and args.shard_devices != 1:
-            raise ValueError("--dp_replicas and --shard_devices are mutually "
-                             "exclusive (a 2-D (dp, shard) grid needs a "
-                             "driver that does both)")
+            raise ValueError(GRID_REFUSAL)
         if args.shard_devices != 1:
-            raise ValueError("--shard_devices is not in the port yet: "
-                             "ROADMAP Queue 1 item 6")
-        if args.dp_replicas != 1:
+            from jubatus_tpu_torch.parallel.mesh import (make_mesh,
+                                                         resolve_replicas)
+            from jubatus_tpu_torch.parallel.sharded import \
+                ShardedNearestNeighborDriver
+            from jubatus_tpu_torch.parallel.sharded_rows import (
+                ShardedAnomalyDriver, ShardedRecommenderDriver)
+            sharded = {
+                "nearest_neighbor": ShardedNearestNeighborDriver,
+                "recommender": ShardedRecommenderDriver,
+                "anomaly": ShardedAnomalyDriver,
+            }
+            if args.type not in sharded:
+                raise ValueError(
+                    "--shard_devices supports nearest_neighbor/recommender/"
+                    f"anomaly (got {args.type!r})")
+            n = resolve_replicas("shard_devices", args.shard_devices,
+                                 args.device)
+            driver = sharded[args.type](
+                config, make_mesh(dp=1, shard=n, device=args.device))
+        elif args.dp_replicas != 1:
             from jubatus_tpu_torch.parallel.dp import create_dp_driver
             from jubatus_tpu_torch.parallel.mesh import (make_mesh,
                                                          resolve_replicas)

@@ -81,14 +81,14 @@ class CandidateIndex:
     per-sweep stats for the read.sweep span tags + obs counters."""
 
     def __init__(self, spec: IndexSpec, n_bands: int, n_buckets: int,
-                 put=None):
+                 n_slabs: int = 1, put=None):
         self.spec = spec
-        self.store = BucketStore(n_bands, n_buckets,
+        self.store = BucketStore(n_bands, n_buckets, n_slabs=n_slabs,
                                  delta_cap=spec.delta_cap)
         self._put = put if put is not None else (lambda a: a)
         self.needs_rebuild = True      # built lazily from the row table
         self.rebuild_lock = threading.Lock()   # one query-path rebuilder
-        self._dev = None               # (version, flat, offsets, lens, delta)
+        self._dev = None     # ((version, squeeze), flat, offsets, lens, delta)
         self._dev_lock = threading.Lock()
         self._tls = threading.local()
 
@@ -116,18 +116,20 @@ class CandidateIndex:
 
     # -- device CSR cache ----------------------------------------------------
 
-    def device_csr(self):
+    def device_csr(self, squeeze: bool = True):
         """(flat, offsets, lens, delta, cap) with arrays on the driver's
         torch device (`put`), re-uploaded only when the host pack
-        changed."""
+        changed: the stacked [S, ...] slabs, or at one slab with squeeze
+        the plane's own arrays (BucketStore.packed)."""
         # version captured under the store lock WITH the views: reading
         # it afterwards would let a racing write stamp stale views with
         # the newer version (hiding its row until the next mutation)
         flat, offsets, lens, delta, cap, version = \
-            self.store.packed_versioned()
+            self.store.packed_versioned(squeeze)
+        key = (version, squeeze and self.store.n_slabs == 1)
         with self._dev_lock:
-            if self._dev is None or self._dev[0] != version:
-                self._dev = (version, self._put(flat), self._put(offsets),
+            if self._dev is None or self._dev[0] != key:
+                self._dev = (key, self._put(flat), self._put(offsets),
                              self._put(lens), self._put(delta))
                 _metrics.GLOBAL.set_gauge("index_rows",
                                           float(self.store.live_rows))

@@ -36,7 +36,8 @@ def _auto_centroids(n_rows: int) -> int:
 
 
 class IvfIndex(CandidateIndex):
-    def __init__(self, metric: str, spec: IndexSpec, put=None):
+    def __init__(self, metric: str, spec: IndexSpec, n_slabs: int = 1,
+                 put=None):
         self.metric = metric                      # cosine | euclid
         self.embed_dim = int(spec.embed_dim)
         self.centroids = None                     # np [C, E]
@@ -47,7 +48,8 @@ class IvfIndex(CandidateIndex):
         # probing its top-`probes` centroids then reaches any row whose
         # top-2 cells intersect them, which is what holds recall at the
         # default probe count when k-means splits a natural cluster
-        super().__init__(spec, 2, max(int(spec.centroids), 1), put=put)
+        super().__init__(spec, 2, max(int(spec.centroids), 1),
+                         n_slabs=n_slabs, put=put)
 
     @property
     def ready(self) -> bool:
@@ -78,7 +80,8 @@ class IvfIndex(CandidateIndex):
                 if sel.any():
                     cent[j] = embeddings[sel].mean(axis=0)
         from jubatus_tpu_torch.index.store import BucketStore
-        new_store = BucketStore(2, c, delta_cap=self.spec.delta_cap)
+        new_store = BucketStore(2, c, n_slabs=self.store.n_slabs,
+                                delta_cap=self.spec.delta_cap)
         # monotonic across the swap: a racing device_csr holding the
         # OLD store's views must never find its captured version equal
         # to the new store's and re-stamp the cache with stale arrays
@@ -113,8 +116,8 @@ class IvfIndex(CandidateIndex):
         second = np.where(first_is_best[:, 0], top2[:, 1], top2[:, 0])
         return np.stack([best, second]).astype(np.int32)
 
-    def note_rows(self, rows, idx_np: np.ndarray,
-                  val_np: np.ndarray) -> None:
+    def note_rows(self, rows, idx_np: np.ndarray, val_np: np.ndarray,
+                  slab: int = 0) -> None:
         """Incremental maintenance from a dirty sync batch's padded
         sparse rows (caller holds the model write/sync discipline)."""
         if self.centroids is None:
@@ -125,7 +128,7 @@ class IvfIndex(CandidateIndex):
         if not rows.size:
             return
         emb = candops.cs_embed_np(idx_np, val_np, self.embed_dim)
-        self.store.note_rows(rows, self.assign_np(emb))
+        self.store.note_rows(rows, self.assign_np(emb), slab=slab)
 
     def rebuild_from(self, rows: np.ndarray, idx_np: np.ndarray,
                      val_np: np.ndarray) -> None:
@@ -148,7 +151,7 @@ class IvfIndex(CandidateIndex):
             assign = np.concatenate(
                 [self.assign_np(emb[a: a + 8192])
                  for a in range(0, len(emb), 8192)], axis=1)
-            self.store.note_rows(np.asarray(rows), assign)
+            self.store.note_rows(np.asarray(rows), assign, slab=0)
         self.needs_rebuild = False
         from jubatus_tpu_torch.utils import metrics as _metrics
         _metrics.GLOBAL.inc("index_rebuild_total")

@@ -19,7 +19,7 @@ from jubatus_tpu_torch.ops import candidates as candops
 
 class SigProbeIndex(CandidateIndex):
     def __init__(self, kind: str, hash_num: int, spec: IndexSpec,
-                 put=None):
+                 n_slabs: int = 1, put=None):
         self.kind = kind
         self.hash_num = int(hash_num)
         self.bits = min(int(spec.bits),
@@ -27,9 +27,10 @@ class SigProbeIndex(CandidateIndex):
         self.n_bands = candops.n_bands_for(kind, self.hash_num, self.bits)
         self.plan = candops.band_plan(kind, self.hash_num, self.bits,
                                       int(spec.probes))
-        super().__init__(spec, self.n_bands, 1 << self.bits, put=put)
+        super().__init__(spec, self.n_bands, 1 << self.bits,
+                         n_slabs=n_slabs, put=put)
 
-    def note_sigs(self, rows, sigs: np.ndarray) -> None:
+    def note_sigs(self, rows, sigs: np.ndarray, slab: int = 0) -> None:
         """Incremental maintenance: rows' (new) signatures -> band
         buckets.  Caller holds the model write lock; numpy only."""
         rows = np.asarray(rows)
@@ -37,13 +38,14 @@ class SigProbeIndex(CandidateIndex):
             return
         buckets = candops.bucket_assign_np(self.kind, sigs, self.n_bands,
                                            self.bits)
-        self.store.note_rows(rows, buckets)
+        self.store.note_rows(rows, buckets, slab=slab)
 
-    def rebuild_from(self, rows, sigs: np.ndarray) -> None:
-        """Lazy rebuild from the row table: every LIVE row's slot and
-        signature (post-recovery/unpack)."""
+    def rebuild_from(self, sigs_by_slab) -> None:
+        """Lazy rebuild from the row table: {slab: (rows, sigs)} with
+        every LIVE row's slot and signature (post-recovery/unpack)."""
         self.store.clear()
-        self.note_sigs(rows, sigs)
+        for slab, (rows, sigs) in sigs_by_slab.items():
+            self.note_sigs(rows, sigs, slab=slab)
         self.needs_rebuild = False
         from jubatus_tpu_torch.utils import metrics as _metrics
         _metrics.GLOBAL.inc("index_rebuild_total")

@@ -122,9 +122,9 @@ class AnomalyDriver(SparseRowTable, Driver):
         self.max_size = int(up.get("max_size", 0)) if self.unlearner else 0
         if self.unlearner and self.unlearner != "lru":
             raise ValueError(f"unknown unlearner: {self.unlearner}")
-        self._new_lof_tables(self.INITIAL_ROWS)
         self._init_rows(config, self.nn_method if hash_num else None,
                         hash_num, keep_revert=False)
+        self._new_lof_tables(self.capacity)
         self._victim_rows: List[int] = []   # slots freed with refresh=False
 
     # -- sublinear query index (jubatus_tpu_torch/index/) ---------------------

@@ -50,9 +50,10 @@ partition_apply_rows (resident ids skipped) and partition_drop_rows
 (holes in the store, the index's slots invalidated) carry the handoff,
 and put_diff keeps only the rows this server owns or holds.  Once a drop
 has punched holes, every sweep reads the store's occupancy mask, as the
-JAX driver's _valid does.  The JAX driver's sharded layout and query
-tier have no counterpart: the table lives on the driver's device, which
-get_status reports as query_tier.
+JAX driver's _valid does.  The sharded layout (--shard_devices) is the
+subclass in parallel/sharded.py; the JAX driver's query tier has no
+counterpart: the table lives on the driver's device, which get_status
+reports as query_tier.
 """
 
 from __future__ import annotations
@@ -147,6 +148,8 @@ class NearestNeighborDriver(Driver):
     # _scatter_rows, _bulk_store have the host signature in hand), rebuilt
     # lazily from the signature table after unpack.
 
+    INDEX_SLABS = 1     # the sharded subclass: one slab a shard
+
     def configure_index(self, kind: str, probes: int = 4, **kw) -> bool:
         """--index: every method is signature-based, so only lsh_probe
         fits; another kind leaves the full sweep and returns False."""
@@ -156,6 +159,7 @@ class NearestNeighborDriver(Driver):
         spec = IndexSpec(kind="lsh_probe", probes=int(probes),
                          **self._index_spec_kwargs(kw))
         self.index = SigProbeIndex(self.method, self.hash_num, spec,
+                                   n_slabs=self.INDEX_SLABS,
                                    put=self._index_put)
         return True
 
@@ -164,10 +168,23 @@ class NearestNeighborDriver(Driver):
             self.index.note_sigs(np.asarray(slots, np.int64),
                                  np.asarray(sigs))
 
+    def _index_note_locs(self, locs, sigs) -> None:
+        """The sharded layout's notes: (shard, row) locs, each shard's rows
+        into its own slab of the index."""
+        if self.index is None:
+            return
+        sigs = np.asarray(sigs)
+        by_slab: Dict[int, List[Tuple[int, int]]] = {}
+        for j, (s, r) in enumerate(locs):
+            by_slab.setdefault(int(s), []).append((int(r), j))
+        for s, pairs in by_slab.items():
+            self.index.note_sigs(np.asarray([r for r, _ in pairs], np.int64),
+                                 sigs[[j for _, j in pairs]], slab=s)
+
     def _index_rebuild(self) -> None:
         slots = np.array([r for r, i in enumerate(self.row_ids) if i],
                          np.int64)
-        self.index.rebuild_from(slots, self.pages.read("sig", slots))
+        self.index.rebuild_from({0: (slots, self.pages.read("sig", slots))})
 
     def _index_results(self, idx, rows, sims, n_cand: int, size: int,
                        similarity: bool):
@@ -461,14 +478,19 @@ class NearestNeighborDriver(Driver):
                                        similarity=True)
 
     def _row_payloads(self, ids) -> Dict[str, Dict[str, Any]]:
-        """The handoff's rows, gathered through the store (a spilled
-        page reads from the host master).  The JAX driver's other arm,
-        tuple locs into its sharded [S, cap, W] stack, comes with the
-        sharded layout (ROADMAP Queue 1 item 6): the port's locs are flat
-        slots."""
+        """The handoff's rows: flat slots gathered through the store (a
+        spilled page reads from the host master), or (shard, row) locs of
+        the sharded [S, cap, W] stack (parallel/sharded.py) gathered from
+        it in one copy a column."""
         present = [(i, self.ids[i]) for i in ids if i in self.ids]
         out: Dict[str, Dict[str, Any]] = {}
         if not present:
+            return out
+        if isinstance(present[0][1], tuple):
+            locs = np.array([loc for _, loc in present], np.int64)
+            sigs, norms = self._stack_rows(locs)
+            for j, (i, _loc) in enumerate(present):
+                out[i] = {"sig": sigs[j].tobytes(), "norm": float(norms[j])}
             return out
         slots = np.array([loc for _, loc in present], np.int64)
         sigs = self.pages.read("sig", slots)
@@ -623,7 +645,9 @@ class NearestNeighborDriver(Driver):
         st = {"method": self.method, "num_rows": str(len(self.ids)),
               "hash_num": str(self.hash_num),
               "query_tier": self.query_tier_status()}
-        st.update(self.pages.get_status())
+        pages = getattr(self, "pages", None)
+        if pages is not None:    # the sharded NN keeps its own stack
+            st.update(pages.get_status())
         if self.index is not None:
             st.update(self.index.get_status())
         return st

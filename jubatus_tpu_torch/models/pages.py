@@ -34,9 +34,16 @@ eviction is the JAX store's clock (second chance) exactly, so
 page_spill_in_total, page_spill_out_total and pages_resident follow a
 JAX store's after the same history.  Reads (ops/paged.py) sweep the pool
 in one launch and stream the absent pages through the same kernels
-without touching residency.  device() raises under spill; remap and the
-runtime budget (set_resident_budget, the autopilot's actuator) are not
-ported.
+without touching residency.  device() raises under spill; the runtime
+budget (set_resident_budget, the autopilot's actuator) is not ported.
+
+Two allocator modes share the occupancy plane, as in the JAX store:
+internal (alloc/free: the page-fill frontier and the freed-slot LIFO)
+and external (occupy/free: the sharded layouts, parallel/sharded_rows.py,
+pick their slots themselves, shard * shard_cap + local, and keep their
+own free lists; a free only punches the occupancy hole).  remap renumbers
+every slot wholesale (the sharded regrow, s * cap + r -> s * 2cap + r);
+place re-commits the device tensors through a `put`.
 
 Writes are one index_copy_ per column (slots must be unique: the
 callers dedupe); the JAX store pads a write to a power of two with
@@ -114,10 +121,14 @@ class PagedRowStore:
     def __init__(self, columns: Dict[str, Tuple[Tuple[int, ...], Any]],
                  capacity: int, device: torch.device,
                  spec: Optional[PageSpec] = None,
-                 grow_cb: Optional[Callable[[int, int], None]] = None):
+                 grow_cb: Optional[Callable[[int, int], None]] = None,
+                 put: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None, external_alloc: bool = False):
         self.spec = spec or PageSpec()
         self._dev = torch.device(device)
         self._grow_cb = grow_cb
+        self._put = put or (lambda t: t.to(self._dev))
+        self.external_alloc = external_alloc
         self._schema: Dict[str, Tuple[Tuple[int, ...], np.dtype]] = {
             n: (tuple(tail), np.dtype(dt)) for n, (tail, dt) in
             columns.items()}
@@ -251,6 +262,15 @@ class PagedRowStore:
         self._note_occupy(out)
         return out
 
+    def occupy(self, slots: Sequence[int]) -> None:
+        """The external allocator's entry (sharded layouts): mark slots
+        live without consulting the free list."""
+        slots = np.asarray(list(slots), np.int64)
+        if slots.size:
+            if int(slots.max()) >= self.capacity:
+                self._grow_to(int(slots.max()) + 1)
+            self._note_occupy(slots)
+
     def _note_occupy(self, slots: np.ndarray) -> None:
         if not slots.size:
             return
@@ -266,8 +286,9 @@ class PagedRowStore:
 
     def free(self, slots: Sequence[int]) -> int:
         """Punch occupancy holes and return the slots to the free list,
-        in the order given (one mask write on the device).  Returns the
-        number of pages touched."""
+        in the order given (one mask write on the device); under the
+        external allocator the caller keeps its own free lists.  Returns
+        the number of pages touched."""
         slots = np.asarray([int(s) for s in slots
                             if 0 <= int(s) < self.capacity], np.int64)
         slots = slots[self._occ[slots]]
@@ -275,8 +296,9 @@ class PagedRowStore:
             return 0
         self._occ[slots] = False
         self._live -= int(slots.size)
-        self._free.extend(int(s) for s in slots)
-        self._holes += int(slots.size)
+        if not self.external_alloc:
+            self._free.extend(int(s) for s in slots)
+            self._holes += int(slots.size)
         self._mask_fill(slots, False)
         if self.spill_mode:
             with self._spill_lock:
@@ -495,6 +517,57 @@ class PagedRowStore:
                 bl = int(self._phys_page[phys]) * pr
                 self._pool[name][phys * pr: (phys + 1) * pr].copy_(
                     self._host_t[name][bl: bl + pr], non_blocking=nb)
+
+    # -- sharded-layout cooperation ------------------------------------------
+
+    def place(self, put: Optional[Callable[[torch.Tensor], torch.Tensor]]
+              = None) -> None:
+        """Re-commit every device tensor through `put` (kept for later
+        calls; default the store's device): the sharded mixin's
+        placement after construction or a widening."""
+        if put is not None:
+            self._put = put
+        if self.spill_mode:
+            self._pool = {n: self._put(t) for n, t in self._pool.items()}
+            self._pool_mask = self._put(self._pool_mask)
+            return
+        self._cols = {n: self._put(t) for n, t in self._cols.items()}
+        if self._mask_dev is not None:
+            self._mask_dev = self._put(self._mask_dev)
+
+    def remap(self, dest_rows: np.ndarray, new_capacity: int,
+              make_zero: Optional[Callable] = None) -> None:
+        """Wholesale slot renumbering (the sharded regrow: s * cap + r ->
+        s * 2cap + r): every column lands in a fresh [new_capacity, ...]
+        tensor (make_zero(shape, numpy dtype), default zeros on the
+        store's device) at dest_rows, one index_copy_ a column, and the
+        occupancy follows.  Callers renumber their id maps and
+        mark_rebuild() the candidate index: the one paged-layout event
+        that still moves slots."""
+        if self.spill_mode:
+            raise ValueError("a spilled store does not remap (the sharded "
+                             "layouts keep every page resident)")
+        dest = np.asarray(dest_rows, np.int64)
+        nd = self._dev_slots(dest)
+        for n, (tail, dt) in self._schema.items():
+            if make_zero is not None:
+                new = make_zero((new_capacity,) + tail, dt)
+            else:
+                new = self._zeros(n, new_capacity)
+            self._cols[n] = new.index_copy_(0, nd, self._cols[n])
+        occ = np.zeros((new_capacity,), bool)
+        occ[dest[self._occ[: dest.shape[0]]]] = True
+        self._occ = occ
+        # an external layout may pick a capacity that is no multiple of
+        # the page: its ragged tail counts as a short page
+        self.n_pages = -(-new_capacity // self.page_rows)
+        self._cap = new_capacity
+        self._frontier = new_capacity
+        self._free = []
+        self._holes = 0
+        self._live = int(occ.sum())
+        self._mask_dev = None
+        _refresh_gauges()
 
     # -- the spill tier ------------------------------------------------------
 

@@ -141,11 +141,25 @@ class SparseRowTable:
                                              self.hash_num),), np.uint32)
         return cols
 
+    # the hooks the sharded mixin (parallel/sharded_rows.py) overrides:
+    # the external allocator (it picks slots shard * shard_cap + local and
+    # reports them to the store), the first capacity (a whole number of
+    # shards) and the tensors' placement
+    PAGES_EXTERNAL_ALLOC = False
+
+    def _initial_capacity(self) -> int:
+        return self.INITIAL_ROWS
+
+    def _store_put(self, t):
+        return t.to(self.device)
+
     def _alloc(self) -> None:
         self.pages = PagedRowStore(self._store_columns(),
-                                   capacity=self.INITIAL_ROWS,
+                                   capacity=self._initial_capacity(),
                                    device=self.device, spec=self._page_spec,
-                                   grow_cb=self._on_pages_grow)
+                                   grow_cb=self._on_pages_grow,
+                                   put=self._store_put,
+                                   external_alloc=self.PAGES_EXTERNAL_ALLOC)
 
     def _on_pages_grow(self, old_cap: int, new_cap: int) -> None:
         """Host tables that track the store's slot space grow with it."""
@@ -228,7 +242,7 @@ class SparseRowTable:
         return [i for i in self.row_ids if i]
 
     def _index_sig_rebuild(self, slots: np.ndarray) -> None:
-        self.index.rebuild_from(slots, self.pages.read("sig", slots))
+        self.index.rebuild_from({0: (slots, self.pages.read("sig", slots))})
 
     def _clear_rows(self) -> None:
         self.ids.clear()

@@ -172,7 +172,7 @@ def main() -> int:
         np.uint32(1) << rng.integers(0, 32, NN_ROWS, dtype=np.uint32)
     six = SigProbeIndex("lsh", 64, IndexSpec(kind="lsh_probe",
                                              probes=PROBES), put=put)
-    six.rebuild_from(np.arange(NN_ROWS), sigs)
+    six.rebuild_from({0: (np.arange(NN_ROWS), sigs)})
     csr = six.device_csr()
     table = put(sigs.view(np.int32))
     norms = put(np.ones(NN_ROWS, np.float32))

@@ -107,8 +107,10 @@ def test_later_item_flags_are_refused_with_their_item(mod, flag, value,
 
 def test_collective_mixer_names_its_item(capsys, tmp_path):
     """collective_mixer is served since the data-parallel tier (Queue 1
-    item 4): a standalone --dp_replicas server gets its CollectiveMixer;
-    the sharded tier still names its item."""
+    item 4): a standalone --dp_replicas server gets its CollectiveMixer.
+    --shard_devices is served since the sharded tier (item 6): a
+    nearest_neighbor server shards its table, and a classifier is refused
+    with the JAX server's message."""
     cfg = tmp_path / "c.json"
     cfg.write_text(json.dumps(CFG))
     srv, rpc = tserver_cli.serve(
@@ -122,10 +124,23 @@ def test_collective_mixer_names_its_item(capsys, tmp_path):
     finally:
         rpc.stop()
         srv.stop()
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="--shard_devices supports "
+                       "nearest_neighbor/recommender/anomaly \\(got "
+                       "'classifier'\\)"):
         tserver_cli.serve(["--type", "classifier", "--configpath", str(cfg),
                            "--device", "cpu", "--shard_devices", "2"])
-    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
+    nn = tmp_path / "nn.json"
+    nn.write_text(json.dumps({"method": "lsh", "parameter": {"hash_num": 64},
+                              "converter": CFG["converter"]}))
+    srv, rpc = tserver_cli.serve(
+        ["--type", "nearest_neighbor", "--configpath", str(nn), "--device",
+         "cpu", "--rpc-port", "0", "--listen_addr", "127.0.0.1",
+         "--shard_devices", "2"])
+    try:
+        assert next(iter(srv.get_status().values()))["shards"] == "2"
+    finally:
+        rpc.stop()
+        srv.stop()
 
 
 @pytest.mark.parametrize("flag,value,key", [

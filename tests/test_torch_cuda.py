@@ -42,7 +42,10 @@ one-block launch on its slice (ndp 1 the one-block launch itself),
 integer state bitwise and tables within the scan's tolerance of the
 plain per-replica loop, and the refusals; the in-process int8 ring (one
 quantize and one dequantize launch a hop for all ranks) bitwise the same
-ring on the plain quantizer pair.
+ring on the plain quantizer pair.  Key sharding: a sharded read's K3 and
+K6 launched once a shard (4 or 2 shards), each bitwise its plain version
+on the same slab, the host merge alike, and a sharded driver on the card
+answering as one on the CPU.
 """
 
 import numpy as np
@@ -2358,3 +2361,90 @@ def ring_plain(x):
     with mock.patch.object(tq, "quantize_int8", tq._quantize_ref), \
             mock.patch.object(tq, "dequantize_int8", tq._dequantize_ref):
         return tq.ring_all_reduce_int8(x, min_elems=0)
+
+
+# ---------------------------------------------------------------------------
+# the sharded nearest_neighbor (parallel/sharded.py): K3 and K6 once a
+# shard, each bitwise its plain version on the same slab, and the merge
+# ---------------------------------------------------------------------------
+
+from jubatus_tpu_torch.parallel import sharded as tsh  # noqa: E402
+from jubatus_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+
+
+def _sharded_pair(dev, method, nshard, n=600):
+    cfg = {"method": method, "parameter": {"hash_num": 64},
+           "converter": {"num_rules": [{"key": "*", "type": "num"}],
+                         "hash_max_size": 4096},
+           "index": {"min_rows": 0}}
+    drivers = [tsh.ShardedNearestNeighborDriver(
+        cfg, make_mesh(shard=nshard, device=d)) for d in (dev, "cpu")]
+    rng = np.random.default_rng(nshard)
+    centers = rng.standard_normal((20, 16))
+    data = [Datum([], [(f"f{j}", float(x)) for j, x in enumerate(
+        centers[i % 20] + 0.05 * rng.standard_normal(16))])
+        for i in range(n + 10)]
+    for d in drivers:
+        d.configure_index("lsh_probe", probes=4)
+        d.set_row_many([(f"r{i}", x) for i, x in enumerate(data[:n])])
+    return drivers, data[n:]
+
+
+@pytest.mark.parametrize("method", ["lsh", "minhash", "euclid_lsh"])
+@pytest.mark.parametrize("nshard", [2, 4])
+def test_sharded_sweep_and_probe_are_bitwise_the_plain_per_shard(
+        dev, method, nshard):
+    (card, cpu), queries = _sharded_pair(dev, method, nshard)
+    assert card.pack() == cpu.pack()
+    q_sigs, qnorms = card._datum_query(queries[0])
+    s, c = card.nshard, card.capacity
+    kb = tsh._k_bucket(10, c)
+    before = tl.sig_topk.launches
+    vals, rows = tsh.shard_topk(method, card.sig, card.norms, card.valid,
+                                q_sigs, qnorms, 64, kb)
+    assert tl.sig_topk.launches == before + s
+    want = torch.cat([tl.sig_topk_ref(
+        method, card.sig[i], card.norms[i], c, q_sigs, qnorms, 64, kb,
+        card.valid[i]) for i in range(s)])
+    wr, wv = tl.keys_to_host(want)
+    assert np.array_equal(rows, wr) and np.array_equal(vals, wv)
+    card._index_for_query()
+    csr = card.index.device_csr(squeeze=False)
+    kb = tsh._k_bucket(10 * (len(card.index.plan) + 1),
+                       len(card.index.plan) * csr[4] + csr[3].shape[1])
+    before = tcand.sig_probe.launches
+    pv, pr, pn = tsh.shard_probe(method, card.sig, card.norms, card.valid,
+                                 csr, card.index.plan, card.index.bits,
+                                 q_sigs, qnorms, 64, kb)
+    assert tcand.sig_probe.launches == before + s
+    want = torch.cat([tcand.sig_probe_ref(
+        method, card.sig[i], card.norms[i], c, card.valid[i], q_sigs,
+        qnorms, csr[0][i], csr[1][i], csr[2][i], csr[3][i], csr[4],
+        card.index.plan, card.index.bits, 64, kb) for i in range(s)])
+    wr, wv, wn = tcand.probe_result(want, kb)
+    assert np.array_equal(pr, wr) and np.array_equal(pv, wv) \
+        and np.array_equal(pn, wn)
+    assert tsh.merge_candidates(pv, pr, card.shard_row_ids, 10,
+                                dedupe=True) == \
+        tsh.merge_candidates(wv, wr, card.shard_row_ids, 10, dedupe=True)
+
+
+@pytest.mark.parametrize("method", ["lsh", "euclid_lsh"])
+def test_sharded_driver_on_the_card_matches_the_cpu(dev, method):
+    (card, cpu), queries = _sharded_pair(dev, method, 4)
+    for q in queries:
+        before = (tl.sig_topk.launches, tcand.sig_probe.launches)
+        a = card.similar_row_from_datum(q, 10)
+        launched = (tl.sig_topk.launches - before[0],
+                    tcand.sig_probe.launches - before[1])
+        assert launched in ((0, 4), (4, 4))     # probed, or fell back
+        assert a == cpu.similar_row_from_datum(q, 10)
+    saved = card.index
+    card.index = cpu.index = None
+    try:
+        before = tl.sig_topk.launches
+        a = card.neighbor_row_from_id("r7", 20)
+        assert tl.sig_topk.launches == before + 4
+        assert a == cpu.neighbor_row_from_id("r7", 20)
+    finally:
+        card.index = saved

@@ -113,7 +113,9 @@ def test_dp_replicas_resolve_as_the_jax_server_does():
     assert tmesh(dp=8, device="cpu").shape == {"dp": 8, "shard": 1}
     with pytest.raises(ValueError, match="--dp_replicas must be >= 0, got -1"):
         resolve_replicas("dp_replicas", -1, "cpu")
-    with pytest.raises(ValueError, match="item 6"):
+    # a (dp, shard) grid: JAX's mutual-exclusion message
+    with pytest.raises(ValueError, match="--dp_replicas and --shard_devices "
+                       "are mutually exclusive"):
         tmesh(dp=2, shard=2, device="cpu")
 
 

@@ -12,8 +12,8 @@ status).  Anomaly's indexed reads and the server are in
 tests/test_torch_index_serving.py.  The partitioned class holds the
 merge of indexed partitions (the partition plane's *_partial legs)
 against one indexed driver and against the JAX package's legs, and an
-indexed table after a handoff's drop; the sharded class waits for the
-sharded layout (ROADMAP Queue 1 item 6).
+indexed table after a handoff's drop; the sharded layout's slabs are
+tests/test_torch_sharded.py's.
 """
 
 import msgpack

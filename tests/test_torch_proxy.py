@@ -56,6 +56,9 @@ def wire(v):
     return datum_wire(nums=[(f"f{k}", float(x)) for k, x in enumerate(v)])
 
 
+HANDOFF_INTERVAL_S = 0.2
+
+
 def wait_until(pred, what, timeout=WAIT_S):
     deadline = time.monotonic() + timeout
     while not pred():
@@ -106,7 +109,7 @@ class Cluster:
                 "127.0.0.1", "--coordinator", f"127.0.0.1:{self.cport}",
                 "--name", "c", "--device", "cpu", "--routing", "partition",
                 "--interval_sec", "100000", "--interval_count", "1000000",
-                "--partition_handoff_interval", "0.2",
+                "--partition_handoff_interval", str(HANDOFF_INTERVAL_S),
                 "--partition_handoff_grace", "0.5"]
         if self.journaled:
             argv += ["--journal", str(self.tmp / f"j{len(self.servers)}")]
@@ -192,10 +195,27 @@ def test_nn_cluster_serves_exact_reads_and_hands_off_on_a_join(coord,
             "partition_handoff_rows_total", 0))
         c.add_server()
 
+        def covered():
+            held = c.held()
+            if len(held) != 3 or not all(held):
+                return False
+            try:
+                assert_disjoint_cover(held, ids)
+            except AssertionError:      # a row in flight: poll again
+                return False
+            return True
+
         def converged():
             st = as_str(c.client.call("get_status"))
             rows = [int(v["partition_rows"]) for v in st.values()]
-            return len(rows) == 3 and sum(rows) == 40 and all(rows)
+            if not (len(rows) == 3 and sum(rows) == 40 and all(rows)) \
+                    or not covered():
+                return False
+            # the counts can add up while one range has moved and another
+            # is still between its ship and its drop: the cover must hold
+            # on two polls more than a handoff interval apart
+            time.sleep(2.5 * HANDOFF_INTERVAL_S)
+            return covered()
         wait_until(converged, "the handoff after a join")
         assert_disjoint_cover(c.held(), ids)
         snap = GLOBAL.snapshot()
